@@ -1,0 +1,636 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on a GPU.
+
+    python3 chip_smoke.py            # all phases, one GPU, no network
+
+Drives the port's main path — compressed olmo-1b serving at its published
+width through ``Scheduler`` + ``ServingEngine(artifact=...)`` — and holds
+every CUDA kernel on that path against its plain PyTorch version:
+
+1. device and build: needs a CUDA device (exits non-zero without one), prints
+   the card's name and power limit, builds the kernels with ``nvcc``;
+2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``
+   at reduced shapes and at the main path's own dimensions (layer 0 of the
+   full-width artifact that phase 4 serves), each compared with its plain
+   version and timed (CUDA events, L2 flushed between launches) beside a
+   bound, the plain version and one library call; the last phase fails if
+   the serve launched a kernel at dimensions this phase did not check;
+3. reduced serve: kernel route == plain route (CPU) == dense-effective;
+4. full-width serve: olmo-1b, d_model 2048, d_ff 8192, vocab 50304; depth is
+   cut (never width) only if ``--layers`` says so.
+
+One JSON object per line; a failed phase ends the run with a non-zero exit.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import get_arch, reduced_config  # noqa: E402
+from repro_torch.data.synthetic import MarkovLM  # noqa: E402
+from repro_torch.kernels import build, dispatch, ops  # noqa: E402
+from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
+    _levels_plain, _slice_inputs_plain, lcc_chain_matmul,
+    lcc_chain_matmul_plain, plan_launch)
+from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
+    lcc_group_matmul, lcc_group_matmul_plain)
+from repro_torch.kernels.shared_matmul import (  # noqa: E402
+    cluster_segment_sum, cluster_segment_sum_plain, csr_from_labels)
+from repro_torch.models import api  # noqa: E402
+from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.scheduler import Scheduler  # noqa: E402
+from repro_torch.testing import (decomposition_dense, dense_sites,  # noqa: E402
+                                 seeded_artifact, seeded_decomposition)
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BATCH = 8  # decode batch of the main path (n_slots)
+# |kernel - plain| <= SUM_TOL * max(1, max|plain|): both sum the E slice
+# results in float32, the kernel slice by slice in launch order, torch.sum in
+# its own order
+SUM_TOL = 2e-5
+
+KERNELS = {
+    "lcc_chain_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lcc_chain_matmul.cu",
+        replaces="src/repro/kernels/lcc_chain_matmul.py:147"),
+    "lcc_group_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lcc_group_matmul.cu",
+        replaces="src/repro/kernels/lcc_group_matmul.py:92"),
+    "cluster_segment_sum": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/cluster_segment_sum.cu",
+        replaces="src/repro/kernels/shared_matmul.py:60"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# --------------------------------------------------------------- timing
+
+
+class Timer:
+    """Median device time of single launches, the L2 cache flushed before
+    each (a decode step streams gigabytes between two launches of one site,
+    so the real caller finds the cache cold).  A spin kernel is queued ahead
+    of the first event so the host has enqueued everything before the device
+    gets there: the events then bracket device time, not the wrapper's host
+    time, which would swamp a kernel of a few microseconds."""
+
+    SPIN_CYCLES = 1_000_000  # about half a millisecond at the card's clock
+
+    def __init__(self, device, iters: int = 7):
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+        self.iters = iters
+
+    def __call__(self, fn, cold: bool = True) -> float:
+        fn()  # warm-up: first-launch set-up is not the kernel's time
+        pairs = []
+        for _ in range(self.iters):
+            if cold:
+                self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+# ------------------------------------------------------- phase 2: kernels
+
+
+def dyadic(rng, shape, device):
+    """Multiples of 1/8 in [-1, 1]."""
+    return torch.from_numpy(rng.integers(-8, 9, size=shape).astype(np.float32)
+                            / 8.0).to(device)
+
+
+def ordered_plain(ds, x, sm_count):
+    """The plain version's per-slice results summed in the kernel's order:
+    slice by slice inside a block's chunk, then chunk by chunk."""
+    idx = ds.idx if ds.idx.dim() == 5 else ds.idx[None]
+    g, e, _, n, _ = idx.shape
+    c0, w, ln = (t.reshape(g, e) for t in (ds.slice_c0, ds.slice_w, ds.chain_len))
+    d = max(n, int(w.max()))
+    per = _levels_plain(idx, ds.exp.reshape(idx.shape), ds.sign.reshape(idx.shape),
+                        _slice_inputs_plain(x, c0, w, d))  # [G, E, N, B]
+    _, _, chunks, spb = plan_launch(n, x.shape[1], g, e, sm_count)
+    live = (ln > 0).cpu().numpy()
+    out = torch.zeros((g, n, x.shape[1]), dtype=torch.float32, device=x.device)
+    for gi in range(g):
+        for c in range(chunks):
+            acc = None
+            for ei in range(c * spb, min(e, (c + 1) * spb)):
+                if live[gi, ei]:
+                    acc = per[gi, ei] if acc is None else acc + per[gi, ei]
+            if acc is not None:
+                out[gi] += acc
+    return out
+
+
+def live_terms(packed_list) -> int:
+    """Terms the data needs: sign != 0 in real (not identity-padding) factors."""
+    total = 0
+    for pk in packed_list:
+        for ei, ln in enumerate(pk.chain_lengths):
+            total += int((pk.sign[ei, :ln] != 0).sum())
+    return total
+
+
+def chain_bound(packed_list, k_rows, n_out, b):
+    """(bound_ms, bound_by): streams + input + output bytes over the memory
+    rate against 2 operations per live term and column over the f32 rate."""
+    terms = live_terms(packed_list)
+    bytes_ = 6 * terms + 4 * b * (k_rows + n_out)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * terms * b / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(name, got, want, tol):
+    err = float((got - want).abs().max())
+    lim = tol * max(1.0, float(want.abs().max()))
+    if not (err <= lim) or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: max_abs_err {err:.3e} > {lim:.3e}")
+    return err
+
+
+def kernel_row(name, label, dims, key, err, exact, wrapper, plain, library,
+               bound, timer, **extra):
+    """One row of the kernels line.  ``key`` is the dimension tuple under
+    which the wrapper counts its launches (dispatch.launch_counts_by_shape)."""
+    ms = timer(wrapper)
+    return dict(name=name, shape=label, dims=dims, shape_key=list(key),
+                max_abs_err=err, max_err=err, exact_in_kernel_order=exact,
+                ms=ms, kernel_ms=ms, **extra, plain_ms=timer(plain),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=timer(library))
+
+
+def kernel_case_chain(label, pk, rng, dev, timer, sm, batch=BATCH):
+    """``lcc_chain_matmul`` on one packed decomposition at its own dims."""
+    ds = pk.on(dev)
+    k = pk.in_dim
+    x = dyadic(rng, (k, batch), dev)
+    args = (ds.idx, ds.exp, ds.sign, x, ds.slice_c0, ds.slice_w, ds.chain_len)
+    y = lcc_chain_matmul(*args)
+    torch.cuda.synchronize()
+    plain = lcc_chain_matmul_plain(*args)
+    err = check_close(label, y, plain, SUM_TOL)
+    # with two terms a row's sum is a single rounded add, so in the kernel's
+    # slice order the plain version must match bit for bit; with more terms
+    # torch.sum's order inside a row is its own
+    exact = pk.idx.shape[3] == 2
+    if exact and not torch.equal(y[None], ordered_plain(ds, x, sm)):
+        fail(f"{label}: kernel differs from the plain version summed in the "
+             "kernel's own (fixed) slice order")
+    w_eff = decomposition_dense(pk, dev)
+    check_close(label + " vs dense", y[: pk.out_dim], w_eff @ x, 1e-4)
+    e, p, n, s = pk.idx.shape
+    return kernel_row(
+        "lcc_chain_matmul", label, dict(E=e, P=p, N=n, S=s, K=k, B=batch),
+        (e, p, n, s, k, batch), err, exact,
+        lambda: lcc_chain_matmul(*args), lambda: lcc_chain_matmul_plain(*args),
+        lambda: torch.matmul(w_eff, x), chain_bound([pk], k, n, batch), timer,
+        warm_l2_ms=timer(lambda: lcc_chain_matmul(*args), cold=False))
+
+
+def kernel_case_group(label, members, rng, dev, timer, sm, batch=BATCH):
+    """``lcc_group_matmul`` on packed decompositions grouped as the executor
+    groups them; members may differ in input width."""
+    pg = ops.pack_group(members)
+    ds = pg.on(dev)
+    xs = [dyadic(rng, (m.in_dim, batch), dev) for m in members]
+    x = torch.cat(xs)
+    args = (ds.idx, ds.exp, ds.sign, x, ds.slice_c0, ds.slice_w, ds.chain_len)
+    y = lcc_group_matmul(*args)
+    torch.cuda.synchronize()
+    plain = lcc_group_matmul_plain(*args)
+    err = check_close(label, y, plain, SUM_TOL)
+    if not torch.equal(y, ordered_plain(ds, x, sm)):
+        fail(f"{label}: kernel differs from the plain version summed in the "
+             "kernel's own (fixed) slice order")
+    # the library yardstick is one bmm: members zero-padded to common dims
+    g, e, p, n, s = pg.idx.shape
+    k_max = max(m.in_dim for m in members)
+    w_eff = torch.zeros((g, n, k_max), dtype=torch.float32, device=dev)
+    xg = torch.zeros((g, k_max, batch), dtype=torch.float32, device=dev)
+    for gi, (m, xm) in enumerate(zip(members, xs)):
+        w_eff[gi, : m.out_dim, : m.in_dim] = decomposition_dense(m, dev)
+        xg[gi, : m.in_dim] = xm
+    check_close(label + " vs dense", y, torch.bmm(w_eff, xg), 1e-4)
+    k = x.shape[0]
+    return kernel_row(
+        "lcc_group_matmul", label, dict(G=g, E=e, P=p, N=n, S=s, K=k, B=batch),
+        (g, e, p, n, s, k, batch), err, True,
+        lambda: lcc_group_matmul(*args), lambda: lcc_group_matmul_plain(*args),
+        lambda: torch.bmm(w_eff, xg), chain_bound(members, k, g * n, batch),
+        timer, warm_l2_ms=timer(lambda: lcc_group_matmul(*args), cold=False))
+
+
+def kernel_case_segsum(label, sites, c, rng, dev, timer, batch=BATCH):
+    """``cluster_segment_sum`` on every label vector of ``sites`` (name ->
+    labels, all of one length, ``c`` clusters); the first one is timed."""
+    first = None
+    for site, labels_np in sites.items():
+        k = labels_np.size
+        labels = torch.from_numpy(labels_np.astype(np.int64)).to(dev)
+        csr = csr_from_labels(labels_np, c, dev)
+        x = dyadic(rng, (k, batch), dev)
+        y = cluster_segment_sum(labels, x, c, csr=csr)
+        torch.cuda.synchronize()
+        plain = cluster_segment_sum_plain(labels, x, c)
+        # dyadic inputs and short segments: every sum is exact, so the order
+        # of the plain version's atomics cannot show
+        if not torch.equal(y, plain):
+            fail(f"{label} {site}: kernel differs from the plain version on "
+                 "dyadic input")
+        first = first or (labels, csr, x, k)
+    labels, csr, x, k = first
+    bytes_ = 4 * batch * (k + c) + 4 * (k + c + 1)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = k * batch / F32_FLOPS * 1e3
+    out = torch.zeros((c, batch), dtype=torch.float32, device=dev)
+    return kernel_row(
+        "cluster_segment_sum", label, dict(K=k, C=c, B=batch), (k, c, batch),
+        0.0, True, lambda: cluster_segment_sum(labels, x, c, csr=csr),
+        lambda: cluster_segment_sum_plain(labels, x, c),
+        lambda: out.zero_().index_add_(0, labels, x),
+        (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"),
+        timer, checked_sites=list(sites))
+
+
+def seeded_labels(k, rng):
+    """Labels of a weight-shared site as the fixture makes them: a sixteenth
+    of the rows merged into other rows' clusters."""
+    merged = max(1, k // 16)
+    c = k - merged
+    labels = np.concatenate([rng.permutation(c), rng.integers(0, c, merged)])
+    return labels[rng.permutation(k)].astype(np.int64), c
+
+
+def reduced_kernel_cases(cfg, dev, timer, sm):
+    """Every kernel at the reduced widths, plus what the full-width path does
+    not reach: other term counts per row and ragged batch widths."""
+    d, dff = cfg.d_model, cfg.d_ff
+    rng = np.random.default_rng(10)
+
+    def pack(n, k, **kw):
+        return ops.pack_decomposition(seeded_decomposition(n, k, rng, **kw))
+
+    rows = [kernel_case_chain("reduced attn.o", pack(d, d), rng, dev, timer, sm),
+            kernel_case_chain("reduced ffn.down", pack(d, dff), rng, dev, timer, sm),
+            kernel_case_group("reduced attn.qkv", [pack(d, d) for _ in range(3)],
+                              rng, dev, timer, sm),
+            kernel_case_group("reduced ffn.gate+up", [pack(dff, d) for _ in range(2)],
+                              rng, dev, timer, sm)]
+    labels, c = seeded_labels(dff, rng)
+    rows.append(kernel_case_segsum(f"reduced K={dff}", {"seeded": labels}, c,
+                                   rng, dev, timer))
+    for s_terms in (1, 3):
+        rows.append(kernel_case_chain(f"reduced attn.o S={s_terms}",
+                                      pack(d, d, s_terms=s_terms), rng, dev,
+                                      timer, sm))
+    for batch in (1, 5, 13):  # a ragged last block of columns
+        rows.append(kernel_case_chain(f"reduced ffn.down B={batch}", pack(d, dff),
+                                      rng, dev, timer, sm, batch=batch))
+    rows.append(kernel_case_group("reduced attn.qkv B=3",
+                                  [pack(d, d) for _ in range(3)], rng, dev,
+                                  timer, sm, batch=3))
+    return rows
+
+
+def main_path_kernel_cases(art, dev, timer, sm):
+    """Every kernel at exactly the dimensions the full-width serve launches
+    it at: layer 0's own packed decompositions, grouped as the executor groups
+    them, and the label vectors of its weight-shared sites, at B = n_slots."""
+    rng = np.random.default_rng(20)
+    pk = art.packed
+    rows = [kernel_case_chain(f"full {site}", pk[f"{site}.l0"], rng, dev, timer, sm)
+            for site in ("attn.o", "ffn.down")]
+    for label, names in (("attn.qkv", ("attn.q", "attn.k", "attn.v")),
+                         ("ffn.gate+up", ("ffn.gate", "ffn.up"))):
+        rows.append(kernel_case_group(f"full {label}",
+                                      [pk[f"{n}.l0"] for n in names], rng, dev,
+                                      timer, sm))
+        torch.cuda.empty_cache()
+    by_dims = {}
+    for name, rec in art.records.items():
+        if name.endswith(".l0") and rec.shared is not None:
+            labels = np.asarray(rec.shared.labels)
+            by_dims.setdefault((labels.size, rec.shared.n_clusters), {})[name] = labels
+    if not by_dims:
+        fail("the fixture has no weight-shared site: cluster_segment_sum is "
+             "not on the main path")
+    for (k, c), sites in sorted(by_dims.items()):
+        rows.append(kernel_case_segsum(f"full K={k} C={c}", sites, c, rng, dev, timer))
+    return rows
+
+
+def phase_kernels(dev, art, red_cfg):
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = reduced_kernel_cases(red_cfg, dev, timer, sm)
+    torch.cuda.empty_cache()
+    rows += main_path_kernel_cases(art, dev, timer, sm)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------- phases 3 and 4
+
+
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def prompts_for(cfg, n):
+    lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
+    return [lm.sample(1, 8, seed=100 + i)[0, :8].tolist() for i in range(n)]
+
+
+def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
+    eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=128,
+                        use_kernel=use_kernel, kv_block=16, device=device)
+    sched = Scheduler(eng)
+    rids = [sched.enqueue(p, max_new=max_new) for p in prompts]
+    step_s = []
+    while sched.pending or sched.inflight or eng.active.any():
+        t0 = time.perf_counter()
+        sched.step()  # ends in the step's device->host copy: host time is right
+        step_s.append(time.perf_counter() - t0)
+    return eng, [sched.take_result(r) for r in rids], step_s
+
+
+def phase_reduced_serve(dev, cfg):
+    art = seeded_artifact(cfg, seed=1, device=dev)
+    art_cpu = replace(art, params=to_device(art.params, "cpu"))
+    prompts = prompts_for(cfg, 3)
+    dispatch.reset_launch_count()
+    eng_k, res_k, _ = serve(art, dev, use_kernel=True, n_slots=4,
+                            prompts=prompts, max_new=8)
+    counts = dispatch.launch_counts()
+    _, res_p, _ = serve(art_cpu, "cpu", use_kernel=True, n_slots=4,
+                        prompts=prompts, max_new=8)
+    _, res_d, _ = serve(art, dev, use_kernel=False, n_slots=4,
+                        prompts=prompts, max_new=8)
+    for r in res_k + res_p + res_d:
+        if r.error or not r.finished:
+            fail(f"reduced serve: request failed: {r.error}")
+    if not ([r.tokens for r in res_k] == [r.tokens for r in res_p]
+            == [r.tokens for r in res_d]):
+        fail("reduced serve: greedy tokens differ between kernel, plain and "
+             "dense-effective routes")
+    # one decode step, logits of the three routes
+    tok = torch.tensor([[3], [5]], device=dev)
+    pos = torch.tensor([0, 0], device=dev)
+
+    def logits(a, device, executor):
+        st = api.init_decode_state(cfg, 2, 16, device=device)
+        with torch.no_grad():
+            lg, _ = api.decode(a.params, cfg, st, tok.to(device), pos.to(device),
+                               executor=executor)
+        return lg.float().cpu()
+
+    from repro_torch.serving.executor import CompressedExecutor
+    l_k = logits(art, dev, CompressedExecutor(art, device=dev))
+    l_p = logits(art_cpu, "cpu", CompressedExecutor(art_cpu, device="cpu"))
+    l_d = logits(art, dev, None)
+    errs = dict(kernel_vs_plain=float((l_k - l_p).abs().max()),
+                kernel_vs_dense=float((l_k - l_d).abs().max()))
+    if max(errs.values()) > 1e-4 or not bool(torch.isfinite(l_k).all()):
+        fail(f"reduced serve: logits disagree: {errs}")
+    if eng_k.executor.routed != eng_k.executor.sites:
+        fail("reduced serve: not every site was routed through a kernel")
+    return dict(phase="reduced_serve", logits_max_abs_err=errs, tol=1e-4,
+                tokens_equal=True, launches=counts,
+                launches_per_step=eng_k.kernel_launches_per_step)
+
+
+def profile_steps(eng, prompts, n_steps: int = 4):
+    """Where a steady decode step's time goes on a warm engine, three windows
+    of ``n_steps`` steps each: the host's wall time with every profiler off;
+    torch.profiler (device activity only) for device time and launches by
+    kernel name; cProfile for the host functions the step spends its time in
+    (its proportions, not its inflated total).  Busy over wall is the share of
+    a step the device works; the rest it idles, waiting for the host to
+    enqueue."""
+    import cProfile
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new=3 * n_steps + 4)
+    eng.step()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+    host = cProfile.Profile()
+    host.enable()
+    for _ in range(n_steps):
+        eng.step()
+    host.disable()
+    while eng.active.any():
+        eng.step()
+    by_name, launched = {}, 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3 / n_steps
+            launched += ev.count
+    busy = sum(by_name.values())
+    if busy <= 0:
+        fail("the profiler reported no device time for the decode steps")
+    ours = sum(v for k, v in by_name.items() if "repro_torch::" in k
+               or "cluster_segment_sum_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    port = {k.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ")[:48]: round(v, 4)
+            for k, v in by_name.items() if "repro_torch::" in k
+            or "cluster_segment_sum_kernel" in k}
+    stats = pstats.Stats(host).stats  # (file, line, fn) -> (cc, nc, tt, ct, _)
+    host_total = sum(v[2] for v in stats.values())
+    host_top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+    return dict(wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy,
+                device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+                port_kernels_ms_per_step=ours,
+                port_device_ms_per_step_by_kernel=port,
+                device_kernels_per_step=launched / n_steps,
+                top_device_ms_per_step={k[:48]: round(v, 4) for k, v in top},
+                host_share_by_function={
+                    f"{Path(f).name}:{ln}:{fn}"[:60]: round(v[2] / host_total, 4)
+                    for (f, ln, fn), v in host_top})
+
+
+def phase_full_serve(dev, cfg, art, fixture_s):
+    n_shared = sum(1 for r in art.records.values() if r.shared is not None)
+    predicted = 4 * cfg.n_layers + n_shared
+    prompts = prompts_for(cfg, 6)
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_count()  # counts of the main path start here ...
+    t0 = time.perf_counter()
+    eng, res, step_s = serve(art, dev, use_kernel=True, n_slots=BATCH,
+                             prompts=prompts, max_new=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    peak = torch.cuda.max_memory_allocated()
+    for r in res:
+        if r.error or not r.finished or len(r.tokens) != r.prompt_len + 16:
+            fail(f"full serve: request did not finish cleanly: {r.error}")
+        if not all(0 <= t < cfg.vocab for t in r.tokens):
+            fail("full serve: token outside the vocabulary")
+    ex = eng.executor
+    if ex.routed != ex.sites:
+        fail(f"full serve: unrouted sites {sorted(ex.sites - ex.routed)[:5]}")
+    if eng.kernel_launches_per_step != predicted:
+        fail(f"full serve: {eng.kernel_launches_per_step} launches per step, "
+             f"the site table predicts {predicted}")
+    for name in KERNELS:
+        if counts.get(name, 0) <= 0:
+            fail(f"full serve: kernel {name} was never launched on the main path")
+    # per-site float32 output of one layer against the dense-effective matrix
+    rng = np.random.default_rng(3)
+    site_err = {}
+    in_dim = {prefix: k for prefix, _, _, k in dense_sites(cfg)}
+
+    def rel(name, y, x):
+        rec = art.records[name]
+        kept = torch.from_numpy(rec.kept_columns).to(dev)
+        ref = torch.from_numpy(np.asarray(rec.effective, np.float32)).to(dev) @ x[kept]
+        site_err[name] = float((y - ref).abs().max() / ref.abs().max())
+
+    with torch.no_grad():
+        for names in (("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",),
+                      ("ffn.gate.l0", "ffn.up.l0"), ("ffn.down.l0",)):
+            k_in = in_dim[names[0].rsplit(".", 1)[0]]
+            x = torch.from_numpy(rng.standard_normal((k_in, BATCH)).astype(np.float32)).to(dev)
+            ys = (ex.grouped(names)([x] * len(names)) if len(names) > 1
+                  else [ex.matvec(names[0])(x)])
+            for nm, y in zip(names, ys):
+                rel(nm, y, x)
+    torch.cuda.synchronize()
+    if max(site_err.values()) > 1e-3:
+        fail(f"full serve: per-site output off the dense-effective: {site_err}")
+    profile = profile_steps(eng, prompts)
+    tokens = sum(len(r.tokens) - r.prompt_len for r in res)
+    steady = step_s[1:] or step_s
+    return dict(phase="full_serve", arch=cfg.name, layers=cfg.n_layers,
+                d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                n_slots=BATCH, requests=len(prompts), max_new=16,
+                fixture_s=fixture_s, tokens=tokens, wall_s=wall,
+                tokens_per_s=tokens / wall, steps=len(step_s),
+                first_step_ms=step_s[0] * 1e3,
+                ms_per_step=float(np.median(steady)) * 1e3,
+                steady_tokens_per_s=len(prompts) / float(np.median(steady)),
+                profile=profile,
+                launches_per_step=eng.kernel_launches_per_step,
+                decode_steps=sum(counts.values()) // eng.kernel_launches_per_step,
+                predicted_launches_per_step=predicted, launches=counts,
+                routed=len(ex.routed), sites=len(ex.sites),
+                plan_fallbacks=eng.plan_stats()["fallbacks"],
+                site_rel_err_max=max(site_err.values()), site_rel_tol=1e-3,
+                peak_device_bytes=peak,
+                sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth of the full-width serve (never the width)")
+    ap.add_argument("--only", choices=("kernels",), default=None,
+                    help="stop after the kernel phase (no final ok line)")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device — this script measures "
+                         "the GPU path and has no CPU fallback")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    build.load()
+    emit(dict(phase="device_and_build", card=smi,
+              torch=torch.__version__, cuda=torch.version.cuda,
+              build_seconds=build.last_build_seconds,
+              sources=[p.name for p in build.sources()]))
+
+    full_cfg = get_arch("olmo-1b")
+    if args.layers is not None:
+        full_cfg = replace(full_cfg, n_layers=args.layers)
+    red_cfg = reduced_config(get_arch("olmo-1b"), vocab=256)
+
+    # the full-width artifact comes first: the kernel phase takes its
+    # main-path cases from it
+    t0 = time.perf_counter()
+    art = seeded_artifact(full_cfg, seed=2, device=dev)
+    torch.cuda.synchronize()
+    fixture_s = time.perf_counter() - t0
+
+    rows = phase_kernels(dev, art, red_cfg)
+    emit(dict(phase="kernels", tolerance=SUM_TOL,
+              tolerance_reason="float32 sum over the E slices in another order "
+                               "than torch.sum; in the kernel's own order the "
+                               "results are bit-identical", rows=rows))
+    if args.only == "kernels":
+        return
+
+    emit(phase_reduced_serve(dev, red_cfg))
+    full, full_counts, by_shape = phase_full_serve(dev, full_cfg, art, fixture_s)
+    emit(full)
+
+    # the kernels of the main path at the dimensions it gave them: ``launches``
+    # is what the full-width serve launched at exactly the row's dimensions
+    kernels = []
+    for row in rows:
+        if row["shape"].startswith("full"):
+            n = by_shape.get((row["name"], tuple(row["shape_key"])), 0)
+            if n <= 0:
+                fail(f"{row['name']} {row['shape']}: the full-width serve never "
+                     f"launched at the checked dimensions {row['dims']}")
+            kernels.append({**KERNELS[row["name"]], **row, "launches": n,
+                            "launches_per_step": n / full["decode_steps"]})
+    for name, total in full_counts.items():
+        seen = sum(r["launches"] for r in kernels if r["name"] == name)
+        if seen != total:
+            shapes = sorted(k for (nm, k) in by_shape if nm == name)
+            fail(f"{name}: {total} launches on the main path, {seen} of them "
+                 f"at dimensions the kernel phase checked; launched at {shapes}")
+    emit(dict(kernels=kernels))
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,9 @@
+"""olmo-1b: 16L d2048 16H d_ff=8192 V=50304, non-parametric LN. [arXiv:2402.00838]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="olmo-1b", family="dense",
+    n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=8192, vocab=50304,
+    norm="nonparam", tie_embeddings=True,
+    notes="non-parametric LN [arXiv:2402.00838]",
+)

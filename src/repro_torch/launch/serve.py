@@ -1,0 +1,112 @@
+"""Serving launcher: scheduler-driven batched generation from a compressed
+artifact, on the GPU unless ``--device cpu``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --kernel
+
+    # small widths, e.g. to rehearse on a machine without a GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --requests 3 --max-new 8 --kernel
+
+The offline compressor is not part of this package yet, so the artifact comes
+from the seeded fixture (``repro_torch.testing.seeded_artifact``): valid LCC
+chains at the model's width, random weights.
+"""
+import argparse
+import time
+from dataclasses import replace
+
+import torch
+
+from repro_torch.configs import get_arch, reduced_config
+from repro_torch.data.synthetic import MarkovLM
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.scheduler import Scheduler
+from repro_torch.testing import seeded_artifact
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (2 layers, d_model 128, f32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (width is never cut)")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--kernel", action="store_true",
+                    help="decode through the site-keyed fused-kernel executor "
+                         "(CUDA kernels on a GPU; their plain versions on "
+                         "--device cpu); without it decode uses the artifact's "
+                         "dense-effective weights")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they are sampled")
+    ap.add_argument("--kv-block", type=int, default=16,
+                    help="paged-KV block size in tokens; 0 = contiguous "
+                         "per-slot slabs")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="total usable KV pool blocks (default: one full "
+                         "view per slot)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run the plain "
+                         "versions on the CPU")
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg, vocab=256)
+    if args.layers is not None:
+        cfg = replace(cfg, n_layers=args.layers)
+    t0 = time.time()
+    artifact = seeded_artifact(cfg, seed=args.seed, device=args.device)
+    print(f"seeded artifact: {len(artifact.records)} sites, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model} "
+          f"({time.time() - t0:.1f}s)")
+
+    lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
+    prompts = [lm.sample(1, 8, seed=100 + i)[0, :8].tolist()
+               for i in range(args.requests)]
+    eng = ServingEngine(artifact=artifact, n_slots=args.slots, max_len=128,
+                        temperature=args.temperature, seed=args.seed,
+                        use_kernel=args.kernel, kv_block=args.kv_block or None,
+                        kv_blocks=args.kv_blocks, device=args.device)
+    sched = Scheduler(eng)
+    on_token = ((lambda rid, tok: print(f"  req{rid} += {tok}", flush=True))
+                if args.stream else None)
+    t0 = time.time()
+    rids = [sched.enqueue(p, max_new=args.max_new,
+                          priority=args.requests - i,  # earlier = higher
+                          on_token=on_token)
+            for i, p in enumerate(prompts)]
+    sched.run()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    dt = time.time() - t0
+    res = [sched.take_result(r) for r in rids]
+    tok = sum(len(r.tokens) - r.prompt_len for r in res)
+    for i, r in enumerate(res):
+        tag = f" [error: {r.error}]" if r.error else ""
+        print(f"req{i}: prompt={r.tokens[:r.prompt_len]} -> "
+              f"{r.tokens[r.prompt_len:]}{tag}")
+    where = (torch.cuda.get_device_name(eng.device)
+             if eng.device.type == "cuda" else "cpu")
+    print(f"{tok} tokens in {dt:.1f}s ({tok / dt:.1f} tok/s, "
+          f"{args.slots} slots, {eng.step_dispatches} steps, "
+          f"{eng.kernel_launches_per_step} kernel launches/step, {where})")
+    ps = eng.pool_stats()
+    if ps["n_blocks"]:
+        print(f"kv pool: {ps['n_blocks']} blocks x {ps['block_size']} tok, "
+              f"peak {ps['peak_in_use_blocks']} in use, "
+              f"{sched.admitted_while_running} continuous admissions, "
+              f"{sched.mem_stalls} block stalls")
+    if eng.executor is not None:
+        print(f"routed {len(eng.executor.routed)}/{len(eng.executor.sites)} "
+              f"sites through fused kernels; plan fallbacks "
+              f"{eng.plan_stats()['fallbacks']}")
+
+
+if __name__ == "__main__":
+    main()

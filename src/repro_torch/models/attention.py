@@ -1,0 +1,201 @@
+"""Attention: GQA (full / sliding-window), prefill and one-token decode.
+
+Written with ``einsum``/``softmax`` as the JAX package writes it (that package
+has no attention kernel, so none is ported and no fused library attention is
+called).  Prefill is query-chunked (memory O(S * chunk) instead of O(S^2)).
+
+KV caches are named tuples of tensors.  Sliding-window attention uses a ring
+buffer of size ``window``.  **Decode updates the cache in place** (the JAX
+package returned a new cache and relied on ``donate_argnums`` to reuse the
+buffer): the tensors handed in are the ones handed back.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .layers import apply_rope, linear, site_fmt, site_linear, site_linear_group
+
+__all__ = [
+    "attention_prefill",
+    "attention_decode",
+    "KVCache",
+    "PagedKVCache",
+    "paged_view",
+    "init_kv_cache",
+]
+
+_NEG = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, Smax, Hkv, Dh]  (ring buffer if windowed)
+    v: torch.Tensor  # [B, Smax, Hkv, Dh]
+    kpos: torch.Tensor  # [B, Smax] absolute positions (-1 = empty)
+
+
+class PagedKVCache(NamedTuple):
+    """Paged KV: one block pool per layer plus per-row block tables.
+
+    ``k``/``v`` are the pool slice for this layer; ``tbl[b, j]`` names the
+    pool block backing row ``b``'s logical blocks (0 = the reserved null
+    block — unallocated, masked out via ``kpos == -1``).  The logical view
+    (``tbl`` gathered and flattened) has exactly the contiguous cache's
+    layout, so attention math — and its numerics — are unchanged."""
+    k: torch.Tensor  # [Nb, bs, Hkv, Dh] block pool (this layer)
+    v: torch.Tensor  # [Nb, bs, Hkv, Dh]
+    kpos: torch.Tensor  # [B, S] logical positions (-1 = empty), S = mb * bs
+    tbl: torch.Tensor  # [B, mb] int block ids
+
+
+def paged_view(pool: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """Gather a pool ``[Nb, bs, ...]`` through block tables ``[B, mb]`` into
+    the contiguous logical view ``[B, mb * bs, ...]``."""
+    b, mb = tbl.shape
+    bs = pool.shape[1]
+    return pool[tbl.long()].reshape(b, mb * bs, *pool.shape[2:])
+
+
+def _paged_scatter(pool: torch.Tensor, tbl: torch.Tensor, slot: torch.Tensor,
+                   vals: torch.Tensor) -> None:
+    """Write one token per row into the pool, in place, at logical view
+    position ``slot`` ([B], -1 = no write -> routed to the null block 0).
+    The clamp is the explicit guard: a negative index would wrap silently."""
+    bs = pool.shape[1]
+    w = slot.clamp(min=0)
+    bidx = torch.gather(tbl.long(), 1, (w // bs)[:, None])[:, 0]
+    bidx = torch.where(slot >= 0, bidx, torch.zeros_like(bidx))
+    pool[bidx, w % bs] = vals.to(pool.dtype)
+
+
+def _row_scatter(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor) -> None:
+    """``buf[b, slot[b]] = vals[b]`` in place for rows with ``slot >= 0``;
+    rows with ``slot == -1`` rewrite their own old value (no write, no sync)."""
+    active = slot >= 0
+    safe = slot.clamp(min=0)
+    bi = torch.arange(buf.shape[0], device=buf.device)
+    mask = active.reshape(-1, *([1] * (vals.dim() - 1)))
+    buf[bi, safe] = torch.where(mask, vals.to(buf.dtype), buf[bi, safe])
+
+
+def init_kv_cache(batch: int, smax: int, n_kv: int, head_dim: int, dtype,
+                  device="cuda") -> KVCache:
+    return KVCache(
+        k=torch.zeros((batch, smax, n_kv, head_dim), dtype=dtype, device=device),
+        v=torch.zeros((batch, smax, n_kv, head_dim), dtype=dtype, device=device),
+        kpos=torch.full((batch, smax), -1, dtype=torch.int32, device=device),
+    )
+
+
+def _sdpa(q, k, v, mask):
+    """q [B,Sq,Hkv,G,D], k/v [B,Sk,Hkv,D], additive mask [B,1,1,Sq,Sk] or None."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+
+
+def attention_prefill(
+    p, x, positions, *, n_heads: int, n_kv: int, head_dim: int,
+    causal: bool = True, window: int | None = None,
+    rope_theta: float | None = 10000.0, q_chunk: int = 1024,
+):
+    """Returns (out [B,S,d_model], k, v) — k/v rotary-encoded, as cached."""
+    b, s, _ = x.shape
+    g = n_heads // n_kv
+    q = linear(p["q"], x).reshape(b, s, n_heads, head_dim)
+    k = linear(p["k"], x).reshape(b, s, n_kv, head_dim)
+    v = linear(p["v"], x).reshape(b, s, n_kv, head_dim)
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    qg = q.reshape(b, s, n_kv, g, head_dim)
+    kpos_all = torch.arange(s, device=x.device)
+
+    def chunk_out(q_c, qpos_c):
+        if not causal:
+            return _sdpa(q_c, k, v, None)
+        m = kpos_all[None, :] <= qpos_c[:, None]
+        if window is not None:
+            m = m & (kpos_all[None, :] > qpos_c[:, None] - window)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        mask = torch.where(m, zero, zero + _NEG)[None, None, None]
+        return _sdpa(q_c, k, v, mask)
+
+    n_chunks = max(1, s // q_chunk) if s % q_chunk == 0 else 1
+    cq = s // n_chunks
+    out = torch.cat([chunk_out(qg[:, i * cq:(i + 1) * cq],
+                               positions[0, i * cq:(i + 1) * cq])
+                     for i in range(n_chunks)], dim=1)
+    out = out.reshape(b, s, n_heads * head_dim)
+    return linear(p["o"], out.to(x.dtype)), k, v
+
+
+def attention_decode(
+    p, x, cache, pos, *, n_heads: int, n_kv: int, head_dim: int,
+    window: int | None = None, rope_theta: float | None = 10000.0,
+    executor=None, site: str | None = None,
+):
+    """One-token decode. x [B,1,d]; pos [B] absolute position of this token.
+
+    Returns (out [B,1,d], cache) — the cache is the one passed in, updated in
+    place.  With ``window`` the cache is a ring buffer (slot = pos % window).
+
+    ``executor``/``site`` (compressed serving): q/k/v/o route through the
+    executor's fused LCC kernels — q/k/v as ONE grouped launch (they share the
+    input) — for sites named ``site.format(proj)``; uncovered sites stay
+    dense.
+
+    ``cache`` may be a :class:`PagedKVCache`: keys/values then live in a block
+    pool indexed through per-row block tables.  The new token is scattered
+    into its pool block and the gathered logical view has the contiguous
+    layout (same positions, same mask math).
+
+    A row with ``pos == -1`` (serving's idle-slot sentinel) writes nothing:
+    contiguous caches rewrite the old value, paged caches sink the write into
+    the null block, and ``kpos`` keeps -1 so nothing attends to it.
+    """
+    b = x.shape[0]
+    pos = pos.long()
+    paged = isinstance(cache, PagedKVCache)
+    sn = site_fmt(site)
+    q_raw, k_raw, v_raw = site_linear_group(
+        executor, (sn("q"), sn("k"), sn("v")), (p["q"], p["k"], p["v"]), x)
+    q = q_raw.reshape(b, 1, n_heads, head_dim)
+    k_new = k_raw.reshape(b, 1, n_kv, head_dim)
+    v_new = v_raw.reshape(b, 1, n_kv, head_dim)
+    if rope_theta is not None:
+        q = apply_rope(q, pos[:, None], rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], rope_theta)
+    smax = cache.kpos.shape[1]
+    # negative pos must stay out of the ring too: plain pos % smax would wrap
+    # -1 onto a live cache entry
+    if window is not None:
+        slot = torch.where(pos >= 0, pos % smax, torch.full_like(pos, -1))
+    else:
+        slot = pos
+    if paged:
+        _paged_scatter(cache.k, cache.tbl, slot, k_new[:, 0])
+        _paged_scatter(cache.v, cache.tbl, slot, v_new[:, 0])
+        k = paged_view(cache.k, cache.tbl)
+        v = paged_view(cache.v, cache.tbl)
+    else:
+        _row_scatter(cache.k, slot, k_new[:, 0])
+        _row_scatter(cache.v, slot, v_new[:, 0])
+        k, v = cache.k, cache.v
+    _row_scatter(cache.kpos, slot, pos.to(cache.kpos.dtype))
+    kpos = cache.kpos
+    g = n_heads // n_kv
+    qg = q.reshape(b, 1, n_kv, g, head_dim)
+    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    if window is not None:
+        valid = valid & (kpos > (pos[:, None] - window))
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    mask = torch.where(valid, zero, zero + _NEG)[:, None, None, None, :]
+    out = _sdpa(qg, k, v, mask)
+    out = out.reshape(b, 1, n_heads * head_dim)
+    return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache

@@ -1,0 +1,131 @@
+"""Shared model primitives: norms, rotary embeddings, FFNs.
+
+Plain functions on tensors; parameters are nested dicts of tensors.  Compute
+dtype and accumulation dtype are explicit (bf16 compute / f32 statistics at
+full width, f32 throughout in the reduced configs).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "linear",
+    "matvec_acts",
+    "site_fmt",
+    "site_linear",
+    "site_linear_group",
+    "rms_norm",
+    "non_parametric_ln",
+    "apply_rope",
+    "swiglu",
+]
+
+
+def linear(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def site_fmt(site):
+    """Site-name binder for a format template like ``"attn.{}.l3"`` — returns
+    a key -> site-name function (None template => every projection dense)."""
+    return (lambda k: site.format(k)) if site is not None else (lambda k: None)
+
+
+def matvec_acts(fn, x):
+    """Run a features-major matvec (x [K, B] -> [N, B]) on [..., d] acts.
+    Activations go through the compressed map in float32 and come back in
+    their own dtype."""
+    lead = x.shape[:-1]
+    y = fn(x.reshape(-1, x.shape[-1]).to(torch.float32).T)
+    return y.T.reshape(*lead, -1).to(x.dtype)
+
+
+def site_linear(executor, name, p, x):
+    """``linear(p, x)``, routed through the compressed executor's fused-kernel
+    matvec when it covers site ``name`` (dense weights otherwise).
+
+    ``executor`` is duck-typed (see ``repro_torch.serving.executor``): any
+    object with ``matvec(name) -> callable | None``.  Bias is applied on top of
+    the compressed map — only ``w`` is a compressible site.
+    """
+    fn = executor.matvec(name) if executor is not None else None
+    if fn is None:
+        return linear(p, x)
+    y = matvec_acts(fn, x)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def site_linear_group(executor, names, ps, xs):
+    """Several projections of one *fused region* (same batch of activations:
+    attention q/k/v, SwiGLU gate/up) in ONE grouped kernel launch when the
+    executor covers every site; per-site :func:`site_linear` otherwise.
+
+    ``xs`` is either one shared activation tensor or a per-site list; returns
+    the per-site outputs in order.
+    """
+    xlist = list(xs) if isinstance(xs, (list, tuple)) else [xs] * len(names)
+    fused = executor.grouped(tuple(names)) if executor is not None else None
+    if fused is None:
+        return [site_linear(executor, n, p, x)
+                for n, p, x in zip(names, ps, xlist)]
+    lead = xlist[0].shape[:-1]
+    flat = [x.reshape(-1, x.shape[-1]).to(torch.float32).T for x in xlist]
+    ys = fused(flat)
+    outs = []
+    for y, p, x in zip(ys, ps, xlist):
+        o = y.T.reshape(*lead, -1).to(x.dtype)
+        if "b" in p:
+            o = o + p["b"]
+        outs.append(o)
+    return outs
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * w
+
+
+def non_parametric_ln(x, eps: float = 1e-5):
+    """OLMo-style LayerNorm without learnable affine parameters."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
+def _rope_sincos(positions, dim: int, theta: float):
+    """positions [...]: sin/cos [..., dim/2] in f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs  # [..., half]
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Rotary embedding. x [B, S, H, D], positions [B, S] (absolute)."""
+    d = x.shape[-1]
+    sin, cos = _rope_sincos(positions, d, theta)  # [B, S, d/2]
+    sin = sin[:, :, None, :]
+    cos = cos[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(p, x):
+    """SwiGLU FFN: down( silu(gate(x)) * up(x) )."""
+    g = linear(p["gate"], x)
+    u = linear(p["up"], x)
+    return linear(p["down"], F.silu(g) * u)

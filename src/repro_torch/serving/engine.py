@@ -1,0 +1,472 @@
+"""Batched serving engine: prefill + decode with slot-based continuous batching.
+
+The engine keeps a fixed decode batch of ``n_slots``; finished sequences free
+their slot and queued requests are prefilled into it (one bulk ``api.prefill``
+writes the slot's KV cache in a single forward).  Decoding is **device-side**:
+one eager step function runs the forward pass, greedy/temperature sampling
+(per-request keys, so draws are independent of slot order and of which other
+requests are in flight), position/budget bookkeeping and the EOS/headroom
+``done`` flags — the host receives a single small packed ``[3, n_slots]``
+tensor (sampled token + emit/done masks) per step instead of round-tripping
+logits.  The KV state is updated in place.
+
+Scheduling (queues, priorities, admission, streaming callbacks, failed-request
+isolation) lives in :class:`repro_torch.serving.scheduler.Scheduler`;
+``generate()`` is a thin convenience wrapper over it.
+
+Compressed serving is artifact-driven: ``ServingEngine(artifact=art)`` builds
+a site-keyed :class:`~repro_torch.serving.executor.CompressedExecutor` over
+the artifact and the decode path consults it inside the step — attention
+q/k/v/o and FFN gate/up/down execute their LCC chains as fused kernel launches
+(``lcc_chain_matmul`` / ``lcc_group_matmul``, the shift-add runtime the paper
+targets).  Prefill runs on the artifact's dense-effective weights.
+
+Not available yet, and refused with an error when asked for: ``mesh=``
+(multi-device decode), ``prefix_cache=True`` (prefix sharing with its
+tail-extend prefill), and ``metrics=``/``tracer=`` telemetry.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import dispatch
+from repro_torch.models import api
+from repro_torch.serving.executor import CompressedExecutor
+from repro_torch.serving.kvpool import KVPool, empty_stats
+
+__all__ = ["ServingEngine", "GenerationResult", "StepEvent"]
+
+
+@dataclass
+class GenerationResult:
+    tokens: list[int]
+    prompt_len: int
+    finished: bool
+    error: str | None = None
+    # per-request telemetry the engine learned while serving this request
+    # (prefill_s, cached_tokens, blocks_grown, cancelled, exhausted, ...)
+    stats: dict = field(default_factory=dict)
+
+
+@dataclass(frozen=True)
+class StepEvent:
+    """One slot's outcome of a decode step: ``token is None`` means the slot
+    finished without emitting (no decode headroom)."""
+    rid: int
+    token: int | None
+    finished: bool
+
+
+class ServingEngine:
+    """``ServingEngine(params, cfg)`` serves raw weights; ``ServingEngine(
+    artifact=compressed_model)`` serves a compression artifact (params and
+    config come from the artifact, and every compressed site runs on the fused
+    LCC kernel path unless ``use_kernel=False``).  Everything lives on
+    ``device`` (the GPU unless told otherwise); ``params`` must already be
+    there."""
+
+    def __init__(self, params=None, cfg: ArchConfig | None = None, *,
+                 artifact=None, n_slots: int = 8,
+                 max_len: int = 512, eos_id: int | None = None,
+                 temperature: float = 0.0, seed: int = 0,
+                 use_kernel: bool = True, bulk_prefill: bool = True,
+                 mesh=None, kv_block: int | None = 16,
+                 kv_blocks: int | None = None, prefix_cache: bool = False,
+                 metrics=None, tracer=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("mesh=: multi-device serving is not "
+                                      "available in this package yet")
+        if prefix_cache:
+            raise NotImplementedError("prefix_cache=True: prefix sharing and "
+                                      "its tail-extend prefill are not "
+                                      "available in this package yet")
+        if metrics not in (None, False) or tracer not in (None, False):
+            raise NotImplementedError("metrics=/tracer=: telemetry is not "
+                                      "available in this package yet")
+        if not bulk_prefill:
+            raise NotImplementedError("bulk_prefill=False: the tokenwise "
+                                      "prefill is not available in this "
+                                      "package yet")
+        if artifact is not None:
+            if cfg is None:
+                cfg = artifact.config
+            if params is None:
+                params = artifact.params
+        if params is None or cfg is None:
+            raise ValueError("ServingEngine needs (params, cfg) or artifact=...")
+        self.device = torch.device(device)
+        self.params = params
+        self.cfg = cfg
+        self.artifact = artifact
+        self.n_slots = n_slots
+        self.max_len = max_len
+        # default per-request decode budget (submit()/Scheduler may override
+        # per request); bounded by max_len anyway
+        self.max_new = max_len
+        self.eos = eos_id
+        self.temp = temperature
+        self.seed = seed
+        self.metrics = None  # telemetry hooks the scheduler reads
+        self.tracer = None
+        # paged KV: the cache lives in a block pool (kv_block=None restores
+        # the contiguous per-slot slabs)
+        self.paged = kv_block is not None and api.paged_supported(cfg)
+        self.pool: KVPool | None = None
+        if self.paged:
+            bs, mb, nb = api.paged_layout(cfg, max_len, kv_block, kv_blocks,
+                                          n_slots)
+            self.pool = KVPool(
+                n_slots=n_slots, n_blocks=nb - 1, block_size=bs, view_blocks=mb,
+                prefix_cache=False, windowed=cfg.attn_window is not None)
+            self.state = api.init_decode_state(cfg, n_slots, max_len,
+                                               kv_block=kv_block,
+                                               kv_blocks=kv_blocks,
+                                               device=self.device)
+            self._tbl_host = np.zeros((n_slots, mb), np.int32)
+        else:
+            self.state = api.init_decode_state(cfg, n_slots, max_len,
+                                               device=self.device)
+        # host mirrors of the device-side per-slot control state
+        self.pos = np.zeros(n_slots, np.int64)
+        self.active = np.zeros(n_slots, bool)
+        self._last_tok = np.zeros(n_slots, np.int64)
+        self._new_count = np.zeros(n_slots, np.int64)
+        self._max_new_arr = np.full(n_slots, self.max_new, np.int64)
+        self._temp_arr = np.full(n_slots, temperature, np.float32)
+        self._keys = np.zeros(n_slots, np.int64)
+        self._ctrl_dev = None  # device copies of the submit-time-only arrays
+        self._slot_dev = None  # device (last_tok, pos, active, new_count),
+        # carried across steps; None => re-upload from the host mirrors
+        self.results: dict[int, GenerationResult] = {}
+        self.slot_req: dict[int, int] = {}
+        self._next_req = 0
+        self.executor = (self._build_executor(artifact, self.device)
+                         if use_kernel else None)
+        self.step_dispatches = 0  # decode steps run (observability)
+        self._step_launches = 0  # kernel launches of the newest decode step
+
+    @staticmethod
+    def _build_executor(artifact, device):
+        """Site-keyed :class:`CompressedExecutor` over the artifact (None when
+        the artifact has no routable sites)."""
+        if artifact is None:
+            return None
+        ex = CompressedExecutor(artifact, device=device)
+        return ex if ex.sites else None
+
+    # ---------------------------------------------------------- fused step
+    @torch.no_grad()
+    def _fused_step(self, last_tok, pos, active, new_count, max_new, temps,
+                    keys, eos: int):
+        """The whole decode step — forward, sampling, bookkeeping — on the
+        device; the caller makes one small device->host copy of ``packed``."""
+        cfg, max_len = self.cfg, self.max_len
+        # a slot emits only with cache headroom AND budget left (the
+        # pre-check makes max_new <= 0 finish without sampling)
+        can_emit = (pos < max_len) & (new_count < max_new)
+        emit = active & can_emit
+        # non-emitting slots feed position -1: attention_decode guards every
+        # scatter against it, so free/finished slots never scribble on their
+        # cache
+        toks = torch.where(emit, last_tok, torch.zeros_like(last_tok))[:, None]
+        dpos = torch.where(emit, pos - 1, torch.full_like(pos, -1))
+        logits, self.state = api.decode(self.params, cfg, self.state, toks,
+                                        dpos, executor=self.executor)
+        nxt = api.sample_tokens(logits.to(torch.float32), keys, new_count, temps)
+        nxt = torch.where(emit, nxt, last_tok)
+        pos2 = pos + emit
+        count2 = new_count + emit
+        done = emit & ((nxt == eos) | (count2 >= max_new) | (pos2 >= max_len))
+        done = done | (active & ~can_emit)
+        packed = torch.stack([nxt, emit.long(), done.long()])
+        # carried device ctrl state: mirrors exactly the host-side updates in
+        # step(), so the next step needs no H2D re-upload of it (nxt already
+        # carries last_tok for non-emitting rows)
+        ctrl = (nxt, pos2, active & ~done, count2)
+        return packed, ctrl
+
+    @property
+    def kernel_launches_per_step(self) -> int:
+        """Kernel launches of the newest decode step, measured as the
+        launch-count delta over that step (0 before the first step; excludes
+        prefill, which runs dense)."""
+        return self._step_launches
+
+    @property
+    def n_layer_plans(self) -> int:
+        """Distinct layer plans the executor built for this engine."""
+        return 0 if self.executor is None else self.executor.n_layer_plans
+
+    # ------------------------------------------------------------------ API
+    def validate_prompt(self, prompt: list[int]) -> str | None:
+        """Why a prompt cannot be served (None when it can).  Single source of
+        truth for ``submit()`` (raises) and the scheduler (errored result)."""
+        if not prompt:
+            return "empty prompt: decode needs at least one token"
+        if len(prompt) > self.max_len:
+            return (f"prompt of {len(prompt)} tokens exceeds the engine's "
+                    f"max_len={self.max_len} KV cache")
+        if (self.pool is not None and not self.pool.windowed
+                and self.pool.blocks_for(len(prompt)) + 1 > self.pool.n_blocks):
+            return (f"prompt of {len(prompt)} tokens can never fit the KV "
+                    f"pool ({self.pool.n_blocks} blocks of "
+                    f"{self.pool.block_size} tokens, one reserved for decode)")
+        return None
+
+    def can_admit(self, prompt: list[int]) -> bool:
+        """Whether ``submit(prompt)`` would succeed *right now*: a free slot,
+        and (paged) enough free blocks.  The scheduler's continuous-batching
+        gate."""
+        if self.active.all():
+            return False
+        return self.pool is None or self.pool.can_admit(prompt)
+
+    def plan_stats(self) -> dict:
+        """Layer-plan telemetry: plans built, measured launches per step, and
+        every plan key that fell back to the per-region route with its reason."""
+        fallbacks = (dict(self.executor.plan_fallbacks)
+                     if self.executor is not None else {})
+        return {"n_layer_plans": self.n_layer_plans,
+                "kernel_launches_per_step": self.kernel_launches_per_step,
+                "fallbacks": fallbacks}
+
+    def pool_stats(self) -> dict:
+        """KV-pool telemetry.  Always the full key set — contiguous engines
+        report every key zeroed (``n_blocks == 0`` distinguishes them)."""
+        return empty_stats() if self.pool is None else self.pool.stats()
+
+    def submit(self, prompt: list[int], *, max_new: int | None = None,
+               temperature: float | None = None) -> int:
+        """Prefill a prompt into a free slot; returns request id.
+
+        ``max_new`` / ``temperature`` override the engine defaults for this
+        request only (the per-slot budget/temp arrays feed the fused step).
+        """
+        err = self.validate_prompt(prompt)
+        if err is not None:
+            raise ValueError(err)
+        free = np.where(~self.active)[0]
+        if free.size == 0:
+            raise RuntimeError("no free slots; call step() until one finishes")
+        slot = int(free[0])
+        rid = self._next_req
+        self._next_req += 1
+        t_pre = time.perf_counter()
+        kind = "paged" if self.paged else "bulk"
+        if self.paged:
+            plan = self.pool.admit(slot, prompt)
+            if plan is None:
+                self._next_req -= 1
+                raise RuntimeError(
+                    f"insufficient free KV blocks for a {len(prompt)}-token "
+                    f"prompt ({self.pool.available_blocks} available); step() "
+                    "until a request finishes")
+            self._prefill_slot_paged(slot, prompt, plan)
+        else:
+            # one bulk forward writes the whole slot cache (and rewrites the
+            # full kpos row, so stale entries need no separate reset)
+            self._prefill_slot(slot, prompt)
+        self.pos[slot] = len(prompt)
+        self.active[slot] = True
+        self._last_tok[slot] = prompt[-1]
+        self._new_count[slot] = 0
+        self._max_new_arr[slot] = self.max_new if max_new is None else max_new
+        self._temp_arr[slot] = self.temp if temperature is None else temperature
+        # request-keyed sampling: draws depend on (seed, rid, token count),
+        # never on which slot the request landed in or what else is in flight
+        self._keys[slot] = api.request_key(self.seed, rid)
+        self._ctrl_dev = None  # budget/temp/key arrays changed: re-upload once
+        self._slot_dev = None  # host mirrors mutated: re-upload once
+        self.slot_req[slot] = rid
+        # host wall of the whole admission (dispatch + bookkeeping; the
+        # device work may still be in flight)
+        self.results[rid] = GenerationResult(
+            tokens=list(prompt), prompt_len=len(prompt), finished=False,
+            stats={"prefill_s": time.perf_counter() - t_pre,
+                   "prefill_kind": kind, "cached_tokens": 0})
+        return rid
+
+    # -------------------------------------------------------------- prefill
+    @torch.no_grad()
+    def _prefill_caches(self, prompt: list[int]):
+        """ONE ``api.prefill`` forward over the prompt -> (k, v) caches
+        ``[L, 1, S, Hkv, hd]``.  Eager execution needs no length buckets, so
+        the prompt is not padded."""
+        toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
+        _h, caches = api.prefill(self.params, self.cfg, {"tokens": toks},
+                                 collect_cache=True)
+        return caches
+
+    @torch.no_grad()
+    def _prefill_slot(self, slot: int, prompt: list[int]) -> None:
+        """Bulk prefill into the contiguous cache: write the slot's K/V at its
+        positions (ring positions when windowed) and its whole ``kpos`` row."""
+        plen = len(prompt)
+        k_all, v_all = self._prefill_caches(prompt)
+        st = self.state
+        eff = st["k"].shape[2]  # ring size when windowed, else max_len
+        ps = np.arange(max(0, plen - eff), plen)
+        slots = ps % eff if self.cfg.attn_window is not None else ps
+        kpos_row = np.full(eff, -1, np.int32)
+        kpos_row[slots] = ps
+        ps_d = torch.from_numpy(ps).to(self.device)
+        slots_d = torch.from_numpy(slots).to(self.device)
+        st["k"][:, slot, slots_d] = k_all[:, 0, ps_d].to(st["k"].dtype)
+        st["v"][:, slot, slots_d] = v_all[:, 0, ps_d].to(st["v"].dtype)
+        st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
+
+    # --------------------------------------------------------- paged prefill
+    @torch.no_grad()
+    def _prefill_slot_paged(self, slot: int, prompt: list[int], plan) -> None:
+        """Apply an :class:`~repro_torch.serving.kvpool.AdmitPlan`: install the
+        block table row, prefill the prompt in one bulk forward and scatter
+        the fresh K/V into the slot's blocks (block = table[v // bs], offset
+        v % bs)."""
+        st = self.state
+        cfg, pool = self.cfg, self.pool
+        bs, plen = pool.block_size, len(prompt)
+        view = pool.view_blocks * bs  # == ring size when windowed
+        tbl_row = plan.table
+        self._tbl_host[slot] = tbl_row
+        st["block_tbl"].copy_(torch.from_numpy(self._tbl_host))
+        kpos_row = np.full(view, -1, np.int32)
+        if cfg.attn_window is not None:  # ring layout
+            ps = np.arange(max(0, plen - view), plen)
+            vidx = ps % view
+            kpos_row[vidx] = ps
+        else:
+            ps = np.arange(plen)
+            vidx = ps
+            kpos_row[:plen] = ps
+        caches = self._prefill_caches(prompt)
+        blocks = torch.from_numpy(tbl_row[vidx // bs].astype(np.int64)).to(self.device)
+        offs = torch.from_numpy((vidx % bs).astype(np.int64)).to(self.device)
+        ps_d = torch.from_numpy(ps).to(self.device)
+        for name, c_all in zip(("k", "v"), caches):
+            st[name][:, blocks, offs] = c_all[:, 0, ps_d].to(st[name].dtype)
+        st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
+
+    def _release_slot(self, slot: int) -> None:
+        """Return a retired slot's blocks to the pool and clear its table row."""
+        self.pool.release(slot)
+        self._tbl_host[slot] = 0
+        self.state["block_tbl"].copy_(torch.from_numpy(self._tbl_host))
+
+    def cancel(self, rid: int) -> bool:
+        """Stop an in-flight request (its slot frees on the spot); returns
+        whether anything was cancelled.  The result keeps the tokens sampled
+        so far and is marked finished."""
+        for slot, r in self.slot_req.items():
+            if r == rid and self.active[slot]:
+                self.active[slot] = False
+                self._slot_dev = None  # host mirrors mutated: re-upload once
+                if self.paged:
+                    self._release_slot(slot)
+                self.results[rid].finished = True
+                self.results[rid].stats["cancelled"] = True
+                return True
+        return False
+
+    def step(self) -> list[StepEvent]:
+        """One fused decode step for every active slot; the only
+        device->host traffic is the packed [3, n_slots] (token, emit, done)
+        tensor.  Returns this step's per-slot events."""
+        events: list[StepEvent] = []
+        if not self.active.any():
+            return events
+        if self.paged:
+            events.extend(self._grow_blocks())
+            if not self.active.any():
+                return events
+        dev = self.device
+        eos = -1 if self.eos is None else int(self.eos)
+        if self._ctrl_dev is None:  # max_new/temps/keys only change at submit
+            self._ctrl_dev = (torch.from_numpy(self._max_new_arr).to(dev),
+                              torch.from_numpy(self._temp_arr).to(dev),
+                              torch.from_numpy(self._keys).to(dev))
+        if self._slot_dev is None:  # first step after a host-side mutation
+            self._slot_dev = (torch.from_numpy(self._last_tok).to(dev),
+                              torch.from_numpy(self.pos).to(dev),
+                              torch.from_numpy(self.active).to(dev),
+                              torch.from_numpy(self._new_count).to(dev))
+        n0 = dispatch.launch_count()
+        packed, self._slot_dev = self._fused_step(*self._slot_dev,
+                                                  *self._ctrl_dev, eos)
+        self._step_launches = dispatch.launch_count() - n0
+        self.step_dispatches += 1
+        nxt, emit, done = packed.cpu().numpy()  # the one small host transfer
+        for slot in np.where(self.active)[0]:
+            rid = self.slot_req[slot]
+            r = self.results[rid]
+            tok: int | None = None
+            if emit[slot]:
+                tok = int(nxt[slot])
+                r.tokens.append(tok)
+                self._last_tok[slot] = tok
+                self.pos[slot] += 1
+                self._new_count[slot] += 1
+            if done[slot]:
+                r.finished = True
+                self.active[slot] = False
+                if self.paged:
+                    self._release_slot(slot)
+            events.append(StepEvent(rid=rid, token=tok, finished=bool(done[slot])))
+        return events
+
+    def _grow_blocks(self) -> list[StepEvent]:
+        """Pre-step block growth: the upcoming step writes each active slot's
+        K/V at view index ``pos - 1`` — allocate the covering block when the
+        table has none (0 = null).  Windowed slots preallocate their whole
+        ring at admit, so this is a no-op for them.  A slot the pool cannot
+        grow finishes with an error (its blocks return to the pool)."""
+        events: list[StepEvent] = []
+        bs = self.pool.block_size
+        view = self.pool.view_blocks * bs
+        dirty = False
+        for slot in np.where(self.active)[0]:
+            bi = (int(self.pos[slot]) - 1) % view // bs
+            if self._tbl_host[slot, bi] != 0:
+                continue
+            bid = self.pool.append_block(slot)
+            if bid is None:
+                rid = self.slot_req[slot]
+                r = self.results[rid]
+                r.finished = True
+                r.error = ("KV block pool exhausted mid-decode "
+                           f"({self.pool.in_use_blocks} blocks in use)")
+                r.stats["exhausted"] = True
+                self.active[slot] = False
+                self._slot_dev = None
+                self._release_slot(slot)
+                events.append(StepEvent(rid=rid, token=None, finished=True))
+                continue
+            self._tbl_host[slot, bi] = bid
+            r = self.results[self.slot_req[slot]]
+            r.stats["blocks_grown"] = r.stats.get("blocks_grown", 0) + 1
+            dirty = True
+        if dirty:
+            self.state["block_tbl"].copy_(torch.from_numpy(self._tbl_host))
+        return events
+
+    def generate(self, prompts: list[list[int]], max_new_tokens: int = 32, *,
+                 temperature: float | None = None, on_token=None
+                 ) -> list[GenerationResult]:
+        """Continuous-batched generation over a request list (Scheduler-driven).
+
+        Invalid prompts (empty / beyond the KV cache) do not abort the batch:
+        they come back as ``GenerationResult(finished=True, error=...)`` while
+        the rest of the batch completes.  ``on_token(rid, token)`` streams
+        tokens as they are sampled.
+        """
+        from .scheduler import Scheduler
+
+        sched = Scheduler(self)
+        rids = [sched.enqueue(p, max_new=max_new_tokens, temperature=temperature,
+                              on_token=on_token) for p in prompts]
+        sched.run()
+        return [sched.take_result(r) for r in rids]

@@ -1,0 +1,191 @@
+"""Fixtures, not features: a seeded compressed artifact without the compressor.
+
+The offline compressor (prune -> share -> LCC decompose) is not part of this
+package yet, and at full model width it runs for hours.  ``seeded_artifact``
+builds, from a seed alone, a :class:`~repro_torch.core.artifact.CompressedModel`
+with the *shape* the compressor produces — its slice grid
+(``plan_col_slices``), ``S = 2`` terms per row, mostly six factors per chain
+with some shorter ones (so identity padding is exercised), a few pruned
+columns per site and weight sharing on some sites — whose chains are valid
+LCC chains, so every runtime path (packing, the three kernels, the executor,
+the engine) is driven exactly as by a real artifact.  The weights mean
+nothing; the dense-effective parameters are computed from the chains, so the
+kernel route and the dense route agree.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.artifact import CompressedModel
+from repro_torch.core.compress import CompressedDense, CompressionConfig
+from repro_torch.core.lcc import (LCCChain, LCCDecomposition, LCCFactor,
+                                  plan_col_slices)
+from repro_torch.core.weight_sharing import SharedLayer
+from repro_torch.kernels import ops
+from repro_torch.kernels.lcc_chain_matmul import _levels_plain
+
+__all__ = ["seeded_decomposition", "decomposition_dense", "dense_sites",
+           "seeded_artifact"]
+
+SHARED_SITES = ("attn.k", "attn.o", "ffn.up")
+
+
+def seeded_decomposition(n: int, k: int, rng: np.random.Generator, *,
+                         s_terms: int = 2, n_factors: int = 6,
+                         short_frac: float = 0.15, unused_frac: float = 0.02
+                         ) -> LCCDecomposition:
+    """A valid FP decomposition of shape ``(n, k)`` on the compressor's slice
+    grid.  The first factor of a slice draws ``s_terms`` of the slice's
+    columns per row; later factors look like matching-pursuit refinements,
+    ``prev[r] +- 2^-a * prev[j]``, so magnitudes stay bounded.  About
+    ``short_frac`` of the chains are one or two factors short and about
+    ``unused_frac`` of the term slots are unused (sign 0).  Scaled so that
+    unit-variance inputs give roughly unit-variance outputs."""
+    cols = plan_col_slices(n, k)
+    e = len(cols)
+    widths = np.asarray([c1 - c0 for c0, c1 in cols], np.int64)
+    e0 = int(round(math.log2(1.0 / math.sqrt(1.5 * e * s_terms))))
+    e0 = max(e0, -14)
+
+    def signs(shape):
+        sg = (rng.integers(0, 2, size=shape, dtype=np.int8) * 2 - 1).astype(np.int8)
+        sg[rng.random(shape, dtype=np.float32) < unused_frac] = 0
+        return sg
+
+    idx0 = rng.integers(0, widths[:, None, None], size=(e, n, s_terms)
+                        ).astype(np.int32)
+    exp0 = (e0 + rng.integers(-1, 2, size=(e, n, s_terms))).astype(np.int8)
+    sgn0 = signs((e, n, s_terms))
+    later = n_factors - 1
+    idx = np.empty((e, later, n, s_terms), np.int32)
+    idx[..., 0] = np.arange(n, dtype=np.int32)
+    idx[..., 1:] = rng.integers(0, n, size=(e, later, n, s_terms - 1),
+                                dtype=np.int32)
+    exp = np.zeros((e, later, n, s_terms), np.int8)
+    exp[..., 1:] = -rng.integers(1, 5, size=(e, later, n, s_terms - 1),
+                                 dtype=np.int8)
+    sgn = np.ones((e, later, n, s_terms), np.int8)
+    sgn[..., 1:] = signs((e, later, n, s_terms - 1))
+    lengths = n_factors - (rng.random(e) < short_frac) * rng.integers(1, 3, size=e)
+    slices = []
+    for ei in range(e):
+        factors = [LCCFactor(idx0[ei], exp0[ei], sgn0[ei], in_dim=int(widths[ei]))]
+        factors += [LCCFactor(idx[ei, p], exp[ei, p], sgn[ei, p], in_dim=n)
+                    for p in range(int(lengths[ei]) - 1)]
+        slices.append(LCCChain(factors=factors, in_dim=int(widths[ei])))
+    return LCCDecomposition(shape=(n, k), col_slices=cols, slices=slices,
+                            algorithm="fp", target_snr_db=float("nan"),
+                            meta={"fixture": True})
+
+
+@torch.no_grad()
+def decomposition_dense(packed: ops.PackedDecomposition, device) -> torch.Tensor:
+    """Dense equivalent ``[out_dim, in_dim]`` (float32, on ``device``) of a
+    packed decomposition: every slice's chain applied to the identity of its
+    width — never an N x N product."""
+    w = torch.zeros((packed.out_dim, packed.in_dim), dtype=torch.float32,
+                    device=device)
+    if packed.col_slices:
+        e, _, n_pad, _ = packed.idx.shape
+        widths = [c1 - c0 for c0, c1 in packed.col_slices]
+        wmax = max(widths)
+        cur = torch.zeros((e, max(n_pad, wmax), wmax), dtype=torch.float32,
+                          device=device)
+        j = torch.arange(wmax, device=device)
+        live = j[None, :] < torch.tensor(widths, device=device)[:, None]
+        cur[:, j, j] = live.to(torch.float32)
+        out = _levels_plain(torch.from_numpy(packed.idx).to(device),
+                            torch.from_numpy(packed.exp).to(device),
+                            torch.from_numpy(packed.sign).to(device), cur)
+        for ei, (c0, c1) in enumerate(packed.col_slices):
+            w[:, c0:c1] = out[ei, : packed.out_dim, : c1 - c0]
+    for (c0, c1), wm in packed.dense:
+        w[:, c0:c1] = torch.from_numpy(np.asarray(wm, np.float32)).to(device)
+    return w
+
+
+def dense_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, str], int, int]]:
+    """Per-layer compressible sites of the dense family:
+    ``(site prefix, (block, projection), N out, K in)``; the site name of
+    layer ``li`` is ``f"{prefix}.l{li}"`` and its weight is
+    ``params["blocks"][block][projection]["w"][li]`` of shape ``[K, N]``."""
+    d, dff = cfg.d_model, cfg.d_ff
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return [("attn.q", ("attn", "q"), nq * hd, d),
+            ("attn.k", ("attn", "k"), nkv * hd, d),
+            ("attn.v", ("attn", "v"), nkv * hd, d),
+            ("attn.o", ("attn", "o"), d, nq * hd),
+            ("ffn.gate", ("ffn", "gate"), dff, d),
+            ("ffn.up", ("ffn", "up"), dff, d),
+            ("ffn.down", ("ffn", "down"), d, dff)]
+
+
+def _seeded_site(name: str, n: int, k: int, rng: np.random.Generator,
+                 shared: bool, n_pruned: int, device):
+    """One site: record, packed buffers and the full dense-effective weight
+    ``[N, K]`` (pruned columns zero) on ``device``."""
+    n_pruned = min(n_pruned, k - 2)
+    kept = np.sort(rng.permutation(k)[n_pruned:]).astype(np.int64)
+    k_dec, labels = kept.size, None
+    if shared:
+        merged = max(1, kept.size // 16)
+        k_dec = kept.size - merged
+        labels = np.concatenate([rng.permutation(k_dec),
+                                 rng.integers(0, k_dec, size=merged)])
+        labels = labels[rng.permutation(labels.size)].astype(np.int64)
+    dec = seeded_decomposition(n, k_dec, rng)
+    packed = ops.pack_decomposition(dec)
+    w_dec = decomposition_dense(packed, device)  # [N, k_dec]
+    eff = w_dec if labels is None else w_dec[:, torch.from_numpy(labels).to(device)]
+    full = torch.zeros((n, k), dtype=torch.float32, device=device)
+    full[:, torch.from_numpy(kept).to(device)] = eff
+    rec = CompressedDense(
+        name=name, kept_columns=kept,
+        shared=(SharedLayer(centroids=w_dec.cpu().numpy(), labels=labels)
+                if labels is not None else None),
+        decomposition=dec, effective=eff.cpu().numpy())
+    return rec, packed, full
+
+
+def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
+                    shared_sites=SHARED_SITES, n_pruned: int = 2
+                    ) -> CompressedModel:
+    """A compressed artifact for ``cfg`` made from ``seed`` alone (see the
+    module docstring).  Every attention and FFN projection of every layer is
+    a compressed site; ``shared_sites`` (site prefixes) additionally get
+    weight sharing, so the segment-sum kernel is on the decode path.
+    ``params`` are the dense-effective weights in ``cfg.param_dtype`` on
+    ``device``; pre-packed kernel buffers come along in ``packed``."""
+    sites = dense_sites(cfg)
+    L, d = cfg.n_layers, cfg.d_model
+    rng = np.random.default_rng((seed, 0))
+    pd = dict(dtype=cfg.pdtype, device=device)
+    embed = rng.standard_normal((cfg.vocab, d), dtype=np.float32) * np.float32(d ** -0.5)
+    params = {"embed": torch.from_numpy(embed).to(**pd),
+              "final_ln": torch.ones((d,), **pd),
+              "blocks": {"ln1": torch.ones((L, d), **pd),
+                         "ln2": torch.ones((L, d), **pd),
+                         "attn": {}, "ffn": {}}}
+    if not cfg.tie_embeddings:
+        head = rng.standard_normal((d, cfg.vocab), dtype=np.float32) * np.float32(d ** -0.5)
+        params["lm_head"] = {"w": torch.from_numpy(head).to(**pd)}
+    records, packed = {}, {}
+    for si, (prefix, (blk, proj), n, k) in enumerate(sites):
+        stack = torch.empty((L, k, n), **pd)
+        for li in range(L):
+            name = f"{prefix}.l{li}"
+            rec, pk, full = _seeded_site(
+                name, n, k, np.random.default_rng((seed, 1 + li, si)),
+                prefix in shared_sites, n_pruned, device)
+            records[name], packed[name] = rec, pk
+            stack[li] = full.T.to(cfg.pdtype)
+        params["blocks"][blk][proj] = {"w": stack}
+    # executor site order follows the JAX adapters': layer-major inside a site
+    return CompressedModel(
+        config=cfg, params=params, records=records, packed=packed,
+        compression=CompressionConfig(algorithm="fp", weight_sharing=True),
+        pipeline_stats={"fixture": "seeded", "seed": seed})

@@ -1,0 +1,114 @@
+"""The port stands alone: importing ``repro_torch`` and every sub-module of it
+pulls in neither ``jax`` nor the JAX package ``repro``; ``chip_smoke.py``
+imports neither; entry points default to the GPU."""
+import ast
+import inspect
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+def _forbidden(module: str | None) -> bool:
+    top = (module or "").split(".")[0]
+    return top in ("jax", "jaxlib", "repro", "flax", "optax")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_importing_every_module_pulls_in_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT),
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
+    assert int(lines["MODULES"]) >= 25
+    assert lines["BAD"] == "[]"
+
+
+def test_no_source_file_of_the_port_names_jax_or_repro():
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    assert len(files) >= 25
+    for f in files:
+        bad = [m for m in _imports(f) if _forbidden(m)]
+        assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
+
+
+def test_chip_smoke_imports_neither():
+    path = ROOT / "chip_smoke.py"
+    mods = list(_imports(path))
+    assert "torch" in mods and any(m.startswith("repro_torch") for m in mods)
+    assert not [m for m in mods if _forbidden(m)]
+    assert "torch.cuda.is_available()" in path.read_text()
+
+
+def test_every_kernel_has_a_cuda_source_with_its_note():
+    csrc = SRC / "repro_torch" / "kernels" / "csrc"
+    for name, replaced in (("lcc_chain_matmul.cu", "lcc_chain_matmul.py"),
+                           ("lcc_group_matmul.cu", "lcc_group_matmul.py"),
+                           ("cluster_segment_sum.cu", "shared_matmul.py")):
+        text = (csrc / name).read_text()
+        assert "Replaces" in text and replaced in text and "ound by" in text
+        assert 'extern "C"' in text and "cudaGetLastError" in (
+            text + (csrc / "lcc_chain.cuh").read_text())
+    from repro_torch.kernels import build
+    assert [p.name for p in build.sources()] == [
+        "cluster_segment_sum.cu", "lcc_chain_matmul.cu", "lcc_group_matmul.cu"]
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert "-use_fast_math" not in build.NVCC_FLAGS
+    assert build.build_dir().parts[-2:] == ("build", "repro_torch")
+
+
+@pytest.mark.parametrize("path", [
+    "repro_torch.models.api:init_params",
+    "repro_torch.models.api:init_decode_state",
+    "repro_torch.models.transformer:init_decode_state",
+    "repro_torch.models.attention:init_kv_cache",
+    "repro_torch.serving.engine:ServingEngine",
+    "repro_torch.serving.executor:CompressedExecutor",
+    "repro_torch.serving.executor:LCCMatvec",
+    "repro_torch.serving.executor:GroupedLCCMatvec",
+    "repro_torch.serving.executor:matvecs_from_artifact",
+    "repro_torch.convert:params_from_numpy",
+    "repro_torch.convert:artifact_from_reference",
+    "repro_torch.testing:seeded_artifact",
+])
+def test_entry_points_default_to_the_gpu(path):
+    import importlib
+    mod, name = path.split(":")
+    fn = getattr(importlib.import_module(mod), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                "--max-new", "3", "--slots", "2", "--kernel"])
+    out = capsys.readouterr().out
+    assert "routed 14/14 sites" in out and "6 tokens" in out
+    assert "'step': 'not_ported'" in out
