@@ -3,21 +3,29 @@
 
     python3 chip_smoke.py            # all phases, one GPU, no network
 
-Drives the port's main path — compressed olmo-1b serving at its published
-width through ``Scheduler`` + ``ServingEngine(artifact=...)`` — and holds
-every CUDA kernel on that path against its plain PyTorch version:
+Drives the port's two main paths — compressed olmo-1b serving at its
+published width through ``Scheduler`` + ``ServingEngine(artifact=...)``, once
+through the per-region route (bf16, kernels K1-K3) and once through the
+whole-step layer plan (float32, kernels K6 and K7) — and holds every CUDA
+kernel on those paths against its plain PyTorch version:
 
 1. device and build: needs a CUDA device (exits non-zero without one), prints
-   the card's name and power limit, builds the kernels with ``nvcc``;
-2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``
-   at reduced shapes and at the main path's own dimensions (layer 0 of the
-   full-width artifact that phase 4 serves), each compared with its plain
-   version and timed (CUDA events, L2 flushed between launches) beside a
-   bound, the plain version and one library call; the last phase fails if
-   the serve launched a kernel at dimensions this phase did not check;
-3. reduced serve: kernel route == plain route (CPU) == dense-effective;
-4. full-width serve: olmo-1b, d_model 2048, d_ff 8192, vocab 50304; depth is
-   cut (never width) only if ``--layers`` says so.
+   the card's name and power limit, builds the kernels with ``nvcc``; then
+   the full-width float32 artifact and its layer plan (stage packing timed);
+2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``,
+   ``stage_matmul`` and ``step_plan_matmul`` at reduced shapes and at the main
+   paths' own dimensions (layer 0 of the full-width artifact and its plan, and
+   one full-width step), each compared with its plain version and timed (CUDA
+   events, L2 flushed between launches) beside a bound, the plain version and
+   one library call where one computes the same function; the last phase
+   fails if a serve launched a kernel at dimensions this phase did not check;
+3. reduced serve: plan route == per-region route == plain route (CPU) ==
+   dense-effective;
+4. full-width serve, per-region route: olmo-1b in bf16 (the plan needs
+   float32), d_model 2048, d_ff 8192, vocab 50304;
+5. full-width serve, plan route: the same model in float32, 16 layers; one
+   step's logits against the per-region route on the same artifact.
+   ``--layers`` cuts the depth of both serves (never the width).
 
 One JSON object per line; a failed phase ends the run with a non-zero exit.
 Imports nothing of JAX.
@@ -25,6 +33,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -43,12 +52,17 @@ from repro_torch.kernels import build, dispatch, ops  # noqa: E402
 from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
     _levels_plain, _slice_inputs_plain, lcc_chain_matmul,
     lcc_chain_matmul_plain, plan_launch)
+from repro_torch.kernels.layer_plan import (  # noqa: E402
+    device_stage, stage_matmul, stage_matmul_plain, step_plan_matmul,
+    step_plan_matmul_plain)
 from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
     lcc_group_matmul, lcc_group_matmul_plain)
 from repro_torch.kernels.shared_matmul import (  # noqa: E402
     cluster_segment_sum, cluster_segment_sum_plain, csr_from_labels)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models.layers import _rope_sincos  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.executor import CompressedExecutor  # noqa: E402
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
 from repro_torch.testing import (decomposition_dense, dense_sites,  # noqa: E402
                                  seeded_artifact, seeded_decomposition)
@@ -71,7 +85,30 @@ KERNELS = {
     "cluster_segment_sum": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/cluster_segment_sum.cu",
         replaces="src/repro/kernels/shared_matmul.py:60"),
+    "stage_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/stage_matmul.cu",
+        replaces="src/repro/kernels/layer_plan.py:483"),
+    "step_plan_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
+        replaces="src/repro/kernels/layer_plan.py:418"),
 }
+PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "cluster_segment_sum")
+PLAN = ("stage_matmul", "step_plan_matmul")
+# the device kernels of this port, by name fragment (profiler rows)
+PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
+                "cluster_segment_sum_kernel", "stage_prep_kernel",
+                "stage_levels_kernel", "stage_epilogue_kernel",
+                "step_norm_kernel", "step_attention_kernel",
+                "step_swiglu_kernel")
+MAX_LEN = 128  # the serves' KV view: 8 blocks of 16 tokens
+# |step kernel - plain| <= STEP_TOL * max(1, max|plain|): float32 sums in
+# other orders through every stage, norm and softmax of all the layers (each
+# stage alone stays within SUM_TOL)
+STEP_TOL = 1e-4
+# plan route vs per-region route logits at full width: both float32, the
+# chains evaluated in other groupings (fused CSD levels, one gather per
+# stage) over 16 layers
+ROUTE_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -178,12 +215,17 @@ def check_close(name, got, want, tol):
 def kernel_row(name, label, dims, key, err, exact, wrapper, plain, library,
                bound, timer, **extra):
     """One row of the kernels line.  ``key`` is the dimension tuple under
-    which the wrapper counts its launches (dispatch.launch_counts_by_shape)."""
+    which the wrapper counts its launches (dispatch.launch_counts_by_shape);
+    ``library`` is None where no single PyTorch call computes the function."""
     ms = timer(wrapper)
+    # one line a case as it completes: a later failure keeps the earlier ones
+    emit(dict(phase="kernel_case", name=name, shape=label, ms=ms,
+              max_abs_err=err))
     return dict(name=name, shape=label, dims=dims, shape_key=list(key),
                 max_abs_err=err, max_err=err, exact_in_kernel_order=exact,
                 ms=ms, kernel_ms=ms, **extra, plain_ms=timer(plain),
-                bound_ms=bound[0], bound_by=bound[1], library_ms=timer(library))
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=None if library is None else timer(library))
 
 
 def kernel_case_chain(label, pk, rng, dev, timer, sm, batch=BATCH):
@@ -346,12 +388,245 @@ def main_path_kernel_cases(art, dev, timer, sm):
     return rows
 
 
-def phase_kernels(dev, art, red_cfg):
+# ------------------------------------------------ K6 and K7: layer plans
+
+
+def bound_of(bytes_, flops):
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def stage_cost(ds, layers, batch) -> tuple[int, int]:
+    """(bytes, operations) one stage needs for ``layers``: its live terms in
+    the levels it runs (6 bytes and one multiply-add per batch column each),
+    the nonzero dense blocks, input and output read/written once."""
+    ps = ds.ps
+    bytes_ = flops = 0
+    for l in layers:
+        terms = ds.live_terms[l] if ps.has_fp else 0
+        dense = (ps.out_dim * ps.k_alloc if ds.fs_live[l] else 0) + \
+            (ps.out_dim * ps.d_src if ds.dw_live[l] else 0)
+        bytes_ += 6 * terms + 4 * dense + 4 * batch * (ps.d_src + ps.out_dim)
+        flops += 2 * (terms + dense) * batch
+    return bytes_, flops
+
+
+STAGE_SITES = {"qkv": (("attn", "q"), ("attn", "k"), ("attn", "v")),
+               "o": (("attn", "o"),), "gu": (("ffn", "gate"), ("ffn", "up")),
+               "dn": (("ffn", "down"),)}
+
+
+def stage_weights(art, name, layer, dev):
+    """One stage's dense-effective ``[O, D_src]`` float32 matrix of one layer,
+    from the artifact's parameters (never from the folded ``eff``)."""
+    blocks = art.params["blocks"]
+    return torch.cat([blocks[b][p]["w"][layer].to(dev, torch.float32).T
+                      for b, p in STAGE_SITES[name]]).contiguous()
+
+
+def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
+                      exact=False, w=None):
+    """``stage_matmul`` on one layer of one stage at ``batch`` columns, held
+    against its plain version (bit for bit when ``exact``: dyadic input on a
+    stage whose every sum is exact) and against one dense product."""
+    ds = device_stage(ps, dev)
+    src = dyadic(rng, (ps.d_src, batch), dev)
+    y = stage_matmul(ps, src, layer=layer)
+    torch.cuda.synchronize()
+    plain = stage_matmul_plain(ps, src, layer=layer)
+    err = check_close(label, y, plain, SUM_TOL)
+    if exact and not torch.equal(y, plain):
+        fail(f"{label}: kernel differs from the plain version on dyadic input")
+    bias = (torch.from_numpy(ps.bias[layer]).to(dev)
+            if ps.bias is not None else None)
+    if w is None:  # the stage's own linear map, column by column
+        eye = torch.eye(ps.d_src, dtype=torch.float32, device=dev)
+        w = stage_matmul_plain(replace(ps, bias=None), eye, layer=layer)
+    library = ((lambda: torch.addmm(bias[:, None], w, src)) if bias is not None
+               else (lambda: torch.matmul(w, src)))
+    check_close(label + " vs dense", y, library(), 1e-4)
+    d = ds.dims
+    bb, threads = ds.geometry(batch)
+    return kernel_row(
+        "stage_matmul", label,
+        dict(P=d["P"], R=d["R"], S=d["S"], K=d["K"], D=d["D"], O=d["O"],
+             J=d["J"], B=batch, blocks=int((ds.blk_r1[layer] > ds.blk_r0[layer]).sum()),
+             max_rows=ds.max_rows, bb=bb, threads=threads),
+        ds.shape_key(batch, 1), err, exact,
+        lambda: stage_matmul(ps, src, layer=layer),
+        lambda: stage_matmul_plain(ps, src, layer=layer), library,
+        bound_of(*stage_cost(ds, [layer], batch)), timer,
+        live_terms=ds.live_terms[layer], segs=ps.segs is not None,
+        warm_l2_ms=timer(lambda: stage_matmul(ps, src, layer=layer), cold=False))
+
+
+def handbuilt_stage(rng, *, p, s=4, r=4096, group=512, k_in=256, d_src=300,
+                    dense=False):
+    """A one-layer stage around raw CSD levels: level 0 reads the prep
+    buffer, level >= 1 rows read rows of their own ``group`` (so the kernel
+    gets several blocks); prep pairs share targets (weight sharing) and
+    carry padding pairs into the dead row; with ``dense``, nonzero dyadic
+    fs/dw blocks and a bias.  Exponents and inputs are small dyadic numbers,
+    so every sum is exact."""
+    idx = np.zeros((p, r, s), np.int64)
+    idx[0] = rng.integers(0, k_in, (r, s))
+    for q in range(1, p):
+        idx[q] = (np.arange(r) // group * group)[:, None] + rng.integers(0, group, (r, s))
+    exp = rng.integers(-2, 2, (p, r, s))
+    sgn = rng.choice([-1, 0, 1, 1], (p, r, s))
+    labels = np.concatenate([np.arange(k_in), rng.integers(0, k_in, d_src - k_in)])
+    labels = labels[rng.permutation(d_src)]
+    m = d_src + 5  # five padding pairs: source 0 into the dead row
+    prep_src = np.zeros(m, np.int32)
+    prep_src[:d_src] = np.arange(d_src)
+    prep_tgt = np.full(m, k_in, np.int32)
+    prep_tgt[:d_src] = labels
+    out = r // 2  # every output row sums two rows of the last level
+    outg = np.stack([np.arange(out), out + np.arange(out)]).astype(np.int32)
+    outg[1, ::7] = r  # some entries read the zero row
+    fs = dw = bias = None
+    if dense:
+        fs = (rng.integers(-4, 5, (1, out, k_in + 1)) / 8).astype(np.float32)
+        fs[..., -1] = 0.0  # the dead row's column
+        dw = (rng.integers(-4, 5, (1, out, d_src)) / 8).astype(np.float32)
+        bias = (rng.integers(-8, 9, (1, out)) / 8).astype(np.float32)
+    return ops.PackedStage(
+        prep_src=prep_src[None], prep_tgt=prep_tgt[None],
+        gidx=idx.astype(np.int32)[None], gexp=exp.astype(np.int8)[None],
+        gsgn=sgn.astype(np.int8)[None], outg=outg[None], fs_mat=fs,
+        dw_mat=dw, bias=bias, k_alloc=k_in + 1, d_src=d_src, out_dim=out,
+        n_layers=1, site_names=("handbuilt",))
+
+
+def reduced_stage_cases(red_plan, dev, timer):
+    """K6 where the full-width path does not reach: hand-built exact stages
+    (odd and even level counts, S = 4 and S = 3 slots a row, weight-shared
+    prep with padding pairs, nonzero fs/dw/bias), the reduced plan's stages
+    with and without ``segs``, and ragged batch widths."""
+    rng = np.random.default_rng(30)
+    rows = [kernel_case_stage("hand P=3", handbuilt_stage(rng, p=3), rng, dev,
+                              timer, exact=True),
+            kernel_case_stage("hand P=2 S=3", handbuilt_stage(rng, p=2, s=3),
+                              rng, dev, timer, exact=True),
+            kernel_case_stage("hand P=3 fs+dw+bias",
+                              handbuilt_stage(rng, p=3, dense=True), rng, dev,
+                              timer, exact=True)]
+    st = red_plan.stages
+    for name in ("qkv", "o", "gu", "dn"):
+        rows.append(kernel_case_stage(f"reduced {name}", st[name], rng, dev, timer))
+    rows.append(kernel_case_stage("reduced qkv segs=None layer 1",
+                                  replace(st["qkv"], segs=None), rng, dev,
+                                  timer, layer=1))
+    for batch in (1, 5, 13):  # a ragged last block of columns
+        rows.append(kernel_case_stage(f"reduced gu B={batch}", st["gu"], rng,
+                                      dev, timer, batch=batch))
+    return rows
+
+
+def main_path_stage_cases(art, plan, dev, timer):
+    """K6 at exactly the dimensions the plan serve launches it at: layer 0
+    of each of the full-width plan's four stages, B = n_slots; the library
+    yardstick is one product with the stage's dense-effective matrix."""
+    rng = np.random.default_rng(40)
+    rows = []
+    for name in ("qkv", "o", "gu", "dn"):
+        rows.append(kernel_case_stage(f"full {name}", plan.stages[name], rng,
+                                      dev, timer,
+                                      w=stage_weights(art, name, 0, dev)))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def step_inputs(cfg, plan, rng, dev, *, batch=BATCH, smax=MAX_LEN,
+                paged=True, norm=None, window=None):
+    """Arguments of one decode step: random hidden states and caches, every
+    row at its own position with the slots before it filled, row 1 idle."""
+    n_l, d, nkv, hd = cfg.n_layers, cfg.d_model, cfg.n_kv_heads, cfg.hd
+    f32 = dict(dtype=torch.float32, device=dev)
+    pos_np = rng.integers(1, smax, batch).astype(np.int32)
+    pos_np[1] = -1
+    kpos_np = np.where(np.arange(smax)[None, None, :] < pos_np[None, :, None],
+                       np.arange(smax)[None, None, :], -1)
+    kpos_np = np.ascontiguousarray(np.broadcast_to(kpos_np, (n_l, batch, smax)),
+                                   dtype=np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    sin, cos = _rope_sincos(pos, hd, cfg.rope_theta)
+    norm = norm or cfg.norm
+    args = dict(n_heads=cfg.n_heads, n_kv_heads=nkv, head_dim=hd, d_ff=cfg.d_ff,
+                norm=norm, rope=cfg.pos == "rope", x0=torch.randn((d, batch), **f32),
+                pos=pos, cos=cos, sin=sin, kpos=torch.from_numpy(kpos_np).to(dev),
+                window=window, ln1=None, ln2=None)
+    if norm == "rms":
+        args["ln1"] = 1.0 + 0.1 * torch.randn((n_l, d), **f32)
+        args["ln2"] = 1.0 + 0.1 * torch.randn((n_l, d), **f32)
+    if paged:
+        bs = 16
+        mb = smax // bs
+        args["kc"] = torch.randn((n_l, batch * mb + 1, bs, nkv, hd), **f32)
+        args["vc"] = torch.randn((n_l, batch * mb + 1, bs, nkv, hd), **f32)
+        args["block_tbl"] = torch.from_numpy(
+            (1 + rng.permutation(batch * mb)).reshape(batch, mb)
+            .astype(np.int32)).to(dev)
+    else:
+        args["kc"] = torch.randn((n_l, batch, smax, nkv, hd), **f32)
+        args["vc"] = torch.randn((n_l, batch, smax, nkv, hd), **f32)
+    return args
+
+
+def kernel_case_step(label, cfg, plan, rng, dev, timer, **kw):
+    """``step_plan_matmul`` on one decode step, held against its plain
+    version: the final hidden state and every layer's new K/V rows."""
+    torch.manual_seed(int(rng.integers(1 << 31)))
+    args = step_inputs(cfg, plan, rng, dev, **kw)
+    y, kn, vn = step_plan_matmul(plan.stages, **args)
+    torch.cuda.synchronize()
+    want = step_plan_matmul_plain(plan.stages, **args)
+    err = max(check_close(f"{label} {part}", got, ref, STEP_TOL)
+              for part, got, ref in zip(("y", "k_new", "v_new"), (y, kn, vn), want))
+    n_l, b, smax = cfg.n_layers, args["x0"].shape[1], args["kpos"].shape[2]
+    nq, nkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    bytes_ = flops = 0
+    for ps in plan.stages.values():
+        sb, sf = stage_cost(device_stage(ps, dev), range(n_l), b)
+        bytes_ += sb
+        flops += sf
+    # the KV view and kpos read once, new rows and hidden state in and out
+    bytes_ += n_l * b * (2 * smax * nkv * hd * 4 + smax * 4 + 2 * nkv * hd * 4)
+    bytes_ += 2 * 4 * d * b
+    flops += 4 * n_l * b * nq * smax * hd
+    key = (n_l, d, cfg.d_ff, b, smax, nq, nkv, hd)
+    return kernel_row(
+        "step_plan_matmul", label,
+        dict(L=n_l, d=d, d_ff=cfg.d_ff, B=b, S=smax, Hq=nq, Hkv=nkv, hd=hd,
+             norm=args["norm"], window=args["window"],
+             paged=args.get("block_tbl") is not None),
+        key, err, False, lambda: step_plan_matmul(plan.stages, **args),
+        lambda: step_plan_matmul_plain(plan.stages, **args), None,
+        bound_of(bytes_, flops), timer)
+
+
+def phase_kernels(dev, art, plan, red_cfg):
     timer = Timer(dev)
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = reduced_kernel_cases(red_cfg, dev, timer, sm)
     torch.cuda.empty_cache()
     rows += main_path_kernel_cases(art, dev, timer, sm)
+    torch.cuda.empty_cache()
+    red_art = seeded_artifact(red_cfg, seed=1, device=dev)
+    red_plan = CompressedExecutor(red_art, device=dev).step_plan(red_cfg)
+    rows += reduced_stage_cases(red_plan, dev, timer)
+    rows += main_path_stage_cases(art, plan, dev, timer)
+    gqa_cfg = replace(red_cfg, n_kv_heads=2)
+    gqa_plan = CompressedExecutor(seeded_artifact(gqa_cfg, seed=3, device=dev),
+                                  device=dev).step_plan(gqa_cfg)
+    rng = np.random.default_rng(50)
+    rows.append(kernel_case_step("reduced GQA contiguous rms window=5", gqa_cfg,
+                                 gqa_plan, rng, dev, timer, paged=False,
+                                 norm="rms", window=5))
+    rows.append(kernel_case_step("reduced GQA paged", gqa_cfg, gqa_plan, rng,
+                                 dev, timer))
+    rows.append(kernel_case_step("full step", art.config, plan, rng, dev, timer))
     torch.cuda.empty_cache()
     return rows
 
@@ -371,7 +646,7 @@ def prompts_for(cfg, n):
 
 
 def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
-    eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=128,
+    eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=MAX_LEN,
                         use_kernel=use_kernel, kv_block=16, device=device)
     sched = Scheduler(eng)
     rids = [sched.enqueue(p, max_new=max_new) for p in prompts]
@@ -413,16 +688,20 @@ def phase_reduced_serve(dev, cfg):
                                executor=executor)
         return lg.float().cpu()
 
-    from repro_torch.serving.executor import CompressedExecutor
+    # the reduced config computes in float32: its default route is the plan
     l_k = logits(art, dev, CompressedExecutor(art, device=dev))
+    l_r = logits(art, dev, CompressedExecutor(art, use_plans=False, device=dev))
     l_p = logits(art_cpu, "cpu", CompressedExecutor(art_cpu, device="cpu"))
     l_d = logits(art, dev, None)
     errs = dict(kernel_vs_plain=float((l_k - l_p).abs().max()),
-                kernel_vs_dense=float((l_k - l_d).abs().max()))
+                kernel_vs_dense=float((l_k - l_d).abs().max()),
+                plan_vs_per_region=float((l_k - l_r).abs().max()))
     if max(errs.values()) > 1e-4 or not bool(torch.isfinite(l_k).all()):
         fail(f"reduced serve: logits disagree: {errs}")
     if eng_k.executor.routed != eng_k.executor.sites:
         fail("reduced serve: not every site was routed through a kernel")
+    if eng_k.n_layer_plans != 1:
+        fail("reduced serve: the float32 engine did not take the plan route")
     return dict(phase="reduced_serve", logits_max_abs_err=errs, tol=1e-4,
                 tokens_equal=True, launches=counts,
                 launches_per_step=eng_k.kernel_launches_per_step)
@@ -469,13 +748,14 @@ def profile_steps(eng, prompts, n_steps: int = 4):
     busy = sum(by_name.values())
     if busy <= 0:
         fail("the profiler reported no device time for the decode steps")
-    ours = sum(v for k, v in by_name.items() if "repro_torch::" in k
-               or "cluster_segment_sum_kernel" in k)
+    def is_port(name):
+        return any(k in name for k in PORT_KERNELS)
+
+    ours = sum(v for k, v in by_name.items() if is_port(k))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     port = {k.replace("(anonymous namespace)::", "").split("(")[0]
             .removeprefix("void ")[:48]: round(v, 4)
-            for k, v in by_name.items() if "repro_torch::" in k
-            or "cluster_segment_sum_kernel" in k}
+            for k, v in by_name.items() if is_port(k)}
     stats = pstats.Stats(host).stats  # (file, line, fn) -> (cc, nc, tt, ct, _)
     host_total = sum(v[2] for v in stats.values())
     host_top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
@@ -515,9 +795,9 @@ def phase_full_serve(dev, cfg, art, fixture_s):
     if eng.kernel_launches_per_step != predicted:
         fail(f"full serve: {eng.kernel_launches_per_step} launches per step, "
              f"the site table predicts {predicted}")
-    for name in KERNELS:
-        if counts.get(name, 0) <= 0:
-            fail(f"full serve: kernel {name} was never launched on the main path")
+    if set(counts) != set(PER_REGION):
+        fail(f"full serve: launched {sorted(counts)}, expected exactly the "
+             f"per-region kernels {PER_REGION}")
     # per-site float32 output of one layer against the dense-effective matrix
     rng = np.random.default_rng(3)
     site_err = {}
@@ -563,10 +843,151 @@ def phase_full_serve(dev, cfg, art, fixture_s):
                 sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape
 
 
+def phase_plan_serve(dev, cfg, art, plan):
+    """The whole-step plan route at full width, float32: the same 6 prompts
+    x 16 new tokens on 8 slots, paged KV.  A layer launches 4 stages (K6)
+    and 4 step kernels (K7: 2 norms, attention, SwiGLU)."""
+    predicted = 8 * cfg.n_layers
+    prompts = prompts_for(cfg, 6)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what the card holds before the serve: the artifact's parameters and
+    # the plan's uploaded stages (the per-region copies were freed)
+    resident = torch.cuda.memory_allocated()
+    param_bytes = sum(tensor_bytes(t) for t in leaves(art.params))
+    stage_bytes = sum(tensor_bytes(*vars(device_stage(ps, dev)).values())
+                      for ps in plan.stages.values())
+    dispatch.reset_launch_count()  # counts of the plan path start here ...
+    t0 = time.perf_counter()
+    eng, res, step_s = serve(art, dev, use_kernel=True, n_slots=BATCH,
+                             prompts=prompts, max_new=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    peak = torch.cuda.max_memory_allocated()
+    for r in res:
+        if r.error or not r.finished or len(r.tokens) != r.prompt_len + 16:
+            fail(f"plan serve: request did not finish cleanly: {r.error}")
+        if not all(0 <= t < cfg.vocab for t in r.tokens):
+            fail("plan serve: token outside the vocabulary")
+    ex = eng.executor
+    if ex.routed != ex.sites:
+        fail(f"plan serve: unrouted sites {sorted(ex.sites - ex.routed)[:5]}")
+    if eng.n_layer_plans != 1 or ex.plan_fallbacks:
+        fail(f"plan serve: {eng.n_layer_plans} plans, fallbacks "
+             f"{ex.plan_fallbacks}")
+    if eng.kernel_launches_per_step != predicted:
+        fail(f"plan serve: {eng.kernel_launches_per_step} launches per step, "
+             f"the plan predicts {predicted}")
+    if set(counts) != set(PLAN):
+        fail(f"plan serve: launched {sorted(counts)}, expected exactly the "
+             f"plan's kernels {PLAN}")
+    # two decode steps' logits: plan route against the per-region route
+    # (K1-K3) and the dense-effective weights, on the same float32 artifact
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, BATCH, 1))).to(dev)
+
+    def logits(executor):
+        st = api.init_decode_state(cfg, BATCH, MAX_LEN, device=dev)
+        out = []
+        with torch.no_grad():
+            for t in range(2):
+                pos = torch.full((BATCH,), t, dtype=torch.long, device=dev)
+                lg, st = api.decode(art.params, cfg, st, toks[t], pos,
+                                    executor=executor)
+                out.append(lg.float())
+        return torch.stack(out)
+
+    l_plan = logits(ex)
+    l_reg = logits(CompressedExecutor(art, use_plans=False, device=dev))
+    torch.cuda.empty_cache()
+    l_dense = logits(None)
+    scale = max(1.0, float(l_reg.abs().max()))
+    route = dict(plan_vs_per_region=float((l_plan - l_reg).abs().max()) / scale,
+                 plan_vs_dense=float((l_plan - l_dense).abs().max()) / scale)
+    if not max(route.values()) <= ROUTE_TOL or not bool(torch.isfinite(l_plan).all()):
+        fail(f"plan serve: logits off the other routes: {route}")
+    profile = profile_steps(eng, prompts)
+    tokens = sum(len(r.tokens) - r.prompt_len for r in res)
+    steady = step_s[1:] or step_s
+    steps = sum(counts.values()) // eng.kernel_launches_per_step
+    return dict(phase="plan_serve", arch=cfg.name, dtype=cfg.compute_dtype,
+                layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+                vocab=cfg.vocab, n_slots=BATCH, requests=len(prompts),
+                max_new=16, pack_s=plan.pack_s, tokens=tokens, wall_s=wall,
+                tokens_per_s=tokens / wall, steps=len(step_s),
+                first_step_ms=step_s[0] * 1e3,
+                ms_per_step=float(np.median(steady)) * 1e3,
+                steady_tokens_per_s=len(prompts) / float(np.median(steady)),
+                profile=profile, launches_per_step=eng.kernel_launches_per_step,
+                predicted_launches_per_step=predicted, decode_steps=steps,
+                launches=counts, routed=len(ex.routed), sites=len(ex.sites),
+                n_layer_plans=eng.n_layer_plans, plan_fallbacks=ex.plan_fallbacks,
+                logits_rel_err=route, route_tol=ROUTE_TOL,
+                peak_device_bytes=peak, resident_before_serve_bytes=resident,
+                param_bytes=param_bytes, plan_stage_bytes=stage_bytes,
+                sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    return [tree]
+
+
+def tensor_bytes(*objs) -> int:
+    return sum(t.numel() * t.element_size() for t in objs
+               if isinstance(t, torch.Tensor))
+
+
+def drop_per_region_copies(art) -> None:
+    """Free the per-region route's device copies (K1-K3 streams and FS
+    blocks) that the kernel phase and the bf16 serve cached on the
+    artifact's packed sites."""
+    for pk in art.packed.values():
+        pk._dev.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def kernel_rows(rows, phases):
+    """The main-path rows of the kernels line: each ``full`` row with the
+    launches its serve made at exactly the row's dimensions.  ``phases`` maps
+    a kernel name to its serve's ``(counts, by_shape)``; every launch of a
+    serve must be at dimensions a row checked."""
+    kernels = []
+    for row in rows:
+        if not row["shape"].startswith("full"):
+            continue
+        counts, by_shape = phases[row["name"]]
+        n = by_shape.get((row["name"], tuple(row["shape_key"])), 0)
+        if n <= 0:
+            fail(f"{row['name']} {row['shape']}: the serve never launched at "
+                 f"the checked dimensions {row['dims']}")
+        kernels.append({**KERNELS[row["name"]], **row, "launches": n})
+    for counts, by_shape in {id(c): (c, b) for c, b in phases.values()}.values():
+        for name, total in counts.items():
+            seen = sum(r["launches"] for r in kernels if r["name"] == name
+                       and phases[name][0] is counts)
+            if seen != total:
+                shapes = sorted(k for (nm, k) in by_shape if nm == name)
+                fail(f"{name}: {total} launches on its main path, {seen} of "
+                     f"them at dimensions the kernel phase checked; launched "
+                     f"at {shapes}")
+    return kernels
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth of the full-width serve (never the width)")
+                    help="cut the depth of the full-width serves (never the width)")
     ap.add_argument("--only", choices=("kernels",), default=None,
                     help="stop after the kernel phase (no final ok line)")
     args = ap.parse_args()
@@ -575,6 +996,9 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device — this script measures "
                          "the GPU path and has no CPU fallback")
     dev = torch.device("cuda", 0)
+    # float32 products in full float32, never TF32, for every yardstick
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -584,47 +1008,67 @@ def main() -> None:
               build_seconds=build.last_build_seconds,
               sources=[p.name for p in build.sources()]))
 
-    full_cfg = get_arch("olmo-1b")
+    base = get_arch("olmo-1b")
     if args.layers is not None:
-        full_cfg = replace(full_cfg, n_layers=args.layers)
+        base = replace(base, n_layers=args.layers)
+    # the plan needs a float32 compute dtype; the per-region serve keeps
+    # olmo-1b's own bf16 and takes a cast of the same parameters
+    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
     red_cfg = reduced_config(get_arch("olmo-1b"), vocab=256)
 
-    # the full-width artifact comes first: the kernel phase takes its
-    # main-path cases from it
+    # the full-width artifact and its plan come first: the kernel phase takes
+    # its main-path cases from them
     t0 = time.perf_counter()
-    art = seeded_artifact(full_cfg, seed=2, device=dev)
+    art32 = seeded_artifact(cfg32, seed=2, device=dev)
     torch.cuda.synchronize()
     fixture_s = time.perf_counter() - t0
+    art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
+                    plans={})
+    plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
+    t0 = time.perf_counter()
+    for ps in plan.stages.values():
+        device_stage(ps, dev)  # validation, block tables, upload
+    torch.cuda.synchronize()
+    emit(dict(phase="fixture_and_plan", fixture_s=fixture_s,
+              pack_s=plan.pack_s, upload_s=time.perf_counter() - t0,
+              stages={name: dict(shape=list(ps.gidx.shape),
+                                 outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
+                                 blocks=int(device_stage(ps, dev).blk_r0.shape[1]),
+                                 max_rows=device_stage(ps, dev).max_rows,
+                                 live_terms=sum(device_stage(ps, dev).live_terms),
+                                 stream_bytes=6 * ps.gidx.size,
+                                 waste=ps.waste)
+                      for name, ps in plan.stages.items()}))
 
-    rows = phase_kernels(dev, art, red_cfg)
+    rows = phase_kernels(dev, art32, plan, red_cfg)
     emit(dict(phase="kernels", tolerance=SUM_TOL,
-              tolerance_reason="float32 sum over the E slices in another order "
-                               "than torch.sum; in the kernel's own order the "
-                               "results are bit-identical", rows=rows))
+              tolerance_reason="float32 sums in another order than the "
+                               "plain version's (over E slices, J gathers, "
+                               "S terms); where every sum is exact the "
+                               "results are bit-identical",
+              step_tolerance=STEP_TOL, rows=rows))
     if args.only == "kernels":
         return
 
     emit(phase_reduced_serve(dev, red_cfg))
-    full, full_counts, by_shape = phase_full_serve(dev, full_cfg, art, fixture_s)
+    full, full_counts, by_shape = phase_full_serve(dev, base, art16, fixture_s)
     emit(full)
+    # the plan serve's peak counts the plan route's own bytes: the bf16 cast
+    # and the per-region streams go first
+    del art16
+    drop_per_region_copies(art32)
+    planned, plan_counts, plan_shape = phase_plan_serve(dev, cfg32, art32, plan)
+    emit(planned)
 
-    # the kernels of the main path at the dimensions it gave them: ``launches``
-    # is what the full-width serve launched at exactly the row's dimensions
-    kernels = []
-    for row in rows:
-        if row["shape"].startswith("full"):
-            n = by_shape.get((row["name"], tuple(row["shape_key"])), 0)
-            if n <= 0:
-                fail(f"{row['name']} {row['shape']}: the full-width serve never "
-                     f"launched at the checked dimensions {row['dims']}")
-            kernels.append({**KERNELS[row["name"]], **row, "launches": n,
-                            "launches_per_step": n / full["decode_steps"]})
-    for name, total in full_counts.items():
-        seen = sum(r["launches"] for r in kernels if r["name"] == name)
-        if seen != total:
-            shapes = sorted(k for (nm, k) in by_shape if nm == name)
-            fail(f"{name}: {total} launches on the main path, {seen} of them "
-                 f"at dimensions the kernel phase checked; launched at {shapes}")
+    # the kernels of the main paths at the dimensions they gave them:
+    # ``launches`` is what a serve launched at exactly the row's dimensions
+    steps = {"per_region": full["decode_steps"], "plan": planned["decode_steps"]}
+    phases = {name: (full_counts, by_shape) for name in PER_REGION}
+    phases.update({name: (plan_counts, plan_shape) for name in PLAN})
+    kernels = kernel_rows(rows, phases)
+    for k in kernels:
+        k["launches_per_step"] = k["launches"] / steps[
+            "plan" if k["name"] in PLAN else "per_region"]
     emit(dict(kernels=kernels))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,9 +16,11 @@ from repro_torch.core.artifact import CompressedModel
 from repro_torch.core.compress import CompressedDense, CompressionConfig
 from repro_torch.core.lcc import FSProgram, LCCChain, LCCDecomposition, LCCFactor
 from repro_torch.core.weight_sharing import SharedLayer
+from repro_torch.kernels.ops import PackedStage
 
 __all__ = ["params_from_numpy", "artifact_from_reference",
-           "config_from_reference", "decomposition_from_reference"]
+           "config_from_reference", "decomposition_from_reference",
+           "stage_from_reference"]
 
 
 def _leaf_to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -84,11 +86,27 @@ def _compression_from_reference(c) -> CompressionConfig:
     return CompressionConfig(**{k: v for k, v in asdict(c).items() if k in known})
 
 
+_STAGE_ARRAYS = ("prep_src", "prep_tgt", "gidx", "gexp", "gsgn", "outg",
+                 "fs_mat", "dw_mat", "bias", "segs")
+
+
+def stage_from_reference(ps) -> PackedStage:
+    """A JAX-package ``PackedStage`` -> this package's, array for array."""
+    arrays = {f: (None if getattr(ps, f) is None else np.asarray(getattr(ps, f)))
+              for f in _STAGE_ARRAYS}
+    return PackedStage(**arrays, k_alloc=int(ps.k_alloc), d_src=int(ps.d_src),
+                       out_dim=int(ps.out_dim), n_layers=int(ps.n_layers),
+                       site_names=tuple(ps.site_names),
+                       seg_stats=ps.seg_stats, waste=ps.waste)
+
+
 def artifact_from_reference(obj, device="cuda") -> CompressedModel:
     """Read a JAX-package ``CompressedModel`` by attribute into this package's
     classes: records (kept columns, shared labels/centroids, decompositions),
-    dense-effective params (as tensors on ``device``) and configs.  Kernel
-    buffers are not carried: the executor re-packs them (bitwise the same)."""
+    dense-effective params (as tensors on ``device``), configs and the layer
+    plans the reference packed (``plans``, reused by the executor).  Per-site
+    kernel buffers are not carried: the executor re-packs them (bitwise the
+    same)."""
     cfg = config_from_reference(obj.config)
     records: dict[str, CompressedDense] = {}
     for name, rec in obj.records.items():
@@ -118,4 +136,6 @@ def artifact_from_reference(obj, device="cuda") -> CompressedModel:
         compression=_compression_from_reference(obj.compression),
         unit_configs={n: _compression_from_reference(c)
                       for n, c in getattr(obj, "unit_configs", {}).items()},
-        pipeline_stats=dict(getattr(obj, "pipeline_stats", {})))
+        pipeline_stats=dict(getattr(obj, "pipeline_stats", {})),
+        plans={key: {name: stage_from_reference(ps) for name, ps in st.items()}
+               for key, st in getattr(obj, "plans", {}).items()})

@@ -4,8 +4,9 @@ A :class:`CompressedModel` bundles what the serving engine needs: per-unit
 :class:`CompressedDense` records (prune indices, weight-sharing labels and
 centroids, the LCC decomposition), optional pre-packed kernel buffers,
 dense-effective ``params`` (a drop-in nested dict of tensors for the plain
-forward and for everything not compressed), and the configs that produced it.
-Persistence (``save``/``load``) is not part of this package yet.
+forward and for everything not compressed), the configs that produced it, and
+the layer plans an executor packed from it.  Persistence (``save``/``load``)
+is not part of this package yet, so plans live in memory only.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ class CompressedModel:
     compression: CompressionConfig = field(default_factory=CompressionConfig)
     unit_configs: dict[str, CompressionConfig] = field(default_factory=dict)
     pipeline_stats: dict = field(default_factory=dict)
+    # layer plans: plan key ("step") -> {stage name -> PackedStage}; packed by
+    # the executor on first use and reused by every later executor
+    plans: dict[str, dict] = field(default_factory=dict)
 
     def unit_config_for(self, name: str) -> CompressionConfig:
         return self.unit_configs.get(name, self.compression)

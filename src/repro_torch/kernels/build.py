@@ -25,7 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib: ctypes.CDLL | None = None
 last_build_seconds: float | None = None  # None until load() ran; 0.0 = cached
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # idx exp sign x c0 w len partial out | E P N S B C spb bb threads | stream
     "repro_lcc_chain_matmul": [_P] * 9 + [_I] * 9 + [_P],
@@ -33,6 +33,16 @@ _SIGNATURES = {
     "repro_lcc_group_matmul": [_P] * 9 + [_I] * 10 + [_P],
     # order offsets x out | C B | stream
     "repro_cluster_segment_sum": [_P] * 4 + [_I] * 2 + [_P],
+    # src prep_src prep_off inbuf gidx gexp gsgn r0 r1 depth work outg fs dw
+    # bias resid out | nl D B M K P R S NB J O bb threads max_rows | stream
+    "repro_stage_matmul": [_P] * 17 + [_I] * 14 + [_P],
+    # x w out | d B mode | eps | stream
+    "repro_step_norm": [_P] * 3 + [_I] * 3 + [_F, _P],
+    # qkv pos cos sin kc vc kpos tbl att kn vn | B S nq nkv hd bs mb window
+    # | scale | stream
+    "repro_step_attention": [_P] * 11 + [_I] * 8 + [_F, _P],
+    # gu out | dff B | stream
+    "repro_step_swiglu": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -15,9 +15,14 @@ package (the block padding is part of that contract; the CUDA kernels need no
 block multiples and mask ragged edges themselves).  Device copies of the
 streams are made on first use per device (``DeviceStreams``) and cached on the
 packed object.
+
+Layer plans (:class:`PackedStage`, :func:`pack_stage`, :func:`pack_layer`)
+flatten every site of a layer stage into one set of streams, stacked over the
+L layers; they are evaluated by ``repro_torch.kernels.layer_plan``.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass, field
 
@@ -34,10 +39,13 @@ __all__ = [
     "PackedChain",
     "PackedDecomposition",
     "PackedGroup",
+    "PackedStage",
     "DeviceStreams",
     "pack_chain",
     "pack_decomposition",
     "pack_group",
+    "pack_stage",
+    "pack_layer",
     "apply_packed_chain",
     "apply_packed_decomposition",
     "apply_packed_group",
@@ -339,6 +347,490 @@ def pack_group(members: list[PackedDecomposition]) -> PackedGroup:
             stacklevel=2)
     return PackedGroup(idx=gi, exp=ge, sign=gs, members=tuple(members),
                        d_pad=d_pad, first_width=first_width, waste=waste)
+
+
+# ---------------------------------------------------------------------------
+# layer plans: every compressed site of a layer stage in ONE set of streams
+# ---------------------------------------------------------------------------
+#
+# A layer plan flattens all sites that consume the same activation into one
+# gather/shift-add *stage*, and stacks all L identical layers along a leading
+# axis.  A row is sum_s sign * 2^exp * prev[idx] (CSD structure), so the
+# evaluator needs only integer gathers and shift-adds.
+#
+# Per stage, for layer l:
+#
+#   prep_src/prep_tgt [L, M]     scatter-add pairs building the stage input
+#                                buffer: inbuf[tgt] += src[src'] implements
+#                                both kept-column gather and weight-sharing
+#                                segment-sum (tgt = cluster label).  Padding
+#                                pairs are (0, K_alloc - 1): they add into a
+#                                dead row that nothing downstream reads.
+#   gidx/gexp/gsgn [L, P, R, S]  every FP slice of every site, concatenated
+#                                along the row axis R; level 0 reads inbuf,
+#                                levels >= 1 read the running work buffer.
+#                                sign == 0 marks unused slots (rows decompress
+#                                to zero); short chains continue as identity.
+#   outg [L, J, O]               output gather: out[o] = sum_j work[outg[j,o]]
+#                                (J = max FP-slice count of any site; padded
+#                                entries point at the all-zero row R).
+#   fs_mat [L, O, K_alloc]       FS-program dense fallback applied to inbuf
+#                                (column K_alloc - 1, the dead row, is zero).
+#   dw_mat [L, O, D_src]         uncovered sites' dense weights (w.T) baked in
+#                                so the stage still produces the full output.
+#   bias [L, O]                  site biases, summed at their output offsets.
+#
+# The arrays are bitwise equal to those of ``repro.kernels.ops.pack_stage``.
+
+
+# per-level gather volume (P * R * S instruction slots) above which the JAX
+# package decodes a stage through its folded effective matrix ``eff``.  It is
+# kept here only so that ``PackedStage.eff`` is the same property as there
+# (the packer tests compare it); nothing in this package evaluates a stage
+# through ``eff``: the kernel and its plain version run the shift-add streams
+# at every size.
+EFF_GATHER_CUTOFF = 32_768
+
+
+@dataclass(frozen=True)
+class PackedStage:
+    """One layer stage (e.g. fused q+k+v) stacked over L layers.
+
+    All arrays are numpy; device copies are made on first use per device by
+    ``repro_torch.kernels.layer_plan.device_stage`` and cached on the object.
+
+    ``segs`` (segment-packed layout, optional): per (layer, level) the row
+    space is run-length sorted at pack time — instructions laid out by
+    descending chain depth so every level splits into a contiguous *active*
+    prefix (rows with a real CSD level) followed by a contiguous *identity*
+    run (rows whose chains already ended) and a zero tail.  ``segs[l, p] =
+    (active_end, rows_used, live_terms)``.  The descriptors only trim work;
+    stages without them evaluate to the same values.
+    """
+
+    prep_src: np.ndarray | None  # [L, M] int32
+    prep_tgt: np.ndarray | None  # [L, M] int32
+    gidx: np.ndarray | None  # [L, P, R, S] int32
+    gexp: np.ndarray | None  # [L, P, R, S] int8
+    gsgn: np.ndarray | None  # [L, P, R, S] int8
+    outg: np.ndarray | None  # [L, J, O] int32
+    fs_mat: np.ndarray | None  # [L, O, K_alloc] f32
+    dw_mat: np.ndarray | None  # [L, O, D_src] f32
+    bias: np.ndarray | None  # [L, O] f32
+    k_alloc: int  # inbuf rows incl. trailing dead row
+    d_src: int  # stage input rows
+    out_dim: int  # stage output rows O
+    n_layers: int
+    site_names: tuple[str, ...]  # compressed sites this stage covers
+    segs: np.ndarray | None = None  # [L, P, 3] int32 segment descriptors
+    seg_stats: dict | None = None  # run-length stats
+    waste: dict | None = None  # padding-waste report
+    # device copies, per device (not an init field: ``dataclasses.replace``
+    # gives the new stage an empty cache of its own)
+    _dev: dict = field(default_factory=dict, init=False, repr=False,
+                       compare=False)
+
+    @property
+    def has_prep(self) -> bool:
+        return self.prep_src is not None
+
+    @property
+    def has_fp(self) -> bool:
+        return self.gidx is not None
+
+    @functools.cached_property
+    def gcoef(self) -> np.ndarray:
+        """``sign * 2**exp`` as f32 [L, P, R, S] (exact: a signed power of
+        two is exact in f32).  The device copy keeps the int8 streams instead
+        (6 bytes a slot against 8)."""
+        return (self.gsgn.astype(np.float32)
+                * np.exp2(self.gexp.astype(np.float32)))
+
+    @functools.cached_property
+    def _prep_mats(self) -> np.ndarray | None:
+        """Prep scatter-add pairs as selection matrices [L, K_alloc, D_src]
+        (kept-column gather + weight-sharing segment-sum, dead row zero)."""
+        if not self.has_prep:
+            return None
+        mats = np.zeros((self.n_layers, self.k_alloc, self.d_src), np.float32)
+        for l in range(self.n_layers):
+            tgt = self.prep_tgt[l].astype(np.int64)
+            src = self.prep_src[l].astype(np.int64)
+            real = tgt < self.k_alloc - 1  # padding pairs hit the dead row
+            np.add.at(mats[l], (tgt[real], src[real]), 1.0)
+        return mats
+
+    @functools.cached_property
+    def eff(self) -> np.ndarray | None:
+        """Whole-stage folded effective matrix [L, O, D_src], or ``None``
+        (at or below ``EFF_GATHER_CUTOFF`` slots a level).
+
+        The composition of prep, the P shift-add levels, the output gather
+        and the dense fallbacks as one matrix per layer.  A test surface
+        only: it turns the shift-add evaluation into a dense product, and at
+        full width its running ``[R, D_src]`` f32 matrix takes gigabytes."""
+        if not self.has_fp:
+            return None
+        n_l, n_p, r_max, s = self.gidx.shape
+        if n_p * r_max * s <= EFF_GATHER_CUTOFF:
+            return None
+        w = np.zeros((n_l, self.out_dim, self.d_src), np.float32)
+        chunk = 4096  # bounds the [rows, S, D_src] gather transient
+        for l in range(n_l):
+            m = (self._prep_mats[l] if self.has_prep
+                 else np.eye(self.d_src, dtype=np.float32))
+            for p in range(n_p):
+                idx = self.gidx[l, p].astype(np.int64)
+                coef = (self.gcoef[l, p]
+                        * (self.gsgn[l, p] != 0)
+                        * (idx < m.shape[0]))
+                safe = np.clip(idx, 0, m.shape[0] - 1)
+                nxt = np.empty((r_max, m.shape[1]), np.float32)
+                for r0 in range(0, r_max, chunk):
+                    r1 = min(r0 + chunk, r_max)
+                    nxt[r0:r1] = np.einsum(
+                        "rsd,rs->rd", m[safe[r0:r1]], coef[r0:r1])
+                m = nxt
+            e = self.outg[l].astype(np.int64)  # [J, O]
+            valid = e < r_max  # padded entries read the zero row
+            w[l] = np.einsum("jod,jo->od",
+                             m[np.clip(e, 0, r_max - 1)],
+                             valid.astype(np.float32))
+        if self.fold_dense is not None:
+            w += self.fold_dense
+        return w
+
+    @functools.cached_property
+    def fold_dense(self) -> np.ndarray | None:
+        """FS fallback (re-based from inbuf to the stage input) + uncovered
+        dense weights as one [L, O, D_src] block, folded into ``eff``."""
+        if self.fs_mat is None and self.dw_mat is None:
+            return None
+        d = np.zeros((self.n_layers, self.out_dim, self.d_src), np.float32)
+        if self.fs_mat is not None:
+            for l in range(self.n_layers):
+                d[l] += self.fs_mat[l] @ self._prep_mats[l]
+        if self.dw_mat is not None:
+            d += self.dw_mat
+        return d
+
+    def operands(self) -> list[np.ndarray]:
+        """The evaluator's operands in canonical order: the shift-add form at
+        every size (never ``eff``), exponents and signs as int8 streams."""
+        ops_ = []
+        if self.has_prep:
+            ops_ += [self.prep_src, self.prep_tgt]
+        if self.has_fp:
+            ops_ += [self.gidx, self.gexp, self.gsgn, self.outg]
+        if self.fs_mat is not None:
+            ops_.append(self.fs_mat)
+        if self.dw_mat is not None:
+            ops_.append(self.dw_mat)
+        if self.bias is not None:
+            ops_.append(self.bias)
+        return ops_
+
+
+def _fuse_csd_levels(idx: np.ndarray, exp: np.ndarray, sgn: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Fuse adjacent CSD levels pairwise: two S-term shift-add levels become
+    one S*S-term level (``exp`` summed, signs multiplied — still exact signed
+    powers of two), halving the sequential depth at an identical add count.
+    A term whose parent row is all-dead composes to sign 0, exactly matching
+    the sequential evaluation (the parent row decompresses to zero).  An odd
+    trailing level rides along unfused.  Arrays are [..., P, rows, S] (the
+    slices of one packed decomposition share P, rows and S, so the packer
+    fuses them all at once); the result is int32 [..., P', rows, S']."""
+    *lead, pm, rows, s = idx.shape
+    if pm < 2:
+        return idx.astype(np.int32), exp.astype(np.int32), sgn.astype(np.int32)
+    idx, exp, sgn = (a.reshape(-1, pm, rows, s) for a in (idx, exp, sgn))
+    e, n_q, ss = idx.shape[0], (pm + 1) // 2, s * s
+    fi = np.zeros((e, n_q, rows, ss), np.int32)
+    fe = np.zeros((e, n_q, rows, ss), np.int32)
+    fs = np.zeros((e, n_q, rows, ss), np.int32)
+    base = (np.arange(e, dtype=np.int64) * rows)[:, None, None]
+    for q, p in enumerate(range(0, pm, 2)):
+        if p + 1 == pm:  # odd trailing level, unfused
+            fi[:, q, :, :s], fe[:, q, :, :s], fs[:, q, :, :s] = \
+                idx[:, p], exp[:, p], sgn[:, p]
+            break
+        # dead terms may carry junk indices: clip before the flat row gather
+        flat = (np.clip(idx[:, p + 1], 0, rows - 1) + base).reshape(-1)
+
+        def take(a):  # a[e, j[e, r, t], :] -> [E, rows, S, S]
+            return np.take(a.reshape(e * rows, s), flat, axis=0).reshape(
+                e, rows, s, s)
+
+        cs = sgn[:, p + 1].astype(np.int32)[..., None] * take(sgn[:, p])
+        live = cs != 0
+        fi[:, q] = np.where(live, take(idx[:, p]), 0).reshape(e, rows, ss)
+        fe[:, q] = np.where(live, exp[:, p + 1].astype(np.int32)[..., None]
+                            + take(exp[:, p]), 0).reshape(e, rows, ss)
+        fs[:, q] = cs.reshape(e, rows, ss)
+    return tuple(a.reshape(*lead, n_q, rows, ss) for a in (fi, fe, fs))
+
+
+def pack_stage(layer_sites: list[list[dict]], *, d_src: int, out_dim: int
+               ) -> PackedStage:
+    """Flatten per-layer site lists into one stacked stage.
+
+    ``layer_sites[l]`` is the sites of layer l, each a dict:
+
+      {"kind": "lcc", "name", "out_off", "src_off", "kept" [ints],
+       "labels" [ints]|None, "n_clusters" int, "packed" PackedDecomposition,
+       "bias" [out]|None}
+      {"kind": "dense", "out_off", "src_off", "w" [in, out], "bias"|None}
+
+    Sites write disjoint [out_off, out_off + site_out) row ranges of the
+    stage output and read [src_off, ...) of the shared stage input.
+    """
+    n_layers = len(layer_sites)
+    built = []  # per-layer dict of intermediate layout
+    any_bias = any_fs = any_dw = False
+    names: list[str] = []
+    for sites in layer_sites:
+        in_off = 0
+        prep_pairs: list[tuple[np.ndarray, np.ndarray]] = []
+        insts: list[dict] = []  # one per FP slice, in site order
+        site_slices: list[tuple[int, int, list[int]]] = []  # (out_off, odim, inst ids)
+        fs_entries: list[tuple[int, int, int, np.ndarray]] = []
+        dw_entries: list[tuple[int, int, np.ndarray]] = []
+        bias_vec = None
+        for st in sites:
+            b = st.get("bias")
+            if b is not None:
+                any_bias = True
+                if bias_vec is None:
+                    bias_vec = np.zeros(out_dim, np.float32)
+                b = np.asarray(b, np.float32)
+                bias_vec[st["out_off"]: st["out_off"] + b.size] += b
+            if st["kind"] == "dense":
+                any_dw = True
+                w = np.asarray(st["w"], np.float32)
+                dw_entries.append((st["out_off"], st["src_off"], w.T))
+                continue
+            names.append(st["name"])
+            kept = np.asarray(st["kept"], np.int64)
+            labels = st.get("labels")
+            packed = st["packed"]
+            tgt = (np.asarray(labels, np.int64) if labels is not None
+                   else np.arange(kept.size))
+            n_in = int(st["n_clusters"]) if labels is not None else kept.size
+            if packed.in_dim != n_in:
+                raise ValueError(f"{st['name']}: packed.in_dim={packed.in_dim}"
+                                 f" != aggregated input {n_in}")
+            prep_pairs.append((st["src_off"] + kept, in_off + tgt))
+            idx = np.asarray(packed.idx)
+            exp = np.asarray(packed.exp)
+            sgn = np.asarray(packed.sign)
+            ids = []
+            if packed.col_slices:
+                # one pairwise pass only: deeper fusion squares the terms per
+                # row
+                fi, fe, fsg = _fuse_csd_levels(idx, exp, sgn)
+            for e, (c0, c1) in enumerate(packed.col_slices):
+                ids.append(len(insts))
+                insts.append({"in0": in_off + c0, "width": c1 - c0,
+                              "idx": fi[e], "exp": fe[e], "sgn": fsg[e],
+                              "n_pad": idx.shape[2]})
+            site_slices.append((st["out_off"], packed.out_dim, ids))
+            for (c0, c1), w in packed.dense:
+                any_fs = True
+                fs_entries.append((st["out_off"], packed.out_dim,
+                                   in_off + c0, np.asarray(w, np.float32)))
+            in_off += n_in
+        built.append({"k_used": in_off, "prep": prep_pairs, "insts": insts,
+                      "site_slices": site_slices, "fs": fs_entries,
+                      "dw": dw_entries, "bias": bias_vec})
+
+    has_prep = any(bl["k_used"] for bl in built)
+    has_fp = any(bl["insts"] for bl in built)
+    k_alloc = (max(bl["k_used"] for bl in built) + 1) if has_prep else 0
+    m_max = max([sum(p[0].size for p in bl["prep"]) for bl in built] + [1])
+    r_max = max([sum(i["n_pad"] for i in bl["insts"]) for bl in built] + [1])
+    p_max = max([i["idx"].shape[0] for bl in built for i in bl["insts"]] + [1])
+    s_max = max([i["idx"].shape[2] for bl in built for i in bl["insts"]] + [1])
+    j_max = max([len(ids) for bl in built for _, _, ids in bl["site_slices"]]
+                + [1])
+
+    prep_src = prep_tgt = gidx = gexp = gsgn = outg = None
+    fs_mat = dw_mat = bias = None
+    if has_prep:
+        prep_src = np.zeros((n_layers, m_max), np.int32)
+        prep_tgt = np.full((n_layers, m_max), k_alloc - 1, np.int32)
+    if has_fp:
+        gidx = np.zeros((n_layers, p_max, r_max, s_max), np.int32)
+        gexp = np.zeros((n_layers, p_max, r_max, s_max), np.int8)
+        gsgn = np.zeros((n_layers, p_max, r_max, s_max), np.int8)
+        outg = np.full((n_layers, j_max, out_dim), r_max, np.int32)
+    if any_fs:
+        fs_mat = np.zeros((n_layers, out_dim, k_alloc), np.float32)
+    if any_dw:
+        dw_mat = np.zeros((n_layers, out_dim, d_src), np.float32)
+    if any_bias:
+        bias = np.zeros((n_layers, out_dim), np.float32)
+
+    segs = np.zeros((n_layers, max(p_max, 1), 3), np.int32)
+    runs_before: list[int] = []  # active-run lengths, original site order
+    runs_after: list[int] = []  # active-run lengths after depth sorting
+    for l, bl in enumerate(built):
+        if bl["prep"]:
+            src = np.concatenate([p[0] for p in bl["prep"]])
+            tgt = np.concatenate([p[1] for p in bl["prep"]])
+            prep_src[l, : src.size] = src
+            prep_tgt[l, : tgt.size] = tgt
+        # segment packing: lay instructions out by descending (fused) chain
+        # depth so at every level the rows with a real CSD level form ONE
+        # contiguous prefix and the ended chains one contiguous identity run
+        order = sorted(range(len(bl["insts"])),
+                       key=lambda i: (-bl["insts"][i]["idx"].shape[0], i))
+        work_offs: dict[int, int] = {}
+        wo = 0
+        for inst_id in order:
+            inst = bl["insts"][inst_id]
+            work_offs[inst_id] = wo
+            np_, sm = inst["n_pad"], inst["idx"].shape[2]
+            pm = inst["idx"].shape[0]
+            for p in range(p_max):
+                if p < pm:
+                    ii = inst["idx"][p].astype(np.int64)
+                    ss = inst["sgn"][p]
+                    ee = inst["exp"][p]
+                    if p == 0:
+                        # level 0 reads inbuf at the slice's column window;
+                        # identity-padded level-0 rows of 0-factor chains can
+                        # span n_pad > width — mask them so they never read a
+                        # neighbouring site's region (the zero-padded-slab
+                        # semantics of the per-region kernels)
+                        live = (ss != 0) & (ii < inst["width"])
+                        comp, safe = inst["in0"] + ii, inst["in0"]
+                    else:
+                        live = ss != 0
+                        comp, safe = wo + ii, wo
+                    gidx[l, p, wo: wo + np_, :sm] = np.where(live, comp, safe)
+                    gsgn[l, p, wo: wo + np_, :sm] = np.where(live, ss, 0)
+                    gexp[l, p, wo: wo + np_, :sm] = np.where(live, ee, 0)
+                else:  # identity continuation over the stage's extra levels
+                    gidx[l, p, wo: wo + np_, 0] = wo + np.arange(np_)
+                    gsgn[l, p, wo: wo + np_, 0] = 1
+            wo += np_
+        r_used = wo
+        depths = [inst["idx"].shape[0] for inst in bl["insts"]]
+        pads = [inst["n_pad"] for inst in bl["insts"]]
+        for p in range(max(p_max, 1)):
+            a_end = sum(pads[i] for i in order if depths[i] > p)
+            s_live = 1
+            if has_fp and a_end:
+                cols = np.flatnonzero((gsgn[l, p, :a_end, :] != 0).any(axis=0))
+                s_live = int(cols[-1]) + 1 if cols.size else 1
+            segs[l, p] = (a_end, r_used, s_live)
+            runs_after.extend(_active_runs(
+                [depths[i] > p for i in order], [pads[i] for i in order]))
+            runs_before.extend(_active_runs(
+                [d > p for d in depths], pads))
+        for out_off, odim, ids in bl["site_slices"]:
+            for j, inst_id in enumerate(ids):
+                outg[l, j, out_off: out_off + odim] = \
+                    work_offs[inst_id] + np.arange(odim)
+        for out_off, odim, i0, w in bl["fs"]:
+            fs_mat[l, out_off: out_off + odim, i0: i0 + w.shape[1]] = w
+        for out_off, src_off, wt in bl["dw"]:
+            dw_mat[l, out_off: out_off + wt.shape[0],
+                   src_off: src_off + wt.shape[1]] = wt
+        if bl["bias"] is not None:
+            bias[l] = bl["bias"]
+
+    seg_stats = _segment_stats(runs_before, runs_after, gsgn, segs) \
+        if has_fp else None
+    waste = _stage_waste(gsgn, segs, prep_tgt, k_alloc) if has_fp else None
+    return PackedStage(prep_src=prep_src, prep_tgt=prep_tgt, gidx=gidx,
+                       gexp=gexp, gsgn=gsgn, outg=outg, fs_mat=fs_mat,
+                       dw_mat=dw_mat, bias=bias, k_alloc=k_alloc, d_src=d_src,
+                       out_dim=out_dim, n_layers=n_layers,
+                       site_names=tuple(names), segs=segs,
+                       seg_stats=seg_stats, waste=waste)
+
+
+def _active_runs(active: list[bool], pads: list[int]) -> list[int]:
+    """Maximal contiguous runs (in rows) of instructions with a live level."""
+    runs, cur = [], 0
+    for a, n in zip(active, pads):
+        if a:
+            cur += n
+        elif cur:
+            runs.append(cur)
+            cur = 0
+    if cur:
+        runs.append(cur)
+    return runs
+
+
+def _pct(xs: list[int], q: float) -> int:
+    return int(np.percentile(np.asarray(xs), q)) if xs else 0
+
+
+def _segment_stats(runs_before, runs_after, gsgn, segs) -> dict:
+    """Gather run-length telemetry: how contiguous the per-level active row
+    space is before vs after depth sorting, and what the packed layout skips."""
+    n_layers, p_max = gsgn.shape[0], gsgn.shape[1]
+    r_max = gsgn.shape[2]
+    total = n_layers * p_max * r_max
+    active = int(sum(int(segs[l, p, 0]) for l in range(n_layers)
+                     for p in range(p_max)))
+    return {
+        "p50_run_before": _pct(runs_before, 50),
+        "p99_run_before": _pct(runs_before, 99),
+        "p50_run_after": _pct(runs_after, 50),
+        "p99_run_after": _pct(runs_after, 99),
+        "n_runs_before": len(runs_before),
+        "n_runs_after": len(runs_after),
+        "gathered_rows": active,
+        "total_rows": total,
+        "gather_frac": round(active / total, 4) if total else 0.0,
+    }
+
+
+def _stage_waste(gsgn, segs, prep_tgt, k_alloc) -> dict:
+    """Per-stage padding-waste report (mirrors ``pack_group``'s keys): the
+    fraction of gather rows that are pure identity/zero padding and the dead
+    terms inside the active region."""
+    n_layers, p_max, r_max, _ = gsgn.shape
+    total_rows = n_layers * p_max * r_max
+    active_rows = int(sum(int(segs[l, p, 0]) for l in range(n_layers)
+                          for p in range(p_max)))
+    live = dead = 0
+    for l in range(n_layers):
+        for p in range(p_max):
+            a_end, _, s_live = segs[l, p]
+            blk = gsgn[l, p, :a_end, :s_live]
+            live += int(np.count_nonzero(blk))
+            dead += int(blk.size - np.count_nonzero(blk))
+    slots = live + dead
+    prep_pad = 0.0
+    if prep_tgt is not None and prep_tgt.size:
+        prep_pad = float(np.mean(prep_tgt == k_alloc - 1))
+    return {
+        "row_waste": round(1.0 - active_rows / total_rows, 4) if total_rows
+        else 0.0,
+        "slice_waste": round(dead / slots, 4) if slots else 0.0,
+        "mean_row_waste": round(prep_pad, 4),
+        "shape": tuple(int(s) for s in gsgn.shape),
+    }
+
+
+def pack_layer(stage_specs: dict[str, tuple[list[list[dict]], int, int]]
+               ) -> dict[str, PackedStage]:
+    """Pack every stage of a layer plan: name -> (layer_sites, d_src, out_dim).
+    The stages are independent and numpy releases the GIL in its array
+    passes, so they are packed on one thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, len(stage_specs))) as pool:
+        futs = {name: pool.submit(pack_stage, sites, d_src=d_src,
+                                  out_dim=out_dim)
+                for name, (sites, d_src, out_dim) in stage_specs.items()}
+        return {name: f.result() for name, f in futs.items()}
 
 
 def _as_f32(x: torch.Tensor) -> torch.Tensor:

@@ -36,9 +36,10 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--kernel", action="store_true",
                     help="decode through the site-keyed fused-kernel executor "
-                         "(CUDA kernels on a GPU; their plain versions on "
-                         "--device cpu); without it decode uses the artifact's "
-                         "dense-effective weights")
+                         "(the whole-step layer plan for float32 configs, the "
+                         "per-region route otherwise; CUDA kernels on a GPU, "
+                         "their plain versions on --device cpu); without it "
+                         "decode uses the artifact's dense-effective weights")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are sampled")
@@ -104,8 +105,8 @@ def main(argv=None) -> None:
               f"{sched.mem_stalls} block stalls")
     if eng.executor is not None:
         print(f"routed {len(eng.executor.routed)}/{len(eng.executor.sites)} "
-              f"sites through fused kernels; plan fallbacks "
-              f"{eng.plan_stats()['fallbacks']}")
+              f"sites through fused kernels, {eng.n_layer_plans} layer plan(s); "
+              f"plan fallbacks {eng.plan_stats()['fallbacks']}")
 
 
 if __name__ == "__main__":

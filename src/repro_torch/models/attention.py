@@ -57,16 +57,23 @@ def paged_view(pool: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     return pool[tbl.long()].reshape(b, mb * bs, *pool.shape[2:])
 
 
-def _paged_scatter(pool: torch.Tensor, tbl: torch.Tensor, slot: torch.Tensor,
-                   vals: torch.Tensor) -> None:
-    """Write one token per row into the pool, in place, at logical view
-    position ``slot`` ([B], -1 = no write -> routed to the null block 0).
-    The clamp is the explicit guard: a negative index would wrap silently."""
-    bs = pool.shape[1]
+def _paged_index(tbl: torch.Tensor, slot: torch.Tensor, bs: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(block, offset) of logical view position ``slot`` ([B], -1 = no write
+    -> routed to the null block 0) for pools of ``bs``-token blocks.  The
+    clamp is the explicit guard: a negative index would wrap silently."""
     w = slot.clamp(min=0)
     bidx = torch.gather(tbl.long(), 1, (w // bs)[:, None])[:, 0]
     bidx = torch.where(slot >= 0, bidx, torch.zeros_like(bidx))
-    pool[bidx, w % bs] = vals.to(pool.dtype)
+    return bidx, w % bs
+
+
+def _paged_scatter(pool: torch.Tensor, tbl: torch.Tensor, slot: torch.Tensor,
+                   vals: torch.Tensor) -> None:
+    """Write one token per row into the pool, in place, at logical view
+    position ``slot`` ([B], -1 = no write -> routed to the null block 0)."""
+    bidx, off = _paged_index(tbl, slot, pool.shape[1])
+    pool[bidx, off] = vals.to(pool.dtype)
 
 
 def _row_scatter(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor) -> None:

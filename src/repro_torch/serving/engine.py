@@ -16,10 +16,11 @@ isolation) lives in :class:`repro_torch.serving.scheduler.Scheduler`;
 
 Compressed serving is artifact-driven: ``ServingEngine(artifact=art)`` builds
 a site-keyed :class:`~repro_torch.serving.executor.CompressedExecutor` over
-the artifact and the decode path consults it inside the step — attention
-q/k/v/o and FFN gate/up/down execute their LCC chains as fused kernel launches
-(``lcc_chain_matmul`` / ``lcc_group_matmul``, the shift-add runtime the paper
-targets).  Prefill runs on the artifact's dense-effective weights.
+the artifact and the decode path consults it inside the step — for float32
+configs the whole-step layer plan (``stage_matmul`` / ``step_plan_matmul``),
+otherwise attention q/k/v/o and FFN gate/up/down as fused per-region launches
+(``lcc_chain_matmul`` / ``lcc_group_matmul``): the shift-add runtime the paper
+targets either way.  Prefill runs on the artifact's dense-effective weights.
 
 Not available yet, and refused with an error when asked for: ``mesh=``
 (multi-device decode), ``prefix_cache=True`` (prefix sharing with its

@@ -6,8 +6,13 @@ kernels at serving time.
 (the keys of ``artifact.records``: ``attn.q.l0``, ``ffn.down.l3``, ...) to a
 fused-kernel callable, and the model decode path consults it inside the step.
 
-Two kernel routes:
+Three kernel routes:
 
+* :class:`StepPlan` — the whole decode step of the dense family: every site
+  of every layer packed into four stacked stages (q+k+v, o, gate+up, down)
+  and run by ``layer_plan.step_plan_matmul``, a fixed sequence of
+  hand-written kernels with no PyTorch operation between them.  The default
+  for float32 configs (``use_plans=True``), as in the reference.
 * :class:`LCCMatvec` — one dense site: prune gather -> eq. (10) segment-sum
   (``cluster_segment_sum``) -> the whole FP chain in ONE ``lcc_chain_matmul``
   launch.
@@ -15,22 +20,28 @@ Two kernel routes:
   layer's q/k/v, a SwiGLU's gate/up) apply their chains in ONE
   ``lcc_group_matmul`` launch.
 
-Models never import this module — they receive the executor as an opaque
-object with the protocol ``matvec(name)``, ``grouped(names)``, ``conv(name)``
-(each returning a callable or None).  Nothing here is traced or compiled: the
-callables run eagerly, at any batch width (the kernels mask their own ragged
-edges, so there is no batch bucketing).
+The last two are the per-region route, taken where no plan applies (other
+compute dtypes, ``use_plans=False``).  Models never import this module —
+they receive the executor as an opaque object with the protocol
+``matvec(name)``, ``grouped(names)``, ``conv(name)``, ``step_plan(cfg)``
+(each returning a callable, a plan or None).  Nothing here is traced or
+compiled: the callables run eagerly, at any batch width (the kernels mask
+their own ragged edges, so there is no batch bucketing).
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core.compress import CompressedDense
-from repro_torch.kernels import ops
+from repro_torch.kernels import layer_plan, ops
 from repro_torch.kernels.shared_matmul import csr_from_labels
+from repro_torch.models.attention import _paged_index
+from repro_torch.models.layers import _rope_sincos
 
-__all__ = ["CompressedExecutor", "LCCMatvec", "GroupedLCCMatvec",
+__all__ = ["CompressedExecutor", "LCCMatvec", "GroupedLCCMatvec", "StepPlan",
            "matvecs_from_artifact"]
 
 
@@ -132,6 +143,167 @@ def matvecs_from_artifact(artifact, *, include=None, block: int = 128,
             if isinstance(rec, CompressedDense) and keep(name)}
 
 
+class StepPlan:
+    """Whole-decode-step layer plan for the dense transformer family.
+
+    Packs every site of every layer — attention q/k/v/o and FFN gate/up/down,
+    compressed (CSD shift-add streams) or not (baked dense blocks) — into four
+    stacked :class:`~repro_torch.kernels.ops.PackedStage` buffers and runs the
+    step through :func:`~repro_torch.kernels.layer_plan.step_plan_matmul`.
+    The KV cache is read in place (through the block table when paged) and
+    the new K/V rows are written back after the step, for both cache layouts.
+    A plan already in ``artifact.plans["step"]`` is reused; a new one is
+    stored there.  ``pack_s`` is the host time the packing took (0 when
+    reused).
+    """
+
+    def __init__(self, executor, cfg):
+        if getattr(cfg, "moe", None) is not None:
+            raise NotImplementedError("MoE step plans are not available in "
+                                      "this package yet")
+        self.executor = executor
+        self.cfg = cfg
+        art = executor.artifact
+        blocks = art.params["blocks"]
+        d, dff = cfg.d_model, cfg.d_ff
+        nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        covered: list[str] = []
+
+        def host(t):
+            return None if t is None else t.detach().to("cpu", torch.float32).numpy()
+
+        def spec(name, p, li, out_off, src_off=0):
+            rec = art.records.get(name)
+            bias = host(p["b"][li]) if "b" in p else None
+            if not isinstance(rec, CompressedDense):
+                # uncovered site: bake its dense weights into the stage so the
+                # plan still emits the layer's full output
+                return {"kind": "dense", "out_off": out_off,
+                        "src_off": src_off, "w": host(p["w"][li]),
+                        "bias": bias}
+            covered.append(name)
+            return {"kind": "lcc", "name": name, "out_off": out_off,
+                    "src_off": src_off,
+                    "kept": np.asarray(rec.kept_columns, np.int64),
+                    "labels": (np.asarray(rec.shared.labels, np.int64)
+                               if rec.shared is not None else None),
+                    "n_clusters": (rec.shared.n_clusters
+                                   if rec.shared is not None else 0),
+                    "packed": executor._matvecs[name].packed, "bias": bias}
+
+        ab, fb = blocks["attn"], blocks["ffn"]
+        qkv, o_, gu, dn = [], [], [], []
+        for li in range(cfg.n_layers):
+            qkv.append([spec(f"attn.q.l{li}", ab["q"], li, 0),
+                        spec(f"attn.k.l{li}", ab["k"], li, nq * hd),
+                        spec(f"attn.v.l{li}", ab["v"], li, (nq + nkv) * hd)])
+            o_.append([spec(f"attn.o.l{li}", ab["o"], li, 0)])
+            gu.append([spec(f"ffn.gate.l{li}", fb["gate"], li, 0),
+                       spec(f"ffn.up.l{li}", fb["up"], li, dff)])
+            dn.append([spec(f"ffn.down.l{li}", fb["down"], li, 0)])
+        stage_specs = {"qkv": (qkv, d, (nq + 2 * nkv) * hd),
+                       "o": (o_, nq * hd, d),
+                       "gu": (gu, d, 2 * dff),
+                       "dn": (dn, dff, d)}
+        pre = art.plans.get("step")
+        t0 = time.perf_counter()
+        if (pre is not None and set(pre) == set(stage_specs)
+                and all(ps.n_layers == cfg.n_layers for ps in pre.values())):
+            self.stages = pre  # the artifact carries plan-ready stages
+            self.pack_s = 0.0
+        else:
+            self.stages = ops.pack_layer(stage_specs)
+            art.plans["step"] = self.stages
+            self.pack_s = time.perf_counter() - t0
+        stats = art.pipeline_stats
+        for name, ps in self.stages.items():
+            if ps.waste is not None:
+                stats.setdefault("padding_waste", {})[f"plan.{name}"] = ps.waste
+            if ps.seg_stats is not None:
+                stats.setdefault("segment_layout",
+                                 {})[f"plan.{name}"] = ps.seg_stats
+        dev = executor.device
+        self.ln1 = self.ln2 = None
+        if cfg.norm == "rms":
+            self.ln1 = blocks["ln1"].to(dev, torch.float32).contiguous()
+            self.ln2 = blocks["ln2"].to(dev, torch.float32).contiguous()
+        self.covered = frozenset(covered)
+
+    def decode_layers(self, state, x, pos):
+        """x [B, 1, d] embedded tokens -> (x' [B, 1, d], state), the KV state
+        updated in place."""
+        cfg = self.cfg
+        self.executor.routed.update(self.covered)
+        k_state, v_state, kpos = state["k"], state["v"], state["kpos"]
+        tbl = state.get("block_tbl")
+        nkv, hd = cfg.n_kv_heads, cfg.hd
+        b = x.shape[0]
+        pos = pos.to(torch.int32)
+        cos = sin = None
+        rope = cfg.pos == "rope"
+        if rope:
+            sin, cos = _rope_sincos(pos, hd, cfg.rope_theta)
+        y, kn, vn = layer_plan.step_plan_matmul(
+            self.stages, n_heads=cfg.n_heads, n_kv_heads=nkv, head_dim=hd,
+            d_ff=cfg.d_ff, norm=cfg.norm, rope=rope,
+            x0=x[:, 0, :].to(torch.float32).T.contiguous(), pos=pos, cos=cos,
+            sin=sin, ln1=self.ln1, ln2=self.ln2, kc=k_state, vc=v_state,
+            kpos=kpos, window=cfg.attn_window, block_tbl=tbl)
+        # write the new rows back; an idle slot (pos == -1) writes nothing:
+        # its K/V row goes to the null block (paged) or rewrites the old
+        # value (contiguous), and its kpos stays -1
+        smax = kpos.shape[2]
+        pos = pos.long()
+        slot = (torch.where(pos >= 0, pos % smax, torch.full_like(pos, -1))
+                if cfg.attn_window is not None else pos)
+        active = slot >= 0
+        safe = slot.clamp(min=0)
+        bi = torch.arange(b, device=pos.device)
+        if tbl is None:
+            am = active[None, :, None, None]
+            k_state[:, bi, safe] = torch.where(am, kn.to(k_state.dtype),
+                                               k_state[:, bi, safe])
+            v_state[:, bi, safe] = torch.where(am, vn.to(v_state.dtype),
+                                               v_state[:, bi, safe])
+        else:
+            bidx, off = _paged_index(tbl, slot, k_state.shape[2])
+            k_state[:, bidx, off] = kn.to(k_state.dtype)
+            v_state[:, bidx, off] = vn.to(v_state.dtype)
+        kpos[:, bi, safe] = torch.where(active[None], pos[None].to(kpos.dtype),
+                                        kpos[:, bi, safe])
+        return y.T[:, None, :].to(x.dtype), state
+
+
+def _plan_ineligible_reason(cfg, has_sites: bool) -> str | None:
+    """Why ``cfg`` cannot take the whole-step plan route (None = eligible).
+    The reason strings are the reference's; ``Engine.plan_stats()`` reports
+    them."""
+    if getattr(cfg, "mla", None) is not None:
+        return "mla"
+    family = getattr(cfg, "family", "")
+    if family in ("ssm", "hybrid"):
+        return f"family:{family}"
+    if getattr(cfg, "enc_layers", 0) != 0:
+        return "encoder_decoder"
+    pos = getattr(cfg, "pos", "rope")
+    if pos not in ("rope", "none"):
+        return f"pos:{pos}"
+    norm = getattr(cfg, "norm", "rms")
+    if norm not in ("rms", "nonparam"):
+        return f"norm:{norm}"
+    if cfg.cdtype != torch.float32:
+        return "cdtype"
+    moe = getattr(cfg, "moe", None)
+    if moe is not None:
+        if getattr(cfg, "moe_manual", False):
+            return "moe_manual"  # manual EP shards experts across devices
+        if getattr(moe, "n_shared", 0) > 0:
+            return "moe_shared"  # shared experts keep their own site route
+    if not has_sites:
+        return "no_sites"
+    return None
+
+
 class CompressedExecutor:
     """Site-keyed registry mapping every compressed site of an artifact to a
     fused-kernel callable.
@@ -145,21 +317,34 @@ class CompressedExecutor:
       per-site ``[K_g, B]`` inputs -> list of ``[N_g, B]`` outputs), or None
       unless every name is a compressed dense site.
     * ``conv(name)``     -> None (conv sites are not carried over yet).
-    * ``step_plan(cfg)`` -> None: the whole-step layer plan is not carried
-      over yet; the reason ``"not_ported"`` is recorded in
-      :attr:`plan_fallbacks` and decode takes the per-region route.
+    * ``step_plan(cfg)`` -> :class:`StepPlan` or None: the whole-step plan,
+      built on first use and cached, when ``use_plans`` is set and the config
+      is eligible (dense family, float32 compute dtype, ...); otherwise the
+      reason is recorded in :attr:`plan_fallbacks` and decode takes the
+      per-region route.  A plan that fails to build raises: there is no
+      silent fallback to the per-region route.
 
     ``routed`` records every site actually served by a fused kernel — tests
     assert it covers the artifact, and the engine reports it.
     """
 
-    def __init__(self, artifact, *, block: int = 128, device="cuda"):
+    def __init__(self, artifact, *, block: int = 128, use_plans: bool = True,
+                 device="cuda"):
         self.artifact = artifact
         self.block = block
         self.device = torch.device(device)
+        self.use_plans = bool(use_plans)
+        # plan key ("step") -> why it took the per-region route
         self.plan_fallbacks: dict[str, str] = {}
+        self._plans: dict[str, StepPlan | None] = {}
         self._matvecs = matvecs_from_artifact(artifact, block=block,
                                               device=device)
+        # record ineligibility eagerly, as the reference does
+        if self.use_plans:
+            reason = _plan_ineligible_reason(artifact.config,
+                                             bool(self._matvecs))
+            if reason is not None:
+                self.plan_fallbacks.setdefault("step", reason)
         self._groups: dict[tuple, GroupedLCCMatvec | None] = {}
         self.routed: set[str] = set()
 
@@ -202,9 +387,23 @@ class CompressedExecutor:
         return None
 
     def step_plan(self, cfg):
-        self.plan_fallbacks.setdefault("step", "not_ported")
-        return None
+        """Whole-decode-step plan, or None (the reason in
+        :attr:`plan_fallbacks`)."""
+        if not self.use_plans:
+            self.plan_fallbacks.setdefault("step", "plans_disabled")
+            return None
+        if "step" not in self._plans:
+            reason = _plan_ineligible_reason(cfg, bool(self._matvecs))
+            plan = StepPlan(self, cfg) if reason is None else None
+            if reason is not None:
+                self.plan_fallbacks["step"] = reason
+            self._plans["step"] = plan
+        plan = self._plans["step"]
+        if plan is not None:
+            self.routed.update(plan.covered)
+        return plan
 
     @property
     def n_layer_plans(self) -> int:
-        return 0
+        """Distinct layer plans built (a whole-step plan counts once)."""
+        return sum(1 for p in self._plans.values() if p is not None)

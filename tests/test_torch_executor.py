@@ -1,8 +1,9 @@
 """The port's compressed executor against the JAX package's per-region route:
 an artifact from the real compressor (``repro.models.api.compress_model``,
-reduced olmo-1b) is carried across; decode through the port's executor ==
-JAX decode with ``CompressedExecutor(art, use_plans=False)`` == the
-dense-effective weights, <= 1e-4 including the KV state and a second step."""
+reduced olmo-1b) is carried across; decode through the port's executor with
+``use_plans=False`` (the K1-K3 route) == JAX decode with
+``CompressedExecutor(art, use_plans=False)`` == the dense-effective weights,
+<= 1e-4 including the KV state and a second step."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,7 +113,7 @@ def test_two_decode_steps_port_equals_reference_equals_dense(arts):
     jart, tart = arts
     jcfg, tcfg = jart.config, tart.config
     jex = JExecutor(jart, interpret=True, use_plans=False)
-    tex = CompressedExecutor(tart, device="cpu")
+    tex = CompressedExecutor(tart, use_plans=False, device="cpu")
     b, smax = 2, 16
     js = japi.init_decode_state(jcfg, b, smax)
     ts_k = tapi.init_decode_state(tcfg, b, smax, device="cpu")
@@ -136,7 +137,7 @@ def test_two_decode_steps_port_equals_reference_equals_dense(arts):
                                    rtol=0, atol=TOL)
     assert tex.routed == tex.sites == set(tart.records)
     assert jex.routed == jex.sites == tex.sites
-    assert tex.plan_fallbacks == {"step": "not_ported"}
+    assert tex.plan_fallbacks == {"step": "plans_disabled"}
     assert tex.step_plan(tcfg) is None and tex.conv("attn.q.l0") is None
     assert tex.n_layer_plans == 0
     assert "attn.q.l0" in tex and "nope" not in tex
@@ -188,7 +189,7 @@ def test_launches_per_step_follow_the_site_table(arts):
     plus one segment-sum per weight-shared site."""
     _, tart = arts
     cfg = tart.config
-    ex = _CountingExecutor(tart, device="cpu")
+    ex = _CountingExecutor(tart, use_plans=False, device="cpu")
     st = tapi.init_decode_state(cfg, 2, 8, device="cpu")
     with torch.no_grad():
         tapi.decode(tart.params, cfg, st, torch.tensor([[1], [2]]),
@@ -200,20 +201,21 @@ def test_launches_per_step_follow_the_site_table(arts):
                         "cluster_segment_sum": n_shared}
     assert sum(ex.calls.values()) == 4 * cfg.n_layers + n_shared
     # on the CPU nothing is a launch: the engine's measured count stays 0
+    # (the engine's executor takes the whole-step plan: f32 config)
     dispatch.reset_launch_count()
     eng = ServingEngine(artifact=tart, n_slots=2, max_len=16, device="cpu")
     eng.submit([1, 2, 3], max_new=2)
     eng.step()
     assert eng.kernel_launches_per_step == 0 == dispatch.launch_count()
-    assert eng.plan_stats() == {"n_layer_plans": 0, "kernel_launches_per_step": 0,
-                                "fallbacks": {"step": "not_ported"}}
+    assert eng.plan_stats() == {"n_layer_plans": 1, "kernel_launches_per_step": 0,
+                                "fallbacks": {}}
 
 
 def test_group_members_keep_their_streams_off_the_device(arts):
     """A site reached only through its group uploads nothing of its own: only
     o/down (LCCMatvec sites) and the group copies hold device streams."""
     _, tart = arts
-    ex = CompressedExecutor(tart, device="cpu")
+    ex = CompressedExecutor(tart, use_plans=False, device="cpu")
     st = tapi.init_decode_state(tart.config, 1, 8, device="cpu")
     with torch.no_grad():
         tapi.decode(tart.params, tart.config, st, torch.tensor([[1]]),

@@ -24,6 +24,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
 print("MODULES", len(names))
+print("PLAN", "repro_torch.kernels.layer_plan" in names)
 print("BAD", bad)
 """
 
@@ -47,13 +48,15 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    assert int(lines["MODULES"]) >= 25
+    assert int(lines["MODULES"]) >= 26
+    assert lines["PLAN"] == "True"  # the layer-plan kernels (K6, K7) too
     assert lines["BAD"] == "[]"
 
 
 def test_no_source_file_of_the_port_names_jax_or_repro():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
-    assert len(files) >= 25
+    assert len(files) >= 26
+    assert SRC / "repro_torch" / "kernels" / "layer_plan.py" in files
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -71,14 +74,21 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
     csrc = SRC / "repro_torch" / "kernels" / "csrc"
     for name, replaced in (("lcc_chain_matmul.cu", "lcc_chain_matmul.py"),
                            ("lcc_group_matmul.cu", "lcc_group_matmul.py"),
-                           ("cluster_segment_sum.cu", "shared_matmul.py")):
+                           ("cluster_segment_sum.cu", "shared_matmul.py"),
+                           ("stage_matmul.cu", "layer_plan.py"),
+                           ("step_plan.cu", "layer_plan.py")):
         text = (csrc / name).read_text()
         assert "Replaces" in text and replaced in text and "ound by" in text
         assert 'extern "C"' in text and "cudaGetLastError" in (
             text + (csrc / "lcc_chain.cuh").read_text())
+        assert "atomicAdd" not in text  # fixed-order sums only
     from repro_torch.kernels import build
     assert [p.name for p in build.sources()] == [
-        "cluster_segment_sum.cu", "lcc_chain_matmul.cu", "lcc_group_matmul.cu"]
+        "cluster_segment_sum.cu", "lcc_chain_matmul.cu", "lcc_group_matmul.cu",
+        "stage_matmul.cu", "step_plan.cu"]
+    for entry in ("repro_stage_matmul", "repro_step_norm",
+                  "repro_step_attention", "repro_step_swiglu"):
+        assert entry in build._SIGNATURES
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-use_fast_math" not in build.NVCC_FLAGS
     assert build.build_dir().parts[-2:] == ("build", "repro_torch")
@@ -111,4 +121,5 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
                 "--max-new", "3", "--slots", "2", "--kernel"])
     out = capsys.readouterr().out
     assert "routed 14/14 sites" in out and "6 tokens" in out
-    assert "'step': 'not_ported'" in out
+    # the reduced config computes in float32: decode takes the whole-step plan
+    assert "1 layer plan" in out and "plan fallbacks {}" in out
