@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py            # all phases, one GPU, no network
 
-Drives the port's two main paths — compressed olmo-1b serving at its
-published width through ``Scheduler`` + ``ServingEngine(artifact=...)``, once
-through the per-region route (bf16, kernels K1-K3) and once through the
-whole-step layer plan (float32, kernels K6 and K7) — and holds every CUDA
-kernel on those paths against its plain PyTorch version:
+Drives the port's main paths — compressed serving at published width
+through ``Scheduler`` + ``ServingEngine(artifact=...)``: olmo-1b (dense) and
+mixtral-8x22b (MoE, 8 experts top-2, cut to 2 layers), each once through the
+per-region route (bf16, kernels K1-K3; mixtral's experts as grouped K2
+launches of 8) and once through the whole-step layer plan (float32, kernels
+K6 and K7; for mixtral K8, the routed FFN inside the step) — and holds every
+CUDA kernel on those paths against its plain PyTorch version:
 
 1. device and build: needs a CUDA device (exits non-zero without one), prints
    the card's name and power limit, builds the kernels with ``nvcc``; then
@@ -25,7 +27,13 @@ kernel on those paths against its plain PyTorch version:
    float32), d_model 2048, d_ff 8192, vocab 50304;
 5. full-width serve, plan route: the same model in float32, 16 layers; one
    step's logits against the per-region route on the same artifact.
-   ``--layers`` cuts the depth of both serves (never the width).
+   ``--layers`` cuts the depth of both olmo serves (never the width);
+6. mixtral-8x22b at full width (d_model 6144, 8 experts of d_ff 16384,
+   vocab 32768), 2 layers: its K8 kernels (route, dispatch, combine) and a
+   reduced serve (plan == per-region == plain == dense, capacity drops
+   occurring); the per-region kernels at its shapes and the bf16 per-region
+   serve; then the plan packed and uploaded, K6 on its expert stages, one
+   full-width step, and the float32 plan serve; plan vs per-region logits.
 
 One JSON object per line; a failed phase ends the run with a non-zero exit.
 Imports nothing of JAX.
@@ -35,6 +43,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import resource
 import subprocess
 import sys
 import time
@@ -57,6 +66,9 @@ from repro_torch.kernels.layer_plan import (  # noqa: E402
     step_plan_matmul_plain)
 from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
     lcc_group_matmul, lcc_group_matmul_plain)
+from repro_torch.kernels.moe_route import (  # noqa: E402
+    capacity, moe_combine, moe_combine_plain, moe_dispatch, moe_dispatch_plain,
+    moe_route, moe_route_plain)
 from repro_torch.kernels.shared_matmul import (  # noqa: E402
     cluster_segment_sum, cluster_segment_sum_plain, csr_from_labels)
 from repro_torch.models import api  # noqa: E402
@@ -65,7 +77,8 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import CompressedExecutor  # noqa: E402
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
 from repro_torch.testing import (decomposition_dense, dense_sites,  # noqa: E402
-                                 seeded_artifact, seeded_decomposition)
+                                 moe_sites, seeded_artifact,
+                                 seeded_decomposition)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -91,15 +104,28 @@ KERNELS = {
     "step_plan_matmul": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
+    # K8: the MoE branch of step_plan_matmul, body moe_block (:332-365)
+    "moe_route": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
+        replaces="src/repro/kernels/layer_plan.py:418"),
+    "moe_dispatch": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
+        replaces="src/repro/kernels/layer_plan.py:418"),
+    "moe_combine": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
+        replaces="src/repro/kernels/layer_plan.py:418"),
 }
 PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "cluster_segment_sum")
 PLAN = ("stage_matmul", "step_plan_matmul")
+MOE = ("moe_route", "moe_dispatch", "moe_combine")
 # the device kernels of this port, by name fragment (profiler rows)
 PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "cluster_segment_sum_kernel", "stage_prep_kernel",
                 "stage_levels_kernel", "stage_epilogue_kernel",
                 "step_norm_kernel", "step_attention_kernel",
-                "step_swiglu_kernel")
+                "step_swiglu_kernel", "moe_route_kernel",
+                "moe_dispatch_kernel", "moe_combine_kernel")
+MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
 MAX_LEN = 128  # the serves' KV view: 8 blocks of 16 tokens
 # |step kernel - plain| <= STEP_TOL * max(1, max|plain|): float32 sums in
 # other orders through every stage, norm and softmax of all the layers (each
@@ -213,10 +239,12 @@ def check_close(name, got, want, tol):
 
 
 def kernel_row(name, label, dims, key, err, exact, wrapper, plain, library,
-               bound, timer, **extra):
+               bound, timer, serve=None, **extra):
     """One row of the kernels line.  ``key`` is the dimension tuple under
     which the wrapper counts its launches (dispatch.launch_counts_by_shape);
-    ``library`` is None where no single PyTorch call computes the function."""
+    ``library`` is None where no single PyTorch call computes the function;
+    ``serve`` names the full-width serve whose shapes the row checks (None
+    for the reduced cases)."""
     ms = timer(wrapper)
     # one line a case as it completes: a later failure keeps the earlier ones
     emit(dict(phase="kernel_case", name=name, shape=label, ms=ms,
@@ -225,7 +253,8 @@ def kernel_row(name, label, dims, key, err, exact, wrapper, plain, library,
                 max_abs_err=err, max_err=err, exact_in_kernel_order=exact,
                 ms=ms, kernel_ms=ms, **extra, plain_ms=timer(plain),
                 bound_ms=bound[0], bound_by=bound[1],
-                library_ms=None if library is None else timer(library))
+                library_ms=None if library is None else timer(library),
+                serve=serve)
 
 
 def kernel_case_chain(label, pk, rng, dev, timer, sm, batch=BATCH):
@@ -574,23 +603,44 @@ def step_inputs(cfg, plan, rng, dev, *, batch=BATCH, smax=MAX_LEN,
     return args
 
 
-def kernel_case_step(label, cfg, plan, rng, dev, timer, **kw):
+def kernel_case_step(label, cfg, plan, rng, dev, timer, serve=None, **kw):
     """``step_plan_matmul`` on one decode step, held against its plain
-    version: the final hidden state and every layer's new K/V rows."""
+    version: the final hidden state and every layer's new K/V rows.  An MoE
+    plan routes every layer's FFN inside the step (K8); the kernel and its
+    plain version each count their dropped choices, which must agree."""
     torch.manual_seed(int(rng.integers(1 << 31)))
     args = step_inputs(cfg, plan, rng, dev, **kw)
-    y, kn, vn = step_plan_matmul(plan.stages, **args)
-    torch.cuda.synchronize()
-    want = step_plan_matmul_plain(plan.stages, **args)
-    err = max(check_close(f"{label} {part}", got, ref, STEP_TOL)
-              for part, got, ref in zip(("y", "k_new", "v_new"), (y, kn, vn), want))
     n_l, b, smax = cfg.n_layers, args["x0"].shape[1], args["kpos"].shape[2]
     nq, nkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    cap = b
+    moe = moe_plain = None
+    if plan.moe is not None:
+        moe = dict(plan.moe, dropped=torch.zeros(1, dtype=torch.int32, device=dev))
+        moe_plain = dict(moe, dropped=torch.zeros(1, dtype=torch.int32, device=dev))
+        cap = capacity(b, cfg.moe.top_k, cfg.moe.capacity_factor,
+                       cfg.moe.n_experts)
+    y, kn, vn = step_plan_matmul(plan.stages, **args, moe=moe)
+    torch.cuda.synchronize()
+    want = step_plan_matmul_plain(plan.stages, **args, moe=moe_plain)
+    err = max(check_close(f"{label} {part}", got, ref, STEP_TOL)
+              for part, got, ref in zip(("y", "k_new", "v_new"), (y, kn, vn), want))
+    drops = None
+    if moe is not None:
+        drops = int(moe["dropped"])
+        if drops != int(moe_plain["dropped"]):
+            fail(f"{label}: {drops} dropped choices in the kernels, "
+                 f"{int(moe_plain['dropped'])} in the plain version")
+        torch.cuda.empty_cache()
     bytes_ = flops = 0
-    for ps in plan.stages.values():
-        sb, sf = stage_cost(device_stage(ps, dev), range(n_l), b)
+    for name, ps in plan.stages.items():
+        sb, sf = stage_cost(device_stage(ps, dev), range(n_l),
+                            cap if name in ("eg", "ed") else b)
         bytes_ += sb
         flops += sf
+    if moe is not None:  # K8: router, expert input and output, once a layer
+        n_exp = cfg.moe.n_experts
+        bytes_ += n_l * 4 * (d * n_exp + 2 * n_exp * d * cap)
+        flops += n_l * 2 * d * b * n_exp
     # the KV view and kpos read once, new rows and hidden state in and out
     bytes_ += n_l * b * (2 * smax * nkv * hd * 4 + smax * 4 + 2 * nkv * hd * 4)
     bytes_ += 2 * 4 * d * b
@@ -600,10 +650,12 @@ def kernel_case_step(label, cfg, plan, rng, dev, timer, **kw):
         "step_plan_matmul", label,
         dict(L=n_l, d=d, d_ff=cfg.d_ff, B=b, S=smax, Hq=nq, Hkv=nkv, hd=hd,
              norm=args["norm"], window=args["window"],
-             paged=args.get("block_tbl") is not None),
-        key, err, False, lambda: step_plan_matmul(plan.stages, **args),
-        lambda: step_plan_matmul_plain(plan.stages, **args), None,
-        bound_of(bytes_, flops), timer)
+             paged=args.get("block_tbl") is not None,
+             moe=moe is not None, cap=cap if moe is not None else None,
+             dropped=drops),
+        key, err, False, lambda: step_plan_matmul(plan.stages, **args, moe=moe),
+        lambda: step_plan_matmul_plain(plan.stages, **args, moe=moe_plain),
+        None, bound_of(bytes_, flops), timer, serve=serve)
 
 
 def phase_kernels(dev, art, plan, red_cfg):
@@ -628,6 +680,11 @@ def phase_kernels(dev, art, plan, red_cfg):
                                  dev, timer))
     rows.append(kernel_case_step("full step", art.config, plan, rng, dev, timer))
     torch.cuda.empty_cache()
+    arch = art.config.name
+    for row in rows:  # the main-path rows: the serve whose shapes they check
+        if row["shape"].startswith("full"):
+            row["serve"] = f"{arch} " + ("per-region" if row["name"] in PER_REGION
+                                         else "plan")
     return rows
 
 
@@ -658,17 +715,20 @@ def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
     return eng, [sched.take_result(r) for r in rids], step_s
 
 
-def phase_reduced_serve(dev, cfg):
+def phase_reduced_serve(dev, cfg, *, n_slots=4, n_prompts=3):
+    """The reduced config on the plan route (kernels), its plain version on
+    the CPU and the dense-effective weights: the same greedy tokens, one
+    step's logits within 1e-4; for MoE the same dropped choices (some)."""
     art = seeded_artifact(cfg, seed=1, device=dev)
     art_cpu = replace(art, params=to_device(art.params, "cpu"))
-    prompts = prompts_for(cfg, 3)
+    prompts = prompts_for(cfg, n_prompts)
     dispatch.reset_launch_count()
-    eng_k, res_k, _ = serve(art, dev, use_kernel=True, n_slots=4,
+    eng_k, res_k, _ = serve(art, dev, use_kernel=True, n_slots=n_slots,
                             prompts=prompts, max_new=8)
     counts = dispatch.launch_counts()
-    _, res_p, _ = serve(art_cpu, "cpu", use_kernel=True, n_slots=4,
-                        prompts=prompts, max_new=8)
-    _, res_d, _ = serve(art, dev, use_kernel=False, n_slots=4,
+    eng_p, res_p, _ = serve(art_cpu, "cpu", use_kernel=True, n_slots=n_slots,
+                            prompts=prompts, max_new=8)
+    _, res_d, _ = serve(art, dev, use_kernel=False, n_slots=n_slots,
                         prompts=prompts, max_new=8)
     for r in res_k + res_p + res_d:
         if r.error or not r.finished:
@@ -677,12 +737,19 @@ def phase_reduced_serve(dev, cfg):
             == [r.tokens for r in res_d]):
         fail("reduced serve: greedy tokens differ between kernel, plain and "
              "dense-effective routes")
+    drops = None
+    if cfg.moe is not None:
+        drops = [int(e.executor.moe_dropped) for e in (eng_k, eng_p)]
+        if drops[0] != drops[1] or drops[0] <= 0:
+            fail(f"reduced serve: dropped choices kernel/plain {drops}: they "
+                 "must agree and some must occur")
     # one decode step, logits of the three routes
-    tok = torch.tensor([[3], [5]], device=dev)
-    pos = torch.tensor([0, 0], device=dev)
+    tok = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (n_slots, 1))).to(dev)
+    pos = torch.zeros(n_slots, dtype=torch.long, device=dev)
 
     def logits(a, device, executor):
-        st = api.init_decode_state(cfg, 2, 16, device=device)
+        st = api.init_decode_state(cfg, n_slots, 16, device=device)
         with torch.no_grad():
             lg, _ = api.decode(a.params, cfg, st, tok.to(device), pos.to(device),
                                executor=executor)
@@ -702,9 +769,10 @@ def phase_reduced_serve(dev, cfg):
         fail("reduced serve: not every site was routed through a kernel")
     if eng_k.n_layer_plans != 1:
         fail("reduced serve: the float32 engine did not take the plan route")
-    return dict(phase="reduced_serve", logits_max_abs_err=errs, tol=1e-4,
-                tokens_equal=True, launches=counts,
-                launches_per_step=eng_k.kernel_launches_per_step)
+    return dict(phase="reduced_serve", arch=cfg.name, logits_max_abs_err=errs,
+                tol=1e-4, tokens_equal=True, launches=counts,
+                launches_per_step=eng_k.kernel_launches_per_step,
+                dropped_kernel_plain=drops)
 
 
 def profile_steps(eng, prompts, n_steps: int = 4):
@@ -770,9 +838,35 @@ def profile_steps(eng, prompts, n_steps: int = 4):
                     for (f, ln, fn), v in host_top})
 
 
-def phase_full_serve(dev, cfg, art, fixture_s):
+def site_weight(params, name):
+    """Site ``name``'s dense-effective ``[K, N]`` weight in ``params``:
+    ``attn.q.l0`` -> blocks.attn.q.w[0], ``moe.up.l1.e3`` -> blocks.ffn.up[1, 3]."""
+    parts = name.split(".")
+    li = int(parts[2][1:])
+    if parts[0] == "moe":
+        return params["blocks"]["ffn"][parts[1]][li, int(parts[3][1:])]
+    return params["blocks"][parts[0]][parts[1]]["w"][li]
+
+
+def site_groups(cfg):
+    """Layer 0's fused regions as the per-region route groups them."""
+    if cfg.moe is None:
+        return (("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",),
+                ("ffn.gate.l0", "ffn.up.l0"), ("ffn.down.l0",))
+    ne = cfg.moe.n_experts
+    return ((("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",))
+            + tuple(tuple(f"moe.{p}.l0.e{e}" for e in range(ne))
+                    for p in ("gate", "up", "down")))
+
+
+def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
+    """The per-region route at full width: every projection a K1 or K2
+    launch (an MoE projection's experts one K2 launch of E), K3 on the
+    weight-shared sites.  ``ref_params``: float32 dense-effective weights
+    for the per-site check where the records keep none on the host."""
     n_shared = sum(1 for r in art.records.values() if r.shared is not None)
-    predicted = 4 * cfg.n_layers + n_shared
+    per_layer = 4 if cfg.moe is None else 5  # K1/K2 launches a layer
+    predicted = per_layer * cfg.n_layers + n_shared
     prompts = prompts_for(cfg, 6)
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_count()  # counts of the main path start here ...
@@ -798,26 +892,26 @@ def phase_full_serve(dev, cfg, art, fixture_s):
     if set(counts) != set(PER_REGION):
         fail(f"full serve: launched {sorted(counts)}, expected exactly the "
              f"per-region kernels {PER_REGION}")
-    # per-site float32 output of one layer against the dense-effective matrix
+    steps = eng.step_dispatches  # decode steps of the serve
+    dropped = int(ex.moe_dropped) if ex.moe_dropped is not None else None
+    # per-site float32 output of layer 0 against the dense-effective matrix
     rng = np.random.default_rng(3)
     site_err = {}
-    in_dim = {prefix: k for prefix, _, _, k in dense_sites(cfg)}
-
-    def rel(name, y, x):
-        rec = art.records[name]
-        kept = torch.from_numpy(rec.kept_columns).to(dev)
-        ref = torch.from_numpy(np.asarray(rec.effective, np.float32)).to(dev) @ x[kept]
-        site_err[name] = float((y - ref).abs().max() / ref.abs().max())
-
     with torch.no_grad():
-        for names in (("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",),
-                      ("ffn.gate.l0", "ffn.up.l0"), ("ffn.down.l0",)):
-            k_in = in_dim[names[0].rsplit(".", 1)[0]]
+        for names in site_groups(cfg):
+            k_in = site_weight(art.params, names[0]).shape[0]
             x = torch.from_numpy(rng.standard_normal((k_in, BATCH)).astype(np.float32)).to(dev)
             ys = (ex.grouped(names)([x] * len(names)) if len(names) > 1
                   else [ex.matvec(names[0])(x)])
             for nm, y in zip(names, ys):
-                rel(nm, y, x)
+                rec = art.records[nm]
+                if rec.effective is not None:
+                    kept = torch.from_numpy(rec.kept_columns).to(dev)
+                    ref = torch.from_numpy(np.asarray(rec.effective, np.float32)
+                                           ).to(dev) @ x[kept]
+                else:
+                    ref = site_weight(ref_params, nm).to(dev, torch.float32).T @ x
+                site_err[nm] = float((y - ref).abs().max() / ref.abs().max())
     torch.cuda.synchronize()
     if max(site_err.values()) > 1e-3:
         fail(f"full serve: per-site output off the dense-effective: {site_err}")
@@ -826,28 +920,55 @@ def phase_full_serve(dev, cfg, art, fixture_s):
     steady = step_s[1:] or step_s
     return dict(phase="full_serve", arch=cfg.name, layers=cfg.n_layers,
                 d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                dtype=cfg.compute_dtype,
                 n_slots=BATCH, requests=len(prompts), max_new=16,
                 fixture_s=fixture_s, tokens=tokens, wall_s=wall,
+                # the route packs and uploads its groups at their first use
+                # (as the reference builds them): inside the first step
+                pack_s=None, upload_s=None,
                 tokens_per_s=tokens / wall, steps=len(step_s),
                 first_step_ms=step_s[0] * 1e3,
                 ms_per_step=float(np.median(steady)) * 1e3,
                 steady_tokens_per_s=len(prompts) / float(np.median(steady)),
                 profile=profile,
                 launches_per_step=eng.kernel_launches_per_step,
-                decode_steps=sum(counts.values()) // eng.kernel_launches_per_step,
+                decode_steps=steps,
                 predicted_launches_per_step=predicted, launches=counts,
                 routed=len(ex.routed), sites=len(ex.sites),
+                routed_equals_sites=ex.routed == ex.sites,
                 plan_fallbacks=eng.plan_stats()["fallbacks"],
+                dropped_per_step=None if dropped is None else dropped / steps,
                 site_rel_err_max=max(site_err.values()), site_rel_tol=1e-3,
                 peak_device_bytes=peak,
-                sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape
+                resident_device_bytes=torch.cuda.memory_allocated(),
+                sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape, eng
 
 
-def phase_plan_serve(dev, cfg, art, plan):
+def two_step_logits(cfg, art, executor, dev):
+    """Two decode steps' logits [2, B, V] float32 from a fresh cache."""
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, BATCH, 1))).to(dev)
+    st = api.init_decode_state(cfg, BATCH, MAX_LEN, device=dev)
+    out = []
+    with torch.no_grad():
+        for t in range(2):
+            pos = torch.full((BATCH,), t, dtype=torch.long, device=dev)
+            lg, st = api.decode(art.params, cfg, st, toks[t], pos,
+                                executor=executor)
+            out.append(lg.float())
+    return torch.stack(out)
+
+
+def phase_plan_serve(dev, cfg, art, plan, l_reg=None):
     """The whole-step plan route at full width, float32: the same 6 prompts
-    x 16 new tokens on 8 slots, paged KV.  A layer launches 4 stages (K6)
-    and 4 step kernels (K7: 2 norms, attention, SwiGLU)."""
-    predicted = 8 * cfg.n_layers
+    x 16 new tokens on 8 slots, paged KV.  A dense layer launches 4 stages
+    (K6) and 4 step kernels (K7: 2 norms, attention, SwiGLU); an MoE layer
+    the same with its FFN stages eg/ed and K8's route, dispatch and combine.
+    ``l_reg``: the per-region route's two-step logits on the same artifact
+    (computed here when not given)."""
+    moe = cfg.moe is not None
+    predicted = (11 if moe else 8) * cfg.n_layers
+    expected = set(PLAN) | (set(MOE) if moe else set())
     prompts = prompts_for(cfg, 6)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -880,29 +1001,19 @@ def phase_plan_serve(dev, cfg, art, plan):
     if eng.kernel_launches_per_step != predicted:
         fail(f"plan serve: {eng.kernel_launches_per_step} launches per step, "
              f"the plan predicts {predicted}")
-    if set(counts) != set(PLAN):
+    if set(counts) != expected:
         fail(f"plan serve: launched {sorted(counts)}, expected exactly the "
-             f"plan's kernels {PLAN}")
+             f"plan's kernels {sorted(expected)}")
+    steps = eng.step_dispatches  # decode steps of the serve
+    dropped = int(ex.moe_dropped) if ex.moe_dropped is not None else None
     # two decode steps' logits: plan route against the per-region route
     # (K1-K3) and the dense-effective weights, on the same float32 artifact
-    rng = np.random.default_rng(4)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, BATCH, 1))).to(dev)
-
-    def logits(executor):
-        st = api.init_decode_state(cfg, BATCH, MAX_LEN, device=dev)
-        out = []
-        with torch.no_grad():
-            for t in range(2):
-                pos = torch.full((BATCH,), t, dtype=torch.long, device=dev)
-                lg, st = api.decode(art.params, cfg, st, toks[t], pos,
-                                    executor=executor)
-                out.append(lg.float())
-        return torch.stack(out)
-
-    l_plan = logits(ex)
-    l_reg = logits(CompressedExecutor(art, use_plans=False, device=dev))
+    l_plan = two_step_logits(cfg, art, ex, dev)
+    if l_reg is None:
+        l_reg = two_step_logits(
+            cfg, art, CompressedExecutor(art, use_plans=False, device=dev), dev)
     torch.cuda.empty_cache()
-    l_dense = logits(None)
+    l_dense = two_step_logits(cfg, art, None, dev)
     scale = max(1.0, float(l_reg.abs().max()))
     route = dict(plan_vs_per_region=float((l_plan - l_reg).abs().max()) / scale,
                  plan_vs_dense=float((l_plan - l_dense).abs().max()) / scale)
@@ -911,7 +1022,6 @@ def phase_plan_serve(dev, cfg, art, plan):
     profile = profile_steps(eng, prompts)
     tokens = sum(len(r.tokens) - r.prompt_len for r in res)
     steady = step_s[1:] or step_s
-    steps = sum(counts.values()) // eng.kernel_launches_per_step
     return dict(phase="plan_serve", arch=cfg.name, dtype=cfg.compute_dtype,
                 layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
                 vocab=cfg.vocab, n_slots=BATCH, requests=len(prompts),
@@ -923,9 +1033,12 @@ def phase_plan_serve(dev, cfg, art, plan):
                 profile=profile, launches_per_step=eng.kernel_launches_per_step,
                 predicted_launches_per_step=predicted, decode_steps=steps,
                 launches=counts, routed=len(ex.routed), sites=len(ex.sites),
+                routed_equals_sites=ex.routed == ex.sites,
                 n_layer_plans=eng.n_layer_plans, plan_fallbacks=ex.plan_fallbacks,
+                dropped_per_step=None if dropped is None else dropped / steps,
                 logits_rel_err=route, route_tol=ROUTE_TOL,
                 peak_device_bytes=peak, resident_before_serve_bytes=resident,
+                resident_device_bytes=torch.cuda.memory_allocated(),
                 param_bytes=param_bytes, plan_stage_bytes=stage_bytes,
                 sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape
 
@@ -952,65 +1065,349 @@ def drop_per_region_copies(art) -> None:
 
 
 def cast(tree, dtype):
+    """The parameters in ``dtype``; an MoE router stays float32, as in the
+    reference and ``convert.params_from_numpy``."""
     if isinstance(tree, dict):
-        return {k: cast(v, dtype) for k, v in tree.items()}
+        return {k: v if k == "router" else cast(v, dtype) for k, v in tree.items()}
     return tree.to(dtype)
 
 
-def kernel_rows(rows, phases):
-    """The main-path rows of the kernels line: each ``full`` row with the
-    launches its serve made at exactly the row's dimensions.  ``phases`` maps
-    a kernel name to its serve's ``(counts, by_shape)``; every launch of a
-    serve must be at dimensions a row checked."""
+def kernel_rows(rows, serves):
+    """The main-path rows of the kernels line: each row checked at a serve's
+    own shapes, with the launches that serve made at exactly the row's
+    dimensions.  ``serves`` maps a serve's name to its ``(counts, by_shape,
+    decode steps)``; every launch of a serve must be at dimensions a row
+    checked."""
     kernels = []
     for row in rows:
-        if not row["shape"].startswith("full"):
+        if row.get("serve") is None:
             continue
-        counts, by_shape = phases[row["name"]]
+        counts, by_shape, steps = serves[row["serve"]]
         n = by_shape.get((row["name"], tuple(row["shape_key"])), 0)
         if n <= 0:
-            fail(f"{row['name']} {row['shape']}: the serve never launched at "
-                 f"the checked dimensions {row['dims']}")
-        kernels.append({**KERNELS[row["name"]], **row, "launches": n})
-    for counts, by_shape in {id(c): (c, b) for c, b in phases.values()}.values():
+            fail(f"{row['name']} {row['shape']}: the {row['serve']} serve never "
+                 f"launched at the checked dimensions {row['dims']}")
+        kernels.append({**KERNELS[row["name"]], **row, "launches": n,
+                        "launches_per_step": n / steps})
+    for serve_name, (counts, by_shape, _) in serves.items():
         for name, total in counts.items():
             seen = sum(r["launches"] for r in kernels if r["name"] == name
-                       and phases[name][0] is counts)
+                       and r["serve"] == serve_name)
             if seen != total:
                 shapes = sorted(k for (nm, k) in by_shape if nm == name)
-                fail(f"{name}: {total} launches on its main path, {seen} of "
-                     f"them at dimensions the kernel phase checked; launched "
-                     f"at {shapes}")
+                fail(f"{name}: {total} launches on the {serve_name} serve, "
+                     f"{seen} of them at dimensions the kernel phase checked; "
+                     f"launched at {shapes}")
     return kernels
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth of the full-width serves (never the width)")
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="stop after the kernel phase (no final ok line)")
-    args = ap.parse_args()
+def host_peak_rss_bytes() -> int:
+    """The process's peak resident host memory (ru_maxrss is in KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device — this script measures "
-                         "the GPU path and has no CPU fallback")
-    dev = torch.device("cuda", 0)
-    # float32 products in full float32, never TF32, for every yardstick
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    build.load()
-    emit(dict(phase="device_and_build", card=smi,
-              torch=torch.__version__, cuda=torch.version.cuda,
-              build_seconds=build.last_build_seconds,
-              sources=[p.name for p in build.sources()]))
 
+# ------------------------------------------------- mixtral-8x22b (MoE, K8)
+
+
+def kernel_case_moe(label, cfg, router, dev, timer, *, batch=BATCH, idle=0,
+                    serve=None):
+    """K8's own kernels on one layer's router at ``batch`` columns: route
+    (held to the plain version's experts, slots, source tokens and dropped
+    count exactly, weights within SUM_TOL), dispatch (exact: a gather of
+    the same values the plain version scatter-adds into zeros) and combine.
+    The last ``idle`` columns are equal, as idle slots are; they route
+    alike and take capacity.  No single PyTorch call computes any of the
+    three (top-k with capacity ranks; the e-major scatter; the gated
+    gather-sum), so there is no library time."""
+    d, n_exp, k = cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
+    cap = capacity(batch, k, cfg.moe.capacity_factor, n_exp)
+    kw = dict(top_k=k, cap=cap, norm_topk=cfg.moe.norm_topk)
+    h2 = torch.randn((d, batch), device=dev)
+    if idle:
+        h2[:, batch - idle:] = h2[:, batch - idle: batch - idle + 1]
+    i32 = dict(dtype=torch.int32, device=dev)
+    dk, dp = torch.zeros(1, **i32), torch.zeros(1, **i32)
+    got = moe_route(h2, router, dropped=dk, **kw)
+    torch.cuda.synchronize()
+    want = moe_route_plain(h2, router, dropped=dp, **kw)
+    for part, a, b in zip(("experts", "slots", "source tokens"),
+                          (got[0], got[2], got[3]), (want[0], want[2], want[3])):
+        if not torch.equal(a, b):
+            fail(f"{label} moe_route: {part} differ from the plain version")
+    if int(dk) != int(dp):
+        fail(f"{label} moe_route: {int(dk)} dropped, plain {int(dp)}")
+    err = check_close(f"{label} moe_route weights", got[1], want[1], SUM_TOL)
+    top = torch.sort(torch.softmax(h2.T @ router, -1), -1, descending=True).values
+    margin = float((top[:, k - 1] - top[:, k]).min()) if k < n_exp else None
+    sel, wgt, slot, src_tok = got
+    dims = dict(d=d, B=batch, E=n_exp, k=k, cap=cap)
+    rows = [kernel_row(
+        "moe_route", label, dict(dims, dropped=int(dk), min_topk_margin=margin),
+        (d, batch, n_exp, k, cap), err, True,
+        lambda: moe_route(h2, router, **kw),
+        lambda: moe_route_plain(h2, router, **kw), None,
+        bound_of(4 * (d * batch + d * n_exp + 3 * batch * k + n_exp * cap),
+                 2 * d * batch * n_exp), timer, serve=serve)]
+    src = moe_dispatch(h2, slot, src_tok, n_exp, cap)
+    torch.cuda.synchronize()
+    if not torch.equal(src, moe_dispatch_plain(h2, slot, src_tok, n_exp, cap)):
+        fail(f"{label} moe_dispatch: differs from the plain version")
+    rows.append(kernel_row(
+        "moe_dispatch", label, dims, (d, batch, n_exp, cap), 0.0, True,
+        lambda: moe_dispatch(h2, slot, src_tok, n_exp, cap),
+        lambda: moe_dispatch_plain(h2, slot, src_tok, n_exp, cap), None,
+        bound_of(4 * (d * batch + n_exp * cap + n_exp * d * cap), 0), timer,
+        serve=serve))
+    x = torch.randn((d, batch), device=dev)
+    ob = torch.randn((n_exp * d, cap), device=dev)
+    out = moe_combine(x, ob, slot, wgt, n_exp, cap)
+    torch.cuda.synchronize()
+    ref = moe_combine_plain(x, ob, slot, wgt, n_exp, cap)
+    err = check_close(f"{label} moe_combine", out, ref, SUM_TOL)
+    rows.append(kernel_row(
+        "moe_combine", label, dims, (d, batch, n_exp, k, cap), err,
+        bool(torch.equal(out, ref)),
+        lambda: moe_combine(x, ob, slot, wgt, n_exp, cap),
+        lambda: moe_combine_plain(x, ob, slot, wgt, n_exp, cap), None,
+        bound_of(4 * (2 * d * batch + n_exp * d * cap + 2 * batch * k),
+                 2 * d * batch * k), timer, serve=serve))
+    return rows
+
+
+def reduced_moe_cases(cfg, dev, timer):
+    """K8 and the MoE step at reduced widths: capacity drops, idle columns,
+    another expert count, top-k and a ragged batch, contiguous and paged
+    caches, a window."""
+    torch.manual_seed(80)
+    rows = []
+    for c, batch, idle in ((cfg, 8, 2), (replace(cfg, moe=replace(
+            cfg.moe, n_experts=5, top_k=3)), 13, 0)):
+        router = torch.randn((c.d_model, c.moe.n_experts), device=dev) \
+            * c.d_model ** -0.5
+        rows += kernel_case_moe(f"reduced E={c.moe.n_experts} k={c.moe.top_k}",
+                                c, router, dev, timer, batch=batch, idle=idle)
+    plan = CompressedExecutor(seeded_artifact(cfg, seed=3, device=dev),
+                              device=dev).step_plan(cfg)
+    rng = np.random.default_rng(81)
+    rows.append(kernel_case_step("reduced mixtral paged", cfg, plan, rng, dev,
+                                 timer))
+    rows.append(kernel_case_step("reduced mixtral contiguous window=5", cfg,
+                                 plan, rng, dev, timer, paged=False, window=5))
+    return rows
+
+
+def mixtral_region_cases(art, dev, timer, sm, serve):
+    """The per-region kernels at the mixtral serve's own dimensions: layer
+    0's attention sites (K1 on o, K2 on q+k+v at B = n_slots), each
+    projection's experts as one K2 launch of E at B = capacity, and K3 on
+    the weight-shared sites (attention at B = n_slots, experts at B =
+    capacity)."""
+    cfg = art.config
+    ne = cfg.moe.n_experts
+    cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor, ne)
+    rng = np.random.default_rng(60)
+    pk = art.packed
+    rows = [kernel_case_chain("mixtral attn.o", pk["attn.o.l0"], rng, dev,
+                              timer, sm),
+            kernel_case_group("mixtral attn.qkv",
+                              [pk[f"attn.{p}.l0"] for p in "qkv"], rng, dev,
+                              timer, sm)]
+    for proj in ("gate", "up", "down"):
+        rows.append(kernel_case_group(
+            f"mixtral moe.{proj} G={ne}",
+            [pk[f"moe.{proj}.l0.e{e}"] for e in range(ne)], rng, dev, timer,
+            sm, batch=cap))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for prefix, batch in (("attn.", BATCH), ("moe.", cap)):
+        by_dims = {}
+        for name, rec in art.records.items():
+            if (name.startswith(prefix) and ".l0" in name
+                    and rec.shared is not None):
+                labels = np.asarray(rec.shared.labels)
+                by_dims.setdefault((labels.size, rec.shared.n_clusters),
+                                   {})[name] = labels
+        if not by_dims:
+            fail(f"the mixtral fixture has no weight-shared {prefix} site")
+        for (k, c), sites in sorted(by_dims.items()):
+            rows.append(kernel_case_segsum(f"mixtral K={k} C={c} B={batch}",
+                                           sites, c, rng, dev, timer,
+                                           batch=batch))
+    for row in rows:
+        row["serve"] = serve
+    return rows
+
+
+def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
+                             serve):
+    """K6 on layer 0 of an expert super-stage (``eg``: every expert's gate
+    and up, e-major; ``ed``: every down) at B = capacity.  The library
+    yardstick is one ``torch.bmm`` over the E experts' dense-effective
+    float32 weights; the plain version (tens of GB of gathers at this
+    width) is timed apart from it."""
+    cfg = art.config
+    ne, dff, d = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
+    ds = device_stage(ps, dev)
+    src = dyadic(np.random.default_rng(71), (ps.d_src, batch), dev)
+    y = stage_matmul(ps, src, layer=0)
+    torch.cuda.synchronize()
+    plain = stage_matmul_plain(ps, src, layer=0)
+    err = check_close(label, y, plain, SUM_TOL)
+    del plain
+    torch.cuda.empty_cache()
+    ms = timer(lambda: stage_matmul(ps, src, layer=0))
+    warm = timer(lambda: stage_matmul(ps, src, layer=0), cold=False)
+    plain_ms = timer(lambda: stage_matmul_plain(ps, src, layer=0))
+    torch.cuda.empty_cache()
+    ffn = art.params["blocks"]["ffn"]
+    if name == "eg":  # [E, 2 dff, d] @ [E, d, C]: gates then ups per expert
+        w = torch.cat([ffn["gate"][0], ffn["up"][0]], dim=2).transpose(1, 2)
+        x3 = src.reshape(ne, d, batch)
+
+        def unpack(o):
+            return torch.cat([o[:, :dff].reshape(ne * dff, batch),
+                              o[:, dff:].reshape(ne * dff, batch)])
+    else:  # [E, d, dff] @ [E, dff, C]
+        w = ffn["down"][0].transpose(1, 2)
+        x3 = src.reshape(ne, dff, batch)
+
+        def unpack(o):
+            return o.reshape(ne * d, batch)
+    check_close(label + " vs dense", y, unpack(torch.bmm(w, x3)), 1e-4)
+    library_ms = timer(lambda: torch.bmm(w, x3))
+    del w
+    torch.cuda.empty_cache()
+    emit(dict(phase="kernel_case", name="stage_matmul", shape=label, ms=ms,
+              max_abs_err=err))
+    dd = ds.dims
+    bb, threads = ds.geometry(batch)
+    return dict(name="stage_matmul", shape=label,
+                dims=dict(P=dd["P"], R=dd["R"], S=dd["S"], K=dd["K"],
+                          D=dd["D"], O=dd["O"], J=dd["J"], B=batch,
+                          blocks=int((ds.blk_r1[0] > ds.blk_r0[0]).sum()),
+                          max_rows=ds.max_rows, bb=bb, threads=threads),
+                shape_key=list(ds.shape_key(batch, 1)), max_abs_err=err,
+                max_err=err, exact_in_kernel_order=False, ms=ms, kernel_ms=ms,
+                live_terms=ds.live_terms[0], segs=ps.segs is not None,
+                warm_l2_ms=warm, plain_ms=plain_ms,
+                bound_ms=bound_of(*stage_cost(ds, [0], batch))[0],
+                bound_by=bound_of(*stage_cost(ds, [0], batch))[1],
+                library_ms=library_ms, serve=serve)
+
+
+def mixtral_plan_cases(art, plan, dev, timer, serve):
+    """K6, K7 and K8 at the mixtral plan serve's own dimensions: layer 0 of
+    the attention stages (B = n_slots) and of the expert super-stages (B =
+    capacity), the route/dispatch/combine on layer 0's router (two idle
+    columns, as the serve has), and one full-width step."""
+    cfg = art.config
+    cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
+                   cfg.moe.n_experts)
+    rng = np.random.default_rng(70)
+    rows = []
+    for name in ("qkv", "o"):
+        rows.append(kernel_case_stage(f"mixtral {name}", plan.stages[name],
+                                      rng, dev, timer,
+                                      w=stage_weights(art, name, 0, dev)))
+        torch.cuda.empty_cache()
+    for name in ("eg", "ed"):
+        rows.append(kernel_case_expert_stage(f"mixtral {name}", name, art,
+                                             plan.stages[name], dev, timer,
+                                             batch=cap, serve=serve))
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.manual_seed(72)
+    rows += kernel_case_moe("mixtral", cfg, plan.moe["router"][0], dev, timer,
+                            idle=2)
+    rows.append(kernel_case_step("mixtral full step", cfg, plan, rng, dev,
+                                 timer, window=cfg.attn_window))
+    torch.cuda.empty_cache()
+    for row in rows:
+        row["serve"] = serve
+    return rows
+
+
+def run_mixtral(dev):
+    """mixtral-8x22b at full width, cut to 2 layers: K8 and the reduced
+    serve, the fixture, the per-region kernels and serve (bf16), the plan
+    (packed and uploaded), its kernels and the float32 plan serve.  Returns
+    the kernel rows and the serves' launch counts."""
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    red = reduced_config(get_arch("mixtral-8x22b"), vocab=256)
+    # capacity 4 for 8 slots x 2 choices over 4 experts: drops occur
+    red = replace(red, moe=replace(red.moe, capacity_factor=0.5))
+    rows = reduced_moe_cases(red, dev, timer)
+    emit(dict(phase="kernels", arch="mixtral-8x22b reduced",
+              rows=[r for r in rows]))
+    emit(phase_reduced_serve(dev, red, n_slots=8, n_prompts=8))
+    torch.cuda.empty_cache()
+
+    base = replace(get_arch("mixtral-8x22b"), n_layers=MIXTRAL_LAYERS)
+    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    art32 = seeded_artifact(cfg32, seed=2, device=dev, host_effective=False)
+    torch.cuda.synchronize()
+    fixture_s = time.perf_counter() - t0
+    emit(dict(phase="fixture", arch=base.name, layers=base.n_layers,
+              fixture_s=fixture_s, sites=len(art32.records),
+              param_bytes=sum(tensor_bytes(t) for t in leaves(art32.params)),
+              packed_host_bytes=sum(pk.idx.nbytes + pk.exp.nbytes + pk.sign.nbytes
+                                    for pk in art32.packed.values()),
+              host_peak_rss_bytes=host_peak_rss_bytes()))
+
+    # per-region route: bf16, a cast of the same parameters
+    region = f"{base.name} per-region"
+    art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
+                    plans={})
+    rows += mixtral_region_cases(art16, dev, timer, sm, region)
+    full, counts, by_shape, eng = phase_full_serve(dev, base, art16, fixture_s,
+                                                   ref_params=art32.params)
+    full["host_peak_rss_bytes"] = host_peak_rss_bytes()
+    emit(full)
+    # the float32 per-region logits on the same artifact, through the groups
+    # the serve uploaded
+    ex32 = CompressedExecutor(art32, use_plans=False, device=dev)
+    ex32._groups = eng.executor._groups
+    l_reg = two_step_logits(cfg32, art32, ex32, dev)
+    serves = {region: (counts, by_shape, full["decode_steps"])}
+    del eng, ex32, art16
+    drop_per_region_copies(art32)
+
+    # plan route: float32
+    plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
+    t0 = time.perf_counter()
+    for ps in plan.stages.values():
+        device_stage(ps, dev)  # validation, block tables, upload
+    torch.cuda.synchronize()
+    emit(dict(phase="fixture_and_plan", arch=base.name, pack_s=plan.pack_s,
+              upload_s=time.perf_counter() - t0,
+              host_peak_rss_bytes=host_peak_rss_bytes(),
+              stages={name: dict(shape=list(ps.gidx.shape),
+                                 outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
+                                 blocks=int(device_stage(ps, dev).blk_r0.shape[1]),
+                                 max_rows=device_stage(ps, dev).max_rows,
+                                 live_terms=sum(device_stage(ps, dev).live_terms),
+                                 stream_bytes=6 * ps.gidx.size,
+                                 waste=ps.waste)
+                      for name, ps in plan.stages.items()}))
+    psv = f"{base.name} plan"
+    rows += mixtral_plan_cases(art32, plan, dev, timer, psv)
+    planned, pcounts, pshape = phase_plan_serve(dev, cfg32, art32, plan,
+                                                l_reg=l_reg)
+    planned["host_peak_rss_bytes"] = host_peak_rss_bytes()
+    emit(planned)
+    serves[psv] = (pcounts, pshape, planned["decode_steps"])
+    return rows, serves
+
+
+def run_olmo(dev, layers):
+    """olmo-1b at full width: the kernel phase, the reduced serve, the bf16
+    per-region serve and the float32 plan serve.  Returns the kernel rows
+    and the serves' launch counts."""
     base = get_arch("olmo-1b")
-    if args.layers is not None:
-        base = replace(base, n_layers=args.layers)
+    if layers is not None:
+        base = replace(base, n_layers=layers)
     # the plan needs a float32 compute dtype; the per-region serve keeps
     # olmo-1b's own bf16 and takes a cast of the same parameters
     cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
@@ -1029,7 +1426,7 @@ def main() -> None:
     for ps in plan.stages.values():
         device_stage(ps, dev)  # validation, block tables, upload
     torch.cuda.synchronize()
-    emit(dict(phase="fixture_and_plan", fixture_s=fixture_s,
+    emit(dict(phase="fixture_and_plan", arch=base.name, fixture_s=fixture_s,
               pack_s=plan.pack_s, upload_s=time.perf_counter() - t0,
               stages={name: dict(shape=list(ps.gidx.shape),
                                  outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
@@ -1041,36 +1438,83 @@ def main() -> None:
                       for name, ps in plan.stages.items()}))
 
     rows = phase_kernels(dev, art32, plan, red_cfg)
-    emit(dict(phase="kernels", tolerance=SUM_TOL,
+    emit(dict(phase="kernels", arch=base.name, tolerance=SUM_TOL,
               tolerance_reason="float32 sums in another order than the "
                                "plain version's (over E slices, J gathers, "
                                "S terms); where every sum is exact the "
                                "results are bit-identical",
               step_tolerance=STEP_TOL, rows=rows))
-    if args.only == "kernels":
-        return
-
     emit(phase_reduced_serve(dev, red_cfg))
-    full, full_counts, by_shape = phase_full_serve(dev, base, art16, fixture_s)
+    full, full_counts, by_shape, eng = phase_full_serve(dev, base, art16,
+                                                        fixture_s)
     emit(full)
     # the plan serve's peak counts the plan route's own bytes: the bf16 cast
     # and the per-region streams go first
-    del art16
+    del eng, art16
     drop_per_region_copies(art32)
     planned, plan_counts, plan_shape = phase_plan_serve(dev, cfg32, art32, plan)
     emit(planned)
+    return rows, {f"{base.name} per-region": (full_counts, by_shape,
+                                              full["decode_steps"]),
+                  f"{base.name} plan": (plan_counts, plan_shape,
+                                        planned["decode_steps"])}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth of the olmo-1b serves (never the width)")
+    ap.add_argument("--only", choices=("kernels", "mixtral"), default=None,
+                    help="kernels: stop after olmo-1b's kernel phase; "
+                         "mixtral: run the mixtral-8x22b phases alone (no "
+                         "final ok line either way)")
+    args = ap.parse_args()
+
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device — this script measures "
+                         "the GPU path and has no CPU fallback")
+    dev = torch.device("cuda", 0)
+    # float32 products in full float32, never TF32, for every yardstick
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    build.load()
+    emit(dict(phase="device_and_build", card=smi,
+              torch=torch.__version__, cuda=torch.version.cuda,
+              build_seconds=build.last_build_seconds,
+              sources=[p.name for p in build.sources()]))
+
+    rows, serves = [], {}
+    if args.only != "mixtral":
+        if args.only == "kernels":
+            base = get_arch("olmo-1b")
+            if args.layers is not None:
+                base = replace(base, n_layers=args.layers)
+            cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+            art32 = seeded_artifact(cfg32, seed=2, device=dev)
+            plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
+            emit(dict(phase="kernels", rows=phase_kernels(
+                dev, art32, plan, reduced_config(get_arch("olmo-1b"), vocab=256))))
+            return
+        rows, serves = run_olmo(dev, args.layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mrows, mserves = run_mixtral(dev)
+    rows += mrows
+    serves.update(mserves)
 
     # the kernels of the main paths at the dimensions they gave them:
     # ``launches`` is what a serve launched at exactly the row's dimensions
-    steps = {"per_region": full["decode_steps"], "plan": planned["decode_steps"]}
-    phases = {name: (full_counts, by_shape) for name in PER_REGION}
-    phases.update({name: (plan_counts, plan_shape) for name in PLAN})
-    kernels = kernel_rows(rows, phases)
-    for k in kernels:
-        k["launches_per_step"] = k["launches"] / steps[
-            "plan" if k["name"] in PLAN else "per_region"]
+    kernels = kernel_rows(rows, serves)
+    emit(dict(phase="done", seconds=time.perf_counter() - t_start,
+              host_peak_rss_bytes=host_peak_rss_bytes()))
     emit(dict(kernels=kernels))
     print(smi, flush=True)
+    if args.only is not None:
+        return
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

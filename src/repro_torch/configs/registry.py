@@ -1,13 +1,14 @@
 """Registry of the architectures this package serves, selectable via
-``--arch <id>``.  The dense family (olmo-1b) is the first one carried over."""
+``--arch <id>``: the dense family (olmo-1b) and the MoE family (mixtral-8x22b)."""
 from __future__ import annotations
 
-from . import olmo_1b
+from . import mixtral_8x22b, olmo_1b
 from .base import ArchConfig
 
 __all__ = ["ARCHS", "get_arch"]
 
-ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in (olmo_1b,)}
+ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG
+                                for m in (olmo_1b, mixtral_8x22b)}
 
 
 def get_arch(name: str) -> ArchConfig:

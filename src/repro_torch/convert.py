@@ -35,15 +35,27 @@ def _leaf_to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
+# leaves that keep float32 whatever ``param_dtype`` is, as in the JAX package:
+# an MoE router stays float32 for a stable top-k
+_F32_LEAVES = ("router",)
+
+
+def params_from_numpy(tree, cfg: ArchConfig, device="cuda", *,
+                      _dtype: torch.dtype | None = None):
     """Nested dict/list of numpy arrays -> same nesting of tensors on
     ``device`` in ``cfg.param_dtype`` (integer leaves keep their type; bf16
-    leaves may come as ``bfloat16`` arrays or as their ``uint16`` view)."""
+    leaves may come as ``bfloat16`` arrays or as their ``uint16`` view).  A
+    ``router`` leaf stays float32."""
+    dtype = cfg.pdtype if _dtype is None else _dtype
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, cfg, device) for k, v in tree.items()}
+        return {k: params_from_numpy(
+                    v, cfg, device,
+                    _dtype=torch.float32 if k in _F32_LEAVES else dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, cfg, device) for v in tree)
-    return _leaf_to_tensor(tree, cfg.pdtype, device)
+        return type(tree)(params_from_numpy(v, cfg, device, _dtype=dtype)
+                          for v in tree)
+    return _leaf_to_tensor(tree, dtype, device)
 
 
 def config_from_reference(cfg) -> ArchConfig:

@@ -41,7 +41,9 @@ class CompressedDense:
     kept_columns: np.ndarray  # indices into the original K inputs
     shared: SharedLayer | None  # None if weight sharing disabled
     decomposition: LCCDecomposition
-    effective: np.ndarray  # dense equivalent of the compressed map [N, K_kept]
+    # dense equivalent of the compressed map [N, K_kept]; None where the
+    # artifact keeps no host copy (the seeded fixture at full MoE width)
+    effective: np.ndarray | None
 
     def apply(self, x: np.ndarray) -> np.ndarray:
         """Reference evaluation: x [K_orig, ...] -> y [N, ...]."""

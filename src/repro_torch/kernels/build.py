@@ -43,6 +43,12 @@ _SIGNATURES = {
     "repro_step_attention": [_P] * 11 + [_I] * 8 + [_F, _P],
     # gu out | dff B | stream
     "repro_step_swiglu": [_P] * 2 + [_I] * 2 + [_P],
+    # h2 router sel wgt slot src_tok dropped | d B E k cap norm_topk | stream
+    "repro_moe_route": [_P] * 7 + [_I] * 6 + [_P],
+    # h2 src_tok src | d B E cap | stream
+    "repro_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
+    # x ob slot wgt out | d B E k cap | stream
+    "repro_moe_combine": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

@@ -16,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["on_device", "check_launch", "record_launch", "launch_count",
-           "launch_counts", "launch_counts_by_shape", "reset_launch_count"]
+__all__ = ["on_device", "check_tensor", "check_launch", "record_launch",
+           "launch_count", "launch_counts", "launch_counts_by_shape",
+           "reset_launch_count"]
 
 _launch_counts: dict[str, int] = {}
 _shape_counts: dict[tuple[str, tuple], int] = {}
@@ -31,6 +32,20 @@ def on_device(t: torch.Tensor) -> bool:
         return False
     raise NotImplementedError(
         f"no kernel and no plain version for device {t.device}")
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel takes: on ``device``, of ``dtype``
+    and ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check_launch(code: int, name: str) -> None:

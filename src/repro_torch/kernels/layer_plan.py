@@ -1,6 +1,7 @@
 """Layer plans on the GPU: a whole stage per launch, and the whole decode step.
 
-Counterpart of ``repro.kernels.layer_plan`` (Pallas TPU), dense family:
+Counterpart of ``repro.kernels.layer_plan`` (Pallas TPU), dense and MoE
+families:
 
 * :func:`stage_matmul` (K6) evaluates one :class:`~repro_torch.kernels.ops.
   PackedStage` — every compressed site that reads one activation (q+k+v,
@@ -13,6 +14,11 @@ Counterpart of ``repro.kernels.layer_plan`` (Pallas TPU), dense family:
   norm, stage gate+up, SwiGLU, stage down + residual.  No PyTorch operation
   runs between them.  CUDA source ``csrc/step_plan.cu`` (norm, attention,
   SwiGLU) beside the stage kernel.
+* ``step_plan_matmul(moe=...)`` (K8) replaces a layer's FFN with the routed
+  experts inside the same sequence: route, dispatch, stage eg (all experts'
+  gates and ups, e-major), SwiGLU, stage ed (all downs), gated combine +
+  residual.  The route, dispatch and combine kernels are
+  :mod:`~repro_torch.kernels.moe_route` (``csrc/moe_route.cu``).
 
 Both evaluate the shift-add streams at every size.  The reference folds a
 large stage into one dense matrix (``PackedStage.eff``) and picks between two
@@ -36,6 +42,8 @@ import torch.nn.functional as F
 
 from . import build, dispatch
 from .lcc_chain_matmul import SMEM_LIMIT, signed_pow2
+from .moe_route import (capacity, moe_combine, moe_combine_plain, moe_dispatch,
+                        moe_dispatch_plain, moe_route, moe_route_plain)
 from .ops import PackedStage
 
 __all__ = ["DeviceStage", "device_stage", "stage_blocks", "stage_matmul",
@@ -44,9 +52,11 @@ __all__ = ["DeviceStage", "device_stage", "stage_blocks", "stage_matmul",
 
 _NEG = -1e30
 # blocks of rows smaller than this are merged with their neighbours (a block
-# is one instruction at the main path's widths: 2048 or 8192 rows)
+# is one instruction at the main paths' widths: 2048 or 8192 rows for
+# olmo-1b, 16384 or 6144 for mixtral-8x22b's experts)
 MERGE_ROWS = 1024
 _STAGE_ORDER = ("qkv", "o", "gu", "dn")
+_MOE_STAGE_ORDER = ("qkv", "o", "eg", "ed")
 
 
 # ---------------------------------------------------------------- upload
@@ -251,7 +261,26 @@ def _upload(ps: PackedStage, device: torch.device) -> DeviceStage:
         ds.blk_r0, ds.blk_r1, ds.blk_depth = (_tensor(a, device)
                                              for a in (r0, r1, dp))
         ds.live_terms = tuple(t[3] for t in tables)
+    _check_ranges(ds)
     return ds
+
+
+_INT32_MAX = 2 ** 31 - 1
+_GRID_Y_MAX = 65535  # the levels kernel puts the row blocks on grid y
+
+
+def _check_ranges(ds: DeviceStage) -> None:
+    """The kernel takes every dimension as a 32-bit int and indexes rows
+    (< R, < K_alloc) and per-layer offsets in 32 bits; flat offsets into
+    ``[L, P, R, S]`` are formed in 64 bits (a layer of mixtral's expert
+    stage holds 1.3e9 slots, two layers more than 2^31).  Refuse a stage
+    whose dimensions or row blocks do not fit."""
+    big = {k: v for k, v in ds.dims.items() if v > _INT32_MAX}
+    if big:
+        raise ValueError(f"stage dimensions beyond 32 bits: {big}")
+    if ds.dims["NB"] > _GRID_Y_MAX:
+        raise ValueError(f"stage has {ds.dims['NB']} row blocks a layer, the "
+                         f"levels kernel's grid takes {_GRID_Y_MAX}")
 
 
 def device_stage(ps: PackedStage, device) -> DeviceStage:
@@ -335,17 +364,6 @@ def stage_apply_eff(ps: PackedStage, src: torch.Tensor, layer: int
     return out
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _ptr(t: torch.Tensor | None, layer: int = 0) -> int | None:
     """Address of layer ``layer`` of a contiguous ``[L, ...]`` tensor."""
     if t is None:
@@ -373,11 +391,11 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
         raise ValueError(f"layer {layer} outside [0, {ps.n_layers})")
     b = src.shape[-1]
     lead = (nl,) if layer is None else ()
-    _check("src", src, torch.float32, (*lead, ps.d_src, b), dev)
+    dispatch.check_tensor("src", src, torch.float32, (*lead, ps.d_src, b), dev)
     if resid is not None:
         if layer is None:
             raise ValueError("resid= needs layer=")
-        _check("resid", resid, torch.float32, (ps.out_dim, b), dev)
+        dispatch.check_tensor("resid", resid, torch.float32, (ps.out_dim, b), dev)
     if b <= 0:
         raise ValueError("empty batch")
     bb, threads = ds.geometry(b) if ps.has_fp else (1, 32)
@@ -425,10 +443,10 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
     """Plain PyTorch version of :func:`step_plan_matmul` (same arguments):
     the reference's dense step body, operation by operation.  With
     ``block_tbl`` the caches are block pools and are gathered into the
-    ``[L, B, S, Hkv, hd]`` view first, as the reference's caller does."""
-    if moe is not None:
-        raise NotImplementedError("MoE step plans are not available in this "
-                                  "package yet")
+    ``[L, B, S, Hkv, hd]`` view first, as the reference's caller does.  With
+    ``moe`` each layer's FFN is the routed block of the reference's
+    ``moe_block``, through the plain versions of the route, dispatch and
+    combine kernels."""
     if block_tbl is not None:
         n_l, b = kc.shape[0], block_tbl.shape[0]
         tbl = block_tbl.long()
@@ -487,17 +505,43 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
         x = x + stage_matmul_plain(stages["o"], att.reshape(b, nq * hd).T,
                                    layer=l)
         h2 = norm_fn(x, ln2[l] if norm == "rms" else None)
+        if moe is not None:
+            x = _moe_layer_plain(stages, moe, l, h2, x)
+            continue
         gu = stage_matmul_plain(stages["gu"], h2, layer=l)
         hf = F.silu(gu[:d_ff]) * gu[d_ff:]
         x = x + stage_matmul_plain(stages["dn"], hf, layer=l)
     return x, kn, vn
 
 
+def _moe_args(moe: dict, b: int, device) -> tuple:
+    """``(router [L, d, E] f32 on device, E, k, cap, E * d_ff_expert)``."""
+    n_exp, top_k = moe["n_experts"], moe["top_k"]
+    cap = capacity(b, top_k, moe["capacity_factor"], n_exp,
+                   moe.get("min_capacity", 4))
+    router = torch.as_tensor(moe["router"], dtype=torch.float32, device=device)
+    return router, n_exp, top_k, cap, moe["d_ff"]
+
+
+def _moe_layer_plain(stages, moe, l, h2, x):
+    """One layer's routed FFN plus residual (the reference's ``moe_block``):
+    x [d, B] + experts(h2 [d, B])."""
+    router, n_exp, top_k, cap, eff = _moe_args(moe, h2.shape[1], h2.device)
+    sel, wgt, slot, src_tok = moe_route_plain(
+        h2, router[l], top_k=top_k, cap=cap, norm_topk=moe["norm_topk"],
+        dropped=moe.get("dropped"))
+    src = moe_dispatch_plain(h2, slot, src_tok, n_exp, cap)
+    eg = stage_matmul_plain(stages["eg"], src, layer=l)
+    hf = F.silu(eg[:eff]) * eg[eff:]
+    ob = stage_matmul_plain(stages["ed"], hf, layer=l)
+    return moe_combine_plain(x, ob, slot, wgt, n_exp, cap)
+
+
 def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
                      n_kv_heads: int, head_dim: int, d_ff: int, norm: str,
                      rope: bool, x0, pos, cos, sin, ln1, ln2, kc, vc, kpos,
                      moe=None, window: int | None = None, block_tbl=None):
-    """Whole decode step for all L identical layers (dense family).
+    """Whole decode step for all L identical layers (dense and MoE families).
 
       x0   [d, B] f32    embedded tokens (feature-major)
       pos  [B] int32     decode positions (-1 = idle slot)
@@ -507,16 +551,21 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
       block_tbl [B, mb] int32 (optional): kc/vc are then block pools
                          [L, Nb, bs, Hkv, hd] read through the table
 
+    ``moe`` (the MoE family, K8): every layer's FFN is the routed experts,
+    stages ``eg``/``ed`` in place of ``gu``/``dn``.  Keys: ``router``
+    [L, d, E] float32, ``n_experts``, ``top_k``, ``capacity_factor``,
+    ``norm_topk``, ``min_capacity``, ``d_ff`` (= E * d_ff_expert) as in the
+    reference, and optionally ``dropped`` (int32 ``[1]`` on the step's
+    device), incremented by the dropped choices.  All B columns are routed,
+    idle slots included, as in the reference.
+
     Returns ``(y [d, B], k_new [L, B, Hkv, hd], v_new)``: the final hidden
     state and the per-layer K/V rows for the caller to write back.  The cache
     is read, never written.  CUDA tensors launch the kernels (or raise); CPU
-    tensors take :func:`step_plan_matmul_plain`.  ``moe=`` is refused."""
-    if moe is not None:
-        raise NotImplementedError("MoE step plans are not available in this "
-                                  "package yet")
+    tensors take :func:`step_plan_matmul_plain`."""
     args = dict(n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
                 d_ff=d_ff, norm=norm, rope=rope, x0=x0, pos=pos, cos=cos,
-                sin=sin, ln1=ln1, ln2=ln2, kc=kc, vc=vc, kpos=kpos,
+                sin=sin, ln1=ln1, ln2=ln2, kc=kc, vc=vc, kpos=kpos, moe=moe,
                 window=window, block_tbl=block_tbl)
     if not dispatch.on_device(x0):
         return step_plan_matmul_plain(stages, **args)
@@ -526,36 +575,39 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
     n_layers = kpos.shape[0]
     smax = kpos.shape[2]
     f32, i32 = torch.float32, torch.int32
-    _check("x0", x0, f32, (d, b), dev)
-    _check("pos", pos, i32, (b,), dev)
-    _check("kpos", kpos, i32, (n_layers, b, smax), dev)
+    dispatch.check_tensor("x0", x0, f32, (d, b), dev)
+    dispatch.check_tensor("pos", pos, i32, (b,), dev)
+    dispatch.check_tensor("kpos", kpos, i32, (n_layers, b, smax), dev)
     if block_tbl is None:
         bs = mb = 0
         cache_shape = (n_layers, b, smax, nkv, hd)
     else:
         mb = block_tbl.shape[1]
         bs = kc.shape[2]
-        _check("block_tbl", block_tbl, i32, (b, mb), dev)
+        dispatch.check_tensor("block_tbl", block_tbl, i32, (b, mb), dev)
         cache_shape = (n_layers, kc.shape[1], bs, nkv, hd)
         if mb * bs != smax:
             raise ValueError(f"block table covers {mb * bs} slots, kpos {smax}")
-    _check("kc", kc, f32, cache_shape, dev)
-    _check("vc", vc, f32, cache_shape, dev)
+    dispatch.check_tensor("kc", kc, f32, cache_shape, dev)
+    dispatch.check_tensor("vc", vc, f32, cache_shape, dev)
     if rope:
-        _check("cos", cos, f32, (b, hd // 2), dev)
-        _check("sin", sin, f32, (b, hd // 2), dev)
+        dispatch.check_tensor("cos", cos, f32, (b, hd // 2), dev)
+        dispatch.check_tensor("sin", sin, f32, (b, hd // 2), dev)
     if norm == "rms":
-        _check("ln1", ln1, f32, (n_layers, d), dev)
-        _check("ln2", ln2, f32, (n_layers, d), dev)
+        dispatch.check_tensor("ln1", ln1, f32, (n_layers, d), dev)
+        dispatch.check_tensor("ln2", ln2, f32, (n_layers, d), dev)
     elif norm != "nonparam":
         raise ValueError(f"norm {norm!r}: the step takes 'rms' or 'nonparam'")
-    for name in _STAGE_ORDER:
+    for name in _STAGE_ORDER if moe is None else _MOE_STAGE_ORDER:
         if stages[name].n_layers != n_layers:
             raise ValueError(f"stage {name} has {stages[name].n_layers} "
                              f"layers, the cache {n_layers}")
     mode, eps = (0, 1e-6) if norm == "rms" else (1, 1e-5)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     key = (n_layers, d, d_ff, b, smax, nq, nkv, hd)
+    if moe is not None:
+        router, n_exp, top_k, cap, eff = _moe_args(moe, b, dev)
+        dispatch.check_tensor("router", router, f32, (n_layers, d, n_exp), dev)
     kn = torch.empty((n_layers, b, nkv, hd), dtype=f32, device=dev)
     vn = torch.empty_like(kn)
     lib = build.load()
@@ -567,6 +619,13 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
             "repro_step_norm")
         dispatch.record_launch("step_plan_matmul", shape=key)
         return out
+
+    def swiglu_(gu, n, cols):
+        hf = torch.empty((n, cols), dtype=f32, device=dev)
+        dispatch.check_launch(lib.repro_step_swiglu(
+            gu.data_ptr(), hf.data_ptr(), n, cols, stream), "repro_step_swiglu")
+        dispatch.record_launch("step_plan_matmul", shape=key)
+        return hf
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -583,11 +642,16 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
             dispatch.record_launch("step_plan_matmul", shape=key)
             x = stage_matmul(stages["o"], att, layer=l, resid=x)
             h2 = norm_(x, ln2, l)
-            gu = stage_matmul(stages["gu"], h2, layer=l)
-            hf = torch.empty((d_ff, b), dtype=f32, device=dev)
-            dispatch.check_launch(lib.repro_step_swiglu(
-                gu.data_ptr(), hf.data_ptr(), d_ff, b, stream),
-                "repro_step_swiglu")
-            dispatch.record_launch("step_plan_matmul", shape=key)
-            x = stage_matmul(stages["dn"], hf, layer=l, resid=x)
+            if moe is None:
+                gu = stage_matmul(stages["gu"], h2, layer=l)
+                x = stage_matmul(stages["dn"], swiglu_(gu, d_ff, b), layer=l,
+                                 resid=x)
+                continue
+            sel, wgt, slot, src_tok = moe_route(
+                h2, router[l], top_k=top_k, cap=cap,
+                norm_topk=moe["norm_topk"], dropped=moe.get("dropped"))
+            src = moe_dispatch(h2, slot, src_tok, n_exp, cap)
+            eg = stage_matmul(stages["eg"], src, layer=l)
+            ob = stage_matmul(stages["ed"], swiglu_(eg, eff, cap), layer=l)
+            x = moe_combine(x, ob, slot, wgt, n_exp, cap)
     return x, kn, vn

@@ -101,17 +101,6 @@ def plan_launch(n: int, b: int, g: int, e: int, sm_count: int
     return bb, threads, chunks, spb
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(entry: str, idx, exp, sign, x, slice_c0, slice_w, chain_len):
     """Validate, allocate and launch; ``idx`` is ``[G, E, P, N, S]``."""
     dev = x.device
@@ -119,13 +108,13 @@ def _launch(entry: str, idx, exp, sign, x, slice_c0, slice_w, chain_len):
     if x.dim() != 2:
         raise ValueError(f"x must be [K, B], got {tuple(x.shape)}")
     b = x.shape[1]
-    _check("idx", idx, torch.int32, (g, e, p, n, s), dev)
-    _check("exp", exp, torch.int8, (g, e, p, n, s), dev)
-    _check("sign", sign, torch.int8, (g, e, p, n, s), dev)
-    _check("x", x, torch.float32, x.shape, dev)
+    dispatch.check_tensor("idx", idx, torch.int32, (g, e, p, n, s), dev)
+    dispatch.check_tensor("exp", exp, torch.int8, (g, e, p, n, s), dev)
+    dispatch.check_tensor("sign", sign, torch.int8, (g, e, p, n, s), dev)
+    dispatch.check_tensor("x", x, torch.float32, x.shape, dev)
     for nm, t in (("slice_c0", slice_c0), ("slice_w", slice_w),
                   ("chain_len", chain_len)):
-        _check(nm, t, torch.int32, (g, e), dev)
+        dispatch.check_tensor(nm, t, torch.int32, (g, e), dev)
     if min(g, e, p, n, s, b) <= 0:
         raise ValueError(f"empty launch: G,E,P,N,S,B = {(g, e, p, n, s, b)}")
     di = dev.index if dev.index is not None else torch.cuda.current_device()

@@ -23,7 +23,9 @@ L layers; they are evaluated by ``repro_torch.kernels.layer_plan``.
 from __future__ import annotations
 
 import functools
+import os
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -571,6 +573,11 @@ def _fuse_csd_levels(idx: np.ndarray, exp: np.ndarray, sgn: np.ndarray
     return tuple(a.reshape(*lead, n_q, rows, ss) for a in (fi, fe, fs))
 
 
+# slices fused and written by one packing job (bounds the job's temporaries:
+# at 16384 rows a slice, 64 slices take ~150 MB of fused int32 streams)
+PACK_CHUNK = 64
+
+
 def pack_stage(layer_sites: list[list[dict]], *, d_src: int, out_dim: int
                ) -> PackedStage:
     """Flatten per-layer site lists into one stacked stage.
@@ -584,7 +591,12 @@ def pack_stage(layer_sites: list[list[dict]], *, d_src: int, out_dim: int
 
     Sites write disjoint [out_off, out_off + site_out) row ranges of the
     stage output and read [src_off, ...) of the shared stage input.
-    """
+
+    The layout is planned from the sites' shapes first; then the fused CSD
+    streams are built and written in jobs of up to ``PACK_CHUNK`` slices of
+    one site on up to 8 threads (numpy frees the GIL in its array passes;
+    every job writes its own rows, so the result does not depend on the
+    thread count), and last the per-layer tables."""
     n_layers = len(layer_sites)
     built = []  # per-layer dict of intermediate layout
     any_bias = any_fs = any_dw = False
@@ -592,11 +604,15 @@ def pack_stage(layer_sites: list[list[dict]], *, d_src: int, out_dim: int
     for sites in layer_sites:
         in_off = 0
         prep_pairs: list[tuple[np.ndarray, np.ndarray]] = []
-        insts: list[dict] = []  # one per FP slice, in site order
+        # one entry per site with FP slices: its packed streams, where its
+        # slices read the prep buffer, and its fused depth and width (all
+        # slices of a packed decomposition share P, rows and S)
+        fp_sites: list[dict] = []
         site_slices: list[tuple[int, int, list[int]]] = []  # (out_off, odim, inst ids)
         fs_entries: list[tuple[int, int, int, np.ndarray]] = []
         dw_entries: list[tuple[int, int, np.ndarray]] = []
         bias_vec = None
+        n_inst = 0
         for st in sites:
             b = st.get("bias")
             if b is not None:
@@ -621,36 +637,38 @@ def pack_stage(layer_sites: list[list[dict]], *, d_src: int, out_dim: int
                 raise ValueError(f"{st['name']}: packed.in_dim={packed.in_dim}"
                                  f" != aggregated input {n_in}")
             prep_pairs.append((st["src_off"] + kept, in_off + tgt))
-            idx = np.asarray(packed.idx)
-            exp = np.asarray(packed.exp)
-            sgn = np.asarray(packed.sign)
-            ids = []
-            if packed.col_slices:
+            ids = list(range(n_inst, n_inst + len(packed.col_slices)))
+            if ids:
+                _, pm, n_pad, s = packed.idx.shape
                 # one pairwise pass only: deeper fusion squares the terms per
                 # row
-                fi, fe, fsg = _fuse_csd_levels(idx, exp, sgn)
-            for e, (c0, c1) in enumerate(packed.col_slices):
-                ids.append(len(insts))
-                insts.append({"in0": in_off + c0, "width": c1 - c0,
-                              "idx": fi[e], "exp": fe[e], "sgn": fsg[e],
-                              "n_pad": idx.shape[2]})
+                fp_sites.append({
+                    "packed": packed, "first": n_inst, "n_pad": n_pad,
+                    "depth": (pm + 1) // 2 if pm >= 2 else pm,
+                    "s": s * s if pm >= 2 else s,
+                    "in0": np.asarray([in_off + c0 for c0, _ in packed.col_slices],
+                                      np.int64),
+                    "width": np.asarray([c1 - c0 for c0, c1 in packed.col_slices],
+                                        np.int64)})
+                n_inst += len(ids)
             site_slices.append((st["out_off"], packed.out_dim, ids))
             for (c0, c1), w in packed.dense:
                 any_fs = True
                 fs_entries.append((st["out_off"], packed.out_dim,
                                    in_off + c0, np.asarray(w, np.float32)))
             in_off += n_in
-        built.append({"k_used": in_off, "prep": prep_pairs, "insts": insts,
-                      "site_slices": site_slices, "fs": fs_entries,
-                      "dw": dw_entries, "bias": bias_vec})
+        built.append({"k_used": in_off, "prep": prep_pairs, "fp": fp_sites,
+                      "n_inst": n_inst, "site_slices": site_slices,
+                      "fs": fs_entries, "dw": dw_entries, "bias": bias_vec})
 
     has_prep = any(bl["k_used"] for bl in built)
-    has_fp = any(bl["insts"] for bl in built)
+    has_fp = any(bl["n_inst"] for bl in built)
     k_alloc = (max(bl["k_used"] for bl in built) + 1) if has_prep else 0
     m_max = max([sum(p[0].size for p in bl["prep"]) for bl in built] + [1])
-    r_max = max([sum(i["n_pad"] for i in bl["insts"]) for bl in built] + [1])
-    p_max = max([i["idx"].shape[0] for bl in built for i in bl["insts"]] + [1])
-    s_max = max([i["idx"].shape[2] for bl in built for i in bl["insts"]] + [1])
+    r_max = max([sum(f["n_pad"] * f["in0"].size for f in bl["fp"])
+                 for bl in built] + [1])
+    p_max = max([f["depth"] for bl in built for f in bl["fp"]] + [1])
+    s_max = max([f["s"] for bl in built for f in bl["fp"]] + [1])
     j_max = max([len(ids) for bl in built for _, _, ids in bl["site_slices"]]
                 + [1])
 
@@ -671,68 +689,85 @@ def pack_stage(layer_sites: list[list[dict]], *, d_src: int, out_dim: int
     if any_bias:
         bias = np.zeros((n_layers, out_dim), np.float32)
 
-    segs = np.zeros((n_layers, max(p_max, 1), 3), np.int32)
-    runs_before: list[int] = []  # active-run lengths, original site order
-    runs_after: list[int] = []  # active-run lengths after depth sorting
-    for l, bl in enumerate(built):
+    # segment packing: lay instructions out by descending (fused) chain depth
+    # so at every level the rows with a real CSD level form ONE contiguous
+    # prefix and the ended chains one contiguous identity run.  The slices of
+    # a site share its depth and keep their order, so each site's slices stay
+    # one contiguous run of rows.
+    for bl in built:
+        order = sorted(range(len(bl["fp"])),
+                       key=lambda i: (-bl["fp"][i]["depth"], i))
+        wo = 0
+        for i in order:
+            f = bl["fp"][i]
+            f["wo"] = wo
+            wo += f["n_pad"] * f["in0"].size
+        bl["r_used"] = wo
+        bl["order"] = order
+
+    def fill(l: int, f: dict, e0: int, e1: int) -> None:
+        """Fused levels of slices [e0, e1) of one site of layer l."""
+        pk, n_pad, depth, sm = f["packed"], f["n_pad"], f["depth"], f["s"]
+        fi, fe, fsg = _fuse_csd_levels(pk.idx[e0:e1], pk.exp[e0:e1],
+                                       pk.sign[e0:e1])
+        n_e = e1 - e0
+        r0 = f["wo"] + e0 * n_pad
+        rows = slice(r0, r0 + n_e * n_pad)
+        wo_e = (r0 + np.arange(n_e, dtype=np.int64) * n_pad)[:, None, None]
+        for p in range(p_max):
+            if p < depth:
+                ii, ss, ee = fi[:, p], fsg[:, p], fe[:, p]
+                if p == 0:
+                    # level 0 reads inbuf at the slice's column window;
+                    # identity-padded level-0 rows of 0-factor chains can span
+                    # n_pad > width — mask them so they never read a
+                    # neighbouring site's region (the zero-padded-slab
+                    # semantics of the per-region kernels)
+                    base = f["in0"][e0:e1, None, None]
+                    live = (ss != 0) & (ii < f["width"][e0:e1, None, None])
+                else:
+                    base = wo_e
+                    live = ss != 0
+                gidx[l, p, rows, :sm] = np.where(live, base + ii, base
+                                                 ).reshape(-1, sm)
+                gsgn[l, p, rows, :sm] = np.where(live, ss, 0).reshape(-1, sm)
+                gexp[l, p, rows, :sm] = np.where(live, ee, 0).reshape(-1, sm)
+            else:  # identity continuation over the stage's extra levels
+                gidx[l, p, rows, 0] = np.arange(rows.start, rows.stop)
+                gsgn[l, p, rows, 0] = 1
+
+    def tables(l: int) -> tuple[list[int], list[int]]:
+        """Layer l's prep pairs, segment descriptors, output gather and
+        dense blocks; returns its (runs before, runs after) sorting."""
+        bl = built[l]
+        runs_before: list[int] = []
+        runs_after: list[int] = []
         if bl["prep"]:
             src = np.concatenate([p[0] for p in bl["prep"]])
             tgt = np.concatenate([p[1] for p in bl["prep"]])
             prep_src[l, : src.size] = src
             prep_tgt[l, : tgt.size] = tgt
-        # segment packing: lay instructions out by descending (fused) chain
-        # depth so at every level the rows with a real CSD level form ONE
-        # contiguous prefix and the ended chains one contiguous identity run
-        order = sorted(range(len(bl["insts"])),
-                       key=lambda i: (-bl["insts"][i]["idx"].shape[0], i))
-        work_offs: dict[int, int] = {}
-        wo = 0
-        for inst_id in order:
-            inst = bl["insts"][inst_id]
-            work_offs[inst_id] = wo
-            np_, sm = inst["n_pad"], inst["idx"].shape[2]
-            pm = inst["idx"].shape[0]
-            for p in range(p_max):
-                if p < pm:
-                    ii = inst["idx"][p].astype(np.int64)
-                    ss = inst["sgn"][p]
-                    ee = inst["exp"][p]
-                    if p == 0:
-                        # level 0 reads inbuf at the slice's column window;
-                        # identity-padded level-0 rows of 0-factor chains can
-                        # span n_pad > width — mask them so they never read a
-                        # neighbouring site's region (the zero-padded-slab
-                        # semantics of the per-region kernels)
-                        live = (ss != 0) & (ii < inst["width"])
-                        comp, safe = inst["in0"] + ii, inst["in0"]
-                    else:
-                        live = ss != 0
-                        comp, safe = wo + ii, wo
-                    gidx[l, p, wo: wo + np_, :sm] = np.where(live, comp, safe)
-                    gsgn[l, p, wo: wo + np_, :sm] = np.where(live, ss, 0)
-                    gexp[l, p, wo: wo + np_, :sm] = np.where(live, ee, 0)
-                else:  # identity continuation over the stage's extra levels
-                    gidx[l, p, wo: wo + np_, 0] = wo + np.arange(np_)
-                    gsgn[l, p, wo: wo + np_, 0] = 1
-            wo += np_
-        r_used = wo
-        depths = [inst["idx"].shape[0] for inst in bl["insts"]]
-        pads = [inst["n_pad"] for inst in bl["insts"]]
+        fp, order = bl["fp"], bl["order"]
+        depths = [f["depth"] for f in fp for _ in range(f["in0"].size)]
+        pads = [f["n_pad"] for f in fp for _ in range(f["in0"].size)]
+        inst_order = [f["first"] + e for i in order
+                      for f in (fp[i],) for e in range(f["in0"].size)]
         for p in range(max(p_max, 1)):
-            a_end = sum(pads[i] for i in order if depths[i] > p)
+            a_end = sum(pads[i] for i in inst_order if depths[i] > p)
             s_live = 1
             if has_fp and a_end:
                 cols = np.flatnonzero((gsgn[l, p, :a_end, :] != 0).any(axis=0))
                 s_live = int(cols[-1]) + 1 if cols.size else 1
-            segs[l, p] = (a_end, r_used, s_live)
+            segs[l, p] = (a_end, bl["r_used"], s_live)
             runs_after.extend(_active_runs(
-                [depths[i] > p for i in order], [pads[i] for i in order]))
-            runs_before.extend(_active_runs(
-                [d > p for d in depths], pads))
+                [depths[i] > p for i in inst_order], [pads[i] for i in inst_order]))
+            runs_before.extend(_active_runs([d > p for d in depths], pads))
+        work_off = {f["first"] + e: f["wo"] + e * f["n_pad"]
+                    for f in fp for e in range(f["in0"].size)}
         for out_off, odim, ids in bl["site_slices"]:
             for j, inst_id in enumerate(ids):
                 outg[l, j, out_off: out_off + odim] = \
-                    work_offs[inst_id] + np.arange(odim)
+                    work_off[inst_id] + np.arange(odim)
         for out_off, odim, i0, w in bl["fs"]:
             fs_mat[l, out_off: out_off + odim, i0: i0 + w.shape[1]] = w
         for out_off, src_off, wt in bl["dw"]:
@@ -740,6 +775,18 @@ def pack_stage(layer_sites: list[list[dict]], *, d_src: int, out_dim: int
                    src_off: src_off + wt.shape[1]] = wt
         if bl["bias"] is not None:
             bias[l] = bl["bias"]
+        return runs_before, runs_after
+
+    segs = np.zeros((n_layers, max(p_max, 1), 3), np.int32)
+    jobs = [(l, f, e0, min(e0 + PACK_CHUNK, f["in0"].size))
+            for l, bl in enumerate(built) for f in bl["fp"]
+            for e0 in range(0, f["in0"].size, PACK_CHUNK)]
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for fut in [pool.submit(fill, *job) for job in jobs]:
+            fut.result()
+        runs = list(pool.map(tables, range(n_layers)))
+    runs_before = [r for rb, _ in runs for r in rb]
+    runs_after = [r for _, ra in runs for r in ra]
 
     seg_stats = _segment_stats(runs_before, runs_after, gsgn, segs) \
         if has_fp else None
@@ -821,16 +868,11 @@ def _stage_waste(gsgn, segs, prep_tgt, k_alloc) -> dict:
 
 def pack_layer(stage_specs: dict[str, tuple[list[list[dict]], int, int]]
                ) -> dict[str, PackedStage]:
-    """Pack every stage of a layer plan: name -> (layer_sites, d_src, out_dim).
-    The stages are independent and numpy releases the GIL in its array
-    passes, so they are packed on one thread each."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(max_workers=max(1, len(stage_specs))) as pool:
-        futs = {name: pool.submit(pack_stage, sites, d_src=d_src,
-                                  out_dim=out_dim)
-                for name, (sites, d_src, out_dim) in stage_specs.items()}
-        return {name: f.result() for name, f in futs.items()}
+    """Pack every stage of a layer plan: name -> (layer_sites, d_src,
+    out_dim).  The stages are packed one after the other, each on all the
+    packing threads (:func:`pack_stage`)."""
+    return {name: pack_stage(sites, d_src=d_src, out_dim=out_dim)
+            for name, (sites, d_src, out_dim) in stage_specs.items()}
 
 
 def _as_f32(x: torch.Tensor) -> torch.Tensor:

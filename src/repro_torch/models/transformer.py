@@ -1,6 +1,8 @@
-"""Decoder backbone — the dense family (olmo-1b and relatives).
+"""Decoder backbone — the dense family (olmo-1b and relatives) and the MoE
+family (mixtral-8x22b).
 
-Block layout:  x += attn(norm(x));  x += swiglu(norm(x)).
+Block layout:  dense  x += attn(norm(x));  x += swiglu(norm(x))
+               moe    x += attn(norm(x));  x += moe(norm(x))
 
 Parameters are stacked per layer ([L, ...] leaves, the JAX package's scanned
 layout) and a Python loop walks the layers, so layer ``li`` binds its own
@@ -23,6 +25,7 @@ from .attention import (KVCache, PagedKVCache, attention_decode,
                         attention_prefill)
 from .layers import (linear, non_parametric_ln, rms_norm, site_linear,
                      site_linear_group, swiglu)
+from .moe import moe_ffn
 
 __all__ = ["init_params", "forward", "logits_from_hidden", "decode_step",
            "init_decode_state", "paged_layout"]
@@ -34,13 +37,41 @@ def _norm(cfg: ArchConfig, p, x):
     return rms_norm(x, p)
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if (cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None
-            or cfg.enc_layers > 0 or cfg.pos not in ("rope", "none")):
+def _require_supported(cfg: ArchConfig) -> None:
+    """The dense and MoE rope/no-position decoders; MLA attention and shared
+    experts (deepseek-v2-lite) come with a later slice."""
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense rope/no-position decoder family is "
-            f"available in this package (family={cfg.family!r}, "
+            f"{cfg.name}: MLA attention is not available in this package yet "
+            "(the deepseek-v2-lite slice)")
+    if cfg.moe is not None and (cfg.moe.n_shared > 0 or cfg.moe_manual):
+        raise NotImplementedError(
+            f"{cfg.name}: shared experts and the manual expert-parallel MoE "
+            "are not available in this package yet (the deepseek-v2-lite "
+            "slice; mesh= for moe_manual)")
+    if (cfg.family not in ("dense", "moe") or (cfg.family == "moe")
+            != (cfg.moe is not None) or cfg.enc_layers > 0
+            or cfg.pos not in ("rope", "none")):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense and MoE rope/no-position decoder "
+            f"families are available in this package (family={cfg.family!r}, "
             f"pos={cfg.pos!r})")
+
+
+def _ffn(cfg: ArchConfig, p, x, executor=None, li: int | None = None):
+    """The block's FFN on ``x [B, S, d]``: SwiGLU, or the routed experts.
+    With an executor, layer ``li``'s compressed sites run through it."""
+    if cfg.moe is not None:
+        kw = ({"executor": executor, "site_tag": f"l{li}"}
+              if executor is not None else {})
+        y, _ = moe_ffn(p, x, n_experts=cfg.moe.n_experts,
+                       top_k=cfg.moe.top_k,
+                       capacity_factor=cfg.moe.capacity_factor,
+                       norm_topk=cfg.moe.norm_topk, **kw)
+        return y
+    if executor is not None:
+        return _sites_swiglu(executor, f"ffn.{{}}.l{li}")(p, x)
+    return swiglu(p, x)
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +92,9 @@ def _trunc_normal(rng: np.random.Generator, shape, scale: float) -> np.ndarray:
 def init_params_numpy(seed: int, cfg: ArchConfig) -> dict:
     """Random parameters as float32 numpy arrays — the JAX package's pytree
     layout, drawn from a numpy generator so a test can hand the same arrays
-    to both packages.  Fan-in truncated-normal projections."""
-    _require_dense(cfg)
+    to both packages.  Fan-in truncated-normal projections; an MoE block
+    holds raw expert stacks (no ``"w"`` level) and a float32 router."""
+    _require_supported(cfg)
     rng = np.random.default_rng(seed)
     L, d, dff = cfg.n_layers, cfg.d_model, cfg.d_ff
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -84,10 +116,18 @@ def init_params_numpy(seed: int, cfg: ArchConfig) -> dict:
                      "k": dense(d, nkv * hd, cfg.qkv_bias),
                      "v": dense(d, nkv * hd, cfg.qkv_bias),
                      "o": dense(nq * hd, d)},
-            "ffn": {"gate": dense(d, dff), "up": dense(d, dff),
-                    "down": dense(dff, d)},
         },
     }
+    if cfg.moe is None:
+        params["blocks"]["ffn"] = {"gate": dense(d, dff), "up": dense(d, dff),
+                                   "down": dense(dff, d)}
+    else:
+        ne, edff = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        params["blocks"]["ffn"] = {
+            "router": _trunc_normal(rng, (L, d, ne), 1.0 / math.sqrt(d)),
+            "gate": _trunc_normal(rng, (L, ne, d, edff), 1.0 / math.sqrt(d)),
+            "up": _trunc_normal(rng, (L, ne, d, edff), 1.0 / math.sqrt(d)),
+            "down": _trunc_normal(rng, (L, ne, edff, d), 1.0 / math.sqrt(edff))}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": _trunc_normal(rng, (d, cfg.vocab),
                                                 1.0 / math.sqrt(d))}
@@ -115,8 +155,10 @@ def _layer(blocks, li: int):
 
 def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
             positions=None, collect_cache: bool = False):
-    """Prefill forward -> (hidden [B,S,d], (k, v) caches [L,B,S,Hkv,hd] or None)."""
-    _require_dense(cfg)
+    """Prefill forward -> (hidden [B,S,d], (k, v) caches [L,B,S,Hkv,hd] or None).
+    MoE experts run as a batched product of the dense weights, as in the
+    reference."""
+    _require_supported(cfg)
     if embeds is not None:
         x = embeds.to(cfg.cdtype)
         b, s = x.shape[:2]
@@ -135,7 +177,7 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
             rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
             q_chunk=cfg.q_chunk)
         x = x + y
-        x = x + swiglu(bp["ffn"], _norm(cfg, bp["ln2"], x))
+        x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x))
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -186,7 +228,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, smax: int, *,
     ``[L, pool, bs, ...]`` plus one shared block table ``[batch,
     view_blocks]`` (see ``serving.kvpool``).
     """
-    _require_dense(cfg)
+    _require_supported(cfg)
     L, cd = cfg.n_layers, cfg.cdtype
     z = dict(dtype=cd, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -226,12 +268,13 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
 
     ``executor`` (compressed serving): a site-keyed registry — see
     ``repro_torch.serving.executor.CompressedExecutor`` — consulted for every
-    compressible site (attention q/k/v/o, FFN gate/up/down).  Covered sites
-    execute their LCC chains through fused kernel launches; sites the
-    executor does not cover fall back to the dense weights.  A whole-step
-    layer plan, when the executor offers one, replaces the per-layer loop.
+    compressible site (attention q/k/v/o, FFN gate/up/down, MoE experts).
+    Covered sites execute their LCC chains through fused kernel launches;
+    sites the executor does not cover fall back to the dense weights.  A
+    whole-step layer plan, when the executor offers one, replaces the
+    per-layer loop (its MoE layers route inside the step).
     """
-    _require_dense(cfg)
+    _require_supported(cfg)
     x = params["embed"][token.long()].to(cfg.cdtype)
     tbl = state.get("block_tbl")
     plan = (executor.step_plan(cfg)
@@ -253,12 +296,7 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
                 executor=executor,
                 site=f"attn.{{}}.l{li}" if executor is not None else None)
             x = x + y
-            ffn_in = _norm(cfg, bp["ln2"], x)
-            if executor is not None:
-                y = _sites_swiglu(executor, f"ffn.{{}}.l{li}")(bp["ffn"], ffn_in)
-            else:
-                y = swiglu(bp["ffn"], ffn_in)
-            x = x + y
+            x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x), executor, li)
     h = _norm(cfg, params["final_ln"], x)
     logits = logits_from_hidden(params, cfg, h)[:, 0]
     return logits, state

@@ -8,17 +8,19 @@ fused-kernel callable, and the model decode path consults it inside the step.
 
 Three kernel routes:
 
-* :class:`StepPlan` — the whole decode step of the dense family: every site
-  of every layer packed into four stacked stages (q+k+v, o, gate+up, down)
-  and run by ``layer_plan.step_plan_matmul``, a fixed sequence of
-  hand-written kernels with no PyTorch operation between them.  The default
-  for float32 configs (``use_plans=True``), as in the reference.
+* :class:`StepPlan` — the whole decode step of the dense and MoE families:
+  every site of every layer packed into four stacked stages (q+k+v, o, and
+  gate+up, down — or, for MoE, all experts' gates+ups and all downs) and run
+  by ``layer_plan.step_plan_matmul``, a fixed sequence of hand-written
+  kernels with no PyTorch operation between them (an MoE layer routes inside
+  the step).  The default for float32 configs (``use_plans=True``), as in
+  the reference.
 * :class:`LCCMatvec` — one dense site: prune gather -> eq. (10) segment-sum
   (``cluster_segment_sum``) -> the whole FP chain in ONE ``lcc_chain_matmul``
   launch.
 * :class:`GroupedLCCMatvec` — one *fused region*: several sites (an attention
-  layer's q/k/v, a SwiGLU's gate/up) apply their chains in ONE
-  ``lcc_group_matmul`` launch.
+  layer's q/k/v, a SwiGLU's gate/up, one projection of all of an MoE
+  layer's experts) apply their chains in ONE ``lcc_group_matmul`` launch.
 
 The last two are the per-region route, taken where no plan applies (other
 compute dtypes, ``use_plans=False``).  Models never import this module —
@@ -144,12 +146,17 @@ def matvecs_from_artifact(artifact, *, include=None, block: int = 128,
 
 
 class StepPlan:
-    """Whole-decode-step layer plan for the dense transformer family.
+    """Whole-decode-step layer plan for the dense and MoE transformer families.
 
     Packs every site of every layer — attention q/k/v/o and FFN gate/up/down,
     compressed (CSD shift-add streams) or not (baked dense blocks) — into four
     stacked :class:`~repro_torch.kernels.ops.PackedStage` buffers and runs the
     step through :func:`~repro_torch.kernels.layer_plan.step_plan_matmul`.
+    MoE families (``cfg.moe``): the FFN stages become the two expert
+    super-stages — "eg" (all experts' gates then all ups, e-major, ``[E*d] ->
+    [2*E*dff]``) and "ed" (all downs, ``[E*dff] -> [E*d]``) — and the router
+    goes to the device beside them, so the routed block runs inside the step
+    (the reference's layout, ``min_capacity`` 4).
     The KV cache is read in place (through the block table when paged) and
     the new K/V rows are written back after the step, for both cache layouts.
     A plan already in ``artifact.plans["step"]`` is reused; a new one is
@@ -158,9 +165,6 @@ class StepPlan:
     """
 
     def __init__(self, executor, cfg):
-        if getattr(cfg, "moe", None) is not None:
-            raise NotImplementedError("MoE step plans are not available in "
-                                      "this package yet")
         self.executor = executor
         self.cfg = cfg
         art = executor.artifact
@@ -172,15 +176,16 @@ class StepPlan:
         def host(t):
             return None if t is None else t.detach().to("cpu", torch.float32).numpy()
 
-        def spec(name, p, li, out_off, src_off=0):
+        def spec(name, w, li, out_off, src_off=0, b=None):
+            """Layer ``li``'s site ``name``: weight stack ``w [L, in, out]``,
+            bias stack ``b [L, out]`` or None."""
             rec = art.records.get(name)
-            bias = host(p["b"][li]) if "b" in p else None
+            bias = host(b[li]) if b is not None else None
             if not isinstance(rec, CompressedDense):
                 # uncovered site: bake its dense weights into the stage so the
                 # plan still emits the layer's full output
                 return {"kind": "dense", "out_off": out_off,
-                        "src_off": src_off, "w": host(p["w"][li]),
-                        "bias": bias}
+                        "src_off": src_off, "w": host(w[li]), "bias": bias}
             covered.append(name)
             return {"kind": "lcc", "name": name, "out_off": out_off,
                     "src_off": src_off,
@@ -191,20 +196,53 @@ class StepPlan:
                                    if rec.shared is not None else 0),
                     "packed": executor._matvecs[name].packed, "bias": bias}
 
+        def lin(name, p, li, out_off):
+            return spec(name, p["w"], li, out_off, b=p.get("b"))
+
         ab, fb = blocks["attn"], blocks["ffn"]
-        qkv, o_, gu, dn = [], [], [], []
+        qkv, o_ = [], []
         for li in range(cfg.n_layers):
-            qkv.append([spec(f"attn.q.l{li}", ab["q"], li, 0),
-                        spec(f"attn.k.l{li}", ab["k"], li, nq * hd),
-                        spec(f"attn.v.l{li}", ab["v"], li, (nq + nkv) * hd)])
-            o_.append([spec(f"attn.o.l{li}", ab["o"], li, 0)])
-            gu.append([spec(f"ffn.gate.l{li}", fb["gate"], li, 0),
-                       spec(f"ffn.up.l{li}", fb["up"], li, dff)])
-            dn.append([spec(f"ffn.down.l{li}", fb["down"], li, 0)])
+            qkv.append([lin(f"attn.q.l{li}", ab["q"], li, 0),
+                        lin(f"attn.k.l{li}", ab["k"], li, nq * hd),
+                        lin(f"attn.v.l{li}", ab["v"], li, (nq + nkv) * hd)])
+            o_.append([lin(f"attn.o.l{li}", ab["o"], li, 0)])
         stage_specs = {"qkv": (qkv, d, (nq + 2 * nkv) * hd),
-                       "o": (o_, nq * hd, d),
-                       "gu": (gu, d, 2 * dff),
-                       "dn": (dn, dff, d)}
+                       "o": (o_, nq * hd, d)}
+        self.moe = None
+        if getattr(cfg, "moe", None) is None:
+            gu, dn = [], []
+            for li in range(cfg.n_layers):
+                gu.append([lin(f"ffn.gate.l{li}", fb["gate"], li, 0),
+                           lin(f"ffn.up.l{li}", fb["up"], li, dff)])
+                dn.append([lin(f"ffn.down.l{li}", fb["down"], li, 0)])
+            stage_specs["gu"] = (gu, d, 2 * dff)
+            stage_specs["dn"] = (dn, dff, d)
+        else:
+            ne, edff = cfg.moe.n_experts, cfg.moe.d_ff_expert
+            eg, ed = [], []
+            for li in range(cfg.n_layers):
+                a_sites, b_sites = [], []
+                for ei in range(ne):
+                    # expert stacks are raw [L, E, in, out] (no "w" level)
+                    a_sites.append(spec(f"moe.gate.l{li}.e{ei}",
+                                        fb["gate"][:, ei], li, ei * edff,
+                                        ei * d))
+                    a_sites.append(spec(f"moe.up.l{li}.e{ei}", fb["up"][:, ei],
+                                        li, ne * edff + ei * edff, ei * d))
+                    b_sites.append(spec(f"moe.down.l{li}.e{ei}",
+                                        fb["down"][:, ei], li, ei * d,
+                                        ei * edff))
+                eg.append(a_sites)
+                ed.append(b_sites)
+            stage_specs["eg"] = (eg, ne * d, 2 * ne * edff)
+            stage_specs["ed"] = (ed, ne * edff, ne * d)
+            self.moe = {"router": fb["router"].to(executor.device,
+                                                  torch.float32).contiguous(),
+                        "n_experts": ne, "top_k": cfg.moe.top_k,
+                        "capacity_factor": cfg.moe.capacity_factor,
+                        "norm_topk": cfg.moe.norm_topk, "min_capacity": 4,
+                        "d_ff": ne * edff,
+                        "dropped": executor.moe_drop_counter()}
         pre = art.plans.get("step")
         t0 = time.perf_counter()
         if (pre is not None and set(pre) == set(stage_specs)
@@ -248,7 +286,7 @@ class StepPlan:
             d_ff=cfg.d_ff, norm=cfg.norm, rope=rope,
             x0=x[:, 0, :].to(torch.float32).T.contiguous(), pos=pos, cos=cos,
             sin=sin, ln1=self.ln1, ln2=self.ln2, kc=k_state, vc=v_state,
-            kpos=kpos, window=cfg.attn_window, block_tbl=tbl)
+            kpos=kpos, moe=self.moe, window=cfg.attn_window, block_tbl=tbl)
         # write the new rows back; an idle slot (pos == -1) writes nothing:
         # its K/V row goes to the null block (paged) or rewrites the old
         # value (contiguous), and its kpos stays -1
@@ -347,6 +385,22 @@ class CompressedExecutor:
                 self.plan_fallbacks.setdefault("step", reason)
         self._groups: dict[tuple, GroupedLCCMatvec | None] = {}
         self.routed: set[str] = set()
+        # dropped (token, choice) assignments of the MoE layers over every
+        # decode step on either route, int32 [1] on the device (made on
+        # first use)
+        self.moe_dropped: torch.Tensor | None = None
+
+    def moe_drop_counter(self) -> torch.Tensor:
+        """The device counter :attr:`moe_dropped` (made on first use)."""
+        if self.moe_dropped is None:
+            self.moe_dropped = torch.zeros(1, dtype=torch.int32,
+                                           device=self.device)
+        return self.moe_dropped
+
+    def count_moe_drops(self, keep: torch.Tensor) -> None:
+        """Add one MoE layer's dropped choices (``~keep``) to the counter."""
+        c = self.moe_drop_counter()
+        c += (~keep).sum().to(c.device, torch.int32)
 
     @property
     def sites(self) -> set[str]:
@@ -402,6 +456,30 @@ class CompressedExecutor:
         if plan is not None:
             self.routed.update(plan.covered)
         return plan
+
+    def moe_plan(self, site_tag: str, *, n_experts: int, d_model: int,
+                 d_ff: int):
+        """The reference's single-launch plan for one MoE layer's experts
+        (K9, ``moe_plan_matmul``) is not ported: it is reached only when the
+        whole-step plan is not (MLA or shared experts, which this package
+        refuses).  Records why the layer takes the grouped per-region route,
+        with the reference's reasons, and returns None; raises where the
+        reference would build that plan."""
+        key = f"moe:{site_tag}"
+        names = [f"moe.{p}.{site_tag}.e{e}" for e in range(n_experts)
+                 for p in ("gate", "up", "down")]
+        if not self.use_plans:
+            reason = "plans_disabled"
+        elif not all(n in self._matvecs for n in names):
+            reason = "moe_sites_missing"
+        elif self.artifact.config.cdtype != torch.float32:
+            reason = "cdtype"
+        else:
+            raise NotImplementedError(
+                "per-layer MoE plans (moe_plan_matmul) are not available in "
+                "this package yet (the deepseek-v2-lite slice)")
+        self.plan_fallbacks.setdefault(key, reason)
+        return None
 
     @property
     def n_layer_plans(self) -> int:

@@ -15,6 +15,8 @@ kernel route and the dense route agree.
 from __future__ import annotations
 
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -29,22 +31,22 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.lcc_chain_matmul import _levels_plain
 
 __all__ = ["seeded_decomposition", "decomposition_dense", "dense_sites",
-           "seeded_artifact"]
+           "moe_sites", "seeded_artifact"]
 
-SHARED_SITES = ("attn.k", "attn.o", "ffn.up")
+SHARED_SITES = ("attn.k", "attn.o", "ffn.up", "moe.up")
 
 
-def seeded_decomposition(n: int, k: int, rng: np.random.Generator, *,
-                         s_terms: int = 2, n_factors: int = 6,
-                         short_frac: float = 0.15, unused_frac: float = 0.02
-                         ) -> LCCDecomposition:
-    """A valid FP decomposition of shape ``(n, k)`` on the compressor's slice
-    grid.  The first factor of a slice draws ``s_terms`` of the slice's
-    columns per row; later factors look like matching-pursuit refinements,
-    ``prev[r] +- 2^-a * prev[j]``, so magnitudes stay bounded.  About
-    ``short_frac`` of the chains are one or two factors short and about
-    ``unused_frac`` of the term slots are unused (sign 0).  Scaled so that
-    unit-variance inputs give roughly unit-variance outputs."""
+def _seeded_chains(n: int, k: int, rng: np.random.Generator, *,
+                   s_terms: int = 2, n_factors: int = 6,
+                   short_frac: float = 0.15, unused_frac: float = 0.02
+                   ) -> tuple[LCCDecomposition, ops.PackedDecomposition]:
+    """``(decomposition, packed)``; see :func:`seeded_decomposition`.  The
+    factors are drawn straight into the packed ``[E, P, N, S]`` layout and
+    the decomposition's factors are views of those arrays, so the two share
+    their memory (at full width a site's streams take hundreds of MB).  When
+    the packer would pad the rows (``N`` above 128 and not a multiple of it)
+    the packed copy comes from :func:`~repro_torch.kernels.ops.
+    pack_decomposition` instead; either way it is bitwise the packer's."""
     cols = plan_col_slices(n, k)
     e = len(cols)
     widths = np.asarray([c1 - c0 for c0, c1 in cols], np.int64)
@@ -71,15 +73,54 @@ def seeded_decomposition(n: int, k: int, rng: np.random.Generator, *,
     sgn = np.ones((e, later, n, s_terms), np.int8)
     sgn[..., 1:] = signs((e, later, n, s_terms - 1))
     lengths = n_factors - (rng.random(e) < short_frac) * rng.integers(1, 3, size=e)
+    # the packed layout: factor 0, the later factors, identity rows past a
+    # chain's end (row r reads row r of the level before, sign 1)
+    p_max = int(lengths.max())
+    pidx = np.empty((e, p_max, n, s_terms), np.int32)
+    pexp = np.empty((e, p_max, n, s_terms), np.int8)
+    psgn = np.empty((e, p_max, n, s_terms), np.int8)
+    pidx[:, 0], pexp[:, 0], psgn[:, 0] = idx0, exp0, sgn0
+    pidx[:, 1:], pexp[:, 1:], psgn[:, 1:] = (a[:, : p_max - 1]
+                                             for a in (idx, exp, sgn))
+    del idx0, exp0, sgn0, idx, exp, sgn
+    past = np.arange(p_max)[None, :] >= lengths[:, None]  # [E, P]
+    ident_idx = np.zeros((n, s_terms), np.int32)
+    ident_idx[:, 0] = np.arange(n)
+    ident_sgn = np.zeros((n, s_terms), np.int8)
+    ident_sgn[:, 0] = 1
+    pidx[past], pexp[past], psgn[past] = ident_idx, 0, ident_sgn
     slices = []
     for ei in range(e):
-        factors = [LCCFactor(idx0[ei], exp0[ei], sgn0[ei], in_dim=int(widths[ei]))]
-        factors += [LCCFactor(idx[ei, p], exp[ei, p], sgn[ei, p], in_dim=n)
-                    for p in range(int(lengths[ei]) - 1)]
+        factors = [LCCFactor(pidx[ei, 0], pexp[ei, 0], psgn[ei, 0],
+                             in_dim=int(widths[ei]))]
+        factors += [LCCFactor(pidx[ei, p], pexp[ei, p], psgn[ei, p], in_dim=n)
+                    for p in range(1, int(lengths[ei]))]
         slices.append(LCCChain(factors=factors, in_dim=int(widths[ei])))
-    return LCCDecomposition(shape=(n, k), col_slices=cols, slices=slices,
-                            algorithm="fp", target_snr_db=float("nan"),
-                            meta={"fixture": True})
+    dec = LCCDecomposition(shape=(n, k), col_slices=cols, slices=slices,
+                           algorithm="fp", target_snr_db=float("nan"),
+                           meta={"fixture": True})
+    if ops._pad_dim(n, 128) != n:
+        return dec, ops.pack_decomposition(dec)
+    w_pad = ops._pad_dim(int(widths.max()), 128)
+    return dec, ops.PackedDecomposition(
+        idx=pidx, exp=pexp, sign=psgn, col_slices=tuple(cols), dense=(),
+        in_dim=k, out_dim=n, d_pad=max(n, w_pad), first_width=w_pad,
+        chain_lengths=tuple(int(v) for v in lengths))
+
+
+def seeded_decomposition(n: int, k: int, rng: np.random.Generator, *,
+                         s_terms: int = 2, n_factors: int = 6,
+                         short_frac: float = 0.15, unused_frac: float = 0.02
+                         ) -> LCCDecomposition:
+    """A valid FP decomposition of shape ``(n, k)`` on the compressor's slice
+    grid.  The first factor of a slice draws ``s_terms`` of the slice's
+    columns per row; later factors look like matching-pursuit refinements,
+    ``prev[r] +- 2^-a * prev[j]``, so magnitudes stay bounded.  About
+    ``short_frac`` of the chains are one or two factors short and about
+    ``unused_frac`` of the term slots are unused (sign 0).  Scaled so that
+    unit-variance inputs give roughly unit-variance outputs."""
+    return _seeded_chains(n, k, rng, s_terms=s_terms, n_factors=n_factors,
+                          short_frac=short_frac, unused_frac=unused_frac)[0]
 
 
 @torch.no_grad()
@@ -112,20 +153,35 @@ def dense_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, str], int, int]]:
     """Per-layer compressible sites of the dense family:
     ``(site prefix, (block, projection), N out, K in)``; the site name of
     layer ``li`` is ``f"{prefix}.l{li}"`` and its weight is
-    ``params["blocks"][block][projection]["w"][li]`` of shape ``[K, N]``."""
+    ``params["blocks"][block][projection]["w"][li]`` of shape ``[K, N]``.
+    For the MoE family the FFN rows are left out (see :func:`moe_sites`)."""
     d, dff = cfg.d_model, cfg.d_ff
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return [("attn.q", ("attn", "q"), nq * hd, d),
-            ("attn.k", ("attn", "k"), nkv * hd, d),
-            ("attn.v", ("attn", "v"), nkv * hd, d),
-            ("attn.o", ("attn", "o"), d, nq * hd),
-            ("ffn.gate", ("ffn", "gate"), dff, d),
-            ("ffn.up", ("ffn", "up"), dff, d),
-            ("ffn.down", ("ffn", "down"), d, dff)]
+    sites = [("attn.q", ("attn", "q"), nq * hd, d),
+             ("attn.k", ("attn", "k"), nkv * hd, d),
+             ("attn.v", ("attn", "v"), nkv * hd, d),
+             ("attn.o", ("attn", "o"), d, nq * hd)]
+    if cfg.moe is None:
+        sites += [("ffn.gate", ("ffn", "gate"), dff, d),
+                  ("ffn.up", ("ffn", "up"), dff, d),
+                  ("ffn.down", ("ffn", "down"), d, dff)]
+    return sites
+
+
+def moe_sites(cfg: ArchConfig) -> list[tuple[str, str, int, int]]:
+    """Per-layer expert sites of the MoE family: ``(site prefix, projection,
+    N out, K in)``; expert ``e`` of layer ``li`` is ``f"{prefix}.l{li}.e{e}"``
+    and its weight ``params["blocks"]["ffn"][projection][li, e]`` of shape
+    ``[K, N]`` (raw expert stacks, no ``"w"`` level, as in the reference)."""
+    if cfg.moe is None:
+        return []
+    d, dff = cfg.d_model, cfg.moe.d_ff_expert
+    return [("moe.gate", "gate", dff, d), ("moe.up", "up", dff, d),
+            ("moe.down", "down", d, dff)]
 
 
 def _seeded_site(name: str, n: int, k: int, rng: np.random.Generator,
-                 shared: bool, n_pruned: int, device):
+                 shared: bool, n_pruned: int, device, host_effective: bool):
     """One site: record, packed buffers and the full dense-effective weight
     ``[N, K]`` (pruned columns zero) on ``device``."""
     n_pruned = min(n_pruned, k - 2)
@@ -137,8 +193,7 @@ def _seeded_site(name: str, n: int, k: int, rng: np.random.Generator,
         labels = np.concatenate([rng.permutation(k_dec),
                                  rng.integers(0, k_dec, size=merged)])
         labels = labels[rng.permutation(labels.size)].astype(np.int64)
-    dec = seeded_decomposition(n, k_dec, rng)
-    packed = ops.pack_decomposition(dec)
+    dec, packed = _seeded_chains(n, k_dec, rng)
     w_dec = decomposition_dense(packed, device)  # [N, k_dec]
     eff = w_dec if labels is None else w_dec[:, torch.from_numpy(labels).to(device)]
     full = torch.zeros((n, k), dtype=torch.float32, device=device)
@@ -147,19 +202,27 @@ def _seeded_site(name: str, n: int, k: int, rng: np.random.Generator,
         name=name, kept_columns=kept,
         shared=(SharedLayer(centroids=w_dec.cpu().numpy(), labels=labels)
                 if labels is not None else None),
-        decomposition=dec, effective=eff.cpu().numpy())
+        decomposition=dec,
+        effective=eff.cpu().numpy() if host_effective else None)
     return rec, packed, full
 
 
 def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
-                    shared_sites=SHARED_SITES, n_pruned: int = 2
-                    ) -> CompressedModel:
+                    shared_sites=SHARED_SITES, n_pruned: int = 2,
+                    host_effective: bool = True) -> CompressedModel:
     """A compressed artifact for ``cfg`` made from ``seed`` alone (see the
-    module docstring).  Every attention and FFN projection of every layer is
-    a compressed site; ``shared_sites`` (site prefixes) additionally get
-    weight sharing, so the segment-sum kernel is on the decode path.
-    ``params`` are the dense-effective weights in ``cfg.param_dtype`` on
-    ``device``; pre-packed kernel buffers come along in ``packed``."""
+    module docstring).  Every attention and FFN projection of every layer —
+    for the MoE family every expert's gate, up and down — is a compressed
+    site; ``shared_sites`` (site prefixes) additionally get weight sharing,
+    so the segment-sum kernel is on the decode path.  An MoE block gets a
+    seeded float32 router ``[L, d, E]``.  ``params`` are the dense-effective
+    weights in ``cfg.param_dtype`` (the router in float32) on ``device``;
+    pre-packed kernel buffers come along in ``packed``.  With
+    ``host_effective=False`` the records keep no host copy of their
+    dense-effective matrix (``effective`` is None: at mixtral-8x22b's width
+    it would take 10 GB a layer; ``params`` hold the same weights).  Sites
+    are drawn on up to 8 threads, each from its own generator, so the
+    artifact does not depend on the thread count."""
     sites = dense_sites(cfg)
     L, d = cfg.n_layers, cfg.d_model
     rng = np.random.default_rng((seed, 0))
@@ -173,18 +236,40 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     if not cfg.tie_embeddings:
         head = rng.standard_normal((d, cfg.vocab), dtype=np.float32) * np.float32(d ** -0.5)
         params["lm_head"] = {"w": torch.from_numpy(head).to(**pd)}
-    records, packed = {}, {}
+    # one job a site: (name, N, K, generator key, weight-shared, where the
+    # dense-effective weight goes in params)
+    jobs = []
     for si, (prefix, (blk, proj), n, k) in enumerate(sites):
-        stack = torch.empty((L, k, n), **pd)
+        params["blocks"][blk][proj] = {"w": torch.empty((L, k, n), **pd)}
         for li in range(L):
-            name = f"{prefix}.l{li}"
-            rec, pk, full = _seeded_site(
-                name, n, k, np.random.default_rng((seed, 1 + li, si)),
-                prefix in shared_sites, n_pruned, device)
-            records[name], packed[name] = rec, pk
-            stack[li] = full.T.to(cfg.pdtype)
-        params["blocks"][blk][proj] = {"w": stack}
+            jobs.append((f"{prefix}.l{li}", n, k, (seed, 1 + li, si),
+                         prefix in shared_sites,
+                         (params["blocks"][blk][proj]["w"], (li,))))
+    if cfg.moe is not None:
+        ne = cfg.moe.n_experts
+        ffn = params["blocks"]["ffn"]
+        router = rng.standard_normal((L, d, ne), dtype=np.float32) * np.float32(d ** -0.5)
+        ffn["router"] = torch.from_numpy(router).to(device)
+        for si, (prefix, proj, n, k) in enumerate(moe_sites(cfg), len(sites)):
+            ffn[proj] = torch.empty((L, ne, k, n), **pd)
+            for li in range(L):
+                for e in range(ne):
+                    jobs.append((f"{prefix}.l{li}.e{e}", n, k,
+                                 (seed, 1 + li, si, e), prefix in shared_sites,
+                                 (ffn[proj], (li, e))))
+
+    def run(job):
+        name, n, k, key, shared, (stack, at) = job
+        rec, pk, full = _seeded_site(name, n, k, np.random.default_rng(key),
+                                     shared, n_pruned, device, host_effective)
+        stack[at] = full.T.to(cfg.pdtype)
+        return name, rec, pk
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        built = list(pool.map(run, jobs))  # numpy and torch free the GIL
     # executor site order follows the JAX adapters': layer-major inside a site
+    records = {name: rec for name, rec, _ in built}
+    packed = {name: pk for name, _, pk in built}
     return CompressedModel(
         config=cfg, params=params, records=records, packed=packed,
         compression=CompressionConfig(algorithm="fp", weight_sharing=True),

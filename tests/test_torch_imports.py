@@ -76,7 +76,8 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
                            ("lcc_group_matmul.cu", "lcc_group_matmul.py"),
                            ("cluster_segment_sum.cu", "shared_matmul.py"),
                            ("stage_matmul.cu", "layer_plan.py"),
-                           ("step_plan.cu", "layer_plan.py")):
+                           ("step_plan.cu", "layer_plan.py"),
+                           ("moe_route.cu", "layer_plan.py")):
         text = (csrc / name).read_text()
         assert "Replaces" in text and replaced in text and "ound by" in text
         assert 'extern "C"' in text and "cudaGetLastError" in (
@@ -85,9 +86,10 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
     from repro_torch.kernels import build
     assert [p.name for p in build.sources()] == [
         "cluster_segment_sum.cu", "lcc_chain_matmul.cu", "lcc_group_matmul.cu",
-        "stage_matmul.cu", "step_plan.cu"]
+        "moe_route.cu", "stage_matmul.cu", "step_plan.cu"]
     for entry in ("repro_stage_matmul", "repro_step_norm",
-                  "repro_step_attention", "repro_step_swiglu"):
+                  "repro_step_attention", "repro_step_swiglu",
+                  "repro_moe_route", "repro_moe_dispatch", "repro_moe_combine"):
         assert entry in build._SIGNATURES
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-use_fast_math" not in build.NVCC_FLAGS

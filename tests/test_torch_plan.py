@@ -27,12 +27,14 @@ from repro.models.layers import _rope_sincos as j_rope_sincos
 from repro.serving.engine import ServingEngine as JEngine
 from repro.serving.executor import CompressedExecutor as JExecutor
 
+from repro_torch.configs import get_arch as tget_arch, reduced_config as treduced
 from repro_torch.convert import artifact_from_reference
 from repro_torch.kernels import dispatch, ops as tops
 from repro_torch.kernels.layer_plan import step_plan_matmul, step_plan_matmul_plain
 from repro_torch.models import api as tapi
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.executor import CompressedExecutor, StepPlan
+from repro_torch.testing import seeded_artifact
 
 STEP_TOL = 1e-5
 DECODE_TOL = 1e-4
@@ -152,8 +154,22 @@ def test_step_wrapper_takes_the_plain_version_on_the_cpu(arts, stages):
     for a, b in zip(step_plan_matmul(tst, **args), step_plan_matmul_plain(tst, **args)):
         assert torch.equal(a, b)
     assert dispatch.launch_count() == 0
-    with pytest.raises(NotImplementedError):
-        step_plan_matmul(tst, **args, moe={"n_experts": 2})
+    # the MoE branch (K8) as well: a reduced mixtral plan's stages and router
+    mcfg = treduced(tget_arch("mixtral-8x22b"), d_model=32, n_heads=4,
+                    head_dim=16, vocab=64)
+    plan = CompressedExecutor(seeded_artifact(mcfg, seed=2, device="cpu"),
+                              device="cpu").step_plan(mcfg)
+    n_l, d, nkv, hd = mcfg.n_layers, mcfg.d_model, mcfg.n_kv_heads, mcfg.hd
+    margs = dict(args, n_kv_heads=nkv, head_dim=hd, d_ff=mcfg.d_ff,
+                 x0=torch.from_numpy(rng.standard_normal((d, 2)).astype(np.float32)),
+                 kc=torch.zeros((n_l, 2, 4, nkv, hd)),
+                 vc=torch.zeros((n_l, 2, 4, nkv, hd)),
+                 kpos=torch.full((n_l, 2, 4), -1, dtype=torch.int32),
+                 moe={k: v for k, v in plan.moe.items() if k != "dropped"})
+    got = step_plan_matmul(plan.stages, **margs)
+    for a, b in zip(got, step_plan_matmul_plain(plan.stages, **margs)):
+        assert torch.equal(a, b)
+    assert dispatch.launch_count() == 0 and torch.isfinite(got[0]).all()
 
 
 # ----------------------------------------------------- executor / decode
