@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # all phases, one GPU, no network
 
-Drives the port's main paths — compressed serving at published width
+Drives the port's main paths — prox-regularized training (olmo-1b at full
+width, the paper's MLP) and compressed serving at published width
 through ``Scheduler`` + ``ServingEngine(artifact=...)``: olmo-1b (dense) and
 mixtral-8x22b (MoE, 8 experts top-2, cut to 2 layers), each once through the
 per-region route (bf16, kernels K1-K3; mixtral's experts as grouped K2
@@ -33,7 +34,16 @@ CUDA kernel on those paths against its plain PyTorch version:
    reduced serve (plan == per-region == plain == dense, capacity drops
    occurring); the per-region kernels at its shapes and the bf16 per-region
    serve; then the plan packed and uploaded, K6 on its expert stages, one
-   full-width step, and the float32 plan serve; plan vs per-region logits.
+   full-width step, and the float32 plan serve; plan vs per-region logits;
+7. training (``--only train`` runs these alone): K5 ``group_prox`` on the
+   reference's hard cases and rows of every width to 16384 in float32 and
+   bf16, then at the training runs' own views, each against its plain
+   version and the oracle, bitwise from run to run, in place == out of
+   place, timed; olmo-1b at full width (bf16, remat) trained by
+   ``make_train_step`` with ProxSGD over every site (batch 8 x 512 tokens):
+   a warm and five timed steps, 7 K5 launches a step, the update through K5
+   against the other route, a profiled step; the paper's MLP through the
+   port's launcher (``--arch mlp --prox``), 2 K5 launches a step.
 
 One JSON object per line; a failed phase ends the run with a non-zero exit.
 Imports nothing of JAX.
@@ -58,6 +68,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_arch, reduced_config  # noqa: E402
 from repro_torch.data.synthetic import MarkovLM  # noqa: E402
 from repro_torch.kernels import build, dispatch, ops  # noqa: E402
+from repro_torch.kernels.group_prox import (  # noqa: E402
+    group_prox, group_prox_plain)
+from repro_torch.kernels.ref import group_prox_ref  # noqa: E402
 from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
     _levels_plain, _slice_inputs_plain, lcc_chain_matmul,
     lcc_chain_matmul_plain, plan_launch)
@@ -114,6 +127,9 @@ KERNELS = {
     "moe_combine": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
+    "group_prox": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/group_prox.cu",
+        replaces="src/repro/kernels/group_prox.py:56"),
 }
 PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "cluster_segment_sum")
 PLAN = ("stage_matmul", "step_plan_matmul")
@@ -124,7 +140,8 @@ PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "stage_levels_kernel", "stage_epilogue_kernel",
                 "step_norm_kernel", "step_attention_kernel",
                 "step_swiglu_kernel", "moe_route_kernel",
-                "moe_dispatch_kernel", "moe_combine_kernel")
+                "moe_dispatch_kernel", "moe_combine_kernel",
+                "group_prox_kernel")
 MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
 MAX_LEN = 128  # the serves' KV view: 8 blocks of 16 tokens
 # |step kernel - plain| <= STEP_TOL * max(1, max|plain|): float32 sums in
@@ -1460,14 +1477,392 @@ def run_olmo(dev, layers):
                                         planned["decode_steps"])}
 
 
+# ---------------------------------------------- training (K5, group_prox)
+
+# K5 |kernel - plain| <= PROX_TOL * max(1, max|plain|) in float32: the row's
+# sum of squares in another order; bf16: one bf16 ulp of the plain version's
+# value (the same float32 product rounded once on either side) plus
+# PROX_TOL * |a|: the two float32 scales differ by up to ~1e-6, which near
+# the threshold (scale ~1e-4 and below) is more than an ulp of the output
+PROX_TOL = 1e-6
+PROX_MARGIN = 1e-5  # killed rows must agree where |norm - t| / t > this
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_LR, TRAIN_LAM = 3e-3, 0.1  # the launcher's defaults
+TRAIN_STEPS = 5  # timed, after one warm step
+
+
+def bf16_ulp(w: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``w`` (8 significant bits)."""
+    _, e = torch.frexp(w.float().abs())
+    return torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8)
+
+
+def check_prox(label, got, want, a, t):
+    """K5's result against a reference of the same prox: the tolerance of
+    its dtype, and the same killed rows wherever the row's norm is not within
+    PROX_MARGIN of the threshold.  Returns (max_abs_err, smallest margin)."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if got.dtype == torch.float32:
+        check_close(label, got, want, PROX_TOL)
+    else:
+        over = diff - bf16_ulp(want) - PROX_TOL * a.float().abs()
+        if bool((over > 0).any()):
+            i = int(torch.argmax(over))
+            r, c = divmod(i, a.shape[1])
+            nr = float(torch.linalg.vector_norm(a[r], dtype=torch.float32))
+            fail(f"{label}: beyond one bf16 ulp + {PROX_TOL}*|a| of the plain "
+                 f"version at [{r}, {c}]: a {float(a[r, c])}, got "
+                 f"{float(got[r, c])}, want {float(want[r, c])}, row norm "
+                 f"{nr}, t {t} (max_abs_err {err:.3e})")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: non-finite output")
+    norms = torch.linalg.vector_norm(a, dim=1, dtype=torch.float32)
+    margin = ((norms - t).abs() / t if t > 0
+              else torch.full_like(norms, float("inf")))
+    away = margin > PROX_MARGIN
+    differ = ((got == 0).all(1) != (want == 0).all(1)) & away
+    if bool(differ.any()):
+        fail(f"{label}: {int(differ.sum())} rows killed on one side only")
+    ulp = {}
+    if got.dtype != torch.float32:  # where one ulp alone is not enough
+        rows = (diff > bf16_ulp(want)).any(1)
+        ulp = dict(rows_beyond_one_ulp=int(rows.sum()),
+                   their_largest_margin=float(margin[rows].max())
+                   if bool(rows.any()) else None)
+    return err, float(margin.min()), ulp
+
+
+def prox_input(rng, g, m, dtype, dev):
+    """Rows of unequal norm (scaled by 0.5-1.5) with every 97th row zero,
+    and a threshold that kills about half of them."""
+    a = rng.standard_normal((g, m), dtype=np.float32)
+    a *= rng.uniform(0.5, 1.5, (g, 1)).astype(np.float32)
+    a[::97] = 0.0
+    t = torch.from_numpy(a).to(dev, dtype)
+    return t, mid_threshold(torch.linalg.vector_norm(t, dim=1, dtype=torch.float32))
+
+
+def mid_threshold(norms: torch.Tensor) -> float:
+    """Halfway between the two middle group norms: about half the groups
+    die, and no group sits exactly on the threshold."""
+    s = torch.sort(norms).values
+    return float(s[(len(s) - 1) // 2] + s[len(s) // 2]) / 2
+
+
+def kernel_case_prox(label, a, t, dev, timer, serve=None):
+    """K5 on ``a`` at threshold ``t``: against the plain version and the
+    oracle, bitwise from run to run and in place == out of place; timed
+    (bound: the view read and written once, three operations a weight)."""
+    g, m = a.shape
+    got = group_prox(a, t)
+    want = group_prox_plain(a, t)
+    err, margin, ulp = check_prox(f"group_prox {label}", got, want, a, t)
+    check_prox(f"group_prox {label} (oracle)", got, group_prox_ref(a, t), a, t)
+    if not torch.equal(group_prox(a, t), got):
+        fail(f"group_prox {label}: two runs differ")
+    inplace = a.clone()
+    group_prox(inplace, t, out=inplace)
+    if not torch.equal(inplace, got):
+        fail(f"group_prox {label}: in place differs from out of place")
+    torch.cuda.synchronize()
+    out = torch.empty_like(a)
+    killed = int((got == 0).all(1).sum())
+    return kernel_row("group_prox", label, [g, m], (g, m), err, None,
+                      lambda: group_prox(a, t, out=out),
+                      lambda: group_prox_plain(a, t), None,
+                      bound_of(2 * a.numel() * a.element_size(), 3 * a.numel()),
+                      timer, serve=serve, dtype=str(a.dtype).split(".")[-1],
+                      killed_rows=killed, smallest_margin=margin, **ulp,
+                      library_note="none: no single PyTorch call computes "
+                                   "the prox")
+
+
+def olmo_prox_views(cfg):
+    """The [G, M] views of olmo-1b's seven regularized leaves (all in_rows:
+    the leaf [L, K, N] viewed as [L*K, N]), grouped by shape."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    return {"attn.q/k/v/o": (L * d, cfg.n_heads * cfg.hd),
+            "ffn.gate/up": (L * d, f), "ffn.down": (L * f, d)}
+
+
+def phase_train_kernels(dev, cfg):
+    """K5 on the reference's hard cases, rows of every width up to 16384 in
+    float32 and bf16, then the main paths' own views: olmo-1b's (bf16) and
+    the MLP's (float32, transposed copies of fc1 [300, 784] and fc2)."""
+    timer = Timer(dev)
+    rng = np.random.default_rng(60)
+    rows = []
+    hard = np.random.default_rng(5).standard_normal((37, 16)).astype(np.float32)
+    hard[[3, 17, 36]] = 0.0
+    for r, n in ((5, 2.0), (9, 1.995), (11, 2.005)):  # at, under, over t = 2
+        hard[r] *= n / np.linalg.norm(hard[r])
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        rows.append(kernel_case_prox(f"hard 37x16 {name} t=2",
+                                     torch.from_numpy(hard).to(dev, dt), 2.0,
+                                     dev, timer))
+        for m in (10, 33, 300, 2047, 2048, 8192, 16384):
+            a, t = prox_input(rng, 1003, m, dt, dev)
+            rows.append(kernel_case_prox(f"1003x{m} {name}", a, t, dev, timer))
+        a, _ = prox_input(rng, 1003, 300, dt, dev)
+        rows.append(kernel_case_prox(f"1003x300 {name} t=0", a, 0.0, dev, timer))
+    torch.cuda.empty_cache()
+    for leaves, (g, m) in olmo_prox_views(cfg).items():
+        a, t = prox_input(rng, g, m, torch.bfloat16, dev)
+        rows.append(kernel_case_prox(f"full olmo {leaves} [{g}, {m}] bf16", a, t,
+                                     dev, timer, serve=f"{cfg.name} train"))
+        del a
+        torch.cuda.empty_cache()
+    for leaf, (g, m) in (("fc1", (784, 300)), ("fc2", (300, 10))):
+        a, t = prox_input(rng, g, m, torch.float32, dev)
+        rows.append(kernel_case_prox(f"full mlp {leaf} [{g}, {m}] float32", a, t,
+                                     dev, timer, serve="mlp train"))
+    return rows
+
+
+# device kernels by class, for where a train step's time goes (name fragments)
+KERNEL_CLASSES = (("group_prox (K5)", ("group_prox_kernel",)),
+                  ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+                  ("softmax", ("softmax",)),
+                  ("reduction", ("reduce_kernel",)),
+                  ("index / scatter / gather", ("index", "scatter", "gather",
+                                                "embedding")),
+                  ("elementwise", ("elementwise",)),
+                  ("copy / fill", ("copy", "Memcpy", "Memset", "fill")))
+
+
+def profile_train_step(cfg, opt, specs, state, batch):
+    """Where one steady train step's time goes: CUDA events around the
+    optimizer's update (the rest of the step is forward + backward + clip
+    before it and the sparsity report after it) in one step, then
+    torch.profiler's device time by kernel name and class in the next; K5's
+    share, and the device's idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.training.trainer import make_train_step
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def timed_update(*a):
+        ev[1].record()
+        out = opt.update(*a)
+        ev[2].record()
+        return out
+
+    step_fn = make_train_step(cfg, Optimizer(opt.init, timed_update),
+                              lr=TRAIN_LR, prox_specs=specs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    state, _ = step_fn(state, batch)
+    ev[3].record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events_ms = dict(forward_backward_clip=ev[0].elapsed_time(ev[1]),
+                     optimizer_update=ev[1].elapsed_time(ev[2]),
+                     sparsity_report=ev[2].elapsed_time(ev[3]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    by_name, launched = {}, 0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if dev_us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + dev_us / 1e3
+            launched += e.count
+    busy = sum(by_name.values())
+    if busy <= 0:
+        fail("the profiler reported no device time for the train step")
+    by_class = {}
+    for name, ms in by_name.items():
+        cls = next((c for c, frags in KERNEL_CLASSES
+                    if any(f in name for f in frags)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    k5 = by_class.get("group_prox (K5)", 0.0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return state, dict(
+        wall_ms=wall_ms, device_busy_ms=busy,
+        device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+        events_ms=events_ms,
+        device_kernels=launched, group_prox_device_ms=k5,
+        group_prox_share_of_busy=k5 / busy,
+        device_ms_by_class={k: round(v, 4) for k, v in
+                            sorted(by_class.items(), key=lambda kv: -kv[1])},
+        top_device_ms={k.removeprefix("void ")[:110]: round(v, 4)
+                       for k, v in top})
+
+
+def check_update_routes(state, specs, step_batch, cfg, dev):
+    """One ProxSGD update on the same parameters, gradients and momentum
+    through K5 (``use_kernel=True``) and through the XLA-equivalent route
+    (``use_kernel=False``: ``group_prox_rows`` in bf16, as the reference's):
+    parameters within one bf16 ulp and the same dead groups.  Then the same
+    pre-prox parameters at a threshold that kills about half of each
+    leaf's groups, K5 against its float32 plain version."""
+    from repro_torch.optim.optimizers import (apply_spec_prox, clip_by_global_norm,
+                                              sgd, spec_group_norms, tree_get,
+                                              tree_leaves, tree_map)
+
+    params = state.params
+    leaves = tree_leaves(params)
+    loss = api.train_loss(params, cfg, step_batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    it = iter(grads)
+    grads, _ = clip_by_global_norm(tree_map(lambda _: next(it), params), 1.0)
+    with torch.no_grad():
+        pre = tree_map(lambda p: p.detach().clone(), params)
+        mu = tree_map(lambda m: m.clone(), state.opt_state["mu"])
+        sgd(0.9).update(grads, {"mu": mu}, pre, TRAIN_LR)  # prox_sgd's first half
+        del mu, grads
+        out = dict(launches=0)
+        for tag, thresh in (("run", lambda n: TRAIN_LR * TRAIN_LAM),
+                            ("median", mid_threshold)):
+            worst, dead_k, dead_x, margin = 0.0, 0, 0, float("inf")
+            for gs in specs:
+                leaf = tree_get(pre, gs.path)
+                norms = spec_group_norms(leaf, gs.kind)
+                t = thresh(norms)
+                n0 = dispatch.launch_count("group_prox")
+                k = apply_spec_prox(leaf.clone(), gs.kind, t, use_kernel=True)
+                out["launches"] += dispatch.launch_count("group_prox") - n0
+                if tag == "run":
+                    x = apply_spec_prox(leaf.clone(), gs.kind, t, use_kernel=False)
+                else:  # the bf16 XLA route rounds the scale itself: plain f32
+                    x = group_prox_plain(leaf.reshape(-1, leaf.shape[-1]), t
+                                         ).reshape(leaf.shape)
+                k2, x2 = k.reshape(-1, k.shape[-1]), x.reshape(-1, x.shape[-1])
+                err, m, _ = check_prox(f"train update {gs.name} ({tag})", k2,
+                                       x2, leaf.reshape(-1, leaf.shape[-1]), t)
+                worst, margin = max(worst, err), min(margin, m)
+                dead_k += int((spec_group_norms(k, gs.kind) == 0).sum())
+                dead_x += int((spec_group_norms(x, gs.kind) == 0).sum())
+                del k, x, k2, x2
+            if margin > PROX_MARGIN and dead_k != dead_x:  # else: row by row
+                fail(f"train update ({tag}): {dead_k} dead groups through K5, "
+                     f"{dead_x} through the other route")
+            out[tag] = dict(max_abs_err=worst, dead_groups=dead_k,
+                            smallest_margin=margin)
+    del pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_olmo(dev):
+    """olmo-1b at full width (configs/olmo_1b.py unchanged: bf16 parameters
+    and compute, remat on) trained by the port's ``make_train_step`` with
+    ProxSGD over every site's groups: one warm step and TRAIN_STEPS timed
+    ones, the kernel-vs-XLA-route update check, and a profiled step."""
+    from repro_torch.optim.optimizers import prox_sgd, tree_leaves
+    from repro_torch.training.regularize import site_group_specs
+    from repro_torch.training.trainer import init_train_state, make_train_step
+
+    cfg = get_arch("olmo-1b")
+    specs = site_group_specs(api.abstract_params(cfg), cfg, TRAIN_LAM)
+    opt = prox_sgd(momentum=0.9, specs=specs)
+    t0 = time.perf_counter()
+    state = init_train_state(0, cfg, opt, prox_specs=specs, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(cfg, opt, lr=TRAIN_LR, prox_specs=specs)
+    lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                lm.batch(TRAIN_BATCH, TRAIN_SEQ, seed=i).items()}
+               for i in range(TRAIN_STEPS + 3)]
+    param_bytes = tensor_bytes(*tree_leaves(state.params))
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_count()  # counts of the main path start here ...
+    step_ms, losses, dead, penalty, gnorm = [], [], [], [], []
+    for i in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorm.append(float(m["grad_norm"]))
+        dead.append(int(m["dead_groups"]))
+        penalty.append(float(m["prox_penalty"]))
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_STEPS + 1
+    if not all(np.isfinite(losses)):
+        fail(f"train olmo: non-finite loss {losses}")
+    if set(counts) != {"group_prox"} or counts["group_prox"] != len(specs) * steps:
+        fail(f"train olmo: launched {counts}, expected {len(specs)} group_prox "
+             f"launches a step over {steps} steps and nothing else")
+    state, prof = profile_train_step(cfg, opt, specs, state, batches[steps])
+    check = check_update_routes(state, specs, batches[steps + 1], cfg, dev)
+    ms = float(np.median(step_ms[1:]))
+    return dict(phase="train_olmo", arch=cfg.name, layers=cfg.n_layers,
+                d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+                remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+                lam=TRAIN_LAM, specs=[(s.name, s.kind) for s in specs],
+                init_s=init_s, first_step_ms=step_ms[0], step_ms=step_ms,
+                ms_per_step=ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                peak_device_bytes=peak, param_bytes=param_bytes,
+                group_prox_launches_per_step=counts["group_prox"] / steps,
+                group_prox_ms_per_step=prof["group_prox_device_ms"],
+                group_prox_share_of_step=prof["group_prox_device_ms"] / ms,
+                loss=losses, grad_norm=gnorm, dead_groups=dead,
+                prox_penalty=penalty, update_check=check, profile=prof
+                ), counts, by_shape, steps
+
+
+def phase_train_mlp():
+    """The port's launcher on the paper's MLP: --arch mlp --prox --lambda 0.1
+    --epochs 3, in process; K5 twice a step (fc1, fc2)."""
+    from repro_torch.launch import train
+
+    dispatch.reset_launch_count()  # counts of the main path start here ...
+    stats = train.main(["--arch", "mlp", "--prox", "--lambda", "0.1",
+                        "--epochs", "3"])
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    if counts != {"group_prox": 2 * stats["steps"]}:
+        fail(f"train mlp: launched {counts} over {stats['steps']} steps, "
+             "expected 2 group_prox launches a step and nothing else")
+    if not 0.0 <= stats["accuracy"] <= 1.0:
+        fail(f"train mlp: accuracy {stats['accuracy']}")
+    return (dict(phase="train_mlp", **stats,
+                 group_prox_launches_per_step=counts["group_prox"] / stats["steps"]),
+            counts, by_shape, stats["steps"])
+
+
+def run_train(dev):
+    """The training phases: K5's cases, olmo-1b at full width, the MLP.
+    Returns the kernel rows and the training runs' launch counts."""
+    cfg = get_arch("olmo-1b")
+    rows = phase_train_kernels(dev, cfg)
+    emit(dict(phase="train_kernels", tolerance_float32=PROX_TOL,
+              tolerance_bf16=f"one bf16 ulp of the plain version + "
+                             f"{PROX_TOL} * |a|",
+              killed_rows_margin=PROX_MARGIN, rows=rows))
+    torch.cuda.empty_cache()
+    olmo, counts, by_shape, steps = phase_train_olmo(dev)
+    emit(olmo)
+    serves = {f"{cfg.name} train": (counts, by_shape, steps)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mlp, counts, by_shape, steps = phase_train_mlp()
+    emit(mlp)
+    serves["mlp train"] = (counts, by_shape, steps)
+    return rows, serves
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the olmo-1b serves (never the width)")
-    ap.add_argument("--only", choices=("kernels", "mixtral"), default=None,
+    ap.add_argument("--only", choices=("kernels", "mixtral", "train"),
+                    default=None,
                     help="kernels: stop after olmo-1b's kernel phase; "
-                         "mixtral: run the mixtral-8x22b phases alone (no "
-                         "final ok line either way)")
+                         "mixtral: run the mixtral-8x22b phases alone; "
+                         "train: run the training phases alone (no final ok "
+                         "line in any case)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1488,7 +1883,7 @@ def main() -> None:
               sources=[p.name for p in build.sources()]))
 
     rows, serves = [], {}
-    if args.only != "mixtral":
+    if args.only not in ("mixtral", "train"):
         if args.only == "kernels":
             base = get_arch("olmo-1b")
             if args.layers is not None:
@@ -1502,9 +1897,16 @@ def main() -> None:
         rows, serves = run_olmo(dev, args.layers)
         gc.collect()
         torch.cuda.empty_cache()
-    mrows, mserves = run_mixtral(dev)
-    rows += mrows
-    serves.update(mserves)
+    if args.only != "train":
+        mrows, mserves = run_mixtral(dev)
+        rows += mrows
+        serves.update(mserves)
+        del mrows, mserves
+        gc.collect()
+        torch.cuda.empty_cache()
+    trows, tserves = run_train(dev)
+    rows += trows
+    serves.update(tserves)
 
     # the kernels of the main paths at the dimensions they gave them:
     # ``launches`` is what a serve launched at exactly the row's dimensions

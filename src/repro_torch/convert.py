@@ -18,7 +18,8 @@ from repro_torch.core.lcc import FSProgram, LCCChain, LCCDecomposition, LCCFacto
 from repro_torch.core.weight_sharing import SharedLayer
 from repro_torch.kernels.ops import PackedStage
 
-__all__ = ["params_from_numpy", "artifact_from_reference",
+__all__ = ["params_from_numpy", "mlp_params_from_numpy",
+           "train_state_from_numpy", "artifact_from_reference",
            "config_from_reference", "decomposition_from_reference",
            "stage_from_reference"]
 
@@ -37,7 +38,7 @@ def _leaf_to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 # leaves that keep float32 whatever ``param_dtype`` is, as in the JAX package:
 # an MoE router stays float32 for a stable top-k
-_F32_LEAVES = ("router",)
+F32_LEAVES = ("router",)
 
 
 def params_from_numpy(tree, cfg: ArchConfig, device="cuda", *,
@@ -50,12 +51,41 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda", *,
     if isinstance(tree, dict):
         return {k: params_from_numpy(
                     v, cfg, device,
-                    _dtype=torch.float32 if k in _F32_LEAVES else dtype)
+                    _dtype=torch.float32 if k in F32_LEAVES else dtype)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, cfg, device, _dtype=dtype)
                           for v in tree)
     return _leaf_to_tensor(tree, dtype, device)
+
+
+def mlp_params_from_numpy(tree, device="cuda", dtype=torch.float32):
+    """The paper's MLP parameters (nested dict of numpy arrays) -> tensors on
+    ``device`` in ``dtype`` (the reference's ``init_mlp`` default: float32)."""
+    return params_from_numpy(tree, None, device, _dtype=dtype)
+
+
+def train_state_from_numpy(state, cfg: ArchConfig, device="cuda"):
+    """A JAX-package ``TrainState`` whose leaves are numpy arrays (the caller
+    runs ``jax.tree.map(np.asarray, state)``), read by attribute -> this
+    package's ``TrainState``: params in ``cfg.param_dtype`` (a router
+    float32), the optimizer state (``mu``, or ``m``/``v``/``t``) float32 with
+    ``t`` int32, the step, and the sparsity report.  A state carrying
+    gradient-compression residuals is refused (not ported)."""
+    from repro_torch.training.trainer import TrainState
+
+    if getattr(state, "error_fb", None) is not None:
+        raise NotImplementedError("gradient-compression residuals (error_fb) "
+                                  "are not available in this package yet")
+    report = getattr(state, "prox_report", None)
+    return TrainState(
+        params=params_from_numpy(state.params, cfg, device),
+        opt_state=params_from_numpy(state.opt_state, cfg, device,
+                                    _dtype=torch.float32),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        prox_report=None if report is None else params_from_numpy(
+            report, cfg, device, _dtype=torch.float32))
 
 
 def config_from_reference(cfg) -> ArchConfig:

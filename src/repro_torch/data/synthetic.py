@@ -2,13 +2,14 @@
 ``MarkovLM`` so both packages draw the same prompts from the same seed).
 
 ``MarkovLM``: token streams from a sparse random Markov chain — deterministic
-in (seed, index), so serving runs are reproducible.
+in (seed, index), so serving and training runs are reproducible.
+``batches``: the deterministic epoch shuffler of the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["MarkovLM"]
+__all__ = ["MarkovLM", "batches"]
 
 
 class MarkovLM:
@@ -36,3 +37,13 @@ class MarkovLM:
     def batch(self, batch: int, seq_len: int, seed: int) -> dict:
         toks = self.sample(batch, seq_len, seed)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def batches(x: np.ndarray, y: np.ndarray, batch_size: int, seed: int = 0):
+    """Deterministic epoch shuffler (the reference's permutation for the
+    same seed; a last partial batch is dropped)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(len(x))
+    for i in range(0, len(x) - batch_size + 1, batch_size):
+        j = idx[i:i + batch_size]
+        yield x[j], y[j]

@@ -26,6 +26,7 @@ _lib: ctypes.CDLL | None = None
 last_build_seconds: float | None = None  # None until load() ran; 0.0 = cached
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # idx exp sign x c0 w len partial out | E P N S B C spb bb threads | stream
     "repro_lcc_chain_matmul": [_P] * 9 + [_I] * 9 + [_P],
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "repro_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
     # x ob slot wgt out | d B E k cap | stream
     "repro_moe_combine": [_P] * 5 + [_I] * 5 + [_P],
+    # a out | G | M | t | dtype | stream
+    "repro_group_prox": [_P, _P, _L, _I, _F, _I, _P],
 }
 
 

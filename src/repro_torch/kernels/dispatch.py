@@ -78,7 +78,8 @@ def launch_counts_by_shape() -> dict[tuple[str, tuple], int]:
     """Launch counts per ``(kernel, dimensions)`` since import or the last
     reset.  Dimensions: ``(E, P, N, S, K, B)`` for ``lcc_chain_matmul``,
     ``(G, E, P, N, S, K, B)`` for ``lcc_group_matmul`` (K = rows of the
-    concatenated input), ``(K, C, B)`` for ``cluster_segment_sum``."""
+    concatenated input), ``(K, C, B)`` for ``cluster_segment_sum``, ``(G, M)``
+    for ``group_prox``."""
     return dict(_shape_counts)
 
 

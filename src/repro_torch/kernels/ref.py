@@ -1,13 +1,14 @@
 """Plain PyTorch oracles for the kernels (the correctness ground truth).
 
 Written independently of the kernels' plain versions: factors are densified
-and multiplied, the segment sum is a one-hot product."""
+and multiplied, the segment sum is a one-hot product, the group prox takes
+its norms with ``torch.linalg.vector_norm``."""
 from __future__ import annotations
 
 import torch
 
 __all__ = ["lcc_factor_dense_ref", "lcc_factor_matmul_ref",
-           "lcc_chain_apply_ref", "cluster_segment_sum_ref"]
+           "lcc_chain_apply_ref", "cluster_segment_sum_ref", "group_prox_ref"]
 
 
 def lcc_factor_dense_ref(idx, exp, sign, in_dim: int) -> torch.Tensor:
@@ -36,3 +37,14 @@ def cluster_segment_sum_ref(labels, x, num_clusters: int) -> torch.Tensor:
     """agg[C, B] = one_hot(labels)^T @ x."""
     onehot = torch.nn.functional.one_hot(labels.long(), num_clusters)
     return onehot.to(torch.float32).T @ x.to(torch.float32)
+
+
+def group_prox_ref(a, thresh) -> torch.Tensor:
+    """Row block soft threshold (oracle for group_prox): the float32 norm of
+    each row, the scale ``max(1 - t / norm, 0)`` (0 for a zero row), the
+    product in float32, one cast back to ``a``'s dtype."""
+    a32 = a.to(torch.float32)
+    norm = torch.linalg.vector_norm(a32, dim=1, keepdim=True)
+    t = torch.as_tensor(thresh, dtype=torch.float32, device=a.device)
+    scale = (1.0 - t / norm.clamp(min=1e-12)).clamp(min=0.0)
+    return torch.where(norm > 0, scale * a32, 0.0).to(a.dtype)

@@ -12,12 +12,34 @@ from repro_torch.configs.base import ArchConfig
 
 from . import transformer
 
-__all__ = ["init_params", "prefill", "decode", "sample_tokens",
-           "paged_supported", "paged_layout", "init_decode_state"]
+__all__ = ["init_params", "abstract_params", "train_loss", "prefill",
+           "decode", "sample_tokens", "paged_supported", "paged_layout",
+           "init_decode_state", "family_of"]
 
 
 def init_params(seed: int, cfg: ArchConfig, device="cuda"):
     return transformer.init_params(seed, cfg, device)
+
+
+def abstract_params(cfg: ArchConfig):
+    """Shapes and dtypes of the parameters as ``meta`` tensors — nothing
+    allocated (what ``site_group_specs`` needs before a model exists)."""
+    return transformer.abstract_params(cfg)
+
+
+def train_loss(params, cfg: ArchConfig, batch):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``)."""
+    return transformer.loss_fn(params, cfg, batch)
+
+
+def family_of(cfg) -> str:
+    """Adapter-registry key of a config object (``ArchConfig`` or
+    ``MLPConfig``)."""
+    fam = getattr(cfg, "family", None)
+    if fam is None:
+        raise TypeError(
+            f"cannot infer architecture family from {type(cfg).__name__}")
+    return fam
 
 
 def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False):

@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -27,8 +28,9 @@ from .layers import (linear, non_parametric_ln, rms_norm, site_linear,
                      site_linear_group, swiglu)
 from .moe import moe_ffn
 
-__all__ = ["init_params", "forward", "logits_from_hidden", "decode_step",
-           "init_decode_state", "paged_layout"]
+__all__ = ["init_params", "init_params_numpy", "abstract_params", "forward",
+           "logits_from_hidden", "loss_fn", "decode_step", "init_decode_state",
+           "paged_layout"]
 
 
 def _norm(cfg: ArchConfig, p, x):
@@ -89,29 +91,25 @@ def _trunc_normal(rng: np.random.Generator, shape, scale: float) -> np.ndarray:
     return a * np.float32(scale)
 
 
-def init_params_numpy(seed: int, cfg: ArchConfig) -> dict:
-    """Random parameters as float32 numpy arrays — the JAX package's pytree
-    layout, drawn from a numpy generator so a test can hand the same arrays
-    to both packages.  Fan-in truncated-normal projections; an MoE block
-    holds raw expert stacks (no ``"w"`` level) and a float32 router."""
-    _require_supported(cfg)
-    rng = np.random.default_rng(seed)
+def _param_tree(cfg: ArchConfig, normal, trunc, const) -> dict:
+    """The parameter tree, leaf by leaf in draw order: ``normal(shape,
+    scale)``, ``trunc(shape, scale)`` (fan-in truncated normal) and
+    ``const(shape, value)`` make the leaves."""
     L, d, dff = cfg.n_layers, cfg.d_model, cfg.d_ff
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def dense(i, o, bias=False):
-        p = {"w": _trunc_normal(rng, (L, i, o), 1.0 / math.sqrt(i))}
+        p = {"w": trunc((L, i, o), 1.0 / math.sqrt(i))}
         if bias:
-            p["b"] = np.zeros((L, o), np.float32)
+            p["b"] = const((L, o), 0.0)
         return p
 
     params: dict[str, Any] = {
-        "embed": rng.standard_normal((cfg.vocab, d), dtype=np.float32)
-        * np.float32(d ** -0.5),
-        "final_ln": np.ones((d,), np.float32),
+        "embed": normal((cfg.vocab, d), d ** -0.5),
+        "final_ln": const((d,), 1.0),
         "blocks": {
-            "ln1": np.ones((L, d), np.float32),
-            "ln2": np.ones((L, d), np.float32),
+            "ln1": const((L, d), 1.0),
+            "ln2": const((L, d), 1.0),
             "attn": {"q": dense(d, nq * hd, cfg.qkv_bias),
                      "k": dense(d, nkv * hd, cfg.qkv_bias),
                      "v": dense(d, nkv * hd, cfg.qkv_bias),
@@ -124,14 +122,47 @@ def init_params_numpy(seed: int, cfg: ArchConfig) -> dict:
     else:
         ne, edff = cfg.moe.n_experts, cfg.moe.d_ff_expert
         params["blocks"]["ffn"] = {
-            "router": _trunc_normal(rng, (L, d, ne), 1.0 / math.sqrt(d)),
-            "gate": _trunc_normal(rng, (L, ne, d, edff), 1.0 / math.sqrt(d)),
-            "up": _trunc_normal(rng, (L, ne, d, edff), 1.0 / math.sqrt(d)),
-            "down": _trunc_normal(rng, (L, ne, edff, d), 1.0 / math.sqrt(edff))}
+            "router": trunc((L, d, ne), 1.0 / math.sqrt(d)),
+            "gate": trunc((L, ne, d, edff), 1.0 / math.sqrt(d)),
+            "up": trunc((L, ne, d, edff), 1.0 / math.sqrt(d)),
+            "down": trunc((L, ne, edff, d), 1.0 / math.sqrt(edff))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": _trunc_normal(rng, (d, cfg.vocab),
-                                                1.0 / math.sqrt(d))}
+        params["lm_head"] = {"w": trunc((d, cfg.vocab), 1.0 / math.sqrt(d))}
     return params
+
+
+def init_params_numpy(seed: int, cfg: ArchConfig) -> dict:
+    """Random parameters as float32 numpy arrays — the JAX package's pytree
+    layout, drawn from a numpy generator so a test can hand the same arrays
+    to both packages.  Fan-in truncated-normal projections; an MoE block
+    holds raw expert stacks (no ``"w"`` level) and a float32 router."""
+    _require_supported(cfg)
+    rng = np.random.default_rng(seed)
+    return _param_tree(
+        cfg,
+        normal=lambda shape, scale: (rng.standard_normal(shape, dtype=np.float32)
+                                     * np.float32(scale)),
+        trunc=lambda shape, scale: _trunc_normal(rng, shape, scale),
+        const=lambda shape, value: np.full(shape, value, np.float32))
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree as tensors on the ``meta`` device: shapes and
+    dtypes (``cfg.param_dtype``, a router float32), nothing allocated."""
+    from repro_torch.convert import F32_LEAVES
+
+    _require_supported(cfg)
+
+    def meta(shape, _):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    def cast(tree, dtype):
+        if isinstance(tree, dict):
+            return {k: cast(v, torch.float32 if k in F32_LEAVES else dtype)
+                    for k, v in tree.items()}
+        return tree.to(dtype)
+
+    return cast(_param_tree(cfg, meta, meta, meta), cfg.pdtype)
 
 
 def init_params(seed: int, cfg: ArchConfig, device="cuda"):
@@ -153,6 +184,17 @@ def _layer(blocks, li: int):
     return blocks[li]
 
 
+def _unbind_layers(blocks, n: int) -> list:
+    """All ``n`` layers' slices of the stacked block parameters (views), one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once, where
+    ``n`` separate index views would each scatter into a zero-filled
+    gradient of the whole stack (L times the stack's bytes)."""
+    if isinstance(blocks, dict):
+        per = {k: _unbind_layers(v, n) for k, v in blocks.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(blocks.unbind(0))
+
+
 def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
             positions=None, collect_cache: bool = False):
     """Prefill forward -> (hidden [B,S,d], (k, v) caches [L,B,S,Hkv,hd] or None).
@@ -167,9 +209,7 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
         x = params["embed"][tokens.long()].to(cfg.cdtype)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    ks, vs = [], []
-    for li in range(cfg.n_layers):
-        bp = _layer(params["blocks"], li)
+    def block(x, bp):
         y, k, v = attention_prefill(
             bp["attn"], _norm(cfg, bp["ln1"], x), positions,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
@@ -177,7 +217,18 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
             rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
             q_chunk=cfg.q_chunk)
         x = x + y
-        x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x))
+        return x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x)), k, v
+
+    # training: each layer's activations are recomputed in the backward pass
+    # (the reference's jax.checkpoint); serving never builds a graph
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    ks, vs = [], []
+    for li, bp in enumerate(_unbind_layers(params["blocks"], cfg.n_layers)):
+        if remat:
+            x = checkpoint(lambda x, bp: block(x, bp)[0], x, bp,
+                           use_reentrant=False)
+            continue
+        x, k, v = block(x, bp)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -190,6 +241,29 @@ def logits_from_hidden(params, cfg: ArchConfig, h):
     if cfg.tie_embeddings:
         return h @ params["embed"].T.to(h.dtype)
     return linear(params["lm_head"], h)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, seq_chunk: int = 512):
+    """Sequence-chunked cross-entropy (mean over tokens): the head's logits
+    go to float32 one chunk of at most ``seq_chunk`` positions at a time, so
+    ``[B, S, V]`` float32 logits are never held at once."""
+    h, _ = forward(params, cfg, tokens=batch.get("tokens"),
+                   embeds=batch.get("embeds"))
+    labels = batch["labels"]
+    b, s = labels.shape
+    c = min(seq_chunk, s)
+    while s % c:
+        c //= 2
+    nc = s // c
+    hch = h.reshape(b, nc, c, cfg.d_model)
+    lch = labels.reshape(b, nc, c).long()
+    tot = 0.0
+    for i in range(nc):
+        logits = logits_from_hidden(params, cfg, hch[:, i]).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lch[:, i, :, None])[..., 0]
+        tot = tot + (lse - gold).sum()
+    return tot / (b * s)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,11 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print("MODULES", len(names))
 print("PLAN", "repro_torch.kernels.layer_plan" in names)
+print("TRAIN", all(n in names for n in (
+    "repro_torch.kernels.group_prox", "repro_torch.optim.optimizers",
+    "repro_torch.training.trainer", "repro_torch.training.regularize",
+    "repro_torch.models.compress_adapters", "repro_torch.models.mlp",
+    "repro_torch.data.mnist_like", "repro_torch.launch.train")))
 print("BAD", bad)
 """
 
@@ -48,15 +53,17 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    assert int(lines["MODULES"]) >= 26
+    assert int(lines["MODULES"]) >= 36
     assert lines["PLAN"] == "True"  # the layer-plan kernels (K6, K7) too
+    assert lines["TRAIN"] == "True"  # the training path and K5
     assert lines["BAD"] == "[]"
 
 
 def test_no_source_file_of_the_port_names_jax_or_repro():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
-    assert len(files) >= 26
+    assert len(files) >= 36
     assert SRC / "repro_torch" / "kernels" / "layer_plan.py" in files
+    assert SRC / "repro_torch" / "training" / "trainer.py" in files
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -77,7 +84,8 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
                            ("cluster_segment_sum.cu", "shared_matmul.py"),
                            ("stage_matmul.cu", "layer_plan.py"),
                            ("step_plan.cu", "layer_plan.py"),
-                           ("moe_route.cu", "layer_plan.py")):
+                           ("moe_route.cu", "layer_plan.py"),
+                           ("group_prox.cu", "group_prox.py")):
         text = (csrc / name).read_text()
         assert "Replaces" in text and replaced in text and "ound by" in text
         assert 'extern "C"' in text and "cudaGetLastError" in (
@@ -85,11 +93,12 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
         assert "atomicAdd" not in text  # fixed-order sums only
     from repro_torch.kernels import build
     assert [p.name for p in build.sources()] == [
-        "cluster_segment_sum.cu", "lcc_chain_matmul.cu", "lcc_group_matmul.cu",
-        "moe_route.cu", "stage_matmul.cu", "step_plan.cu"]
+        "cluster_segment_sum.cu", "group_prox.cu", "lcc_chain_matmul.cu",
+        "lcc_group_matmul.cu", "moe_route.cu", "stage_matmul.cu", "step_plan.cu"]
     for entry in ("repro_stage_matmul", "repro_step_norm",
                   "repro_step_attention", "repro_step_swiglu",
-                  "repro_moe_route", "repro_moe_dispatch", "repro_moe_combine"):
+                  "repro_moe_route", "repro_moe_dispatch", "repro_moe_combine",
+                  "repro_group_prox"):
         assert entry in build._SIGNATURES
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-use_fast_math" not in build.NVCC_FLAGS
@@ -109,6 +118,10 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
     "repro_torch.convert:params_from_numpy",
     "repro_torch.convert:artifact_from_reference",
     "repro_torch.testing:seeded_artifact",
+    "repro_torch.training.trainer:init_train_state",
+    "repro_torch.models.mlp:init_mlp",
+    "repro_torch.convert:mlp_params_from_numpy",
+    "repro_torch.convert:train_state_from_numpy",
 ])
 def test_entry_points_default_to_the_gpu(path):
     import importlib
