@@ -5,19 +5,24 @@
 
 Drives the port's main paths — prox-regularized training (olmo-1b at full
 width, the paper's MLP) and compressed serving at published width
-through ``Scheduler`` + ``ServingEngine(artifact=...)``: olmo-1b (dense) and
-mixtral-8x22b (MoE, 8 experts top-2, cut to 2 layers), each once through the
-per-region route (bf16, kernels K1-K3; mixtral's experts as grouped K2
-launches of 8) and once through the whole-step layer plan (float32, kernels
-K6 and K7; for mixtral K8, the routed FFN inside the step) — and holds every
-CUDA kernel on those paths against its plain PyTorch version:
+through ``Scheduler`` + ``ServingEngine(artifact=...)``: olmo-1b (dense),
+mixtral-8x22b (MoE, 8 experts top-2, cut to 2 layers) and deepseek-v2-lite-16b
+(MLA, 64 experts top-6 + 2 shared, cut to 4 layers), each once through the
+per-region route (bf16, kernels K1-K3; the experts as grouped K2 launches of
+E) and once in float32 — olmo and mixtral through the whole-step layer plan
+(K6 and K7; for mixtral K8, the routed FFN inside the step), deepseek (MLA
+refuses the step plan) through one expert plan a layer (K9) beside per-region
+MLA — plus K4's per-factor route on olmo's layer 0, and holds every CUDA
+kernel on those paths against its plain PyTorch version:
 
 1. device and build: needs a CUDA device (exits non-zero without one), prints
    the card's name and power limit, builds the kernels with ``nvcc``; then
    the full-width float32 artifact and its layer plan (stage packing timed);
 2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``,
    ``stage_matmul`` and ``step_plan_matmul`` at reduced shapes and at the main
-   paths' own dimensions (layer 0 of the full-width artifact and its plan, and
+   paths' own dimensions, and ``lcc_factor_matmul`` (K4) on every factor of
+   layer 0's ``attn.o`` and ``ffn.down`` and through the per-factor route
+   (``fused=False``) beside fused K1 (layer 0 of the full-width artifact and its plan, and
    one full-width step), each compared with its plain version and timed (CUDA
    events, L2 flushed between launches) beside a bound, the plain version and
    one library call where one computes the same function; the last phase
@@ -34,8 +39,17 @@ CUDA kernel on those paths against its plain PyTorch version:
    reduced serve (plan == per-region == plain == dense, capacity drops
    occurring); the per-region kernels at its shapes and the bf16 per-region
    serve; then the plan packed and uploaded, K6 on its expert stages, one
-   full-width step, and the float32 plan serve; plan vs per-region logits;
-7. training (``--only train`` runs these alone): K5 ``group_prox`` on the
+   full-width step, and the float32 plan serve; plan vs per-region logits
+   (``--only mixtral`` runs these alone);
+7. deepseek-v2-lite-16b at full width (d_model 2048, MLA kv_lora 512, 64
+   experts of d_ff 1408 top-6, 2 shared, vocab 102400), 4 layers: K9 on a
+   reduced plan and a reduced serve (K9 route == per-region == plain ==
+   dense, drops occurring); the per-region kernels at its shapes (uk+uv over
+   the whole latent view at 1024 columns) and the bf16 per-region serve;
+   one expert plan a layer packed and uploaded, K6 on every stage, K9 at
+   layer 0, the float32 serve on the K9 route; K9 vs per-region logits
+   (``--only deepseek`` runs these alone);
+8. training (``--only train`` runs these alone): K5 ``group_prox`` on the
    reference's hard cases and rows of every width to 16384 in float32 and
    bf16, then at the training runs' own views, each against its plain
    version and the oracle, bitwise from run to run, in place == out of
@@ -57,6 +71,7 @@ import resource
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -70,13 +85,16 @@ from repro_torch.data.synthetic import MarkovLM  # noqa: E402
 from repro_torch.kernels import build, dispatch, ops  # noqa: E402
 from repro_torch.kernels.group_prox import (  # noqa: E402
     group_prox, group_prox_plain)
-from repro_torch.kernels.ref import group_prox_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    group_prox_ref, lcc_factor_dense_ref)
 from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
     _levels_plain, _slice_inputs_plain, lcc_chain_matmul,
     lcc_chain_matmul_plain, plan_launch)
 from repro_torch.kernels.layer_plan import (  # noqa: E402
-    device_stage, stage_matmul, stage_matmul_plain, step_plan_matmul,
-    step_plan_matmul_plain)
+    device_stage, moe_plan_matmul, moe_plan_matmul_plain, stage_matmul,
+    stage_matmul_plain, step_plan_matmul, step_plan_matmul_plain)
+from repro_torch.kernels.lcc_matmul import (  # noqa: E402
+    lcc_factor_matmul, lcc_factor_matmul_plain)
 from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
     lcc_group_matmul, lcc_group_matmul_plain)
 from repro_torch.kernels.moe_route import (  # noqa: E402
@@ -130,6 +148,13 @@ KERNELS = {
     "group_prox": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/group_prox.cu",
         replaces="src/repro/kernels/group_prox.py:56"),
+    "lcc_factor_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lcc_factor_matmul.cu",
+        replaces="src/repro/kernels/lcc_matmul.py:82"),
+    # K9: K6 on stage A, the step's SwiGLU kernel, K6 on stage B
+    "moe_plan_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
+        replaces="src/repro/kernels/layer_plan.py:457"),
 }
 PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "cluster_segment_sum")
 PLAN = ("stage_matmul", "step_plan_matmul")
@@ -141,8 +166,11 @@ PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "step_norm_kernel", "step_attention_kernel",
                 "step_swiglu_kernel", "moe_route_kernel",
                 "moe_dispatch_kernel", "moe_combine_kernel",
-                "group_prox_kernel")
+                "group_prox_kernel", "lcc_factor_kernel")
 MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
+# the one cut of deepseek-v2-lite: 27 layers need ~158 GB (PERF.md section 4)
+DEEPSEEK_LAYERS = 4
+FACTOR_ROUTE = "olmo-1b per-factor"  # K4's path: fused=False on layer 0
 MAX_LEN = 128  # the serves' KV view: 8 blocks of 16 tokens
 # |step kernel - plain| <= STEP_TOL * max(1, max|plain|): float32 sums in
 # other orders through every stage, norm and softmax of all the layers (each
@@ -784,11 +812,16 @@ def phase_reduced_serve(dev, cfg, *, n_slots=4, n_prompts=3):
         fail(f"reduced serve: logits disagree: {errs}")
     if eng_k.executor.routed != eng_k.executor.sites:
         fail("reduced serve: not every site was routed through a kernel")
-    if eng_k.n_layer_plans != 1:
-        fail("reduced serve: the float32 engine did not take the plan route")
+    # MLA refuses the whole-step plan: one expert plan (K9) a layer instead
+    n_plans = cfg.n_layers if cfg.mla is not None else 1
+    if eng_k.n_layer_plans != n_plans:
+        fail(f"reduced serve: {eng_k.n_layer_plans} layer plans, expected "
+             f"{n_plans}")
     return dict(phase="reduced_serve", arch=cfg.name, logits_max_abs_err=errs,
                 tol=1e-4, tokens_equal=True, launches=counts,
                 launches_per_step=eng_k.kernel_launches_per_step,
+                n_layer_plans=eng_k.n_layer_plans,
+                plan_fallbacks=eng_k.executor.plan_fallbacks,
                 dropped_kernel_plain=drops)
 
 
@@ -857,8 +890,11 @@ def profile_steps(eng, prompts, n_steps: int = 4):
 
 def site_weight(params, name):
     """Site ``name``'s dense-effective ``[K, N]`` weight in ``params``:
-    ``attn.q.l0`` -> blocks.attn.q.w[0], ``moe.up.l1.e3`` -> blocks.ffn.up[1, 3]."""
+    ``attn.q.l0`` -> blocks.attn.q.w[0], ``moe.up.l1.e3`` -> blocks.ffn.up[1, 3],
+    ``moe.shared.down.l2`` -> blocks.ffn.shared.down.w[2]."""
     parts = name.split(".")
+    if parts[:2] == ["moe", "shared"]:
+        return params["blocks"]["ffn"]["shared"][parts[2]]["w"][int(parts[3][1:])]
     li = int(parts[2][1:])
     if parts[0] == "moe":
         return params["blocks"]["ffn"][parts[1]][li, int(parts[3][1:])]
@@ -867,13 +903,30 @@ def site_weight(params, name):
 
 def site_groups(cfg):
     """Layer 0's fused regions as the per-region route groups them."""
+    attn = ((("attn.q.l0",), ("attn.dkv.l0", "attn.kr.l0"),
+             ("attn.uk.l0", "attn.uv.l0"), ("attn.o.l0",))
+            if cfg.mla is not None else
+            (("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",)))
     if cfg.moe is None:
-        return (("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",),
-                ("ffn.gate.l0", "ffn.up.l0"), ("ffn.down.l0",))
+        return attn + (("ffn.gate.l0", "ffn.up.l0"), ("ffn.down.l0",))
     ne = cfg.moe.n_experts
-    return ((("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",))
-            + tuple(tuple(f"moe.{p}.l0.e{e}" for e in range(ne))
-                    for p in ("gate", "up", "down")))
+    groups = attn + tuple(tuple(f"moe.{p}.l0.e{e}" for e in range(ne))
+                          for p in ("gate", "up", "down"))
+    if cfg.moe.n_shared:
+        groups += (("moe.shared.gate.l0", "moe.shared.up.l0"),
+                   ("moe.shared.down.l0",))
+    return groups
+
+
+def region_launches_per_layer(cfg) -> int:
+    """K1/K2 launches a layer on the per-region route (K3 comes on top, one
+    a weight-shared site): GQA q+k+v and o, or MLA q, dkv+kr, uk+uv and o;
+    SwiGLU gate+up and down, or the experts' gate, up and down (one launch
+    of E each) plus the shared experts' gate+up and down."""
+    attn = 4 if cfg.mla is not None else 2
+    if cfg.moe is None:
+        return attn + 2
+    return attn + 3 + (2 if cfg.moe.n_shared else 0)
 
 
 def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
@@ -882,8 +935,7 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     weight-shared sites.  ``ref_params``: float32 dense-effective weights
     for the per-site check where the records keep none on the host."""
     n_shared = sum(1 for r in art.records.values() if r.shared is not None)
-    per_layer = 4 if cfg.moe is None else 5  # K1/K2 launches a layer
-    predicted = per_layer * cfg.n_layers + n_shared
+    predicted = region_launches_per_layer(cfg) * cfg.n_layers + n_shared
     prompts = prompts_for(cfg, 6)
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_count()  # counts of the main path start here ...
@@ -976,16 +1028,23 @@ def two_step_logits(cfg, art, executor, dev):
     return torch.stack(out)
 
 
-def phase_plan_serve(dev, cfg, art, plan, l_reg=None):
-    """The whole-step plan route at full width, float32: the same 6 prompts
-    x 16 new tokens on 8 slots, paged KV.  A dense layer launches 4 stages
-    (K6) and 4 step kernels (K7: 2 norms, attention, SwiGLU); an MoE layer
-    the same with its FFN stages eg/ed and K8's route, dispatch and combine.
+def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
+                     predicted=None, expected=None, n_plans=1, fallbacks=None):
+    """The plan route at full width, float32: the same 6 prompts x 16 new
+    tokens on 8 slots, paged KV.  The whole-step plan (``stages``: its
+    packed stages): a dense layer launches 4 stages (K6) and 4 step kernels
+    (K7: 2 norms, attention, SwiGLU); an MoE layer the same with its FFN
+    stages eg/ed and K8's route, dispatch and combine.  Other plan routes
+    (deepseek's per-layer expert plans) pass their own ``predicted``
+    launches a step, ``expected`` kernels, ``n_plans`` and ``fallbacks``.
     ``l_reg``: the per-region route's two-step logits on the same artifact
     (computed here when not given)."""
     moe = cfg.moe is not None
-    predicted = (11 if moe else 8) * cfg.n_layers
-    expected = set(PLAN) | (set(MOE) if moe else set())
+    if predicted is None:
+        predicted = (11 if moe else 8) * cfg.n_layers
+    if expected is None:
+        expected = set(PLAN) | (set(MOE) if moe else set())
+    fallbacks = fallbacks or {}
     prompts = prompts_for(cfg, 6)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -994,7 +1053,7 @@ def phase_plan_serve(dev, cfg, art, plan, l_reg=None):
     resident = torch.cuda.memory_allocated()
     param_bytes = sum(tensor_bytes(t) for t in leaves(art.params))
     stage_bytes = sum(tensor_bytes(*vars(device_stage(ps, dev)).values())
-                      for ps in plan.stages.values())
+                      for ps in stages)
     dispatch.reset_launch_count()  # counts of the plan path start here ...
     t0 = time.perf_counter()
     eng, res, step_s = serve(art, dev, use_kernel=True, n_slots=BATCH,
@@ -1012,7 +1071,7 @@ def phase_plan_serve(dev, cfg, art, plan, l_reg=None):
     ex = eng.executor
     if ex.routed != ex.sites:
         fail(f"plan serve: unrouted sites {sorted(ex.sites - ex.routed)[:5]}")
-    if eng.n_layer_plans != 1 or ex.plan_fallbacks:
+    if eng.n_layer_plans != n_plans or ex.plan_fallbacks != fallbacks:
         fail(f"plan serve: {eng.n_layer_plans} plans, fallbacks "
              f"{ex.plan_fallbacks}")
     if eng.kernel_launches_per_step != predicted:
@@ -1042,7 +1101,7 @@ def phase_plan_serve(dev, cfg, art, plan, l_reg=None):
     return dict(phase="plan_serve", arch=cfg.name, dtype=cfg.compute_dtype,
                 layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
                 vocab=cfg.vocab, n_slots=BATCH, requests=len(prompts),
-                max_new=16, pack_s=plan.pack_s, tokens=tokens, wall_s=wall,
+                max_new=16, pack_s=pack_s, tokens=tokens, wall_s=wall,
                 tokens_per_s=tokens / wall, steps=len(step_s),
                 first_step_ms=step_s[0] * 1e3,
                 ms_per_step=float(np.median(steady)) * 1e3,
@@ -1256,12 +1315,13 @@ def mixtral_region_cases(art, dev, timer, sm, serve):
 
 
 def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
-                             serve):
+                             serve, wl=0):
     """K6 on layer 0 of an expert super-stage (``eg``: every expert's gate
-    and up, e-major; ``ed``: every down) at B = capacity.  The library
-    yardstick is one ``torch.bmm`` over the E experts' dense-effective
-    float32 weights; the plain version (tens of GB of gathers at this
-    width) is timed apart from it."""
+    and up, e-major; ``ed``: every down) at B = capacity; for a one-layer
+    stage of an MoE plan (K9), ``wl`` names the model layer it holds.  The
+    library yardstick is one ``torch.bmm`` over the E experts' dense-effective
+    float32 weights of layer ``wl``; the plain version (tens of GB of gathers
+    at mixtral's width) is timed apart from it."""
     cfg = art.config
     ne, dff, d = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
     ds = device_stage(ps, dev)
@@ -1278,14 +1338,14 @@ def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
     torch.cuda.empty_cache()
     ffn = art.params["blocks"]["ffn"]
     if name == "eg":  # [E, 2 dff, d] @ [E, d, C]: gates then ups per expert
-        w = torch.cat([ffn["gate"][0], ffn["up"][0]], dim=2).transpose(1, 2)
+        w = torch.cat([ffn["gate"][wl], ffn["up"][wl]], dim=2).transpose(1, 2)
         x3 = src.reshape(ne, d, batch)
 
         def unpack(o):
             return torch.cat([o[:, :dff].reshape(ne * dff, batch),
                               o[:, dff:].reshape(ne * dff, batch)])
     else:  # [E, d, dff] @ [E, dff, C]
-        w = ffn["down"][0].transpose(1, 2)
+        w = ffn["down"][wl].transpose(1, 2)
         x3 = src.reshape(ne, dff, batch)
 
         def unpack(o):
@@ -1410,8 +1470,8 @@ def run_mixtral(dev):
                       for name, ps in plan.stages.items()}))
     psv = f"{base.name} plan"
     rows += mixtral_plan_cases(art32, plan, dev, timer, psv)
-    planned, pcounts, pshape = phase_plan_serve(dev, cfg32, art32, plan,
-                                                l_reg=l_reg)
+    planned, pcounts, pshape = phase_plan_serve(
+        dev, cfg32, art32, plan.stages.values(), plan.pack_s, l_reg=l_reg)
     planned["host_peak_rss_bytes"] = host_peak_rss_bytes()
     emit(planned)
     serves[psv] = (pcounts, pshape, planned["decode_steps"])
@@ -1455,6 +1515,8 @@ def run_olmo(dev, layers):
                       for name, ps in plan.stages.items()}))
 
     rows = phase_kernels(dev, art32, plan, red_cfg)
+    frows, factor_serve = phase_factor_route(dev, art32, Timer(dev))
+    rows += frows
     emit(dict(phase="kernels", arch=base.name, tolerance=SUM_TOL,
               tolerance_reason="float32 sums in another order than the "
                                "plain version's (over E slices, J gathers, "
@@ -1469,12 +1531,325 @@ def run_olmo(dev, layers):
     # and the per-region streams go first
     del eng, art16
     drop_per_region_copies(art32)
-    planned, plan_counts, plan_shape = phase_plan_serve(dev, cfg32, art32, plan)
+    planned, plan_counts, plan_shape = phase_plan_serve(
+        dev, cfg32, art32, plan.stages.values(), plan.pack_s)
     emit(planned)
     return rows, {f"{base.name} per-region": (full_counts, by_shape,
                                               full["decode_steps"]),
                   f"{base.name} plan": (plan_counts, plan_shape,
-                                        planned["decode_steps"])}
+                                        planned["decode_steps"]),
+                  FACTOR_ROUTE: factor_serve}
+
+
+# ------------------------- deepseek-v2-lite (MLA, shared experts, K9)
+
+
+def kernel_case_moe_plan(label, plan, dev, timer, *, batch, serve=None):
+    """K9 (``moe_plan_matmul``: stage A, SwiGLU, stage B) on one layer's
+    expert plan at ``batch`` columns, held against its plain version within
+    STEP_TOL (two stages and the SwiGLU in other orders).  The bound counts
+    both stages' live terms, the input and the output once (the
+    intermediates are the kernels' own); no single PyTorch call computes
+    the function (the K6 rows carry the ``torch.bmm`` yardsticks)."""
+    sa, sb = plan.stages["a"], plan.stages["b"]
+    dff = plan.d_ff_total
+    src = torch.randn((sa.d_src, batch), device=dev)
+    y = moe_plan_matmul(sa, sb, d_ff_total=dff, src=src)
+    torch.cuda.synchronize()
+    plain = moe_plan_matmul_plain(sa, sb, d_ff_total=dff, src=src)
+    err = check_close(f"{label} moe_plan_matmul", y, plain, STEP_TOL)
+    del plain
+    da, db = device_stage(sa, dev), device_stage(sb, dev)
+    terms = da.live_terms[0] + db.live_terms[0]
+    bytes_ = 6 * terms + 4 * batch * (sa.d_src + sb.out_dim)
+    flops = 2 * terms * batch + 4 * dff * batch
+    key = (sa.d_src, dff, sb.out_dim, batch)
+    return kernel_row(
+        "moe_plan_matmul", label,
+        dict(D_src=sa.d_src, d_ff_total=dff, O=sb.out_dim, C=batch,
+             live_terms=terms),
+        key, err, False,
+        lambda: moe_plan_matmul(sa, sb, d_ff_total=dff, src=src),
+        lambda: moe_plan_matmul_plain(sa, sb, d_ff_total=dff, src=src), None,
+        bound_of(bytes_, flops), timer, serve=serve)
+
+
+def reduced_moe_plan_cases(cfg, dev, timer):
+    """K9 and its stages on the reduced deepseek artifact (every site of
+    ``attn.o`` and ``moe.up`` weight-shared): at the serve's 4 columns and
+    at a ragged 5."""
+    art = seeded_artifact(cfg, seed=6, device=dev)
+    ex = CompressedExecutor(art, device=dev)
+    plan = ex.moe_plan("l0", n_experts=cfg.moe.n_experts, d_model=cfg.d_model,
+                       d_ff=cfg.moe.d_ff_expert)
+    rng = np.random.default_rng(100)
+    rows = []
+    for batch in (4, 5):
+        for name in ("a", "b"):
+            rows.append(kernel_case_stage(f"reduced deepseek {name} C={batch}",
+                                          plan.stages[name], rng, dev, timer,
+                                          batch=batch))
+        rows.append(kernel_case_moe_plan(f"reduced deepseek C={batch}", plan,
+                                         dev, timer, batch=batch))
+    return rows
+
+
+def deepseek_region_cases(art, dev, timer, sm, serves):
+    """The per-region kernels at the deepseek serves' own dimensions: layer
+    0's MLA sites (K1 on q and o, K2 on dkv+kr at B = n_slots and on uk+uv
+    over the whole latent view, B = n_slots x max_len), the shared experts
+    (K2 gate+up, K1 down), each routed projection's experts as one K2
+    launch of E at B = capacity, and K3 on the weight-shared sites.  The
+    attention and shared-expert rows hold for both serves (``serves``:
+    per-region name, K9 name); the expert rows for the per-region serve
+    alone."""
+    cfg = art.config
+    ne = cfg.moe.n_experts
+    cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor, ne)
+    rng = np.random.default_rng(110)
+    pk = art.packed
+    both = [kernel_case_chain(f"deepseek {site}", pk[f"{site}.l0"], rng, dev,
+                              timer, sm)
+            for site in ("attn.q", "attn.o", "moe.shared.down")]
+    for label, names, batch in (
+            ("attn.dkv+kr", ("attn.dkv", "attn.kr"), BATCH),
+            ("attn.uk+uv latent view", ("attn.uk", "attn.uv"), BATCH * MAX_LEN),
+            ("moe.shared.gate+up", ("moe.shared.gate", "moe.shared.up"), BATCH)):
+        both.append(kernel_case_group(f"deepseek {label}",
+                                      [pk[f"{n}.l0"] for n in names], rng, dev,
+                                      timer, sm, batch=batch))
+        torch.cuda.empty_cache()
+    region = []
+    for proj in ("gate", "up", "down"):
+        region.append(kernel_case_group(
+            f"deepseek moe.{proj} G={ne}",
+            [pk[f"moe.{proj}.l0.e{e}"] for e in range(ne)], rng, dev, timer,
+            sm, batch=cap))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for prefix, batch, rows in (("attn.", BATCH, both), ("moe.", cap, region)):
+        by_dims = {}
+        for name, rec in art.records.items():
+            if (name.startswith(prefix) and ".l0" in name
+                    and rec.shared is not None):
+                labels = np.asarray(rec.shared.labels)
+                by_dims.setdefault((labels.size, rec.shared.n_clusters),
+                                   {})[name] = labels
+        if not by_dims:
+            fail(f"the deepseek fixture has no weight-shared {prefix} site")
+        for (k, c), sites in sorted(by_dims.items()):
+            rows.append(kernel_case_segsum(f"deepseek K={k} C={c} B={batch}",
+                                           sites, c, rng, dev, timer,
+                                           batch=batch))
+    for row in region:
+        row["serve"] = serves[0]
+    out = region
+    for row in both:
+        out += [dict(row, serve=name) for name in serves]
+    return out
+
+
+def run_deepseek(dev):
+    """deepseek-v2-lite-16b at full width, cut to DEEPSEEK_LAYERS layers:
+    K9 on a reduced plan and the reduced serve (K9 route == per-region ==
+    plain == dense, capacity drops occurring); the fixture, the per-region
+    kernels at its shapes and the bf16 per-region serve (MLA through K1/K2,
+    uk+uv over the whole latent view; experts as grouped K2 launches of 64;
+    shared experts through K2 and K1); then one expert plan a layer packed
+    and uploaded, K6 on every layer's stages A and B, K9 at layer 0's
+    shapes, and the float32 serve on the K9 route; K9 vs per-region logits.
+    Returns the kernel rows and the serves' launch counts."""
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    red = reduced_config(get_arch("deepseek-v2-lite-16b"), vocab=256)
+    # capacity 4 for 8 slots x 2 choices over 4 experts: drops occur
+    red = replace(red, moe=replace(red.moe, capacity_factor=0.5))
+    rows = reduced_moe_plan_cases(red, dev, timer)
+    emit(dict(phase="kernels", arch="deepseek-v2-lite-16b reduced",
+              tolerance=SUM_TOL, step_tolerance=STEP_TOL, rows=rows))
+    emit(phase_reduced_serve(dev, red, n_slots=8, n_prompts=8))
+    torch.cuda.empty_cache()
+
+    base = replace(get_arch("deepseek-v2-lite-16b"), n_layers=DEEPSEEK_LAYERS)
+    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+    ne, dff, d = base.moe.n_experts, base.moe.d_ff_expert, base.d_model
+    t0 = time.perf_counter()
+    art32 = seeded_artifact(cfg32, seed=2, device=dev, host_effective=False)
+    torch.cuda.synchronize()
+    fixture_s = time.perf_counter() - t0
+    emit(dict(phase="fixture", arch=base.name, layers=base.n_layers,
+              fixture_s=fixture_s, sites=len(art32.records),
+              param_bytes=sum(tensor_bytes(t) for t in leaves(art32.params)),
+              packed_host_bytes=sum(pk.idx.nbytes + pk.exp.nbytes + pk.sign.nbytes
+                                    for pk in art32.packed.values()),
+              host_peak_rss_bytes=host_peak_rss_bytes()))
+
+    region, k9 = f"{base.name} per-region", f"{base.name} K9"
+    art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
+                    plans={})
+    rows += deepseek_region_cases(art16, dev, timer, sm, (region, k9))
+    full, counts, by_shape, eng = phase_full_serve(dev, base, art16, fixture_s,
+                                                   ref_params=art32.params)
+    full["host_peak_rss_bytes"] = host_peak_rss_bytes()
+    emit(full)
+    if full["plan_fallbacks"] != {"step": "mla", **{
+            f"moe:l{li}": "cdtype" for li in range(base.n_layers)}}:
+        fail(f"bf16 serve: plan fallbacks {full['plan_fallbacks']}")
+    ex32 = CompressedExecutor(art32, use_plans=False, device=dev)
+    ex32._groups = eng.executor._groups
+    l_reg = two_step_logits(cfg32, art32, ex32, dev)
+    serves = {region: (counts, by_shape, full["decode_steps"])}
+    del eng, ex32, art16
+    drop_per_region_copies(art32)
+
+    # the K9 route: float32, one expert plan a layer
+    ex = CompressedExecutor(art32, device=dev)
+    plans = [ex.moe_plan(f"l{li}", n_experts=ne, d_model=d, d_ff=dff)
+             for li in range(base.n_layers)]
+    stages = [ps for plan in plans for ps in plan.stages.values()]
+    pack_s = sum(plan.pack_s for plan in plans)
+    t0 = time.perf_counter()
+    # validation, block tables, upload: one stage a thread (a stage holds
+    # one layer, so its own upload has no layers to spread over threads)
+    with ThreadPoolExecutor(max_workers=len(stages)) as pool:
+        list(pool.map(lambda ps: device_stage(ps, dev), stages))
+    torch.cuda.synchronize()
+    emit(dict(phase="fixture_and_plan", arch=base.name, pack_s=pack_s,
+              upload_s=time.perf_counter() - t0,
+              host_peak_rss_bytes=host_peak_rss_bytes(),
+              stages={f"l{li}.{name}": dict(
+                  shape=list(ps.gidx.shape), outg=list(ps.outg.shape),
+                  k_alloc=ps.k_alloc,
+                  blocks=int(device_stage(ps, dev).blk_r0.shape[1]),
+                  max_rows=device_stage(ps, dev).max_rows,
+                  live_terms=sum(device_stage(ps, dev).live_terms),
+                  stream_bytes=6 * ps.gidx.size, waste=ps.waste)
+                  for li, plan in enumerate(plans)
+                  for name, ps in plan.stages.items()}))
+    cap = capacity(BATCH, base.moe.top_k, base.moe.capacity_factor, ne)
+    checked = {}  # a row for each launch dimension; every stage held
+    for li, plan in enumerate(plans):
+        for name, kind in (("a", "eg"), ("b", "ed")):
+            ps = plan.stages[name]
+            key = device_stage(ps, dev).shape_key(cap, 1)
+            if key not in checked:
+                rows.append(kernel_case_expert_stage(
+                    f"deepseek l{li} {name}", kind, art32, ps, dev, timer,
+                    batch=cap, serve=k9, wl=li))
+                checked[key] = rows[-1]["shape"]
+            else:  # the same dimensions as a row: the values still held
+                src = dyadic(np.random.default_rng(li), (ps.d_src, cap), dev)
+                err = check_close(f"deepseek l{li} {name}",
+                                  stage_matmul(ps, src, layer=0),
+                                  stage_matmul_plain(ps, src, layer=0), SUM_TOL)
+                emit(dict(phase="kernel_check", name="stage_matmul",
+                          shape=f"deepseek l{li} {name}", max_abs_err=err,
+                          row=checked[key]))
+            gc.collect()
+            torch.cuda.empty_cache()
+    rows.append(kernel_case_moe_plan("deepseek l0", plans[0], dev, timer,
+                                     batch=cap, serve=k9))
+    del ex, plans
+    # a layer: K1 q, o, shared down; K2 dkv+kr, uk+uv, shared gate+up; K3 o;
+    # K9's stage A, SwiGLU, stage B
+    planned, pcounts, pshape = phase_plan_serve(
+        dev, cfg32, art32, stages, pack_s, l_reg=l_reg,
+        predicted=10 * base.n_layers,
+        expected=set(PER_REGION) | {"stage_matmul", "moe_plan_matmul"},
+        n_plans=base.n_layers, fallbacks={"step": "mla"})
+    planned["host_peak_rss_bytes"] = host_peak_rss_bytes()
+    emit(planned)
+    serves[k9] = (pcounts, pshape, planned["decode_steps"])
+    return rows, serves
+
+
+# ------------------------------------------- K4: the per-factor route
+
+
+def factor_bound(idx, sign, k, b):
+    """(bound_ms, bound_by) of one factor: its live terms' streams (6 bytes
+    each), x [K, B] and y [N, B] float32 once; 2 operations a live term and
+    column."""
+    terms = int((sign != 0).sum())
+    return bound_of(6 * terms + 4 * b * (k + idx.shape[0]), 2 * terms * b)
+
+
+def phase_factor_route(dev, art, timer):
+    """K4 (``lcc_factor_matmul``) on layer 0's ``attn.o`` and ``ffn.down``
+    of the full-width olmo artifact at B = n_slots: every real factor of
+    every slice held against its plain version bit for bit on dyadic input,
+    float32 and (once a dimension) bf16; then the per-factor route
+    (``ops.apply_packed_decomposition(..., fused=False)``, one launch a real
+    factor), its launches counted from 0, held against fused K1 within
+    SUM_TOL and timed beside it (the reference's ``speedup_from_fusion``).  Returns the kernel rows (one per
+    launch dimension) and the route's ``(counts, by_shape, 1)``."""
+    rng = np.random.default_rng(90)
+    sites = {name: art.packed[f"{name}.l0"] for name in ("attn.o", "ffn.down")}
+    cases = {}  # (N, S, K, B) -> [(site, e, p)]
+    for name, pk in sites.items():
+        ds = pk.on(dev)
+        for e, (c0, c1) in enumerate(pk.col_slices):
+            for p in range(pk.chain_lengths[e]):
+                k = c1 - c0 if p == 0 else pk.idx.shape[2]
+                args = (ds.idx[e, p], ds.exp[e, p], ds.sign[e, p])
+                x = dyadic(rng, (k, BATCH), dev)
+                y = lcc_factor_matmul(*args, x)
+                if not torch.equal(y, lcc_factor_matmul_plain(*args, x)):
+                    fail(f"lcc_factor_matmul {name} slice {e} factor {p}: "
+                         "kernel differs from the plain version on dyadic "
+                         "input")
+                key = (pk.idx.shape[2], pk.idx.shape[3], k, BATCH)
+                if key not in cases:  # bf16 activations once a dimension
+                    x16 = x.to(torch.bfloat16)
+                    if not torch.equal(lcc_factor_matmul(*args, x16),
+                                       lcc_factor_matmul_plain(*args, x16)):
+                        fail(f"lcc_factor_matmul {name} slice {e} factor {p}: "
+                             "kernel differs from the plain version on bf16 "
+                             "dyadic input")
+                cases.setdefault(key, []).append((name, e, p))
+    torch.cuda.synchronize()
+    xs = {name: torch.randn((pk.in_dim, BATCH), device=dev)
+          for name, pk in sites.items()}
+    dispatch.reset_launch_count()  # counts of the per-factor route ...
+    ys = {name: ops.apply_packed_decomposition(pk, xs[name], fused=False)
+          for name, pk in sites.items()}
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()  # ... read here
+    by_shape = dispatch.launch_counts_by_shape()
+    want = sum(sum(pk.chain_lengths) for pk in sites.values())
+    if counts != {"lcc_factor_matmul": want}:
+        fail(f"per-factor route: launched {counts}, expected {want} "
+             "lcc_factor_matmul launches (the chains' real factors)")
+    route = {}
+    for name, pk in sites.items():
+        fused = ops.apply_packed_decomposition(pk, xs[name])
+        err = check_close(f"per-factor route {name} vs fused", ys[name], fused,
+                          SUM_TOL)
+        per_ms = timer(lambda: ops.apply_packed_decomposition(
+            pk, xs[name], fused=False))
+        fused_ms = timer(lambda: ops.apply_packed_decomposition(pk, xs[name]))
+        route[name] = dict(E=len(pk.col_slices), launches=sum(pk.chain_lengths),
+                           max_abs_err_vs_fused=err, per_factor_ms=per_ms,
+                           fused_ms=fused_ms, per_factor_over_fused=per_ms / fused_ms)
+    emit(dict(phase="factor_route", arch=art.config.name, B=BATCH, sites=route,
+              tolerance=SUM_TOL))
+    rows = []
+    for key, where in sorted(cases.items()):
+        n, s, k, b = key
+        name, e, p = where[0]
+        ds = sites[name].on(dev)
+        args = (ds.idx[e, p], ds.exp[e, p], ds.sign[e, p])
+        x = dyadic(rng, (k, b), dev)
+        dense = lcc_factor_dense_ref(*args, k)
+        rows.append(kernel_row(
+            "lcc_factor_matmul", f"olmo per-factor N={n} K={k}",
+            dict(N=n, S=s, K=k, B=b, factors_checked=len(where)), key, 0.0,
+            True, lambda: lcc_factor_matmul(*args, x),
+            lambda: lcc_factor_matmul_plain(*args, x),
+            lambda: torch.matmul(dense, x),
+            factor_bound(sites[name].idx[e, p], sites[name].sign[e, p], k, b),
+            timer, serve=FACTOR_ROUTE))
+    return rows, (counts, by_shape, 1)
 
 
 # ---------------------------------------------- training (K5, group_prox)
@@ -1857,12 +2232,15 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the olmo-1b serves (never the width)")
-    ap.add_argument("--only", choices=("kernels", "mixtral", "train"),
+    ap.add_argument("--only", choices=("kernels", "mixtral", "deepseek",
+                                       "train"),
                     default=None,
-                    help="kernels: stop after olmo-1b's kernel phase; "
-                         "mixtral: run the mixtral-8x22b phases alone; "
-                         "train: run the training phases alone (no final ok "
-                         "line in any case)")
+                    help="kernels: stop after olmo-1b's kernel phase (K4's "
+                         "per-factor route included); mixtral: run the "
+                         "mixtral-8x22b phases alone; deepseek: the "
+                         "deepseek-v2-lite-16b phases alone; train: the "
+                         "training phases alone (no final ok line in any "
+                         "case)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1883,7 +2261,7 @@ def main() -> None:
               sources=[p.name for p in build.sources()]))
 
     rows, serves = [], {}
-    if args.only not in ("mixtral", "train"):
+    if args.only is None or args.only == "kernels":
         if args.only == "kernels":
             base = get_arch("olmo-1b")
             if args.layers is not None:
@@ -1891,22 +2269,32 @@ def main() -> None:
             cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
             art32 = seeded_artifact(cfg32, seed=2, device=dev)
             plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
-            emit(dict(phase="kernels", rows=phase_kernels(
-                dev, art32, plan, reduced_config(get_arch("olmo-1b"), vocab=256))))
+            krows = phase_kernels(dev, art32, plan,
+                                  reduced_config(get_arch("olmo-1b"), vocab=256))
+            krows += phase_factor_route(dev, art32, Timer(dev))[0]
+            emit(dict(phase="kernels", rows=krows))
             return
         rows, serves = run_olmo(dev, args.layers)
         gc.collect()
         torch.cuda.empty_cache()
-    if args.only != "train":
+    if args.only in (None, "mixtral"):
         mrows, mserves = run_mixtral(dev)
         rows += mrows
         serves.update(mserves)
         del mrows, mserves
         gc.collect()
         torch.cuda.empty_cache()
-    trows, tserves = run_train(dev)
-    rows += trows
-    serves.update(tserves)
+    if args.only in (None, "deepseek"):
+        drows, dserves = run_deepseek(dev)
+        rows += drows
+        serves.update(dserves)
+        del drows, dserves
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "train"):
+        trows, tserves = run_train(dev)
+        rows += trows
+        serves.update(tserves)
 
     # the kernels of the main paths at the dimensions they gave them:
     # ``launches`` is what a serve launched at exactly the row's dimensions

@@ -34,6 +34,8 @@ _SIGNATURES = {
     "repro_lcc_group_matmul": [_P] * 9 + [_I] * 10 + [_P],
     # order offsets x out | C B | stream
     "repro_cluster_segment_sum": [_P] * 4 + [_I] * 2 + [_P],
+    # idx exp sign x out | N S K B x_bf16 | stream
+    "repro_lcc_factor_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # src prep_src prep_off inbuf gidx gexp gsgn r0 r1 depth work outg fs dw
     # bias resid out | nl D B M K P R S NB J O bb threads max_rows | stream
     "repro_stage_matmul": [_P] * 17 + [_I] * 14 + [_P],

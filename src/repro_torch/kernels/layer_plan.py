@@ -19,6 +19,11 @@ families:
   gates and ups, e-major), SwiGLU, stage ed (all downs), gated combine +
   residual.  The route, dispatch and combine kernels are
   :mod:`~repro_torch.kernels.moe_route` (``csrc/moe_route.cu``).
+* :func:`moe_plan_matmul` (K9) runs one MoE layer's experts where the
+  whole-step plan does not apply (MLA, shared experts): stage A (all gates
+  and ups), the step's SwiGLU kernel, stage B (all downs) — three launches,
+  no PyTorch operation between them; dispatch and combine stay with the
+  caller, as in the reference.
 
 Both evaluate the shift-add streams at every size.  The reference folds a
 large stage into one dense matrix (``PackedStage.eff``) and picks between two
@@ -48,7 +53,8 @@ from .ops import PackedStage
 
 __all__ = ["DeviceStage", "device_stage", "stage_blocks", "stage_matmul",
            "stage_matmul_plain", "stage_apply_eff", "step_plan_matmul",
-           "step_plan_matmul_plain"]
+           "step_plan_matmul_plain", "moe_plan_matmul",
+           "moe_plan_matmul_plain"]
 
 _NEG = -1e30
 # blocks of rows smaller than this are merged with their neighbours (a block
@@ -655,3 +661,53 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
             ob = stage_matmul(stages["ed"], swiglu_(eg, eff, cap), layer=l)
             x = moe_combine(x, ob, slot, wgt, n_exp, cap)
     return x, kn, vn
+
+
+# ------------------------------------------- K9: one MoE layer's experts
+
+
+def moe_plan_matmul_plain(stage_a: PackedStage, stage_b: PackedStage, *,
+                          d_ff_total: int, src: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`moe_plan_matmul` (same arguments):
+    stage A, SwiGLU, stage B through :func:`stage_matmul_plain`."""
+    h = stage_matmul_plain(stage_a, src, layer=0)
+    hf = F.silu(h[:d_ff_total]) * h[d_ff_total:]
+    return stage_matmul_plain(stage_b, hf, layer=0)
+
+
+def moe_plan_matmul(stage_a: PackedStage, stage_b: PackedStage, *,
+                    d_ff_total: int, src: torch.Tensor) -> torch.Tensor:
+    """One MoE layer's expert FFNs: ``src [E*d, C] -> [E*d, C]`` float32.
+
+    Stage A emits all experts' gates at rows ``[0, E*dff)`` and ups at
+    ``[E*dff, 2*E*dff)`` (e-major, expert ``e`` reading ``src`` rows
+    ``[e*d, (e+1)*d)``); SwiGLU; stage B applies the downs.  Both stages are
+    one-layer :class:`~repro_torch.kernels.ops.PackedStage` s.  Replaces the
+    reference's single ``pallas_call``; here K6 ``stage_matmul``, the
+    ``repro_step_swiglu`` kernel of ``csrc/step_plan.cu`` and K6 again, with
+    no PyTorch operation between them.  The SwiGLU launch is this wrapper's
+    own count (``moe_plan_matmul``); the stages count as ``stage_matmul``.
+    CUDA tensors launch the kernels (or raise); CPU tensors take
+    :func:`moe_plan_matmul_plain`."""
+    if stage_a.n_layers != 1 or stage_b.n_layers != 1:
+        raise ValueError("an MoE plan's stages hold one layer each")
+    if stage_a.out_dim != 2 * d_ff_total or stage_b.d_src != d_ff_total:
+        raise ValueError(
+            f"stage A emits {stage_a.out_dim} rows and stage B reads "
+            f"{stage_b.d_src}, expected {2 * d_ff_total} and {d_ff_total}")
+    if not dispatch.on_device(src):
+        return moe_plan_matmul_plain(stage_a, stage_b, d_ff_total=d_ff_total,
+                                     src=src)
+    dev = src.device
+    c = src.shape[-1]
+    h = stage_matmul(stage_a, src, layer=0)  # checks src
+
+    hf = torch.empty((d_ff_total, c), dtype=torch.float32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        code = lib.repro_step_swiglu(h.data_ptr(), hf.data_ptr(), d_ff_total, c,
+                                     torch.cuda.current_stream().cuda_stream)
+    dispatch.check_launch(code, "repro_step_swiglu")
+    dispatch.record_launch("moe_plan_matmul", shape=(
+        stage_a.d_src, d_ff_total, stage_b.out_dim, c))
+    return stage_matmul(stage_b, hf, layer=0)

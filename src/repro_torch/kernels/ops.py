@@ -35,6 +35,7 @@ from repro_torch.core.lcc import LCCChain, LCCDecomposition
 
 from .lcc_chain_matmul import lcc_chain_matmul
 from .lcc_group_matmul import lcc_group_matmul
+from .lcc_matmul import lcc_factor_matmul
 from .shared_matmul import cluster_segment_sum
 
 __all__ = [
@@ -911,8 +912,44 @@ def apply_packed_group(pg: PackedGroup, xs) -> list[torch.Tensor]:
     return outs
 
 
-def apply_packed_chain(pc: PackedChain, x: torch.Tensor) -> torch.Tensor:
-    """y[N, B] = (F_P ... F_1) @ x[K, B] — the whole chain in one fused launch.
+def _check_first_factor(idx, sign, col_slices, cache: dict) -> None:
+    """Host-side validation for the per-factor route, once per packed object
+    (``cache`` is its ``_dev``): every live first-factor term reads a row of
+    its own slice.  The fused kernel reads ``x[c0 + idx]`` and guards the
+    slice itself; the per-factor route hands the factor the slice alone."""
+    if cache.get("per_factor_checked"):
+        return
+    for e, (c0, c1) in enumerate(col_slices):
+        idx0, live = idx[e, 0], sign[e, 0] != 0
+        if live.any() and (idx0[live].min() < 0 or idx0[live].max() >= c1 - c0):
+            raise ValueError(f"slice {e}: a first-factor term reads outside "
+                             f"its {c1 - c0} input rows")
+    cache["per_factor_checked"] = True
+
+
+def _apply_stacked_per_factor(ds: DeviceStreams, x: torch.Tensor,
+                              col_slices, chain_lengths) -> torch.Tensor:
+    """Per-factor launch loop over the stacked layout — the pre-fusion
+    runtime, kept (as in the reference) as the fused kernel's wall-clock
+    baseline and as an independent second implementation for equivalence
+    tests.  One ``lcc_factor_matmul`` launch per REAL factor of each chain
+    (the identity padding exists for the fused stack's benefit), the running
+    vector ``[N_pad, B]`` between them; the slices' results are summed in
+    slice order.  Returns ``[N_pad, B]``."""
+    y = None
+    for e, (c0, c1) in enumerate(col_slices):
+        cur = x[c0:c1]
+        for p in range(chain_lengths[e]):
+            cur = lcc_factor_matmul(ds.idx[e, p], ds.exp[e, p], ds.sign[e, p],
+                                    cur)
+        y = cur if y is None else y + cur
+    return y
+
+
+def apply_packed_chain(pc: PackedChain, x: torch.Tensor, *,
+                       fused: bool = True) -> torch.Tensor:
+    """y[N, B] = (F_P ... F_1) @ x[K, B] — the whole chain in one fused launch
+    (``fused=False``: one ``lcc_factor_matmul`` launch per factor).
 
     Padded rows carry sign==0 slots (value 0) so they stay exactly zero through
     the chain; the final slice recovers the true output dim.
@@ -922,17 +959,25 @@ def apply_packed_chain(pc: PackedChain, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x has {k} rows, chain expects in_dim={pc.in_dim}")
     x = _as_f32(x)
     ds = pc.on(x.device)
+    if not fused:
+        slices = ((0, pc.in_dim),)
+        _check_first_factor(pc.idx[None], pc.sign[None], slices, pc._dev)
+        return _apply_stacked_per_factor(ds, x, slices,
+                                         (pc.n_factors,))[: pc.out_dim]
     y = lcc_chain_matmul(ds.idx, ds.exp, ds.sign, x, ds.slice_c0, ds.slice_w,
                          ds.chain_len)
     return y[: pc.out_dim]
 
 
-def apply_packed_decomposition(packed: PackedDecomposition, x: torch.Tensor
-                               ) -> torch.Tensor:
+def apply_packed_decomposition(packed: PackedDecomposition, x: torch.Tensor,
+                               *, fused: bool = True) -> torch.Tensor:
     """y = W_hat @ x for a packed decomposition; x [K, B] (or [K] vector).
 
-    All FP slices run in a single ``lcc_chain_matmul`` launch.  Dense-fallback
-    slices (FS programs) are added on top.
+    All FP slices run in a single ``lcc_chain_matmul`` launch (``fused=True``,
+    the default); ``fused=False`` runs the per-factor loop
+    (:func:`_apply_stacked_per_factor`, one ``lcc_factor_matmul`` launch per
+    real factor) for comparison.  Dense-fallback slices (FS programs) are
+    added on top.
     """
     squeeze = x.dim() == 1
     if squeeze:
@@ -944,9 +989,14 @@ def apply_packed_decomposition(packed: PackedDecomposition, x: torch.Tensor
     x = _as_f32(x)
     ds = packed.on(x.device)
     y = None
-    if packed.col_slices:
+    if packed.col_slices and fused:
         y = lcc_chain_matmul(ds.idx, ds.exp, ds.sign, x, ds.slice_c0,
                              ds.slice_w, ds.chain_len)[: packed.out_dim]
+    elif packed.col_slices:
+        _check_first_factor(packed.idx, packed.sign, packed.col_slices,
+                            packed._dev)
+        y = _apply_stacked_per_factor(ds, x, packed.col_slices,
+                                      packed.chain_lengths)[: packed.out_dim]
     for (c0, c1), w in ds.dense:
         part = w @ x[c0:c1]
         y = part if y is None else y + part

@@ -1,4 +1,4 @@
-"""Attention: GQA (full / sliding-window), prefill and one-token decode.
+"""Attention: GQA (full / sliding-window) and MLA, prefill and one-token decode.
 
 Written with ``einsum``/``softmax`` as the JAX package writes it (that package
 has no attention kernel, so none is ported and no fused library attention is
@@ -8,6 +8,12 @@ KV caches are named tuples of tensors.  Sliding-window attention uses a ring
 buffer of size ``window``.  **Decode updates the cache in place** (the JAX
 package returned a new cache and relied on ``donate_argnums`` to reuse the
 buffer): the tensors handed in are the ones handed back.
+
+MLA (DeepSeek-V2) caches the compressed KV latent ``c_kv`` and the shared,
+not yet rotated rope key ``k_rope`` a token; every step expands the whole
+latent view through ``uk``/``uv`` (one grouped launch when compressed), as
+the JAX package does.  Its prefix-cache continuation (``mla_extend``) is not
+carried over.
 """
 from __future__ import annotations
 
@@ -24,6 +30,10 @@ __all__ = [
     "PagedKVCache",
     "paged_view",
     "init_kv_cache",
+    "MLACache",
+    "PagedMLACache",
+    "mla_prefill",
+    "mla_decode",
 ]
 
 _NEG = -1e30
@@ -47,6 +57,19 @@ class PagedKVCache(NamedTuple):
     v: torch.Tensor  # [Nb, bs, Hkv, Dh]
     kpos: torch.Tensor  # [B, S] logical positions (-1 = empty), S = mb * bs
     tbl: torch.Tensor  # [B, mb] int block ids
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor  # [B, Smax, dc] compressed KV latents
+    k_rope: torch.Tensor  # [B, Smax, Dr] shared rotary key branch (unrotated)
+    kpos: torch.Tensor  # [B, Smax]
+
+
+class PagedMLACache(NamedTuple):
+    c_kv: torch.Tensor  # [Nb, bs, dc] latent block pool (this layer)
+    k_rope: torch.Tensor  # [Nb, bs, Dr]
+    kpos: torch.Tensor  # [B, S]
+    tbl: torch.Tensor  # [B, mb]
 
 
 def paged_view(pool: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
@@ -205,4 +228,100 @@ def attention_decode(
     mask = torch.where(valid, zero, zero + _NEG)[:, None, None, None, :]
     out = _sdpa(qg, k, v, mask)
     out = out.reshape(b, 1, n_heads * head_dim)
+    return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank compressed KV cache
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv(p, x, c_kv, k_rope_src, positions, kpositions, n_heads, qk_nope,
+             qk_rope, v_dim, rope_theta, executor=None, site=None):
+    """Queries, keys and values of every head from the latent view: ``q``
+    rotated at ``positions``, the rope key at ``kpositions`` (shared across
+    heads, broadcast after rotation)."""
+    b, s, _ = x.shape
+    sk = c_kv.shape[1]
+    sn = site_fmt(site)
+    q = site_linear(executor, sn("q"), p["q"], x).reshape(
+        b, s, n_heads, qk_nope + qk_rope)
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    # uk/uv share the latent-cache input: one grouped launch when compressed
+    uk, uv = site_linear_group(executor, (sn("uk"), sn("uv")),
+                               (p["uk"], p["uv"]), c_kv)
+    k_nope = uk.reshape(b, sk, n_heads, qk_nope)
+    v = uv.reshape(b, sk, n_heads, v_dim)
+    k_rope = apply_rope(k_rope_src[:, :, None, :], kpositions, rope_theta)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, sk, n_heads, qk_rope)], dim=-1)
+    return q_full, k_full, v
+
+
+def mla_prefill(p, x, positions, *, n_heads, kv_lora, qk_nope, qk_rope, v_dim,
+                rope_theta=10000.0, q_chunk: int = 1024):
+    """Returns (out [B,S,d_model], c_kv [B,S,dc], k_rope [B,S,Dr]) — the
+    latents as cached (the rope branch unrotated)."""
+    b, s, _ = x.shape
+    c_kv = linear(p["dkv"], x)
+    k_rope_src = linear(p["kr"], x)
+    q, k, v = _mla_qkv(p, x, c_kv, k_rope_src, positions, positions, n_heads,
+                       qk_nope, qk_rope, v_dim, rope_theta)
+    # MLA heads are full multi-head (n_kv == n_heads): the GQA path, G = 1
+    qg = q.reshape(b, s, n_heads, 1, qk_nope + qk_rope)
+    kpos_all = torch.arange(s, device=x.device)
+
+    def chunk_out(q_c, qpos_c):
+        m = kpos_all[None, :] <= qpos_c[:, None]
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        mask = torch.where(m, zero, zero + _NEG)[None, None, None]
+        return _sdpa(q_c, k, v, mask)
+
+    n_chunks = max(1, s // q_chunk) if s % q_chunk == 0 else 1
+    cq = s // n_chunks
+    out = torch.cat([chunk_out(qg[:, i * cq:(i + 1) * cq],
+                               positions[0, i * cq:(i + 1) * cq])
+                     for i in range(n_chunks)], dim=1)
+    out = out.reshape(b, s, n_heads * v_dim)
+    return linear(p["o"], out.to(x.dtype)), c_kv, k_rope_src
+
+
+def mla_decode(p, x, cache, pos, *, n_heads, kv_lora, qk_nope, qk_rope, v_dim,
+               rope_theta=10000.0, executor=None, site: str | None = None):
+    """One-token MLA decode. x [B,1,d]; pos [B] (-1 = idle slot).
+
+    Returns (out [B,1,d], cache) — the cache passed in, updated in place:
+    the new latent and rope rows go to the row's slot ``pos`` (contiguous)
+    or its pool block (:class:`PagedMLACache`, through the block table),
+    then the whole latent view is expanded.  An idle row writes nothing, as
+    in :func:`attention_decode` (the JAX package's ``one_hot(-1)`` is all
+    zeros; here every write is guarded).  Keys are rotated at
+    ``max(kpos, 0)``."""
+    b = x.shape[0]
+    pos = pos.long()
+    paged = isinstance(cache, PagedMLACache)
+    sn = site_fmt(site)
+    c_new, kr_new = site_linear_group(executor, (sn("dkv"), sn("kr")),
+                                      (p["dkv"], p["kr"]), x)  # [B,1,dc/Dr]
+    if paged:
+        _paged_scatter(cache.c_kv, cache.tbl, pos, c_new[:, 0])
+        _paged_scatter(cache.k_rope, cache.tbl, pos, kr_new[:, 0])
+        c_kv = paged_view(cache.c_kv, cache.tbl)
+        k_rope = paged_view(cache.k_rope, cache.tbl)
+    else:
+        _row_scatter(cache.c_kv, pos, c_new[:, 0])
+        _row_scatter(cache.k_rope, pos, kr_new[:, 0])
+        c_kv, k_rope = cache.c_kv, cache.k_rope
+    _row_scatter(cache.kpos, pos, pos.to(cache.kpos.dtype))
+    kpos = cache.kpos
+    q, k, v = _mla_qkv(p, x, c_kv, k_rope, pos[:, None], kpos.clamp(min=0),
+                       n_heads, qk_nope, qk_rope, v_dim, rope_theta,
+                       executor=executor, site=site)
+    qg = q.reshape(b, 1, n_heads, 1, qk_nope + qk_rope)
+    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    mask = torch.where(valid, zero, zero + _NEG)[:, None, None, None, :]
+    out = _sdpa(qg, k, v, mask)
+    out = out.reshape(b, 1, n_heads * v_dim)
     return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache

@@ -10,9 +10,10 @@ Training derives its group-lasso layouts from these records
 compressor slices.  Site names, paths, indices and ``transpose`` flags are
 the reference's, so artifact keys cross between the packages.
 
-Families with a table here: dense (olmo-1b), moe (mixtral-8x22b) and mlp
-(the paper's MLP).  The others raise ``NotImplementedError`` naming the
-slice that brings them.
+Families with a table here: dense (olmo-1b), moe (mixtral-8x22b, and
+deepseek-v2-lite with its MLA projections and shared experts) and mlp (the
+paper's MLP).  The others raise ``NotImplementedError`` naming where they
+stand in the roadmap.
 """
 from __future__ import annotations
 
@@ -88,7 +89,7 @@ def _not_ported(family: str, where: str):
     return fn
 
 
-_LATER = "the remaining families, ROADMAP Queue A after slice 7"
+_LATER = "the remaining families, ROADMAP Queue A"
 FAMILY_SITE_FNS = {
     "dense": _dense_sites,
     "moe": _moe_sites,

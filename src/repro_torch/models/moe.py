@@ -9,10 +9,12 @@ same function the whole-step plan's plain version uses — and keeps the
 reference's semantics exactly: the router runs in float32 on upcast
 activations, ties go to the lower expert index, the capacity is Python's
 ``round`` of ``T * k * cf / E`` (at least ``min_capacity``), empty expert
-slots are still evaluated.
+slots are still evaluated.  Shared (always-on) experts are one SwiGLU of
+``n_shared * d_ff`` columns added after the gated combine, as in the
+reference.
 
-Not carried over: shared (always-on) experts, the manual shard_map variant
-and the router's auxiliary training losses.
+Not carried over: the manual shard_map variant (``moe_manual``, reached only
+with ``mesh=``) and the router's auxiliary training losses.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_route import capacity, route_tokens
+
+from .layers import site_linear, site_linear_group, swiglu
 
 __all__ = ["moe_ffn"]
 
@@ -31,15 +35,17 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
     """x [B, S, d] -> (y [B, S, d], aux dict with router stats).
 
     ``p``: ``router [d, E]`` (float32), ``gate``/``up`` ``[E, d, dff]``,
-    ``down`` ``[E, dff, d]``.  ``executor``/``site_tag`` (compressed
-    serving): each projection's per-expert products run as ONE grouped
-    launch over all experts (sites ``moe.{proj}.{site_tag}.e{e}``) when the
-    executor covers them all, as a batched product of the dense weights
-    otherwise.  ``aux``: ``router_probs_mean``, ``dropped_frac`` and ``sel``
-    as in the reference, plus ``keep`` (which choices got a slot)."""
-    if "shared" in p:
-        raise NotImplementedError("shared experts are not available in this "
-                                  "package yet (the deepseek-v2-lite slice)")
+    ``down`` ``[E, dff, d]``, and optionally ``shared`` (``gate``/``up``/
+    ``down`` ``{"w": ...}`` of ``n_shared * dff`` columns).
+    ``executor``/``site_tag`` (compressed serving): the executor's per-layer
+    expert plan (``moe_plan``, K9) when it offers one; otherwise each
+    projection's per-expert products run as ONE grouped launch over all
+    experts (sites ``moe.{proj}.{site_tag}.e{e}``) when the executor covers
+    them all, as a batched product of the dense weights otherwise.  Shared
+    experts route through their own sites (``moe.shared.{proj}.{site_tag}``:
+    gate+up one grouped launch, down one chain).  ``aux``:
+    ``router_probs_mean``, ``dropped_frac`` and ``sel`` as in the reference,
+    plus ``keep`` (which choices got a slot)."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -49,12 +55,11 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
         cap=cap, norm_topk=norm_topk)
     if executor is not None and hasattr(executor, "count_moe_drops"):
         executor.count_moe_drops(keep)
+    plan = None
     if executor is not None and site_tag is not None and hasattr(
             executor, "moe_plan"):
-        # the reference asks for a per-layer expert plan here; the port has
-        # none (the executor records why, as the reference does)
-        executor.moe_plan(site_tag, n_experts=n_experts, d_model=d,
-                          d_ff=p["gate"].shape[-1])
+        plan = executor.moe_plan(site_tag, n_experts=n_experts, d_model=d,
+                                 d_ff=p["gate"].shape[-1])
 
     # scatter-add into the slots; row E * C takes the dropped choices
     buf = torch.zeros((n_experts * cap + 1, d), dtype=x.dtype, device=x.device)
@@ -73,14 +78,29 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
         ys = fused([z[e].to(torch.float32).T for e in range(n_experts)])
         return torch.stack([y.T for y in ys]).to(z.dtype)
 
-    h = F.silu(expert_mm("gate", buf)) * expert_mm("up", buf)
-    out_buf = expert_mm("down", h).reshape(n_experts * cap, d)
+    if plan is not None:
+        # all experts' gate/up, SwiGLU and down in one plan call (K9)
+        out_buf = plan(buf).reshape(n_experts * cap, d)
+    else:
+        h = F.silu(expert_mm("gate", buf)) * expert_mm("up", buf)
+        out_buf = expert_mm("down", h).reshape(n_experts * cap, d)
 
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(top_k):
         gathered = out_buf[torch.clamp(slot[:, j], max=n_experts * cap - 1)]
         w = (gates[:, j] * keep[:, j]).to(x.dtype)[:, None]
         y = y + w * gathered
+    if "shared" in p:
+        sp = p["shared"]
+        if executor is not None and site_tag is not None:
+            sg, su = site_linear_group(
+                executor, (f"moe.shared.gate.{site_tag}",
+                           f"moe.shared.up.{site_tag}"),
+                (sp["gate"], sp["up"]), xt)
+            y = y + site_linear(executor, f"moe.shared.down.{site_tag}",
+                                sp["down"], F.silu(sg) * su)
+        else:
+            y = y + swiglu(sp, xt)
     aux = {"router_probs_mean": probs.mean(0),
            "dropped_frac": 1.0 - keep.to(torch.float32).mean(), "sel": sel,
            "keep": keep}

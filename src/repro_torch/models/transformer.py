@@ -1,8 +1,9 @@
 """Decoder backbone — the dense family (olmo-1b and relatives) and the MoE
-family (mixtral-8x22b).
+family (mixtral-8x22b; deepseek-v2-lite with MLA attention and shared
+experts).
 
-Block layout:  dense  x += attn(norm(x));  x += swiglu(norm(x))
-               moe    x += attn(norm(x));  x += moe(norm(x))
+Block layout:  dense  x += attn(norm(x));      x += swiglu(norm(x))
+               moe    x += attn|mla(norm(x));  x += moe(norm(x)) [+ shared]
 
 Parameters are stacked per layer ([L, ...] leaves, the JAX package's scanned
 layout) and a Python loop walks the layers, so layer ``li`` binds its own
@@ -22,8 +23,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
-from .attention import (KVCache, PagedKVCache, attention_decode,
-                        attention_prefill)
+from .attention import (KVCache, MLACache, PagedKVCache, PagedMLACache,
+                        attention_decode, attention_prefill, mla_decode,
+                        mla_prefill)
 from .layers import (linear, non_parametric_ln, rms_norm, site_linear,
                      site_linear_group, swiglu)
 from .moe import moe_ffn
@@ -40,17 +42,13 @@ def _norm(cfg: ArchConfig, p, x):
 
 
 def _require_supported(cfg: ArchConfig) -> None:
-    """The dense and MoE rope/no-position decoders; MLA attention and shared
-    experts (deepseek-v2-lite) come with a later slice."""
-    if cfg.mla is not None:
+    """The dense and MoE rope/no-position decoders, with GQA or MLA
+    attention and with or without shared experts."""
+    if cfg.moe is not None and cfg.moe_manual:
         raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not available in this package yet "
-            "(the deepseek-v2-lite slice)")
-    if cfg.moe is not None and (cfg.moe.n_shared > 0 or cfg.moe_manual):
-        raise NotImplementedError(
-            f"{cfg.name}: shared experts and the manual expert-parallel MoE "
-            "are not available in this package yet (the deepseek-v2-lite "
-            "slice; mesh= for moe_manual)")
+            f"{cfg.name}: the manual expert-parallel MoE (moe_manual) is not "
+            "available in this package yet: it shards the experts over a "
+            "device mesh, which comes with the distributed/ entry (mesh=)")
     if (cfg.family not in ("dense", "moe") or (cfg.family == "moe")
             != (cfg.moe is not None) or cfg.enc_layers > 0
             or cfg.pos not in ("rope", "none")):
@@ -104,17 +102,23 @@ def _param_tree(cfg: ArchConfig, normal, trunc, const) -> dict:
             p["b"] = const((L, o), 0.0)
         return p
 
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = {"q": dense(d, nq * (m.qk_nope + m.qk_rope)),
+                "dkv": dense(d, m.kv_lora), "kr": dense(d, m.qk_rope),
+                "uk": dense(m.kv_lora, nq * m.qk_nope),
+                "uv": dense(m.kv_lora, nq * m.v_dim),
+                "o": dense(nq * m.v_dim, d)}
+    else:
+        attn = {"q": dense(d, nq * hd, cfg.qkv_bias),
+                "k": dense(d, nkv * hd, cfg.qkv_bias),
+                "v": dense(d, nkv * hd, cfg.qkv_bias),
+                "o": dense(nq * hd, d)}
     params: dict[str, Any] = {
         "embed": normal((cfg.vocab, d), d ** -0.5),
         "final_ln": const((d,), 1.0),
-        "blocks": {
-            "ln1": const((L, d), 1.0),
-            "ln2": const((L, d), 1.0),
-            "attn": {"q": dense(d, nq * hd, cfg.qkv_bias),
-                     "k": dense(d, nkv * hd, cfg.qkv_bias),
-                     "v": dense(d, nkv * hd, cfg.qkv_bias),
-                     "o": dense(nq * hd, d)},
-        },
+        "blocks": {"ln1": const((L, d), 1.0), "ln2": const((L, d), 1.0),
+                   "attn": attn},
     }
     if cfg.moe is None:
         params["blocks"]["ffn"] = {"gate": dense(d, dff), "up": dense(d, dff),
@@ -126,6 +130,11 @@ def _param_tree(cfg: ArchConfig, normal, trunc, const) -> dict:
             "gate": trunc((L, ne, d, edff), 1.0 / math.sqrt(d)),
             "up": trunc((L, ne, d, edff), 1.0 / math.sqrt(d)),
             "down": trunc((L, ne, edff, d), 1.0 / math.sqrt(edff))}
+        if cfg.moe.n_shared > 0:
+            sff = cfg.moe.n_shared * edff
+            params["blocks"]["ffn"]["shared"] = {
+                "gate": dense(d, sff), "up": dense(d, sff),
+                "down": dense(sff, d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": trunc((d, cfg.vocab), 1.0 / math.sqrt(d))}
     return params
@@ -197,9 +206,9 @@ def _unbind_layers(blocks, n: int) -> list:
 
 def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
             positions=None, collect_cache: bool = False):
-    """Prefill forward -> (hidden [B,S,d], (k, v) caches [L,B,S,Hkv,hd] or None).
-    MoE experts run as a batched product of the dense weights, as in the
-    reference."""
+    """Prefill forward -> (hidden [B,S,d], (k, v) caches [L,B,S,Hkv,hd] —
+    for MLA (c_kv [L,B,S,dc], k_rope [L,B,S,Dr]) — or None).  MoE experts
+    run as a batched product of the dense weights, as in the reference."""
     _require_supported(cfg)
     if embeds is not None:
         x = embeds.to(cfg.cdtype)
@@ -210,12 +219,20 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     def block(x, bp):
-        y, k, v = attention_prefill(
-            bp["attn"], _norm(cfg, bp["ln1"], x), positions,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-            causal=True, window=cfg.attn_window,
-            rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
-            q_chunk=cfg.q_chunk)
+        if cfg.mla is not None:  # the cache holds (c_kv, k_rope)
+            m = cfg.mla
+            y, k, v = mla_prefill(
+                bp["attn"], _norm(cfg, bp["ln1"], x), positions,
+                n_heads=cfg.n_heads, kv_lora=m.kv_lora, qk_nope=m.qk_nope,
+                qk_rope=m.qk_rope, v_dim=m.v_dim, rope_theta=cfg.rope_theta,
+                q_chunk=cfg.q_chunk)
+        else:
+            y, k, v = attention_prefill(
+                bp["attn"], _norm(cfg, bp["ln1"], x), positions,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                causal=True, window=cfg.attn_window,
+                rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
+                q_chunk=cfg.q_chunk)
         x = x + y
         return x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x)), k, v
 
@@ -296,7 +313,8 @@ def paged_layout(cfg: ArchConfig, smax: int, kv_block: int,
 def init_decode_state(cfg: ArchConfig, batch: int, smax: int, *,
                       kv_block: int | None = None,
                       kv_blocks: int | None = None, device="cuda"):
-    """Per-layer decode caches.
+    """Per-layer decode caches: ``k``/``v`` for GQA, the latents ``c_kv``/
+    ``k_rope`` for MLA, and ``kpos``.
 
     ``kv_block`` switches to a paged layout: per-layer block *pools*
     ``[L, pool, bs, ...]`` plus one shared block table ``[batch,
@@ -306,6 +324,18 @@ def init_decode_state(cfg: ArchConfig, batch: int, smax: int, *,
     L, cd = cfg.n_layers, cfg.cdtype
     z = dict(dtype=cd, device=device)
     i32 = dict(dtype=torch.int32, device=device)
+    if cfg.mla is not None:
+        dc, dr = cfg.mla.kv_lora, cfg.mla.qk_rope
+        if kv_block is not None:
+            bs, mb, nb = paged_layout(cfg, smax, kv_block, kv_blocks,
+                                      n_slots=batch)
+            return {"c_kv": torch.zeros((L, nb, bs, dc), **z),
+                    "k_rope": torch.zeros((L, nb, bs, dr), **z),
+                    "kpos": torch.full((L, batch, mb * bs), -1, **i32),
+                    "block_tbl": torch.zeros((batch, mb), **i32)}
+        return {"c_kv": torch.zeros((L, batch, smax, dc), **z),
+                "k_rope": torch.zeros((L, batch, smax, dr), **z),
+                "kpos": torch.full((L, batch, smax), -1, **i32)}
     if kv_block is not None:
         bs, mb, nb = paged_layout(cfg, smax, kv_block, kv_blocks, n_slots=batch)
         return {
@@ -346,29 +376,46 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     Covered sites execute their LCC chains through fused kernel launches;
     sites the executor does not cover fall back to the dense weights.  A
     whole-step layer plan, when the executor offers one, replaces the
-    per-layer loop (its MoE layers route inside the step).
+    per-layer loop (its MoE layers route inside the step); MLA never has
+    one (reason ``"mla"``), and its MoE layers may take a per-layer expert
+    plan instead.
     """
     _require_supported(cfg)
     x = params["embed"][token.long()].to(cfg.cdtype)
     tbl = state.get("block_tbl")
+    # MLA never asks for the whole-step plan (the executor records "mla" when
+    # it is built), as in the reference
     plan = (executor.step_plan(cfg)
             if executor is not None and hasattr(executor, "step_plan")
-            else None)
+            and cfg.mla is None else None)
     if plan is not None:
         x, state = plan.decode_layers(state, x, pos)
     else:
         for li in range(cfg.n_layers):
             bp = _layer(params["blocks"], li)
-            k, v, kp = state["k"][li], state["v"][li], state["kpos"][li]
-            cache = (PagedKVCache(k=k, v=v, kpos=kp, tbl=tbl)
-                     if tbl is not None else KVCache(k=k, v=v, kpos=kp))
-            y, _ = attention_decode(
-                bp["attn"], _norm(cfg, bp["ln1"], x), cache, pos,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                window=cfg.attn_window,
-                rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
-                executor=executor,
-                site=f"attn.{{}}.l{li}" if executor is not None else None)
+            site = f"attn.{{}}.l{li}" if executor is not None else None
+            kp = state["kpos"][li]
+            if cfg.mla is not None:
+                m = cfg.mla
+                ck, kr = state["c_kv"][li], state["k_rope"][li]
+                cache = (PagedMLACache(c_kv=ck, k_rope=kr, kpos=kp, tbl=tbl)
+                         if tbl is not None
+                         else MLACache(c_kv=ck, k_rope=kr, kpos=kp))
+                y, _ = mla_decode(
+                    bp["attn"], _norm(cfg, bp["ln1"], x), cache, pos,
+                    n_heads=cfg.n_heads, kv_lora=m.kv_lora, qk_nope=m.qk_nope,
+                    qk_rope=m.qk_rope, v_dim=m.v_dim,
+                    rope_theta=cfg.rope_theta, executor=executor, site=site)
+            else:
+                k, v = state["k"][li], state["v"][li]
+                cache = (PagedKVCache(k=k, v=v, kpos=kp, tbl=tbl)
+                         if tbl is not None else KVCache(k=k, v=v, kpos=kp))
+                y, _ = attention_decode(
+                    bp["attn"], _norm(cfg, bp["ln1"], x), cache, pos,
+                    n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                    window=cfg.attn_window,
+                    rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
+                    executor=executor, site=site)
             x = x + y
             x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x), executor, li)
     h = _norm(cfg, params["final_ln"], x)

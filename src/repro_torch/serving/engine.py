@@ -19,8 +19,9 @@ a site-keyed :class:`~repro_torch.serving.executor.CompressedExecutor` over
 the artifact and the decode path consults it inside the step — for float32
 configs the whole-step layer plan (``stage_matmul`` / ``step_plan_matmul``),
 otherwise attention q/k/v/o and FFN gate/up/down as fused per-region launches
-(``lcc_chain_matmul`` / ``lcc_group_matmul``): the shift-add runtime the paper
-targets either way.  Prefill runs on the artifact's dense-effective weights.
+(``lcc_chain_matmul`` / ``lcc_group_matmul``); MLA models take the per-region
+attention and, in float32, one expert plan a layer (``moe_plan_matmul``):
+the shift-add runtime the paper targets either way.  Prefill runs on the artifact's dense-effective weights.
 
 Not available yet, and refused with an error when asked for: ``mesh=``
 (multi-device decode), ``prefix_cache=True`` (prefix sharing with its
@@ -132,6 +133,9 @@ class ServingEngine:
         else:
             self.state = api.init_decode_state(cfg, n_slots, max_len,
                                                device=self.device)
+        # the per-token cache leaves a prefill writes: MLA caches its latents
+        self._cache_leaves = (("c_kv", "k_rope") if "c_kv" in self.state
+                              else ("k", "v"))
         # host mirrors of the device-side per-slot control state
         self.pos = np.zeros(n_slots, np.int64)
         self.active = np.zeros(n_slots, bool)
@@ -296,7 +300,7 @@ class ServingEngine:
     @torch.no_grad()
     def _prefill_caches(self, prompt: list[int]):
         """ONE ``api.prefill`` forward over the prompt -> (k, v) caches
-        ``[L, 1, S, Hkv, hd]``.  Eager execution needs no length buckets, so
+        ``[L, 1, S, Hkv, hd]`` (MLA: (c_kv, k_rope) ``[L, 1, S, ...]``).  Eager execution needs no length buckets, so
         the prompt is not padded."""
         toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
         _h, caches = api.prefill(self.params, self.cfg, {"tokens": toks},
@@ -305,20 +309,21 @@ class ServingEngine:
 
     @torch.no_grad()
     def _prefill_slot(self, slot: int, prompt: list[int]) -> None:
-        """Bulk prefill into the contiguous cache: write the slot's K/V at its
-        positions (ring positions when windowed) and its whole ``kpos`` row."""
+        """Bulk prefill into the contiguous cache: write the slot's K/V (MLA:
+        its latents) at its positions (ring positions when windowed) and its
+        whole ``kpos`` row."""
         plen = len(prompt)
-        k_all, v_all = self._prefill_caches(prompt)
+        caches = self._prefill_caches(prompt)
         st = self.state
-        eff = st["k"].shape[2]  # ring size when windowed, else max_len
+        eff = st["kpos"].shape[2]  # ring size when windowed, else max_len
         ps = np.arange(max(0, plen - eff), plen)
         slots = ps % eff if self.cfg.attn_window is not None else ps
         kpos_row = np.full(eff, -1, np.int32)
         kpos_row[slots] = ps
         ps_d = torch.from_numpy(ps).to(self.device)
         slots_d = torch.from_numpy(slots).to(self.device)
-        st["k"][:, slot, slots_d] = k_all[:, 0, ps_d].to(st["k"].dtype)
-        st["v"][:, slot, slots_d] = v_all[:, 0, ps_d].to(st["v"].dtype)
+        for name, c_all in zip(self._cache_leaves, caches):
+            st[name][:, slot, slots_d] = c_all[:, 0, ps_d].to(st[name].dtype)
         st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
 
     # --------------------------------------------------------- paged prefill
@@ -326,8 +331,8 @@ class ServingEngine:
     def _prefill_slot_paged(self, slot: int, prompt: list[int], plan) -> None:
         """Apply an :class:`~repro_torch.serving.kvpool.AdmitPlan`: install the
         block table row, prefill the prompt in one bulk forward and scatter
-        the fresh K/V into the slot's blocks (block = table[v // bs], offset
-        v % bs)."""
+        the fresh K/V (MLA: latents) into the slot's blocks (block =
+        table[v // bs], offset v % bs)."""
         st = self.state
         cfg, pool = self.cfg, self.pool
         bs, plen = pool.block_size, len(prompt)
@@ -348,7 +353,7 @@ class ServingEngine:
         blocks = torch.from_numpy(tbl_row[vidx // bs].astype(np.int64)).to(self.device)
         offs = torch.from_numpy((vidx % bs).astype(np.int64)).to(self.device)
         ps_d = torch.from_numpy(ps).to(self.device)
-        for name, c_all in zip(("k", "v"), caches):
+        for name, c_all in zip(self._cache_leaves, caches):
             st[name][:, blocks, offs] = c_all[:, 0, ps_d].to(st[name].dtype)
         st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
 

@@ -15,6 +15,10 @@ Three kernel routes:
   kernels with no PyTorch operation between them (an MoE layer routes inside
   the step).  The default for float32 configs (``use_plans=True``), as in
   the reference.
+* :class:`MoEPlan` — one MoE layer's experts (all gates+ups, SwiGLU, all
+  downs) through ``layer_plan.moe_plan_matmul`` (K9), where the whole-step
+  plan is refused (MLA attention, shared experts) and the compute dtype is
+  float32; the layer's attention and shared experts stay per-region.
 * :class:`LCCMatvec` — one dense site: prune gather -> eq. (10) segment-sum
   (``cluster_segment_sum``) -> the whole FP chain in ONE ``lcc_chain_matmul``
   launch.
@@ -44,7 +48,7 @@ from repro_torch.models.attention import _paged_index
 from repro_torch.models.layers import _rope_sincos
 
 __all__ = ["CompressedExecutor", "LCCMatvec", "GroupedLCCMatvec", "StepPlan",
-           "matvecs_from_artifact"]
+           "MoEPlan", "matvecs_from_artifact"]
 
 
 class _SitePrep:
@@ -187,14 +191,8 @@ class StepPlan:
                 return {"kind": "dense", "out_off": out_off,
                         "src_off": src_off, "w": host(w[li]), "bias": bias}
             covered.append(name)
-            return {"kind": "lcc", "name": name, "out_off": out_off,
-                    "src_off": src_off,
-                    "kept": np.asarray(rec.kept_columns, np.int64),
-                    "labels": (np.asarray(rec.shared.labels, np.int64)
-                               if rec.shared is not None else None),
-                    "n_clusters": (rec.shared.n_clusters
-                                   if rec.shared is not None else 0),
-                    "packed": executor._matvecs[name].packed, "bias": bias}
+            return {**_lcc_spec(executor, name, out_off, src_off),
+                    "bias": bias}
 
         def lin(name, p, li, out_off):
             return spec(name, p["w"], li, out_off, b=p.get("b"))
@@ -312,6 +310,72 @@ class StepPlan:
         return y.T[:, None, :].to(x.dtype), state
 
 
+def _lcc_spec(executor, name: str, out_off: int, src_off: int) -> dict:
+    """A compressed site as a stage entry (its packed chains, prune and
+    weight-sharing prep) at ``out_off`` of the stage's output, reading its
+    input from ``src_off``."""
+    rec = executor.artifact.records[name]
+    return {"kind": "lcc", "name": name, "out_off": out_off,
+            "src_off": src_off,
+            "kept": np.asarray(rec.kept_columns, np.int64),
+            "labels": (np.asarray(rec.shared.labels, np.int64)
+                       if rec.shared is not None else None),
+            "n_clusters": (rec.shared.n_clusters
+                           if rec.shared is not None else 0),
+            "packed": executor._matvecs[name].packed, "bias": None}
+
+
+class MoEPlan:
+    """One MoE layer's expert FFNs as one plan call (K9).
+
+    Two one-layer stages over flattened expert buffers — A: every expert's
+    gate at rows ``[e*dff, (e+1)*dff)`` and up at ``E*dff + e*dff``, reading
+    ``[E*d, C]`` from ``e*d``; B: every down, ``[E*dff] -> [E*d]`` — in place
+    of the three grouped per-region launches of the layer's experts (the
+    reference's layout and plan key ``moe:<tag>``).  A plan already in
+    ``artifact.plans`` is reused; a new one is stored there.  ``pack_s`` is
+    the host time the packing took (0 when reused)."""
+
+    def __init__(self, executor, site_tag: str, *, n_experts: int,
+                 d_model: int, d_ff: int):
+        self.executor = executor
+        art = executor.artifact
+        e, d, dff = n_experts, d_model, d_ff
+        sa, sb, names = [], [], []
+        for ei in range(e):
+            sa.append(_lcc_spec(executor, f"moe.gate.{site_tag}.e{ei}",
+                                ei * dff, ei * d))
+            sa.append(_lcc_spec(executor, f"moe.up.{site_tag}.e{ei}",
+                                e * dff + ei * dff, ei * d))
+            sb.append(_lcc_spec(executor, f"moe.down.{site_tag}.e{ei}",
+                                ei * d, ei * dff))
+            names += [f"moe.{p}.{site_tag}.e{ei}"
+                      for p in ("gate", "up", "down")]
+        key = f"moe:{site_tag}"
+        pre = art.plans.get(key)
+        t0 = time.perf_counter()
+        if pre is not None and set(pre) == {"a", "b"}:
+            self.stages = pre
+            self.pack_s = 0.0
+        else:
+            self.stages = ops.pack_layer({"a": ([sa], e * d, 2 * e * dff),
+                                          "b": ([sb], e * dff, e * d)})
+            art.plans[key] = self.stages
+            self.pack_s = time.perf_counter() - t0
+        self.covered = frozenset(names)
+        self.d_ff_total = e * dff
+
+    def __call__(self, buf: torch.Tensor) -> torch.Tensor:
+        """buf [E, C, d] dispatched tokens -> [E, C, d] expert outputs."""
+        self.executor.routed.update(self.covered)
+        e, c, d = buf.shape
+        src = buf.to(torch.float32).permute(0, 2, 1).reshape(e * d, c)
+        out = layer_plan.moe_plan_matmul(
+            self.stages["a"], self.stages["b"], d_ff_total=self.d_ff_total,
+            src=src.contiguous())
+        return out.reshape(e, d, c).permute(0, 2, 1).to(buf.dtype)
+
+
 def _plan_ineligible_reason(cfg, has_sites: bool) -> str | None:
     """Why ``cfg`` cannot take the whole-step plan route (None = eligible).
     The reason strings are the reference's; ``Engine.plan_stats()`` reports
@@ -361,6 +425,9 @@ class CompressedExecutor:
       reason is recorded in :attr:`plan_fallbacks` and decode takes the
       per-region route.  A plan that fails to build raises: there is no
       silent fallback to the per-region route.
+    * ``moe_plan(tag, ...)`` -> :class:`MoEPlan` or None: one MoE layer's
+      experts (K9), asked for by ``moe_ffn`` where the step plan is not
+      taken; the same rules.
 
     ``routed`` records every site actually served by a fused kernel — tests
     assert it covers the artifact, and the engine reports it.
@@ -372,9 +439,9 @@ class CompressedExecutor:
         self.block = block
         self.device = torch.device(device)
         self.use_plans = bool(use_plans)
-        # plan key ("step") -> why it took the per-region route
+        # plan key ("step", "moe:<tag>") -> why it took the per-region route
         self.plan_fallbacks: dict[str, str] = {}
-        self._plans: dict[str, StepPlan | None] = {}
+        self._plans: dict[str, StepPlan | MoEPlan | None] = {}
         self._matvecs = matvecs_from_artifact(artifact, block=block,
                                               device=device)
         # record ineligibility eagerly, as the reference does
@@ -459,27 +526,32 @@ class CompressedExecutor:
 
     def moe_plan(self, site_tag: str, *, n_experts: int, d_model: int,
                  d_ff: int):
-        """The reference's single-launch plan for one MoE layer's experts
-        (K9, ``moe_plan_matmul``) is not ported: it is reached only when the
-        whole-step plan is not (MLA or shared experts, which this package
-        refuses).  Records why the layer takes the grouped per-region route,
-        with the reference's reasons, and returns None; raises where the
-        reference would build that plan."""
+        """The per-layer expert plan (:class:`MoEPlan`, K9) of layer
+        ``site_tag``, built on first use and cached, or None: the reason
+        (the reference's — ``plans_disabled``, ``moe_sites_missing``,
+        ``cdtype``) is recorded in :attr:`plan_fallbacks` under
+        ``moe:<tag>`` and the layer's experts take the grouped per-region
+        route.  A plan that fails to build raises."""
         key = f"moe:{site_tag}"
-        names = [f"moe.{p}.{site_tag}.e{e}" for e in range(n_experts)
-                 for p in ("gate", "up", "down")]
         if not self.use_plans:
-            reason = "plans_disabled"
-        elif not all(n in self._matvecs for n in names):
-            reason = "moe_sites_missing"
-        elif self.artifact.config.cdtype != torch.float32:
-            reason = "cdtype"
-        else:
-            raise NotImplementedError(
-                "per-layer MoE plans (moe_plan_matmul) are not available in "
-                "this package yet (the deepseek-v2-lite slice)")
-        self.plan_fallbacks.setdefault(key, reason)
-        return None
+            self.plan_fallbacks.setdefault(key, "plans_disabled")
+            return None
+        if key not in self._plans:
+            names = [f"moe.{p}.{site_tag}.e{e}" for e in range(n_experts)
+                     for p in ("gate", "up", "down")]
+            plan = None
+            if not all(n in self._matvecs for n in names):
+                self.plan_fallbacks[key] = "moe_sites_missing"
+            elif self.artifact.config.cdtype != torch.float32:
+                self.plan_fallbacks[key] = "cdtype"
+            else:
+                plan = MoEPlan(self, site_tag, n_experts=n_experts,
+                               d_model=d_model, d_ff=d_ff)
+            self._plans[key] = plan
+        plan = self._plans[key]
+        if plan is not None:
+            self.routed.update(plan.covered)
+        return plan
 
     @property
     def n_layer_plans(self) -> int:

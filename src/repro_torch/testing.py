@@ -149,22 +149,38 @@ def decomposition_dense(packed: ops.PackedDecomposition, device) -> torch.Tensor
     return w
 
 
-def dense_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, str], int, int]]:
-    """Per-layer compressible sites of the dense family:
-    ``(site prefix, (block, projection), N out, K in)``; the site name of
-    layer ``li`` is ``f"{prefix}.l{li}"`` and its weight is
-    ``params["blocks"][block][projection]["w"][li]`` of shape ``[K, N]``.
-    For the MoE family the FFN rows are left out (see :func:`moe_sites`)."""
+def dense_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, ...], int, int]]:
+    """Per-layer compressible sites outside the routed experts:
+    ``(site prefix, path, N out, K in)``; the site name of layer ``li`` is
+    ``f"{prefix}.l{li}"`` and its weight is ``params["blocks"][path...]["w"]
+    [li]`` of shape ``[K, N]``.  Attention is GQA (q/k/v/o) or MLA
+    (q/dkv/kr/uk/uv/o); an MoE family lists its shared experts
+    (``moe.shared.*``, path ``ffn.shared``) and leaves the routed experts to
+    :func:`moe_sites`."""
     d, dff = cfg.d_model, cfg.d_ff
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    sites = [("attn.q", ("attn", "q"), nq * hd, d),
-             ("attn.k", ("attn", "k"), nkv * hd, d),
-             ("attn.v", ("attn", "v"), nkv * hd, d),
-             ("attn.o", ("attn", "o"), d, nq * hd)]
+    if cfg.mla is not None:
+        m = cfg.mla
+        sites = [("attn.q", ("attn", "q"), nq * (m.qk_nope + m.qk_rope), d),
+                 ("attn.dkv", ("attn", "dkv"), m.kv_lora, d),
+                 ("attn.kr", ("attn", "kr"), m.qk_rope, d),
+                 ("attn.uk", ("attn", "uk"), nq * m.qk_nope, m.kv_lora),
+                 ("attn.uv", ("attn", "uv"), nq * m.v_dim, m.kv_lora),
+                 ("attn.o", ("attn", "o"), d, nq * m.v_dim)]
+    else:
+        sites = [("attn.q", ("attn", "q"), nq * hd, d),
+                 ("attn.k", ("attn", "k"), nkv * hd, d),
+                 ("attn.v", ("attn", "v"), nkv * hd, d),
+                 ("attn.o", ("attn", "o"), d, nq * hd)]
     if cfg.moe is None:
         sites += [("ffn.gate", ("ffn", "gate"), dff, d),
                   ("ffn.up", ("ffn", "up"), dff, d),
                   ("ffn.down", ("ffn", "down"), d, dff)]
+    elif cfg.moe.n_shared > 0:
+        sff = cfg.moe.n_shared * cfg.moe.d_ff_expert
+        sites += [("moe.shared.gate", ("ffn", "shared", "gate"), sff, d),
+                  ("moe.shared.up", ("ffn", "shared", "up"), sff, d),
+                  ("moe.shared.down", ("ffn", "shared", "down"), d, sff)]
     return sites
 
 
@@ -212,8 +228,8 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
                     host_effective: bool = True) -> CompressedModel:
     """A compressed artifact for ``cfg`` made from ``seed`` alone (see the
     module docstring).  Every attention and FFN projection of every layer —
-    for the MoE family every expert's gate, up and down — is a compressed
-    site; ``shared_sites`` (site prefixes) additionally get weight sharing,
+    for the MoE family every expert's gate, up and down and the shared
+    experts' — is a compressed site (MLA: q, dkv, kr, uk, uv, o); ``shared_sites`` (site prefixes) additionally get weight sharing,
     so the segment-sum kernel is on the decode path.  An MoE block gets a
     seeded float32 router ``[L, d, E]``.  ``params`` are the dense-effective
     weights in ``cfg.param_dtype`` (the router in float32) on ``device``;
@@ -239,12 +255,15 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     # one job a site: (name, N, K, generator key, weight-shared, where the
     # dense-effective weight goes in params)
     jobs = []
-    for si, (prefix, (blk, proj), n, k) in enumerate(sites):
-        params["blocks"][blk][proj] = {"w": torch.empty((L, k, n), **pd)}
+    for si, (prefix, path, n, k) in enumerate(sites):
+        node = params["blocks"]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = {"w": torch.empty((L, k, n), **pd)}
         for li in range(L):
             jobs.append((f"{prefix}.l{li}", n, k, (seed, 1 + li, si),
                          prefix in shared_sites,
-                         (params["blocks"][blk][proj]["w"], (li,))))
+                         (node[path[-1]]["w"], (li,))))
     if cfg.moe is not None:
         ne = cfg.moe.n_experts
         ffn = params["blocks"]["ffn"]

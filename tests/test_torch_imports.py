@@ -25,6 +25,9 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print("MODULES", len(names))
 print("PLAN", "repro_torch.kernels.layer_plan" in names)
+print("SLICE5", all(n in names for n in (
+    "repro_torch.kernels.lcc_matmul",
+    "repro_torch.configs.deepseek_v2_lite_16b")))
 print("TRAIN", all(n in names for n in (
     "repro_torch.kernels.group_prox", "repro_torch.optim.optimizers",
     "repro_torch.training.trainer", "repro_torch.training.regularize",
@@ -56,6 +59,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     assert int(lines["MODULES"]) >= 36
     assert lines["PLAN"] == "True"  # the layer-plan kernels (K6, K7) too
     assert lines["TRAIN"] == "True"  # the training path and K5
+    assert lines["SLICE5"] == "True"  # K4 and deepseek-v2-lite
     assert lines["BAD"] == "[]"
 
 
@@ -64,6 +68,7 @@ def test_no_source_file_of_the_port_names_jax_or_repro():
     assert len(files) >= 36
     assert SRC / "repro_torch" / "kernels" / "layer_plan.py" in files
     assert SRC / "repro_torch" / "training" / "trainer.py" in files
+    assert SRC / "repro_torch" / "kernels" / "lcc_matmul.py" in files
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -82,6 +87,7 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
     for name, replaced in (("lcc_chain_matmul.cu", "lcc_chain_matmul.py"),
                            ("lcc_group_matmul.cu", "lcc_group_matmul.py"),
                            ("cluster_segment_sum.cu", "shared_matmul.py"),
+                           ("lcc_factor_matmul.cu", "lcc_matmul.py"),
                            ("stage_matmul.cu", "layer_plan.py"),
                            ("step_plan.cu", "layer_plan.py"),
                            ("moe_route.cu", "layer_plan.py"),
@@ -94,11 +100,12 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
     from repro_torch.kernels import build
     assert [p.name for p in build.sources()] == [
         "cluster_segment_sum.cu", "group_prox.cu", "lcc_chain_matmul.cu",
-        "lcc_group_matmul.cu", "moe_route.cu", "stage_matmul.cu", "step_plan.cu"]
+        "lcc_factor_matmul.cu", "lcc_group_matmul.cu", "moe_route.cu",
+        "stage_matmul.cu", "step_plan.cu"]
     for entry in ("repro_stage_matmul", "repro_step_norm",
                   "repro_step_attention", "repro_step_swiglu",
                   "repro_moe_route", "repro_moe_dispatch", "repro_moe_combine",
-                  "repro_group_prox"):
+                  "repro_group_prox", "repro_lcc_factor_matmul"):
         assert entry in build._SIGNATURES
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-use_fast_math" not in build.NVCC_FLAGS
@@ -138,3 +145,15 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
     assert "routed 14/14 sites" in out and "6 tokens" in out
     # the reduced config computes in float32: decode takes the whole-step plan
     assert "1 layer plan" in out and "plan fallbacks {}" in out
+
+
+def test_serve_launcher_runs_deepseek_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "deepseek-v2-lite-16b", "--reduced", "--device",
+                "cpu", "--requests", "2", "--max-new", "3", "--slots", "2",
+                "--kernel"])
+    out = capsys.readouterr().out
+    # 2 layers x (6 MLA + 3 x 4 expert + 3 shared-expert sites)
+    assert "routed 42/42 sites" in out and "6 tokens" in out
+    # MLA refuses the whole-step plan; float32 takes one expert plan a layer
+    assert "2 layer plan(s)" in out and "plan fallbacks {'step': 'mla'}" in out

@@ -1,7 +1,8 @@
 """The MoE FFN of the port (``repro_torch.models.moe.moe_ffn``) against
 ``repro.models.moe.moe_ffn`` at reduced mixtral-8x22b widths, the router's
-float32 through conversion, the families still refused, the configuration
-and the seeded MoE fixture.
+float32 through conversion, shared experts and MLA against the reference,
+the manual expert-parallel MoE still refused, the configuration and the
+seeded MoE fixture.
 
 The same numpy parameters and activations go through both functions.  The
 routing must be the same — the experts chosen (``sel``), their order, and
@@ -21,13 +22,13 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jget_arch
+from repro.configs.base import MLASpec as JMLASpec
 from repro.configs.base import arch_to_dict as jarch_to_dict
 from repro.configs.base import reduced_config as jreduced
 from repro.models import api as japi
 from repro.models.moe import moe_ffn as jmoe_ffn
 
-from repro_torch.configs import (MLASpec, arch_to_dict, get_arch,
-                                 reduced_config)
+from repro_torch.configs import arch_to_dict, get_arch, reduced_config
 from repro_torch.convert import config_from_reference, params_from_numpy
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ops as tops
@@ -170,17 +171,53 @@ def test_prefill_logits_equal_the_reference():
     np.testing.assert_allclose(_np(th), np.asarray(jh), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("what", ["shared_experts", "mla", "moe_manual"])
+@pytest.mark.parametrize("what", ["moe_manual"])
 def test_deepseek_features_are_refused(what):
+    """The manual expert-parallel MoE shards experts over a mesh: refused,
+    naming the distributed/ entry that brings it."""
     cfg = reduced_config(get_arch("mixtral-8x22b"), vocab=64)
-    cfg = {"shared_experts": replace(cfg, moe=replace(cfg.moe, n_shared=1)),
-           "mla": replace(cfg, mla=MLASpec(kv_lora=16, qk_nope=16, qk_rope=8,
-                                           v_dim=16)),
-           "moe_manual": replace(cfg, moe_manual=True)}[what]
-    with pytest.raises(NotImplementedError, match="deepseek-v2-lite"):
+    cfg = {"moe_manual": replace(cfg, moe_manual=True)}[what]
+    with pytest.raises(NotImplementedError, match="distributed/"):
         tapi.init_decode_state(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="deepseek-v2-lite"):
+    with pytest.raises(NotImplementedError, match="mesh="):
         tapi.prefill({}, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.long)})
+
+
+@pytest.mark.parametrize("what", ["shared_experts", "mla"])
+def test_deepseek_features_match_the_reference(what):
+    """Shared experts and MLA attention — once refused — on reduced
+    mixtral widths: prefill hidden states and caches, and two decode steps'
+    logits, equal the JAX package's within 1e-4."""
+    jcfg = jreduced(jget_arch("mixtral-8x22b"), vocab=64, d_model=32,
+                    n_heads=4, head_dim=8)
+    if what == "shared_experts":
+        jcfg = replace(jcfg, moe=replace(jcfg.moe, n_shared=1))
+    else:
+        jcfg = replace(jcfg, n_kv_heads=4, attn_window=None,
+                       mla=JMLASpec(kv_lora=16, qk_nope=8, qk_rope=8, v_dim=8))
+    tcfg = config_from_reference(jcfg)
+    jparams = japi.init_params(jax.random.PRNGKey(5), jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
+    assert ("shared" in tparams["blocks"]["ffn"]) == (what == "shared_experts")
+    assert ("dkv" in tparams["blocks"]["attn"]) == (what == "mla")
+    toks = np.random.default_rng(6).integers(0, 64, (2, 10)).astype(np.int32)
+    jh, jc = japi.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                          collect_cache=True)
+    with torch.no_grad():
+        th, tc = tapi.prefill(tparams, tcfg, {"tokens": torch.from_numpy(toks)},
+                              collect_cache=True)
+    for got, want in ((th, jh), *zip(tc, jc)):
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=1e-4)
+    js = japi.init_decode_state(jcfg, 2, 8)
+    ts = tapi.init_decode_state(tcfg, 2, 8, device="cpu")
+    for t, pos in enumerate(([0, 0], [1, -1])):
+        tok = toks[:, t:t + 1]
+        lj, js = japi.decode(jparams, jcfg, js, jnp.asarray(tok),
+                             jnp.asarray(pos, jnp.int32))
+        with torch.no_grad():
+            lt, ts = tapi.decode(tparams, tcfg, ts, torch.from_numpy(tok),
+                                 torch.tensor(pos))
+        np.testing.assert_allclose(_np(lt), np.asarray(lj), rtol=0, atol=1e-4)
 
 
 def test_seeded_chains_share_memory_and_pack_bitwise():
