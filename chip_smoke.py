@@ -18,6 +18,9 @@ kernel on those paths against its plain PyTorch version:
 1. device and build: needs a CUDA device (exits non-zero without one), prints
    the card's name and power limit, builds the kernels with ``nvcc``; then
    the full-width float32 artifact and its layer plan (stage packing timed);
+   ``--only chain`` instead times K1 and K2 alone at every shape the three
+   per-region serves launch them at (members drawn at the fixture's (N, K),
+   no fixture, no serve, a few minutes) and stops;
 2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``,
    ``stage_matmul`` and ``step_plan_matmul`` at reduced shapes and at the main
    paths' own dimensions, and ``lcc_factor_matmul`` (K4) on every factor of
@@ -107,9 +110,9 @@ from repro_torch.models.layers import _rope_sincos  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import CompressedExecutor  # noqa: E402
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
-from repro_torch.testing import (decomposition_dense, dense_sites,  # noqa: E402
-                                 moe_sites, seeded_artifact,
-                                 seeded_decomposition)
+from repro_torch.testing import (SHARED_SITES,  # noqa: E402
+                                 decomposition_dense, dense_sites, moe_sites,
+                                 seeded_artifact, seeded_decomposition)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -242,7 +245,8 @@ def ordered_plain(ds, x, sm_count):
     d = max(n, int(w.max()))
     per = _levels_plain(idx, ds.exp.reshape(idx.shape), ds.sign.reshape(idx.shape),
                         _slice_inputs_plain(x, c0, w, d))  # [G, E, N, B]
-    _, _, chunks, spb = plan_launch(n, x.shape[1], g, e, sm_count)
+    _, _, chunks, spb = plan_launch(n, x.shape[1], g, e, sm_count,
+                                    idx.shape[-1])
     live = (ln > 0).cpu().numpy()
     out = torch.zeros((g, n, x.shape[1]), dtype=torch.float32, device=x.device)
     for gi in range(g):
@@ -460,6 +464,91 @@ def main_path_kernel_cases(art, dev, timer, sm):
     for (k, c), sites in sorted(by_dims.items()):
         rows.append(kernel_case_segsum(f"full K={k} C={c}", sites, c, rng, dev, timer))
     return rows
+
+
+# --------------------------------------- --only chain: K1/K2 main-path shapes
+
+
+def fixture_k(k: int, shared: bool) -> int:
+    """Input width of a site's decomposition as ``testing.seeded_artifact``
+    makes it: 2 pruned columns, and a weight-shared site's centroids (a
+    sixteenth of the kept columns merged)."""
+    kept = k - min(2, k - 2)
+    return kept - max(1, kept // 16) if shared else kept
+
+
+def chain_cases(arch):
+    """The K1/K2 launches of one model's per-region serve, as ``(label, site
+    prefixes, batch, [(N, K)] a member)``: the fixture's own dimensions of
+    layer 0, grouped as the executor groups them; the experts as one group
+    of E at B = capacity, ``uk+uv`` over the whole latent view."""
+    cfg = get_arch(arch)
+    dims = {prefix: (n, k) for prefix, _, n, k in dense_sites(cfg)}
+    dims.update({prefix: (n, k) for prefix, _, n, k in moe_sites(cfg)})
+    chains = [("attn.o",), ("ffn.down",)]
+    groups = [(("attn.q", "attn.k", "attn.v"), BATCH),
+              (("ffn.gate", "ffn.up"), BATCH)]
+    if cfg.mla is not None:
+        chains = [("attn.q",), ("attn.o",), ("moe.shared.down",)]
+        groups = [(("attn.dkv", "attn.kr"), BATCH),
+                  (("attn.uk", "attn.uv"), BATCH * MAX_LEN),
+                  (("moe.shared.gate", "moe.shared.up"), BATCH)]
+    elif cfg.moe is not None:
+        chains = [("attn.o",)]
+        groups = [(("attn.q", "attn.k", "attn.v"), BATCH)]
+    if cfg.moe is not None:
+        ne = cfg.moe.n_experts
+        cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor, ne)
+        groups += [((f"moe.{proj}",) * ne, cap) for proj in ("gate", "up", "down")]
+    out = []
+    for names, batch in [(c, BATCH) for c in chains] + groups:
+        members = [(dims[nm][0], fixture_k(dims[nm][1], nm in SHARED_SITES))
+                   for nm in names]
+        label = names[0] if len(names) == 1 else (
+            f"{names[0]} G={len(names)}" if len(set(names)) == 1 else
+            names[0] + "+" + "+".join(nm.rsplit(".", 1)[1] for nm in names[1:]))
+        out.append((f"{arch} {label} B={batch}", names, batch, members))
+    return out
+
+
+def phase_chain(dev):
+    """``--only chain``: K1 and K2 at every shape the olmo-1b, mixtral-8x22b
+    and deepseek-v2-lite-16b per-region serves launch them at, members drawn
+    by ``testing.seeded_decomposition`` at the fixture's (N, K) — no fixture,
+    no serve.  Each case as in the kernel phase: bit for bit against the
+    plain version in the kernel's order, against the dense product, timed
+    beside its bound, the plain version and one library call."""
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for arch in ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b"):
+            for ci, (label, names, batch, members) in enumerate(chain_cases(arch)):
+                def draw(job):
+                    mi, (n, k) = job
+                    rng = np.random.default_rng((30, ci, mi))
+                    return ops.pack_decomposition(seeded_decomposition(n, k, rng))
+                t_draw = time.perf_counter()
+                packed = list(pool.map(draw, enumerate(members)))
+                draw_s = time.perf_counter() - t_draw
+                rng = np.random.default_rng((31, ci))
+                if len(members) == 1:
+                    row = kernel_case_chain(label, packed[0], rng, dev, timer,
+                                            sm, batch=batch)
+                else:
+                    row = kernel_case_group(label, packed, rng, dev, timer, sm,
+                                            batch=batch)
+                row.update(draw_s=draw_s,
+                           geometry=list(plan_launch(
+                               row["dims"]["N"], batch, row["dims"].get("G", 1),
+                               row["dims"]["E"], sm, row["dims"]["S"])))
+                rows.append(row)
+                del packed
+                gc.collect()
+                torch.cuda.empty_cache()
+    return dict(phase="chain", seconds=time.perf_counter() - t0,
+                tolerance=SUM_TOL, rows=rows)
 
 
 # ------------------------------------------------ K6 and K7: layer plans
@@ -2232,11 +2321,13 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the olmo-1b serves (never the width)")
-    ap.add_argument("--only", choices=("kernels", "mixtral", "deepseek",
-                                       "train"),
+    ap.add_argument("--only", choices=("kernels", "chain", "mixtral",
+                                       "deepseek", "train"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
-                         "per-factor route included); mixtral: run the "
+                         "per-factor route included); chain: K1/K2 at every "
+                         "shape the three per-region serves launch them at, "
+                         "no fixture and no serve; mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
                          "deepseek-v2-lite-16b phases alone; train: the "
                          "training phases alone (no final ok line in any "
@@ -2261,6 +2352,10 @@ def main() -> None:
               sources=[p.name for p in build.sources()]))
 
     rows, serves = [], {}
+    if args.only == "chain":
+        emit(phase_chain(dev))
+        print(smi, flush=True)
+        return
     if args.only is None or args.only == "kernels":
         if args.only == "kernels":
             base = get_arch("olmo-1b")

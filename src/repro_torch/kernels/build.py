@@ -28,10 +28,11 @@ last_build_seconds: float | None = None  # None until load() ran; 0.0 = cached
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # idx exp sign x c0 w len partial out | E P N S B C spb bb threads | stream
-    "repro_lcc_chain_matmul": [_P] * 9 + [_I] * 9 + [_P],
-    # ... | G E P N S B C spb bb threads | stream
-    "repro_lcc_group_matmul": [_P] * 9 + [_I] * 10 + [_P],
+    # idx exp sign x c0 w len partial out | E P N S B C spb bb threads tile
+    # stages | stream
+    "repro_lcc_chain_matmul": [_P] * 9 + [_I] * 11 + [_P],
+    # ... | G E P N S B C spb bb threads tile stages | stream
+    "repro_lcc_group_matmul": [_P] * 9 + [_I] * 12 + [_P],
     # order offsets x out | C B | stream
     "repro_cluster_segment_sum": [_P] * 4 + [_I] * 2 + [_P],
     # idx exp sign x out | N S K B x_bf16 | stream

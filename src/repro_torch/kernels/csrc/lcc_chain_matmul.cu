@@ -15,8 +15,9 @@ extern "C" int repro_lcc_chain_matmul(const void* idx, const void* exp,
                                       const void* chain_len, void* partial,
                                       void* out, int E, int P, int N, int S,
                                       int B, int C, int spb, int bb,
-                                      int threads, void* stream) {
+                                      int threads, int tile, int stages,
+                                      void* stream) {
   return repro_torch::launch_chain(idx, exp, sign, x, slice_c0, slice_w,
                                    chain_len, partial, out, /*G=*/1, E, P, N,
-                                   S, B, C, spb, bb, threads, stream);
+                                   S, B, C, spb, bb, threads, tile, stages, stream);
 }

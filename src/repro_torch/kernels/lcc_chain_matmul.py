@@ -32,9 +32,12 @@ import torch
 
 from . import build, dispatch
 
-__all__ = ["lcc_chain_matmul", "lcc_chain_matmul_plain", "plan_launch"]
+__all__ = ["lcc_chain_matmul", "lcc_chain_matmul_plain", "plan_launch",
+           "plan_staging", "launch_staging"]
 
 SMEM_LIMIT = 232448  # bytes of dynamic shared memory a block may use (sm_90)
+SM_SMEM = 233472  # shared memory of one SM; each resident block reserves 1 KB
+MAX_SUMS = 32  # register sums a thread keeps: rows a thread x bb (kMaxSums)
 _sm_count: dict[int, int] = {}
 
 
@@ -78,27 +81,89 @@ def lcc_chain_matmul_plain(idx, exp, sign, x, slice_c0, slice_w, chain_len=None)
     return _levels_plain(idx, exp, sign, cur).sum(dim=-3)
 
 
-def plan_launch(n: int, b: int, g: int, e: int, sm_count: int
+def _align16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def slot_bytes(tile: int, s: int) -> int:
+    """Bytes of one slot of the staging ring: ``tile`` rows of idx (int32),
+    exp and sign (int8), each region with room for a 15-byte alignment
+    offset (``slot_bytes`` in ``csrc/lcc_chain.cuh``)."""
+    return _align16(tile * s * 4 + 16) + 2 * _align16(tile * s + 16)
+
+
+def plan_staging(n: int, s: int, bb: int, threads: int,
+                 budget: int = SMEM_LIMIT) -> tuple[int, int, int] | None:
+    """``(tile, stages, shared-memory bytes)`` of the staging ring beside the
+    two ``[N, bb]`` float32 buffers within ``budget`` bytes, or None where not
+    even two one-row-a-thread tiles fit.  As few work items a factor as two
+    slots allow (a whole factor where it fits), the rows spread evenly over
+    them in whole rows a thread; three slots where they fit, else two."""
+    buffers = _align16(2 * n * bb * 4)
+    rpt = -(-n // threads)
+    widest = next((rows for rows in range(rpt, 0, -1)
+                   if buffers + 2 * slot_bytes(min(n, rows * threads), s)
+                   <= budget), None)
+    if widest is None:
+        return None
+    items = -(-rpt // widest)
+    tile = min(n, -(-rpt // items) * threads)
+    stages = 3 if buffers + 3 * slot_bytes(tile, s) <= budget else 2
+    return tile, stages, buffers + stages * slot_bytes(tile, s)
+
+
+def _threads(n: int, cap: int) -> int:
+    return min(cap, -(-n // 32) * 32)
+
+
+def plan_launch(n: int, b: int, g: int, e: int, sm_count: int, s: int = 2
                 ) -> tuple[int, int, int, int]:
     """Launch geometry ``(bb, threads, chunks, slices_per_block)``.
 
-    ``bb``: batch columns per block — the widest of 8/4/2/1 not beyond the
-    batch for which two ``[N, bb]`` float32 buffers fit in shared memory.
-    ``chunks``: blocks along the slice axis, about one wave of the card's SMs
-    over all (group, b-block) pairs; each block walks ``slices_per_block``
-    slices in order."""
+    Rows are fixed to ``threads`` row threads (``ceil(N / threads)`` a
+    thread; the block has two more warps, which issue the copies), and a
+    thread keeps its rows' slice sums in registers, at most ``MAX_SUMS``
+    floats.  ``bb``: batch columns per block — the widest of 8/4/2/1 not
+    beyond the batch for which, at 512 row threads, the sums stay within
+    ``MAX_SUMS`` and two ``[N, bb]`` float32 buffers and a staging ring for
+    ``s`` terms a row (:func:`plan_staging`) fit in shared memory; above
+    16384 rows one column a block on up to 960 row threads.  ``threads``:
+    256 where the block then fits twice on an SM (two blocks hide each
+    other's barriers), else 512.
+    ``chunks``: blocks along the slice axis, as many as one wave of the
+    card's block slots holds over all (group, b-block) pairs — a second,
+    partial wave would double the time; each block walks
+    ``slices_per_block`` slices in order."""
+    def fits(c, t, budget=SMEM_LIMIT):
+        return (-(-n // t) * c <= MAX_SUMS
+                and plan_staging(n, s, c, t, budget) is not None)
+
+    threads = _threads(n, 512)
     bb = next((c for c in (8, 4, 2, 1)
-               if (c == 1 or c < 2 * b) and 2 * n * c * 4 <= SMEM_LIMIT), None)
+               if (c == 1 or c < 2 * b) and fits(c, threads)), None)
+    if bb is None and fits(1, _threads(n, 960)):
+        bb, threads = 1, _threads(n, 960)
     if bb is None:
         raise NotImplementedError(
             f"lcc chain kernel: N={n} rows need {2 * n * 4} bytes of shared "
-            f"memory per batch column, above the {SMEM_LIMIT}-byte limit")
-    threads = min(1024, -(-n // 32) * 32)
+            f"memory per batch column plus a staging ring, above the "
+            f"{SMEM_LIMIT}-byte limit (or more than {MAX_SUMS} rows a thread)")
+    per_sm = 1  # two blocks of 256 + 64 threads need <= 102 registers each
+    if threads > 256 and fits(bb, 256, SM_SMEM // 2 - 1024):
+        threads, per_sm = 256, 2
     b_blocks = -(-b // bb)
-    want = max(1, -(-sm_count // (g * b_blocks)))
+    want = max(1, sm_count * per_sm // (g * b_blocks))
     spb = -(-e // min(e, want))
     chunks = -(-e // spb)
     return bb, threads, chunks, spb
+
+
+def launch_staging(n: int, s: int, bb: int, threads: int
+                   ) -> tuple[int, int, int]:
+    """The staging ring :func:`plan_launch`'s geometry runs with: within
+    half an SM's shared memory for its 256-thread blocks (two a SM)."""
+    budget = SM_SMEM // 2 - 1024 if threads == 256 else SMEM_LIMIT
+    return plan_staging(n, s, bb, threads, budget)
 
 
 def _launch(entry: str, idx, exp, sign, x, slice_c0, slice_w, chain_len):
@@ -120,13 +185,14 @@ def _launch(entry: str, idx, exp, sign, x, slice_c0, slice_w, chain_len):
     di = dev.index if dev.index is not None else torch.cuda.current_device()
     if di not in _sm_count:
         _sm_count[di] = torch.cuda.get_device_properties(di).multi_processor_count
-    bb, threads, chunks, spb = plan_launch(n, b, g, e, _sm_count[di])
+    bb, threads, chunks, spb = plan_launch(n, b, g, e, _sm_count[di], s)
+    tile, stages, _ = launch_staging(n, s, bb, threads)
     lib = build.load()
     partial = torch.empty((g, chunks, n, b), dtype=torch.float32, device=dev)
     out = torch.empty((g, n, b), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in (idx, exp, sign, x, slice_c0, slice_w,
                                    chain_len, partial, out)]
-    dims = [e, p, n, s, b, chunks, spb, bb, threads]
+    dims = [e, p, n, s, b, chunks, spb, bb, threads, tile, stages]
     if entry == "repro_lcc_group_matmul":
         dims = [g] + dims
     with torch.cuda.device(dev):
