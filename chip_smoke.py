@@ -20,7 +20,9 @@ kernel on those paths against its plain PyTorch version:
    the full-width float32 artifact and its layer plan (stage packing timed);
    ``--only chain`` instead times K1 and K2 alone at every shape the three
    per-region serves launch them at (members drawn at the fixture's (N, K),
-   no fixture, no serve, a few minutes) and stops;
+   no fixture, no serve, a few minutes) and stops; ``--only stage`` times K6
+   alone at the ten shapes of the three float32 plan routes (one-layer
+   full-width artifacts, no serve) and on the hand-built exact stages;
 2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``,
    ``stage_matmul`` and ``step_plan_matmul`` at reduced shapes and at the main
    paths' own dimensions, and ``lcc_factor_matmul`` (K4) on every factor of
@@ -92,7 +94,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     group_prox_ref, lcc_factor_dense_ref)
 from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
     _levels_plain, _slice_inputs_plain, lcc_chain_matmul,
-    lcc_chain_matmul_plain, plan_launch)
+    lcc_chain_matmul_plain, plan_launch, signed_pow2)
 from repro_torch.kernels.layer_plan import (  # noqa: E402
     device_stage, moe_plan_matmul, moe_plan_matmul_plain, stage_matmul,
     stage_matmul_plain, step_plan_matmul, step_plan_matmul_plain)
@@ -165,7 +167,7 @@ MOE = ("moe_route", "moe_dispatch", "moe_combine")
 # the device kernels of this port, by name fragment (profiler rows)
 PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "cluster_segment_sum_kernel", "stage_prep_kernel",
-                "stage_levels_kernel", "stage_epilogue_kernel",
+                "stage_chain_kernel", "stage_epilogue_kernel",
                 "step_norm_kernel", "step_attention_kernel",
                 "step_swiglu_kernel", "moe_route_kernel",
                 "moe_dispatch_kernel", "moe_combine_kernel",
@@ -561,8 +563,9 @@ def bound_of(bytes_, flops):
 
 
 def stage_cost(ds, layers, batch) -> tuple[int, int]:
-    """(bytes, operations) one stage needs for ``layers``: its live terms in
-    the levels it runs (6 bytes and one multiply-add per batch column each),
+    """(bytes, operations) one stage needs for ``layers``: the live terms its
+    data needs, in the levels of ``stage_blocks``' pieces, not the kernel's
+    slices (6 bytes and one multiply-add per batch column each),
     the nonzero dense blocks, input and output read/written once."""
     ps = ds.ps
     bytes_ = flops = 0
@@ -588,11 +591,93 @@ def stage_weights(art, name, layer, dev):
                       for b, p in STAGE_SITES[name]]).contiguous()
 
 
+def ordered_stage_plain(ps, src, layer, sm_count, plan=None):
+    """``stage_matmul``'s result for one layer in the kernels' own order, in
+    PyTorch operations: the prep sums each target's pairs in pair order
+    (the sorted-pair order of the prep kernel); a row's terms are added in
+    slot order from 0; each chunk of :meth:`DeviceStage.launch` sums its
+    slices' output rows in slice order from 0 (an entry that reads the zero
+    row adds 0), and the epilogue the chunks of a site in chunk order from
+    0, then the dense blocks (one product each, so only there is the order
+    PyTorch's), the bias and nothing else.  Equal to the kernel bit for bit
+    where the stage has no live dense block.  ``plan``: the launch to follow
+    (a :class:`StageLaunch` of ``layer`` alone; default the wrapper's)."""
+    ds = device_stage(ps, src.device)
+    dev, b = src.device, src.shape[1]
+    x = src.to(torch.float32)
+    out = torch.zeros((ps.out_dim, b), dtype=torch.float32, device=dev)
+    inbuf = None
+    if ps.has_prep:
+        tgt, order = torch.sort(ds.prep_tgt[layer].long(), stable=True)
+        pairs = ds.prep_src[layer].long()[order]
+        rank = torch.arange(tgt.numel(), device=dev) - torch.searchsorted(tgt, tgt)
+        inbuf = torch.zeros((ps.k_alloc, b), dtype=torch.float32, device=dev)
+        for k in range(int(rank.max()) + 1):  # targets unique within a rank
+            at = rank == k
+            inbuf[tgt[at]] = inbuf[tgt[at]] + x[pairs[at]]
+    if ps.has_fp:
+        n_p, r, n_s = ps.gidx.shape[1:]
+        work = None
+        for p in range(n_p):
+            buf = inbuf if p == 0 else work
+            acc = torch.zeros((r, b), dtype=torch.float32, device=dev)
+            for s in range(n_s):
+                coef = signed_pow2(ds.gsgn[layer, p, :, s], ds.gexp[layer, p, :, s])
+                acc = acc + coef[:, None] * buf[ds.gidx[layer, p, :, s].long()]
+            work = acc
+        m = ds.maps[layer]
+        plan = plan or ds.launch(b, layer, sm_count)
+        sums = {}
+        for _, u, e0, e1 in plan.chunks:  # in the order of the sites' chunks
+            a, w, first = (int(v) for v in m.sites[u, :3])
+            acc = torch.zeros((w, b), dtype=torch.float32, device=dev)
+            for e in range(first + e0, first + e1):
+                rows = work[int(m.slices[e, 0]): int(m.slices[e, 0]) + w]
+                if e in m.holes:
+                    rows = rows.clone()
+                    rows[torch.as_tensor(m.holes[e], device=dev)] = 0.0
+                acc = acc + rows
+            sums.setdefault(u, []).append(acc)
+        for u, parts in sums.items():
+            a, w = int(m.sites[u, 0]), int(m.sites[u, 1])
+            g = torch.zeros((w, b), dtype=torch.float32, device=dev)
+            for part in parts:
+                g = g + part
+            out[a: a + w] = g
+    if ds.fs_live[layer]:
+        out = out + ds.fs_mat[layer] @ inbuf
+    if ds.dw_live[layer]:
+        out = out + ds.dw_mat[layer] @ x
+    if ds.bias_live[layer]:
+        out = out + ds.bias[layer][:, None]
+    return out
+
+
+def stage_dims(ds, batch, layer=0):
+    """The stage's dimensions and the chain kernel's geometry at ``batch``
+    columns (what a launch of one layer runs: a geometry a group of sites)."""
+    d = ds.dims
+    sm = torch.cuda.get_device_properties(ds.device).multi_processor_count \
+        if ds.device.type == "cuda" else 132
+    plan = ds.launch(batch, layer, sm)
+    m = ds.maps[layer] if ds.maps else None
+    return dict(P=d["P"], R=d["R"], S=d["S"], K=d["K"], D=d["D"], O=d["O"],
+                J=d["J"], B=batch, sites=0 if m is None else int(m.sites.shape[0]),
+                slices=0 if m is None else int(m.slices.shape[0]),
+                max_rows=ds.max_rows,
+                level0_window=0 if m is None else int(np.diff(m.window).max()),
+                geometries=plan.geometries,
+                chunks=plan.n_units,
+                blocks=sum(g[1] * -(-batch // g[2]) for g in plan.groups))
+
+
 def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
                       exact=False, w=None):
     """``stage_matmul`` on one layer of one stage at ``batch`` columns, held
     against its plain version (bit for bit when ``exact``: dyadic input on a
-    stage whose every sum is exact) and against one dense product."""
+    stage whose every sum is exact), against the plain arithmetic in the
+    kernels' order (bit for bit where the stage has no live dense block) and
+    against one dense product."""
     ds = device_stage(ps, dev)
     src = dyadic(rng, (ps.d_src, batch), dev)
     y = stage_matmul(ps, src, layer=layer)
@@ -601,6 +686,7 @@ def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
     err = check_close(label, y, plain, SUM_TOL)
     if exact and not torch.equal(y, plain):
         fail(f"{label}: kernel differs from the plain version on dyadic input")
+    in_order = check_in_order(label, ps, src, y, layer)
     bias = (torch.from_numpy(ps.bias[layer]).to(dev)
             if ps.bias is not None else None)
     if w is None:  # the stage's own linear map, column by column
@@ -609,19 +695,32 @@ def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
     library = ((lambda: torch.addmm(bias[:, None], w, src)) if bias is not None
                else (lambda: torch.matmul(w, src)))
     check_close(label + " vs dense", y, library(), 1e-4)
-    d = ds.dims
-    bb, threads = ds.geometry(batch)
     return kernel_row(
-        "stage_matmul", label,
-        dict(P=d["P"], R=d["R"], S=d["S"], K=d["K"], D=d["D"], O=d["O"],
-             J=d["J"], B=batch, blocks=int((ds.blk_r1[layer] > ds.blk_r0[layer]).sum()),
-             max_rows=ds.max_rows, bb=bb, threads=threads),
-        ds.shape_key(batch, 1), err, exact,
+        "stage_matmul", label, stage_dims(ds, batch, layer),
+        ds.shape_key(batch, 1), err, exact or in_order,
         lambda: stage_matmul(ps, src, layer=layer),
         lambda: stage_matmul_plain(ps, src, layer=layer), library,
         bound_of(*stage_cost(ds, [layer], batch)), timer,
-        live_terms=ds.live_terms[layer], segs=ps.segs is not None,
+        live_terms=ds.live_terms[layer],
+        run_terms=ds.maps[layer].run_terms if ds.maps else 0,
+        segs=ps.segs is not None,
         warm_l2_ms=timer(lambda: stage_matmul(ps, src, layer=layer), cold=False))
+
+
+def check_in_order(label, ps, src, y, layer):
+    """The kernel against :func:`ordered_stage_plain`: bit for bit where the
+    stage has no live dense block (then True), else within SUM_TOL."""
+    ds = device_stage(ps, src.device)
+    sm = torch.cuda.get_device_properties(src.device).multi_processor_count
+    want = ordered_stage_plain(ps, src, layer, sm)
+    if ds.fs_live[layer] or ds.dw_live[layer]:
+        check_close(label + " in kernel order", y, want, SUM_TOL)
+        return False
+    if not torch.equal(y, want):
+        err = float((y - want).abs().max())
+        fail(f"{label}: kernel differs from the plain arithmetic in its own "
+             f"order by {err:.3e}")
+    return True
 
 
 def handbuilt_stage(rng, *, p, s=4, r=4096, group=512, k_in=256, d_src=300,
@@ -668,13 +767,7 @@ def reduced_stage_cases(red_plan, dev, timer):
     prep with padding pairs, nonzero fs/dw/bias), the reduced plan's stages
     with and without ``segs``, and ragged batch widths."""
     rng = np.random.default_rng(30)
-    rows = [kernel_case_stage("hand P=3", handbuilt_stage(rng, p=3), rng, dev,
-                              timer, exact=True),
-            kernel_case_stage("hand P=2 S=3", handbuilt_stage(rng, p=2, s=3),
-                              rng, dev, timer, exact=True),
-            kernel_case_stage("hand P=3 fs+dw+bias",
-                              handbuilt_stage(rng, p=3, dense=True), rng, dev,
-                              timer, exact=True)]
+    rows = hand_stage_cases(rng, dev, timer)
     st = red_plan.stages
     for name in ("qkv", "o", "gu", "dn"):
         rows.append(kernel_case_stage(f"reduced {name}", st[name], rng, dev, timer))
@@ -699,6 +792,97 @@ def main_path_stage_cases(art, plan, dev, timer):
                                       w=stage_weights(art, name, 0, dev)))
         torch.cuda.empty_cache()
     return rows
+
+
+def hand_stage_cases(rng, dev, timer):
+    """K6 on the hand-built exact stages (odd and even level counts, S = 4
+    and S = 3 slots a row, weight-shared prep with padding pairs, output
+    entries that read the zero row, nonzero fs/dw/bias): bit for bit."""
+    return [kernel_case_stage("hand P=3", handbuilt_stage(rng, p=3), rng, dev,
+                              timer, exact=True),
+            kernel_case_stage("hand P=2 S=3", handbuilt_stage(rng, p=2, s=3),
+                              rng, dev, timer, exact=True),
+            kernel_case_stage("hand P=3 fs+dw+bias",
+                              handbuilt_stage(rng, p=3, dense=True), rng, dev,
+                              timer, exact=True)]
+
+
+STAGE_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b")
+
+
+def main_path_stages(dev, archs=STAGE_ARCHS):
+    """The K6 launches of the three float32 plan routes, one architecture
+    at a time: yields ``(arch, host times, [(label, name, stage, batch)],
+    artifact)`` — olmo-1b qkv/o/gu/dn and mixtral-8x22b qkv/o at B =
+    n_slots, mixtral eg/ed and deepseek-v2-lite-16b's K9 stages A and B at B
+    = capacity — each from layer 0 of a one-layer seeded artifact of the
+    full-width config (widths never cut), packed and uploaded as the serves
+    do.  ``name`` is the stage's kind: qkv/o/gu/dn/eg/ed."""
+    for arch in archs:
+        cfg = replace(get_arch(arch), n_layers=1, param_dtype="float32",
+                      compute_dtype="float32")
+        t = time.perf_counter()
+        art = seeded_artifact(cfg, seed=2, device=dev, host_effective=False)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t
+        ex = CompressedExecutor(art, device=dev)
+        if cfg.mla is not None:
+            plan = ex.moe_plan("l0", n_experts=cfg.moe.n_experts,
+                               d_model=cfg.d_model, d_ff=cfg.moe.d_ff_expert)
+        else:
+            plan = ex.step_plan(cfg)
+        t = time.perf_counter()
+        for ps in plan.stages.values():
+            device_stage(ps, dev)  # validation, tables, upload
+        torch.cuda.synchronize()
+        host = dict(arch=arch, draw_s=draw_s, pack_s=plan.pack_s,
+                    upload_s=time.perf_counter() - t,
+                    host_peak_rss_bytes=host_peak_rss_bytes())
+        short = arch.split("-")[0]
+        cap = (capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
+                        cfg.moe.n_experts) if cfg.moe is not None else BATCH)
+        cases = []
+        for name, ps in plan.stages.items():
+            if cfg.mla is not None:  # K9: stage A (gates, ups), B (downs)
+                cases.append((f"{short} K9 stage {name.upper()}",
+                              "eg" if name == "a" else "ed", ps, cap))
+            elif name in ("eg", "ed"):
+                cases.append((f"{short} {name}", name, ps, cap))
+            else:
+                cases.append((f"{short} {name}", name, ps, BATCH))
+        del ex, plan
+        yield arch, host, cases, art
+        del art, cases
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_stage(dev):
+    """``--only stage``: K6 alone at the ten shapes the three float32 plan
+    routes launch it at (:func:`main_path_stages`), plus the hand-built
+    exact stages.  No serve.  Each case as in the kernel phase: against the
+    plain version, in the kernels' order, against the dense product, timed
+    beside its bound, the plain version and one library call."""
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    rows = hand_stage_cases(np.random.default_rng(30), dev, timer)
+    hosts = []
+    for arch, host, cases, art in main_path_stages(dev):
+        hosts.append(host)
+        emit(dict(phase="stage_arch", **host))
+        rng = np.random.default_rng(40)
+        for label, name, ps, batch in cases:
+            if name in ("eg", "ed"):
+                rows.append(kernel_case_expert_stage(
+                    label, name, art, ps, dev, timer, batch=batch, serve=None))
+            else:
+                rows.append(kernel_case_stage(
+                    label, ps, rng, dev, timer,
+                    w=stage_weights(art, name, 0, dev)))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return dict(phase="stage", seconds=time.perf_counter() - t0,
+                tolerance=SUM_TOL, hosts=hosts, rows=rows)
 
 
 def step_inputs(cfg, plan, rng, dev, *, batch=BATCH, smax=MAX_LEN,
@@ -1421,6 +1605,8 @@ def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
     err = check_close(label, y, plain, SUM_TOL)
     del plain
     torch.cuda.empty_cache()
+    in_order = check_in_order(label, ps, src, y, 0)
+    torch.cuda.empty_cache()
     ms = timer(lambda: stage_matmul(ps, src, layer=0))
     warm = timer(lambda: stage_matmul(ps, src, layer=0), cold=False)
     plain_ms = timer(lambda: stage_matmul_plain(ps, src, layer=0))
@@ -1445,16 +1631,13 @@ def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
     torch.cuda.empty_cache()
     emit(dict(phase="kernel_case", name="stage_matmul", shape=label, ms=ms,
               max_abs_err=err))
-    dd = ds.dims
-    bb, threads = ds.geometry(batch)
     return dict(name="stage_matmul", shape=label,
-                dims=dict(P=dd["P"], R=dd["R"], S=dd["S"], K=dd["K"],
-                          D=dd["D"], O=dd["O"], J=dd["J"], B=batch,
-                          blocks=int((ds.blk_r1[0] > ds.blk_r0[0]).sum()),
-                          max_rows=ds.max_rows, bb=bb, threads=threads),
+                dims=stage_dims(ds, batch),
                 shape_key=list(ds.shape_key(batch, 1)), max_abs_err=err,
-                max_err=err, exact_in_kernel_order=False, ms=ms, kernel_ms=ms,
-                live_terms=ds.live_terms[0], segs=ps.segs is not None,
+                max_err=err, exact_in_kernel_order=in_order, ms=ms, kernel_ms=ms,
+                live_terms=ds.live_terms[0],
+                run_terms=ds.maps[0].run_terms if ds.maps else 0,
+                segs=ps.segs is not None,
                 warm_l2_ms=warm, plain_ms=plain_ms,
                 bound_ms=bound_of(*stage_cost(ds, [0], batch))[0],
                 bound_by=bound_of(*stage_cost(ds, [0], batch))[1],
@@ -1551,7 +1734,7 @@ def run_mixtral(dev):
               host_peak_rss_bytes=host_peak_rss_bytes(),
               stages={name: dict(shape=list(ps.gidx.shape),
                                  outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
-                                 blocks=int(device_stage(ps, dev).blk_r0.shape[1]),
+                                 slices=device_stage(ps, dev).dims["E"],
                                  max_rows=device_stage(ps, dev).max_rows,
                                  live_terms=sum(device_stage(ps, dev).live_terms),
                                  stream_bytes=6 * ps.gidx.size,
@@ -1596,7 +1779,7 @@ def run_olmo(dev, layers):
               pack_s=plan.pack_s, upload_s=time.perf_counter() - t0,
               stages={name: dict(shape=list(ps.gidx.shape),
                                  outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
-                                 blocks=int(device_stage(ps, dev).blk_r0.shape[1]),
+                                 slices=device_stage(ps, dev).dims["E"],
                                  max_rows=device_stage(ps, dev).max_rows,
                                  live_terms=sum(device_stage(ps, dev).live_terms),
                                  stream_bytes=6 * ps.gidx.size,
@@ -1809,7 +1992,7 @@ def run_deepseek(dev):
               stages={f"l{li}.{name}": dict(
                   shape=list(ps.gidx.shape), outg=list(ps.outg.shape),
                   k_alloc=ps.k_alloc,
-                  blocks=int(device_stage(ps, dev).blk_r0.shape[1]),
+                  slices=device_stage(ps, dev).dims["E"],
                   max_rows=device_stage(ps, dev).max_rows,
                   live_terms=sum(device_stage(ps, dev).live_terms),
                   stream_bytes=6 * ps.gidx.size, waste=ps.waste)
@@ -2321,13 +2504,15 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the olmo-1b serves (never the width)")
-    ap.add_argument("--only", choices=("kernels", "chain", "mixtral",
-                                       "deepseek", "train"),
+    ap.add_argument("--only", choices=("kernels", "chain", "stage",
+                                       "mixtral", "deepseek", "train"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
                          "shape the three per-region serves launch them at, "
-                         "no fixture and no serve; mixtral: run the "
+                         "no fixture and no serve; stage: K6 alone at the "
+                         "ten shapes of the three float32 plan routes and "
+                         "on the hand-built stages, no serve; mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
                          "deepseek-v2-lite-16b phases alone; train: the "
                          "training phases alone (no final ok line in any "
@@ -2352,8 +2537,8 @@ def main() -> None:
               sources=[p.name for p in build.sources()]))
 
     rows, serves = [], {}
-    if args.only == "chain":
-        emit(phase_chain(dev))
+    if args.only in ("chain", "stage"):
+        emit(phase_chain(dev) if args.only == "chain" else phase_stage(dev))
         print(smi, flush=True)
         return
     if args.only is None or args.only == "kernels":

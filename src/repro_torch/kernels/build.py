@@ -37,9 +37,10 @@ _SIGNATURES = {
     "repro_cluster_segment_sum": [_P] * 4 + [_I] * 2 + [_P],
     # idx exp sign x out | N S K B x_bf16 | stream
     "repro_lcc_factor_matmul": [_P] * 5 + [_I] * 5 + [_P],
-    # src prep_src prep_off inbuf gidx gexp gsgn r0 r1 depth work outg fs dw
-    # bias resid out | nl D B M K P R S NB J O bb threads max_rows | stream
-    "repro_stage_matmul": [_P] * 17 + [_I] * 14 + [_P],
+    # src prep_src prep_off inbuf gidx gexp gsgn slices holes units esites
+    # ebegin partial fs dw bias resid out | nl D B M K P R S O | groups
+    # (host int32 [G, 7]) | G | stream
+    "repro_stage_matmul": [_P] * 18 + [_I] * 9 + [_P, _I, _P],
     # x w out | d B mode | eps | stream
     "repro_step_norm": [_P] * 3 + [_I] * 3 + [_F, _P],
     # qkv pos cos sin kc vc kpos tbl att kn vn | B S nq nkv hd bs mb window

@@ -8,53 +8,69 @@
 //
 // What it computes, per layer (the PackedStage contract of kernels/ops.py):
 //   prep      inbuf[t] = sum of src[s'] over the pairs (s', t)
-//   levels    work[r]  = sum_s sign * 2^exp * buf[gidx[p, r, s]]; level 0 reads
-//             inbuf, later levels read the previous level's rows
-//   epilogue  out[o]   = resid[o] + (((sum_j work[outg[j, o]]) + fs_mat @ inbuf)
-//                         + dw_mat @ src) + bias[o]      (index R = zero row)
+//   levels    row r of level p = sum_s sign * 2^exp * buf[gidx[p, r, s]];
+//             level 0 reads inbuf, later levels the previous level's rows
+//   output    out[o] = resid[o] + ((((sum over the slices of o's site of the
+//             slice's last-level row o - out_off) + fs_mat @ inbuf)
+//             + dw_mat @ src) + bias[o])
+// The output map — sites (disjoint output ranges), each a list of FP slices
+// whose rows [row0, row0 + odim) feed its outputs in order — is derived from
+// the stage's `outg` table once at upload (layer_plan.stage_slices) and
+// checked against it there; `outg` is not read here.
 //
-// Bound by bytes on this card.  Every live term is read once (int32
-// index + int8 exponent + int8 sign = 6 bytes) for one fused multiply-add per
-// batch column, so at decode batch widths the streams set the time.
+// Bound by bytes on this card.  Every live term is read once (int32 index +
+// int8 exponent + int8 sign = 6 bytes) for one fused multiply-add per batch
+// column, so at decode batch widths the streams set the time.
 //
 // What the design does about it.
-//  * Locality.  In every stage the packer builds, a row at level >= 1 reads
-//    only rows of its own instruction (one FP slice, n_pad rows).  The wrapper
-//    derives, once at upload, the finest partition of [0, R) that no level >= 1
-//    reads across (small pieces merged), and each block's live depth (the
-//    identity levels after it are never run).  One thread block runs one piece
-//    of rows through all its levels with the running rows ping-ponging between
-//    two [rows, BB] float32 buffers in shared memory; only level 0 reads
-//    device memory (inbuf, a few KB, L2-resident) and only the last level is
-//    written out.  BB = batch columns per block; the b-blocks of one piece are
-//    neighbours in the grid, so they read its streams while they are in L2.
-//  * Determinism.  Weight sharing makes prep targets repeat.  The pairs are
-//    sorted by target once at upload (stable: pair order inside a target is
-//    kept) and thread (t, b) sums its target's pairs in that order; the output
-//    gather and the dense blocks sum in a fixed order too.  No float atomics
-//    anywhere: the result does not depend on scheduling.
-//  * A row's S = 4 slots (the fused levels of S = 2 chains) come in one
-//    16-byte index load and one 4-byte load each of exponents and signs;
-//    2^exp is built from exponent bits, so it is exact; a term with sign 0
-//    is skipped (its index is never followed).
+//  * The unit of work is a chunk of consecutive slices of one site.  Block
+//    (b, u) runs each slice of chunk u through its live levels (`depth`,
+//    identity levels after it never run) with the running rows in two
+//    [N, BB] float32 buffers in shared memory (the body of lcc_chain.cuh:
+//    planes of four columns, so row gathers and stores spread over the
+//    banks), then adds the slice's rows [0, odim) into per-thread register
+//    sums, in slice order.  The last level never goes to device memory;
+//    each block writes its site's rows of `partial` once.
+//  * The term streams are staged in shared memory by cp.async: a work item
+//    is a tile of `tile` rows of one level of one slice, and a ring of
+//    `stages` slots keeps the next items' copies in flight while the block
+//    computes the current one.  Two warps issue every copy and compute no
+//    row.  A row's S = 4 slots (the fused levels of S = 2 chains) come from
+//    the slot in one 16-byte index load and one 4-byte load each of
+//    exponents and signs.
+//  * Rows are fixed to threads (thread t owns rows t, t + T, ...), two rows
+//    a step with their terms interleaved; a term with sign 0 multiplies row
+//    0 by 0 instead of branching, so every load of a step can issue at once.
+//    The thread that computes a row of the last level folds it, so the fold
+//    needs no barrier.  A folded row whose `outg` entry reads the zero row
+//    (a bit of the slice's mask) adds nothing.
+//  * Determinism.  Blocks run in no order, so nothing is accumulated across
+//    blocks in place: the epilogue sums a site's chunks in chunk order.
+//    Weight sharing makes prep targets repeat; the pairs are sorted by target
+//    once at upload (stable) and thread (t, b) sums its target's pairs in
+//    that order.  No float atomics anywhere: the result does not depend on
+//    scheduling.
+//  * Geometry (layer_plan.plan_stage, the K1/K2 planner's rules): 512 row
+//    threads (256 where two blocks fit an SM) and the two copy warps, BB the
+//    widest batch width whose sums (rows a thread x BB <= 32) and buffers
+//    plus ring fit, planned for each site at its longest slice (mixtral's
+//    1024-row k and v at BB = 8 beside its 6144-row q at BB = 2); sites of
+//    one geometry share a launch of one wave of chunks, dealt over them by
+//    their work (layer_plan.plan_units).  The column block is the fastest grid axis:
+//    the blocks that share a chunk's streams run side by side and meet them
+//    in L2.
 //  * The epilogue gives each output element four threads, which split the
-//    gather's j (up to 745 slices for `down`) and the dense blocks' dot
-//    products (fs_mat, dw_mat: a GEMV loop is enough at B <= 16) and add
-//    their partial sums by shuffles in a fixed order.  The residual add of
-//    the decode step folds into the same epilogue.
+//    dense blocks' dot products (fs_mat, dw_mat: a GEMV loop is enough at
+//    B <= 16) and add their partial sums by shuffles in a fixed order; the
+//    residual add of the decode step folds into it.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lcc_chain.cuh"
+
+namespace repro_torch {
 namespace {
-
-constexpr int kMaxDynamicSmem = 232448;  // 227 KB usable per block on sm_90
-
-__device__ __forceinline__ float signed_pow2(int sign, int exp) {
-  const unsigned bits = (static_cast<unsigned>(exp + 127) << 23) |
-                        (sign < 0 ? 0x80000000u : 0u);
-  return __uint_as_float(bits);
-}
 
 // inbuf[l, t, b] = sum_{i in [off[l, t], off[l, t + 1])} src[l, ssrc[l, i], b]
 __global__ void stage_prep_kernel(const float* __restrict__ src,
@@ -77,97 +93,242 @@ __global__ void stage_prep_kernel(const float* __restrict__ src,
   inbuf[i] = acc;
 }
 
-// acc += coef(sign, exp) * row(j) over BB columns: level 0 reads inbuf
-// (global, masked at the batch edge), later levels the previous level's rows
-// in shared memory
-template <int BB>
-__device__ __forceinline__ void add_term(float (&acc)[BB], int sg, int ex,
-                                         int j, int p, const float* in_l,
-                                         const float* prev, int r0, int b0,
-                                         int B) {
-  if (sg == 0) return;
-  const float coef = signed_pow2(sg, ex);
-  float v[BB];
-  if (p == 0) {
-    const float* const row = in_l + static_cast<size_t>(j) * B + b0;
-#pragma unroll
-    for (int k = 0; k < BB; ++k) v[k] = (b0 + k < B) ? row[k] : 0.0f;
-  } else {
-    const float* const row = prev + static_cast<size_t>(j - r0) * BB;
-    if constexpr (BB % 4 == 0) {
-#pragma unroll
-      for (int k = 0; k < BB; k += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(row + k);
-        v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < BB; ++k) v[k] = row[k];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < BB; ++k) acc[k] = fmaf(coef, v[k], acc[k]);
+// One work item: tile q of level p of slice e (global slice index); the
+// slice's row0, rows n, levels depth, tiles nq and mask word hole.
+struct StageItem {
+  int e, p, q, row0, n, depth, nq, hole;
+};
+
+__device__ __forceinline__ void load_slice(StageItem& it,
+                                           const int4* __restrict__ slices,
+                                           int tile) {
+  const int4 s = __ldg(slices + it.e);
+  it.row0 = s.x;
+  it.n = s.y;
+  it.depth = s.z;
+  it.hole = s.w;
+  it.nq = (s.y + tile - 1) / tile;
 }
 
-// grid (ceil(B / BB), NB, nl); dynamic shared memory 2 * max_rows * BB floats.
-template <int BB>
-__global__ void __launch_bounds__(1024, 1)
-stage_levels_kernel(const float* __restrict__ inbuf,
-                    const int32_t* __restrict__ gidx,
-                    const int8_t* __restrict__ gexp,
-                    const int8_t* __restrict__ gsgn,
-                    const int32_t* __restrict__ blk_r0,
-                    const int32_t* __restrict__ blk_r1,
-                    const int32_t* __restrict__ blk_depth,
-                    float* __restrict__ work, int K, int P, int R, int S,
-                    int B, int NB, int max_rows) {
+__device__ __forceinline__ void next_item(StageItem& it, int e1,
+                                          const int4* __restrict__ slices,
+                                          int tile) {
+  if (++it.q < it.nq) return;
+  it.q = 0;
+  if (++it.p < it.depth) return;
+  it.p = 0;
+  if (++it.e < e1) load_slice(it, slices, tile);
+}
+
+// Issues the copies of item `it` (layer l) into ring slot `slot`.
+__device__ __forceinline__ void stage_tile(
+    const StageItem& it, char* slot, const int32_t* __restrict__ idx,
+    const int8_t* __restrict__ exp, const int8_t* __restrict__ sign, int l,
+    int P, int R, int S, int tile, int tid, int nthreads) {
+  const int r0 = it.q * tile;
+  const int rows = min(tile, it.n - r0);
+  const size_t t0 =
+      ((static_cast<size_t>(l) * P + it.p) * R + it.row0 + r0) *
+      static_cast<size_t>(S);
+  const size_t nt = static_cast<size_t>(rows) * S;
+  const size_t ri = region_bytes(static_cast<size_t>(tile) * S * 4);
+  const size_t rb = region_bytes(static_cast<size_t>(tile) * S);
+  stage_bytes(slot, reinterpret_cast<const char*>(idx + t0), nt * 4, tid,
+              nthreads);
+  stage_bytes(slot + ri, reinterpret_cast<const char*>(exp + t0), nt, tid,
+              nthreads);
+  stage_bytes(slot + ri + rb, reinterpret_cast<const char*>(sign + t0), nt,
+              tid, nthreads);
+}
+
+// grid (ceil(B / BB), NU), threads + kCopyThreads <= MAXT threads:
+// `threads` own the rows, the last two warps issue the copies; dynamic
+// shared memory buffer_bytes(N, BB) + stages * slot_bytes(tile, S).  MAXR >=
+// ceil(N / threads) rows a thread; tile is a multiple of `threads` (or
+// covers N).
+// units[u] = (layer from the first, first slice, end slice, first row of
+// partial, the site's width odim).
+template <int BB, int MAXR, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1)
+stage_chain_kernel(const int32_t* __restrict__ idx,
+                   const int8_t* __restrict__ exp,
+                   const int8_t* __restrict__ sign,
+                   const float* __restrict__ inbuf,      // [nl, K, B]
+                   const int4* __restrict__ slices,      // [E] row0 n depth hole
+                   const uint32_t* __restrict__ holes,   // zero-row masks
+                   const int32_t* __restrict__ units,    // [NU, 5]
+                   float* __restrict__ partial,          // [rows, B]
+                   int K, int P, int R, int S, int B, int N, int tile,
+                   int stages) {
   extern __shared__ __align__(16) float smem[];
-  const int l = blockIdx.z;
-  const size_t blk = static_cast<size_t>(l) * NB + blockIdx.y;
-  const int r0 = blk_r0[blk];
-  const int n = blk_r1[blk] - r0;
-  const int depth = blk_depth[blk];
-  if (n <= 0) return;  // uniform over the block
-  const int b0 = blockIdx.x * BB;
   float* const buf0 = smem;
-  float* const buf1 = smem + static_cast<size_t>(max_rows) * BB;
+  float* const buf1 = smem + static_cast<size_t>(N) * BB;
+  char* const ring = reinterpret_cast<char*>(smem) + buffer_bytes(N, BB);
+  const size_t sbytes = slot_bytes(tile, S);
+  const size_t ri = region_bytes(static_cast<size_t>(tile) * S * 4);
+  const size_t rb = region_bytes(static_cast<size_t>(tile) * S);
+
+  const int b0 = blockIdx.x * BB;
+  const int32_t* const unit = units + static_cast<size_t>(blockIdx.y) * 5;
+  const int l = unit[0];
+  const int e0 = unit[1];
+  const int e1 = unit[2];
+  const int prow = unit[3];
+  const int odim = unit[4];
+  const int tid = threadIdx.x;
+  const int T = blockDim.x - kCopyThreads;  // row threads; then copiers
+  const bool copier = tid >= T;
   const float* const in_l = inbuf + static_cast<size_t>(l) * K * B;
-  float* const work_l = work + static_cast<size_t>(l) * R * B;
-  for (int p = 0; p < depth; ++p) {
-    const size_t base = (static_cast<size_t>(l) * P + p) * R * S;
-    const float* const prev = (p & 1) ? buf0 : buf1;
-    float* const next = (p & 1) ? buf1 : buf0;
-    const bool last = (p == depth - 1);
-    for (int r = threadIdx.x; r < n; r += blockDim.x) {
-      float acc[BB];
+  // the batch columns of this block are whole and 16-byte aligned in inbuf
+  const bool x_vec = (BB % 4 == 0) && (B % 4 == 0) && (b0 + BB <= B);
+
+  float sums[MAXR][BB];
 #pragma unroll
-      for (int k = 0; k < BB; ++k) acc[k] = 0.0f;
-      const size_t t0 = base + static_cast<size_t>(r0 + r) * S;
-      if (S == 4) {  // the fused levels of S = 2 chains: one load a stream
-        const int4 j = *reinterpret_cast<const int4*>(gidx + t0);
-        const char4 e = *reinterpret_cast<const char4*>(gexp + t0);
-        const char4 sg = *reinterpret_cast<const char4*>(gsgn + t0);
-        add_term<BB>(acc, sg.x, e.x, j.x, p, in_l, prev, r0, b0, B);
-        add_term<BB>(acc, sg.y, e.y, j.y, p, in_l, prev, r0, b0, B);
-        add_term<BB>(acc, sg.z, e.z, j.z, p, in_l, prev, r0, b0, B);
-        add_term<BB>(acc, sg.w, e.w, j.w, p, in_l, prev, r0, b0, B);
+  for (int i = 0; i < MAXR; ++i)
+#pragma unroll
+    for (int k = 0; k < BB; ++k) sums[i][k] = 0.0f;
+
+  // prologue: items 0 .. stages-2 in flight
+  StageItem pf{e0, 0, 0, 0, 0, 0, 0, -1};
+  if (e0 < e1) load_slice(pf, slices, tile);
+  StageItem cur = pf;
+  for (int s = 0; s < stages - 1; ++s) {
+    if (pf.e < e1) {
+      if (copier)
+        stage_tile(pf, ring + s * sbytes, idx, exp, sign, l, P, R, S, tile,
+                   tid - T, kCopyThreads);
+      next_item(pf, e1, slices, tile);
+    }
+    cp_async_commit();
+  }
+
+  for (int i = 0; cur.e < e1; ++i) {
+    // the copy warps' copies of item i have landed; the barrier makes them
+    // visible, ends every read of item i-1 (so its slot may be refilled)
+    // and every write of the level before.  The row threads issue no
+    // copies, so their wait returns at once
+    cp_async_wait(stages - 2);
+    __syncthreads();
+    if (pf.e < e1) {
+      if (copier)
+        stage_tile(pf, ring + ((i + stages - 1) % stages) * sbytes, idx, exp,
+                   sign, l, P, R, S, tile, tid - T, kCopyThreads);
+      next_item(pf, e1, slices, tile);
+    }
+    cp_async_commit();
+
+    const char* const slot = ring + (i % stages) * sbytes;
+    const int r0 = cur.q * tile;
+    const int rows = min(tile, cur.n - r0);
+    const size_t t0 =
+        ((static_cast<size_t>(l) * P + cur.p) * R + cur.row0 + r0) *
+        static_cast<size_t>(S);
+    // where stage_bytes put each stream in the slot
+    const int32_t* const s_idx = reinterpret_cast<const int32_t*>(
+        slot + (reinterpret_cast<uintptr_t>(idx + t0) & 15u));
+    const int8_t* const s_exp = reinterpret_cast<const int8_t*>(
+        slot + ri + (reinterpret_cast<uintptr_t>(exp + t0) & 15u));
+    const int8_t* const s_sign = reinterpret_cast<const int8_t*>(
+        slot + ri + rb + (reinterpret_cast<uintptr_t>(sign + t0) & 15u));
+    const int p = cur.p;
+    const int base = cur.row0;  // later levels read absolute rows
+    const float* const src = (p & 1) ? buf0 : buf1;
+    float* const dst = (p & 1) ? buf1 : buf0;
+    // one term: acc += sign * 2^exp * (inbuf[j] or src[j - base]).  A term
+    // with sign 0 adds coef 0 times the slice's first row, so every load
+    // can issue before any sign is known (fma(0, v, acc) == acc for finite v)
+    auto term = [&](int sg, int j, int ex, float (&acc)[BB]) {
+      const float coef = sg ? signed_pow2(sg, ex) : 0.0f;
+      float v[BB];
+      if (p == 0) {
+        const float* const xr = in_l + static_cast<size_t>(sg ? j : 0) * B + b0;
+        if (x_vec) {
+#pragma unroll
+          for (int k = 0; k < BB; k += 4) {
+            const float4 t = __ldg(reinterpret_cast<const float4*>(xr + k));
+            v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < BB; ++k)
+            v[k] = (b0 + k < B) ? __ldg(xr + k) : 0.0f;
+        }
       } else {
-        for (int s = 0; s < S; ++s)
-          add_term<BB>(acc, gsgn[t0 + s], gexp[t0 + s], gidx[t0 + s], p, in_l,
-                       prev, r0, b0, B);
+        load_row<BB>(src, N, sg ? j - base : 0, v);
       }
-      if (last) {
-        float* const o = work_l + static_cast<size_t>(r0 + r) * B + b0;
 #pragma unroll
-        for (int k = 0; k < BB; ++k)
-          if (b0 + k < B) o[k] = acc[k];
+      for (int k = 0; k < BB; ++k) acc[k] = fmaf(coef, v[k], acc[k]);
+    };
+    const bool quad = S == 4 &&
+        ((reinterpret_cast<uintptr_t>(s_exp) | reinterpret_cast<uintptr_t>(s_sign)) &
+         3u) == 0 &&
+        (reinterpret_cast<uintptr_t>(s_idx) & 15u) == 0;
+    // two rows a step, their terms interleaved
+    for (int r = copier ? rows : tid; r < rows; r += 2 * T) {
+      const int r2 = r + T;
+      const bool two = r2 < rows;
+      float a0[BB], a1[BB];
+#pragma unroll
+      for (int k = 0; k < BB; ++k) { a0[k] = 0.0f; a1[k] = 0.0f; }
+      if (quad) {
+        const int4 j0 = reinterpret_cast<const int4*>(s_idx)[r];
+        const char4 x0 = reinterpret_cast<const char4*>(s_exp)[r];
+        const char4 g0 = reinterpret_cast<const char4*>(s_sign)[r];
+        int4 j1 = make_int4(0, 0, 0, 0);
+        char4 x1 = make_char4(0, 0, 0, 0), g1 = make_char4(0, 0, 0, 0);
+        if (two) {
+          j1 = reinterpret_cast<const int4*>(s_idx)[r2];
+          x1 = reinterpret_cast<const char4*>(s_exp)[r2];
+          g1 = reinterpret_cast<const char4*>(s_sign)[r2];
+        }
+        term(g0.x, j0.x, x0.x, a0);
+        term(g1.x, j1.x, x1.x, a1);
+        term(g0.y, j0.y, x0.y, a0);
+        term(g1.y, j1.y, x1.y, a1);
+        term(g0.z, j0.z, x0.z, a0);
+        term(g1.z, j1.z, x1.z, a1);
+        term(g0.w, j0.w, x0.w, a0);
+        term(g1.w, j1.w, x1.w, a1);
       } else {
-        float* const o = next + static_cast<size_t>(r) * BB;
+        for (int s = 0; s < S; ++s) {
+          term(s_sign[r * S + s], s_idx[r * S + s], s_exp[r * S + s], a0);
+          if (two)
+            term(s_sign[r2 * S + s], s_idx[r2 * S + s], s_exp[r2 * S + s], a1);
+        }
+      }
+      store_row<BB>(dst, N, r0 + r, a0);
+      if (two) store_row<BB>(dst, N, r0 + r2, a1);
+    }
+    if (cur.p == cur.depth - 1 && cur.q == cur.nq - 1) {
+      // the slice is done: fold its rows [0, odim) into the sums; every
+      // row was written by the thread that owns it, so no barrier is needed
+      const int hole = cur.hole;
 #pragma unroll
-        for (int k = 0; k < BB; ++k) o[k] = acc[k];
+      for (int ri2 = 0; ri2 < MAXR; ++ri2) {
+        const int n = ri2 * T + tid;
+        if (!copier && n < odim &&
+            (hole < 0 || !((__ldg(holes + hole + (n >> 5)) >> (n & 31)) & 1u))) {
+          float v[BB];
+          load_row<BB>(dst, N, n, v);
+#pragma unroll
+          for (int k = 0; k < BB; ++k) sums[ri2][k] += v[k];
+        }
       }
     }
-    __syncthreads();
+    next_item(cur, e1, slices, tile);
+  }
+  cp_async_wait(0);
+
+  float* const out = partial + static_cast<size_t>(prow) * B + b0;
+#pragma unroll
+  for (int i = 0; i < MAXR; ++i) {
+    const int n = i * T + tid;
+    if (!copier && n < odim) {
+      float* const o = out + static_cast<size_t>(n) * B;
+#pragma unroll
+      for (int k = 0; k < BB; ++k)
+        if (b0 + k < B) o[k] = sums[i][k];
+    }
   }
 }
 
@@ -179,16 +340,18 @@ __device__ __forceinline__ float lanes_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// out[l, o, b] = resid + ((gather + fs @ inbuf) + dw @ src) + bias; kLanes
-// threads per output element split the gather's j and the dot products' k
+// out[l, o, b] = resid + (((chunk sums) + fs @ inbuf) + dw @ src) + bias.
+// Lane 0 of an output finds its site (binary search over the layer's sites,
+// esites[s] = out_off, odim, first partial row, chunks) and sums the site's
+// chunks in chunk order; kLanes threads split the dot products' k
 // (interleaved) and combine their partial sums by shuffles.
 __global__ void stage_epilogue_kernel(
-    const float* __restrict__ work, const int32_t* __restrict__ outg,
-    const float* __restrict__ inbuf, const float* __restrict__ src,
-    const float* __restrict__ fs, const float* __restrict__ dw,
-    const float* __restrict__ bias, const float* __restrict__ resid,
-    float* __restrict__ out, int nl, int D, int B, int K, int R, int J, int O,
-    int has_fp) {
+    const float* __restrict__ partial, const int4* __restrict__ esites,
+    const int32_t* __restrict__ ebegin, const float* __restrict__ inbuf,
+    const float* __restrict__ src, const float* __restrict__ fs,
+    const float* __restrict__ dw, const float* __restrict__ bias,
+    const float* __restrict__ resid, float* __restrict__ out, int nl, int D,
+    int B, int K, int O) {
   const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int q = static_cast<int>(t % kLanes);
   const size_t i = t / kLanes;
@@ -199,17 +362,23 @@ __global__ void stage_epilogue_kernel(
   const size_t rem = ii - l * per;
   const int o = static_cast<int>(rem / B);
   const int b = static_cast<int>(rem - static_cast<size_t>(o) * B);
-  float g = 0.0f;
-  if (has_fp && live) {
-    const int32_t* const gi = outg + static_cast<size_t>(l) * J * O + o;
-    const float* const w = work + static_cast<size_t>(l) * R * B + b;
-#pragma unroll 4
-    for (int j = q; j < J; j += kLanes) {
-      const int r = gi[static_cast<size_t>(j) * O];
-      if (r < R) g += w[static_cast<size_t>(r) * B];
+  float acc = 0.0f;
+  if (live && q == 0 && partial != nullptr) {
+    const int first = ebegin[l];
+    int lo = first, hi = ebegin[l + 1];
+    while (lo < hi) {  // the last site with out_off <= o
+      const int mid = (lo + hi) >> 1;
+      if (esites[mid].x <= o) lo = mid + 1; else hi = mid;
+    }
+    if (lo > first) {
+      const int4 s = esites[lo - 1];
+      if (o < s.x + s.y) {
+        const float* p = partial + (static_cast<size_t>(s.z) + (o - s.x)) * B + b;
+        const size_t step = static_cast<size_t>(s.y) * B;
+        for (int c = 0; c < s.w; ++c) acc += p[c * step];
+      }
     }
   }
-  float acc = lanes_sum(g);
   if (fs != nullptr) {
     float f = 0.0f;
     if (live) {
@@ -236,40 +405,75 @@ __global__ void stage_epilogue_kernel(
   out[i] = acc;
 }
 
-template <int BB>
-cudaError_t launch_levels(const float* inbuf, const int32_t* gidx,
-                          const int8_t* gexp, const int8_t* gsgn,
-                          const int32_t* r0, const int32_t* r1,
-                          const int32_t* depth, float* work, int nl, int K,
-                          int P, int R, int S, int B, int NB, int threads,
-                          int max_rows, cudaStream_t st) {
-  const size_t smem = 2 * static_cast<size_t>(max_rows) * BB * sizeof(float);
+struct ChainArgs {
+  const int32_t* idx;
+  const int8_t* exp;
+  const int8_t* sign;
+  const float* inbuf;
+  const int4* slices;
+  const uint32_t* holes;
+  const int32_t* units;
+  float* partial;
+  int K, P, R, S, B, NU, N, threads, tile, stages;
+};
+
+template <int BB, int MAXR, int MAXT>
+cudaError_t launch_stage_bb(const ChainArgs& a, cudaStream_t st) {
+  const size_t smem = buffer_bytes(a.N, BB) +
+                      static_cast<size_t>(a.stages) * slot_bytes(a.tile, a.S);
   if (smem > static_cast<size_t>(kMaxDynamicSmem)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      stage_levels_kernel<BB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      stage_chain_kernel<BB, MAXR, MAXT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + BB - 1) / BB, NB, nl);
-  stage_levels_kernel<BB><<<grid, threads, smem, st>>>(
-      inbuf, gidx, gexp, gsgn, r0, r1, depth, work, K, P, R, S, B, NB,
-      max_rows);
+  const dim3 grid((a.B + BB - 1) / BB, a.NU);
+  stage_chain_kernel<BB, MAXR, MAXT>
+      <<<grid, a.threads + kCopyThreads, smem, st>>>(
+      a.idx, a.exp, a.sign, a.inbuf, a.slices, a.holes, a.units, a.partial,
+      a.K, a.P, a.R, a.S, a.B, a.N, a.tile, a.stages);
   return cudaGetLastError();
 }
 
-}  // namespace
+// The register sums: MAXR rows of BB columns, the smaller of 16 and 32
+// floats that holds ceil(N / threads) rows (as launch_chain_rows): blocks
+// of at most 512 row threads, except one column a block above 16384 rows,
+// which takes up to 960.
+template <int BB>
+cudaError_t launch_stage_rows(const ChainArgs& a, cudaStream_t st) {
+  const int rpt = (a.N + a.threads - 1) / a.threads;
+  if (a.threads > 512) {
+    if constexpr (BB == 1) {
+      if (rpt <= kMaxSums) return launch_stage_bb<1, kMaxSums, 1024>(a, st);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (rpt * BB <= kMaxSums / 2)
+    return launch_stage_bb<BB, kMaxSums / 2 / BB, 512 + kCopyThreads>(a, st);
+  if (rpt * BB <= kMaxSums)
+    return launch_stage_bb<BB, kMaxSums / BB, 512 + kCopyThreads>(a, st);
+  return cudaErrorInvalidValue;
+}
 
-// One stage over nl layers (pointers at the first of them): prep, levels and
-// epilogue on `stream`.  K = 0: no prep; S = 0: no streams; fs/dw/bias/resid
-// may be null.  Returns the first CUDA error (0 = every launch accepted).
+}  // namespace
+}  // namespace repro_torch
+
+// One stage over nl layers (pointers at the first of them): prep, the chain
+// kernel once a geometry group, epilogue, all on `stream`.  groups: host
+// int32 [ngroups][7] = first unit, units, bb, threads, tile, stages, rows N
+// (the group's longest slice).  K = 0: no prep; ngroups = 0: no streams;
+// fs/dw/bias/resid may be null.  Returns the first CUDA error (0 = every
+// launch accepted).
 extern "C" int repro_stage_matmul(
     const void* src, const void* prep_src, const void* prep_off, void* inbuf,
-    const void* gidx, const void* gexp, const void* gsgn, const void* blk_r0,
-    const void* blk_r1, const void* blk_depth, void* work, const void* outg,
-    const void* fs, const void* dw, const void* bias, const void* resid,
-    void* out, int nl, int D, int B, int M, int K, int P, int R, int S, int NB,
-    int J, int O, int bb, int threads, int max_rows, void* stream) {
+    const void* gidx, const void* gexp, const void* gsgn, const void* slices,
+    const void* holes, const void* units, const void* esites,
+    const void* ebegin, void* partial, const void* fs, const void* dw,
+    const void* bias, const void* resid, void* out, int nl, int D, int B,
+    int M, int K, int P, int R, int S, int O, const void* groups,
+    int ngroups, void* stream) {
+  using namespace repro_torch;
   auto st = static_cast<cudaStream_t>(stream);
-  if (nl <= 0 || B <= 0 || O <= 0 || threads <= 0 || threads > 1024)
+  if (nl <= 0 || B <= 0 || O <= 0 || ngroups < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* x = static_cast<const float*>(src);
   auto* in = static_cast<float*>(inbuf);
@@ -283,23 +487,31 @@ extern "C" int repro_stage_matmul(
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int has_fp = S > 0;
-  if (has_fp) {
-    if (K <= 0 || NB <= 0 || P <= 0 || R <= 0)
+  const auto* grp = static_cast<const int32_t*>(groups);
+  for (int g = 0; g < ngroups; ++g) {
+    const int32_t* const q = grp + 7 * g;
+    const int first = q[0], NU = q[1], bb = q[2], threads = q[3],
+              tile = q[4], stages = q[5], N = q[6];
+    // the ring needs 2..4 slots; a tile is whole rows of every thread (or N)
+    if (K <= 0 || P <= 0 || R <= 0 || S <= 0 || N <= 0 || NU <= 0 ||
+        NU > 65535 || first < 0 || threads <= 0 ||
+        threads + kCopyThreads > 1024 || threads % 32 != 0 || tile <= 0 ||
+        (tile < N && tile % threads != 0) || stages < 2 || stages > 4)
       return static_cast<int>(cudaErrorInvalidValue);
-    const auto* gi = static_cast<const int32_t*>(gidx);
-    const auto* ge = static_cast<const int8_t*>(gexp);
-    const auto* gs = static_cast<const int8_t*>(gsgn);
-    const auto* a = static_cast<const int32_t*>(blk_r0);
-    const auto* z = static_cast<const int32_t*>(blk_r1);
-    const auto* dp = static_cast<const int32_t*>(blk_depth);
-    auto* wk = static_cast<float*>(work);
+    const ChainArgs a{static_cast<const int32_t*>(gidx),
+                      static_cast<const int8_t*>(gexp),
+                      static_cast<const int8_t*>(gsgn), in,
+                      static_cast<const int4*>(slices),
+                      static_cast<const uint32_t*>(holes),
+                      static_cast<const int32_t*>(units) + 5 * static_cast<size_t>(first),
+                      static_cast<float*>(partial), K, P, R, S, B, NU, N,
+                      threads, tile, stages};
     cudaError_t err;
     switch (bb) {
-      case 8: err = launch_levels<8>(in, gi, ge, gs, a, z, dp, wk, nl, K, P, R, S, B, NB, threads, max_rows, st); break;
-      case 4: err = launch_levels<4>(in, gi, ge, gs, a, z, dp, wk, nl, K, P, R, S, B, NB, threads, max_rows, st); break;
-      case 2: err = launch_levels<2>(in, gi, ge, gs, a, z, dp, wk, nl, K, P, R, S, B, NB, threads, max_rows, st); break;
-      case 1: err = launch_levels<1>(in, gi, ge, gs, a, z, dp, wk, nl, K, P, R, S, B, NB, threads, max_rows, st); break;
+      case 8: err = launch_stage_rows<8>(a, st); break;
+      case 4: err = launch_stage_rows<4>(a, st); break;
+      case 2: err = launch_stage_rows<2>(a, st); break;
+      case 1: err = launch_stage_rows<1>(a, st); break;
       default: err = cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -307,9 +519,10 @@ extern "C" int repro_stage_matmul(
   const size_t total = static_cast<size_t>(nl) * O * B * kLanes;
   stage_epilogue_kernel<<<static_cast<unsigned>((total + cthreads - 1) / cthreads),
                           cthreads, 0, st>>>(
-      static_cast<const float*>(work), static_cast<const int32_t*>(outg), in, x,
-      static_cast<const float*>(fs), static_cast<const float*>(dw),
+      ngroups > 0 ? static_cast<const float*>(partial) : nullptr,
+      static_cast<const int4*>(esites), static_cast<const int32_t*>(ebegin),
+      in, x, static_cast<const float*>(fs), static_cast<const float*>(dw),
       static_cast<const float*>(bias), static_cast<const float*>(resid),
-      static_cast<float*>(out), nl, D, B, K, R, J, O, has_fp);
+      static_cast<float*>(out), nl, D, B, K, O);
   return static_cast<int>(cudaGetLastError());
 }

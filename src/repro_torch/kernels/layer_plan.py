@@ -6,8 +6,18 @@ families:
 * :func:`stage_matmul` (K6) evaluates one :class:`~repro_torch.kernels.ops.
   PackedStage` — every compressed site that reads one activation (q+k+v,
   o, gate+up, down), plus baked dense blocks and biases — for one layer or
-  for all L: prep scatter-add, the fused CSD shift-add levels, the output
-  gather and the dense epilogue.  CUDA source ``csrc/stage_matmul.cu``.
+  for all L.  CUDA source ``csrc/stage_matmul.cu``: a prep kernel (the
+  weight-shared scatter-add in fixed order), the chain kernel and an
+  epilogue.  The chain kernel's unit of work is a chunk of consecutive FP
+  slices of one site: a block runs each slice through its live fused CSD
+  levels in shared memory (term streams staged by ``cp.async``) and adds
+  the slice's output rows into register sums, so the last level never goes
+  to device memory; each block writes its site's rows of ``partial`` once,
+  and the epilogue sums the chunks in fixed order and adds the dense blocks,
+  the bias and the residual.  The output map the kernel follows (sites,
+  slices, depths) is derived from ``outg`` once at upload
+  (:func:`stage_slices`) and checked against it entry by entry; ``outg``
+  itself is read only by the plain version.
 * :func:`step_plan_matmul` (K7) runs the whole decode step over L identical
   layers as a fixed sequence of hand-written kernels a layer: norm, stage
   qkv, RoPE + decode attention (emits the new K/V rows), stage o + residual,
@@ -46,21 +56,19 @@ import torch
 import torch.nn.functional as F
 
 from . import build, dispatch
-from .lcc_chain_matmul import SMEM_LIMIT, signed_pow2
+from .lcc_chain_matmul import (MAX_SUMS, SM_SMEM, launch_staging,
+                               plan_launch, signed_pow2)
 from .moe_route import (capacity, moe_combine, moe_combine_plain, moe_dispatch,
                         moe_dispatch_plain, moe_route, moe_route_plain)
 from .ops import PackedStage
 
-__all__ = ["DeviceStage", "device_stage", "stage_blocks", "stage_matmul",
-           "stage_matmul_plain", "stage_apply_eff", "step_plan_matmul",
-           "step_plan_matmul_plain", "moe_plan_matmul",
+__all__ = ["DeviceStage", "StageLaunch", "StageSlices", "device_stage",
+           "plan_stage", "plan_units", "stage_blocks", "stage_slices",
+           "stage_matmul", "stage_matmul_plain", "stage_apply_eff",
+           "step_plan_matmul", "step_plan_matmul_plain", "moe_plan_matmul",
            "moe_plan_matmul_plain"]
 
 _NEG = -1e30
-# blocks of rows smaller than this are merged with their neighbours (a block
-# is one instruction at the main paths' widths: 2048 or 8192 rows for
-# olmo-1b, 16384 or 6144 for mixtral-8x22b's experts)
-MERGE_ROWS = 1024
 _STAGE_ORDER = ("qkv", "o", "gu", "dn")
 _MOE_STAGE_ORDER = ("qkv", "o", "eg", "ed")
 
@@ -70,16 +78,17 @@ _MOE_STAGE_ORDER = ("qkv", "o", "eg", "ed")
 
 def stage_blocks(ps: PackedStage, layer: int
                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-    """Row blocks of one layer of a stage: ``(r0, r1, depth, live_terms)``.
+    """The finest row pieces of one layer of a stage: ``(r0, r1, depth,
+    live_terms)``.
 
-    The blocks partition ``[0, R)`` so that no live term of a level >= 1
-    reads a row outside its own block (the finest such partition, with
-    pieces below ``MERGE_ROWS`` rows merged into their neighbours up to the
-    size of the largest piece).  ``depth`` is the number of levels a block
-    must run: the levels after it are identity rows (``gidx[p, r, 0] == r``,
-    sign 1, exponent 0, no other live term) for every row of the block.
-    ``live_terms`` counts the terms with sign != 0 in the levels the blocks
-    run — the work the data needs.  Raises on indices outside the stage."""
+    The pieces partition ``[0, R)`` so that no live term of a level >= 1
+    reads a row outside its own piece (the finest such partition: a piece
+    is closed under the reads of the levels after the first).  ``depth`` is
+    the number of levels a piece must run: the levels after it are identity
+    rows (``gidx[p, r, 0] == r``, sign 1, exponent 0, no other live term)
+    for every row of the piece.  ``live_terms`` counts the terms with sign
+    != 0 in the levels the pieces run.  Raises on indices outside the
+    stage."""
     gidx, gexp, gsgn = ps.gidx[layer], ps.gexp[layer], ps.gsgn[layer]
     n_p, r, n_s = gidx.shape
     rows = np.arange(r, dtype=gidx.dtype)
@@ -108,27 +117,189 @@ def stage_blocks(ps: PackedStage, layer: int
     cuts = np.arange(1, r)
     ok = ((np.maximum.accumulate(hi)[:-1] < cuts)
           & (np.minimum.accumulate(lo[::-1])[::-1][1:] >= cuts))
-    starts = np.concatenate([[0], cuts[ok]])
-    sizes = np.diff(np.concatenate([starts, [r]]))
-    cap = max(int(sizes.max()), min(r, MERGE_ROWS))
-    merged, run = [0], 0
-    for i, n in enumerate(sizes):
-        if run + n > cap:
-            merged.append(int(starts[i]))
-            run = 0
-        run += int(n)
-    r0 = np.asarray(merged, np.int64)
+    r0 = np.concatenate([[0], cuts[ok]]).astype(np.int64)
     r1 = np.append(r0[1:], r)
     depth = np.maximum.reduceat(depth_row, r0)
-    # live terms in the levels each block runs
-    row_depth = np.repeat(depth, r1 - r0)
-    live_terms = 0
-    for p in range(n_p):
-        run = row_depth > p
-        for s in range(n_s):
-            live_terms += int(np.count_nonzero((gsgn[p, :, s] != 0) & run))
     return (r0.astype(np.int32), r1.astype(np.int32), depth.astype(np.int32),
-            live_terms)
+            _live_terms(gsgn, r0, r1, depth))
+
+
+def _live_terms(gsgn: np.ndarray, r0, r1, depth) -> int:
+    """Terms with sign != 0 of rows ``[r0[i], r1[i])`` in their first
+    ``depth[i]`` levels (``gsgn [P, R, S]`` of one layer; disjoint ranges)."""
+    n_p, r, n_s = gsgn.shape
+    step = np.zeros(r + 1, np.int64)
+    np.add.at(step, np.asarray(r0, np.int64), depth)
+    np.add.at(step, np.asarray(r1, np.int64), -np.asarray(depth, np.int64))
+    row_depth = np.cumsum(step[:-1])
+    total = 0
+    for p in range(n_p):
+        runs = row_depth > p
+        for s in range(n_s):
+            total += int(np.count_nonzero((gsgn[p, :, s] != 0) & runs))
+    return total
+
+
+@dataclass
+class StageSlices:
+    """One layer's output map, as the chain kernel follows it.
+
+    ``sites`` ``[U, 4]``: output offset, width ``odim``, first slice, slice
+    count — disjoint output ranges in ascending order.  ``slices`` ``[E, 5]``
+    (a site's slices consecutive, in ``outg`` order): first row ``row0``,
+    rows ``n`` (the pieces of :func:`stage_blocks` that hold its folded
+    rows ``[row0, row0 + odim)``), levels to run ``depth``, its row ``j`` of
+    ``outg``, and its site.  Output ``out_off + i`` of a site sums row
+    ``row0 + i`` of each of its slices, except where ``holes[e]`` (offsets
+    ``i`` of slice ``e``) marks an entry that reads the zero row.
+    ``window`` ``[E, 2]``: the rows ``[in0, in1)`` of the prep buffer its
+    first level reads.  ``live_terms``: terms with sign != 0 that the data
+    needs, in the levels the pieces of :func:`stage_blocks` run (what a
+    bound counts); ``run_terms``: those in the levels the slices run (each
+    slice at its deepest piece's depth, rows outside every slice dropped)."""
+
+    sites: np.ndarray
+    slices: np.ndarray
+    holes: dict
+    window: np.ndarray
+    live_terms: int
+    run_terms: int
+
+
+def _stage_name(ps: PackedStage) -> str:
+    return "+".join(ps.site_names) or "(unnamed)"
+
+
+def stage_slices(ps: PackedStage, layer: int) -> StageSlices:
+    """Derive the chain kernel's output map of one layer from ``outg`` and
+    the row layout, and check it against ``outg`` entry by entry.
+
+    A site is a maximal run of outputs over which every row ``j`` of
+    ``outg`` reads rows at one constant offset (``outg[j, o] - o``, entries
+    that read the zero row ``R`` aside); its slices are the rows ``j`` that
+    read any row there.  A slice's rows must start a piece of
+    :func:`stage_blocks` (its later levels read nothing before it) and no
+    two slices may share a row: a stage the map cannot express — a row read
+    by two outputs, a slice whose first folded row lies inside another's
+    rows — raises ``ValueError`` naming the stage, and is never evaluated
+    otherwise."""
+    name = _stage_name(ps)
+
+    def refuse(msg):
+        raise ValueError(f"stage {name} (layer {layer}): {msg}; the stage "
+                         "kernel cannot evaluate it")
+
+    r0p, r1p, depth_p, need_terms = stage_blocks(ps, layer)
+    gsgn = ps.gsgn[layer]
+    r = gsgn.shape[1]
+    og = ps.outg[layer]
+    n_j, n_o = og.shape
+    if og.min() < 0 or og.max() > r:
+        refuse(f"output gather outside [0, {r}]")
+    hole = og == r
+    ar = np.arange(n_o, dtype=np.int64)
+    live = ~hole.all(axis=0)
+    cut = np.zeros(n_o + 1, bool)
+    cut[0] = cut[n_o] = True
+    cut[1:n_o] = live[1:] != live[:-1]
+    for j in range(n_j):
+        d = og[j].astype(np.int64) - ar
+        cut[1:n_o] |= ~hole[j, 1:] & ~hole[j, :-1] & (d[1:] != d[:-1])
+
+    def runs(lo, hi, extra=None):
+        c = cut[lo:hi + 1].copy()
+        if extra is not None:
+            c[1:-1] |= extra
+        at = np.flatnonzero(c)
+        return [(int(lo + a), int(lo + b)) for a, b in zip(at[:-1], at[1:])
+                if live[lo + a]]
+
+    def build(site_runs):
+        """(site table, slice records, holes, bad site indices)."""
+        sites, recs, holes, bad = [], [], {}, set()
+        for u, (a, b) in enumerate(site_runs):
+            blk, h = og[:, a:b], hole[:, a:b]
+            js = np.flatnonzero(~h.all(axis=1))
+            off = blk[js].astype(np.int64) - np.arange(b - a)
+            top = np.where(h[js], np.iinfo(np.int64).min, off).max(axis=1)
+            low = np.where(h[js], np.iinfo(np.int64).max, off).min(axis=1)
+            sites.append((a, b - a, len(recs), js.size))
+            for j, beta, ok in zip(js, top, top == low):
+                k0 = int(np.searchsorted(r0p, beta))
+                if (not ok or beta < 0 or beta + b - a > r or k0 >= r0p.size
+                        or r0p[k0] != beta):
+                    bad.add(u)
+                    recs.append((0, 0, 0, int(j), u))
+                    continue
+                k1 = int(np.searchsorted(r0p, beta + b - a - 1, side="right"))
+                recs.append((int(beta), int(r1p[k1 - 1] - beta),
+                             int(depth_p[k0:k1].max()), int(j), u))
+                hj = np.flatnonzero(h[j])
+                if hj.size:
+                    holes[len(recs) - 1] = hj
+        rows = np.asarray([(x[0], x[0] + x[1], x[4]) for x in recs
+                           if x[1] > 0], np.int64).reshape(-1, 3)
+        rows = rows[np.argsort(rows[:, 0], kind="stable")]
+        over = np.flatnonzero(rows[1:, 0] < rows[:-1, 1])
+        bad.update(int(u) for u in rows[over, 2])
+        bad.update(int(u) for u in rows[over + 1, 2])
+        return sites, recs, holes, bad
+
+    site_runs = runs(0, n_o)
+    sites, recs, holes, bad = build(site_runs)
+    if bad:
+        # a site merged across a change of its slice count (a one-slice site
+        # beside one with more slices at the same offset): split the failing
+        # runs where the pattern of zero-row entries changes, once
+        split = []
+        for u, (a, b) in enumerate(site_runs):
+            if u in bad:
+                split += runs(a, b, (hole[:, a + 1:b] != hole[:, a:b - 1]).any(axis=0))
+            else:
+                split.append((a, b))
+        sites, recs, holes, bad = build(split)
+        if bad:
+            refuse("an output reads rows no slice of the table holds "
+                   "(a row read twice, or a slice starting inside another)")
+    sites = np.asarray(sites, np.int64).reshape(-1, 4)
+    slices = np.asarray(recs, np.int64).reshape(-1, 5)
+    # the map reproduces outg entry by entry
+    covered = np.zeros(n_o, bool)
+    for a, w, first, count in sites:
+        want = np.full((n_j, w), r, og.dtype)
+        for e in range(first, first + count):
+            want[slices[e, 3]] = slices[e, 0] + np.arange(w)
+            if e in holes:
+                want[slices[e, 3], holes[e]] = r
+        if not np.array_equal(want, og[:, a: a + w]):
+            refuse("the derived output map differs from outg")
+        covered[a: a + w] = True
+    if not (og[:, ~covered] == r).all():
+        refuse("the derived output map differs from outg")
+    # the first level's read window of each slice: [in0, in1) of the prep
+    # buffer (empty where the slice reads nothing)
+    g0, s0 = ps.gidx[layer, 0], gsgn[0]
+    big = np.iinfo(np.int32).max
+    lo = np.full(r + 1, big, np.int32)
+    hi = np.full(r + 1, -1, np.int32)
+    for s in range(g0.shape[1]):
+        on = s0[:, s] != 0
+        np.minimum(lo[:r], np.where(on, g0[:, s], big), out=lo[:r])
+        np.maximum(hi[:r], np.where(on, g0[:, s], -1), out=hi[:r])
+    window = np.zeros((slices.shape[0], 2), np.int64)
+    if slices.size:
+        order = np.argsort(slices[:, 0])
+        at = np.stack([slices[order, 0], slices[order, 0] + slices[order, 1]],
+                      axis=1).ravel()
+        w_lo = np.minimum.reduceat(lo, at)[::2]
+        w_hi = np.maximum.reduceat(hi, at)[::2] + 1
+        window[order] = np.where((w_hi > 0)[:, None],
+                                 np.stack([w_lo, w_hi], axis=1), 0)
+    return StageSlices(sites=sites, slices=slices, holes=holes, window=window,
+                       live_terms=need_terms,
+                       run_terms=_live_terms(gsgn, slices[:, 0],
+                                             slices[:, 0] + slices[:, 1],
+                                             slices[:, 2]))
 
 
 def _check_stage(ps: PackedStage) -> None:
@@ -156,12 +327,97 @@ def _check_stage(ps: PackedStage) -> None:
         raise ValueError(f"stage output gather outside [0, {r}]")
 
 
+def plan_stage(n: int, s: int, b: int) -> tuple[int, int, int, int, int]:
+    """Geometry of the chain kernel for slices of up to ``n`` rows at ``s``
+    terms a row and ``b`` batch columns: ``(bb, threads, tile, stages,
+    blocks a SM)``.  The K1/K2 planner's rules (:func:`~repro_torch.kernels.
+    lcc_chain_matmul.plan_launch`, :func:`~repro_torch.kernels.
+    lcc_chain_matmul.launch_staging`): rows fixed to 512 row threads (256
+    where two blocks then fit an SM; up to 960 at one column above 16384
+    rows) beside two copy warps; ``bb`` the widest of 8/4/2/1 not beyond the
+    batch whose register sums (rows a thread x ``bb`` <= 32) and two
+    ``[n, bb]`` float32 buffers plus a staging ring of ``tile``-row slots
+    fit the 232,448 bytes of shared memory a block may use.  Raises
+    ``NotImplementedError`` above that."""
+    try:
+        bb, threads, _, _ = plan_launch(n, b, 1, 1, 1, s)
+    except NotImplementedError:
+        raise NotImplementedError(
+            f"stage_matmul kernel: a slice of {n} rows needs {2 * n * 4} "
+            f"bytes of shared memory per batch column plus a staging ring "
+            f"for {s} terms a row, beyond a block's limit (or more than "
+            f"{MAX_SUMS} rows a thread)") from None
+    tile, stages, smem = launch_staging(n, s, bb, threads)
+    per_sm = 2 if threads <= 256 and 2 * (smem + 1024) <= SM_SMEM else 1
+    return bb, threads, tile, stages, per_sm
+
+
+def plan_units(costs: list[np.ndarray], want: int) -> list[tuple[int, int, int]]:
+    """Split sites into chunks of consecutive slices: ``[(site, e0, e1)]``
+    with ``e0``/``e1`` slice offsets inside the site, sites in order, each
+    site's chunks in slice order, every slice in exactly one chunk.
+    ``costs[u]`` holds site ``u``'s per-slice work (rows x levels).  The
+    sites share ``want`` chunks (one wave of blocks) in proportion to their
+    work — each site at least one, none more than its slices — and a
+    site's slices are dealt evenly over its chunks."""
+    n = [c.size for c in costs]
+    tot = [float(c.sum()) for c in costs]
+    k = [1 if m else 0 for m in n]
+    spare = max(0, want - sum(k))
+    while spare:
+        grow = [u for u in range(len(n)) if 0 < k[u] < n[u]]
+        if not grow:
+            break
+        u = max(grow, key=lambda v: (tot[v] / k[v], -v))
+        k[u] += 1
+        spare -= 1
+    out = []
+    for u, (m, ku) in enumerate(zip(n, k)):
+        if m:
+            spb = -(-m // ku)
+            out += [(u, e0, min(m, e0 + spb)) for e0 in range(0, m, spb)]
+    return out
+
+
+@dataclass
+class StageLaunch:
+    """One launch's geometry and work tables (one batch width, one layer
+    or all).  The sites are grouped by their own geometry (:func:`plan_stage`
+    at the site's longest slice): ``groups`` ``[(first unit, units, bb,
+    threads, tile, stages, blocks a SM, rows)]``, each group one launch of
+    the chain kernel over its units, one wave of chunks each.
+    ``units [NU, 5]`` int32: layer (from the launch's first), first and end
+    slice (global), first ``partial`` row, the site's width; ``esites [NS,
+    4]``: output offset, width, first ``partial`` row, chunk count, per layer
+    in output order; ``ebegin [nl + 1]``: each layer's first row of
+    ``esites``."""
+
+    groups: list
+    units: torch.Tensor | None
+    esites: torch.Tensor
+    ebegin: torch.Tensor
+    n_units: int
+    partial_rows: int
+    chunks: list  # host copy of the units: (layer, site, e0, e1)
+    host_groups: np.ndarray = field(repr=False, default=None)  # [G, 7] int32
+
+    @property
+    def geometries(self) -> list[dict]:
+        return [dict(units=g[1], bb=g[2], threads=g[3], tile=g[4],
+                     stages=g[5], blocks_per_sm=g[6], rows=g[7])
+                for g in self.groups]
+
+
 @dataclass
 class DeviceStage:
     """One stage's operands on one device.  The prep pairs come twice: in
     pair order (the plain version's ``index_add_``) and sorted by target with
-    per-target offsets (the kernel's fixed-order sums).  The block tables
-    (:func:`stage_blocks`) exist wherever the stage has streams."""
+    per-target offsets (the kernel's fixed-order sums).  Where the stage
+    has streams, ``maps`` holds each layer's output map (:func:`stage_slices`)
+    and ``slice_tab``/``hole_bits`` its device form: ``[E, 4]`` int32 row0,
+    rows, depth, first word of its zero-row mask (-1: none), every layer's
+    slices in one table; a mask bit set marks an output entry that reads the
+    zero row."""
 
     ps: PackedStage
     device: torch.device
@@ -172,30 +428,34 @@ class DeviceStage:
     gidx: torch.Tensor | None  # [L, P, R, S] int32
     gexp: torch.Tensor | None  # [L, P, R, S] int8
     gsgn: torch.Tensor | None  # [L, P, R, S] int8
-    outg: torch.Tensor | None  # [L, J, O] int32
+    outg: torch.Tensor | None  # [L, J, O] int32 (the plain version's)
     fs_mat: torch.Tensor | None
     dw_mat: torch.Tensor | None
     bias: torch.Tensor | None
     fs_live: tuple[bool, ...] = ()  # per layer: the block holds a nonzero
     dw_live: tuple[bool, ...] = ()
     bias_live: tuple[bool, ...] = ()
-    blk_r0: torch.Tensor | None = None  # [L, NB] int32 (padding: r0 == r1)
-    blk_r1: torch.Tensor | None = None
-    blk_depth: torch.Tensor | None = None
-    max_rows: int = 0
-    live_terms: tuple[int, ...] = ()  # per layer, in the levels run
+    maps: tuple[StageSlices, ...] = ()
+    slice_base: tuple[int, ...] = ()  # each layer's first row of slice_tab
+    slice_tab: torch.Tensor | None = None
+    hole_bits: torch.Tensor | None = None
+    max_rows: int = 0  # the longest slice
+    live_terms: tuple[int, ...] = ()  # per layer, what the data needs
     _geometry: dict = field(default_factory=dict, repr=False)
+    _launches: dict = field(default_factory=dict, repr=False)
 
     @property
     def dims(self) -> dict:
-        """(M, K, P, R, S, NB, J, O, D) of the kernel's argument list."""
+        """(M, K, P, R, S, J, O, D) of the stage, ``E``/``U`` its slices and
+        sites (the largest layer's)."""
         ps = self.ps
         p, r, s = ps.gidx.shape[1:] if ps.has_fp else (0, 0, 0)
         return dict(M=ps.prep_src.shape[1] if ps.has_prep else 0,
                     K=ps.k_alloc if ps.has_prep else 0, P=p, R=r, S=s,
-                    NB=self.blk_r0.shape[1] if self.blk_r0 is not None else 0,
                     J=ps.outg.shape[1] if ps.has_fp else 0, O=ps.out_dim,
-                    D=ps.d_src)
+                    D=ps.d_src,
+                    E=max((m.slices.shape[0] for m in self.maps), default=0),
+                    U=max((m.sites.shape[0] for m in self.maps), default=0))
 
     def shape_key(self, b: int, n_layers: int) -> tuple:
         """``(P, R, S, K_alloc, D_src, O, J, B, layers per launch)``."""
@@ -203,22 +463,82 @@ class DeviceStage:
         return (d["P"], d["R"], d["S"], d["K"], d["D"], d["O"], d["J"], b,
                 n_layers)
 
-    def geometry(self, b: int) -> tuple[int, int]:
-        """``(bb, threads)``: batch columns per block (the widest of 8/4/2/1
-        not beyond the batch whose two ``[rows, bb]`` buffers fit in shared
-        memory) and threads per block.  Refuses a stage whose largest block
-        does not fit even one column."""
+    def geometry(self, b: int) -> tuple[int, int, int, int, int]:
+        """``(bb, threads, tile, stages, blocks a SM)`` of the chain kernel
+        at ``b`` batch columns for the longest slice (:func:`plan_stage`;
+        a launch plans each site at its own).  Refuses a stage whose
+        longest slice does not fit one block."""
         if b not in self._geometry:
-            rows = max(self.max_rows, 1)
-            if 2 * rows * 4 > SMEM_LIMIT:
-                raise NotImplementedError(
-                    f"stage_matmul kernel: a block of {rows} rows needs "
-                    f"{2 * rows * 4} bytes of shared memory per batch column, "
-                    f"above the {SMEM_LIMIT}-byte limit")
-            bb = next(c for c in (8, 4, 2, 1)
-                      if (c == 1 or c < 2 * b) and 2 * rows * c * 4 <= SMEM_LIMIT)
-            self._geometry[b] = (bb, min(1024, -(-rows // 32) * 32))
+            self._geometry[b] = plan_stage(max(self.max_rows, 1),
+                                           self.dims["S"], b)
         return self._geometry[b]
+
+    def launch(self, b: int, layer: int | None, sm_count: int) -> StageLaunch:
+        """The launch at ``b`` columns of one layer (or all, ``None``): each
+        site at its own geometry, one wave of slice chunks a geometry
+        (:func:`plan_units`), uploaded once and kept."""
+        key = (b, layer, sm_count)
+        if key not in self._launches:
+            self._launches[key] = self.make_launch(b, layer, sm_count)
+        return self._launches[key]
+
+    def make_launch(self, b, layer, sm_count, *, geometry=None,
+                    want=None) -> StageLaunch:
+        """A launch as :meth:`launch` plans it, or (a geometry sweep's) with
+        every site at ``geometry`` (``(bb, threads, tile, stages, blocks a
+        SM)``) and ``want`` chunks a group; not kept."""
+        layers = range(self.ps.n_layers) if layer is None else [layer]
+        s_terms = self.dims["S"]
+        sites, groups = [], {}  # geometry -> [(site, costs, rows)]
+        for li, l in enumerate(layers):
+            m = self.maps[l] if self.ps.has_fp else None
+            for u in range(0 if m is None else m.sites.shape[0]):
+                first, count = m.sites[u, 2], m.sites[u, 3]
+                sl = m.slices[first: first + count]
+                rows = int(sl[:, 1].max())
+                geo = tuple(geometry or plan_stage(rows, s_terms, b))
+                groups.setdefault(geo, []).append(
+                    (len(sites), (sl[:, 1] * sl[:, 2]).astype(np.float64), rows))
+                sites.append((li, l, u))
+        units, chunks, plan_groups, prow, per_site_rows = [], [], [], 0, {}
+        for geo, members in groups.items():
+            bb, threads, tile, stages, per_sm = geo
+            w = want or max(1, sm_count * per_sm // -(-b // bb))
+            first_unit = len(units)
+            for gi, e0, e1 in plan_units([c for _, c, _ in members], w):
+                su = members[gi][0]
+                li, l, u = sites[su]
+                m = self.maps[l]
+                odim = int(m.sites[u, 1])
+                g0 = self.slice_base[l] + int(m.sites[u, 2])
+                per_site_rows.setdefault(su, [prow, 0])[1] += 1
+                units.append((li, g0 + e0, g0 + e1, prow, odim))
+                chunks.append((l, u, e0, e1))
+                prow += odim
+            plan_groups.append((first_unit, len(units) - first_unit, bb,
+                                threads, tile, stages, per_sm,
+                                max(r for _, _, r in members)))
+        esites, ebegin = [], [0]
+        for li in range(len(layers)):
+            for su, (li2, l, u) in enumerate(sites):
+                if li2 == li and su in per_site_rows:
+                    m = self.maps[l]
+                    esites.append((int(m.sites[u, 0]), int(m.sites[u, 1]),
+                                   *per_site_rows[su]))
+            ebegin.append(len(esites))
+        dev = self.device
+
+        def t(a, shape):
+            return torch.as_tensor(np.asarray(a, np.int32).reshape(shape),
+                                   device=dev)
+
+        host = np.asarray([(g[0], g[1], g[2], g[3], g[4], g[5], g[7])
+                           for g in plan_groups], np.int32).reshape(-1, 7)
+        return StageLaunch(
+            groups=plan_groups, units=t(units, (-1, 5)) if units else None,
+            esites=t(esites if esites else [(0, 0, 0, 0)], (-1, 4)),
+            ebegin=t(ebegin, (-1,)), n_units=len(units), partial_rows=prow,
+            chunks=chunks, host_groups=np.ascontiguousarray(host))
 
 
 def _tensor(a, device):
@@ -256,37 +576,48 @@ def _upload(ps: PackedStage, device: torch.device) -> DeviceStage:
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=8) as pool:  # numpy frees the GIL
-            tables = list(pool.map(lambda l: stage_blocks(ps, l), range(n_l)))
-        nb = max(t[0].size for t in tables)
-        r0 = np.zeros((n_l, nb), np.int32)
-        r1 = np.zeros((n_l, nb), np.int32)
-        dp = np.zeros((n_l, nb), np.int32)
-        for l, (a, z, d, _) in enumerate(tables):
-            r0[l, :a.size], r1[l, :z.size], dp[l, :d.size] = a, z, d
-        ds.max_rows = int((r1 - r0).max())
-        ds.blk_r0, ds.blk_r1, ds.blk_depth = (_tensor(a, device)
-                                             for a in (r0, r1, dp))
-        ds.live_terms = tuple(t[3] for t in tables)
+            maps = tuple(pool.map(lambda l: stage_slices(ps, l), range(n_l)))
+        tab, bits, base = [], [], []
+        for m in maps:
+            base.append(len(tab))
+            for e, (row0, n, depth, _, u) in enumerate(m.slices):
+                word = -1
+                if e in m.holes:  # bit i of word k: offset 32 k + i reads R
+                    word = len(bits)
+                    mask = np.zeros(-(-int(m.sites[u, 1]) // 32) * 32, np.uint64)
+                    mask[m.holes[e]] = 1
+                    bits += (mask.reshape(-1, 32) << np.arange(32, dtype=np.uint64)
+                             ).sum(axis=1).tolist()
+                tab.append((row0, n, depth, word))
+        ds.maps, ds.slice_base = maps, tuple(base)
+        ds.slice_tab = _tensor(np.asarray(tab, np.int32).reshape(-1, 4), device)
+        ds.hole_bits = _tensor(np.asarray(bits or [0], np.uint64)
+                               .astype(np.uint32).view(np.int32), device)
+        ds.max_rows = max((int(m.slices[:, 1].max()) for m in maps
+                           if m.slices.size), default=0)
+        ds.live_terms = tuple(m.live_terms for m in maps)
     _check_ranges(ds)
     return ds
 
 
 _INT32_MAX = 2 ** 31 - 1
-_GRID_Y_MAX = 65535  # the levels kernel puts the row blocks on grid y
+_GRID_Y_MAX = 65535  # the chain kernel puts its chunks on grid y
 
 
 def _check_ranges(ds: DeviceStage) -> None:
-    """The kernel takes every dimension as a 32-bit int and indexes rows
+    """The kernels take every dimension as a 32-bit int and index rows
     (< R, < K_alloc) and per-layer offsets in 32 bits; flat offsets into
     ``[L, P, R, S]`` are formed in 64 bits (a layer of mixtral's expert
-    stage holds 1.3e9 slots, two layers more than 2^31).  Refuse a stage
-    whose dimensions or row blocks do not fit."""
+    stage holds 1.3e9 slots, two layers more than 2^31).  A chain launch
+    has a chunk for every site of the layers it runs, at most one grid row
+    each.  Refuse a stage whose dimensions or sites do not fit."""
     big = {k: v for k, v in ds.dims.items() if v > _INT32_MAX}
     if big:
         raise ValueError(f"stage dimensions beyond 32 bits: {big}")
-    if ds.dims["NB"] > _GRID_Y_MAX:
-        raise ValueError(f"stage has {ds.dims['NB']} row blocks a layer, the "
-                         f"levels kernel's grid takes {_GRID_Y_MAX}")
+    sites = sum(m.sites.shape[0] for m in ds.maps)
+    if sites > _GRID_Y_MAX:
+        raise ValueError(f"stage has {sites} sites over its layers, the "
+                         f"chain kernel's grid takes {_GRID_Y_MAX} chunks")
 
 
 def device_stage(ps: PackedStage, device) -> DeviceStage:
@@ -377,6 +708,9 @@ def _ptr(t: torch.Tensor | None, layer: int = 0) -> int | None:
     return t.data_ptr() + layer * (t[0].numel() if t.dim() else 0) * t.element_size()
 
 
+_sm_count: dict[int, int] = {}
+
+
 def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
                  layer: int | None = None,
                  resid: torch.Tensor | None = None) -> torch.Tensor:
@@ -391,7 +725,6 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
         return stage_matmul_plain(ps, src, layer=layer, resid=resid)
     dev = src.device
     ds = device_stage(ps, dev)
-    d = ds.dims
     l0, nl = (0, ps.n_layers) if layer is None else (layer, 1)
     if not 0 <= l0 < ps.n_layers:
         raise ValueError(f"layer {layer} outside [0, {ps.n_layers})")
@@ -404,12 +737,26 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
         dispatch.check_tensor("resid", resid, torch.float32, (ps.out_dim, b), dev)
     if b <= 0:
         raise ValueError("empty batch")
-    bb, threads = ds.geometry(b) if ps.has_fp else (1, 32)
+    di = dev.index if dev.index is not None else torch.cuda.current_device()
+    if di not in _sm_count:
+        _sm_count[di] = torch.cuda.get_device_properties(di).multi_processor_count
+    return _launch_stage(ds, src, layer, resid, ds.launch(b, layer, _sm_count[di]))
+
+
+def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
+                  resid: torch.Tensor | None, plan: StageLaunch,
+                  entry=None) -> torch.Tensor:
+    """Allocate the outputs and scratch of one launch of ``plan`` and launch
+    it (``entry``: the C entry point, default the library's); counts it."""
+    ps, dev, d = ds.ps, src.device, ds.dims
+    l0, nl = (0, ps.n_layers) if layer is None else (layer, 1)
+    b = src.shape[-1]
+    lead = (nl,) if layer is None else ()
     out = torch.empty((*lead, ps.out_dim, b), dtype=torch.float32, device=dev)
     inbuf = (torch.empty((nl, d["K"], b), dtype=torch.float32, device=dev)
              if d["K"] else None)
-    work = (torch.empty((nl, d["R"], b), dtype=torch.float32, device=dev)
-            if ps.has_fp else None)
+    partial = (torch.empty((plan.partial_rows, b), dtype=torch.float32,
+                           device=dev) if plan.n_units else None)
     one = layer is not None
 
     def dense(t, live):  # a layer whose block is all zero adds nothing
@@ -417,17 +764,16 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
 
     ptrs = [src.data_ptr(), _ptr(ds.prep_sorted_src, l0), _ptr(ds.prep_off, l0),
             _ptr(inbuf), _ptr(ds.gidx, l0), _ptr(ds.gexp, l0),
-            _ptr(ds.gsgn, l0), _ptr(ds.blk_r0, l0), _ptr(ds.blk_r1, l0),
-            _ptr(ds.blk_depth, l0), _ptr(work), _ptr(ds.outg, l0),
-            dense(ds.fs_mat, ds.fs_live), dense(ds.dw_mat, ds.dw_live),
-            dense(ds.bias, ds.bias_live),
+            _ptr(ds.gsgn, l0), _ptr(ds.slice_tab), _ptr(ds.hole_bits),
+            _ptr(plan.units), plan.esites.data_ptr(), plan.ebegin.data_ptr(),
+            _ptr(partial), dense(ds.fs_mat, ds.fs_live),
+            dense(ds.dw_mat, ds.dw_live), dense(ds.bias, ds.bias_live),
             None if resid is None else resid.data_ptr(), out.data_ptr()]
-    lib = build.load()
+    fn = entry or build.load().repro_stage_matmul
     with torch.cuda.device(dev):
-        code = lib.repro_stage_matmul(
-            *ptrs, nl, d["D"], b, d["M"], d["K"], d["P"], d["R"], d["S"],
-            d["NB"], d["J"], d["O"], bb, threads, ds.max_rows,
-            torch.cuda.current_stream().cuda_stream)
+        code = fn(*ptrs, nl, d["D"], b, d["M"], d["K"], d["P"], d["R"], d["S"],
+                  d["O"], plan.host_groups.ctypes.data, len(plan.groups),
+                  torch.cuda.current_stream().cuda_stream)
     dispatch.check_launch(code, "repro_stage_matmul")
     dispatch.record_launch("stage_matmul", shape=ds.shape_key(b, nl))
     return out

@@ -33,7 +33,7 @@ from repro_torch.kernels import dispatch, ref as tref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.layer_plan import (device_stage, stage_apply_eff,
                                             stage_blocks, stage_matmul,
-                                            stage_matmul_plain)
+                                            stage_matmul_plain, stage_slices)
 from repro_torch.serving.executor import CompressedExecutor
 
 TOL = 1e-5
@@ -344,12 +344,13 @@ def test_stage_blocks_never_read_across_and_run_every_live_level(plans):
                                for row in range(r))
 
 
-def test_stage_blocks_split_at_instructions_and_merge_dead_rows(monkeypatch):
+def test_stage_blocks_split_at_instructions_and_merge_dead_rows():
     """Two independent 3-level instructions of 4 rows and a dead tail: the
-    finest partition splits between the instructions; pieces below the merge
-    size are merged; the dead rows run one level."""
-    import repro_torch.kernels.layer_plan as lp
-
+    finest partition splits between the instructions and the dead rows run
+    one level.  The kernel's unit is a slice of the output map, not a piece:
+    a slice takes every piece that holds its folded rows (here all of them,
+    one slice of 16 rows at the deepest piece's depth), and where the
+    outputs read only the first instruction, only its piece."""
     rng = np.random.default_rng(5)
     r, s = 16, 2
     idx = np.zeros((3, r, s), np.int64)
@@ -359,12 +360,18 @@ def test_stage_blocks_split_at_instructions_and_merge_dead_rows(monkeypatch):
         sgn[:, base: base + 4] = 1
     idx[0] = rng.integers(0, 8, (r, s))  # level 0 reads the prep buffer
     ps = _csd_stage(tops, idx, np.zeros_like(idx), sgn, 8)
-    r0, r1, depth, _ = stage_blocks(ps, 0)  # all pieces below 1024 rows
-    assert r0.tolist() == [0] and r1.tolist() == [r] and depth.tolist() == [3]
-    monkeypatch.setattr(lp, "MERGE_ROWS", 1)
     r0, r1, depth, _ = stage_blocks(ps, 0)
-    assert r0.tolist()[:2] == [0, 4] and r1.tolist()[:2] == [4, 8]
-    assert depth.tolist()[:2] == [3, 3] and set(depth.tolist()[2:]) == {1}
+    assert r0.tolist() == [0, 4] + list(range(8, r))
+    assert r1.tolist() == [4, 8] + list(range(9, r + 1))
+    assert depth.tolist() == [3, 3] + [1] * (r - 8)
+    m = stage_slices(ps, 0)
+    assert m.sites.tolist() == [[0, r, 0, 1]]
+    assert m.slices.tolist() == [[0, r, 3, 0, 0]] and not m.holes
+    first = dataclasses.replace(ps, outg=ps.outg[:, :, :4].copy(), out_dim=4)
+    m = stage_slices(first, 0)
+    assert m.slices.tolist() == [[0, 4, 3, 0, 0]]
+    assert m.run_terms == 3 * 4 * s  # the slice runs only the first piece
+    assert m.live_terms == stage_blocks(first, 0)[3]  # what the data needs
 
 
 def test_a_block_beyond_shared_memory_is_refused_by_the_kernel_only():
