@@ -23,10 +23,20 @@ kernel on those paths against its plain PyTorch version:
    no fixture, no serve, a few minutes) and stops; ``--only stage`` times K6
    alone at the ten shapes of the three float32 plan routes (one-layer
    full-width artifacts, no serve) and on the hand-built exact stages;
+   ``--only attention`` times K7's decode attention alone (``step_attention``,
+   one layer, paged) at the olmo-1b and mixtral-8x22b plan serves' shapes
+   (S = 128, the serves' positions, idle rows) and at their long caches
+   (olmo-1b S = 2048, mixtral-8x22b S = 4096 under its window), each at
+   random positions and full, against its plain version, bitwise run to run,
+   beside its bound and ``scaled_dot_product_attention``, K8's route alone
+   at mixtral's width, and K7's norm and SwiGLU alone at both serves'
+   shapes; the full run starts with the same phase;
 2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``,
-   ``stage_matmul`` and ``step_plan_matmul`` at reduced shapes and at the main
-   paths' own dimensions, and ``lcc_factor_matmul`` (K4) on every factor of
-   layer 0's ``attn.o`` and ``ffn.down`` and through the per-factor route
+   ``stage_matmul``, ``step_plan_matmul`` and ``step_attention`` at reduced
+   shapes and at the main paths' own dimensions (the whole step also at
+   olmo-1b's published context, S = 2048), and ``lcc_factor_matmul`` (K4) on
+   every factor of layer 0's ``attn.o`` and ``ffn.down`` and through the
+   per-factor route
    (``fused=False``) beside fused K1 (layer 0 of the full-width artifact and its plan, and
    one full-width step), each compared with its plain version and timed (CUDA
    events, L2 flushed between launches) beside a bound, the plain version and
@@ -76,12 +86,14 @@ import resource
 import subprocess
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -96,8 +108,9 @@ from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
     _levels_plain, _slice_inputs_plain, lcc_chain_matmul,
     lcc_chain_matmul_plain, plan_launch, signed_pow2)
 from repro_torch.kernels.layer_plan import (  # noqa: E402
-    device_stage, moe_plan_matmul, moe_plan_matmul_plain, stage_matmul,
-    stage_matmul_plain, step_plan_matmul, step_plan_matmul_plain)
+    _rot, attention_key, device_stage, moe_plan_matmul, moe_plan_matmul_plain,
+    plan_attention, stage_matmul, stage_matmul_plain, step_attention,
+    step_attention_plain, step_plan_matmul, step_plan_matmul_plain)
 from repro_torch.kernels.lcc_matmul import (  # noqa: E402
     lcc_factor_matmul, lcc_factor_matmul_plain)
 from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
@@ -140,6 +153,10 @@ KERNELS = {
     "step_plan_matmul": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
+    # K7's decode attention, lines 375-406 of step_plan_matmul's body
+    "step_attention": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
+        replaces="src/repro/kernels/layer_plan.py:418"),
     # K8: the MoE branch of step_plan_matmul, body moe_block (:332-365)
     "moe_route": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
@@ -162,14 +179,15 @@ KERNELS = {
         replaces="src/repro/kernels/layer_plan.py:457"),
 }
 PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "cluster_segment_sum")
-PLAN = ("stage_matmul", "step_plan_matmul")
+PLAN = ("stage_matmul", "step_plan_matmul", "step_attention")
 MOE = ("moe_route", "moe_dispatch", "moe_combine")
 # the device kernels of this port, by name fragment (profiler rows)
 PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "cluster_segment_sum_kernel", "stage_prep_kernel",
                 "stage_chain_kernel", "stage_epilogue_kernel",
-                "step_norm_kernel", "step_attention_kernel",
-                "step_swiglu_kernel", "moe_route_kernel",
+                "step_norm_kernel", "split_attention_kernel",
+                "split_attention_merge_kernel", "step_swiglu_kernel",
+                "moe_logits_kernel", "moe_router_kernel",
                 "moe_dispatch_kernel", "moe_combine_kernel",
                 "group_prox_kernel", "lcc_factor_kernel")
 MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
@@ -959,10 +977,14 @@ def kernel_case_step(label, cfg, plan, rng, dev, timer, serve=None, **kw):
         n_exp = cfg.moe.n_experts
         bytes_ += n_l * 4 * (d * n_exp + 2 * n_exp * d * cap)
         flops += n_l * 2 * d * b * n_exp
-    # the KV view and kpos read once, new rows and hidden state in and out
-    bytes_ += n_l * b * (2 * smax * nkv * hd * 4 + smax * 4 + 2 * nkv * hd * 4)
+    # every layer: the K/V rows its data needs (live_rows) and all of kpos
+    # read once, the new rows out; the hidden state in and out
+    rows_kv, rows_v = live_rows(dict(pos=args["pos"], kpos=args["kpos"][0],
+                                     window=args["window"]))
+    bytes_ += n_l * ((2 * rows_kv + rows_v) * nkv * hd * 4 + b * smax * 4
+                     + 2 * b * nkv * hd * 4)
     bytes_ += 2 * 4 * d * b
-    flops += 4 * n_l * b * nq * smax * hd
+    flops += n_l * (4 * nq * hd * rows_kv + nq * hd * rows_v)
     key = (n_l, d, cfg.d_ff, b, smax, nq, nkv, hd)
     return kernel_row(
         "step_plan_matmul", label,
@@ -974,6 +996,325 @@ def kernel_case_step(label, cfg, plan, rng, dev, timer, serve=None, **kw):
         key, err, False, lambda: step_plan_matmul(plan.stages, **args, moe=moe),
         lambda: step_plan_matmul_plain(plan.stages, **args, moe=moe_plain),
         None, bound_of(bytes_, flops), timer, serve=serve)
+
+
+# ----------------------------------- K7's attention and K8's route alone
+
+# the long caches of --only attention: olmo-1b's published context
+# (arXiv:2402.00838) and mixtral-8x22b's window (configs/mixtral_8x22b.py)
+LONG_CACHE = {"olmo-1b": 2048, "mixtral-8x22b": 4096}
+PAGE = 16  # the serves' kv_block
+
+
+def serve_positions(rng, batch=BATCH):
+    """Decode positions as the plan serves have them: 6 prompts of 8 tokens
+    with up to 16 new ones on 8 slots, the last two slots idle."""
+    pos = np.full(batch, -1, np.int32)
+    pos[:6] = 8 + rng.integers(0, 16, 6)
+    return pos
+
+
+def attention_inputs(cfg, smax, window, pos, rng, dev, *, bs=PAGE):
+    """One layer's arguments of ``step_attention`` at ``cfg``'s heads: a
+    random qkv stage output, rows at ``pos`` (-1: idle), each active row's
+    cache holding the positions before it (under a window the last ``smax``
+    of them, in a ring), random K/V rows in a shuffled pool of pages of
+    ``bs`` slots."""
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b = len(pos)
+    pos_np = np.asarray(pos, np.int32)
+    kpos = np.full((b, smax), -1, np.int32)
+    for r, p in enumerate(pos_np):
+        if p >= 0:
+            ps = np.arange(max(0, p - smax), p) if window else np.arange(min(p, smax))
+            kpos[r, ps % smax] = ps
+    f32 = dict(dtype=torch.float32, device=dev)
+    mb = smax // bs
+    pos_t = torch.from_numpy(pos_np).to(dev)
+    sin, cos = _rope_sincos(pos_t, hd, cfg.rope_theta)
+    return dict(
+        qkv=torch.randn(((nq + 2 * nkv) * hd, b), **f32), pos=pos_t, cos=cos,
+        sin=sin, kc=torch.randn((b * mb + 1, bs, nkv, hd), **f32),
+        vc=torch.randn((b * mb + 1, bs, nkv, hd), **f32),
+        kpos=torch.from_numpy(kpos).to(dev),
+        block_tbl=torch.from_numpy((1 + rng.permutation(b * mb)).reshape(b, mb)
+                                   .astype(np.int32)).to(dev),
+        n_heads=nq, n_kv_heads=nkv, head_dim=hd, window=window)
+
+
+def _attention_view(a):
+    """``(q [B, Hkv, G, hd] rotated, k_new, v_new [B, Hkv, hd], K, V [B, S,
+    Hkv, hd] with the new rows in the hit slots, logits [B, Hkv, G, S],
+    valid, hit [B, S])`` of one layer, as the plain version computes them."""
+    qkv = a["qkv"]
+    nq, nkv, hd = a["n_heads"], a["n_kv_heads"], a["head_dim"]
+    b = qkv.shape[1]
+    kc, vc = a["kc"], a["vc"]
+    if a.get("block_tbl") is not None:
+        tbl = a["block_tbl"].long()
+        kc = kc[tbl].reshape(b, -1, *kc.shape[2:])
+        vc = vc[tbl].reshape(b, -1, *vc.shape[2:])
+    qb = qkv[: nq * hd].reshape(nq, hd, b).permute(2, 0, 1)
+    kb = qkv[nq * hd: (nq + nkv) * hd].reshape(nkv, hd, b).permute(2, 0, 1)
+    vb = qkv[(nq + nkv) * hd:].reshape(nkv, hd, b).permute(2, 0, 1)
+    if a["cos"] is not None:
+        c, s = a["cos"][:, None, :], a["sin"][:, None, :]
+        qb, kb = _rot(qb, c, s, hd // 2), _rot(kb, c, s, hd // 2)
+    valid, hit = _valid_hit(a)
+    hk = hit[:, :, None, None]
+    kx = torch.where(hk, kb[:, None], kc)
+    vx = torch.where(hk, vb[:, None], vc)
+    qg = qb.reshape(b, nkv, nq // nkv, hd)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), device=qkv.device))
+    zero = torch.zeros((), device=qkv.device)
+    logits = (torch.einsum("bhgd,bshd->bhgs", qg, kx) * scale
+              + torch.where(valid, zero, zero - 1e30)[:, None, None, :])
+    return qg, kb, vb, kx, vx, logits, valid, hit
+
+
+def ordered_attention_plain(a, plan):
+    """``step_attention``'s output in the kernel's order of operations, in
+    PyTorch: each split of ``plan`` takes its chunk's live slots only (every
+    slot for a row none of whose slots must be live: an idle row), its max,
+    sum and PV sum; the splits merge in order (an empty one adds nothing)."""
+    _, _, _, _, vx, logits, valid, hit = _attention_view(a)
+    pos, window = a["pos"].long(), a["window"]
+    b, smax = valid.shape
+    full = (pos < 0) | ((pos >= smax) & (window is None))
+    live = valid | hit | full[:, None]
+    ninf = torch.tensor(float("-inf"), device=vx.device)
+    parts = []
+    for sp in range(plan.splits):
+        c0, c1 = sp * plan.chunk, min(smax, (sp + 1) * plan.chunk)
+        lv = live[:, None, None, c0:c1]
+        lg = torch.where(lv, logits[..., c0:c1], ninf)
+        m = lg.amax(-1)
+        e = torch.where(lv, torch.exp(lg - m[..., None]), torch.zeros_like(lg))
+        parts.append((m, e.sum(-1), torch.einsum("bhgs,bshd->bhgd", e, vx[:, c0:c1])))
+    big = torch.stack([torch.where(l > 0, m, ninf) for m, l, _ in parts]).amax(0)
+    den, num = 0.0, 0.0
+    for m, l, o in parts:
+        f = torch.where(l > 0, torch.exp(m - big), torch.zeros_like(m))
+        den = den + l * f
+        num = num + o * f[..., None]
+    att = num / den[..., None]
+    return att.reshape(b, -1).T
+
+
+def live_rows(a):
+    """``(K and V rows, V rows)`` of one layer that the data needs: an active
+    row needs the K and V rows of its valid slots (the hit slot's are the
+    new ones); a row with none (an idle row) the mean of all S V rows."""
+    valid, hit = _valid_hit(a)
+    need = (valid & ~hit).sum(1)
+    uniform = ~valid.any(1)
+    return int(need[~uniform].sum()), int(uniform.sum()) * valid.shape[1]
+
+
+def _valid_hit(a):
+    """``(valid, hit)`` ``[B, S]`` of one layer: the reference's mask and
+    the current token's slot."""
+    pos, kp, window = a["pos"].long(), a["kpos"].long(), a["window"]
+    smax = kp.shape[1]
+    slot = (torch.where(pos >= 0, pos % smax, torch.full_like(pos, -1))
+            if window is not None else pos)
+    hit = torch.arange(smax, device=pos.device)[None, :] == slot[:, None]
+    ok = (kp >= 0) & (kp <= pos[:, None])
+    if window is not None:
+        ok = ok & (kp > pos[:, None] - window)
+    return torch.where(hit, (pos >= 0)[:, None], ok), hit
+
+
+def attention_cost(a, rows_kv, rows_v):
+    """(bytes, operations) of one layer's attention: the needed K/V rows, all
+    of kpos, the block table, q/k/v and the rope tables in, att and the new
+    K/V rows out; 4 * G * hd operations a (kv-head, needed K/V row)."""
+    b, smax = a["kpos"].shape
+    nq, nkv, hd = a["n_heads"], a["n_kv_heads"], a["head_dim"]
+    row = nkv * hd * 4
+    tbl = a.get("block_tbl")
+    bytes_ = ((2 * rows_kv + rows_v) * row + 4 * b * smax
+              + (0 if tbl is None else 4 * tbl.numel()) + 4 * b
+              + 4 * b * hd + 4 * (nq + 2 * nkv) * hd * b
+              + 4 * nq * hd * b + 2 * 4 * nkv * hd * b)
+    return bytes_, 4 * nq * hd * rows_kv + nq * hd * rows_v
+
+
+def sdpa_inputs(a):
+    """One ``scaled_dot_product_attention`` call's inputs for the same
+    function: rotated q ``[B, Hq, 1, hd]``, K and V ``[B, Hq, S, hd]``
+    contiguous with the new rows in the hit slots and the kv-heads expanded
+    to the query heads (outside the timed region), the additive mask
+    ``[B, 1, 1, S]``."""
+    qg, _, _, kx, vx, _, valid, _ = _attention_view(a)
+    b, nkv, g, hd = qg.shape
+    q = qg.reshape(b, nkv * g, 1, hd).contiguous()
+    kx = kx.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    vx = vx.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    zero = torch.zeros((), device=q.device)
+    mask = torch.where(valid, zero, zero - 1e30)[:, None, None, :].contiguous()
+    return q, kx, vx, mask
+
+
+def kernel_case_attention(label, cfg, smax, window, pos, dev, timer, *,
+                          serve=None):
+    """K7's attention (``step_attention``) on one layer at ``cfg``'s heads,
+    paged as the serves are: against its plain version (within SUM_TOL: the
+    softmax and both sums in other orders), bitwise from run to run, and
+    against the plain arithmetic in the kernel's order
+    (:func:`ordered_attention_plain`, reported).  Timed beside the bound
+    (what the data needs: :func:`live_rows`) and one
+    ``scaled_dot_product_attention`` call on the same function
+    (:func:`sdpa_inputs`; its deviation reported), which the port never
+    calls.  Inputs are seeded by ``label``: the same in any process."""
+    seed = zlib.crc32(label.encode())
+    torch.manual_seed(seed)
+    a = attention_inputs(cfg, smax, window, pos, np.random.default_rng(seed), dev)
+    got = step_attention(**a)
+    again = step_attention(**a)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{label}: the attention is not bitwise identical run to run")
+    want = step_attention_plain(**a)
+    err = max(check_close(f"{label} {part}", x, y, SUM_TOL)
+              for part, x, y in zip(("att", "k_new", "v_new"), got, want))
+    b, nq, nkv, hd = len(pos), cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    plan = plan_attention(b, nkv, nq // nkv, smax,
+                          torch.cuda.get_device_properties(dev).multi_processor_count,
+                          PAGE, head_dim=hd)
+    ordered = ordered_attention_plain(a, plan)
+    q, kx, vx, mask = sdpa_inputs(a)
+    lib_out = F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
+    rows_kv, rows_v = live_rows(a)
+    scale = max(1.0, float(want[0].abs().max()))
+    dims = dict(B=b, S=smax, Hq=nq, Hkv=nkv, hd=hd, page=PAGE, window=window,
+                idle_rows=int((a["pos"] < 0).sum()), kv_rows=rows_kv,
+                v_rows=rows_v, splits=plan.splits, chunk=plan.chunk,
+                blocks=plan.splits * nkv * b)
+    return kernel_row(
+        "step_attention", label, dims,
+        attention_key(b, smax, nq, nkv, hd, PAGE, window), err, False,
+        lambda: step_attention(**a), lambda: step_attention_plain(**a),
+        lambda: F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask),
+        bound_of(*attention_cost(a, rows_kv, rows_v)), timer, serve=serve,
+        bitwise_run_to_run=True,
+        err_vs_ordered=float((got[0] - ordered).abs().max()) / scale,
+        library_err=float((lib_out.reshape(b, nq * hd).T - want[0]).abs().max())
+        / scale, library_call="scaled_dot_product_attention, kv-heads expanded")
+
+
+def attention_cases(rng):
+    """``(label, arch config, S, window, positions)`` of every ``--only
+    attention`` case: each plan serve's shape (S = 128, paged, the serves'
+    positions, two idle rows), and each model's long cache twice, at random
+    positions (row 1 idle) and full."""
+    for arch in ("olmo-1b", "mixtral-8x22b"):
+        cfg = get_arch(arch)
+        w, s = cfg.attn_window, LONG_CACHE[arch]
+        yield f"{arch} serve S={MAX_LEN}", cfg, MAX_LEN, w, serve_positions(rng)
+        pos = rng.integers(1, 2 * s if w else s, BATCH).astype(np.int32)
+        pos[1] = -1
+        yield f"{arch} S={s} random", cfg, s, w, pos
+        pos = (rng.integers(s, 2 * s, BATCH) if w else np.full(BATCH, s - 1))
+        yield f"{arch} S={s} full", cfg, s, w, pos.astype(np.int32)
+
+
+def kernel_cases_norm_swiglu(arch, dev, timer):
+    """K7's norm and SwiGLU kernels alone at ``arch``'s plan-serve shapes,
+    launched through their C entry points as ``step_plan_matmul`` launches
+    them (inside it they count as its launches): the norm on ``[d, B]``, the
+    SwiGLU on the FFN's ``[2 n, C]`` (dense: n = d_ff, C = B; MoE: n = E *
+    d_ff, C = capacity), against the plain expressions (SUM_TOL).  Library:
+    ``F.rms_norm`` / ``F.layer_norm`` on the ``[B, d]`` transpose laid out
+    beforehand; none computes the SwiGLU in one call."""
+    cfg = get_arch(arch)
+    torch.manual_seed(zlib.crc32(arch.encode()))
+    lib, stream = build.load(), torch.cuda.current_stream().cuda_stream
+    d, b = cfg.d_model, BATCH
+    x = torch.randn((d, b), device=dev)
+    xt = x.T.contiguous()
+    rms = cfg.norm == "rms"
+    w = 1.0 + 0.1 * torch.randn(d, device=dev) if rms else None
+    mode, eps = (0, 1e-6) if rms else (1, 1e-5)
+    out = torch.empty_like(x)
+
+    def norm():
+        dispatch.check_launch(lib.repro_step_norm(
+            x.data_ptr(), None if w is None else w.data_ptr(), out.data_ptr(),
+            d, b, mode, eps, stream), "repro_step_norm")
+        return out
+
+    def norm_plain():
+        if rms:
+            return x * torch.rsqrt(torch.mean(x * x, 0, keepdim=True) + eps) * w[:, None]
+        mu = torch.mean(x, 0, keepdim=True)
+        return (x - mu) * torch.rsqrt(torch.mean((x - mu) ** 2, 0, keepdim=True) + eps)
+
+    def norm_library():
+        return (F.rms_norm(xt, (d,), w, eps) if rms
+                else F.layer_norm(xt, (d,), eps=eps))
+
+    got = norm().clone()
+    torch.cuda.synchronize()
+    rows = [kernel_row(
+        "step_norm", f"{arch} norm", dict(d=d, B=b, norm=cfg.norm), (d, b),
+        check_close(f"{arch} norm", got, norm_plain(), SUM_TOL), False, norm,
+        norm_plain, norm_library,
+        bound_of(4 * (2 * d * b + (d if rms else 0)), 6 * d * b), timer)]
+    if cfg.moe is None:
+        n, cols = cfg.d_ff, b
+    else:
+        n = cfg.moe.n_experts * cfg.moe.d_ff_expert
+        cols = capacity(b, cfg.moe.top_k, cfg.moe.capacity_factor,
+                        cfg.moe.n_experts)
+    gu = torch.randn((2 * n, cols), device=dev)
+    hf = torch.empty((n, cols), device=dev)
+
+    def swiglu():
+        dispatch.check_launch(lib.repro_step_swiglu(
+            gu.data_ptr(), hf.data_ptr(), n, cols, stream), "repro_step_swiglu")
+        return hf
+
+    def swiglu_plain():
+        return F.silu(gu[:n]) * gu[n:]
+
+    got = swiglu().clone()
+    torch.cuda.synchronize()
+    rows.append(kernel_row(
+        "step_swiglu", f"{arch} swiglu", dict(n=n, C=cols), (n, cols),
+        check_close(f"{arch} swiglu", got, swiglu_plain(), SUM_TOL), False,
+        swiglu, swiglu_plain, None, bound_of(4 * 3 * n * cols, 5 * n * cols),
+        timer))
+    return rows
+
+
+def route_case_inputs(dev):
+    """mixtral-8x22b's route at the plan serve's shape: its config and a
+    random router scaled as an initialised one, seeded."""
+    cfg = get_arch("mixtral-8x22b")
+    torch.manual_seed(90)
+    return cfg, torch.randn((cfg.d_model, cfg.moe.n_experts), device=dev) \
+        * cfg.d_model ** -0.5
+
+
+def phase_attention(dev):
+    """``--only attention``: K7's attention alone at every case of
+    :func:`attention_cases` and K8's route alone at mixtral's width (two
+    idle columns, as the serve has), with no fixture and no serve; then K7's
+    norm and SwiGLU alone at both plan serves' shapes."""
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    rows = []
+    for label, cfg, smax, window, pos in attention_cases(np.random.default_rng(60)):
+        rows.append(kernel_case_attention(label, cfg, smax, window, pos, dev, timer))
+        torch.cuda.empty_cache()
+    cfg, router = route_case_inputs(dev)
+    rows.append(kernel_case_moe("mixtral route", cfg, router, dev, timer,
+                                idle=2)[0])
+    for arch in ("olmo-1b", "mixtral-8x22b"):
+        rows += kernel_cases_norm_swiglu(arch, dev, timer)
+    return dict(phase="attention", seconds=time.perf_counter() - t0,
+                tolerance=SUM_TOL, rows=rows)
 
 
 def phase_kernels(dev, art, plan, red_cfg):
@@ -997,6 +1338,15 @@ def phase_kernels(dev, art, plan, red_cfg):
     rows.append(kernel_case_step("reduced GQA paged", gqa_cfg, gqa_plan, rng,
                                  dev, timer))
     rows.append(kernel_case_step("full step", art.config, plan, rng, dev, timer))
+    rows.append(kernel_case_attention(
+        "full attention", art.config, MAX_LEN, art.config.attn_window,
+        serve_positions(rng), dev, timer))
+    torch.cuda.empty_cache()
+    # the whole step at olmo-1b's published context, every row's cache
+    # filled to its position (K/V about 4.3 GB at 16 layers)
+    s = LONG_CACHE["olmo-1b"]
+    rows.append(kernel_case_step(f"long-cache step S={s}", art.config, plan,
+                                 rng, dev, timer, smax=s))
     torch.cuda.empty_cache()
     arch = art.config.name
     for row in rows:  # the main-path rows: the serve whose shapes they check
@@ -1670,6 +2020,9 @@ def mixtral_plan_cases(art, plan, dev, timer, serve):
                             idle=2)
     rows.append(kernel_case_step("mixtral full step", cfg, plan, rng, dev,
                                  timer, window=cfg.attn_window))
+    rows.append(kernel_case_attention("mixtral attention", cfg, MAX_LEN,
+                                      cfg.attn_window, serve_positions(rng),
+                                      dev, timer))
     torch.cuda.empty_cache()
     for row in rows:
         row["serve"] = serve
@@ -2505,14 +2858,20 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the olmo-1b serves (never the width)")
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
-                                       "mixtral", "deepseek", "train"),
+                                       "attention", "mixtral", "deepseek",
+                                       "train"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
                          "shape the three per-region serves launch them at, "
                          "no fixture and no serve; stage: K6 alone at the "
                          "ten shapes of the three float32 plan routes and "
-                         "on the hand-built stages, no serve; mixtral: run the "
+                         "on the hand-built stages, no serve; attention: "
+                         "K7's attention alone at the olmo-1b and "
+                         "mixtral-8x22b plan serves' shapes and at their "
+                         "long caches (S = 2048, 4096; random and full), and "
+                         "K8's route alone, no fixture and no serve; "
+                         "mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
                          "deepseek-v2-lite-16b phases alone; train: the "
                          "training phases alone (no final ok line in any "
@@ -2537,10 +2896,15 @@ def main() -> None:
               sources=[p.name for p in build.sources()]))
 
     rows, serves = [], {}
-    if args.only in ("chain", "stage"):
-        emit(phase_chain(dev) if args.only == "chain" else phase_stage(dev))
+    if args.only in ("chain", "stage", "attention"):
+        emit(dict(chain=phase_chain, stage=phase_stage,
+                  attention=phase_attention)[args.only](dev))
         print(smi, flush=True)
         return
+    if args.only is None:
+        emit(phase_attention(dev))
+        gc.collect()
+        torch.cuda.empty_cache()
     if args.only is None or args.only == "kernels":
         if args.only == "kernels":
             base = get_arch("olmo-1b")

@@ -43,13 +43,14 @@ _SIGNATURES = {
     "repro_stage_matmul": [_P] * 18 + [_I] * 9 + [_P, _I, _P],
     # x w out | d B mode | eps | stream
     "repro_step_norm": [_P] * 3 + [_I] * 3 + [_F, _P],
-    # qkv pos cos sin kc vc kpos tbl att kn vn | B S nq nkv hd bs mb window
-    # | scale | stream
-    "repro_step_attention": [_P] * 11 + [_I] * 8 + [_F, _P],
+    # qkv pos cos sin kc vc kpos tbl att kn vn ws | B S nq nkv hd bs mb
+    # window splits chunk | scale | stream
+    "repro_split_attention": [_P] * 12 + [_I] * 10 + [_F, _P],
     # gu out | dff B | stream
     "repro_step_swiglu": [_P] * 2 + [_I] * 2 + [_P],
-    # h2 router sel wgt slot src_tok dropped | d B E k cap norm_topk | stream
-    "repro_moe_route": [_P] * 7 + [_I] * 6 + [_P],
+    # h2 router sel wgt slot src_tok dropped ws | d B E k cap norm_topk |
+    # stream
+    "repro_moe_route": [_P] * 8 + [_I] * 6 + [_P],
     # h2 src_tok src | d B E cap | stream
     "repro_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
     # x ob slot wgt out | d B E k cap | stream

@@ -8,28 +8,54 @@
 // with the stages in stage_matmul.cu and no other operation in between.
 //
 // Replaces the dense branch of the Pallas TPU kernel `step_plan_matmul` of
-// src/repro/kernels/layer_plan.py (one pallas_call over all L layers; there
-// the step ran only under the interpreter, never compiled).
+// src/repro/kernels/layer_plan.py (one pallas_call over all L layers; the
+// attention is its lines 375-406; there the step ran only under the
+// interpreter, never compiled).
 //
 // What bounds it on this card.  The norm and SwiGLU touch a few [d, B] /
-// [d_ff, B] float32 vectors: launch latency.  The attention reads the KV cache
-// rows of its (row, kv-head) once: bytes, 2 * S * hd * 4 bytes per pair.  The
-// step as a whole is bound by the stages' streams (stage_matmul.cu).
+// [d_ff, B] float32 vectors: launch latency.  The attention is bound by
+// bytes: the K and V rows of the slots it must read, 2 * hd * 4 bytes a
+// (row, kv-head, slot), and all of kpos; its operations (4 * G * hd a slot)
+// are far below the float32 rate.  The step as a whole is bound by the
+// stages' streams (stage_matmul.cu).
 //
-// What the design does about it.
-//  * Attention reads the cache in place, through the block table when the
-//    cache is paged: the [L, B, S, Hkv, hd] view the reference gathers before
-//    the kernel is never built.  One block per (kv-head, row): the G query
-//    heads of the group are rotated into shared memory together with the new
-//    K/V row, each warp scores cache slots (lanes split the head dimension,
-//    fixed-order shuffle sums), one warp per query head takes the softmax, and
-//    threads over (head, dim) sum the probability-weighted V rows in slot
-//    order.
+// What the attention's design does about it (flash-decoding):
+//  * Split over the cache.  The grid is (splits, kv-heads, rows); a block
+//    takes one chunk of consecutive cache slots for the G query heads of its
+//    group, so a short cache still fills the card and a long one gives
+//    several waves.  The host planner (layer_plan.plan_attention) fixes the
+//    chunk (a multiple of the page size) and the split count per shape;
+//    shared memory is bounded by the chunk, not by S.
+//  * Only the live slots are read.  A block first reads its chunk's kpos and
+//    keeps, in slot order, the slots an active row can see (and the current
+//    token's slot).  A masked slot of an active row adds exactly 0 to the
+//    max, the sum and the PV sum (exp(-1e30 - m) == 0 for a finite m), so its
+//    K/V rows are never copied.  A row with no slot that must be live (an
+//    idle row, pos == -1) keeps the reference's result: it takes every slot
+//    of its chunk, all masked, and ends as the mean of all V rows.  A chunk
+//    with nothing live merges as empty (l = 0).
+//  * K and V rows staged in shared memory by cp.async.  One head's row is hd
+//    contiguous floats (512 bytes at hd = 128) in the cache or the page pool
+//    ([Nb, bs, Hkv, hd], read through the block table); the live rows go in
+//    16-byte copies into a ring of three slots of 16 rows (one page of the
+//    serves' cache): the chunk's K tiles, then its V tiles, two tiles in
+//    flight ahead of the one in use.  Each live row's cache offset is found
+//    once (kpos and the block table are read together, with q) and kept in
+//    shared memory, so a copy costs a few instructions.  Scores come from
+//    shared memory with q in registers (a warp a row, lanes over hd, the G
+//    dot products reduced together by halving shuffles in a fixed order; one
+//    instantiation a group size, hd a power of two up to 128); the PV sum
+//    runs over the staged tile with threads over (g, i), each row's weights
+//    read as float4s.
+//  * Merge in a fixed order.  Each split writes (m, l, o[hd]) for each of
+//    its query heads; a second kernel, launched by the same entry point,
+//    merges them in split order.  No atomics: run-to-run identical.
+//  * float32 on the CUDA cores.  A block holds G <= 8 query rows, far below
+//    the 64 rows of a wgmma tile, and TF32 would not hold the step's 1e-4.
 //  * As in the reference, scores are taken against the stale cache and the
 //    current token's slot is patched with the new K/V row in score space
 //    (hit = slot == pos, or pos % S for a sliding window); the mask is the
-//    finite -1e30, so an idle row (pos == -1) gives finite output.
-//  * Every reduction runs in a fixed order (no atomics): run-to-run identical.
+//    finite -1e30.
 //  * RoPE and the score scaling use round-to-nearest intrinsics so that the
 //    compiler does not contract them into fused multiply-adds the reference
 //    does not take.
@@ -103,42 +129,122 @@ __global__ void step_norm_kernel(const float* __restrict__ x,
   }
 }
 
-__device__ __forceinline__ const float* cache_row(const float* cache,
-                                                  const int32_t* tbl, int b,
-                                                  int s, int h, int S, int nkv,
-                                                  int hd, int bs, int mb) {
-  size_t row;
-  if (tbl != nullptr) {  // paged: [Nb, bs, Hkv, hd] pool, row's table tbl[b]
-    const int blk = tbl[static_cast<size_t>(b) * mb + s / bs];
-    row = static_cast<size_t>(blk) * bs + s % bs;
-  } else {  // contiguous: [B, S, Hkv, hd]
-    row = static_cast<size_t>(b) * S + s;
-  }
-  return cache + (row * nkv + h) * hd;
+constexpr int kAttnThreads = 128;
+constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kAttnTile = 16;   // live rows a ring slot holds
+constexpr int kAttnRing = 3;    // ring slots: two tiles in flight
+constexpr int kMaxGroup = 8;    // query heads a kv-head
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-// grid (nkv, B), blockDim a multiple of 32; dynamic shared memory
-// (G * hd + 2 * hd + G * S) floats, G = nq / nkv.
-__global__ void step_attention_kernel(
-    const float* __restrict__ qkv, const int32_t* __restrict__ pos,
-    const float* __restrict__ cosv, const float* __restrict__ sinv,
-    const float* __restrict__ kc, const float* __restrict__ vc,
-    const int32_t* __restrict__ kpos, const int32_t* __restrict__ tbl,
-    float* __restrict__ att, float* __restrict__ kn, float* __restrict__ vn,
-    int B, int S, int nq, int nkv, int hd, int bs, int mb, int window,
-    float scale) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// waits until at most kAttnRing - 2 of this thread's groups are in flight
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kAttnRing - 2));
+}
+
+// Sums each of the N values (N a power of two <= 32) over the warp in a
+// fixed order: halving exchanges, then a butterfly over the remaining lane
+// bits.  Afterwards v[0] of lane l holds the sum of value l >> (5 - log2 N).
+template <int N>
+__device__ __forceinline__ void warp_sum_scatter(float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+  int o = 16;
+#pragma unroll
+  for (int h = N / 2; h >= 1; h /= 2, o /= 2) {
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int k = 0; k < h; ++k) {
+      const float send = upper ? v[k] : v[k + h];
+      const float keep = upper ? v[k + h] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  for (; o > 0; o /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// Shared memory of split_attention_kernel, in floats: the ring, q [G, hd],
+// the new K and V rows, the chunk's logits [chunk, 8], the live rows'
+// cache offsets [chunk] (int64), m and l [2, 8], the live rows' mask flags
+// [chunk] (int).  Mirrored by layer_plan.attention_smem.
+__host__ __device__ constexpr size_t attention_smem_floats(int G, int hd,
+                                                           int chunk) {
+  return static_cast<size_t>(kAttnRing) * kAttnTile * hd +
+         static_cast<size_t>(G + 2) * hd +
+         static_cast<size_t>(kMaxGroup + 3) * chunk + 2 * kMaxGroup;
+}
+
+// grid (splits, nkv, B), kAttnThreads threads.  G <= GM query heads a
+// kv-head, hd a power of two, 4 <= hd <= 128; lhd = log2(hd).  Writes the
+// new K/V rows (split 0) and either the normalised output (one split) or
+// the split's (o [G, hd], m [G], l [G]) into ws [B, nkv, splits, G * (hd +
+// 2)].
+template <int GM>
+__global__ void __launch_bounds__(kAttnThreads)
+split_attention_kernel(const float* __restrict__ qkv,
+                       const int32_t* __restrict__ pos,
+                       const float* __restrict__ cosv,
+                       const float* __restrict__ sinv,
+                       const float* __restrict__ kc,
+                       const float* __restrict__ vc,
+                       const int32_t* __restrict__ kpos,
+                       const int32_t* __restrict__ tbl,
+                       float* __restrict__ att, float* __restrict__ kn,
+                       float* __restrict__ vn, float* __restrict__ ws, int B,
+                       int S, int nq, int nkv, int hd, int lhd, int bs, int mb,
+                       int window, int chunk, float scale) {
+  constexpr int N = pow2_at_least(GM);  // values a score reduction carries
   extern __shared__ __align__(16) float sm[];
-  const int h = blockIdx.x, b = blockIdx.y;
+  __shared__ int warp_cnt[kAttnWarps];
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = nq / nkv, half = hd / 2;
-  float* const q = sm;          // [G, hd] rotated query heads of the group
-  float* const kr = q + G * hd; // [hd] rotated new K row
-  float* const vr = kr + hd;    // [hd] new V row
-  float* const lg = vr + hd;    // [G, S] logits, then probabilities
+  float* const ring = sm;                                  // [3, 16, hd]
+  float* const q = ring + kAttnRing * kAttnTile * hd;      // [G, hd]
+  float* const kr = q + G * hd;                            // [hd]
+  float* const vr = kr + hd;                               // [hd]
+  float* const sc = vr + hd;                               // [chunk, 8]
+  long long* const rowoff =                                // [chunk]
+      reinterpret_cast<long long*>(sc + kMaxGroup * chunk);
+  float* const stat = reinterpret_cast<float*>(rowoff + chunk);  // m, l [2, 8]
+  int* const masked = reinterpret_cast<int*>(stat + 2 * kMaxGroup);  // [chunk]
+
   const int p = pos[b];
   const int slot = (window > 0) ? (p >= 0 ? p % S : -1) : p;
+  // no slot of this row is sure to be live: read every slot, masked or not
+  const bool full = p < 0 || (window <= 0 && p >= S);
+  const int c0 = split * chunk, c1 = min(S, c0 + chunk);
+  const bool writer = split == 0;
+  const bool need_new = writer || (slot >= c0 && slot < c1);
+  float* const wsb =
+      ws + ((static_cast<size_t>(b) * nkv + h) * splits + split) *
+               (static_cast<size_t>(G) * (hd + 2));
 
-  for (int t = threadIdx.x; t < (G + 2) * hd; t += blockDim.x) {
-    const int which = t / hd, i = t - which * hd;
+  // this thread's slot of the chunk's first pass: kpos and its page, loaded
+  // before the query so that both are in flight together
+  int kp0 = -1, pg0 = 0;
+  if (c0 + tid < c1) {
+    kp0 = kpos[static_cast<size_t>(b) * S + c0 + tid];
+    if (tbl != nullptr) pg0 = tbl[static_cast<size_t>(b) * mb + (c0 + tid) / bs];
+  }
+
+  // 1. the rotated query heads of the group, and the new K/V rows where this
+  //    split writes them (split 0) or reads them (the hit slot is its own)
+  const int n_rows = G + (need_new ? 2 : 0);
+  for (int t = tid; t < n_rows * hd; t += kAttnThreads) {
+    const int which = t >> lhd, i = t & (hd - 1);
     const int head = which < G ? h * G + which
                      : (which == G ? nq + h : nq + nkv + h);
     const size_t row = static_cast<size_t>(head) * hd;
@@ -160,66 +266,235 @@ __global__ void step_attention_kernel(
       q[which * hd + i] = v;
     } else if (which == G) {
       kr[i] = v;
-      kn[o] = v;
+      if (writer) kn[o] = v;
     } else {
       vr[i] = v;
-      vn[o] = v;
+      if (writer) vn[o] = v;
     }
   }
-  __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int s = warp; s < S; s += nw) {
-    const bool hit = (s == slot);
-    const float* const krow =
-        hit ? kr : cache_row(kc, tbl, b, s, h, S, nkv, hd, bs, mb);
-    bool valid;
-    if (hit) {
-      valid = p >= 0;
-    } else {
-      const int kp = kpos[static_cast<size_t>(b) * S + s];
-      valid = kp >= 0 && kp <= p && (window <= 0 || kp > p - window);
+  // 2. the live slots in slot order: rowoff[j] the j-th one's rows' offset
+  //    in the cache (K and V share the layout), -1 for the current slot,
+  //    whose rows are the new ones; masked[j] for a masked slot (idle rows)
+  int n_live = 0;
+  for (int s0 = c0; s0 < c1; s0 += kAttnThreads) {
+    const int s = s0 + tid;
+    int kp = kp0, pg = pg0;
+    if (s0 != c0 && s < c1) {
+      kp = kpos[static_cast<size_t>(b) * S + s];
+      if (tbl != nullptr) pg = tbl[static_cast<size_t>(b) * mb + s / bs];
     }
-    for (int g = 0; g < G; ++g) {
-      float part = 0.0f;
-      for (int i = lane; i < hd; i += 32) part = fmaf(q[g * hd + i], krow[i], part);
-      part = warp_sum(part);
-      if (lane == 0)
-        lg[g * S + s] = __fadd_rn(__fmul_rn(part, scale), valid ? 0.0f : -1e30f);
-    }
-  }
-  __syncthreads();
-
-  for (int g = warp; g < G; g += nw) {
-    float* const row = lg + g * S;
-    float m = __uint_as_float(0xff800000u);  // -inf
-    for (int s = lane; s < S; s += 32) m = fmaxf(m, row[s]);
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int s = lane; s < S; s += 32) {
-      const float e = expf(row[s] - m);
-      row[s] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int s = lane; s < S; s += 32) row[s] = row[s] / sum;
-  }
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < G * hd; t += blockDim.x) {
-    const int g = t / hd, i = t - g * hd;
-    const float* const pr = lg + g * S;
-    float acc = 0.0f, p_hit = 0.0f;
-    for (int s = 0; s < S; ++s) {
+    bool take = false, valid = false;
+    if (s < c1) {
       if (s == slot) {
-        p_hit = pr[s];
-        continue;
+        valid = take = true;  // p >= 0 here: a hit exists only for p >= 0
+      } else {
+        valid = kp >= 0 && kp <= p && (window <= 0 || kp > p - window);
+        take = valid || full;
       }
-      acc = fmaf(pr[s], cache_row(vc, tbl, b, s, h, S, nkv, hd, bs, mb)[i], acc);
     }
-    acc = __fadd_rn(acc, __fmul_rn(p_hit, vr[i]));
-    att[(static_cast<size_t>(h * G + g) * hd + i) * B + b] = acc;
+    const unsigned ball = __ballot_sync(0xffffffffu, take);
+    if (lane == 0) warp_cnt[warp] = __popc(ball);
+    __syncthreads();
+    int off = n_live, tot = 0;
+    for (int w = 0; w < kAttnWarps; ++w) {
+      if (w < warp) off += warp_cnt[w];
+      tot += warp_cnt[w];
+    }
+    if (take) {
+      const int j = off + __popc(ball & ((1u << lane) - 1u));
+      masked[j] = !valid;
+      long long row = -1;
+      if (s != slot) {
+        const long long r = tbl != nullptr
+            ? static_cast<long long>(pg) * bs + s % bs
+            : static_cast<long long>(b) * S + s;
+        row = (r * nkv + h) * hd;
+      }
+      rowoff[j] = row;
+    }
+    n_live += tot;
+    __syncthreads();  // warp_cnt is written again; q, the list are complete
+  }
+  if (n_live == 0) {  // merges as empty: o = 0, m = -inf, l = 0
+    if (splits > 1) {
+      for (int t = tid; t < G * hd; t += kAttnThreads) wsb[t] = 0.0f;
+      if (tid < G) {
+        wsb[G * hd + tid] = __uint_as_float(0xff800000u);
+        wsb[G * hd + G + tid] = 0.0f;
+      }
+    }
+    return;
+  }
+
+  // q in registers: lane's four elements 4 * lane .. + 3 of every head
+  const bool lane_in = 4 * lane < hd;
+  float4 qreg[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+    qreg[g] = (g < G && lane_in) ? *reinterpret_cast<const float4*>(q + g * hd + 4 * lane)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // PV: thread's dim i0 and heads gq + k * gstep (gstep == 1 at hd = 128)
+  const int gstep = kAttnThreads >> lhd;
+  const int i0 = tid & (hd - 1), gq = tid >> lhd;
+  float acc[GM];
+#pragma unroll
+  for (int k = 0; k < GM; ++k) acc[k] = 0.0f;
+
+  // 3. stream the live K tiles then the live V tiles through the ring
+  const int n_tiles = (n_live + kAttnTile - 1) / kAttnTile;
+  const int n_items = 2 * n_tiles;
+  const int lq = lhd - 2;  // log2 of the 16-byte pieces a row
+  const int piece = tid & ((1 << lq) - 1), r_first = tid >> lq;
+  const int r_step = kAttnThreads >> lq;
+  auto issue = [&](int item) {
+    if (item < n_items) {
+      const bool is_v = item >= n_tiles;
+      const int t = is_v ? item - n_tiles : item;
+      const float* const cache = (is_v ? vc : kc) + 4 * piece;
+      float* const dst = ring + (item % kAttnRing) * kAttnTile * hd + 4 * piece;
+      for (int r = r_first; r < kAttnTile; r += r_step) {
+        const int j = t * kAttnTile + r;
+        if (j >= n_live) break;
+        const long long off = rowoff[j];
+        if (off >= 0) cp_async16(dst + r * hd, cache + off);
+      }
+    }
+    cp_async_commit();  // one group an item, empty or not
+  };
+#pragma unroll
+  for (int it = 0; it < kAttnRing - 1; ++it) issue(it);
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait_ring();
+    __syncthreads();  // item `it` has landed; the slot of it - 1 is free
+    issue(it + kAttnRing - 1);
+    const float* const tile = ring + (it % kAttnRing) * kAttnTile * hd;
+    if (it < n_tiles) {  // scores of tile `it`: a warp a row
+      const int rows = min(kAttnTile, n_live - it * kAttnTile);
+      for (int r = warp; r < rows; r += kAttnWarps) {
+        const int j = it * kAttnTile + r;
+        const float* const krow = rowoff[j] < 0 ? kr : tile + r * hd;
+        float part[N];
+#pragma unroll
+        for (int g = 0; g < N; ++g) part[g] = 0.0f;
+        if (lane_in) {
+          const float4 kv = *reinterpret_cast<const float4*>(krow + 4 * lane);
+#pragma unroll
+          for (int g = 0; g < GM; ++g) {
+            part[g] = fmaf(qreg[g].x, kv.x, part[g]);
+            part[g] = fmaf(qreg[g].y, kv.y, part[g]);
+            part[g] = fmaf(qreg[g].z, kv.z, part[g]);
+            part[g] = fmaf(qreg[g].w, kv.w, part[g]);
+          }
+        }
+        warp_sum_scatter<N>(part);
+        constexpr int kLow = 32 / N;  // lanes that share one head's sum
+        const int g = lane / kLow;
+        if ((lane & (kLow - 1)) == 0 && g < G)
+          sc[j * kMaxGroup + g] = __fadd_rn(__fmul_rn(part[0], scale),
+                                            masked[j] ? -1e30f : 0.0f);
+      }
+      if (it == n_tiles - 1) {  // softmax statistics of the chunk: a warp a head
+        __syncthreads();
+        for (int g = warp; g < G; g += kAttnWarps) {
+          float m = __uint_as_float(0xff800000u);
+          for (int j = lane; j < n_live; j += 32) m = fmaxf(m, sc[j * kMaxGroup + g]);
+          m = warp_max(m);
+          float sum = 0.0f;
+          for (int j = lane; j < n_live; j += 32) {
+            const float ex = expf(sc[j * kMaxGroup + g] - m);
+            sc[j * kMaxGroup + g] = ex;
+            sum += ex;
+          }
+          sum = warp_sum(sum);
+          if (lane == 0) {
+            stat[g] = m;
+            stat[kMaxGroup + g] = sum;
+          }
+        }
+      }
+    } else {  // o += e * V over tile it - n_tiles, threads over (g, i)
+      const int t = it - n_tiles;
+      const int rows = min(kAttnTile, n_live - t * kAttnTile);
+      for (int r = 0; r < rows; ++r) {
+        const int j = t * kAttnTile + r;
+        const float v = (rowoff[j] < 0 ? vr : tile + r * hd)[i0];
+        if (gstep == 1) {  // every head: the row's weights as float4s
+          float e[(GM + 3) / 4 * 4];
+#pragma unroll
+          for (int c = 0; c < (GM + 3) / 4; ++c) {
+            const float4 e4 = reinterpret_cast<const float4*>(sc + j * kMaxGroup)[c];
+            e[4 * c] = e4.x;
+            e[4 * c + 1] = e4.y;
+            e[4 * c + 2] = e4.z;
+            e[4 * c + 3] = e4.w;
+          }
+#pragma unroll
+          for (int k = 0; k < GM; ++k) acc[k] = fmaf(e[k], v, acc[k]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < GM; ++k) {
+            const int g = gq + k * gstep;
+            if (g < G) acc[k] = fmaf(sc[j * kMaxGroup + g], v, acc[k]);
+          }
+        }
+      }
+    }
+  }
+
+  // 4. the split's result
+#pragma unroll
+  for (int k = 0; k < GM; ++k) {
+    const int g = gq + k * gstep;
+    if (g >= G) continue;
+    if (splits == 1)
+      att[(static_cast<size_t>(h * G + g) * hd + i0) * B + b] =
+          __fdiv_rn(acc[k], stat[kMaxGroup + g]);
+    else
+      wsb[g * hd + i0] = acc[k];
+  }
+  if (splits > 1 && tid < G) {
+    wsb[G * hd + tid] = stat[tid];
+    wsb[G * hd + G + tid] = stat[kMaxGroup + tid];
+  }
+}
+
+// grid (G, nkv, B), kAttnThreads threads: merges the splits of one (row,
+// query head) in split order.  Dynamic shared memory: each split's weight
+// exp(m_s - M) [splits] and the sum of weights [1].
+__global__ void __launch_bounds__(kAttnThreads)
+split_attention_merge_kernel(const float* __restrict__ ws,
+                             float* __restrict__ att, int B, int nkv, int G,
+                             int hd, int splits) {
+  extern __shared__ float fac[];
+  const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t stride = static_cast<size_t>(G) * (hd + 2);
+  const float* const w = ws + (static_cast<size_t>(b) * nkv + h) * splits * stride;
+  const float* const stats = w + static_cast<size_t>(G) * hd;  // + s * stride
+  if (tid < 32) {  // one warp: the largest m of a non-empty split, weights, l
+    float m = __uint_as_float(0xff800000u);
+    for (int s = lane; s < splits; s += 32)
+      if (stats[s * stride + G + g] > 0.0f) m = fmaxf(m, stats[s * stride + g]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int s = lane; s < splits; s += 32) {
+      const float ls = stats[s * stride + G + g];
+      const float f = ls > 0.0f ? expf(stats[s * stride + g] - m) : 0.0f;
+      fac[s] = f;
+      l = fmaf(ls, f, l);
+    }
+    l = warp_sum(l);
+    if (lane == 0) fac[splits] = l;
+  }
+  __syncthreads();
+  const float l = fac[splits];
+  for (int i = tid; i < hd; i += kAttnThreads) {
+    const float* const col = w + static_cast<size_t>(g) * hd + i;
+    float o = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) o = fmaf(col[s * stride], fac[s], o);
+    att[(static_cast<size_t>(h * G + g) * hd + i) * B + b] = __fdiv_rn(o, l);
   }
 }
 
@@ -248,35 +523,66 @@ extern "C" int repro_step_norm(const void* x, const void* w, void* out, int d,
 
 // kc/vc/kpos point at the layer's cache (contiguous [B, S, Hkv, hd] or, with
 // tbl, the pool [Nb, bs, Hkv, hd]) and kn/vn at the layer's [B, Hkv, hd] rows;
-// cos/sin may be null (no RoPE); window <= 0: no sliding window.
-extern "C" int repro_step_attention(const void* qkv, const void* pos,
-                                    const void* cosv, const void* sinv,
-                                    const void* kc, const void* vc,
-                                    const void* kpos, const void* tbl,
-                                    void* att, void* kn, void* vn, int B,
-                                    int S, int nq, int nkv, int hd, int bs,
-                                    int mb, int window, float scale,
-                                    void* stream) {
-  if (B <= 0 || S <= 0 || nkv <= 0 || nq % nkv != 0 || hd <= 0 || hd % 2 != 0 ||
+// cos/sin may be null (no RoPE); window <= 0: no sliding window.  splits and
+// chunk come from layer_plan.plan_attention; ws holds [B, Hkv, splits, G *
+// (hd + 2)] floats when splits > 1 (else unused).  Launches the split kernel
+// and, for several splits, the merge kernel.
+extern "C" int repro_split_attention(const void* qkv, const void* pos,
+                                     const void* cosv, const void* sinv,
+                                     const void* kc, const void* vc,
+                                     const void* kpos, const void* tbl,
+                                     void* att, void* kn, void* vn, void* ws,
+                                     int B, int S, int nq, int nkv, int hd,
+                                     int bs, int mb, int window, int splits,
+                                     int chunk, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > kMaxGroup ||
+      hd < 4 || hd > 128 || (hd & (hd - 1)) != 0 || splits <= 0 ||
+      chunk <= 0 || static_cast<long long>(splits) * chunk < S ||
+      static_cast<long long>(splits - 1) * chunk >= S ||
+      (splits > 1 && ws == nullptr) ||
       (tbl != nullptr && (bs <= 0 || mb * bs < S)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = nq / nkv;
-  const size_t smem = (static_cast<size_t>(G) * hd + 2 * static_cast<size_t>(hd) +
-                       static_cast<size_t>(G) * S) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxDynamicSmem))
+  int lhd = 0;
+  while ((1 << lhd) < hd) ++lhd;
+  const size_t smem = attention_smem_floats(G, hd, chunk) * sizeof(float);
+  const size_t merge_smem = (static_cast<size_t>(splits) + 1) * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxDynamicSmem) ||
+      merge_smem > static_cast<size_t>(kMaxDynamicSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      step_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nkv, B);
-  step_attention_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), static_cast<const int32_t*>(pos),
-      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<const float*>(kc), static_cast<const float*>(vc),
-      static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(tbl),
-      static_cast<float*>(att), static_cast<float*>(kn), static_cast<float*>(vn),
-      B, S, nq, nkv, hd, bs, mb, window, scale);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(splits, nkv, B);
+  auto launch = [&](auto kernel) -> cudaError_t {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kAttnThreads, smem, st>>>(
+        static_cast<const float*>(qkv), static_cast<const int32_t*>(pos),
+        static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+        static_cast<const float*>(kc), static_cast<const float*>(vc),
+        static_cast<const int32_t*>(kpos), static_cast<const int32_t*>(tbl),
+        static_cast<float*>(att), static_cast<float*>(kn),
+        static_cast<float*>(vn), static_cast<float*>(ws), B, S, nq, nkv, hd,
+        lhd, bs, mb, window, chunk, scale);
+    return cudaGetLastError();
+  };
+  // one instantiation a group size: registers sized to it
+  cudaError_t err;
+  switch (G) {
+    case 1: err = launch(split_attention_kernel<1>); break;
+    case 2: err = launch(split_attention_kernel<2>); break;
+    case 3: err = launch(split_attention_kernel<3>); break;
+    case 4: err = launch(split_attention_kernel<4>); break;
+    case 5: err = launch(split_attention_kernel<5>); break;
+    case 6: err = launch(split_attention_kernel<6>); break;
+    case 7: err = launch(split_attention_kernel<7>); break;
+    default: err = launch(split_attention_kernel<8>); break;
+  }
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  split_attention_merge_kernel<<<dim3(G, nkv, B), kAttnThreads, merge_smem, st>>>(
+      static_cast<const float*>(ws), static_cast<float*>(att), B, nkv, G, hd,
+      splits);
   return static_cast<int>(cudaGetLastError());
 }
 

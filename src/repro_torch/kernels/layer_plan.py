@@ -20,10 +20,13 @@ families:
   itself is read only by the plain version.
 * :func:`step_plan_matmul` (K7) runs the whole decode step over L identical
   layers as a fixed sequence of hand-written kernels a layer: norm, stage
-  qkv, RoPE + decode attention (emits the new K/V rows), stage o + residual,
-  norm, stage gate+up, SwiGLU, stage down + residual.  No PyTorch operation
-  runs between them.  CUDA source ``csrc/step_plan.cu`` (norm, attention,
-  SwiGLU) beside the stage kernel.
+  qkv, RoPE + decode attention (:func:`step_attention`; emits the new K/V
+  rows), stage o + residual, norm, stage gate+up, SwiGLU, stage down +
+  residual.  No PyTorch operation runs between them.  CUDA source
+  ``csrc/step_plan.cu`` (norm, attention, SwiGLU) beside the stage kernel.
+  The attention is split over the cache (:func:`plan_attention`), reads
+  only the K/V rows of the live slots, staged in shared memory by
+  ``cp.async``, and merges the splits in order in a second kernel.
 * ``step_plan_matmul(moe=...)`` (K8) replaces a layer's FFN with the routed
   experts inside the same sequence: route, dispatch, stage eg (all experts'
   gates and ups, e-major), SwiGLU, stage ed (all downs), gated combine +
@@ -49,6 +52,7 @@ reference's: feature-major ``x [d, B]``, caches ``[L, B, S, Hkv, hd]``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -56,16 +60,18 @@ import torch
 import torch.nn.functional as F
 
 from . import build, dispatch
-from .lcc_chain_matmul import (MAX_SUMS, SM_SMEM, launch_staging,
+from .lcc_chain_matmul import (MAX_SUMS, SM_SMEM, SMEM_LIMIT, launch_staging,
                                plan_launch, signed_pow2)
 from .moe_route import (capacity, moe_combine, moe_combine_plain, moe_dispatch,
                         moe_dispatch_plain, moe_route, moe_route_plain)
 from .ops import PackedStage
 
-__all__ = ["DeviceStage", "StageLaunch", "StageSlices", "device_stage",
-           "plan_stage", "plan_units", "stage_blocks", "stage_slices",
-           "stage_matmul", "stage_matmul_plain", "stage_apply_eff",
-           "step_plan_matmul", "step_plan_matmul_plain", "moe_plan_matmul",
+__all__ = ["AttentionPlan", "DeviceStage", "StageLaunch", "StageSlices",
+           "attention_key", "device_stage", "plan_attention", "plan_stage",
+           "plan_units", "stage_blocks", "stage_slices", "stage_matmul",
+           "stage_matmul_plain", "stage_apply_eff", "step_attention",
+           "step_attention_plain", "step_plan_matmul",
+           "step_plan_matmul_plain", "moe_plan_matmul",
            "moe_plan_matmul_plain"]
 
 _NEG = -1e30
@@ -737,10 +743,7 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
         dispatch.check_tensor("resid", resid, torch.float32, (ps.out_dim, b), dev)
     if b <= 0:
         raise ValueError("empty batch")
-    di = dev.index if dev.index is not None else torch.cuda.current_device()
-    if di not in _sm_count:
-        _sm_count[di] = torch.cuda.get_device_properties(di).multi_processor_count
-    return _launch_stage(ds, src, layer, resid, ds.launch(b, layer, _sm_count[di]))
+    return _launch_stage(ds, src, layer, resid, ds.launch(b, layer, _sms(dev)))
 
 
 def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
@@ -779,12 +782,245 @@ def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
     return out
 
 
-# ------------------------------------------------- K7: the decode step
+# -------------------------------------------- K7: the decode attention
+
+ATTN_TILE = 16  # live rows a ring slot holds (kAttnTile)
+ATTN_RING = 3  # ring slots (kAttnRing)
+ATTN_MAX_GROUP = 8  # query heads a kv-head (kMaxGroup)
+ATTN_MAX_HD = 128  # head dimension: one float4 a lane and head
+ATTN_CHUNK = 128  # slots a split takes at most, rounded up to a whole page
+ATTN_BLOCKS_PER_SM = 4  # blocks a split aims to give every SM
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """Geometry of one attention launch (``csrc/step_plan.cu``): the cache's
+    S slots in ``splits`` chunks of ``chunk`` consecutive slots (the last
+    may be shorter), one block a (split, kv-head, row) with ``smem`` bytes
+    of dynamic shared memory; several splits merge in a second kernel
+    (``merge_smem`` bytes)."""
+    splits: int
+    chunk: int
+    smem: int
+    merge_smem: int
+
+
+def attention_smem(g: int, head_dim: int, chunk: int) -> int:
+    """Bytes of shared memory of one attention block (the kernel's
+    ``attention_smem_floats``): the ring, q, the new K/V rows, the chunk's
+    logits, the live rows' cache offsets, the softmax statistics and the
+    live list."""
+    return 4 * (ATTN_RING * ATTN_TILE * head_dim + (g + 2) * head_dim
+                + (ATTN_MAX_GROUP + 3) * chunk + 2 * ATTN_MAX_GROUP)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_attention(b: int, nkv: int, g: int, s: int, sm_count: int,
+                   paged: int | None, *, head_dim: int) -> AttentionPlan:
+    """Split the decode attention over the cache (flash-decoding).
+
+    ``b`` rows, ``nkv`` kv-heads of ``g`` query heads each, ``s`` cache
+    slots, ``paged`` the page size of a paged cache (0 or None:
+    contiguous).  The split count is the least that gives each of the
+    ``sm_count`` SMs ``ATTN_BLOCKS_PER_SM`` blocks, so that a short cache's
+    few live rows are read in parallel and their round trips overlap.  The
+    chunk is then rounded up to a whole page (16 slots when contiguous) and
+    held to at most ``ATTN_CHUNK`` slots (one page where a page is longer),
+    so that a long cache gives several waves and shared memory is bounded
+    by the chunk, not by S.  Raises
+    ``ValueError`` for a shape the kernel cannot take: more than
+    ``ATTN_MAX_GROUP`` query heads a group, a head dimension that is not a
+    power of two from 4 to ``ATTN_MAX_HD``, or a page too long for shared
+    memory."""
+    if min(b, nkv, s, sm_count) <= 0:
+        raise ValueError(f"attention of {b} rows, {nkv} kv-heads, {s} slots "
+                         f"on {sm_count} SMs")
+    if not 1 <= g <= ATTN_MAX_GROUP:
+        raise ValueError(f"{g} query heads a kv-head: the attention kernel "
+                         f"takes 1 to {ATTN_MAX_GROUP}")
+    if not 4 <= head_dim <= ATTN_MAX_HD or head_dim & (head_dim - 1):
+        raise ValueError(f"head dimension {head_dim}: the attention kernel "
+                         f"takes a power of two from 4 to {ATTN_MAX_HD}")
+    unit = int(paged or ATTN_TILE)
+    if unit < 0:
+        raise ValueError(f"page size {paged}")
+    want = -(-ATTN_BLOCKS_PER_SM * sm_count // (b * nkv))
+    chunk = -(-s // want)
+    chunk = min(-(-chunk // unit), -(-ATTN_CHUNK // unit)) * unit
+    splits = -(-s // chunk)
+    plan = AttentionPlan(splits, chunk, attention_smem(g, head_dim, chunk),
+                         4 * (splits + 1))
+    if max(plan.smem, plan.merge_smem) > SMEM_LIMIT:
+        raise ValueError(f"attention at {chunk} slots a chunk, {splits} "
+                         f"splits, G = {g}, hd = {head_dim} needs "
+                         f"{max(plan.smem, plan.merge_smem)} bytes of shared "
+                         f"memory (limit {SMEM_LIMIT})")
+    return plan
+
+
+def attention_key(b, smax, nq, nkv, hd, bs, window) -> tuple:
+    """Dimensions an attention launch is counted under: ``(B, S, Hq, Hkv,
+    hd, page size (0: contiguous), window (0: none))``."""
+    return (b, smax, nq, nkv, hd, bs, window or 0)
 
 
 def _rot(v, cos, sin, half):
     v1, v2 = v[..., :half], v[..., half:]
     return torch.cat([v1 * cos - v2 * sin, v2 * cos + v1 * sin], dim=-1)
+
+
+def step_attention_plain(qkv, pos, cos, sin, kc, vc, kpos, *, n_heads: int,
+                         n_kv_heads: int, head_dim: int,
+                         window: int | None = None, block_tbl=None):
+    """Plain PyTorch version of :func:`step_attention` (same arguments): the
+    reference's lines, operation by operation.  With ``block_tbl`` the
+    caches are block pools and are gathered into the ``[B, S, Hkv, hd]``
+    view first, as the reference's caller does."""
+    b = qkv.shape[1]
+    if block_tbl is not None:
+        tbl = block_tbl.long()
+        kc = kc[tbl].reshape(b, -1, *kc.shape[2:])
+        vc = vc[tbl].reshape(b, -1, *vc.shape[2:])
+    smax = kc.shape[1]
+    nq, n_kv, hd = n_heads, n_kv_heads, head_dim
+    half = hd // 2
+    dev = qkv.device
+    pos = pos.long()
+    kc, vc = kc.to(torch.float32), vc.to(torch.float32)
+    qb = qkv[: nq * hd].reshape(nq, hd, b).permute(2, 0, 1)
+    kb = qkv[nq * hd: (nq + n_kv) * hd].reshape(n_kv, hd, b).permute(2, 0, 1)
+    vb = qkv[(nq + n_kv) * hd:].reshape(n_kv, hd, b).permute(2, 0, 1)
+    if cos is not None:
+        cos_v = cos.to(torch.float32)[:, None, :]
+        sin_v = sin.to(torch.float32)[:, None, :]
+        qb, kb = _rot(qb, cos_v, sin_v, half), _rot(kb, cos_v, sin_v, half)
+    sidx = torch.arange(smax, device=dev)[None, :].expand(b, smax)
+    slot = (torch.where(pos >= 0, pos % smax, torch.full_like(pos, -1))
+            if window is not None else pos)
+    hit = sidx == slot[:, None]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                          device=dev))
+    qg = qb.reshape(b, n_kv, nq // n_kv, hd)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, kc)
+    s_new = torch.einsum("bhgd,bhd->bhg", qg, kb)
+    scores = torch.where(hit[:, None, None, :], s_new[..., None], scores)
+    kp = kpos.long()
+    ok = (kp >= 0) & (kp <= pos[:, None])
+    if window is not None:
+        ok = ok & (kp > pos[:, None] - window)
+    valid = torch.where(hit, (pos >= 0)[:, None], ok)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    mask = torch.where(valid, zero, zero + _NEG)
+    probs = torch.softmax(scores * scale + mask[:, None, None, :], dim=-1)
+    hitf = hit.to(torch.float32)[:, None, None, :]
+    p_hit = torch.sum(probs * hitf, dim=-1)
+    att = (torch.einsum("bhgs,bshd->bhgd", probs * (1.0 - hitf), vc)
+           + p_hit[..., None] * vb[:, :, None, :])
+    return (att.reshape(b, nq * hd).T.contiguous(), kb.contiguous(),
+            vb.contiguous())
+
+
+def _sms(dev: torch.device) -> int:
+    di = dev.index if dev.index is not None else torch.cuda.current_device()
+    if di not in _sm_count:
+        _sm_count[di] = torch.cuda.get_device_properties(di).multi_processor_count
+    return _sm_count[di]
+
+
+def _cache_layout(kc, block_tbl, b, smax, nkv, hd, dev, lead=()):
+    """``(page size, pages a row, cache shape)`` of one layer's cache (or of
+    ``lead``-stacked layers), the block table checked; 0 pages when
+    contiguous."""
+    if block_tbl is None:
+        return 0, 0, (*lead, b, smax, nkv, hd)
+    mb = block_tbl.shape[1]
+    bs = kc.shape[len(lead) + 1]
+    dispatch.check_tensor("block_tbl", block_tbl, torch.int32, (b, mb), dev)
+    if mb * bs != smax:
+        raise ValueError(f"block table covers {mb * bs} slots, kpos {smax}")
+    return bs, mb, (*lead, kc.shape[len(lead)], bs, nkv, hd)
+
+
+def _attention_ws(plan: AttentionPlan, b, nkv, g, hd, dev):
+    """Room for the splits' partial results, or None for one split."""
+    if plan.splits == 1:
+        return None
+    return torch.empty(b * nkv * plan.splits * g * (hd + 2),
+                       dtype=torch.float32, device=dev)
+
+
+def _attend(lib, stream, plan: AttentionPlan, key: tuple, qkv, pos, cos, sin,
+            kc_ptr, vc_ptr, kpos_ptr, block_tbl, kn_ptr, vn_ptr, ws, *, b,
+            smax, nq, nkv, hd, bs, mb, window) -> torch.Tensor:
+    """One launch of the attention kernels on checked arguments; counts it."""
+    att = torch.empty((nq * hd, b), dtype=torch.float32, device=qkv.device)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    dispatch.check_launch(lib.repro_split_attention(
+        qkv.data_ptr(), pos.data_ptr(), _ptr(cos), _ptr(sin), kc_ptr, vc_ptr,
+        kpos_ptr, _ptr(block_tbl), att.data_ptr(), kn_ptr, vn_ptr, _ptr(ws),
+        b, smax, nq, nkv, hd, bs, mb, window or 0, plan.splits, plan.chunk,
+        scale, stream), "repro_split_attention")
+    dispatch.record_launch("step_attention", shape=key)
+    return att
+
+
+def step_attention(qkv, pos, cos, sin, kc, vc, kpos, *, n_heads: int,
+                   n_kv_heads: int, head_dim: int, window: int | None = None,
+                   block_tbl=None):
+    """RoPE and decode attention of one layer over its KV cache.
+
+      qkv  [(Hq + 2 Hkv) hd, B] f32  the qkv stage's output (feature-major)
+      pos  [B] int32     decode positions (-1 = idle slot)
+      cos/sin [B, hd/2]  rope tables for ``pos`` (None: no rope)
+      kc/vc [B, S, Hkv, hd], kpos [B, S]   the layer's KV cache
+      block_tbl [B, mb] int32 (optional): kc/vc are then block pools
+                         [Nb, bs, Hkv, hd] read through the table
+
+    Returns ``(att [Hq hd, B], k_new [B, Hkv, hd], v_new)``: the attention
+    output (feature-major) and the rotated new K row and the new V row for
+    the caller to write back.  Scores are taken against the stale cache with
+    the current slot patched in score space, as in the reference; the cache
+    is read, never written.  CUDA tensors launch the kernels (split over the
+    cache by :func:`plan_attention`, the splits merged in order) or raise;
+    CPU tensors take :func:`step_attention_plain`."""
+    if not dispatch.on_device(qkv):
+        return step_attention_plain(
+            qkv, pos, cos, sin, kc, vc, kpos, n_heads=n_heads,
+            n_kv_heads=n_kv_heads, head_dim=head_dim, window=window,
+            block_tbl=block_tbl)
+    dev = qkv.device
+    nq, nkv, hd = n_heads, n_kv_heads, head_dim
+    if nq % nkv:
+        raise ValueError(f"{nq} query heads over {nkv} kv-heads")
+    b, smax = qkv.shape[1], kpos.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    dispatch.check_tensor("qkv", qkv, f32, ((nq + 2 * nkv) * hd, b), dev)
+    dispatch.check_tensor("pos", pos, i32, (b,), dev)
+    dispatch.check_tensor("kpos", kpos, i32, (b, smax), dev)
+    bs, mb, cache_shape = _cache_layout(kc, block_tbl, b, smax, nkv, hd, dev)
+    dispatch.check_tensor("kc", kc, f32, cache_shape, dev)
+    dispatch.check_tensor("vc", vc, f32, cache_shape, dev)
+    if (cos is None) != (sin is None):
+        raise ValueError("cos and sin: both or neither")
+    if cos is not None:
+        dispatch.check_tensor("cos", cos, f32, (b, hd // 2), dev)
+        dispatch.check_tensor("sin", sin, f32, (b, hd // 2), dev)
+    g = nq // nkv
+    plan = plan_attention(b, nkv, g, smax, _sms(dev), bs, head_dim=hd)
+    kn = torch.empty((b, nkv, hd), dtype=f32, device=dev)
+    vn = torch.empty_like(kn)
+    with torch.cuda.device(dev):
+        att = _attend(build.load(), torch.cuda.current_stream().cuda_stream,
+                      plan, attention_key(b, smax, nq, nkv, hd, bs, window),
+                      qkv, pos, cos, sin, kc.data_ptr(), vc.data_ptr(),
+                      kpos.data_ptr(), block_tbl, kn.data_ptr(),
+                      vn.data_ptr(), _attention_ws(plan, b, nkv, g, hd, dev),
+                      b=b, smax=smax, nq=nq, nkv=nkv, hd=hd, bs=bs, mb=mb,
+                      window=window)
+    return att, kn, vn
+
+
+# ------------------------------------------------- K7: the decode step
 
 
 def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
@@ -793,22 +1029,11 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
                            kc, vc, kpos, moe=None, window: int | None = None,
                            block_tbl=None):
     """Plain PyTorch version of :func:`step_plan_matmul` (same arguments):
-    the reference's dense step body, operation by operation.  With
-    ``block_tbl`` the caches are block pools and are gathered into the
-    ``[L, B, S, Hkv, hd]`` view first, as the reference's caller does.  With
-    ``moe`` each layer's FFN is the routed block of the reference's
-    ``moe_block``, through the plain versions of the route, dispatch and
-    combine kernels."""
-    if block_tbl is not None:
-        n_l, b = kc.shape[0], block_tbl.shape[0]
-        tbl = block_tbl.long()
-        kc = kc[:, tbl].reshape(n_l, b, -1, *kc.shape[3:])
-        vc = vc[:, tbl].reshape(n_l, b, -1, *vc.shape[3:])
-    n_layers, b, smax, n_kv, hd = kc.shape
-    nq, half = n_heads, head_dim // 2
-    dev = x0.device
-    pos = pos.long()
-    kc, vc = kc.to(torch.float32), vc.to(torch.float32)
+    the reference's dense step body, operation by operation, the attention
+    through :func:`step_attention_plain`.  With ``moe`` each layer's FFN is
+    the routed block of the reference's ``moe_block``, through the plain
+    versions of the route, dispatch and combine kernels."""
+    n_layers, b = kpos.shape[0], x0.shape[1]
 
     def norm_fn(v, w):
         if norm == "rms":
@@ -818,44 +1043,18 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
         var = torch.mean((v - mu) ** 2, dim=0, keepdim=True)
         return (v - mu) * torch.rsqrt(var + 1e-5)
 
-    cos_v = cos.to(torch.float32)[:, None, :] if rope else None
-    sin_v = sin.to(torch.float32)[:, None, :] if rope else None
-    sidx = torch.arange(smax, device=dev)[None, :].expand(b, smax)
-    slot = (torch.where(pos >= 0, pos % smax, torch.full_like(pos, -1))
-            if window is not None else pos)
-    hit = sidx == slot[:, None]
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
-                                          device=dev))
-    kn = torch.empty((n_layers, b, n_kv, hd), dtype=torch.float32, device=dev)
+    kn = torch.empty((n_layers, b, n_kv_heads, head_dim), dtype=torch.float32,
+                     device=x0.device)
     vn = torch.empty_like(kn)
     x = x0.to(torch.float32)
     for l in range(n_layers):
         h = norm_fn(x, ln1[l] if norm == "rms" else None)
         qkv = stage_matmul_plain(stages["qkv"], h, layer=l)
-        qb = qkv[: nq * hd].reshape(nq, hd, b).permute(2, 0, 1)
-        kb = qkv[nq * hd: (nq + n_kv) * hd].reshape(n_kv, hd, b).permute(2, 0, 1)
-        vb = qkv[(nq + n_kv) * hd:].reshape(n_kv, hd, b).permute(2, 0, 1)
-        if rope:
-            qb, kb = _rot(qb, cos_v, sin_v, half), _rot(kb, cos_v, sin_v, half)
-        kn[l], vn[l] = kb, vb
-        qg = qb.reshape(b, n_kv, nq // n_kv, hd)
-        scores = torch.einsum("bhgd,bshd->bhgs", qg, kc[l])
-        s_new = torch.einsum("bhgd,bhd->bhg", qg, kb)
-        scores = torch.where(hit[:, None, None, :], s_new[..., None], scores)
-        kp = kpos[l].long()
-        ok = (kp >= 0) & (kp <= pos[:, None])
-        if window is not None:
-            ok = ok & (kp > pos[:, None] - window)
-        valid = torch.where(hit, (pos >= 0)[:, None], ok)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        mask = torch.where(valid, zero, zero + _NEG)
-        probs = torch.softmax(scores * scale + mask[:, None, None, :], dim=-1)
-        hitf = hit.to(torch.float32)[:, None, None, :]
-        p_hit = torch.sum(probs * hitf, dim=-1)
-        att = (torch.einsum("bhgs,bshd->bhgd", probs * (1.0 - hitf), vc[l])
-               + p_hit[..., None] * vb[:, :, None, :])
-        x = x + stage_matmul_plain(stages["o"], att.reshape(b, nq * hd).T,
-                                   layer=l)
+        att, kn[l], vn[l] = step_attention_plain(
+            qkv, pos, cos if rope else None, sin if rope else None, kc[l],
+            vc[l], kpos[l], n_heads=n_heads, n_kv_heads=n_kv_heads,
+            head_dim=head_dim, window=window, block_tbl=block_tbl)
+        x = x + stage_matmul_plain(stages["o"], att, layer=l)
         h2 = norm_fn(x, ln2[l] if norm == "rms" else None)
         if moe is not None:
             x = _moe_layer_plain(stages, moe, l, h2, x)
@@ -930,16 +1129,8 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
     dispatch.check_tensor("x0", x0, f32, (d, b), dev)
     dispatch.check_tensor("pos", pos, i32, (b,), dev)
     dispatch.check_tensor("kpos", kpos, i32, (n_layers, b, smax), dev)
-    if block_tbl is None:
-        bs = mb = 0
-        cache_shape = (n_layers, b, smax, nkv, hd)
-    else:
-        mb = block_tbl.shape[1]
-        bs = kc.shape[2]
-        dispatch.check_tensor("block_tbl", block_tbl, i32, (b, mb), dev)
-        cache_shape = (n_layers, kc.shape[1], bs, nkv, hd)
-        if mb * bs != smax:
-            raise ValueError(f"block table covers {mb * bs} slots, kpos {smax}")
+    bs, mb, cache_shape = _cache_layout(kc, block_tbl, b, smax, nkv, hd, dev,
+                                        lead=(n_layers,))
     dispatch.check_tensor("kc", kc, f32, cache_shape, dev)
     dispatch.check_tensor("vc", vc, f32, cache_shape, dev)
     if rope:
@@ -954,14 +1145,20 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
         if stages[name].n_layers != n_layers:
             raise ValueError(f"stage {name} has {stages[name].n_layers} "
                              f"layers, the cache {n_layers}")
+    if nq % nkv:
+        raise ValueError(f"{nq} query heads over {nkv} kv-heads")
     mode, eps = (0, 1e-6) if norm == "rms" else (1, 1e-5)
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     key = (n_layers, d, d_ff, b, smax, nq, nkv, hd)
+    g = nq // nkv
+    aplan = plan_attention(b, nkv, g, smax, _sms(dev), bs, head_dim=hd)
+    akey = attention_key(b, smax, nq, nkv, hd, bs, window)
+    rcos, rsin = (cos, sin) if rope else (None, None)
     if moe is not None:
         router, n_exp, top_k, cap, eff = _moe_args(moe, b, dev)
         dispatch.check_tensor("router", router, f32, (n_layers, d, n_exp), dev)
     kn = torch.empty((n_layers, b, nkv, hd), dtype=f32, device=dev)
     vn = torch.empty_like(kn)
+    ws = _attention_ws(aplan, b, nkv, g, hd, dev)  # reused by every layer
     lib = build.load()
 
     def norm_(x, w, l):
@@ -985,13 +1182,10 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
         for l in range(n_layers):
             h = norm_(x, ln1, l)
             qkv = stage_matmul(stages["qkv"], h, layer=l)
-            att = torch.empty((nq * hd, b), dtype=f32, device=dev)
-            dispatch.check_launch(lib.repro_step_attention(
-                qkv.data_ptr(), pos.data_ptr(), _ptr(cos), _ptr(sin),
-                _ptr(kc, l), _ptr(vc, l), _ptr(kpos, l), _ptr(block_tbl),
-                att.data_ptr(), _ptr(kn, l), _ptr(vn, l), b, smax, nq, nkv,
-                hd, bs, mb, window or 0, scale, stream), "repro_step_attention")
-            dispatch.record_launch("step_plan_matmul", shape=key)
+            att = _attend(lib, stream, aplan, akey, qkv, pos, rcos, rsin,
+                          _ptr(kc, l), _ptr(vc, l), _ptr(kpos, l), block_tbl,
+                          _ptr(kn, l), _ptr(vn, l), ws, b=b, smax=smax, nq=nq,
+                          nkv=nkv, hd=hd, bs=bs, mb=mb, window=window)
             x = stage_matmul(stages["o"], att, layer=l, resid=x)
             h2 = norm_(x, ln2, l)
             if moe is None:

@@ -8,7 +8,9 @@ Counterpart of the MoE branch of ``repro.kernels.layer_plan.step_plan_matmul``
 where the three kernels of this module are hand-written CUDA
 (``csrc/moe_route.cu``):
 
-* :func:`moe_route` — router logits, softmax, top-k (ties to the lower
+* :func:`moe_route` — router logits (one pass over d, spread over blocks of
+  ``ROUTE_ROWS`` rows, their sums added in block order by the second of its
+  two kernels), softmax, top-k (ties to the lower
   expert index, as ``jax.lax.top_k``), renormalisation and the capacity rank
   of every (token, choice) by the reference's exclusive cumsum over the
   token-major flattening; emits each choice's expert, weight (gate * keep)
@@ -38,6 +40,7 @@ __all__ = ["MAX_TOP_K", "capacity", "route_tokens", "moe_route",
            "moe_combine", "moe_combine_plain"]
 
 MAX_TOP_K = 8  # the route kernel's bound on k (csrc/moe_route.cu)
+ROUTE_ROWS = 512  # rows of d a logits block sums (kRouteRows)
 
 
 def capacity(n_tokens: int, top_k: int, capacity_factor: float,
@@ -130,13 +133,15 @@ def moe_route(h2: torch.Tensor, router: torch.Tensor, *, top_k: int,
     slot = torch.empty((b, top_k), **i32)
     wgt = torch.empty((b, top_k), dtype=torch.float32, device=dev)
     src_tok = torch.empty((n_exp * cap,), **i32)
+    ws = torch.empty(-(-d // ROUTE_ROWS) * b * n_exp, dtype=torch.float32,
+                     device=dev)  # each logits block's sums
     lib = build.load()
     with torch.cuda.device(dev):
         code = lib.repro_moe_route(
             h2.data_ptr(), router.data_ptr(), sel.data_ptr(), wgt.data_ptr(),
             slot.data_ptr(), src_tok.data_ptr(),
-            None if dropped is None else dropped.data_ptr(), d, b, n_exp,
-            top_k, cap, int(bool(norm_topk)),
+            None if dropped is None else dropped.data_ptr(), ws.data_ptr(), d,
+            b, n_exp, top_k, cap, int(bool(norm_topk)),
             torch.cuda.current_stream().cuda_stream)
     dispatch.check_launch(code, "repro_moe_route")
     dispatch.record_launch("moe_route", shape=(d, b, n_exp, top_k, cap))

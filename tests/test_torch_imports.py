@@ -103,7 +103,7 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
         "lcc_factor_matmul.cu", "lcc_group_matmul.cu", "moe_route.cu",
         "stage_matmul.cu", "step_plan.cu"]
     for entry in ("repro_stage_matmul", "repro_step_norm",
-                  "repro_step_attention", "repro_step_swiglu",
+                  "repro_split_attention", "repro_step_swiglu",
                   "repro_moe_route", "repro_moe_dispatch", "repro_moe_combine",
                   "repro_group_prox", "repro_lcc_factor_matmul"):
         assert entry in build._SIGNATURES
