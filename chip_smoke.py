@@ -8,8 +8,8 @@ width, the paper's MLP) and compressed serving at published width
 through ``Scheduler`` + ``ServingEngine(artifact=...)``: olmo-1b (dense),
 mixtral-8x22b (MoE, 8 experts top-2, cut to 2 layers) and deepseek-v2-lite-16b
 (MLA, 64 experts top-6 + 2 shared, cut to 4 layers), each once through the
-per-region route (bf16, kernels K1-K3; the experts as grouped K2 launches of
-E) and once in float32 — olmo and mixtral through the whole-step layer plan
+per-region route (bf16, kernels K1, K2 and K3's region prep; the experts as
+grouped K2 launches of E) and once in float32 — olmo and mixtral through the whole-step layer plan
 (K6 and K7; for mixtral K8, the routed FFN inside the step), deepseek (MLA
 refuses the step plan) through one expert plan a layer (K9) beside per-region
 MLA — plus K4's per-factor route on olmo's layer 0, and holds every CUDA
@@ -29,10 +29,18 @@ kernel on those paths against its plain PyTorch version:
    (olmo-1b S = 2048, mixtral-8x22b S = 4096 under its window), each at
    random positions and full, against its plain version, bitwise run to run,
    beside its bound and ``scaled_dot_product_attention``, K8's route alone
-   at mixtral's width, and K7's norm and SwiGLU alone at both serves'
-   shapes; the full run starts with the same phase;
-2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``cluster_segment_sum``,
-   ``stage_matmul``, ``step_plan_matmul`` and ``step_attention`` at reduced
+   at mixtral's width, and K7's SwiGLU alone at both serves' shapes; the
+   full run starts with the same phase; ``--only prep`` times K3's region
+   prep alone at every region the three per-region serves prepare (members
+   drawn at the fixture's widths, bf16 and, for deepseek's K9 route,
+   float32 inputs laid out as the models pass them), bit for bit against
+   its plain version and in its own order, beside one ``index_add_``, and
+   K7's norm alone at the olmo-1b and mixtral-8x22b plan serves' shapes
+   against its plain version, its own order and ``F.layer_norm`` /
+   ``F.rms_norm``, in under a minute;
+2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``region_prep``,
+   ``stage_matmul``, ``step_plan_matmul``, ``step_norm`` and
+   ``step_attention`` at reduced
    shapes and at the main paths' own dimensions (the whole step also at
    olmo-1b's published context, S = 2048), and ``lcc_factor_matmul`` (K4) on
    every factor of layer 0's ``attn.o`` and ``ffn.down`` and through the
@@ -108,9 +116,11 @@ from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
     _levels_plain, _slice_inputs_plain, lcc_chain_matmul,
     lcc_chain_matmul_plain, plan_launch, signed_pow2)
 from repro_torch.kernels.layer_plan import (  # noqa: E402
-    _rot, attention_key, device_stage, moe_plan_matmul, moe_plan_matmul_plain,
-    plan_attention, stage_matmul, stage_matmul_plain, step_attention,
-    step_attention_plain, step_plan_matmul, step_plan_matmul_plain)
+    _norm_launch, _rot, attention_key, device_stage, moe_plan_matmul,
+    moe_plan_matmul_plain,
+    plan_attention, plan_norm, stage_matmul, stage_matmul_plain,
+    step_attention, step_attention_plain, step_norm, step_norm_plain,
+    step_plan_matmul, step_plan_matmul_plain)
 from repro_torch.kernels.lcc_matmul import (  # noqa: E402
     lcc_factor_matmul, lcc_factor_matmul_plain)
 from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
@@ -119,15 +129,17 @@ from repro_torch.kernels.moe_route import (  # noqa: E402
     capacity, moe_combine, moe_combine_plain, moe_dispatch, moe_dispatch_plain,
     moe_route, moe_route_plain)
 from repro_torch.kernels.shared_matmul import (  # noqa: E402
-    cluster_segment_sum, cluster_segment_sum_plain, csr_from_labels)
+    RegionPrep, region_layout, region_prep_plain)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models.layers import _rope_sincos  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
-from repro_torch.serving.executor import CompressedExecutor  # noqa: E402
+from repro_torch.serving.executor import (  # noqa: E402
+    CompressedExecutor, region_site, site_prep)
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
 from repro_torch.testing import (SHARED_SITES,  # noqa: E402
                                  decomposition_dense, dense_sites, moe_sites,
-                                 seeded_artifact, seeded_decomposition)
+                                 seeded_artifact, seeded_decomposition,
+                                 seeded_prep)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -144,13 +156,18 @@ KERNELS = {
     "lcc_group_matmul": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/lcc_group_matmul.cu",
         replaces="src/repro/kernels/lcc_group_matmul.py:92"),
-    "cluster_segment_sum": dict(
+    # K3, one launch a fused region: prune gather, eq. (10) sums, concatenation
+    "region_prep": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/cluster_segment_sum.cu",
         replaces="src/repro/kernels/shared_matmul.py:60"),
     "stage_matmul": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/stage_matmul.cu",
         replaces="src/repro/kernels/layer_plan.py:483"),
     "step_plan_matmul": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
+        replaces="src/repro/kernels/layer_plan.py:418"),
+    # K7's norm, lines 308-313 of step_plan_matmul's body
+    "step_norm": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
     # K7's decode attention, lines 375-406 of step_plan_matmul's body
@@ -178,18 +195,19 @@ KERNELS = {
         route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
         replaces="src/repro/kernels/layer_plan.py:457"),
 }
-PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "cluster_segment_sum")
-PLAN = ("stage_matmul", "step_plan_matmul", "step_attention")
+PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "region_prep")
+PLAN = ("stage_matmul", "step_plan_matmul", "step_norm", "step_attention")
 MOE = ("moe_route", "moe_dispatch", "moe_combine")
 # the device kernels of this port, by name fragment (profiler rows)
 PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
-                "cluster_segment_sum_kernel", "stage_prep_kernel",
+                "region_prep_kernel", "stage_prep_kernel",
                 "stage_chain_kernel", "stage_epilogue_kernel",
                 "step_norm_kernel", "split_attention_kernel",
                 "split_attention_merge_kernel", "step_swiglu_kernel",
                 "moe_logits_kernel", "moe_router_kernel",
                 "moe_dispatch_kernel", "moe_combine_kernel",
                 "group_prox_kernel", "lcc_factor_kernel")
+ROUTED = ("moe.gate", "moe.up", "moe.down")  # site prefixes of the routed experts
 MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
 # the one cut of deepseek-v2-lite: 27 layers need ~158 GB (PERF.md section 4)
 DEEPSEEK_LAYERS = 4
@@ -387,45 +405,159 @@ def kernel_case_group(label, members, rng, dev, timer, sm, batch=BATCH):
         timer, warm_l2_ms=timer(lambda: lcc_group_matmul(*args), cold=False))
 
 
-def kernel_case_segsum(label, sites, c, rng, dev, timer, batch=BATCH):
-    """``cluster_segment_sum`` on every label vector of ``sites`` (name ->
-    labels, all of one length, ``c`` clusters); the first one is timed."""
-    first = None
-    for site, labels_np in sites.items():
-        k = labels_np.size
-        labels = torch.from_numpy(labels_np.astype(np.int64)).to(dev)
-        csr = csr_from_labels(labels_np, c, dev)
-        x = dyadic(rng, (k, batch), dev)
-        y = cluster_segment_sum(labels, x, c, csr=csr)
-        torch.cuda.synchronize()
-        plain = cluster_segment_sum_plain(labels, x, c)
-        # dyadic inputs and short segments: every sum is exact, so the order
-        # of the plain version's atomics cannot show
-        if not torch.equal(y, plain):
-            fail(f"{label} {site}: kernel differs from the plain version on "
-                 "dyadic input")
-        first = first or (labels, csr, x, k)
-    labels, csr, x, k = first
-    bytes_ = 4 * batch * (k + c) + 4 * (k + c + 1)
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = k * batch / F32_FLOPS * 1e3
-    out = torch.zeros((c, batch), dtype=torch.float32, device=dev)
+# ------------------------------------------------ K3: the region prep
+
+
+def ordered_prep_plain(prep, xs):
+    """The region prep in the kernel's own order, in PyTorch operations: each
+    output row's segment of source rows summed in ascending order in float32,
+    from +0.0 (-0.0 for a copied row, so a copy is exact)."""
+    views, _ = region_layout(xs, prep.n_members)
+    dev = views[0].device
+    xall = torch.stack([v.to(torch.float32) for v in views])  # [G, K, B]
+    src, seg, info = (torch.from_numpy(a).to(dev).long()
+                      for a in (prep.src, prep.segptr, prep.rowinfo))
+    lens = seg[1:] - seg[:-1]
+    acc = torch.zeros((prep.rows, xall.shape[2]), dtype=torch.float32,
+                      device=dev)
+    acc[(info & 1).bool()] = -0.0
+    member = info >> 1
+    for t in range(int(lens.max()) if lens.numel() else 0):
+        j = torch.clamp(seg[:-1] + t, max=max(src.numel() - 1, 0))
+        acc = torch.where((t < lens)[:, None], acc + xall[member, src[j]], acc)
+    return acc
+
+
+def prep_input(g, k, batch, dtype, stacked, rng, dev, exact=True):
+    """A region's input as the models pass it: the transposed view of one
+    ``[B, K]`` activation shared by the G members, or (``stacked``) one view
+    ``z[e].T`` an expert into a ``[G, B, K]`` buffer.  Dyadic values
+    (``exact``: every sum exact, in bf16 too) or standard normal ones."""
+    shape = (g, batch, k) if stacked else (batch, k)
+    x = (dyadic(rng, shape, dev) if exact else torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)).to(dtype)
+    return [x[e].T for e in range(g)] if stacked else x.T
+
+
+def prep_bound(prep, stacked, batch, itemsize):
+    """(bound_ms, bound_by): the input rows the region reads, once (a shared
+    input's rows once for all members), its tables and its output, over the
+    memory rate; one add a column for every row of a segment past its
+    first, over the float32 rate."""
+    segs = [prep.src[prep.segptr[a]:prep.segptr[b]]
+            for a, b in zip(prep.out_off[:-1], prep.out_off[1:])]
+    rows_read = (sum(np.unique(s).size for s in segs) if stacked
+                 else np.unique(prep.src).size)
+    lens = np.diff(prep.segptr)
+    adds = int(np.clip(lens - 1, 0, None).sum()) * batch
+    bytes_ = (rows_read * batch * itemsize
+              + 4 * (prep.src.size + prep.segptr.size + prep.rowinfo.size)
+              + 4 * prep.rows * batch)
+    return bound_of(bytes_, adds)
+
+
+def kernel_case_prep(label, prep, k, batch, dtype, stacked, dev, timer,
+                     serve=None):
+    """K3's region prep on one region at its serve's dims and layout: bit for
+    bit against the plain version (per-member ``index_select``,
+    ``index_add_``, ``torch.cat``) on dyadic input, against
+    :func:`ordered_prep_plain` on dyadic and on random input, and from run
+    to run.  Library: one ``index_add_`` of the region's source rows,
+    gathered beforehand, into its output rows."""
+    rng = np.random.default_rng(zlib.crc32(label.encode()))
+    g = prep.n_members
+    xs = prep_input(g, k, batch, dtype, stacked, rng, dev)
+    y, again = prep(xs), prep(xs)
+    torch.cuda.synchronize()
+    if not torch.equal(y, again):
+        fail(f"{label}: region prep differs from run to run")
+    if not torch.equal(y, region_prep_plain(prep, xs)):
+        fail(f"{label}: region prep differs from its plain version on dyadic "
+             "input")
+    if not torch.equal(y, ordered_prep_plain(prep, xs)):
+        fail(f"{label}: region prep differs from its own order (dyadic)")
+    xr = prep_input(g, k, batch, dtype, stacked, rng, dev, exact=False)
+    if not torch.equal(prep(xr), ordered_prep_plain(prep, xr)):
+        fail(f"{label}: region prep differs from its own order (random)")
+    del xr
+    lens = np.diff(prep.segptr)
+    views, _ = region_layout(xs, g)
+    member = torch.from_numpy(np.repeat(prep.rowinfo >> 1, lens)).to(dev).long()
+    tgt = torch.from_numpy(np.repeat(np.arange(prep.rows), lens)).to(dev)
+    xg = torch.stack([v.to(torch.float32) for v in views])[
+        member, torch.from_numpy(prep.src).to(dev).long()]
+    out = torch.empty((prep.rows, batch), dtype=torch.float32, device=dev)
+    itemsize = torch.empty((), dtype=dtype).element_size()
     return kernel_row(
-        "cluster_segment_sum", label, dict(K=k, C=c, B=batch), (k, c, batch),
-        0.0, True, lambda: cluster_segment_sum(labels, x, c, csr=csr),
-        lambda: cluster_segment_sum_plain(labels, x, c),
-        lambda: out.zero_().index_add_(0, labels, x),
-        (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"),
-        timer, checked_sites=list(sites))
+        "region_prep", label,
+        dict(G=g, K=k, R=prep.rows, nnz=int(prep.src.size), B=batch,
+             dtype=str(dtype).removeprefix("torch."),
+             layout="stacked" if stacked else "shared"),
+        prep.shape_key(k, batch, itemsize), 0.0, True, lambda: prep(xs),
+        lambda: region_prep_plain(prep, xs),
+        lambda: out.zero_().index_add_(0, tgt, xg),
+        prep_bound(prep, stacked, batch, itemsize), timer, serve=serve)
 
 
-def seeded_labels(k, rng):
-    """Labels of a weight-shared site as the fixture makes them: a sixteenth
-    of the rows merged into other rows' clusters."""
-    merged = max(1, k // 16)
-    c = k - merged
-    labels = np.concatenate([rng.permutation(c), rng.integers(0, c, merged)])
-    return labels[rng.permutation(k)].astype(np.int64), c
+def region_preps(cfg, records=None, seed=0):
+    """``(label, prep, K, B, stacked, names)`` of layer 0's regions as the
+    per-region route prepares them (:func:`site_groups`): from ``records``
+    (an artifact's) or, without them, members drawn as the fixture draws
+    them (``testing.seeded_prep``: the same widths and table sizes).  B is
+    n_slots, the capacity for the experts (views of one stacked buffer) and
+    n_slots x max_len for MLA's uk+uv over the latent view."""
+    k_of = {p: k for p, _, _, k in dense_sites(cfg) + moe_sites(cfg)}
+    cap = (capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
+                    cfg.moe.n_experts) if cfg.moe is not None else None)
+    rng = np.random.default_rng(seed)
+    out = []
+    for names in site_groups(cfg):
+        prefixes = [region_site(n) for n in names]
+        k = k_of[prefixes[0]]
+        stacked = prefixes[0] in ROUTED
+        batch = (cap if stacked else BATCH * MAX_LEN
+                 if prefixes[0] == "attn.uk" else BATCH)
+        if records is not None:
+            prep = site_prep([records[n] for n in names])
+        else:
+            prep = RegionPrep([
+                (kept, labels, k_dec) for kept, labels, k_dec in (
+                    seeded_prep(k_of[p], rng, p in SHARED_SITES)
+                    for p in prefixes)], "+".join(dict.fromkeys(prefixes)))
+        label = (f"{prefixes[0]} G={len(names)}" if stacked
+                 else "+".join(prefixes))
+        out.append((f"{cfg.name} {label}", prep, k, batch, stacked, names))
+    return out
+
+
+def region_cases(cfg, dev, timer, *, records=None, dtype=torch.bfloat16,
+                 serve=None, keep=None):
+    """:func:`kernel_case_prep` on every region of :func:`region_preps`
+    (``keep(names)`` filters them) whose prep launches."""
+    rows = []
+    for label, prep, k, batch, stacked, names in region_preps(cfg, records):
+        if (keep is not None and not keep(names)) or (
+                prep.identity and prep.rows == k):
+            continue
+        rows.append(kernel_case_prep(label, prep, k, batch, dtype, stacked,
+                                     dev, timer, serve=serve))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def region_preps_per_step(cfg, records, keep=None) -> int:
+    """Region-prep launches a decode step of the per-region route: one a
+    fused region of every layer and one a single site that prunes or shares
+    (a site with an identity keep and no sharing takes none); ``keep(names)``
+    filters the regions."""
+    n = 0
+    for li in range(cfg.n_layers):
+        for names in site_groups(cfg, li):
+            if keep is not None and not keep(names):
+                continue
+            prep = site_prep([records[nm] for nm in names])
+            n += not (prep.identity and len(names) == 1)
+    return n
 
 
 def reduced_kernel_cases(cfg, dev, timer, sm):
@@ -443,9 +575,11 @@ def reduced_kernel_cases(cfg, dev, timer, sm):
                               rng, dev, timer, sm),
             kernel_case_group("reduced ffn.gate+up", [pack(dff, d) for _ in range(2)],
                               rng, dev, timer, sm)]
-    labels, c = seeded_labels(dff, rng)
-    rows.append(kernel_case_segsum(f"reduced K={dff}", {"seeded": labels}, c,
-                                   rng, dev, timer))
+    rows += region_cases(cfg, dev, timer, dtype=torch.float32)
+    for label, prep, k, _, stacked, _ in region_preps(cfg, seed=1)[:1]:
+        for batch in (3, 13):  # ragged column chunks of the region prep
+            rows.append(kernel_case_prep(f"{label} B={batch}", prep, k, batch,
+                                         torch.bfloat16, stacked, dev, timer))
     for s_terms in (1, 3):
         rows.append(kernel_case_chain(f"reduced attn.o S={s_terms}",
                                       pack(d, d, s_terms=s_terms), rng, dev,
@@ -473,16 +607,8 @@ def main_path_kernel_cases(art, dev, timer, sm):
                                       [pk[f"{n}.l0"] for n in names], rng, dev,
                                       timer, sm))
         torch.cuda.empty_cache()
-    by_dims = {}
-    for name, rec in art.records.items():
-        if name.endswith(".l0") and rec.shared is not None:
-            labels = np.asarray(rec.shared.labels)
-            by_dims.setdefault((labels.size, rec.shared.n_clusters), {})[name] = labels
-    if not by_dims:
-        fail("the fixture has no weight-shared site: cluster_segment_sum is "
-             "not on the main path")
-    for (k, c), sites in sorted(by_dims.items()):
-        rows.append(kernel_case_segsum(f"full K={k} C={c}", sites, c, rng, dev, timer))
+    rows += region_cases(art.config, dev, timer, records=art.records,
+                         serve=f"{art.config.name} per-region")
     return rows
 
 
@@ -1219,53 +1345,123 @@ def attention_cases(rng):
         yield f"{arch} S={s} full", cfg, s, w, pos.astype(np.int32)
 
 
-def kernel_cases_norm_swiglu(arch, dev, timer):
-    """K7's norm and SwiGLU kernels alone at ``arch``'s plan-serve shapes,
-    launched through their C entry points as ``step_plan_matmul`` launches
-    them (inside it they count as its launches): the norm on ``[d, B]``, the
-    SwiGLU on the FFN's ``[2 n, C]`` (dense: n = d_ff, C = B; MoE: n = E *
-    d_ff, C = capacity), against the plain expressions (SUM_TOL).  Library:
+def ordered_norm_plain(x, w, norm, plan):
+    """K7's norm in the kernel's own order, in PyTorch operations (``plan``:
+    its :func:`plan_norm` geometry).  Each column's sums: in every block of
+    the cluster, thread partials over its rows s, s + S, ... in ascending
+    order (S = threads / cols), a butterfly over the lanes of a warp that
+    hold the column, then the warps in order; then the blocks in rank
+    order.  The mean and 1/sd as the kernel takes them."""
+    d, b = x.shape
+    cols, threads, rows = plan.cols, plan.threads, plan.rows
+    slots, warps, lanes = threads // cols, threads // 32, 32 // cols
+    bp = plan.groups * cols
+    f32 = dict(dtype=torch.float32, device=x.device)
+    xp = torch.zeros((d, bp), **f32)
+    xp[:, :b] = x  # the tile's columns past B are zeros
+
+    def column_sums(v):
+        tot = torch.zeros(bp, **f32)
+        for q in range(plan.split):
+            vb = v[q * rows:(q + 1) * rows]
+            # zero rows up to a whole number of slots leave each sum as it is
+            vp = torch.zeros((-(-vb.shape[0] // slots) * slots, bp), **f32)
+            vp[:vb.shape[0]] = vb
+            part = torch.zeros((slots, bp), **f32)
+            for k in range(vp.shape[0] // slots):
+                part = part + vp[k * slots:(k + 1) * slots]
+            a = part.reshape(warps, lanes, bp)
+            h = lanes // 2
+            while h >= 1:  # lane 0's butterfly partners, halving
+                a = a[:, :h] + a[:, h:2 * h]
+                h //= 2
+            block = torch.zeros(bp, **f32)
+            for wv in range(warps):
+                block = block + a[wv, 0]
+            tot = tot + block
+        return tot
+
+    fd = torch.tensor(float(d), **f32)
+    if norm == "rms":
+        mu, eps = torch.zeros(bp, **f32), 1e-6
+        var = column_sums(xp * xp) / fd
+    else:
+        mu, eps = column_sums(xp) / fd, 1e-5
+        c = xp - mu
+        var = column_sums(c * c) / fd
+    r = 1.0 / torch.sqrt(var + torch.tensor(eps, **f32))
+    out = (xp - mu) * r
+    if w is not None:
+        out = out * w[:, None]
+    return out[:, :b]
+
+
+def kernel_case_norm(cfg, dev, timer, *, serve=None, plan=None, label=None):
+    """K7's norm (``step_norm``) alone at ``cfg``'s plan-serve shape ``[d,
+    n_slots]`` (``plan``: the same launch at another geometry than the
+    planner's, a ``norm_geometry``): against its plain version (SUM_TOL) and
+    :func:`ordered_norm_plain` (SUM_TOL, and whether bit for bit), bitwise
+    from run to run.  Library:
     ``F.rms_norm`` / ``F.layer_norm`` on the ``[B, d]`` transpose laid out
-    beforehand; none computes the SwiGLU in one call."""
-    cfg = get_arch(arch)
-    torch.manual_seed(zlib.crc32(arch.encode()))
-    lib, stream = build.load(), torch.cuda.current_stream().cuda_stream
+    beforehand."""
+    torch.manual_seed(zlib.crc32(cfg.name.encode()))
     d, b = cfg.d_model, BATCH
     x = torch.randn((d, b), device=dev)
     xt = x.T.contiguous()
     rms = cfg.norm == "rms"
     w = 1.0 + 0.1 * torch.randn(d, device=dev) if rms else None
-    mode, eps = (0, 1e-6) if rms else (1, 1e-5)
-    out = torch.empty_like(x)
+    eps = 1e-6 if rms else 1e-5
+    chosen = plan is None
+    plan = plan_norm(d, b) if chosen else plan
+    label = label or f"{cfg.name} norm"
 
-    def norm():
-        dispatch.check_launch(lib.repro_step_norm(
-            x.data_ptr(), None if w is None else w.data_ptr(), out.data_ptr(),
-            d, b, mode, eps, stream), "repro_step_norm")
-        return out
+    def kernel():
+        if chosen:
+            return step_norm(x, w, cfg.norm)
+        # another geometry: the wrapper's launch at that plan
+        return _norm_launch(build.load(), torch.cuda.current_stream().cuda_stream,
+                            x, None if w is None else w.data_ptr(), plan,
+                            0 if rms else 1, eps)
 
-    def norm_plain():
-        if rms:
-            return x * torch.rsqrt(torch.mean(x * x, 0, keepdim=True) + eps) * w[:, None]
-        mu = torch.mean(x, 0, keepdim=True)
-        return (x - mu) * torch.rsqrt(torch.mean((x - mu) ** 2, 0, keepdim=True) + eps)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"{label}: the norm differs from run to run")
+    ordered = ordered_norm_plain(x, w, cfg.norm, plan)
+    order_err = check_close(f"{label} (kernel order)", got, ordered, SUM_TOL)
 
-    def norm_library():
+    def library():
         return (F.rms_norm(xt, (d,), w, eps) if rms
                 else F.layer_norm(xt, (d,), eps=eps))
 
-    got = norm().clone()
-    torch.cuda.synchronize()
-    rows = [kernel_row(
-        "step_norm", f"{arch} norm", dict(d=d, B=b, norm=cfg.norm), (d, b),
-        check_close(f"{arch} norm", got, norm_plain(), SUM_TOL), False, norm,
-        norm_plain, norm_library,
-        bound_of(4 * (2 * d * b + (d if rms else 0)), 6 * d * b), timer)]
+    return kernel_row(
+        "step_norm", label,
+        dict(d=d, B=b, norm=cfg.norm, cols=plan.cols, groups=plan.groups,
+             split=plan.split, rows=plan.rows, threads=plan.threads),
+        (d, b), check_close(label, got, step_norm_plain(x, w, cfg.norm),
+                            SUM_TOL),
+        torch.equal(got, ordered), kernel,
+        lambda: step_norm_plain(x, w, cfg.norm), library,
+        bound_of(4 * (2 * d * b + (d if rms else 0)), 6 * d * b), timer,
+        serve=serve, max_abs_err_kernel_order=order_err,
+        # in the step the norm reads a hidden state the last stage just wrote
+        warm_l2_ms=timer(kernel, cold=False))
+
+
+def kernel_case_swiglu(arch, dev, timer):
+    """K7's SwiGLU kernel alone at ``arch``'s plan-serve shape, launched
+    through its C entry point as ``step_plan_matmul`` launches it (inside it
+    it counts as the step's launch): the FFN's ``[2 n, C]`` (dense: n =
+    d_ff, C = B; MoE: n = E * d_ff, C = capacity), against the plain
+    expression (SUM_TOL); no library call computes it in one."""
+    cfg = get_arch(arch)
+    torch.manual_seed(zlib.crc32(arch.encode()))
+    lib, stream = build.load(), torch.cuda.current_stream().cuda_stream
     if cfg.moe is None:
-        n, cols = cfg.d_ff, b
+        n, cols = cfg.d_ff, BATCH
     else:
         n = cfg.moe.n_experts * cfg.moe.d_ff_expert
-        cols = capacity(b, cfg.moe.top_k, cfg.moe.capacity_factor,
+        cols = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
                         cfg.moe.n_experts)
     gu = torch.randn((2 * n, cols), device=dev)
     hf = torch.empty((n, cols), device=dev)
@@ -1280,12 +1476,11 @@ def kernel_cases_norm_swiglu(arch, dev, timer):
 
     got = swiglu().clone()
     torch.cuda.synchronize()
-    rows.append(kernel_row(
+    return kernel_row(
         "step_swiglu", f"{arch} swiglu", dict(n=n, C=cols), (n, cols),
         check_close(f"{arch} swiglu", got, swiglu_plain(), SUM_TOL), False,
         swiglu, swiglu_plain, None, bound_of(4 * 3 * n * cols, 5 * n * cols),
-        timer))
-    return rows
+        timer)
 
 
 def route_case_inputs(dev):
@@ -1301,7 +1496,7 @@ def phase_attention(dev):
     """``--only attention``: K7's attention alone at every case of
     :func:`attention_cases` and K8's route alone at mixtral's width (two
     idle columns, as the serve has), with no fixture and no serve; then K7's
-    norm and SwiGLU alone at both plan serves' shapes."""
+    SwiGLU alone at both plan serves' shapes."""
     t0 = time.perf_counter()
     timer = Timer(dev)
     rows = []
@@ -1312,8 +1507,35 @@ def phase_attention(dev):
     rows.append(kernel_case_moe("mixtral route", cfg, router, dev, timer,
                                 idle=2)[0])
     for arch in ("olmo-1b", "mixtral-8x22b"):
-        rows += kernel_cases_norm_swiglu(arch, dev, timer)
+        rows.append(kernel_case_swiglu(arch, dev, timer))
     return dict(phase="attention", seconds=time.perf_counter() - t0,
+                tolerance=SUM_TOL, rows=rows)
+
+
+PREP_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b")
+NORM_ARCHS = ("olmo-1b", "mixtral-8x22b")  # the plan serves
+
+
+def phase_prep(dev):
+    """``--only prep``: K3's region prep alone at every region the three
+    per-region serves prepare (:func:`region_preps`: members drawn as the
+    fixture draws them, no fixture, no serve; bf16 inputs, and float32 for
+    deepseek's MLA and shared experts as its K9 serve passes them), then
+    K7's norm alone at the olmo-1b and mixtral-8x22b plan serves' shapes
+    (``tools/norm_sweep.py`` times it at every other geometry)."""
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    rows = []
+    for arch in PREP_ARCHS:
+        cfg = get_arch(arch)
+        rows += region_cases(cfg, dev, timer)
+        if cfg.mla is not None:
+            rows += [dict(r, k9=True) for r in region_cases(
+                cfg, dev, timer, dtype=torch.float32,
+                keep=lambda n: not n[0].startswith(ROUTED))]
+    for arch in NORM_ARCHS:
+        rows.append(kernel_case_norm(get_arch(arch), dev, timer))
+    return dict(phase="prep", seconds=time.perf_counter() - t0,
                 tolerance=SUM_TOL, rows=rows)
 
 
@@ -1338,6 +1560,7 @@ def phase_kernels(dev, art, plan, red_cfg):
     rows.append(kernel_case_step("reduced GQA paged", gqa_cfg, gqa_plan, rng,
                                  dev, timer))
     rows.append(kernel_case_step("full step", art.config, plan, rng, dev, timer))
+    rows.append(kernel_case_norm(art.config, dev, timer, label="full norm"))
     rows.append(kernel_case_attention(
         "full attention", art.config, MAX_LEN, art.config.attn_window,
         serve_positions(rng), dev, timer))
@@ -1480,12 +1703,13 @@ def profile_steps(eng, prompts, n_steps: int = 4):
     host.disable()
     while eng.active.any():
         eng.step()
-    by_name, launched = {}, 0
+    by_name, launched, counts = {}, 0, {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0) or 0
         if dev_us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3 / n_steps
             launched += ev.count
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
     busy = sum(by_name.values())
     if busy <= 0:
         fail("the profiler reported no device time for the decode steps")
@@ -1505,6 +1729,9 @@ def profile_steps(eng, prompts, n_steps: int = 4):
                 port_kernels_ms_per_step=ours,
                 port_device_ms_per_step_by_kernel=port,
                 device_kernels_per_step=launched / n_steps,
+                kernels_by_count={
+                    k.replace("(anonymous namespace)::", "")[:72]: v / n_steps
+                    for k, v in sorted(counts.items(), key=lambda kv: -kv[1])[:16]},
                 top_device_ms_per_step={k[:48]: round(v, 4) for k, v in top},
                 host_share_by_function={
                     f"{Path(f).name}:{ln}:{fn}"[:60]: round(v[2] / host_total, 4)
@@ -1524,26 +1751,30 @@ def site_weight(params, name):
     return params["blocks"][parts[0]][parts[1]]["w"][li]
 
 
-def site_groups(cfg):
-    """Layer 0's fused regions as the per-region route groups them."""
-    attn = ((("attn.q.l0",), ("attn.dkv.l0", "attn.kr.l0"),
-             ("attn.uk.l0", "attn.uv.l0"), ("attn.o.l0",))
+def site_groups(cfg, li: int = 0):
+    """Layer ``li``'s fused regions (and single sites) as the per-region
+    route groups them."""
+    attn = ((("attn.q",), ("attn.dkv", "attn.kr"), ("attn.uk", "attn.uv"),
+             ("attn.o",))
             if cfg.mla is not None else
-            (("attn.q.l0", "attn.k.l0", "attn.v.l0"), ("attn.o.l0",)))
+            (("attn.q", "attn.k", "attn.v"), ("attn.o",)))
     if cfg.moe is None:
-        return attn + (("ffn.gate.l0", "ffn.up.l0"), ("ffn.down.l0",))
-    ne = cfg.moe.n_experts
-    groups = attn + tuple(tuple(f"moe.{p}.l0.e{e}" for e in range(ne))
-                          for p in ("gate", "up", "down"))
-    if cfg.moe.n_shared:
-        groups += (("moe.shared.gate.l0", "moe.shared.up.l0"),
-                   ("moe.shared.down.l0",))
-    return groups
+        groups = attn + (("ffn.gate", "ffn.up"), ("ffn.down",))
+    else:
+        groups = attn + (("moe.gate",), ("moe.up",), ("moe.down",))
+        if cfg.moe.n_shared:
+            groups += (("moe.shared.gate", "moe.shared.up"),
+                       ("moe.shared.down",))
+    ne = cfg.moe.n_experts if cfg.moe is not None else 0
+    return tuple(tuple(f"{p}.l{li}.e{e}" for e in range(ne))
+                 if p in ROUTED else tuple(f"{q}.l{li}" for q in g)
+                 for g in groups for p in (g[0],))
 
 
 def region_launches_per_layer(cfg) -> int:
-    """K1/K2 launches a layer on the per-region route (K3 comes on top, one
-    a weight-shared site): GQA q+k+v and o, or MLA q, dkv+kr, uk+uv and o;
+    """K1/K2 launches a layer on the per-region route (the region preps come
+    on top, :func:`region_preps_per_step`): GQA q+k+v and o, or MLA q,
+    dkv+kr, uk+uv and o;
     SwiGLU gate+up and down, or the experts' gate, up and down (one launch
     of E each) plus the shared experts' gate+up and down."""
     attn = 4 if cfg.mla is not None else 2
@@ -1554,11 +1785,12 @@ def region_launches_per_layer(cfg) -> int:
 
 def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     """The per-region route at full width: every projection a K1 or K2
-    launch (an MoE projection's experts one K2 launch of E), K3 on the
-    weight-shared sites.  ``ref_params``: float32 dense-effective weights
-    for the per-site check where the records keep none on the host."""
-    n_shared = sum(1 for r in art.records.values() if r.shared is not None)
-    predicted = region_launches_per_layer(cfg) * cfg.n_layers + n_shared
+    launch (an MoE projection's experts one K2 launch of E), each fused
+    region's or pruned site's input made by one K3 region-prep launch.
+    ``ref_params``: float32 dense-effective weights for the per-site check
+    where the records keep none on the host."""
+    predicted = (region_launches_per_layer(cfg) * cfg.n_layers
+                 + region_preps_per_step(cfg, art.records))
     prompts = prompts_for(cfg, 6)
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_count()  # counts of the main path start here ...
@@ -1898,9 +2130,8 @@ def reduced_moe_cases(cfg, dev, timer):
 def mixtral_region_cases(art, dev, timer, sm, serve):
     """The per-region kernels at the mixtral serve's own dimensions: layer
     0's attention sites (K1 on o, K2 on q+k+v at B = n_slots), each
-    projection's experts as one K2 launch of E at B = capacity, and K3 on
-    the weight-shared sites (attention at B = n_slots, experts at B =
-    capacity)."""
+    projection's experts as one K2 launch of E at B = capacity, and K3's
+    region prep on every region (bf16, as the serve's)."""
     cfg = art.config
     ne = cfg.moe.n_experts
     cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor, ne)
@@ -1918,20 +2149,7 @@ def mixtral_region_cases(art, dev, timer, sm, serve):
             sm, batch=cap))
         gc.collect()
         torch.cuda.empty_cache()
-    for prefix, batch in (("attn.", BATCH), ("moe.", cap)):
-        by_dims = {}
-        for name, rec in art.records.items():
-            if (name.startswith(prefix) and ".l0" in name
-                    and rec.shared is not None):
-                labels = np.asarray(rec.shared.labels)
-                by_dims.setdefault((labels.size, rec.shared.n_clusters),
-                                   {})[name] = labels
-        if not by_dims:
-            fail(f"the mixtral fixture has no weight-shared {prefix} site")
-        for (k, c), sites in sorted(by_dims.items()):
-            rows.append(kernel_case_segsum(f"mixtral K={k} C={c} B={batch}",
-                                           sites, c, rng, dev, timer,
-                                           batch=batch))
+    rows += region_cases(cfg, dev, timer, records=art.records)
     for row in rows:
         row["serve"] = serve
     return rows
@@ -2020,6 +2238,7 @@ def mixtral_plan_cases(art, plan, dev, timer, serve):
                             idle=2)
     rows.append(kernel_case_step("mixtral full step", cfg, plan, rng, dev,
                                  timer, window=cfg.attn_window))
+    rows.append(kernel_case_norm(cfg, dev, timer))
     rows.append(kernel_case_attention("mixtral attention", cfg, MAX_LEN,
                                       cfg.attn_window, serve_positions(rng),
                                       dev, timer))
@@ -2224,10 +2443,11 @@ def deepseek_region_cases(art, dev, timer, sm, serves):
     0's MLA sites (K1 on q and o, K2 on dkv+kr at B = n_slots and on uk+uv
     over the whole latent view, B = n_slots x max_len), the shared experts
     (K2 gate+up, K1 down), each routed projection's experts as one K2
-    launch of E at B = capacity, and K3 on the weight-shared sites.  The
-    attention and shared-expert rows hold for both serves (``serves``:
-    per-region name, K9 name); the expert rows for the per-region serve
-    alone."""
+    launch of E at B = capacity, and K3's region prep on every region (bf16
+    for the per-region serve; float32 for the K9 serve's MLA and shared
+    experts).  The K1/K2 attention and shared-expert rows hold for both
+    serves (``serves``: per-region name, K9 name); the expert rows for the
+    per-region serve alone."""
     cfg = art.config
     ne = cfg.moe.n_experts
     cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor, ne)
@@ -2252,23 +2472,15 @@ def deepseek_region_cases(art, dev, timer, sm, serves):
             sm, batch=cap))
         gc.collect()
         torch.cuda.empty_cache()
-    for prefix, batch, rows in (("attn.", BATCH, both), ("moe.", cap, region)):
-        by_dims = {}
-        for name, rec in art.records.items():
-            if (name.startswith(prefix) and ".l0" in name
-                    and rec.shared is not None):
-                labels = np.asarray(rec.shared.labels)
-                by_dims.setdefault((labels.size, rec.shared.n_clusters),
-                                   {})[name] = labels
-        if not by_dims:
-            fail(f"the deepseek fixture has no weight-shared {prefix} site")
-        for (k, c), sites in sorted(by_dims.items()):
-            rows.append(kernel_case_segsum(f"deepseek K={k} C={c} B={batch}",
-                                           sites, c, rng, dev, timer,
-                                           batch=batch))
+    # the bf16 serve's regions, and the K9 serve's per-region ones (MLA and
+    # the shared experts) in float32
+    region += region_cases(cfg, dev, timer, records=art.records)
+    k9 = region_cases(cfg, dev, timer, records=art.records,
+                      dtype=torch.float32,
+                      keep=lambda n: not n[0].startswith(ROUTED))
     for row in region:
         row["serve"] = serves[0]
-    out = region
+    out = region + [dict(row, serve=serves[1]) for row in k9]
     for row in both:
         out += [dict(row, serve=name) for name in serves]
     return out
@@ -2375,11 +2587,14 @@ def run_deepseek(dev):
     rows.append(kernel_case_moe_plan("deepseek l0", plans[0], dev, timer,
                                      batch=cap, serve=k9))
     del ex, plans
-    # a layer: K1 q, o, shared down; K2 dkv+kr, uk+uv, shared gate+up; K3 o;
-    # K9's stage A, SwiGLU, stage B
+    # a layer: K1 q, o, shared down; K2 dkv+kr, uk+uv, shared gate+up; K9's
+    # stage A, SwiGLU, stage B; and a region prep for each of those six
+    # per-region launches that prunes or shares (all six in the fixture)
+    preps = region_preps_per_step(base, art32.records,
+                                  keep=lambda n: not n[0].startswith(ROUTED))
     planned, pcounts, pshape = phase_plan_serve(
         dev, cfg32, art32, stages, pack_s, l_reg=l_reg,
-        predicted=10 * base.n_layers,
+        predicted=9 * base.n_layers + preps,
         expected=set(PER_REGION) | {"stage_matmul", "moe_plan_matmul"},
         n_plans=base.n_layers, fallbacks={"step": "mla"})
     planned["host_peak_rss_bytes"] = host_peak_rss_bytes()
@@ -2858,8 +3073,8 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the olmo-1b serves (never the width)")
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
-                                       "attention", "mixtral", "deepseek",
-                                       "train"),
+                                       "attention", "prep", "mixtral",
+                                       "deepseek", "train"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
@@ -2870,7 +3085,11 @@ def main() -> None:
                          "K7's attention alone at the olmo-1b and "
                          "mixtral-8x22b plan serves' shapes and at their "
                          "long caches (S = 2048, 4096; random and full), and "
-                         "K8's route alone, no fixture and no serve; "
+                         "K8's route alone, no fixture and no serve; prep: "
+                         "K3's region prep alone at every region of the "
+                         "three per-region serves and K7's norm alone at "
+                         "the two plan serves' shapes, no fixture and no "
+                         "serve; "
                          "mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
                          "deepseek-v2-lite-16b phases alone; train: the "
@@ -2896,9 +3115,9 @@ def main() -> None:
               sources=[p.name for p in build.sources()]))
 
     rows, serves = [], {}
-    if args.only in ("chain", "stage", "attention"):
+    if args.only in ("chain", "stage", "attention", "prep"):
         emit(dict(chain=phase_chain, stage=phase_stage,
-                  attention=phase_attention)[args.only](dev))
+                  attention=phase_attention, prep=phase_prep)[args.only](dev))
         print(smi, flush=True)
         return
     if args.only is None:

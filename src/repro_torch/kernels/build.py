@@ -33,16 +33,17 @@ _SIGNATURES = {
     "repro_lcc_chain_matmul": [_P] * 9 + [_I] * 11 + [_P],
     # ... | G E P N S B C spb bb threads tile stages | stream
     "repro_lcc_group_matmul": [_P] * 9 + [_I] * 12 + [_P],
-    # order offsets x out | C B | stream
-    "repro_cluster_segment_sum": [_P] * 4 + [_I] * 2 + [_P],
+    # src segptr rowinfo x out | R B | member_stride row_stride col_stride |
+    # bf16 | stream
+    "repro_region_prep": [_P] * 5 + [_I] * 2 + [_L] * 3 + [_I, _P],
     # idx exp sign x out | N S K B x_bf16 | stream
     "repro_lcc_factor_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # src prep_src prep_off inbuf gidx gexp gsgn slices holes units esites
     # ebegin partial fs dw bias resid out | nl D B M K P R S O | groups
     # (host int32 [G, 7]) | G | stream
     "repro_stage_matmul": [_P] * 18 + [_I] * 9 + [_P, _I, _P],
-    # x w out | d B mode | eps | stream
-    "repro_step_norm": [_P] * 3 + [_I] * 3 + [_F, _P],
+    # x w out | d B cols split threads mode | eps | stream
+    "repro_step_norm": [_P] * 3 + [_I] * 6 + [_F, _P],
     # qkv pos cos sin kc vc kpos tbl att kn vn ws | B S nq nkv hd bs mb
     # window splits chunk | scale | stream
     "repro_split_attention": [_P] * 12 + [_I] * 10 + [_F, _P],

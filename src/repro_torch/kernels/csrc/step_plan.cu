@@ -59,9 +59,12 @@
 //  * RoPE and the score scaling use round-to-nearest intrinsics so that the
 //    compiler does not contract them into fused multiply-adds the reference
 //    does not take.
+#include <cooperative_groups.h>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -77,56 +80,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// sum over the block (blockDim.x a multiple of 32, at most 1024); every
-// thread gets the result
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read by an earlier call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.0f;
-  for (int w = 0; w < nw; ++w) t += red[w];
-  return t;
-}
-
-// one block per column b of x [d, B]; mode 0: rms norm (eps 1e-6, weight w
-// or none), mode 1: non-parametric layer norm (eps 1e-5)
-__global__ void step_norm_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ w,
-                                 float* __restrict__ out, int d, int B,
-                                 int mode, float eps) {
-  __shared__ float red[32];
-  const int b = blockIdx.x;
-  const float inv_d = 1.0f / static_cast<float>(d);
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float v = x[static_cast<size_t>(i) * B + b];
-    s += (mode == 0) ? __fmul_rn(v, v) : v;
-  }
-  s = block_sum(s, red);
-  float mu = 0.0f, var;
-  if (mode == 0) {
-    var = s * inv_d;
-  } else {
-    mu = s * inv_d;
-    float q = 0.0f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float c = x[static_cast<size_t>(i) * B + b] - mu;
-      q += __fmul_rn(c, c);
-    }
-    var = block_sum(q, red) * inv_d;
-  }
-  const float r = 1.0f / sqrtf(var + eps);
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const size_t k = static_cast<size_t>(i) * B + b;
-    float v = __fmul_rn(x[k] - mu, r);
-    if (w != nullptr) v = __fmul_rn(v, w[i]);
-    out[k] = v;
-  }
 }
 
 constexpr int kAttnThreads = 128;
@@ -148,6 +101,174 @@ __device__ __forceinline__ void cp_async_commit() {
 // waits until at most kAttnRing - 2 of this thread's groups are in flight
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kAttnRing - 2));
+}
+
+// ---------------------------------------------------------------- the norm
+//
+// x [d, B] features-major.  A thread-block cluster a group of W columns (W a
+// power of two <= 32), its R blocks (R <= 8) over consecutive ranges of
+// rows; cols, R and the threads from layer_plan.plan_norm.  Each block
+// stages its [rows, W] sub-tile in shared memory once (cp.async, 16-byte
+// copies along the contiguous B axis where B and W are multiples of 4, else
+// 4-byte ones) and takes every pass from there.  Thread t sums column
+// t % W over the block's rows t / W, t / W + T / W, ... in ascending order;
+// the partial sums of one column are reduced by a butterfly over the lanes
+// that hold it, then over the warps in warp order through shared memory,
+// then over the cluster's blocks in rank order through distributed shared
+// memory (every block takes the same sum; a block writes its sums into
+// every block's shared memory before one cluster barrier, then reads only
+// its own).  No atomics: run-to-run
+// identical.  mode 0: rms norm (eps 1e-6, weight w or none); mode 1:
+// non-parametric layer norm (eps 1e-5), centred as the reference computes
+// it (the mean first, then the squares of v - mean).  The result is written
+// from the sub-tile with 16-byte stores where the copies were.
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the sum over the cluster of one column's partial sums (see above): red
+// holds [warps][W] floats; parts [R][W], where every block of the cluster
+// writes its block sums into every block's copy, so that after the one
+// cluster barrier each block reads its own copy in rank order and no block
+// reads another's shared memory (first: the first sum of the kernel, which
+// waits on the arrival every thread made at its start, so that every block
+// of the cluster has started before its shared memory is written)
+__device__ __forceinline__ float norm_column_sum(float v, float* red,
+                                                 float* parts, int W, int c,
+                                                 cg::cluster_group& cluster,
+                                                 bool first) {
+  for (int o = 16; o >= W; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int R = static_cast<int>(cluster.num_blocks());
+  if (lane < W) red[(threadIdx.x >> 5) * W + lane] = v;
+  __syncthreads();
+  if (first) cluster_wait();
+  if (threadIdx.x < W) {
+    float t = 0.0f;
+#pragma unroll 8
+    for (int w = 0; w < nw; ++w) t += red[w * W + threadIdx.x];
+    const int slot = static_cast<int>(cluster.block_rank()) * W + threadIdx.x;
+    for (int q = 0; q < R; ++q) cluster.map_shared_rank(parts, q)[slot] = t;
+  }
+  cluster.sync();  // every block's sums are in every block's parts
+  float t = 0.0f;
+  for (int q = 0; q < R; ++q) t += parts[q * W + c];
+  return t;
+}
+
+template <bool VEC>
+__global__ void step_norm_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ w,
+                                 float* __restrict__ out, int d, int B, int lw,
+                                 int rows, int mode, float eps) {
+  extern __shared__ float4 norm_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();  // waited on before the first write to another block
+  const int W = 1 << lw;
+  const int r0 = static_cast<int>(cluster.block_rank()) * rows;
+  const int nr = max(0, min(rows, d - r0));  // this block's rows
+  float* const tile = reinterpret_cast<float*>(norm_smem);  // [rows][W]
+  const int R = static_cast<int>(cluster.num_blocks());
+  float* const red = tile + static_cast<size_t>(rows) * W;  // [warps][W]
+  float* const parts = red + (blockDim.x >> 5) * W;         // [2][R][W]
+  float* const stat = parts + 2 * R * W;                    // mean, 1/sd
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int c0 = blockIdx.x * W;
+  const int live = min(W, B - c0);  // columns of this group inside B
+  const int n = nr * W;
+  const float* const xb = x + static_cast<size_t>(r0) * B + c0;
+  float* const ob = out + static_cast<size_t>(r0) * B + c0;
+  if (VEC) {
+    for (int q = tid; 4 * q < n; q += T) {
+      const int e = 4 * q, i = e >> lw, c = e & (W - 1);
+      if (c < live)
+        cp_async16(tile + e, xb + static_cast<size_t>(i) * B + c);
+      else
+        *reinterpret_cast<float4*>(tile + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = tid; e < n; e += T) {
+      const int i = e >> lw, c = e & (W - 1);
+      if (c < live)
+        cp_async4(tile + e, xb + static_cast<size_t>(i) * B + c);
+      else
+        tile[e] = 0.0f;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int c = tid & (W - 1), s0 = tid >> lw, S = T >> lw;
+  const float fd = static_cast<float>(d);
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int i = s0; i < nr; i += S) {
+    const float v = tile[i * W + c];
+    acc += (mode == 0) ? __fmul_rn(v, v) : v;
+  }
+  const float tot = norm_column_sum(acc, red, parts, W, c, cluster, true);
+  float mu = 0.0f, var;
+  if (mode == 0) {
+    var = __fdiv_rn(tot, fd);
+  } else {
+    mu = __fdiv_rn(tot, fd);
+    float q = 0.0f;
+#pragma unroll 4
+    for (int i = s0; i < nr; i += S) {
+      const float t = tile[i * W + c] - mu;
+      q += __fmul_rn(t, t);
+    }
+    var = __fdiv_rn(
+        norm_column_sum(q, red, parts + R * W, W, c, cluster, false), fd);
+  }
+  if (tid < W) {
+    stat[tid] = mu;
+    stat[W + tid] = __fdiv_rn(1.0f, __fsqrt_rn(var + eps));
+  }
+  __syncthreads();
+
+  if (VEC) {
+    for (int q = tid; 4 * q < n; q += T) {
+      const int e = 4 * q, i = e >> lw, cc = e & (W - 1);
+      if (cc >= live) continue;
+      float4 v = *reinterpret_cast<const float4*>(tile + e);
+      v.x = __fmul_rn(v.x - stat[cc], stat[W + cc]);
+      v.y = __fmul_rn(v.y - stat[cc + 1], stat[W + cc + 1]);
+      v.z = __fmul_rn(v.z - stat[cc + 2], stat[W + cc + 2]);
+      v.w = __fmul_rn(v.w - stat[cc + 3], stat[W + cc + 3]);
+      if (w != nullptr) {
+        const float wi = w[r0 + i];
+        v.x = __fmul_rn(v.x, wi);
+        v.y = __fmul_rn(v.y, wi);
+        v.z = __fmul_rn(v.z, wi);
+        v.w = __fmul_rn(v.w, wi);
+      }
+      *reinterpret_cast<float4*>(ob + static_cast<size_t>(i) * B + cc) = v;
+    }
+  } else {
+    for (int e = tid; e < n; e += T) {
+      const int i = e >> lw, cc = e & (W - 1);
+      if (cc >= live) continue;
+      float v = __fmul_rn(tile[e] - stat[cc], stat[W + cc]);
+      if (w != nullptr) v = __fmul_rn(v, w[r0 + i]);
+      ob[static_cast<size_t>(i) * B + cc] = v;
+    }
+  }
 }
 
 // Sums each of the N values (N a power of two <= 32) over the warp in a
@@ -511,14 +632,56 @@ __global__ void step_swiglu_kernel(const float* __restrict__ gu,
 
 }  // namespace
 
+// x, out [d, B] float32; w [d] or null; cols (a power of two <= 32),
+// split (blocks a cluster over the rows, 1 to 8) and threads (a multiple of
+// 32 and of cols, at most 1024) from layer_plan.plan_norm; 16-byte copies
+// where B and cols are multiples of 4 and x and out are 16-byte aligned.
 extern "C" int repro_step_norm(const void* x, const void* w, void* out, int d,
-                               int B, int mode, float eps, void* stream) {
-  if (d <= 0 || B <= 0 || (mode != 0 && mode != 1))
+                               int B, int cols, int split, int threads,
+                               int mode, float eps, void* stream) {
+  int lw = 0;
+  while ((1 << lw) < cols) ++lw;
+  if (d <= 0 || B <= 0 || (mode != 0 && mode != 1) || cols > 32 ||
+      (1 << lw) != cols || split < 1 || split > 8 || threads < 32 ||
+      threads > 1024 || threads % 32 != 0 || threads % cols != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  step_norm_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), d, B, mode, eps);
-  return static_cast<int>(cudaGetLastError());
+  const int rows = (d + split - 1) / split;
+  const size_t smem =
+      (static_cast<size_t>(rows) * cols + static_cast<size_t>(threads / 32) * cols +
+       2 * static_cast<size_t>(split) * cols + 2 * cols) *
+      sizeof(float);
+  if (smem > static_cast<size_t>(kMaxDynamicSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = B % 4 == 0 && cols % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((B + cols - 1) / cols),
+                     static_cast<unsigned>(split), 1);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = static_cast<unsigned>(split);
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto launch = [&](auto kernel) -> cudaError_t {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float*>(x),
+                             static_cast<const float*>(w),
+                             static_cast<float*>(out), d, B, lw, rows, mode,
+                             eps);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  };
+  return static_cast<int>(vec ? launch(step_norm_kernel<true>)
+                              : launch(step_norm_kernel<false>));
 }
 
 // kc/vc/kpos point at the layer's cache (contiguous [B, S, Hkv, hd] or, with

@@ -78,8 +78,9 @@ def launch_counts_by_shape() -> dict[tuple[str, tuple], int]:
     """Launch counts per ``(kernel, dimensions)`` since import or the last
     reset.  Dimensions: ``(E, P, N, S, K, B)`` for ``lcc_chain_matmul``,
     ``(G, E, P, N, S, K, B)`` for ``lcc_group_matmul`` (K = rows of the
-    concatenated input), ``(K, C, B)`` for ``cluster_segment_sum``, ``(G, M)``
-    for ``group_prox``, ``(N, S, K, B)`` for ``lcc_factor_matmul``,
+    concatenated input), ``(G, K, R, B, input bytes an element)`` for
+    ``region_prep``, ``(d, B)`` for ``step_norm``, ``(G, M)`` for
+    ``group_prox``, ``(N, S, K, B)`` for ``lcc_factor_matmul``,
     ``(D_src, E * d_ff, O, C)`` for ``moe_plan_matmul``."""
     return dict(_shape_counts)
 

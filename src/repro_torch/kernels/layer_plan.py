@@ -26,7 +26,10 @@ families:
   ``csrc/step_plan.cu`` (norm, attention, SwiGLU) beside the stage kernel.
   The attention is split over the cache (:func:`plan_attention`), reads
   only the K/V rows of the live slots, staged in shared memory by
-  ``cp.async``, and merges the splits in order in a second kernel.
+  ``cp.async``, and merges the splits in order in a second kernel.  The
+  norm (:func:`step_norm`) reads its ``[d, B]`` tile once into shared
+  memory, a cluster of blocks a group of columns, each block a range of
+  rows (:func:`plan_norm`), and takes its column sums in a fixed order.
 * ``step_plan_matmul(moe=...)`` (K8) replaces a layer's FFN with the routed
   experts inside the same sequence: route, dispatch, stage eg (all experts'
   gates and ups, e-major), SwiGLU, stage ed (all downs), gated combine +
@@ -66,11 +69,12 @@ from .moe_route import (capacity, moe_combine, moe_combine_plain, moe_dispatch,
                         moe_dispatch_plain, moe_route, moe_route_plain)
 from .ops import PackedStage
 
-__all__ = ["AttentionPlan", "DeviceStage", "StageLaunch", "StageSlices",
-           "attention_key", "device_stage", "plan_attention", "plan_stage",
-           "plan_units", "stage_blocks", "stage_slices", "stage_matmul",
-           "stage_matmul_plain", "stage_apply_eff", "step_attention",
-           "step_attention_plain", "step_plan_matmul",
+__all__ = ["AttentionPlan", "DeviceStage", "NormPlan", "StageLaunch",
+           "StageSlices", "attention_key", "device_stage", "plan_attention",
+           "plan_norm", "plan_stage", "plan_units", "stage_blocks",
+           "stage_slices", "stage_matmul", "stage_matmul_plain",
+           "stage_apply_eff", "step_attention", "step_attention_plain",
+           "step_norm", "step_norm_plain", "step_plan_matmul",
            "step_plan_matmul_plain", "moe_plan_matmul",
            "moe_plan_matmul_plain"]
 
@@ -1020,6 +1024,139 @@ def step_attention(qkv, pos, cos, sin, kc, vc, kpos, *, n_heads: int,
     return att, kn, vn
 
 
+# ------------------------------------------------------- K7: the norm
+
+
+@dataclass(frozen=True)
+class NormPlan:
+    """Launch geometry of K7's norm on ``[d, B]``: a cluster of ``split``
+    blocks a group of ``cols`` columns (a power of two <= 32), each block
+    holding ``rows`` consecutive rows of the group's tile (``[rows, cols]``)
+    in ``smem_bytes`` of shared memory, ``threads`` threads a block."""
+
+    cols: int
+    groups: int
+    split: int
+    rows: int
+    threads: int
+    smem_bytes: int
+
+
+NORM_SPLIT = 8  # blocks a cluster over the rows (the portable cluster size)
+NORM_NARROW_ROWS = 256  # rows a block at or under which groups are one column
+
+
+def _norm_smem(rows: int, cols: int, threads: int, split: int) -> int:
+    # the sub-tile, one partial sum a (warp, column), every block's sums of
+    # both passes, the mean and 1/sd a column
+    return 4 * (rows * cols + (threads // 32) * cols + 2 * split * cols
+                + 2 * cols)
+
+
+def _norm_threads(rows: int, cols: int) -> int:
+    return min(1024, max(64, 1 << max(0, (rows * cols // 16 - 1).bit_length())))
+
+
+def norm_geometry(d: int, b: int, cols: int, split: int) -> NormPlan:
+    """The norm's launch on ``[d, B]`` at ``cols`` columns a cluster (a power
+    of two <= 32) and ``split`` blocks a cluster (1 to 8), threads a power
+    of two from 64 to 1024 sized to 16 sub-tile elements a thread.  Raises
+    where these are out of range or one block's sub-tile does not fit its
+    shared memory."""
+    if d <= 0 or b <= 0:
+        raise ValueError(f"norm of an empty [{d}, {b}] input")
+    if cols < 1 or cols > 32 or cols & (cols - 1):
+        raise ValueError(f"norm column group {cols}: a power of two <= 32")
+    if not 1 <= split <= NORM_SPLIT:
+        raise ValueError(f"norm split {split}: 1 to {NORM_SPLIT} blocks")
+    rows = -(-d // split)
+    threads = _norm_threads(rows, cols)
+    smem = _norm_smem(rows, cols, threads, split)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"norm of [{d}, {b}]: a [{rows}, {cols}] sub-tile "
+                         f"needs {smem} bytes of shared memory, a block has "
+                         f"{SMEM_LIMIT}")
+    return NormPlan(cols=cols, groups=-(-b // cols), split=split, rows=rows,
+                    threads=threads, smem_bytes=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_norm(d: int, b: int) -> NormPlan:
+    """The norm's geometry (:func:`norm_geometry`): always a cluster of 8
+    blocks over the rows; one column a cluster where a block holds at most
+    256 rows (4-byte copies, B clusters: the most SMs pulling a small
+    tile), else 4 columns where B is a multiple of 4 (16-byte copies), else
+    the power of two at or above B, at most 32; halved while one block's
+    sub-tile does not fit.  On the H100 these won at both plan serves'
+    shapes (``tools/norm_sweep.py``; PERF.md).  Raises where not even one
+    column fits."""
+    rows = -(-d // NORM_SPLIT)
+    if rows <= NORM_NARROW_ROWS:
+        cols = 1
+    else:
+        cols = 4 if b % 4 == 0 else min(32, 1 << max(0, b - 1).bit_length())
+    while cols > 1 and _norm_smem(rows, cols, _norm_threads(rows, cols),
+                                  NORM_SPLIT) > SMEM_LIMIT:
+        cols //= 2
+    return norm_geometry(d, b, cols, NORM_SPLIT)
+
+
+def step_norm_plain(x: torch.Tensor, w, norm: str) -> torch.Tensor:
+    """Plain PyTorch version of :func:`step_norm`: the reference's
+    ``norm_fn`` on ``x [d, B]`` (rms with weight ``w [d]``, or the
+    non-parametric layer norm, centred)."""
+    if norm == "rms":
+        var = torch.mean(x * x, dim=0, keepdim=True)
+        return x * torch.rsqrt(var + 1e-6) * w[:, None]
+    mu = torch.mean(x, dim=0, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=0, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5)
+
+
+def _norm_args(norm: str) -> tuple[int, float]:
+    if norm == "rms":
+        return 0, 1e-6
+    if norm == "nonparam":
+        return 1, 1e-5
+    raise ValueError(f"norm {norm!r}: the step takes 'rms' or 'nonparam'")
+
+
+def _norm_launch(lib, stream, x, w_ptr, plan: NormPlan, mode: int,
+                 eps: float) -> torch.Tensor:
+    """One launch of the norm kernel at ``plan``, unchecked (the callers
+    checked ``x`` and the weight)."""
+    d, b = x.shape
+    out = torch.empty_like(x)
+    dispatch.check_launch(lib.repro_step_norm(
+        x.data_ptr(), w_ptr, out.data_ptr(), d, b, plan.cols, plan.split,
+        plan.threads, mode, eps, stream), "repro_step_norm")
+    dispatch.record_launch("step_norm", shape=(d, b))
+    return out
+
+
+def step_norm(x: torch.Tensor, w, norm: str) -> torch.Tensor:
+    """K7's norm (the reference's ``norm_fn``, ``layer_plan.py:308-313``) of
+    ``x [d, B]`` float32, features-major: ``norm == "rms"`` with weight ``w
+    [d]``, or ``"nonparam"`` (``w`` None).  One launch of
+    ``csrc/step_plan.cu``'s ``step_norm_kernel`` at :func:`plan_norm`'s
+    geometry.  CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`step_norm_plain`."""
+    mode, eps = _norm_args(norm)
+    if not dispatch.on_device(x):
+        return step_norm_plain(x, w, norm)
+    d, b = x.shape
+    dispatch.check_tensor("x", x, torch.float32, (d, b), x.device)
+    if mode == 0:
+        dispatch.check_tensor("w", w, torch.float32, (d,), x.device)
+    elif w is not None:
+        raise ValueError("the non-parametric layer norm takes no weight")
+    plan = plan_norm(d, b)
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        return _norm_launch(lib, torch.cuda.current_stream().cuda_stream, x,
+                            _ptr(w), plan, mode, eps)
+
+
 # ------------------------------------------------- K7: the decode step
 
 
@@ -1035,27 +1172,19 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
     versions of the route, dispatch and combine kernels."""
     n_layers, b = kpos.shape[0], x0.shape[1]
 
-    def norm_fn(v, w):
-        if norm == "rms":
-            var = torch.mean(v * v, dim=0, keepdim=True)
-            return v * torch.rsqrt(var + 1e-6) * w[:, None]
-        mu = torch.mean(v, dim=0, keepdim=True)
-        var = torch.mean((v - mu) ** 2, dim=0, keepdim=True)
-        return (v - mu) * torch.rsqrt(var + 1e-5)
-
     kn = torch.empty((n_layers, b, n_kv_heads, head_dim), dtype=torch.float32,
                      device=x0.device)
     vn = torch.empty_like(kn)
     x = x0.to(torch.float32)
     for l in range(n_layers):
-        h = norm_fn(x, ln1[l] if norm == "rms" else None)
+        h = step_norm_plain(x, ln1[l] if norm == "rms" else None, norm)
         qkv = stage_matmul_plain(stages["qkv"], h, layer=l)
         att, kn[l], vn[l] = step_attention_plain(
             qkv, pos, cos if rope else None, sin if rope else None, kc[l],
             vc[l], kpos[l], n_heads=n_heads, n_kv_heads=n_kv_heads,
             head_dim=head_dim, window=window, block_tbl=block_tbl)
         x = x + stage_matmul_plain(stages["o"], att, layer=l)
-        h2 = norm_fn(x, ln2[l] if norm == "rms" else None)
+        h2 = step_norm_plain(x, ln2[l] if norm == "rms" else None, norm)
         if moe is not None:
             x = _moe_layer_plain(stages, moe, l, h2, x)
             continue
@@ -1136,19 +1265,18 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
     if rope:
         dispatch.check_tensor("cos", cos, f32, (b, hd // 2), dev)
         dispatch.check_tensor("sin", sin, f32, (b, hd // 2), dev)
-    if norm == "rms":
+    mode, eps = _norm_args(norm)
+    if mode == 0:
         dispatch.check_tensor("ln1", ln1, f32, (n_layers, d), dev)
         dispatch.check_tensor("ln2", ln2, f32, (n_layers, d), dev)
-    elif norm != "nonparam":
-        raise ValueError(f"norm {norm!r}: the step takes 'rms' or 'nonparam'")
     for name in _STAGE_ORDER if moe is None else _MOE_STAGE_ORDER:
         if stages[name].n_layers != n_layers:
             raise ValueError(f"stage {name} has {stages[name].n_layers} "
                              f"layers, the cache {n_layers}")
     if nq % nkv:
         raise ValueError(f"{nq} query heads over {nkv} kv-heads")
-    mode, eps = (0, 1e-6) if norm == "rms" else (1, 1e-5)
     key = (n_layers, d, d_ff, b, smax, nq, nkv, hd)
+    nplan = plan_norm(d, b)
     g = nq // nkv
     aplan = plan_attention(b, nkv, g, smax, _sms(dev), bs, head_dim=hd)
     akey = attention_key(b, smax, nq, nkv, hd, bs, window)
@@ -1162,12 +1290,7 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
     lib = build.load()
 
     def norm_(x, w, l):
-        out = torch.empty_like(x)
-        dispatch.check_launch(lib.repro_step_norm(
-            x.data_ptr(), _ptr(w, l), out.data_ptr(), d, b, mode, eps, stream),
-            "repro_step_norm")
-        dispatch.record_launch("step_plan_matmul", shape=key)
-        return out
+        return _norm_launch(lib, stream, x, _ptr(w, l), nplan, mode, eps)
 
     def swiglu_(gu, n, cols):
         hf = torch.empty((n, cols), dtype=f32, device=dev)

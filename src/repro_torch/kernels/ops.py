@@ -883,28 +883,41 @@ def _as_f32(x: torch.Tensor) -> torch.Tensor:
 def apply_packed_group(pg: PackedGroup, xs) -> list[torch.Tensor]:
     """y_g = W_hat_g @ xs[g] for every group member — ONE fused launch.
 
-    ``xs`` is a per-member list of [K_g, B] inputs (all the same B; K_g is the
-    member's own in_dim).  The inputs are concatenated once; every slice
-    reads its rows through its offset.  FS dense-fallback slices are added per
-    member outside the launch, exactly like :func:`apply_packed_decomposition`.
+    ``xs`` is either a per-member list of [K_g, B] inputs (all the same B;
+    K_g is the member's own in_dim), concatenated here once, or the
+    concatenation itself, ``[sum_g K_g, B]`` (what
+    :class:`~repro_torch.kernels.shared_matmul.RegionPrep` writes).  Every
+    slice reads its rows through its offset.  FS dense-fallback slices are
+    added per member outside the launch, exactly like
+    :func:`apply_packed_decomposition`.
     """
-    if len(xs) != len(pg.members):
-        raise ValueError(f"{len(pg.members)} group members, {len(xs)} inputs")
-    for m, x in zip(pg.members, xs):
-        if x.shape[0] != m.in_dim:
-            raise ValueError(f"x has {x.shape[0]} rows, member expects "
-                             f"in_dim={m.in_dim}")
-    xs = [_as_f32(x) for x in xs]
+    rows = [m.in_dim for m in pg.members]
+    if isinstance(xs, torch.Tensor):
+        if xs.dim() != 2 or xs.shape[0] != sum(rows):
+            raise ValueError(f"x has shape {tuple(xs.shape)}, the group takes "
+                             f"[{sum(rows)}, B]")
+        x = _as_f32(xs)
+        xs = list(torch.split(x, rows))
+    else:
+        if len(xs) != len(pg.members):
+            raise ValueError(f"{len(pg.members)} group members, {len(xs)} inputs")
+        for k, xm in zip(rows, xs):
+            if xm.shape[0] != k:
+                raise ValueError(f"x has {xm.shape[0]} rows, member expects "
+                                 f"in_dim={k}")
+        xs = [_as_f32(xm) for xm in xs]
+        x = None
     y = None
     if any(m.col_slices for m in pg.members):
         ds = pg.on(xs[0].device)
-        y = lcc_group_matmul(ds.idx, ds.exp, ds.sign, torch.cat(xs, dim=0),
+        y = lcc_group_matmul(ds.idx, ds.exp, ds.sign,
+                             torch.cat(xs, dim=0) if x is None else x,
                              ds.slice_c0, ds.slice_w, ds.chain_len)
     outs = []
-    for g, (m, x) in enumerate(zip(pg.members, xs)):
+    for g, (m, xm) in enumerate(zip(pg.members, xs)):
         yg = y[g, : m.out_dim] if (y is not None and m.col_slices) else None
-        for (c0, c1), w in m.dense_on(x.device):
-            part = w @ x[c0:c1]
+        for (c0, c1), w in m.dense_on(xm.device):
+            part = w @ xm[c0:c1]
             yg = part if yg is None else yg + part
         if yg is None:
             raise ValueError("empty decomposition in group: no FP or dense slices")
@@ -1005,16 +1018,16 @@ def apply_packed_decomposition(packed: PackedDecomposition, x: torch.Tensor,
     return y[:, 0] if squeeze else y
 
 
-def segment_sum(labels: torch.Tensor, x: torch.Tensor, num_clusters: int,
-                *, csr=None) -> torch.Tensor:
+def segment_sum(labels: torch.Tensor, x: torch.Tensor,
+                num_clusters: int) -> torch.Tensor:
     """Kernel segment-sum over ragged (K, C, B) — no padding: the kernel masks
-    its own edges.  ``csr`` (required for CUDA tensors): see
-    :func:`~repro_torch.kernels.shared_matmul.cluster_segment_sum`."""
-    return cluster_segment_sum(labels, _as_f32(x), num_clusters, csr=csr)
+    its own edges (see
+    :func:`~repro_torch.kernels.shared_matmul.cluster_segment_sum`)."""
+    return cluster_segment_sum(labels, _as_f32(x), num_clusters)
 
 
 def shared_matmul(centroids: torch.Tensor, labels: torch.Tensor,
-                  x: torch.Tensor, *, csr=None) -> torch.Tensor:
+                  x: torch.Tensor) -> torch.Tensor:
     """Eq. (10): kernel segment-sum then centroid matmul. x [K, B] -> [N, B]."""
-    agg = segment_sum(labels, x, centroids.shape[1], csr=csr)
+    agg = segment_sum(labels, x, centroids.shape[1])
     return centroids.to(torch.float32) @ agg

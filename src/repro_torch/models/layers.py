@@ -38,11 +38,11 @@ def site_fmt(site):
 
 
 def matvec_acts(fn, x):
-    """Run a features-major matvec (x [K, B] -> [N, B]) on [..., d] acts.
-    Activations go through the compressed map in float32 and come back in
-    their own dtype."""
+    """Run a features-major matvec (x [K, B] -> [N, B]) on [..., d] acts:
+    the callable gets the transposed view of the activations in their own
+    dtype (it works in float32), and the result comes back in that dtype."""
     lead = x.shape[:-1]
-    y = fn(x.reshape(-1, x.shape[-1]).to(torch.float32).T)
+    y = fn(x.reshape(-1, x.shape[-1]).T)
     return y.T.reshape(*lead, -1).to(x.dtype)
 
 
@@ -63,24 +63,20 @@ def site_linear(executor, name, p, x):
     return y
 
 
-def site_linear_group(executor, names, ps, xs):
-    """Several projections of one *fused region* (same batch of activations:
+def site_linear_group(executor, names, ps, x):
+    """Several projections of one *fused region* (the same activations ``x``:
     attention q/k/v, SwiGLU gate/up) in ONE grouped kernel launch when the
-    executor covers every site; per-site :func:`site_linear` otherwise.
-
-    ``xs`` is either one shared activation tensor or a per-site list; returns
-    the per-site outputs in order.
+    executor covers every site — the region gets one transposed view of
+    ``x`` for all its members — and per-site :func:`site_linear` otherwise.
+    Returns the per-site outputs in order.
     """
-    xlist = list(xs) if isinstance(xs, (list, tuple)) else [xs] * len(names)
     fused = executor.grouped(tuple(names)) if executor is not None else None
     if fused is None:
-        return [site_linear(executor, n, p, x)
-                for n, p, x in zip(names, ps, xlist)]
-    lead = xlist[0].shape[:-1]
-    flat = [x.reshape(-1, x.shape[-1]).to(torch.float32).T for x in xlist]
-    ys = fused(flat)
+        return [site_linear(executor, n, p, x) for n, p in zip(names, ps)]
+    lead = x.shape[:-1]
+    ys = fused(x.reshape(-1, x.shape[-1]).T)
     outs = []
-    for y, p, x in zip(ys, ps, xlist):
+    for y, p in zip(ys, ps):
         o = y.T.reshape(*lead, -1).to(x.dtype)
         if "b" in p:
             o = o + p["b"]

@@ -75,7 +75,8 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int,
                 f"moe.{proj}.{site_tag}.e{e}" for e in range(n_experts)))
         if fused is None:
             return torch.einsum("ecd,edf->ecf", z, p[proj])
-        ys = fused([z[e].to(torch.float32).T for e in range(n_experts)])
+        # one view an expert into the stacked [E, C, d_in] buffer
+        ys = fused([z[e].T for e in range(n_experts)])
         return torch.stack([y.T for y in ys]).to(z.dtype)
 
     if plan is not None:

@@ -19,12 +19,13 @@ Three kernel routes:
   downs) through ``layer_plan.moe_plan_matmul`` (K9), where the whole-step
   plan is refused (MLA attention, shared experts) and the compute dtype is
   float32; the layer's attention and shared experts stay per-region.
-* :class:`LCCMatvec` — one dense site: prune gather -> eq. (10) segment-sum
-  (``cluster_segment_sum``) -> the whole FP chain in ONE ``lcc_chain_matmul``
-  launch.
+* :class:`LCCMatvec` — one dense site: prune gather and eq. (10)
+  segment-sum in one region-prep launch (``shared_matmul.RegionPrep``) ->
+  the whole FP chain in ONE ``lcc_chain_matmul`` launch.
 * :class:`GroupedLCCMatvec` — one *fused region*: several sites (an attention
   layer's q/k/v, a SwiGLU's gate/up, one projection of all of an MoE
-  layer's experts) apply their chains in ONE ``lcc_group_matmul`` launch.
+  layer's experts) prepare their inputs in ONE region-prep launch and apply
+  their chains in ONE ``lcc_group_matmul`` launch.
 
 The last two are the per-region route, taken where no plan applies (other
 compute dtypes, ``use_plans=False``).  Models never import this module —
@@ -36,6 +37,7 @@ their own ragged edges, so there is no batch bucketing).
 """
 from __future__ import annotations
 
+import re
 import time
 
 import numpy as np
@@ -43,56 +45,43 @@ import torch
 
 from repro_torch.core.compress import CompressedDense
 from repro_torch.kernels import layer_plan, ops
-from repro_torch.kernels.shared_matmul import csr_from_labels
+from repro_torch.kernels.shared_matmul import RegionPrep
 from repro_torch.models.attention import _paged_index
 from repro_torch.models.layers import _rope_sincos
 
 __all__ = ["CompressedExecutor", "LCCMatvec", "GroupedLCCMatvec", "StepPlan",
-           "MoEPlan", "matvecs_from_artifact"]
+           "MoEPlan", "matvecs_from_artifact", "site_prep"]
 
 
-class _SitePrep:
-    """One site's input preparation: kept-column gather, then the
-    weight-sharing segment-sum.  Device tensors are made on first use, so a
-    site reached only through its group never uploads anything of its own
-    beyond these index vectors."""
+def site_prep(records) -> RegionPrep:
+    """The input preparation of the sites ``records`` (one site or a fused
+    region): their kept columns and weight-sharing labels, composed once,
+    named by the sites without their layer (``attn.q+attn.k+attn.v``,
+    ``moe.up`` for one projection's experts)."""
+    name = "+".join(dict.fromkeys(region_site(cd.name) for cd in records))
+    return RegionPrep([
+        (cd.kept_columns,
+         None if cd.shared is None else cd.shared.labels,
+         0 if cd.shared is None else cd.shared.n_clusters) for cd in records],
+        name)
 
-    def __init__(self, cd, device):
-        self.device = torch.device(device)
-        kept = np.asarray(cd.kept_columns, np.int64)
-        self._kept_np = kept
-        self._kept = None
-        # a full, ordered keep of a K-row input needs no gather
-        self._identity_rows = (kept.size if (kept == np.arange(kept.size)).all()
-                               else -1)
-        self._labels_np = (np.asarray(cd.shared.labels, np.int64)
-                           if cd.shared is not None else None)
-        self.n_clusters = cd.shared.n_clusters if cd.shared is not None else 0
-        self._labels = None
-        self._csr = None
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[0] != self._identity_rows:
-            if self._kept is None:
-                self._kept = torch.from_numpy(self._kept_np).to(self.device)
-            x = x.index_select(0, self._kept)
-        if self._labels_np is not None:
-            if self._labels is None:
-                self._labels = torch.from_numpy(self._labels_np).to(self.device)
-                self._csr = csr_from_labels(self._labels_np, self.n_clusters,
-                                            self.device)
-            x = ops.segment_sum(self._labels, x, self.n_clusters, csr=self._csr)
-        return x
+def region_site(name: str) -> str:
+    """A site's name without its layer and expert (``attn.q.l3`` ->
+    ``attn.q``, ``moe.up.l0.e5`` -> ``moe.up``)."""
+    return re.sub(r"\.l\d+(\.e\d+)?$", "", name)
 
 
 class LCCMatvec:
     """One compressed projection as a fused-kernel matvec: x [K, B] -> [N, B].
 
-    Prune (kept_columns gather) -> optional weight-sharing segment-sum (paper
-    eq. (10)) -> the whole FP decomposition in a single ``lcc_chain_matmul``
-    launch.  Built from a ``core.compress.CompressedDense`` record; pass
-    ``packed=`` to reuse an artifact's pre-packed kernel buffers instead of
-    re-packing the decomposition.  The streams go to the device at the first
+    Prune (kept_columns gather) and the optional weight-sharing segment-sum
+    (paper eq. (10)) in one region-prep launch (none for an identity keep
+    without sharing) -> the whole FP decomposition in a single
+    ``lcc_chain_matmul`` launch.  Built from a
+    ``core.compress.CompressedDense`` record; pass ``packed=`` to reuse an
+    artifact's pre-packed kernel buffers instead of re-packing the
+    decomposition.  The streams go to the device at the first
     call, not at construction.
     """
 
@@ -101,7 +90,7 @@ class LCCMatvec:
         self.device = torch.device(device)
         self.packed = (packed if packed is not None
                        else ops.pack_decomposition(cd.decomposition, block))
-        self.prep = _SitePrep(cd, device)
+        self.prep = site_prep([cd])
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         vec = x.dim() == 1
@@ -114,10 +103,12 @@ class LCCMatvec:
 class GroupedLCCMatvec:
     """Several compressed sites applied in ONE fused launch (a *fused region*).
 
-    Call with a per-site list of features-major inputs ``[K_g, B]`` (all the
-    same batch width; input widths may differ — each member gathers its own
-    kept columns and segment-sums its own clusters before the shared
-    ``lcc_group_matmul`` dispatch).  Returns the per-site ``[N_g, B]`` outputs.
+    Call with the region's features-major input ``[K, B]``: one tensor shared
+    by every site, or a per-site list of views of one stacked tensor (see
+    ``shared_matmul.region_layout``).  One region-prep launch gathers every
+    member's kept columns, segment-sums its clusters and writes the
+    concatenated input of the one ``lcc_group_matmul`` launch.  Returns the
+    per-site ``[N_g, B]`` outputs.
     """
 
     def __init__(self, records, *, packed=None, block: int = 128,
@@ -129,11 +120,10 @@ class GroupedLCCMatvec:
         self.names = tuple(cd.name for cd in records)
         self.device = torch.device(device)
         self.group = ops.pack_group(members)
-        self.preps = [_SitePrep(cd, device) for cd in records]
+        self.prep = site_prep(records)
 
     def __call__(self, xs) -> list[torch.Tensor]:
-        return ops.apply_packed_group(
-            self.group, [prep(x) for prep, x in zip(self.preps, xs)])
+        return ops.apply_packed_group(self.group, self.prep(xs))
 
 
 def matvecs_from_artifact(artifact, *, include=None, block: int = 128,

@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.lcc_chain_matmul import _levels_plain
 
 __all__ = ["seeded_decomposition", "decomposition_dense", "dense_sites",
-           "moe_sites", "seeded_artifact"]
+           "moe_sites", "seeded_artifact", "seeded_prep"]
 
 SHARED_SITES = ("attn.k", "attn.o", "ffn.up", "moe.up")
 
@@ -196,10 +196,12 @@ def moe_sites(cfg: ArchConfig) -> list[tuple[str, str, int, int]]:
             ("moe.down", "down", d, dff)]
 
 
-def _seeded_site(name: str, n: int, k: int, rng: np.random.Generator,
-                 shared: bool, n_pruned: int, device, host_effective: bool):
-    """One site: record, packed buffers and the full dense-effective weight
-    ``[N, K]`` (pruned columns zero) on ``device``."""
+def seeded_prep(k: int, rng: np.random.Generator, shared: bool,
+                n_pruned: int = 2) -> tuple[np.ndarray, np.ndarray | None, int]:
+    """A site's input preparation as the fixture draws it: ``(kept, labels,
+    K_dec)`` — ``n_pruned`` columns pruned at random and, when ``shared``, a
+    sixteenth of the kept columns merged into other columns' clusters
+    (``labels`` None otherwise; ``K_dec`` the decomposition's input width)."""
     n_pruned = min(n_pruned, k - 2)
     kept = np.sort(rng.permutation(k)[n_pruned:]).astype(np.int64)
     k_dec, labels = kept.size, None
@@ -209,6 +211,14 @@ def _seeded_site(name: str, n: int, k: int, rng: np.random.Generator,
         labels = np.concatenate([rng.permutation(k_dec),
                                  rng.integers(0, k_dec, size=merged)])
         labels = labels[rng.permutation(labels.size)].astype(np.int64)
+    return kept, labels, k_dec
+
+
+def _seeded_site(name: str, n: int, k: int, rng: np.random.Generator,
+                 shared: bool, n_pruned: int, device, host_effective: bool):
+    """One site: record, packed buffers and the full dense-effective weight
+    ``[N, K]`` (pruned columns zero) on ``device``."""
+    kept, labels, k_dec = seeded_prep(k, rng, shared, n_pruned)
     dec, packed = _seeded_chains(n, k_dec, rng)
     w_dec = decomposition_dense(packed, device)  # [N, k_dec]
     eff = w_dec if labels is None else w_dec[:, torch.from_numpy(labels).to(device)]

@@ -162,14 +162,14 @@ class _CountingExecutor(CompressedExecutor):
     def __init__(self, *a, **k):
         super().__init__(*a, **k)
         self.calls = {"lcc_chain_matmul": 0, "lcc_group_matmul": 0,
-                      "cluster_segment_sum": 0}
+                      "region_prep": 0}
 
     def matvec(self, name):
         fn = super().matvec(name)
 
         def counted(x):
             self.calls["lcc_chain_matmul"] += 1
-            self.calls["cluster_segment_sum"] += fn.prep._labels_np is not None
+            self.calls["region_prep"] += fn.prep.launches(x)
             return fn(x)
         return counted if fn is not None else None
 
@@ -178,15 +178,14 @@ class _CountingExecutor(CompressedExecutor):
 
         def counted(xs):
             self.calls["lcc_group_matmul"] += 1
-            self.calls["cluster_segment_sum"] += sum(
-                p._labels_np is not None for p in g.preps)
+            self.calls["region_prep"] += g.prep.launches(xs)
             return g(xs)
         return counted if g is not None else None
 
 
 def test_launches_per_step_follow_the_site_table(arts):
     """4 launches a layer (q/k/v group, o chain, gate/up group, down chain)
-    plus one segment-sum per weight-shared site."""
+    plus one region prep a group and one a site that prunes or shares."""
     _, tart = arts
     cfg = tart.config
     ex = _CountingExecutor(tart, use_plans=False, device="cpu")
@@ -196,10 +195,14 @@ def test_launches_per_step_follow_the_site_table(arts):
                     torch.tensor([0, 0]), executor=ex)
     n_shared = sum(r.shared is not None for r in tart.records.values())
     assert n_shared == len(SHARED)
+    n_single_prep = sum(
+        r.shared is not None
+        or not np.array_equal(r.kept_columns, np.arange(r.kept_columns.size))
+        for n, r in tart.records.items() if n.startswith(("attn.o", "ffn.down")))
     assert ex.calls == {"lcc_chain_matmul": 2 * cfg.n_layers,
                         "lcc_group_matmul": 2 * cfg.n_layers,
-                        "cluster_segment_sum": n_shared}
-    assert sum(ex.calls.values()) == 4 * cfg.n_layers + n_shared
+                        "region_prep": 2 * cfg.n_layers + n_single_prep}
+    assert sum(ex.calls.values()) == 6 * cfg.n_layers + n_single_prep
     # on the CPU nothing is a launch: the engine's measured count stays 0
     # (the engine's executor takes the whole-step plan: f32 config)
     dispatch.reset_launch_count()

@@ -216,7 +216,7 @@ def test_segment_sum_matches_jax_kernel(k, c, b, dyadic):
                                rtol=0, atol=TOL)
     assert torch.equal(y_t, cluster_segment_sum_plain(lt, xt, c))
     # the CSR form the kernel walks: ascending rows inside a cluster
-    order, offsets = csr_from_labels(labels, c, "cpu")
+    order, offsets = csr_from_labels(labels, c)
     want = torch.stack([xt[order[offsets[i]:offsets[i + 1]].long()].sum(0)
                         for i in range(c)])
     torch.testing.assert_close(y_t, want, rtol=0, atol=TOL)
@@ -239,7 +239,7 @@ def test_shared_matmul_is_centroids_times_segment_sum():
 
 def test_segment_sum_rejects_bad_labels():
     with pytest.raises(ValueError):
-        csr_from_labels(np.array([0, 3]), 3, "cpu")
+        csr_from_labels(np.array([0, 3]), 3)
     with pytest.raises(ValueError):
         cluster_segment_sum(torch.zeros(3, dtype=torch.long), torch.zeros(4, 2), 2)
 
