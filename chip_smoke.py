@@ -21,16 +21,19 @@ kernel on those paths against its plain PyTorch version:
    ``--only chain`` instead times K1 and K2 alone at every shape the three
    per-region serves launch them at (members drawn at the fixture's (N, K),
    no fixture, no serve, a few minutes) and stops; ``--only stage`` times K6
-   alone at the ten shapes of the three float32 plan routes (one-layer
-   full-width artifacts, no serve) and on the hand-built exact stages;
+   alone at the ten shapes of the three float32 plan routes, each in the
+   output mode the serve launches it in (gate+up and the experts' gates+ups
+   gated: K7's SwiGLU in the epilogue; mixtral's expert downs combining:
+   K8's combine in the epilogue; one-layer full-width artifacts, no serve)
+   and on the hand-built exact stages;
    ``--only attention`` times K7's decode attention alone (``step_attention``,
    one layer, paged) at the olmo-1b and mixtral-8x22b plan serves' shapes
    (S = 128, the serves' positions, idle rows) and at their long caches
    (olmo-1b S = 2048, mixtral-8x22b S = 4096 under its window), each at
    random positions and full, against its plain version, bitwise run to run,
-   beside its bound and ``scaled_dot_product_attention``, K8's route alone
-   at mixtral's width, and K7's SwiGLU alone at both serves' shapes; the
-   full run starts with the same phase; ``--only prep`` times K3's region
+   beside its bound and ``scaled_dot_product_attention``, and K8's route
+   alone at mixtral's width; the full run starts with the same phase;
+   ``--only prep`` times K3's region
    prep alone at every region the three per-region serves prepare (members
    drawn at the fixture's widths, bf16 and, for deepseek's K9 route,
    float32 inputs laid out as the models pass them), bit for bit against
@@ -39,8 +42,8 @@ kernel on those paths against its plain PyTorch version:
    against its plain version, its own order and ``F.layer_norm`` /
    ``F.rms_norm``, in under a minute;
 2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``region_prep``,
-   ``stage_matmul``, ``step_plan_matmul``, ``step_norm`` and
-   ``step_attention`` at reduced
+   ``stage_matmul`` (gate+up in its gated mode, K7's SwiGLU),
+   ``step_plan_matmul``, ``step_norm`` and ``step_attention`` at reduced
    shapes and at the main paths' own dimensions (the whole step also at
    olmo-1b's published context, S = 2048), and ``lcc_factor_matmul`` (K4) on
    every factor of layer 0's ``attn.o`` and ``ffn.down`` and through the
@@ -58,10 +61,11 @@ kernel on those paths against its plain PyTorch version:
    step's logits against the per-region route on the same artifact.
    ``--layers`` cuts the depth of both olmo serves (never the width);
 6. mixtral-8x22b at full width (d_model 6144, 8 experts of d_ff 16384,
-   vocab 32768), 2 layers: its K8 kernels (route, dispatch, combine) and a
+   vocab 32768), 2 layers: its K8 kernels (route, dispatch) and a
    reduced serve (plan == per-region == plain == dense, capacity drops
    occurring); the per-region kernels at its shapes and the bf16 per-region
-   serve; then the plan packed and uploaded, K6 on its expert stages, one
+   serve; then the plan packed and uploaded, K6 on its expert stages (eg
+   gated; ed combining, with a dropped choice and empty slots), one
    full-width step, and the float32 plan serve; plan vs per-region logits
    (``--only mixtral`` runs these alone);
 7. deepseek-v2-lite-16b at full width (d_model 2048, MLA kv_lora 512, 64
@@ -69,7 +73,8 @@ kernel on those paths against its plain PyTorch version:
    reduced plan and a reduced serve (K9 route == per-region == plain ==
    dense, drops occurring); the per-region kernels at its shapes (uk+uv over
    the whole latent view at 1024 columns) and the bf16 per-region serve;
-   one expert plan a layer packed and uploaded, K6 on every stage, K9 at
+   one expert plan a layer packed and uploaded, K6 on every stage (stage A
+   gated), K9 at
    layer 0, the float32 serve on the K9 route; K9 vs per-region logits
    (``--only deepseek`` runs these alone);
 8. training (``--only train`` runs these alone): K5 ``group_prox`` on the
@@ -126,8 +131,7 @@ from repro_torch.kernels.lcc_matmul import (  # noqa: E402
 from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
     lcc_group_matmul, lcc_group_matmul_plain)
 from repro_torch.kernels.moe_route import (  # noqa: E402
-    capacity, moe_combine, moe_combine_plain, moe_dispatch, moe_dispatch_plain,
-    moe_route, moe_route_plain)
+    capacity, moe_dispatch, moe_dispatch_plain, moe_route, moe_route_plain)
 from repro_torch.kernels.shared_matmul import (  # noqa: E402
     RegionPrep, region_layout, region_prep_plain)
 from repro_torch.models import api  # noqa: E402
@@ -163,8 +167,10 @@ KERNELS = {
     "stage_matmul": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/stage_matmul.cu",
         replaces="src/repro/kernels/layer_plan.py:483"),
-    "step_plan_matmul": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
+    # K7's SwiGLU (line 414 of step_plan_matmul's body; for K9 line 454 of
+    # moe_plan_matmul's): the gated epilogue of the gate/up stage
+    "step_swiglu": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/stage_matmul.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
     # K7's norm, lines 308-313 of step_plan_matmul's body
     "step_norm": dict(
@@ -181,8 +187,9 @@ KERNELS = {
     "moe_dispatch": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
+    # K8's gated combine (lines 358-365): the combining epilogue of stage ed
     "moe_combine": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/stage_matmul.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
     "group_prox": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/group_prox.cu",
@@ -190,22 +197,24 @@ KERNELS = {
     "lcc_factor_matmul": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/lcc_factor_matmul.cu",
         replaces="src/repro/kernels/lcc_matmul.py:82"),
-    # K9: K6 on stage A, the step's SwiGLU kernel, K6 on stage B
-    "moe_plan_matmul": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/step_plan.cu",
-        replaces="src/repro/kernels/layer_plan.py:457"),
 }
+K9_REPLACES = "src/repro/kernels/layer_plan.py:457"  # moe_plan_matmul
+# rows that check a composition of the kernels above (the whole step, K9):
+# no launch of their own, so not in the kernels line
+COMPOSITE = ("step_plan_matmul", "moe_plan_matmul")
+# the stage epilogue's output modes: the kernel each takes the place of
+MODE_ROW = {"gated": "step_swiglu", "combine": "moe_combine"}
 PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "region_prep")
-PLAN = ("stage_matmul", "step_plan_matmul", "step_norm", "step_attention")
-MOE = ("moe_route", "moe_dispatch", "moe_combine")
+PLAN = ("stage_matmul", "step_norm", "step_attention")
+MOE = ("moe_route", "moe_dispatch")
 # the device kernels of this port, by name fragment (profiler rows)
 PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "region_prep_kernel", "stage_prep_kernel",
                 "stage_chain_kernel", "stage_epilogue_kernel",
                 "step_norm_kernel", "split_attention_kernel",
-                "split_attention_merge_kernel", "step_swiglu_kernel",
+                "split_attention_merge_kernel",
                 "moe_logits_kernel", "moe_router_kernel",
-                "moe_dispatch_kernel", "moe_combine_kernel",
+                "moe_dispatch_kernel",
                 "group_prox_kernel", "lcc_factor_kernel")
 ROUTED = ("moe.gate", "moe.up", "moe.down")  # site prefixes of the routed experts
 MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
@@ -735,7 +744,8 @@ def stage_weights(art, name, layer, dev):
                       for b, p in STAGE_SITES[name]]).contiguous()
 
 
-def ordered_stage_plain(ps, src, layer, sm_count, plan=None):
+def ordered_stage_plain(ps, src, layer, sm_count, plan=None, *, gated=False,
+                        combine=None):
     """``stage_matmul``'s result for one layer in the kernels' own order, in
     PyTorch operations: the prep sums each target's pairs in pair order
     (the sorted-pair order of the prep kernel); a row's terms are added in
@@ -743,9 +753,11 @@ def ordered_stage_plain(ps, src, layer, sm_count, plan=None):
     slices' output rows in slice order from 0 (an entry that reads the zero
     row adds 0), and the epilogue the chunks of a site in chunk order from
     0, then the dense blocks (one product each, so only there is the order
-    PyTorch's), the bias and nothing else.  Equal to the kernel bit for bit
-    where the stage has no live dense block.  ``plan``: the launch to follow
-    (a :class:`StageLaunch` of ``layer`` alone; default the wrapper's)."""
+    PyTorch's), the bias and nothing else; in the gated mode then
+    :func:`ordered_swiglu`, in the combining mode :func:`ordered_combine`.
+    Equal to the kernel bit for bit where the stage has no live dense
+    block.  ``plan``: the launch to follow (a :class:`StageLaunch` of
+    ``layer`` alone; default the wrapper's)."""
     ds = device_stage(ps, src.device)
     dev, b = src.device, src.shape[1]
     x = src.to(torch.float32)
@@ -794,7 +806,96 @@ def ordered_stage_plain(ps, src, layer, sm_count, plan=None):
         out = out + ds.dw_mat[layer] @ x
     if ds.bias_live[layer]:
         out = out + ds.bias[layer][:, None]
+    if gated:
+        return ordered_swiglu(out)
+    if combine is not None:
+        return ordered_combine(out, *combine)
     return out
+
+
+def ordered_swiglu(out):
+    """The gated epilogue's expression on ``out [2 n, B]`` one rounded
+    operation at a time: ``(g / (1 + exp(-g))) * u``, g the first n rows, u
+    the last n."""
+    n = out.shape[0] // 2
+    g, u = out[:n], out[n:]
+    return torch.div(g, torch.exp(-g) + 1.0) * u
+
+
+def ordered_combine(ob, x, slot, wgt):
+    """The combining epilogue's sums from the expert outputs ``ob [E * d,
+    cap]``: ``x [d, T] + y``, y from 0 adding ``wgt[t, j] * ob[e_j * d + r,
+    c_j]`` (a product, then a sum) over the choices j in order, a dropped
+    one (slot outside ``[0, E * cap)``) by a select that keeps y."""
+    d, t = x.shape
+    cap = ob.shape[1]
+    n_exp = ob.shape[0] // d
+    s = slot.long()
+    kept = (s >= 0) & (s < n_exp * cap)
+    s = torch.where(kept, s, torch.zeros_like(s))
+    e, c = s // cap, s % cap
+    rows = torch.arange(d, device=x.device)[:, None]
+    y = torch.zeros_like(x)
+    for j in range(s.shape[1]):
+        v = ob[e[:, j][None, :] * d + rows, c[:, j][None, :].expand(d, t)]
+        y = torch.where(kept[:, j][None, :], y + wgt[:, j][None, :] * v, y)
+    return x + y
+
+
+def combine_inputs(d, t, k, n_exp, cap, seed, dev):
+    """``(x [d, T], slot [T, k], wgt [T, k])`` as the route gives them:
+    each token's k experts distinct, ranked in token-major order, a rank
+    beyond ``cap`` dropped (slot ``E * cap``, weight 0), the weights a
+    token's renormalised gates; token 1's last choice is dropped whatever
+    its rank, and some slots stay empty (``T * k < E * cap``)."""
+    rng = np.random.default_rng(seed)
+    fill = np.zeros(n_exp, np.int64)
+    slot = np.empty((t, k), np.int32)
+    wgt = rng.uniform(0.1, 1.0, (t, k)).astype(np.float32)
+    wgt /= wgt.sum(axis=1, keepdims=True)
+    for ti in range(t):
+        for j, e in enumerate(rng.permutation(n_exp)[:k]):
+            if fill[e] < cap and not (ti == 1 and j == k - 1):
+                slot[ti, j] = e * cap + fill[e]
+                fill[e] += 1
+            else:
+                slot[ti, j] = n_exp * cap
+                wgt[ti, j] = 0.0
+    x = torch.from_numpy(rng.standard_normal((d, t)).astype(np.float32))
+    return (x.to(dev), torch.from_numpy(slot).to(dev),
+            torch.from_numpy(wgt).to(dev))
+
+
+def mode_kwargs(ps, batch, mode, dev):
+    """``stage_matmul``'s keywords for an output mode: ``None`` (plain),
+    ``"gated"``, or ``("combine", E, T, k)`` with :func:`combine_inputs`
+    (cap = ``batch``); and the mode's part of the launch's shape key."""
+    if mode is None:
+        return {}, ()
+    if mode == "gated":
+        return {"gated": True}, ("gated",)
+    _, n_exp, t, k = mode
+    return ({"combine": combine_inputs(ps.out_dim // n_exp, t, k, n_exp,
+                                       batch, 73, dev)}, ("combine", t, k))
+
+
+def mode_cost(ds, layer, batch, kw) -> tuple[int, int]:
+    """(bytes, operations) of the stage in an output mode: the stage's own
+    (:func:`stage_cost`), its output replaced by the mode's (the gated half
+    rows, with four operations an element: exp, add, divide, multiply; the
+    combine's ``[d, T]`` with x, slot and wgt read, two operations a choice
+    and one add)."""
+    bytes_, flops = stage_cost(ds, [layer], batch)
+    o = ds.ps.out_dim
+    if kw.get("gated"):
+        return bytes_ - 4 * batch * (o - o // 2), flops + 4 * (o // 2) * batch
+    if "combine" in kw:
+        x, slot, _ = kw["combine"]
+        d, t = x.shape
+        k = slot.shape[1]
+        return (bytes_ - 4 * batch * o + 4 * 2 * d * t + 8 * t * k,
+                flops + (2 * k + 1) * d * t)
+    return bytes_, flops
 
 
 def stage_dims(ds, batch, layer=0):
@@ -816,21 +917,28 @@ def stage_dims(ds, batch, layer=0):
 
 
 def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
-                      exact=False, w=None):
+                      exact=False, w=None, mode=None):
     """``stage_matmul`` on one layer of one stage at ``batch`` columns, held
     against its plain version (bit for bit when ``exact``: dyadic input on a
     stage whose every sum is exact), against the plain arithmetic in the
     kernels' order (bit for bit where the stage has no live dense block) and
-    against one dense product."""
+    against one dense product.  With ``mode`` (:func:`mode_kwargs`) the
+    epilogue writes the mode's output: the row is the kernel the mode takes
+    the place of (:data:`MODE_ROW`), counted as ``stage_matmul`` launches at
+    the mode's shape key, held to the dense product through the plain mode,
+    timed beside the stage alone (``stage_ms``, the plain mode) and with no
+    library call (none computes the stage and the mode in one)."""
     ds = device_stage(ps, dev)
     src = dyadic(rng, (ps.d_src, batch), dev)
-    y = stage_matmul(ps, src, layer=layer)
+    kw, key_mode = mode_kwargs(ps, batch, mode, dev)
+    y = stage_matmul(ps, src, layer=layer, **kw)
     torch.cuda.synchronize()
-    plain = stage_matmul_plain(ps, src, layer=layer)
+    plain = stage_matmul_plain(ps, src, layer=layer, **kw)
     err = check_close(label, y, plain, SUM_TOL)
     if exact and not torch.equal(y, plain):
         fail(f"{label}: kernel differs from the plain version on dyadic input")
-    in_order = check_in_order(label, ps, src, y, layer)
+    equal_to_plain = bool(torch.equal(y, plain))
+    in_order = check_in_order(label, ps, src, y, layer, **kw)
     bias = (torch.from_numpy(ps.bias[layer]).to(dev)
             if ps.bias is not None else None)
     if w is None:  # the stage's own linear map, column by column
@@ -838,25 +946,35 @@ def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
         w = stage_matmul_plain(replace(ps, bias=None), eye, layer=layer)
     library = ((lambda: torch.addmm(bias[:, None], w, src)) if bias is not None
                else (lambda: torch.matmul(w, src)))
-    check_close(label + " vs dense", y, library(), 1e-4)
+    check_close(label + " vs dense", stage_matmul(ps, src, layer=layer),
+                library(), 1e-4)
+    extra = {}
+    if kw:
+        extra = dict(counted_as="stage_matmul", mode=key_mode[0],
+                     equal_to_plain=equal_to_plain, dense_ms=timer(library),
+                     stage_ms=timer(lambda: stage_matmul(ps, src, layer=layer)))
+        library = None
     return kernel_row(
-        "stage_matmul", label, stage_dims(ds, batch, layer),
-        ds.shape_key(batch, 1), err, exact or in_order,
-        lambda: stage_matmul(ps, src, layer=layer),
-        lambda: stage_matmul_plain(ps, src, layer=layer), library,
-        bound_of(*stage_cost(ds, [layer], batch)), timer,
+        MODE_ROW[key_mode[0]] if kw else "stage_matmul", label,
+        stage_dims(ds, batch, layer),
+        ds.shape_key(batch, 1, key_mode), err, exact or in_order,
+        lambda: stage_matmul(ps, src, layer=layer, **kw),
+        lambda: stage_matmul_plain(ps, src, layer=layer, **kw), library,
+        bound_of(*mode_cost(ds, layer, batch, kw)), timer,
         live_terms=ds.live_terms[layer],
         run_terms=ds.maps[layer].run_terms if ds.maps else 0,
         segs=ps.segs is not None,
-        warm_l2_ms=timer(lambda: stage_matmul(ps, src, layer=layer), cold=False))
+        warm_l2_ms=timer(lambda: stage_matmul(ps, src, layer=layer, **kw),
+                         cold=False), **extra)
 
 
-def check_in_order(label, ps, src, y, layer):
-    """The kernel against :func:`ordered_stage_plain`: bit for bit where the
-    stage has no live dense block (then True), else within SUM_TOL."""
+def check_in_order(label, ps, src, y, layer, **kw):
+    """The kernel against :func:`ordered_stage_plain` (in the output mode of
+    ``kw``): bit for bit where the stage has no live dense block (then
+    True), else within SUM_TOL."""
     ds = device_stage(ps, src.device)
     sm = torch.cuda.get_device_properties(src.device).multi_processor_count
-    want = ordered_stage_plain(ps, src, layer, sm)
+    want = ordered_stage_plain(ps, src, layer, sm, **kw)
     if ds.fs_live[layer] or ds.dw_live[layer]:
         check_close(label + " in kernel order", y, want, SUM_TOL)
         return False
@@ -926,16 +1044,30 @@ def reduced_stage_cases(red_plan, dev, timer):
 
 def main_path_stage_cases(art, plan, dev, timer):
     """K6 at exactly the dimensions the plan serve launches it at: layer 0
-    of each of the full-width plan's four stages, B = n_slots; the library
-    yardstick is one product with the stage's dense-effective matrix."""
+    of each of the full-width plan's four stages, B = n_slots, gate+up in
+    its gated mode (K7's SwiGLU); the yardstick is one product with the
+    stage's dense-effective matrix."""
     rng = np.random.default_rng(40)
     rows = []
     for name in ("qkv", "o", "gu", "dn"):
         rows.append(kernel_case_stage(f"full {name}", plan.stages[name], rng,
                                       dev, timer,
-                                      w=stage_weights(art, name, 0, dev)))
+                                      w=stage_weights(art, name, 0, dev),
+                                      mode=serve_mode(art.config, name)))
         torch.cuda.empty_cache()
     return rows
+
+
+def serve_mode(cfg, name):
+    """The output mode the plan serves launch stage ``name`` in
+    (:func:`mode_kwargs`): gate+up and the experts' gates+ups (K9's stage A)
+    gated; the whole-step plan's expert downs combining; others plain (K9's
+    stage B too: its caller combines, as in the reference)."""
+    if name in ("gu", "eg", "a"):
+        return "gated"
+    if name == "ed" and cfg.mla is None:
+        return ("combine", cfg.moe.n_experts, BATCH, cfg.moe.top_k)
+    return None
 
 
 def hand_stage_cases(rng, dev, timer):
@@ -1003,10 +1135,12 @@ def main_path_stages(dev, archs=STAGE_ARCHS):
 
 def phase_stage(dev):
     """``--only stage``: K6 alone at the ten shapes the three float32 plan
-    routes launch it at (:func:`main_path_stages`), plus the hand-built
+    routes launch it at (:func:`main_path_stages`), each in the output mode
+    the serve launches it in (:func:`serve_mode`), plus the hand-built
     exact stages.  No serve.  Each case as in the kernel phase: against the
     plain version, in the kernels' order, against the dense product, timed
-    beside its bound, the plain version and one library call."""
+    beside its bound, the plain version and one library call (or, in an
+    output mode, the stage alone)."""
     t0 = time.perf_counter()
     timer = Timer(dev)
     rows = hand_stage_cases(np.random.default_rng(30), dev, timer)
@@ -1015,14 +1149,17 @@ def phase_stage(dev):
         hosts.append(host)
         emit(dict(phase="stage_arch", **host))
         rng = np.random.default_rng(40)
+        cfg = get_arch(arch)
         for label, name, ps, batch in cases:
+            mode = serve_mode(cfg, name)
             if name in ("eg", "ed"):
                 rows.append(kernel_case_expert_stage(
-                    label, name, art, ps, dev, timer, batch=batch, serve=None))
+                    label, name, art, ps, dev, timer, batch=batch, serve=None,
+                    mode=mode))
             else:
                 rows.append(kernel_case_stage(
                     label, ps, rng, dev, timer,
-                    w=stage_weights(art, name, 0, dev)))
+                    w=stage_weights(art, name, 0, dev), mode=mode))
             gc.collect()
             torch.cuda.empty_cache()
     return dict(phase="stage", seconds=time.perf_counter() - t0,
@@ -1448,41 +1585,6 @@ def kernel_case_norm(cfg, dev, timer, *, serve=None, plan=None, label=None):
         warm_l2_ms=timer(kernel, cold=False))
 
 
-def kernel_case_swiglu(arch, dev, timer):
-    """K7's SwiGLU kernel alone at ``arch``'s plan-serve shape, launched
-    through its C entry point as ``step_plan_matmul`` launches it (inside it
-    it counts as the step's launch): the FFN's ``[2 n, C]`` (dense: n =
-    d_ff, C = B; MoE: n = E * d_ff, C = capacity), against the plain
-    expression (SUM_TOL); no library call computes it in one."""
-    cfg = get_arch(arch)
-    torch.manual_seed(zlib.crc32(arch.encode()))
-    lib, stream = build.load(), torch.cuda.current_stream().cuda_stream
-    if cfg.moe is None:
-        n, cols = cfg.d_ff, BATCH
-    else:
-        n = cfg.moe.n_experts * cfg.moe.d_ff_expert
-        cols = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
-                        cfg.moe.n_experts)
-    gu = torch.randn((2 * n, cols), device=dev)
-    hf = torch.empty((n, cols), device=dev)
-
-    def swiglu():
-        dispatch.check_launch(lib.repro_step_swiglu(
-            gu.data_ptr(), hf.data_ptr(), n, cols, stream), "repro_step_swiglu")
-        return hf
-
-    def swiglu_plain():
-        return F.silu(gu[:n]) * gu[n:]
-
-    got = swiglu().clone()
-    torch.cuda.synchronize()
-    return kernel_row(
-        "step_swiglu", f"{arch} swiglu", dict(n=n, C=cols), (n, cols),
-        check_close(f"{arch} swiglu", got, swiglu_plain(), SUM_TOL), False,
-        swiglu, swiglu_plain, None, bound_of(4 * 3 * n * cols, 5 * n * cols),
-        timer)
-
-
 def route_case_inputs(dev):
     """mixtral-8x22b's route at the plan serve's shape: its config and a
     random router scaled as an initialised one, seeded."""
@@ -1495,8 +1597,7 @@ def route_case_inputs(dev):
 def phase_attention(dev):
     """``--only attention``: K7's attention alone at every case of
     :func:`attention_cases` and K8's route alone at mixtral's width (two
-    idle columns, as the serve has), with no fixture and no serve; then K7's
-    SwiGLU alone at both plan serves' shapes."""
+    idle columns, as the serve has), with no fixture and no serve."""
     t0 = time.perf_counter()
     timer = Timer(dev)
     rows = []
@@ -1506,8 +1607,6 @@ def phase_attention(dev):
     cfg, router = route_case_inputs(dev)
     rows.append(kernel_case_moe("mixtral route", cfg, router, dev, timer,
                                 idle=2)[0])
-    for arch in ("olmo-1b", "mixtral-8x22b"):
-        rows.append(kernel_case_swiglu(arch, dev, timer))
     return dict(phase="attention", seconds=time.perf_counter() - t0,
                 tolerance=SUM_TOL, rows=rows)
 
@@ -1887,16 +1986,17 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
                      predicted=None, expected=None, n_plans=1, fallbacks=None):
     """The plan route at full width, float32: the same 6 prompts x 16 new
     tokens on 8 slots, paged KV.  The whole-step plan (``stages``: its
-    packed stages): a dense layer launches 4 stages (K6) and 4 step kernels
-    (K7: 2 norms, attention, SwiGLU); an MoE layer the same with its FFN
-    stages eg/ed and K8's route, dispatch and combine.  Other plan routes
+    packed stages): a dense layer launches 4 stages (K6; gate+up with
+    SwiGLU in its epilogue) and 3 step kernels (K7: 2 norms, attention); an
+    MoE layer the same with its FFN stages eg (gated) and ed (the combine in
+    its epilogue) and K8's route and dispatch.  Other plan routes
     (deepseek's per-layer expert plans) pass their own ``predicted``
     launches a step, ``expected`` kernels, ``n_plans`` and ``fallbacks``.
     ``l_reg``: the per-region route's two-step logits on the same artifact
     (computed here when not given)."""
     moe = cfg.moe is not None
     if predicted is None:
-        predicted = (11 if moe else 8) * cfg.n_layers
+        predicted = (9 if moe else 7) * cfg.n_layers
     if expected is None:
         expected = set(PLAN) | (set(MOE) if moe else set())
     fallbacks = fallbacks or {}
@@ -2006,15 +2106,18 @@ def cast(tree, dtype):
 def kernel_rows(rows, serves):
     """The main-path rows of the kernels line: each row checked at a serve's
     own shapes, with the launches that serve made at exactly the row's
-    dimensions.  ``serves`` maps a serve's name to its ``(counts, by_shape,
-    decode steps)``; every launch of a serve must be at dimensions a row
-    checked."""
+    dimensions (under ``counted_as``, the wrapper's count, where the row is
+    an output mode of another kernel's launch).  ``serves`` maps a serve's
+    name to its ``(counts, by_shape, decode steps)``; every launch of a
+    serve must be at dimensions a row checked.  Rows of compositions
+    (:data:`COMPOSITE`) have no launch of their own and stay out."""
     kernels = []
     for row in rows:
-        if row.get("serve") is None:
+        if row.get("serve") is None or row["name"] in COMPOSITE:
             continue
         counts, by_shape, steps = serves[row["serve"]]
-        n = by_shape.get((row["name"], tuple(row["shape_key"])), 0)
+        n = by_shape.get((row.get("counted_as", row["name"]),
+                          tuple(row["shape_key"])), 0)
         if n <= 0:
             fail(f"{row['name']} {row['shape']}: the {row['serve']} serve never "
                  f"launched at the checked dimensions {row['dims']}")
@@ -2022,10 +2125,11 @@ def kernel_rows(rows, serves):
                         "launches_per_step": n / steps})
     for serve_name, (counts, by_shape, _) in serves.items():
         for name, total in counts.items():
-            seen = sum(r["launches"] for r in kernels if r["name"] == name
+            seen = sum(r["launches"] for r in kernels
+                       if r.get("counted_as", r["name"]) == name
                        and r["serve"] == serve_name)
             if seen != total:
-                shapes = sorted(k for (nm, k) in by_shape if nm == name)
+                shapes = sorted((k for (nm, k) in by_shape if nm == name), key=str)
                 fail(f"{name}: {total} launches on the {serve_name} serve, "
                      f"{seen} of them at dimensions the kernel phase checked; "
                      f"launched at {shapes}")
@@ -2044,12 +2148,13 @@ def kernel_case_moe(label, cfg, router, dev, timer, *, batch=BATCH, idle=0,
                     serve=None):
     """K8's own kernels on one layer's router at ``batch`` columns: route
     (held to the plain version's experts, slots, source tokens and dropped
-    count exactly, weights within SUM_TOL), dispatch (exact: a gather of
-    the same values the plain version scatter-adds into zeros) and combine.
+    count exactly, weights within SUM_TOL) and dispatch (exact: a gather of
+    the same values the plain version scatter-adds into zeros); the combine
+    is stage ed's combining epilogue (:func:`kernel_case_expert_stage`).
     The last ``idle`` columns are equal, as idle slots are; they route
-    alike and take capacity.  No single PyTorch call computes any of the
-    three (top-k with capacity ranks; the e-major scatter; the gated
-    gather-sum), so there is no library time."""
+    alike and take capacity.  No single PyTorch call computes either (top-k
+    with capacity ranks; the e-major scatter), so there is no library
+    time."""
     d, n_exp, k = cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
     cap = capacity(batch, k, cfg.moe.capacity_factor, n_exp)
     kw = dict(top_k=k, cap=cap, norm_topk=cfg.moe.norm_topk)
@@ -2089,19 +2194,6 @@ def kernel_case_moe(label, cfg, router, dev, timer, *, batch=BATCH, idle=0,
         lambda: moe_dispatch_plain(h2, slot, src_tok, n_exp, cap), None,
         bound_of(4 * (d * batch + n_exp * cap + n_exp * d * cap), 0), timer,
         serve=serve))
-    x = torch.randn((d, batch), device=dev)
-    ob = torch.randn((n_exp * d, cap), device=dev)
-    out = moe_combine(x, ob, slot, wgt, n_exp, cap)
-    torch.cuda.synchronize()
-    ref = moe_combine_plain(x, ob, slot, wgt, n_exp, cap)
-    err = check_close(f"{label} moe_combine", out, ref, SUM_TOL)
-    rows.append(kernel_row(
-        "moe_combine", label, dims, (d, batch, n_exp, k, cap), err,
-        bool(torch.equal(out, ref)),
-        lambda: moe_combine(x, ob, slot, wgt, n_exp, cap),
-        lambda: moe_combine_plain(x, ob, slot, wgt, n_exp, cap), None,
-        bound_of(4 * (2 * d * batch + n_exp * d * cap + 2 * batch * k),
-                 2 * d * batch * k), timer, serve=serve))
     return rows
 
 
@@ -2156,28 +2248,33 @@ def mixtral_region_cases(art, dev, timer, sm, serve):
 
 
 def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
-                             serve, wl=0):
+                             serve, wl=0, mode=None):
     """K6 on layer 0 of an expert super-stage (``eg``: every expert's gate
     and up, e-major; ``ed``: every down) at B = capacity; for a one-layer
     stage of an MoE plan (K9), ``wl`` names the model layer it holds.  The
     library yardstick is one ``torch.bmm`` over the E experts' dense-effective
     float32 weights of layer ``wl``; the plain version (tens of GB of gathers
-    at mixtral's width) is timed apart from it."""
+    at mixtral's width) is timed apart from it.  With ``mode``
+    (:func:`mode_kwargs`) the row is the epilogue's output mode, as in
+    :func:`kernel_case_stage`: the stage in its plain mode is held to the
+    ``bmm`` and timed as ``stage_ms``, the ``bmm`` as ``dense_ms``."""
     cfg = art.config
     ne, dff, d = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
     ds = device_stage(ps, dev)
     src = dyadic(np.random.default_rng(71), (ps.d_src, batch), dev)
-    y = stage_matmul(ps, src, layer=0)
+    kw, key_mode = mode_kwargs(ps, batch, mode, dev)
+    y = stage_matmul(ps, src, layer=0, **kw)
     torch.cuda.synchronize()
-    plain = stage_matmul_plain(ps, src, layer=0)
+    plain = stage_matmul_plain(ps, src, layer=0, **kw)
     err = check_close(label, y, plain, SUM_TOL)
+    equal_to_plain = bool(torch.equal(y, plain))
     del plain
     torch.cuda.empty_cache()
-    in_order = check_in_order(label, ps, src, y, 0)
+    in_order = check_in_order(label, ps, src, y, 0, **kw)
     torch.cuda.empty_cache()
-    ms = timer(lambda: stage_matmul(ps, src, layer=0))
-    warm = timer(lambda: stage_matmul(ps, src, layer=0), cold=False)
-    plain_ms = timer(lambda: stage_matmul_plain(ps, src, layer=0))
+    ms = timer(lambda: stage_matmul(ps, src, layer=0, **kw))
+    warm = timer(lambda: stage_matmul(ps, src, layer=0, **kw), cold=False)
+    plain_ms = timer(lambda: stage_matmul_plain(ps, src, layer=0, **kw))
     torch.cuda.empty_cache()
     ffn = art.params["blocks"]["ffn"]
     if name == "eg":  # [E, 2 dff, d] @ [E, d, C]: gates then ups per expert
@@ -2193,30 +2290,40 @@ def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
 
         def unpack(o):
             return o.reshape(ne * d, batch)
-    check_close(label + " vs dense", y, unpack(torch.bmm(w, x3)), 1e-4)
+    y0 = stage_matmul(ps, src, layer=0) if kw else y
+    check_close(label + " vs dense", y0, unpack(torch.bmm(w, x3)), 1e-4)
+    del y0
     library_ms = timer(lambda: torch.bmm(w, x3))
     del w
     torch.cuda.empty_cache()
-    emit(dict(phase="kernel_case", name="stage_matmul", shape=label, ms=ms,
+    extra = {}
+    if kw:
+        extra = dict(counted_as="stage_matmul", mode=key_mode[0],
+                     equal_to_plain=equal_to_plain, dense_ms=library_ms,
+                     stage_ms=timer(lambda: stage_matmul(ps, src, layer=0)))
+        library_ms = None
+    row_name = MODE_ROW[key_mode[0]] if kw else "stage_matmul"
+    emit(dict(phase="kernel_case", name=row_name, shape=label, ms=ms,
               max_abs_err=err))
-    return dict(name="stage_matmul", shape=label,
+    bound = bound_of(*mode_cost(ds, 0, batch, kw))
+    return dict(name=row_name, shape=label,
                 dims=stage_dims(ds, batch),
-                shape_key=list(ds.shape_key(batch, 1)), max_abs_err=err,
-                max_err=err, exact_in_kernel_order=in_order, ms=ms, kernel_ms=ms,
-                live_terms=ds.live_terms[0],
+                shape_key=list(ds.shape_key(batch, 1, key_mode)),
+                max_abs_err=err, max_err=err, exact_in_kernel_order=in_order,
+                ms=ms, kernel_ms=ms, live_terms=ds.live_terms[0],
                 run_terms=ds.maps[0].run_terms if ds.maps else 0,
                 segs=ps.segs is not None,
                 warm_l2_ms=warm, plain_ms=plain_ms,
-                bound_ms=bound_of(*stage_cost(ds, [0], batch))[0],
-                bound_by=bound_of(*stage_cost(ds, [0], batch))[1],
-                library_ms=library_ms, serve=serve)
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=library_ms, serve=serve, **extra)
 
 
 def mixtral_plan_cases(art, plan, dev, timer, serve):
     """K6, K7 and K8 at the mixtral plan serve's own dimensions: layer 0 of
     the attention stages (B = n_slots) and of the expert super-stages (B =
-    capacity), the route/dispatch/combine on layer 0's router (two idle
-    columns, as the serve has), and one full-width step."""
+    capacity; eg gated, ed combining for n_slots tokens), the route and
+    dispatch on layer 0's router (two idle columns, as the serve has), and
+    one full-width step."""
     cfg = art.config
     cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
                    cfg.moe.n_experts)
@@ -2230,7 +2337,8 @@ def mixtral_plan_cases(art, plan, dev, timer, serve):
     for name in ("eg", "ed"):
         rows.append(kernel_case_expert_stage(f"mixtral {name}", name, art,
                                              plan.stages[name], dev, timer,
-                                             batch=cap, serve=serve))
+                                             batch=cap, serve=serve,
+                                             mode=serve_mode(cfg, name)))
         gc.collect()
         torch.cuda.empty_cache()
     torch.manual_seed(72)
@@ -2568,18 +2676,24 @@ def run_deepseek(dev):
     for li, plan in enumerate(plans):
         for name, kind in (("a", "eg"), ("b", "ed")):
             ps = plan.stages[name]
-            key = device_stage(ps, dev).shape_key(cap, 1)
+            mode = serve_mode(base, name)  # stage A gated, B plain
+            kw, key_mode = mode_kwargs(ps, cap, mode, dev)
+            key = device_stage(ps, dev).shape_key(cap, 1, key_mode)
             if key not in checked:
                 rows.append(kernel_case_expert_stage(
                     f"deepseek l{li} {name}", kind, art32, ps, dev, timer,
-                    batch=cap, serve=k9, wl=li))
+                    batch=cap, serve=k9, wl=li, mode=mode))
+                if mode:
+                    rows[-1]["replaces"] = K9_REPLACES
                 checked[key] = rows[-1]["shape"]
             else:  # the same dimensions as a row: the values still held
                 src = dyadic(np.random.default_rng(li), (ps.d_src, cap), dev)
                 err = check_close(f"deepseek l{li} {name}",
-                                  stage_matmul(ps, src, layer=0),
-                                  stage_matmul_plain(ps, src, layer=0), SUM_TOL)
-                emit(dict(phase="kernel_check", name="stage_matmul",
+                                  stage_matmul(ps, src, layer=0, **kw),
+                                  stage_matmul_plain(ps, src, layer=0, **kw),
+                                  SUM_TOL)
+                emit(dict(phase="kernel_check",
+                          name=MODE_ROW[mode] if mode else "stage_matmul",
                           shape=f"deepseek l{li} {name}", max_abs_err=err,
                           row=checked[key]))
             gc.collect()
@@ -2588,14 +2702,15 @@ def run_deepseek(dev):
                                      batch=cap, serve=k9))
     del ex, plans
     # a layer: K1 q, o, shared down; K2 dkv+kr, uk+uv, shared gate+up; K9's
-    # stage A, SwiGLU, stage B; and a region prep for each of those six
-    # per-region launches that prunes or shares (all six in the fixture)
+    # stage A (SwiGLU in its epilogue) and stage B; and a region prep for
+    # each of the six per-region launches that prunes or shares (all six in
+    # the fixture)
     preps = region_preps_per_step(base, art32.records,
                                   keep=lambda n: not n[0].startswith(ROUTED))
     planned, pcounts, pshape = phase_plan_serve(
         dev, cfg32, art32, stages, pack_s, l_reg=l_reg,
-        predicted=9 * base.n_layers + preps,
-        expected=set(PER_REGION) | {"stage_matmul", "moe_plan_matmul"},
+        predicted=8 * base.n_layers + preps,
+        expected=set(PER_REGION) | {"stage_matmul"},
         n_plans=base.n_layers, fallbacks={"step": "mla"})
     planned["host_peak_rss_bytes"] = host_peak_rss_bytes()
     emit(planned)
@@ -3159,6 +3274,10 @@ def main() -> None:
         rows += trows
         serves.update(tserves)
 
+    # the whole steps and K9 at the serves' dimensions: compositions of the
+    # kernels below, with no launch of their own
+    emit(dict(phase="compositions",
+              rows=[r for r in rows if r["name"] in COMPOSITE]))
     # the kernels of the main paths at the dimensions they gave them:
     # ``launches`` is what a serve launched at exactly the row's dimensions
     kernels = kernel_rows(rows, serves)

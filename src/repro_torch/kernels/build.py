@@ -39,23 +39,19 @@ _SIGNATURES = {
     # idx exp sign x out | N S K B x_bf16 | stream
     "repro_lcc_factor_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # src prep_src prep_off inbuf gidx gexp gsgn slices holes units esites
-    # ebegin partial fs dw bias resid out | nl D B M K P R S O | groups
-    # (host int32 [G, 7]) | G | stream
-    "repro_stage_matmul": [_P] * 18 + [_I] * 9 + [_P, _I, _P],
+    # ebegin partial fs dw bias resid out x slot wgt | nl D B M K P R S O |
+    # mode E k cap T | groups (host int32 [G, 7]) | G | stream
+    "repro_stage_matmul": [_P] * 21 + [_I] * 14 + [_P, _I, _P],
     # x w out | d B cols split threads mode | eps | stream
     "repro_step_norm": [_P] * 3 + [_I] * 6 + [_F, _P],
     # qkv pos cos sin kc vc kpos tbl att kn vn ws | B S nq nkv hd bs mb
     # window splits chunk | scale | stream
     "repro_split_attention": [_P] * 12 + [_I] * 10 + [_F, _P],
-    # gu out | dff B | stream
-    "repro_step_swiglu": [_P] * 2 + [_I] * 2 + [_P],
     # h2 router sel wgt slot src_tok dropped ws | d B E k cap norm_topk |
     # stream
     "repro_moe_route": [_P] * 8 + [_I] * 6 + [_P],
     # h2 src_tok src | d B E cap | stream
     "repro_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
-    # x ob slot wgt out | d B E k cap | stream
-    "repro_moe_combine": [_P] * 5 + [_I] * 5 + [_P],
     # a out | G | M | t | dtype | stream
     "repro_group_prox": [_P, _P, _L, _I, _F, _I, _P],
 }

@@ -1,21 +1,22 @@
 // moe_route — the routed FFN's own kernels inside the whole-step layer plan on
 // Hopper (sm_90a).  Per MoE layer the decode step runs
 //
-//   norm -> route -> dispatch -> stage(eg) -> swiglu -> stage(ed) -> combine + x
+//   norm -> route -> dispatch -> stage(eg, gated) -> stage(ed, combining)
 //
-// with the stages in stage_matmul.cu, SwiGLU in step_plan.cu and nothing else
-// in between.
+// with the stages in stage_matmul.cu and nothing else in between: SwiGLU is
+// the eg stage's gated epilogue, and the gated combine (x plus each token's
+// weighted sum of its experts' outputs) the ed stage's combining epilogue.
 //
 // Replaces the MoE branch of the Pallas TPU kernel `step_plan_matmul` of
 // src/repro/kernels/layer_plan.py (body `moe_block`): router logits, softmax,
-// top-k, renormalisation, the capacity rank of every (token, choice), the
-// e-major dispatch into the expert super-stages' input and the gated combine.
+// top-k, renormalisation, the capacity rank of every (token, choice) and the
+// e-major dispatch into the expert super-stages' input.
 //
 // Bound by bytes on this card, and by launch latency before that.  The route
 // reads h2 [d, B] and the layer's router [d, E] once (6144 x 8 floats each at
 // mixtral's width: 0.4 MB) for 2 * B * E * d flops; dispatch writes the
-// [E * d, C] expert input and combine reads the [E * d, C] expert output once.
-// Each is microseconds beside the expert stages' streams.
+// [E * d, C] expert input once.  Each is microseconds beside the expert
+// stages' streams.
 //
 // What the design does about it.
 //  * route: the logits take one pass over d, spread over blocks of 512
@@ -38,9 +39,6 @@
 //  * dispatch is a gather, not a scatter-add: kept slots are unique, so each
 //    (expert, capacity column) has one source token or none (zero).  No
 //    float atomics anywhere: run-to-run identical.
-//  * combine sums a token's kept choices in choice order with round-to-
-//    nearest multiplies and adds (no contraction into fused multiply-adds
-//    the reference does not take) and reads no slot for a dropped choice.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -222,30 +220,6 @@ __global__ void moe_dispatch_kernel(const float* __restrict__ h2,
   src[t] = tok >= 0 ? h2[static_cast<size_t>(i) * B + tok] : 0.0f;
 }
 
-// out[i, b] = x[i, b] + sum_j wgt[b, j] * ob[(e_j * d + i) * C + c_j] over the
-// kept choices j in order, (e_j, c_j) = divmod(slot[b, j], C)
-__global__ void moe_combine_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ ob,
-                                   const int32_t* __restrict__ slot,
-                                   const float* __restrict__ wgt,
-                                   float* __restrict__ out, int d, int B,
-                                   int E, int k, int cap) {
-  const size_t n = static_cast<size_t>(d) * B;
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int i = static_cast<int>(t / B);
-  const int b = static_cast<int>(t - static_cast<size_t>(i) * B);
-  float y = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    const int s = slot[b * k + j];
-    if (s < 0 || s >= E * cap) continue;  // dropped: no slot is read
-    const int e = s / cap, c = s - e * cap;
-    y = __fadd_rn(y, __fmul_rn(wgt[b * k + j],
-                               ob[(static_cast<size_t>(e) * d + i) * cap + c]));
-  }
-  out[t] = __fadd_rn(x[t], y);
-}
-
 }  // namespace
 
 // h2 [d, B], router [d, E] (the layer's), outputs sel/wgt/slot [B, k] and
@@ -296,21 +270,5 @@ extern "C" int repro_moe_dispatch(const void* h2, const void* src_tok,
                         threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(h2), static_cast<const int32_t*>(src_tok),
       static_cast<float*>(src), d, B, E, cap);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int repro_moe_combine(const void* x, const void* ob,
-                                 const void* slot, const void* wgt, void* out,
-                                 int d, int B, int E, int k, int cap,
-                                 void* stream) {
-  if (d <= 0 || B <= 0 || E <= 0 || k <= 0 || cap <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = static_cast<size_t>(d) * B;
-  const int threads = 256;
-  moe_combine_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                       threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(ob),
-      static_cast<const int32_t*>(slot), static_cast<const float*>(wgt),
-      static_cast<float*>(out), d, B, E, k, cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@
 //
 // Replaces the Pallas TPU kernel `stage_matmul` (body `_stage_apply` /
 // `_stage_apply_seg`) of src/repro/kernels/layer_plan.py, and the stage
-// evaluations inside `step_plan_matmul` there.
+// evaluations inside `step_plan_matmul` and `moe_plan_matmul` there, with
+// the SwiGLU after the gate/up stages (lines 356, 414, 454) and the MoE
+// combine after the down stage (lines 358-365) that those bodies run.
 //
 // What it computes, per layer (the PackedStage contract of kernels/ops.py):
 //   prep      inbuf[t] = sum of src[s'] over the pairs (s', t)
@@ -63,6 +65,14 @@
 //    dense blocks' dot products (fs_mat, dw_mat: a GEMV loop is enough at
 //    B <= 16) and add their partial sums by shuffles in a fixed order; the
 //    residual add of the decode step folds into it.
+//  * The elementwise kernels that followed a stage in the decode step have
+//    no launch of their own: each was pure launch latency (6-8 us for a few
+//    hundred KB), and the epilogue already forms every value they read.  In
+//    its gated mode it writes SwiGLU's output (silu of the gate row times
+//    the up row) in place of the [2 n, B] gate/up rows; in its combining mode
+//    it writes x plus each token's weighted sum of its k experts' outputs in
+//    place of the [E * d, cap] expert outputs, forming only the k * d * T
+//    values the tokens read.  Both give the separate kernels' bits.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -340,69 +350,133 @@ __device__ __forceinline__ float lanes_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// out[l, o, b] = resid + (((chunk sums) + fs @ inbuf) + dw @ src) + bias.
-// Lane 0 of an output finds its site (binary search over the layer's sites,
+// The epilogue's operands.  mode: kPlain, kGated or kCombine (below);
+// combine's x [d, T], slot/wgt [T, k] and E, k, cap, T (B = cap).
+struct EpiArgs {
+  const float* partial;
+  const int4* esites;
+  const int32_t* ebegin;
+  const float* inbuf;
+  const float* src;
+  const float* fs;
+  const float* dw;
+  const float* bias;
+  const float* resid;
+  const float* x;
+  const int32_t* slot;
+  const float* wgt;
+  float* out;
+  int nl, D, B, K, O, mode, E, k, cap, T;
+};
+
+constexpr int kPlain = 0;    // out [O, B] (+ resid)
+constexpr int kGated = 1;    // out [O / 2, B] = silu(v[:O/2]) * v[O/2:]
+constexpr int kCombine = 2;  // out [d, T] = x + the gated sum of v, d = O / E
+
+// v(l, o, b) = (((chunk sums) + fs @ inbuf) + dw @ src) + bias, in lane 0
+// of the output's kLanes lanes (the other lanes return partial values).
+// Lane 0 finds the output's site (binary search over the layer's sites,
 // esites[s] = out_off, odim, first partial row, chunks) and sums the site's
-// chunks in chunk order; kLanes threads split the dot products' k
-// (interleaved) and combine their partial sums by shuffles.
-__global__ void stage_epilogue_kernel(
-    const float* __restrict__ partial, const int4* __restrict__ esites,
-    const int32_t* __restrict__ ebegin, const float* __restrict__ inbuf,
-    const float* __restrict__ src, const float* __restrict__ fs,
-    const float* __restrict__ dw, const float* __restrict__ bias,
-    const float* __restrict__ resid, float* __restrict__ out, int nl, int D,
-    int B, int K, int O) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int q = static_cast<int>(t % kLanes);
-  const size_t i = t / kLanes;
-  const size_t per = static_cast<size_t>(O) * B;
-  const bool live = i < static_cast<size_t>(nl) * per;  // whole warps shuffle
-  const size_t ii = live ? i : 0;
-  const int l = static_cast<int>(ii / per);
-  const size_t rem = ii - l * per;
-  const int o = static_cast<int>(rem / B);
-  const int b = static_cast<int>(rem - static_cast<size_t>(o) * B);
+// chunks in chunk order; the lanes split the dot products' k (interleaved)
+// and combine their partial sums by shuffles, so every lane of the warp
+// calls this, with live false where it has no output.
+__device__ __forceinline__ float stage_value(const EpiArgs& a, bool live,
+                                             int q, int l, int o, int b) {
   float acc = 0.0f;
-  if (live && q == 0 && partial != nullptr) {
-    const int first = ebegin[l];
-    int lo = first, hi = ebegin[l + 1];
+  if (live && q == 0 && a.partial != nullptr) {
+    const int first = a.ebegin[l];
+    int lo = first, hi = a.ebegin[l + 1];
     while (lo < hi) {  // the last site with out_off <= o
       const int mid = (lo + hi) >> 1;
-      if (esites[mid].x <= o) lo = mid + 1; else hi = mid;
+      if (a.esites[mid].x <= o) lo = mid + 1; else hi = mid;
     }
     if (lo > first) {
-      const int4 s = esites[lo - 1];
+      const int4 s = a.esites[lo - 1];
       if (o < s.x + s.y) {
-        const float* p = partial + (static_cast<size_t>(s.z) + (o - s.x)) * B + b;
-        const size_t step = static_cast<size_t>(s.y) * B;
+        const float* p =
+            a.partial + (static_cast<size_t>(s.z) + (o - s.x)) * a.B + b;
+        const size_t step = static_cast<size_t>(s.y) * a.B;
         for (int c = 0; c < s.w; ++c) acc += p[c * step];
       }
     }
   }
-  if (fs != nullptr) {
+  if (a.fs != nullptr) {
     float f = 0.0f;
     if (live) {
-      const float* const row = fs + (static_cast<size_t>(l) * O + o) * K;
-      const float* const x = inbuf + static_cast<size_t>(l) * K * B + b;
-      for (int k = q; k < K; k += kLanes)
-        f = fmaf(row[k], x[static_cast<size_t>(k) * B], f);
+      const float* const row = a.fs + (static_cast<size_t>(l) * a.O + o) * a.K;
+      const float* const x = a.inbuf + static_cast<size_t>(l) * a.K * a.B + b;
+      for (int k = q; k < a.K; k += kLanes)
+        f = fmaf(row[k], x[static_cast<size_t>(k) * a.B], f);
     }
     acc += lanes_sum(f);
   }
-  if (dw != nullptr) {
+  if (a.dw != nullptr) {
     float f = 0.0f;
     if (live) {
-      const float* const row = dw + (static_cast<size_t>(l) * O + o) * D;
-      const float* const x = src + static_cast<size_t>(l) * D * B + b;
-      for (int k = q; k < D; k += kLanes)
-        f = fmaf(row[k], x[static_cast<size_t>(k) * B], f);
+      const float* const row = a.dw + (static_cast<size_t>(l) * a.O + o) * a.D;
+      const float* const x = a.src + static_cast<size_t>(l) * a.D * a.B + b;
+      for (int k = q; k < a.D; k += kLanes)
+        f = fmaf(row[k], x[static_cast<size_t>(k) * a.B], f);
     }
     acc += lanes_sum(f);
   }
+  if (live && a.bias != nullptr) acc += a.bias[static_cast<size_t>(l) * a.O + o];
+  return acc;
+}
+
+// kLanes threads an output element i of the mode's output [nl, rows, cols]:
+//  * kPlain: out[l, o, b] = resid[o, b] + v(l, o, b) (resid may be null);
+//  * kGated (K7's SwiGLU): out[l, j, b] = silu(g) * u with g = v(l, j, b),
+//    u = v(l, O / 2 + j, b), the expression of the step's former SwiGLU
+//    kernel letter for letter;
+//  * kCombine (K8's combine, nl = 1): out[r, t] = x[r, t] + y, y summing
+//    wgt[t, j] * v(0, e_j * d + r, c_j) over the kept choices j in order,
+//    (e_j, c_j) = divmod(slot[t, j], cap), with round-to-nearest multiplies
+//    and adds.  The outputs of one warp can keep different numbers of
+//    choices, and v shuffles across the warp, so every lane runs all k
+//    choices (a dropped one only takes part in the shuffles and reads no
+//    slot) and a kept choice's term is taken by a select: multiplying a
+//    dropped one by 0 would turn an infinite v into NaN.
+__global__ void stage_epilogue_kernel(EpiArgs a) {
+  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int q = static_cast<int>(t % kLanes);
+  const size_t i = t / kLanes;
+  const int rows = a.mode == kGated ? a.O / 2
+                   : a.mode == kCombine ? a.O / a.E : a.O;
+  const int cols = a.mode == kCombine ? a.T : a.B;
+  const size_t per = static_cast<size_t>(rows) * cols;
+  const bool live = i < static_cast<size_t>(a.nl) * per;  // whole warps shuffle
+  const size_t ii = live ? i : 0;
+  const int l = static_cast<int>(ii / per);
+  const size_t rem = ii - l * per;
+  const int o = static_cast<int>(rem / cols);
+  const int b = static_cast<int>(rem - static_cast<size_t>(o) * cols);
+  if (a.mode == kGated) {
+    const float g = stage_value(a, live, q, l, o, b);
+    const float u = stage_value(a, live, q, l, rows + o, b);
+    if (!live || q != 0) return;
+    const float silu = __fdiv_rn(g, 1.0f + expf(-g));
+    a.out[i] = __fmul_rn(silu, u);
+    return;
+  }
+  if (a.mode == kCombine) {
+    float y = 0.0f;
+    for (int j = 0; j < a.k; ++j) {
+      const int s = live ? a.slot[b * a.k + j] : -1;
+      const bool kept = s >= 0 && s < a.E * a.cap;
+      const int e = kept ? s / a.cap : 0;
+      const int c = kept ? s - e * a.cap : 0;
+      const float v = stage_value(a, kept, q, 0, e * rows + o, c);
+      if (kept) y = __fadd_rn(y, __fmul_rn(a.wgt[b * a.k + j], v));
+    }
+    if (!live || q != 0) return;
+    a.out[i] = __fadd_rn(a.x[i], y);
+    return;
+  }
+  float acc = stage_value(a, live, q, l, o, b);
   if (!live || q != 0) return;
-  if (bias != nullptr) acc += bias[static_cast<size_t>(l) * O + o];
-  if (resid != nullptr) acc = resid[i] + acc;
-  out[i] = acc;
+  if (a.resid != nullptr) acc = a.resid[i] + acc;
+  a.out[i] = acc;
 }
 
 struct ChainArgs {
@@ -461,19 +535,30 @@ cudaError_t launch_stage_rows(const ChainArgs& a, cudaStream_t st) {
 // kernel once a geometry group, epilogue, all on `stream`.  groups: host
 // int32 [ngroups][7] = first unit, units, bb, threads, tile, stages, rows N
 // (the group's longest slice).  K = 0: no prep; ngroups = 0: no streams;
-// fs/dw/bias/resid may be null.  Returns the first CUDA error (0 = every
-// launch accepted).
+// fs/dw/bias/resid may be null.  mode 0 writes out [nl, O, B] (+ resid);
+// mode 1 (gated) out [nl, O / 2, B], O even, no resid; mode 2 (combining,
+// nl = 1, B = cap, O = E * d) out [d, T] from x [d, T], slot and wgt [T, k],
+// no resid.  Returns the first CUDA error (0 = every launch accepted).
 extern "C" int repro_stage_matmul(
     const void* src, const void* prep_src, const void* prep_off, void* inbuf,
     const void* gidx, const void* gexp, const void* gsgn, const void* slices,
     const void* holes, const void* units, const void* esites,
     const void* ebegin, void* partial, const void* fs, const void* dw,
-    const void* bias, const void* resid, void* out, int nl, int D, int B,
-    int M, int K, int P, int R, int S, int O, const void* groups,
-    int ngroups, void* stream) {
+    const void* bias, const void* resid, void* out, const void* cx,
+    const void* cslot, const void* cwgt, int nl, int D, int B, int M, int K,
+    int P, int R, int S, int O, int mode, int E, int k, int cap, int T,
+    const void* groups, int ngroups, void* stream) {
   using namespace repro_torch;
   auto st = static_cast<cudaStream_t>(stream);
-  if (nl <= 0 || B <= 0 || O <= 0 || ngroups < 0)
+  if (nl <= 0 || B <= 0 || O <= 0 || ngroups < 0 || mode < kPlain ||
+      mode > kCombine)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kGated && (O % 2 != 0 || resid != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kCombine &&
+      (nl != 1 || resid != nullptr || E <= 0 || k <= 0 || cap != B ||
+       T <= 0 || O % E != 0 || cx == nullptr || cslot == nullptr ||
+       cwgt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* x = static_cast<const float*>(src);
   auto* in = static_cast<float*>(inbuf);
@@ -516,13 +601,21 @@ extern "C" int repro_stage_matmul(
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const size_t total = static_cast<size_t>(nl) * O * B * kLanes;
+  const EpiArgs e{ngroups > 0 ? static_cast<const float*>(partial) : nullptr,
+                  static_cast<const int4*>(esites),
+                  static_cast<const int32_t*>(ebegin), in, x,
+                  static_cast<const float*>(fs), static_cast<const float*>(dw),
+                  static_cast<const float*>(bias),
+                  static_cast<const float*>(resid),
+                  static_cast<const float*>(cx),
+                  static_cast<const int32_t*>(cslot),
+                  static_cast<const float*>(cwgt), static_cast<float*>(out),
+                  nl, D, B, K, O, mode, E, k, cap, T};
+  const size_t outputs = mode == kGated     ? static_cast<size_t>(nl) * (O / 2) * B
+                         : mode == kCombine ? static_cast<size_t>(O / E) * T
+                                            : static_cast<size_t>(nl) * O * B;
+  const size_t total = outputs * kLanes;
   stage_epilogue_kernel<<<static_cast<unsigned>((total + cthreads - 1) / cthreads),
-                          cthreads, 0, st>>>(
-      ngroups > 0 ? static_cast<const float*>(partial) : nullptr,
-      static_cast<const int4*>(esites), static_cast<const int32_t*>(ebegin),
-      in, x, static_cast<const float*>(fs), static_cast<const float*>(dw),
-      static_cast<const float*>(bias), static_cast<const float*>(resid),
-      static_cast<float*>(out), nl, D, B, K, O);
+                          cthreads, 0, st>>>(e);
   return static_cast<int>(cudaGetLastError());
 }

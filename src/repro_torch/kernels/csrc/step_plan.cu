@@ -1,19 +1,20 @@
 // step_plan — the kernels of the whole-step layer plan on Hopper (sm_90a)
-// besides the stages: the norm, RoPE + decode attention over the KV cache,
-// and SwiGLU.  Per layer the decode step runs
+// besides the stages: the norm and RoPE + decode attention over the KV
+// cache.  Per layer the decode step runs
 //
 //   norm -> stage(qkv) -> attention (emits k_new, v_new) -> stage(o) + x
-//        -> norm -> stage(gu) -> swiglu -> stage(dn) + x
+//        -> norm -> stage(gu, gated: SwiGLU) -> stage(dn) + x
 //
-// with the stages in stage_matmul.cu and no other operation in between.
+// with the stages in stage_matmul.cu (SwiGLU is the gate/up stage's gated
+// epilogue) and no other operation in between.
 //
 // Replaces the dense branch of the Pallas TPU kernel `step_plan_matmul` of
 // src/repro/kernels/layer_plan.py (one pallas_call over all L layers; the
 // attention is its lines 375-406; there the step ran only under the
 // interpreter, never compiled).
 //
-// What bounds it on this card.  The norm and SwiGLU touch a few [d, B] /
-// [d_ff, B] float32 vectors: launch latency.  The attention is bound by
+// What bounds it on this card.  The norm touches a few [d, B] float32
+// vectors: launch latency.  The attention is bound by
 // bytes: the K and V rows of the slots it must read, 2 * hd * 4 bytes a
 // (row, kv-head, slot), and all of kpos; its operations (4 * G * hd a slot)
 // are far below the float32 rate.  The step as a whole is bound by the
@@ -619,17 +620,6 @@ split_attention_merge_kernel(const float* __restrict__ ws,
   }
 }
 
-// out[k, b] = silu(gu[k, b]) * gu[d_ff + k, b]
-__global__ void step_swiglu_kernel(const float* __restrict__ gu,
-                                   float* __restrict__ out, int dff, int B) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t n = static_cast<size_t>(dff) * B;
-  if (i >= n) return;
-  const float g = gu[i];
-  const float silu = __fdiv_rn(g, 1.0f + expf(-g));
-  out[i] = __fmul_rn(silu, gu[n + i]);
-}
-
 }  // namespace
 
 // x, out [d, B] float32; w [d] or null; cols (a power of two <= 32),
@@ -746,16 +736,5 @@ extern "C" int repro_split_attention(const void* qkv, const void* pos,
   split_attention_merge_kernel<<<dim3(G, nkv, B), kAttnThreads, merge_smem, st>>>(
       static_cast<const float*>(ws), static_cast<float*>(att), B, nkv, G, hd,
       splits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int repro_step_swiglu(const void* gu, void* out, int dff, int B,
-                                 void* stream) {
-  if (dff <= 0 || B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = static_cast<size_t>(dff) * B;
-  const int threads = 256;
-  step_swiglu_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                       threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(gu), static_cast<float*>(out), dff, B);
   return static_cast<int>(cudaGetLastError());
 }

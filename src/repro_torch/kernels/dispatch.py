@@ -81,7 +81,9 @@ def launch_counts_by_shape() -> dict[tuple[str, tuple], int]:
     concatenated input), ``(G, K, R, B, input bytes an element)`` for
     ``region_prep``, ``(d, B)`` for ``step_norm``, ``(G, M)`` for
     ``group_prox``, ``(N, S, K, B)`` for ``lcc_factor_matmul``,
-    ``(D_src, E * d_ff, O, C)`` for ``moe_plan_matmul``."""
+    ``(P, R, S, K_alloc, D_src, O, J, B, layers)`` for ``stage_matmul``,
+    followed by ``("gated",)`` or ``("combine", T, k)`` for a launch in
+    one of its epilogue's output modes."""
     return dict(_shape_counts)
 
 

@@ -14,16 +14,20 @@ families:
   the slice's output rows into register sums, so the last level never goes
   to device memory; each block writes its site's rows of ``partial`` once,
   and the epilogue sums the chunks in fixed order and adds the dense blocks,
-  the bias and the residual.  The output map the kernel follows (sites,
+  the bias and the residual.  The epilogue has two more output modes, which
+  take over the elementwise kernels that followed a stage: ``gated=True``
+  writes SwiGLU of the gate and up rows, ``combine=`` an MoE layer's gated
+  combine plus residual.  The output map the kernel follows (sites,
   slices, depths) is derived from ``outg`` once at upload
   (:func:`stage_slices`) and checked against it entry by entry; ``outg``
   itself is read only by the plain version.
 * :func:`step_plan_matmul` (K7) runs the whole decode step over L identical
   layers as a fixed sequence of hand-written kernels a layer: norm, stage
   qkv, RoPE + decode attention (:func:`step_attention`; emits the new K/V
-  rows), stage o + residual, norm, stage gate+up, SwiGLU, stage down +
-  residual.  No PyTorch operation runs between them.  CUDA source
-  ``csrc/step_plan.cu`` (norm, attention, SwiGLU) beside the stage kernel.
+  rows), stage o + residual, norm, stage gate+up with SwiGLU in its
+  epilogue, stage down + residual.  No PyTorch operation runs between them.
+  CUDA source ``csrc/step_plan.cu`` (norm, attention) beside the stage
+  kernel.
   The attention is split over the cache (:func:`plan_attention`), reads
   only the K/V rows of the live slots, staged in shared memory by
   ``cp.async``, and merges the splits in order in a second kernel.  The
@@ -32,13 +36,13 @@ families:
   rows (:func:`plan_norm`), and takes its column sums in a fixed order.
 * ``step_plan_matmul(moe=...)`` (K8) replaces a layer's FFN with the routed
   experts inside the same sequence: route, dispatch, stage eg (all experts'
-  gates and ups, e-major), SwiGLU, stage ed (all downs), gated combine +
-  residual.  The route, dispatch and combine kernels are
-  :mod:`~repro_torch.kernels.moe_route` (``csrc/moe_route.cu``).
+  gates and ups, e-major, SwiGLU in its epilogue), stage ed (all downs,
+  the gated combine + residual in its epilogue).  The route and dispatch
+  kernels are :mod:`~repro_torch.kernels.moe_route` (``csrc/moe_route.cu``).
 * :func:`moe_plan_matmul` (K9) runs one MoE layer's experts where the
   whole-step plan does not apply (MLA, shared experts): stage A (all gates
-  and ups), the step's SwiGLU kernel, stage B (all downs) — three launches,
-  no PyTorch operation between them; dispatch and combine stay with the
+  and ups, SwiGLU in its epilogue), stage B (all downs) — two launches, no
+  PyTorch operation between them; dispatch and combine stay with the
   caller, as in the reference.
 
 Both evaluate the shift-add streams at every size.  The reference folds a
@@ -65,7 +69,7 @@ import torch.nn.functional as F
 from . import build, dispatch
 from .lcc_chain_matmul import (MAX_SUMS, SM_SMEM, SMEM_LIMIT, launch_staging,
                                plan_launch, signed_pow2)
-from .moe_route import (capacity, moe_combine, moe_combine_plain, moe_dispatch,
+from .moe_route import (capacity, moe_combine_plain, moe_dispatch,
                         moe_dispatch_plain, moe_route, moe_route_plain)
 from .ops import PackedStage
 
@@ -467,11 +471,13 @@ class DeviceStage:
                     E=max((m.slices.shape[0] for m in self.maps), default=0),
                     U=max((m.sites.shape[0] for m in self.maps), default=0))
 
-    def shape_key(self, b: int, n_layers: int) -> tuple:
-        """``(P, R, S, K_alloc, D_src, O, J, B, layers per launch)``."""
+    def shape_key(self, b: int, n_layers: int, mode: tuple = ()) -> tuple:
+        """``(P, R, S, K_alloc, D_src, O, J, B, layers per launch)``, then
+        the epilogue's output mode where it is not the plain one:
+        ``("gated",)`` or ``("combine", T, k)`` (:func:`stage_matmul`)."""
         d = self.dims
         return (d["P"], d["R"], d["S"], d["K"], d["D"], d["O"], d["J"], b,
-                n_layers)
+                n_layers, *mode)
 
     def geometry(self, b: int) -> tuple[int, int, int, int, int]:
         """``(bb, threads, tile, stages, blocks a SM)`` of the chain kernel
@@ -685,11 +691,47 @@ def _stage_layer_plain(ds: DeviceStage, l: int, src: torch.Tensor
     return out
 
 
+def _stage_mode(ps: PackedStage, layer, resid, gated, combine) -> tuple:
+    """Checks the output mode of one stage application, on every device:
+    ``()`` (plain), ``("gated",)`` or ``("combine", T, k)``."""
+    if not (gated or combine is not None):
+        return ()
+    if gated and combine is not None:
+        raise ValueError("gated= and combine= are two output modes; pass one")
+    if layer is None:
+        raise ValueError("an output mode needs layer=")
+    if resid is not None:
+        raise ValueError("resid= is the plain mode's; the combining mode "
+                         "takes its residual in combine=")
+    if gated:
+        if ps.out_dim % 2:
+            raise ValueError(f"gated mode needs an even output width, the "
+                             f"stage has {ps.out_dim}")
+        return ("gated",)
+    x, slot, wgt = combine
+    d = x.shape[0] if x.dim() == 2 else 0
+    if d <= 0 or ps.out_dim % d:
+        raise ValueError(f"combine: x of shape {tuple(x.shape)} does not "
+                         f"divide the stage's {ps.out_dim} outputs into experts")
+    t = x.shape[1]
+    if slot.dim() != 2 or slot.shape[0] != t or slot.shape[1] <= 0:
+        raise ValueError(f"combine: slot has shape {tuple(slot.shape)}, "
+                         f"expected ({t}, k)")
+    if tuple(wgt.shape) != tuple(slot.shape):
+        raise ValueError(f"combine: wgt has shape {tuple(wgt.shape)}, slot "
+                         f"{tuple(slot.shape)}")
+    return ("combine", t, slot.shape[1])
+
+
 def stage_matmul_plain(ps: PackedStage, src: torch.Tensor, *,
                        layer: int | None = None,
-                       resid: torch.Tensor | None = None) -> torch.Tensor:
+                       resid: torch.Tensor | None = None, gated: bool = False,
+                       combine: tuple | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`stage_matmul` (same arguments): the
-    kernel's arithmetic step by step, sums in PyTorch's own order."""
+    kernel's arithmetic step by step, sums in PyTorch's own order; the
+    gated mode ``F.silu(out[:n]) * out[n:]``, the combining mode
+    :func:`~repro_torch.kernels.moe_route.moe_combine_plain`."""
+    mode = _stage_mode(ps, layer, resid, gated, combine)
     ds = device_stage(ps, src.device)
     if layer is None:
         if resid is not None:
@@ -697,6 +739,13 @@ def stage_matmul_plain(ps: PackedStage, src: torch.Tensor, *,
         return torch.stack([_stage_layer_plain(ds, l, src[l])
                             for l in range(ps.n_layers)])
     out = _stage_layer_plain(ds, layer, src)
+    if mode and mode[0] == "gated":
+        n = ps.out_dim // 2
+        return F.silu(out[:n]) * out[n:]
+    if mode:
+        x, slot, wgt = combine
+        return moe_combine_plain(x, out, slot, wgt, ps.out_dim // x.shape[0],
+                                 src.shape[-1])
     return out if resid is None else resid + out
 
 
@@ -723,16 +772,33 @@ _sm_count: dict[int, int] = {}
 
 def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
                  layer: int | None = None,
-                 resid: torch.Tensor | None = None) -> torch.Tensor:
+                 resid: torch.Tensor | None = None, gated: bool = False,
+                 combine: tuple | None = None) -> torch.Tensor:
     """Apply a stage: ``src [L, D_src, B] -> [L, O, B]`` over every layer in
     one launch, or with ``layer=l``: ``src [D_src, B] -> [O, B]`` for layer
     ``l`` alone, plus ``resid [O, B]`` when given (the decode step's residual
     add, folded into the kernel's epilogue).
 
+    With ``layer=``, the epilogue can write in place of the ``[O, B]``
+    output what the decode step reads of it (one mode at a time, no
+    ``resid``):
+
+    * ``gated=True`` — SwiGLU of the gate rows ``[0, n)`` and the up rows
+      ``[n, 2 n)``, ``n = O / 2``: ``silu(out[:n]) * out[n:]``, ``[n, B]``;
+    * ``combine=(x, slot, wgt)`` — an MoE layer's combine over the expert
+      outputs ``out [E * d, cap]`` (e-major, ``B = cap``) for ``T`` tokens:
+      ``x [d, T] + y``, ``y[:, t] = sum_j wgt[t, j] * out[e_j * d :, c_j]``
+      over the kept choices j in order, ``(e_j, c_j) = divmod(slot[t, j],
+      cap)`` (``slot``/``wgt [T, k]`` int32/float32 as
+      :func:`~repro_torch.kernels.moe_route.moe_route` gives them; a slot
+      outside ``[0, E * cap)`` is dropped).  Returns ``[d, T]``.
+
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`stage_matmul_plain`."""
+    mode = _stage_mode(ps, layer, resid, gated, combine)
     if not dispatch.on_device(src):
-        return stage_matmul_plain(ps, src, layer=layer, resid=resid)
+        return stage_matmul_plain(ps, src, layer=layer, resid=resid,
+                                  gated=gated, combine=combine)
     dev = src.device
     ds = device_stage(ps, dev)
     l0, nl = (0, ps.n_layers) if layer is None else (layer, 1)
@@ -745,21 +811,27 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
         if layer is None:
             raise ValueError("resid= needs layer=")
         dispatch.check_tensor("resid", resid, torch.float32, (ps.out_dim, b), dev)
+    if mode and mode[0] == "combine":
+        x, slot, wgt = combine
+        _, t, k = mode
+        dispatch.check_tensor("x", x, torch.float32, (x.shape[0], t), dev)
+        dispatch.check_tensor("slot", slot, torch.int32, (t, k), dev)
+        dispatch.check_tensor("wgt", wgt, torch.float32, (t, k), dev)
     if b <= 0:
         raise ValueError("empty batch")
-    return _launch_stage(ds, src, layer, resid, ds.launch(b, layer, _sms(dev)))
+    return _launch_stage(ds, src, layer, resid, ds.launch(b, layer, _sms(dev)),
+                         mode=mode, combine=combine)
 
 
-def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
-                  resid: torch.Tensor | None, plan: StageLaunch,
-                  entry=None) -> torch.Tensor:
-    """Allocate the outputs and scratch of one launch of ``plan`` and launch
-    it (``entry``: the C entry point, default the library's); counts it."""
+def stage_args(ds: DeviceStage, src: torch.Tensor, layer: int | None,
+               resid: torch.Tensor | None, plan: StageLaunch,
+               out: torch.Tensor) -> tuple[list, list, list]:
+    """The pointer and size arguments of one launch of ``plan`` that every
+    output mode shares — ``(src ... resid out, nl D B M K P R S O, scratch
+    to keep alive)`` — the scratch (prep buffer, chunk sums) allocated."""
     ps, dev, d = ds.ps, src.device, ds.dims
     l0, nl = (0, ps.n_layers) if layer is None else (layer, 1)
     b = src.shape[-1]
-    lead = (nl,) if layer is None else ()
-    out = torch.empty((*lead, ps.out_dim, b), dtype=torch.float32, device=dev)
     inbuf = (torch.empty((nl, d["K"], b), dtype=torch.float32, device=dev)
              if d["K"] else None)
     partial = (torch.empty((plan.partial_rows, b), dtype=torch.float32,
@@ -776,13 +848,41 @@ def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
             _ptr(partial), dense(ds.fs_mat, ds.fs_live),
             dense(ds.dw_mat, ds.dw_live), dense(ds.bias, ds.bias_live),
             None if resid is None else resid.data_ptr(), out.data_ptr()]
+    sizes = [nl, d["D"], b, d["M"], d["K"], d["P"], d["R"], d["S"], d["O"]]
+    return ptrs, sizes, [inbuf, partial]
+
+
+def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
+                  resid: torch.Tensor | None, plan: StageLaunch,
+                  entry=None, mode: tuple = (),
+                  combine: tuple | None = None) -> torch.Tensor:
+    """Allocate the outputs and scratch of one launch of ``plan`` and launch
+    it (``entry``: the C entry point, default the library's) in output mode
+    ``mode`` (:func:`_stage_mode`); counts it."""
+    ps, dev = ds.ps, src.device
+    nl = ps.n_layers if layer is None else 1
+    b = src.shape[-1]
+    code_mode, n_exp, top_k, tokens, cx = 0, 0, 0, 0, (None, None, None)
+    if not mode:
+        shape = ((nl,) if layer is None else ()) + (ps.out_dim, b)
+    elif mode[0] == "gated":
+        code_mode, shape = 1, (ps.out_dim // 2, b)
+    else:
+        code_mode, (_, tokens, top_k) = 2, mode
+        n_exp = ps.out_dim // combine[0].shape[0]
+        shape = tuple(combine[0].shape)
+        cx = tuple(t.data_ptr() for t in combine)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    ptrs, sizes, scratch = stage_args(ds, src, layer, resid, plan, out)
     fn = entry or build.load().repro_stage_matmul
     with torch.cuda.device(dev):
-        code = fn(*ptrs, nl, d["D"], b, d["M"], d["K"], d["P"], d["R"], d["S"],
-                  d["O"], plan.host_groups.ctypes.data, len(plan.groups),
+        code = fn(*ptrs, *cx, *sizes, code_mode, n_exp, top_k,
+                  b if code_mode == 2 else 0, tokens,
+                  plan.host_groups.ctypes.data, len(plan.groups),
                   torch.cuda.current_stream().cuda_stream)
+    del scratch  # enqueued: the caching allocator keeps it for the stream
     dispatch.check_launch(code, "repro_stage_matmul")
-    dispatch.record_launch("stage_matmul", shape=ds.shape_key(b, nl))
+    dispatch.record_launch("stage_matmul", shape=ds.shape_key(b, nl, mode))
     return out
 
 
@@ -1167,9 +1267,11 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
                            block_tbl=None):
     """Plain PyTorch version of :func:`step_plan_matmul` (same arguments):
     the reference's dense step body, operation by operation, the attention
-    through :func:`step_attention_plain`.  With ``moe`` each layer's FFN is
-    the routed block of the reference's ``moe_block``, through the plain
-    versions of the route, dispatch and combine kernels."""
+    through :func:`step_attention_plain`, SwiGLU through the gated mode of
+    :func:`stage_matmul_plain`.  With ``moe`` each layer's FFN is the
+    routed block of the reference's ``moe_block``, through the plain
+    versions of the route and dispatch kernels and of the stages' gated and
+    combining modes."""
     n_layers, b = kpos.shape[0], x0.shape[1]
 
     kn = torch.empty((n_layers, b, n_kv_heads, head_dim), dtype=torch.float32,
@@ -1188,33 +1290,31 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
         if moe is not None:
             x = _moe_layer_plain(stages, moe, l, h2, x)
             continue
-        gu = stage_matmul_plain(stages["gu"], h2, layer=l)
-        hf = F.silu(gu[:d_ff]) * gu[d_ff:]
+        hf = stage_matmul_plain(stages["gu"], h2, layer=l, gated=True)
         x = x + stage_matmul_plain(stages["dn"], hf, layer=l)
     return x, kn, vn
 
 
 def _moe_args(moe: dict, b: int, device) -> tuple:
-    """``(router [L, d, E] f32 on device, E, k, cap, E * d_ff_expert)``."""
+    """``(router [L, d, E] f32 on device, E, k, cap)``."""
     n_exp, top_k = moe["n_experts"], moe["top_k"]
     cap = capacity(b, top_k, moe["capacity_factor"], n_exp,
                    moe.get("min_capacity", 4))
     router = torch.as_tensor(moe["router"], dtype=torch.float32, device=device)
-    return router, n_exp, top_k, cap, moe["d_ff"]
+    return router, n_exp, top_k, cap
 
 
 def _moe_layer_plain(stages, moe, l, h2, x):
     """One layer's routed FFN plus residual (the reference's ``moe_block``):
     x [d, B] + experts(h2 [d, B])."""
-    router, n_exp, top_k, cap, eff = _moe_args(moe, h2.shape[1], h2.device)
+    router, n_exp, top_k, cap = _moe_args(moe, h2.shape[1], h2.device)
     sel, wgt, slot, src_tok = moe_route_plain(
         h2, router[l], top_k=top_k, cap=cap, norm_topk=moe["norm_topk"],
         dropped=moe.get("dropped"))
     src = moe_dispatch_plain(h2, slot, src_tok, n_exp, cap)
-    eg = stage_matmul_plain(stages["eg"], src, layer=l)
-    hf = F.silu(eg[:eff]) * eg[eff:]
-    ob = stage_matmul_plain(stages["ed"], hf, layer=l)
-    return moe_combine_plain(x, ob, slot, wgt, n_exp, cap)
+    hf = stage_matmul_plain(stages["eg"], src, layer=l, gated=True)
+    return stage_matmul_plain(stages["ed"], hf, layer=l,
+                              combine=(x, slot, wgt))
 
 
 def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
@@ -1275,14 +1375,17 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
                              f"layers, the cache {n_layers}")
     if nq % nkv:
         raise ValueError(f"{nq} query heads over {nkv} kv-heads")
-    key = (n_layers, d, d_ff, b, smax, nq, nkv, hd)
+    ffn, ff = ("gu", d_ff) if moe is None else ("eg", moe["d_ff"])
+    if stages[ffn].out_dim != 2 * ff:
+        raise ValueError(f"stage {ffn} emits {stages[ffn].out_dim} rows, "
+                         f"expected gates and ups of {ff}")
     nplan = plan_norm(d, b)
     g = nq // nkv
     aplan = plan_attention(b, nkv, g, smax, _sms(dev), bs, head_dim=hd)
     akey = attention_key(b, smax, nq, nkv, hd, bs, window)
     rcos, rsin = (cos, sin) if rope else (None, None)
     if moe is not None:
-        router, n_exp, top_k, cap, eff = _moe_args(moe, b, dev)
+        router, n_exp, top_k, cap = _moe_args(moe, b, dev)
         dispatch.check_tensor("router", router, f32, (n_layers, d, n_exp), dev)
     kn = torch.empty((n_layers, b, nkv, hd), dtype=f32, device=dev)
     vn = torch.empty_like(kn)
@@ -1291,13 +1394,6 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
 
     def norm_(x, w, l):
         return _norm_launch(lib, stream, x, _ptr(w, l), nplan, mode, eps)
-
-    def swiglu_(gu, n, cols):
-        hf = torch.empty((n, cols), dtype=f32, device=dev)
-        dispatch.check_launch(lib.repro_step_swiglu(
-            gu.data_ptr(), hf.data_ptr(), n, cols, stream), "repro_step_swiglu")
-        dispatch.record_launch("step_plan_matmul", shape=key)
-        return hf
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1312,17 +1408,15 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
             x = stage_matmul(stages["o"], att, layer=l, resid=x)
             h2 = norm_(x, ln2, l)
             if moe is None:
-                gu = stage_matmul(stages["gu"], h2, layer=l)
-                x = stage_matmul(stages["dn"], swiglu_(gu, d_ff, b), layer=l,
-                                 resid=x)
+                hf = stage_matmul(stages["gu"], h2, layer=l, gated=True)
+                x = stage_matmul(stages["dn"], hf, layer=l, resid=x)
                 continue
             sel, wgt, slot, src_tok = moe_route(
                 h2, router[l], top_k=top_k, cap=cap,
                 norm_topk=moe["norm_topk"], dropped=moe.get("dropped"))
             src = moe_dispatch(h2, slot, src_tok, n_exp, cap)
-            eg = stage_matmul(stages["eg"], src, layer=l)
-            ob = stage_matmul(stages["ed"], swiglu_(eg, eff, cap), layer=l)
-            x = moe_combine(x, ob, slot, wgt, n_exp, cap)
+            hf = stage_matmul(stages["eg"], src, layer=l, gated=True)
+            x = stage_matmul(stages["ed"], hf, layer=l, combine=(x, slot, wgt))
     return x, kn, vn
 
 
@@ -1332,9 +1426,9 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
 def moe_plan_matmul_plain(stage_a: PackedStage, stage_b: PackedStage, *,
                           d_ff_total: int, src: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`moe_plan_matmul` (same arguments):
-    stage A, SwiGLU, stage B through :func:`stage_matmul_plain`."""
-    h = stage_matmul_plain(stage_a, src, layer=0)
-    hf = F.silu(h[:d_ff_total]) * h[d_ff_total:]
+    stage A in its gated mode, then stage B, through
+    :func:`stage_matmul_plain`."""
+    hf = stage_matmul_plain(stage_a, src, layer=0, gated=True)
     return stage_matmul_plain(stage_b, hf, layer=0)
 
 
@@ -1344,14 +1438,13 @@ def moe_plan_matmul(stage_a: PackedStage, stage_b: PackedStage, *,
 
     Stage A emits all experts' gates at rows ``[0, E*dff)`` and ups at
     ``[E*dff, 2*E*dff)`` (e-major, expert ``e`` reading ``src`` rows
-    ``[e*d, (e+1)*d)``); SwiGLU; stage B applies the downs.  Both stages are
-    one-layer :class:`~repro_torch.kernels.ops.PackedStage` s.  Replaces the
-    reference's single ``pallas_call``; here K6 ``stage_matmul``, the
-    ``repro_step_swiglu`` kernel of ``csrc/step_plan.cu`` and K6 again, with
-    no PyTorch operation between them.  The SwiGLU launch is this wrapper's
-    own count (``moe_plan_matmul``); the stages count as ``stage_matmul``.
-    CUDA tensors launch the kernels (or raise); CPU tensors take
-    :func:`moe_plan_matmul_plain`."""
+    ``[e*d, (e+1)*d)``), and its epilogue writes their SwiGLU (the gated
+    mode of :func:`stage_matmul`); stage B applies the downs.  Both stages
+    are one-layer :class:`~repro_torch.kernels.ops.PackedStage` s.  Replaces
+    the reference's single ``pallas_call``; here two launches of K6
+    ``stage_matmul`` with no PyTorch operation between them, counted as
+    ``stage_matmul``.  CUDA tensors launch the kernels (or raise); CPU
+    tensors take :func:`moe_plan_matmul_plain`."""
     if stage_a.n_layers != 1 or stage_b.n_layers != 1:
         raise ValueError("an MoE plan's stages hold one layer each")
     if stage_a.out_dim != 2 * d_ff_total or stage_b.d_src != d_ff_total:
@@ -1361,16 +1454,5 @@ def moe_plan_matmul(stage_a: PackedStage, stage_b: PackedStage, *,
     if not dispatch.on_device(src):
         return moe_plan_matmul_plain(stage_a, stage_b, d_ff_total=d_ff_total,
                                      src=src)
-    dev = src.device
-    c = src.shape[-1]
-    h = stage_matmul(stage_a, src, layer=0)  # checks src
-
-    hf = torch.empty((d_ff_total, c), dtype=torch.float32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_step_swiglu(h.data_ptr(), hf.data_ptr(), d_ff_total, c,
-                                     torch.cuda.current_stream().cuda_stream)
-    dispatch.check_launch(code, "repro_step_swiglu")
-    dispatch.record_launch("moe_plan_matmul", shape=(
-        stage_a.d_src, d_ff_total, stage_b.out_dim, c))
+    hf = stage_matmul(stage_a, src, layer=0, gated=True)  # checks src
     return stage_matmul(stage_b, hf, layer=0)

@@ -3,9 +3,10 @@
 Counterpart of the MoE branch of ``repro.kernels.layer_plan.step_plan_matmul``
 (Pallas TPU, body ``moe_block``).  A decode step's MoE layer runs
 
-    route -> dispatch -> stage eg (K6) -> SwiGLU (K7) -> stage ed (K6) -> combine
+    route -> dispatch -> stage eg (K6, SwiGLU in its gated epilogue)
+          -> stage ed (K6, the combine in its combining epilogue)
 
-where the three kernels of this module are hand-written CUDA
+where the two kernels of this module are hand-written CUDA
 (``csrc/moe_route.cu``):
 
 * :func:`moe_route` — router logits (one pass over d, spread over blocks of
@@ -17,8 +18,11 @@ where the three kernels of this module are hand-written CUDA
   and slot (``e * C + rank``, or ``E * C`` when dropped) and, per slot, its
   source token;
 * :func:`moe_dispatch` — the e-major expert input ``src [E * d, C]`` as a
-  gather from ``h2`` (kept slots are unique);
-* :func:`moe_combine` — ``x + sum_j w_j * ob[slot_j]`` over the kept choices.
+  gather from ``h2`` (kept slots are unique).
+
+:func:`moe_combine_plain` — ``x + sum_j w_j * ob[slot_j]`` over the kept
+choices — is the plain version of the ed stage's combining epilogue
+(``layer_plan.stage_matmul(combine=...)``).
 
 Routing is the reference's to the letter: every column of the batch is
 routed, idle slots included (they take capacity), and the capacity is the
@@ -37,7 +41,7 @@ from . import build, dispatch
 
 __all__ = ["MAX_TOP_K", "capacity", "route_tokens", "moe_route",
            "moe_route_plain", "moe_dispatch", "moe_dispatch_plain",
-           "moe_combine", "moe_combine_plain"]
+           "moe_combine_plain"]
 
 MAX_TOP_K = 8  # the route kernel's bound on k (csrc/moe_route.cu)
 ROUTE_ROWS = 512  # rows of d a logits block sums (kRouteRows)
@@ -198,8 +202,11 @@ def moe_dispatch(h2: torch.Tensor, slot: torch.Tensor, src_tok: torch.Tensor,
 def moe_combine_plain(x: torch.Tensor, ob: torch.Tensor, slot: torch.Tensor,
                       wgt: torch.Tensor, n_experts: int,
                       cap: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`moe_combine`: the reference's gated
-    gather loop (a dropped choice reads the last slot and weighs it 0)."""
+    """``x [d, B] + y``, ``y[:, b] = sum_j wgt[b, j] * (expert output of
+    slot[b, j])`` over the choices in order, from the experts' output ``ob
+    [E * d, cap]`` (e-major): the reference's gated gather loop (a dropped
+    choice reads the last slot and weighs it 0).  The plain version of the
+    combining mode of ``layer_plan.stage_matmul``."""
     d, b = x.shape
     out_buf = (ob.reshape(n_experts, d, cap).permute(0, 2, 1)
                .reshape(n_experts * cap, d))
@@ -208,29 +215,3 @@ def moe_combine_plain(x: torch.Tensor, ob: torch.Tensor, slot: torch.Tensor,
         g = out_buf[torch.clamp(slot[:, j].long(), max=n_experts * cap - 1)]
         y = y + wgt[:, j][:, None] * g
     return x + y.T
-
-
-def moe_combine(x: torch.Tensor, ob: torch.Tensor, slot: torch.Tensor,
-                wgt: torch.Tensor, n_experts: int, cap: int) -> torch.Tensor:
-    """``x [d, B] + y``, ``y[:, b] = sum_j wgt[b, j] * (expert output of
-    slot[b, j])`` over the kept choices in order, from the experts' output
-    ``ob [E * d, cap]`` (e-major).  Returns a new tensor."""
-    if not dispatch.on_device(x):
-        return moe_combine_plain(x, ob, slot, wgt, n_experts, cap)
-    dev = x.device
-    d, b = x.shape
-    top_k = slot.shape[1]
-    dispatch.check_tensor("x", x, torch.float32, (d, b), dev)
-    dispatch.check_tensor("ob", ob, torch.float32, (n_experts * d, cap), dev)
-    dispatch.check_tensor("slot", slot, torch.int32, (b, top_k), dev)
-    dispatch.check_tensor("wgt", wgt, torch.float32, (b, top_k), dev)
-    out = torch.empty_like(x)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_moe_combine(
-            x.data_ptr(), ob.data_ptr(), slot.data_ptr(), wgt.data_ptr(),
-            out.data_ptr(), d, b, n_experts, top_k, cap,
-            torch.cuda.current_stream().cuda_stream)
-    dispatch.check_launch(code, "repro_moe_combine")
-    dispatch.record_launch("moe_combine", shape=(d, b, n_experts, top_k, cap))
-    return out

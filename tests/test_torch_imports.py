@@ -103,10 +103,13 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
         "lcc_factor_matmul.cu", "lcc_group_matmul.cu", "moe_route.cu",
         "stage_matmul.cu", "step_plan.cu"]
     for entry in ("repro_stage_matmul", "repro_step_norm",
-                  "repro_split_attention", "repro_step_swiglu",
-                  "repro_moe_route", "repro_moe_dispatch", "repro_moe_combine",
-                  "repro_group_prox", "repro_lcc_factor_matmul"):
+                  "repro_split_attention", "repro_moe_route",
+                  "repro_moe_dispatch", "repro_group_prox",
+                  "repro_lcc_factor_matmul"):
         assert entry in build._SIGNATURES
+    # SwiGLU and the MoE combine are output modes of the stage's epilogue
+    for gone in ("repro_step_swiglu", "repro_moe_combine"):
+        assert gone not in build._SIGNATURES
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-use_fast_math" not in build.NVCC_FLAGS
     assert build.build_dir().parts[-2:] == ("build", "repro_torch")

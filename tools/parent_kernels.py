@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
-"""K3's region preparation and K7's norm of another checkout (the parent
-commit) against this one's, on a GPU, in one process.
+"""Kernels of another checkout (the parent commit) against this one's, on a
+GPU, in one process.
 
     git archive HEAD~1 | tar -x -C _parent      # any checkout of the parent
-    python3 tools/parent_kernels.py --root _parent
+    python3 tools/parent_kernels.py --root _parent [--sections modes]
 
 Builds the kernels of ``--root`` with that checkout's own build module (into
-its own ``build/``) beside this checkout's.  At every region of
-``chip_smoke.py --only prep`` (``chip_smoke.region_preps``, the same members
-and inputs) it prepares the region the way the other checkout's per-region
-route did — per member a float32 copy of the activation, the kept-column
-``index_select``, its ``repro_cluster_segment_sum`` kernel on a weight-shared
-member, then one ``torch.cat`` — and through this tree's one region-prep
-launch; at the olmo-1b and mixtral-8x22b plan serves' norm shapes both
-trees' ``repro_step_norm`` (the other with its own arguments) and
-``F.layer_norm`` / ``F.rms_norm``.  Each result is held against this tree's
-plain version (the region bit for bit on dyadic input; the norm within
-``chip_smoke.SUM_TOL``), then timed as ``chip_smoke.py`` times (CUDA events,
-L2 flushed, median of 7) in turns: other, this, this, other.  One JSON
-object a case, then the card's name and power limit.
+its own ``build/``) beside this checkout's, and compares them by section
+(``--sections``, all by default):
+
+* ``modes``: at the stage launches the plan routes make in an output mode
+  (``chip_smoke.main_path_stages``: olmo-1b gate+up and mixtral-8x22b's
+  experts' gates+ups and deepseek-v2-lite-16b's K9 stage A, gated;
+  mixtral-8x22b's expert downs, combining for 8 tokens with a dropped
+  choice), the other checkout's pair — its ``repro_stage_matmul`` in the
+  plain mode, then its ``repro_step_swiglu`` or ``repro_moe_combine`` —
+  against this tree's one launch in the mode, held equal bit for bit; the
+  stage alone (this tree, plain mode) beside them;
+* ``prep``: at every region of ``chip_smoke.py --only prep``
+  (``chip_smoke.region_preps``, the same members and inputs) the region
+  prepared the way the other checkout's per-region route did — per member
+  a float32 copy of the activation, the kept-column ``index_select``, its
+  ``repro_cluster_segment_sum`` kernel on a weight-shared member, then one
+  ``torch.cat`` — and through this tree's one region-prep launch, held to
+  this tree's plain version bit for bit on dyadic input;
+* ``norm``: at the olmo-1b and mixtral-8x22b plan serves' norm shapes both
+  trees' ``repro_step_norm`` (the other with its own arguments) and
+  ``F.layer_norm`` / ``F.rms_norm``, within ``chip_smoke.SUM_TOL``.
+
+Everything is timed as ``chip_smoke.py`` times (CUDA events, L2 flushed,
+median of 7) in turns: other, this, this, other.  One JSON object a case,
+then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -37,7 +49,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src/ on the path)
 from repro_torch.kernels.layer_plan import (  # noqa: E402
-    step_norm, step_norm_plain)
+    device_stage, stage_args, stage_matmul, step_norm, step_norm_plain)
 from repro_torch.kernels.shared_matmul import (  # noqa: E402
     csr_from_labels, region_layout, region_prep_plain)
 
@@ -91,22 +103,83 @@ def other_norm(lib, x, w, norm):
     return out
 
 
+def other_pair(lib, ps, src, kw, sm):
+    """A callable running stage ``ps`` (layer 0) through the other
+    checkout's plain-mode ``repro_stage_matmul`` (its signature before the
+    output modes), then its SwiGLU (``kw`` gated) or combine kernel."""
+    ds = device_stage(ps, src.device)
+    plan = ds.launch(src.shape[-1], 0, sm)
+    b = src.shape[-1]
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((ps.out_dim, b), device=src.device)
+        ptrs, sizes, _scratch = stage_args(ds, src, 0, None, plan, out)
+        code = lib.repro_stage_matmul(*ptrs, *sizes,
+                                      plan.host_groups.ctypes.data,
+                                      len(plan.groups), stream)
+        if code:
+            raise RuntimeError(f"repro_stage_matmul: CUDA error {code}")
+        if kw.get("gated"):
+            n = ps.out_dim // 2
+            hf = torch.empty((n, b), device=src.device)
+            code = lib.repro_step_swiglu(out.data_ptr(), hf.data_ptr(), n, b,
+                                         stream)
+            if code:
+                raise RuntimeError(f"repro_step_swiglu: CUDA error {code}")
+            return hf
+        x, slot, wgt = kw["combine"]
+        y = torch.empty_like(x)
+        code = lib.repro_moe_combine(
+            x.data_ptr(), out.data_ptr(), slot.data_ptr(), wgt.data_ptr(),
+            y.data_ptr(), x.shape[0], x.shape[1], ps.out_dim // x.shape[0],
+            slot.shape[1], b, stream)
+        if code:
+            raise RuntimeError(f"repro_moe_combine: CUDA error {code}")
+        return y
+    return run
+
+
+def modes(lib, dev, timer) -> None:
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for arch, _, cases, _ in cs.main_path_stages(dev):
+        cfg = cs.get_arch(arch)
+        for label, name, ps, batch in cases:
+            mode = cs.serve_mode(cfg, name)
+            if mode is None:
+                continue  # launched in the plain mode
+            kw, _ = cs.mode_kwargs(ps, batch, mode, dev)
+            src = cs.dyadic(np.random.default_rng(71), (ps.d_src, batch), dev)
+            other = other_pair(lib, ps, src, kw, sm)
+
+            def this(ps=ps, src=src, kw=kw):
+                return stage_matmul(ps, src, layer=0, **kw)
+            got_other, got_this = other(), this()
+            torch.cuda.synchronize()
+            if not torch.equal(got_other, got_this):
+                cs.fail(f"{label}: the output mode differs from the other "
+                        "checkout's stage and kernel by "
+                        f"{float((got_other - got_this).abs().max()):.3e}")
+            other_ms, this_ms = in_turns(timer, other, this)
+            which = "gated" if "gated" in kw else "combine"
+            cs.emit(dict(kernel=cs.MODE_ROW[which], shape=label, mode=which,
+                         other_pair_ms=other_ms, this_ms=this_ms,
+                         stage_ms=timer(lambda ps=ps, src=src: stage_matmul(
+                             ps, src, layer=0)),
+                         bound_ms=cs.bound_of(*cs.mode_cost(
+                             device_stage(ps, dev), 0, batch, kw))[0],
+                         bitwise_equal=True))
+            del other, src
+            torch.cuda.empty_cache()
+
+
 def in_turns(timer, other, this):
     """Times in the order other, this, this, other."""
     o1, t1, t2, o2 = timer(other), timer(this), timer(this), timer(other)
     return [o1, o2], [t1, t2]
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", type=Path, required=True,
-                    help="the other checkout (its src/ and csrc/ are used)")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("parent_kernels: no CUDA device")
-    dev = torch.device("cuda", 0)
-    lib = other_library(args.root.resolve())
-    timer = cs.Timer(dev)
+def regions(lib, dev, timer) -> None:
     for arch in cs.PREP_ARCHS:
         cfg = cs.get_arch(arch)
         cases = [(c, torch.bfloat16) for c in cs.region_preps(cfg)]
@@ -133,6 +206,9 @@ def main() -> None:
                          bound_ms=cs.prep_bound(
                              prep, stacked, batch,
                              torch.empty((), dtype=dtype).element_size())[0]))
+
+
+def norm(lib, dev, timer) -> None:
     for arch in ("olmo-1b", "mixtral-8x22b"):
         cfg = cs.get_arch(arch)
         torch.manual_seed(cs.zlib.crc32(arch.encode()))
@@ -158,6 +234,26 @@ def main() -> None:
         cs.emit(dict(kernel="step_norm", shape=f"{arch} norm [{d}, {b}]",
                      other_ms=other_ms, this_ms=this_ms, library_ms=library_ms,
                      max_abs_err=errs))
+
+
+SECTIONS = {"modes": modes, "prep": regions, "norm": norm}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", type=Path, required=True,
+                    help="the other checkout (its src/ and csrc/ are used)")
+    ap.add_argument("--sections", nargs="+", choices=tuple(SECTIONS),
+                    default=list(SECTIONS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("parent_kernels: no CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = other_library(args.root.resolve())
+    timer = cs.Timer(dev)
+    for name in args.sections:
+        SECTIONS[name](lib, dev, timer)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
