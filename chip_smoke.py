@@ -22,10 +22,11 @@ kernel on those paths against its plain PyTorch version:
    per-region serves launch them at (members drawn at the fixture's (N, K),
    no fixture, no serve, a few minutes) and stops; ``--only stage`` times K6
    alone at the ten shapes of the three float32 plan routes, each in the
-   output mode the serve launches it in (gate+up and the experts' gates+ups
-   gated: K7's SwiGLU in the epilogue; mixtral's expert downs combining:
-   K8's combine in the epilogue; one-layer full-width artifacts, no serve)
-   and on the hand-built exact stages;
+   modes the serve launches it in (gate+up and the experts' gates+ups
+   gated: K7's SwiGLU in the epilogue; mixtral's experts' gates+ups also
+   gathered: K8's dispatch read by the prep; mixtral's expert downs
+   combining: K8's combine in the epilogue; one-layer full-width artifacts,
+   no serve) and on the hand-built exact stages;
    ``--only attention`` times K7's decode attention alone (``step_attention``,
    one layer, paged) at the olmo-1b and mixtral-8x22b plan serves' shapes
    (S = 128, the serves' positions, idle rows) and at their long caches
@@ -42,7 +43,8 @@ kernel on those paths against its plain PyTorch version:
    against its plain version, its own order and ``F.layer_norm`` /
    ``F.rms_norm``, in under a minute;
 2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``region_prep``,
-   ``stage_matmul`` (gate+up in its gated mode, K7's SwiGLU),
+   ``stage_matmul`` (gate+up in its gated mode, K7's SwiGLU; a hand-built
+   stage with a live dw block in the gathered mode, K8's dispatch),
    ``step_plan_matmul``, ``step_norm`` and ``step_attention`` at reduced
    shapes and at the main paths' own dimensions (the whole step also at
    olmo-1b's published context, S = 2048), and ``lcc_factor_matmul`` (K4) on
@@ -61,13 +63,13 @@ kernel on those paths against its plain PyTorch version:
    step's logits against the per-region route on the same artifact.
    ``--layers`` cuts the depth of both olmo serves (never the width);
 6. mixtral-8x22b at full width (d_model 6144, 8 experts of d_ff 16384,
-   vocab 32768), 2 layers: its K8 kernels (route, dispatch) and a
+   vocab 32768), 2 layers: its K8 route and a
    reduced serve (plan == per-region == plain == dense, capacity drops
    occurring); the per-region kernels at its shapes and the bf16 per-region
    serve; then the plan packed and uploaded, K6 on its expert stages (eg
-   gated; ed combining, with a dropped choice and empty slots), one
-   full-width step, and the float32 plan serve; plan vs per-region logits
-   (``--only mixtral`` runs these alone);
+   gathered and gated; ed combining; each with a dropped choice and empty
+   slots), one full-width step, and the float32 plan serve; plan vs
+   per-region logits (``--only mixtral`` runs these alone);
 7. deepseek-v2-lite-16b at full width (d_model 2048, MLA kv_lora 512, 64
    experts of d_ff 1408 top-6, 2 shared, vocab 102400), 4 layers: K9 on a
    reduced plan and a reduced serve (K9 route == per-region == plain ==
@@ -131,7 +133,7 @@ from repro_torch.kernels.lcc_matmul import (  # noqa: E402
 from repro_torch.kernels.lcc_group_matmul import (  # noqa: E402
     lcc_group_matmul, lcc_group_matmul_plain)
 from repro_torch.kernels.moe_route import (  # noqa: E402
-    capacity, moe_dispatch, moe_dispatch_plain, moe_route, moe_route_plain)
+    capacity, moe_dispatch_plain, moe_route, moe_route_plain)
 from repro_torch.kernels.shared_matmul import (  # noqa: E402
     RegionPrep, region_layout, region_prep_plain)
 from repro_torch.models import api  # noqa: E402
@@ -184,8 +186,9 @@ KERNELS = {
     "moe_route": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
+    # K8's dispatch (lines 350-354): the gathered input of stage eg
     "moe_dispatch": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/moe_route.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/stage_matmul.cu",
         replaces="src/repro/kernels/layer_plan.py:418"),
     # K8's gated combine (lines 358-365): the combining epilogue of stage ed
     "moe_combine": dict(
@@ -202,11 +205,13 @@ K9_REPLACES = "src/repro/kernels/layer_plan.py:457"  # moe_plan_matmul
 # rows that check a composition of the kernels above (the whole step, K9):
 # no launch of their own, so not in the kernels line
 COMPOSITE = ("step_plan_matmul", "moe_plan_matmul")
-# the stage epilogue's output modes: the kernel each takes the place of
-MODE_ROW = {"gated": "step_swiglu", "combine": "moe_combine"}
+# the stage's input and output modes: the kernel each takes the place of (a
+# launch in the gathered mode is the dispatch's row, whatever its output mode)
+MODE_ROW = {"gather": "moe_dispatch", "gated": "step_swiglu",
+            "combine": "moe_combine"}
 PER_REGION = ("lcc_chain_matmul", "lcc_group_matmul", "region_prep")
 PLAN = ("stage_matmul", "step_norm", "step_attention")
-MOE = ("moe_route", "moe_dispatch")
+MOE = ("moe_route",)
 # the device kernels of this port, by name fragment (profiler rows)
 PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "region_prep_kernel", "stage_prep_kernel",
@@ -214,7 +219,6 @@ PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "step_norm_kernel", "split_attention_kernel",
                 "split_attention_merge_kernel",
                 "moe_logits_kernel", "moe_router_kernel",
-                "moe_dispatch_kernel",
                 "group_prox_kernel", "lcc_factor_kernel")
 ROUTED = ("moe.gate", "moe.up", "moe.down")  # site prefixes of the routed experts
 MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
@@ -745,9 +749,10 @@ def stage_weights(art, name, layer, dev):
 
 
 def ordered_stage_plain(ps, src, layer, sm_count, plan=None, *, gated=False,
-                        combine=None):
+                        combine=None, gather=None):
     """``stage_matmul``'s result for one layer in the kernels' own order, in
-    PyTorch operations: the prep sums each target's pairs in pair order
+    PyTorch operations: the input ``src`` or, with ``gather``, what
+    :func:`ordered_gather` reads; the prep sums each target's pairs in pair order
     (the sorted-pair order of the prep kernel); a row's terms are added in
     slot order from 0; each chunk of :meth:`DeviceStage.launch` sums its
     slices' output rows in slice order from 0 (an entry that reads the zero
@@ -758,6 +763,8 @@ def ordered_stage_plain(ps, src, layer, sm_count, plan=None, *, gated=False,
     Equal to the kernel bit for bit where the stage has no live dense
     block.  ``plan``: the launch to follow (a :class:`StageLaunch` of
     ``layer`` alone; default the wrapper's)."""
+    if gather is not None:
+        src = ordered_gather(ps, *gather)
     ds = device_stage(ps, src.device)
     dev, b = src.device, src.shape[1]
     x = src.to(torch.float32)
@@ -813,6 +820,19 @@ def ordered_stage_plain(ps, src, layer, sm_count, plan=None, *, gated=False,
     return out
 
 
+def ordered_gather(ps, h2, slot, src_tok):
+    """The gathered input ``[E * d, cap]`` as the stage's kernel reads it:
+    ``h2[i, src_tok[e * cap + c]]`` at row ``e * d + i`` and column c (a
+    -0.0 of h2 as it is), +0.0 where ``src_tok`` is -1; ``slot`` is not
+    read."""
+    d = h2.shape[0]
+    n_exp = ps.d_src // d
+    tok = src_tok.long().reshape(n_exp, 1, -1)
+    rows = torch.arange(d, device=h2.device)[None, :, None]
+    v = h2.to(torch.float32)[rows, tok.clamp(min=0)]
+    return torch.where(tok >= 0, v, 0.0).reshape(n_exp * d, -1)
+
+
 def ordered_swiglu(out):
     """The gated epilogue's expression on ``out [2 n, B]`` one rounded
     operation at a time: ``(g / (1 + exp(-g))) * u``, g the first n rows, u
@@ -866,26 +886,72 @@ def combine_inputs(d, t, k, n_exp, cap, seed, dev):
             torch.from_numpy(wgt).to(dev))
 
 
+def gather_inputs(d, t, k, n_exp, cap, seed, dev):
+    """``(h2 [d, T], slot [T, k], src_tok [E * cap])`` as the route gives
+    them: :func:`combine_inputs`' slots (token 1's last choice dropped,
+    some slots empty) and each kept slot's token; h2 dyadic, with -0.0 in
+    token 0's column (routed: the first token takes the first ranks)."""
+    _, slot, _ = combine_inputs(d, t, k, n_exp, cap, seed, "cpu")
+    s = slot.long()
+    kept = s < n_exp * cap
+    src_tok = torch.full((n_exp * cap,), -1, dtype=torch.int32)
+    src_tok[s[kept]] = torch.arange(t)[:, None].expand_as(s)[kept].to(torch.int32)
+    h2 = dyadic(np.random.default_rng(seed), (d, t), "cpu")
+    h2[0, 0] = -0.0
+    return h2.to(dev), slot.to(dev), src_tok.to(dev)
+
+
 def mode_kwargs(ps, batch, mode, dev):
-    """``stage_matmul``'s keywords for an output mode: ``None`` (plain),
-    ``"gated"``, or ``("combine", E, T, k)`` with :func:`combine_inputs`
-    (cap = ``batch``); and the mode's part of the launch's shape key."""
+    """``stage_matmul``'s keywords for a mode: ``None`` (plain),
+    ``"gated"``, ``("combine", E, T, k)`` with :func:`combine_inputs` (cap
+    = ``batch``), or ``("gather", E, T, k, output mode)`` with
+    :func:`gather_inputs` and the output mode's keywords; and the modes'
+    part of the launch's shape key."""
     if mode is None:
         return {}, ()
     if mode == "gated":
         return {"gated": True}, ("gated",)
+    if mode[0] == "gather":
+        _, n_exp, t, k, out_mode = mode
+        kw, key = mode_kwargs(ps, batch, out_mode, dev)
+        d = ps.d_src // n_exp
+        return ({**kw, "gather": gather_inputs(d, t, k, n_exp, batch, 74, dev)},
+                ("gather", d, t) + key)
     _, n_exp, t, k = mode
     return ({"combine": combine_inputs(ps.out_dim // n_exp, t, k, n_exp,
                                        batch, 73, dev)}, ("combine", t, k))
 
 
+def mode_row(key_mode) -> str:
+    """The kernels line's row of a stage launch in ``key_mode`` (the modes'
+    part of its shape key): the kernel the first mode takes the place of."""
+    return MODE_ROW[key_mode[0]] if key_mode else "stage_matmul"
+
+
+def stage_input(ps, kw, rng, batch, dev):
+    """``(src, arg)``: the dense input ``[D_src, B]`` a case's stage reads
+    (dyadic; in the gathered mode the experts' input as the plain dispatch
+    forms it from ``kw["gather"]``) and what ``stage_matmul`` takes as
+    ``src`` (None in the gathered mode)."""
+    if "gather" in kw:
+        h2, slot, src_tok = kw["gather"]
+        return moe_dispatch_plain(h2, slot, src_tok, ps.d_src // h2.shape[0],
+                                  batch), None
+    src = dyadic(rng, (ps.d_src, batch), dev)
+    return src, src
+
+
 def mode_cost(ds, layer, batch, kw) -> tuple[int, int]:
-    """(bytes, operations) of the stage in an output mode: the stage's own
-    (:func:`stage_cost`), its output replaced by the mode's (the gated half
+    """(bytes, operations) of the stage in its modes: the stage's own
+    (:func:`stage_cost`), its input replaced by the gathered mode's (h2 and
+    src_tok read once) and its output by the output mode's (the gated half
     rows, with four operations an element: exp, add, divide, multiply; the
     combine's ``[d, T]`` with x, slot and wgt read, two operations a choice
     and one add)."""
     bytes_, flops = stage_cost(ds, [layer], batch)
+    if "gather" in kw:
+        h2, _, src_tok = kw["gather"]
+        bytes_ += 4 * (h2.numel() + src_tok.numel() - batch * ds.ps.d_src)
     o = ds.ps.out_dim
     if kw.get("gated"):
         return bytes_ - 4 * batch * (o - o // 2), flops + 4 * (o // 2) * batch
@@ -924,21 +990,22 @@ def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
     kernels' order (bit for bit where the stage has no live dense block) and
     against one dense product.  With ``mode`` (:func:`mode_kwargs`) the
     epilogue writes the mode's output: the row is the kernel the mode takes
-    the place of (:data:`MODE_ROW`), counted as ``stage_matmul`` launches at
-    the mode's shape key, held to the dense product through the plain mode,
-    timed beside the stage alone (``stage_ms``, the plain mode) and with no
-    library call (none computes the stage and the mode in one)."""
+    the place of (:func:`mode_row`), counted as ``stage_matmul`` launches at
+    the mode's shape key, held to the dense product through the plain mode
+    (on the dense input, :func:`stage_input`), timed beside the stage alone
+    (``stage_ms``, the plain modes) and with no library call (none computes
+    the stage and the mode in one)."""
     ds = device_stage(ps, dev)
-    src = dyadic(rng, (ps.d_src, batch), dev)
     kw, key_mode = mode_kwargs(ps, batch, mode, dev)
-    y = stage_matmul(ps, src, layer=layer, **kw)
+    src, xin = stage_input(ps, kw, rng, batch, dev)
+    y = stage_matmul(ps, xin, layer=layer, **kw)
     torch.cuda.synchronize()
-    plain = stage_matmul_plain(ps, src, layer=layer, **kw)
+    plain = stage_matmul_plain(ps, xin, layer=layer, **kw)
     err = check_close(label, y, plain, SUM_TOL)
     if exact and not torch.equal(y, plain):
         fail(f"{label}: kernel differs from the plain version on dyadic input")
     equal_to_plain = bool(torch.equal(y, plain))
-    in_order = check_in_order(label, ps, src, y, layer, **kw)
+    in_order = check_in_order(label, ps, xin, y, layer, **kw)
     bias = (torch.from_numpy(ps.bias[layer]).to(dev)
             if ps.bias is not None else None)
     if w is None:  # the stage's own linear map, column by column
@@ -955,25 +1022,24 @@ def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
                      stage_ms=timer(lambda: stage_matmul(ps, src, layer=layer)))
         library = None
     return kernel_row(
-        MODE_ROW[key_mode[0]] if kw else "stage_matmul", label,
-        stage_dims(ds, batch, layer),
+        mode_row(key_mode), label, stage_dims(ds, batch, layer),
         ds.shape_key(batch, 1, key_mode), err, exact or in_order,
-        lambda: stage_matmul(ps, src, layer=layer, **kw),
-        lambda: stage_matmul_plain(ps, src, layer=layer, **kw), library,
+        lambda: stage_matmul(ps, xin, layer=layer, **kw),
+        lambda: stage_matmul_plain(ps, xin, layer=layer, **kw), library,
         bound_of(*mode_cost(ds, layer, batch, kw)), timer,
         live_terms=ds.live_terms[layer],
         run_terms=ds.maps[layer].run_terms if ds.maps else 0,
         segs=ps.segs is not None,
-        warm_l2_ms=timer(lambda: stage_matmul(ps, src, layer=layer, **kw),
+        warm_l2_ms=timer(lambda: stage_matmul(ps, xin, layer=layer, **kw),
                          cold=False), **extra)
 
 
 def check_in_order(label, ps, src, y, layer, **kw):
-    """The kernel against :func:`ordered_stage_plain` (in the output mode of
+    """The kernel against :func:`ordered_stage_plain` (in the modes of
     ``kw``): bit for bit where the stage has no live dense block (then
     True), else within SUM_TOL."""
-    ds = device_stage(ps, src.device)
-    sm = torch.cuda.get_device_properties(src.device).multi_processor_count
+    ds = device_stage(ps, y.device)
+    sm = torch.cuda.get_device_properties(y.device).multi_processor_count
     want = ordered_stage_plain(ps, src, layer, sm, **kw)
     if ds.fs_live[layer] or ds.dw_live[layer]:
         check_close(label + " in kernel order", y, want, SUM_TOL)
@@ -1059,10 +1125,13 @@ def main_path_stage_cases(art, plan, dev, timer):
 
 
 def serve_mode(cfg, name):
-    """The output mode the plan serves launch stage ``name`` in
+    """The modes the plan serves launch stage ``name`` in
     (:func:`mode_kwargs`): gate+up and the experts' gates+ups (K9's stage A)
-    gated; the whole-step plan's expert downs combining; others plain (K9's
-    stage B too: its caller combines, as in the reference)."""
+    gated, the whole-step plan's experts' gates+ups also gathered; the
+    whole-step plan's expert downs combining; others plain (K9's stage B
+    too: its caller dispatches and combines, as in the reference)."""
+    if name == "eg" and cfg.mla is None:
+        return ("gather", cfg.moe.n_experts, BATCH, cfg.moe.top_k, "gated")
     if name in ("gu", "eg", "a"):
         return "gated"
     if name == "ed" and cfg.mla is None:
@@ -1073,14 +1142,21 @@ def serve_mode(cfg, name):
 def hand_stage_cases(rng, dev, timer):
     """K6 on the hand-built exact stages (odd and even level counts, S = 4
     and S = 3 slots a row, weight-shared prep with padding pairs, output
-    entries that read the zero row, nonzero fs/dw/bias): bit for bit."""
+    entries that read the zero row, nonzero fs/dw/bias, the gathered
+    input): bit for bit."""
     return [kernel_case_stage("hand P=3", handbuilt_stage(rng, p=3), rng, dev,
                               timer, exact=True),
             kernel_case_stage("hand P=2 S=3", handbuilt_stage(rng, p=2, s=3),
                               rng, dev, timer, exact=True),
             kernel_case_stage("hand P=3 fs+dw+bias",
                               handbuilt_stage(rng, p=3, dense=True), rng, dev,
-                              timer, exact=True)]
+                              timer, exact=True),
+            # the gathered input read by the prep and by the live dw block:
+            # 300 inputs as 4 experts of 75, 8 tokens top-2, cap 8
+            kernel_case_stage("hand P=3 fs+dw+bias gathered",
+                              handbuilt_stage(rng, p=3, dense=True), rng, dev,
+                              timer, exact=True,
+                              mode=("gather", 4, BATCH, 2, None))]
 
 
 STAGE_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b")
@@ -1135,12 +1211,12 @@ def main_path_stages(dev, archs=STAGE_ARCHS):
 
 def phase_stage(dev):
     """``--only stage``: K6 alone at the ten shapes the three float32 plan
-    routes launch it at (:func:`main_path_stages`), each in the output mode
-    the serve launches it in (:func:`serve_mode`), plus the hand-built
-    exact stages.  No serve.  Each case as in the kernel phase: against the
-    plain version, in the kernels' order, against the dense product, timed
-    beside its bound, the plain version and one library call (or, in an
-    output mode, the stage alone)."""
+    routes launch it at (:func:`main_path_stages`), each in the modes the
+    serve launches it in (:func:`serve_mode`), plus the hand-built exact
+    stages.  No serve.  Each case as in the kernel phase: against the plain
+    version, in the kernels' order, against the dense product, timed beside
+    its bound, the plain version and one library call (or, in a mode, the
+    stage alone)."""
     t0 = time.perf_counter()
     timer = Timer(dev)
     rows = hand_stage_cases(np.random.default_rng(30), dev, timer)
@@ -1988,15 +2064,15 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
     tokens on 8 slots, paged KV.  The whole-step plan (``stages``: its
     packed stages): a dense layer launches 4 stages (K6; gate+up with
     SwiGLU in its epilogue) and 3 step kernels (K7: 2 norms, attention); an
-    MoE layer the same with its FFN stages eg (gated) and ed (the combine in
-    its epilogue) and K8's route and dispatch.  Other plan routes
+    MoE layer the same with its FFN stages eg (the dispatch as its gathered
+    input, gated) and ed (the combine in its epilogue) and K8's route.  Other plan routes
     (deepseek's per-layer expert plans) pass their own ``predicted``
     launches a step, ``expected`` kernels, ``n_plans`` and ``fallbacks``.
     ``l_reg``: the per-region route's two-step logits on the same artifact
     (computed here when not given)."""
     moe = cfg.moe is not None
     if predicted is None:
-        predicted = (9 if moe else 7) * cfg.n_layers
+        predicted = (8 if moe else 7) * cfg.n_layers
     if expected is None:
         expected = set(PLAN) | (set(MOE) if moe else set())
     fallbacks = fallbacks or {}
@@ -2146,15 +2222,14 @@ def host_peak_rss_bytes() -> int:
 
 def kernel_case_moe(label, cfg, router, dev, timer, *, batch=BATCH, idle=0,
                     serve=None):
-    """K8's own kernels on one layer's router at ``batch`` columns: route
-    (held to the plain version's experts, slots, source tokens and dropped
-    count exactly, weights within SUM_TOL) and dispatch (exact: a gather of
-    the same values the plain version scatter-adds into zeros); the combine
-    is stage ed's combining epilogue (:func:`kernel_case_expert_stage`).
-    The last ``idle`` columns are equal, as idle slots are; they route
-    alike and take capacity.  No single PyTorch call computes either (top-k
-    with capacity ranks; the e-major scatter), so there is no library
-    time."""
+    """K8's route on one layer's router at ``batch`` columns, held to the
+    plain version's experts, slots, source tokens and dropped count
+    exactly, weights within SUM_TOL; the dispatch is stage eg's gathered
+    input and the combine stage ed's combining epilogue
+    (:func:`kernel_case_expert_stage`).  The last ``idle`` columns are
+    equal, as idle slots are; they route alike and take capacity.  No
+    single PyTorch call computes the route (top-k with capacity ranks), so
+    there is no library time."""
     d, n_exp, k = cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
     cap = capacity(batch, k, cfg.moe.capacity_factor, n_exp)
     kw = dict(top_k=k, cap=cap, norm_topk=cfg.moe.norm_topk)
@@ -2175,26 +2250,14 @@ def kernel_case_moe(label, cfg, router, dev, timer, *, batch=BATCH, idle=0,
     err = check_close(f"{label} moe_route weights", got[1], want[1], SUM_TOL)
     top = torch.sort(torch.softmax(h2.T @ router, -1), -1, descending=True).values
     margin = float((top[:, k - 1] - top[:, k]).min()) if k < n_exp else None
-    sel, wgt, slot, src_tok = got
     dims = dict(d=d, B=batch, E=n_exp, k=k, cap=cap)
-    rows = [kernel_row(
+    return [kernel_row(
         "moe_route", label, dict(dims, dropped=int(dk), min_topk_margin=margin),
         (d, batch, n_exp, k, cap), err, True,
         lambda: moe_route(h2, router, **kw),
         lambda: moe_route_plain(h2, router, **kw), None,
         bound_of(4 * (d * batch + d * n_exp + 3 * batch * k + n_exp * cap),
                  2 * d * batch * n_exp), timer, serve=serve)]
-    src = moe_dispatch(h2, slot, src_tok, n_exp, cap)
-    torch.cuda.synchronize()
-    if not torch.equal(src, moe_dispatch_plain(h2, slot, src_tok, n_exp, cap)):
-        fail(f"{label} moe_dispatch: differs from the plain version")
-    rows.append(kernel_row(
-        "moe_dispatch", label, dims, (d, batch, n_exp, cap), 0.0, True,
-        lambda: moe_dispatch(h2, slot, src_tok, n_exp, cap),
-        lambda: moe_dispatch_plain(h2, slot, src_tok, n_exp, cap), None,
-        bound_of(4 * (d * batch + n_exp * cap + n_exp * d * cap), 0), timer,
-        serve=serve))
-    return rows
 
 
 def reduced_moe_cases(cfg, dev, timer):
@@ -2255,26 +2318,27 @@ def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
     library yardstick is one ``torch.bmm`` over the E experts' dense-effective
     float32 weights of layer ``wl``; the plain version (tens of GB of gathers
     at mixtral's width) is timed apart from it.  With ``mode``
-    (:func:`mode_kwargs`) the row is the epilogue's output mode, as in
-    :func:`kernel_case_stage`: the stage in its plain mode is held to the
-    ``bmm`` and timed as ``stage_ms``, the ``bmm`` as ``dense_ms``."""
+    (:func:`mode_kwargs`) the row is the mode's, as in
+    :func:`kernel_case_stage`: the stage in its plain modes (on the dense
+    input, :func:`stage_input`) is held to the ``bmm`` and timed as
+    ``stage_ms``, the ``bmm`` as ``dense_ms``."""
     cfg = art.config
     ne, dff, d = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
     ds = device_stage(ps, dev)
-    src = dyadic(np.random.default_rng(71), (ps.d_src, batch), dev)
     kw, key_mode = mode_kwargs(ps, batch, mode, dev)
-    y = stage_matmul(ps, src, layer=0, **kw)
+    src, xin = stage_input(ps, kw, np.random.default_rng(71), batch, dev)
+    y = stage_matmul(ps, xin, layer=0, **kw)
     torch.cuda.synchronize()
-    plain = stage_matmul_plain(ps, src, layer=0, **kw)
+    plain = stage_matmul_plain(ps, xin, layer=0, **kw)
     err = check_close(label, y, plain, SUM_TOL)
     equal_to_plain = bool(torch.equal(y, plain))
     del plain
     torch.cuda.empty_cache()
-    in_order = check_in_order(label, ps, src, y, 0, **kw)
+    in_order = check_in_order(label, ps, xin, y, 0, **kw)
     torch.cuda.empty_cache()
-    ms = timer(lambda: stage_matmul(ps, src, layer=0, **kw))
-    warm = timer(lambda: stage_matmul(ps, src, layer=0, **kw), cold=False)
-    plain_ms = timer(lambda: stage_matmul_plain(ps, src, layer=0, **kw))
+    ms = timer(lambda: stage_matmul(ps, xin, layer=0, **kw))
+    warm = timer(lambda: stage_matmul(ps, xin, layer=0, **kw), cold=False)
+    plain_ms = timer(lambda: stage_matmul_plain(ps, xin, layer=0, **kw))
     torch.cuda.empty_cache()
     ffn = art.params["blocks"]["ffn"]
     if name == "eg":  # [E, 2 dff, d] @ [E, d, C]: gates then ups per expert
@@ -2302,7 +2366,7 @@ def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
                      equal_to_plain=equal_to_plain, dense_ms=library_ms,
                      stage_ms=timer(lambda: stage_matmul(ps, src, layer=0)))
         library_ms = None
-    row_name = MODE_ROW[key_mode[0]] if kw else "stage_matmul"
+    row_name = mode_row(key_mode)
     emit(dict(phase="kernel_case", name=row_name, shape=label, ms=ms,
               max_abs_err=err))
     bound = bound_of(*mode_cost(ds, 0, batch, kw))
@@ -2321,8 +2385,8 @@ def kernel_case_expert_stage(label, name, art, ps, dev, timer, *, batch,
 def mixtral_plan_cases(art, plan, dev, timer, serve):
     """K6, K7 and K8 at the mixtral plan serve's own dimensions: layer 0 of
     the attention stages (B = n_slots) and of the expert super-stages (B =
-    capacity; eg gated, ed combining for n_slots tokens), the route and
-    dispatch on layer 0's router (two idle columns, as the serve has), and
+    capacity; eg gathered and gated, ed combining, for n_slots tokens), the
+    route on layer 0's router (two idle columns, as the serve has), and
     one full-width step."""
     cfg = art.config
     cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,

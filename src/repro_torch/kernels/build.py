@@ -39,9 +39,9 @@ _SIGNATURES = {
     # idx exp sign x out | N S K B x_bf16 | stream
     "repro_lcc_factor_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # src prep_src prep_off inbuf gidx gexp gsgn slices holes units esites
-    # ebegin partial fs dw bias resid out x slot wgt | nl D B M K P R S O |
-    # mode E k cap T | groups (host int32 [G, 7]) | G | stream
-    "repro_stage_matmul": [_P] * 21 + [_I] * 14 + [_P, _I, _P],
+    # ebegin partial fs dw bias resid out x slot wgt h2 src_tok | nl D B M K
+    # P R S O | mode E k cap T d | groups (host int32 [G, 7]) | G | stream
+    "repro_stage_matmul": [_P] * 23 + [_I] * 15 + [_P, _I, _P],
     # x w out | d B cols split threads mode | eps | stream
     "repro_step_norm": [_P] * 3 + [_I] * 6 + [_F, _P],
     # qkv pos cos sin kc vc kpos tbl att kn vn ws | B S nq nkv hd bs mb
@@ -50,8 +50,6 @@ _SIGNATURES = {
     # h2 router sel wgt slot src_tok dropped ws | d B E k cap norm_topk |
     # stream
     "repro_moe_route": [_P] * 8 + [_I] * 6 + [_P],
-    # h2 src_tok src | d B E cap | stream
-    "repro_moe_dispatch": [_P] * 3 + [_I] * 4 + [_P],
     # a out | G | M | t | dtype | stream
     "repro_group_prox": [_P, _P, _L, _I, _F, _I, _P],
 }

@@ -1,22 +1,24 @@
 // moe_route — the routed FFN's own kernels inside the whole-step layer plan on
 // Hopper (sm_90a).  Per MoE layer the decode step runs
 //
-//   norm -> route -> dispatch -> stage(eg, gated) -> stage(ed, combining)
+//   norm -> route -> stage(eg, gathered, gated) -> stage(ed, combining)
 //
-// with the stages in stage_matmul.cu and nothing else in between: SwiGLU is
+// with the stages in stage_matmul.cu and nothing else in between: the
+// dispatch is the eg stage's gathered input (its prep reads h2 through the
+// route's src_tok, so the [E * d, C] expert input is never written), SwiGLU
 // the eg stage's gated epilogue, and the gated combine (x plus each token's
 // weighted sum of its experts' outputs) the ed stage's combining epilogue.
 //
 // Replaces the MoE branch of the Pallas TPU kernel `step_plan_matmul` of
 // src/repro/kernels/layer_plan.py (body `moe_block`): router logits, softmax,
-// top-k, renormalisation, the capacity rank of every (token, choice) and the
-// e-major dispatch into the expert super-stages' input.
+// top-k, renormalisation and the capacity rank of every (token, choice),
+// with each slot's source token for the stage that gathers the experts'
+// input.
 //
 // Bound by bytes on this card, and by launch latency before that.  The route
 // reads h2 [d, B] and the layer's router [d, E] once (6144 x 8 floats each at
-// mixtral's width: 0.4 MB) for 2 * B * E * d flops; dispatch writes the
-// [E * d, C] expert input once.  Each is microseconds beside the expert
-// stages' streams.
+// mixtral's width: 0.4 MB) for 2 * B * E * d flops: microseconds beside the
+// expert stages' streams.
 //
 // What the design does about it.
 //  * route: the logits take one pass over d, spread over blocks of 512
@@ -35,10 +37,10 @@
 //    thread runs the exclusive scan over the B * k assignments in
 //    token-major, choice-minor order, exactly the reference's flattened
 //    cumsum, so every rank, drop and slot is the reference's.  Idle slots
-//    are routed too, as in the reference: they take capacity.
-//  * dispatch is a gather, not a scatter-add: kept slots are unique, so each
-//    (expert, capacity column) has one source token or none (zero).  No
-//    float atomics anywhere: run-to-run identical.
+//    are routed too, as in the reference: they take capacity.  Kept slots
+//    are unique, so each (expert, capacity column) has one source token or
+//    none (src_tok -1): the stage reads the dispatch as a gather, not a
+//    scatter-add.  No float atomics anywhere: run-to-run identical.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -204,22 +206,6 @@ moe_router_kernel(const float* __restrict__ ws, int n_blk,
   if (dropped != nullptr) *dropped += n_drop;
 }
 
-// src[(e * d + i) * C + c] = h2[i, src_tok[e * C + c]], or 0 for an empty slot
-__global__ void moe_dispatch_kernel(const float* __restrict__ h2,
-                                    const int32_t* __restrict__ src_tok,
-                                    float* __restrict__ src, int d, int B,
-                                    int E, int cap) {
-  const size_t n = static_cast<size_t>(E) * d * cap;
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const size_t row = t / cap;
-  const int c = static_cast<int>(t - row * cap);
-  const int e = static_cast<int>(row / d);
-  const int i = static_cast<int>(row - static_cast<size_t>(e) * d);
-  const int tok = src_tok[e * cap + c];
-  src[t] = tok >= 0 ? h2[static_cast<size_t>(i) * B + tok] : 0.0f;
-}
-
 }  // namespace
 
 // h2 [d, B], router [d, E] (the layer's), outputs sel/wgt/slot [B, k] and
@@ -256,19 +242,5 @@ extern "C" int repro_moe_route(const void* h2, const void* router, void* sel,
       static_cast<float*>(wgt), static_cast<int32_t*>(slot),
       static_cast<int32_t*>(src_tok), static_cast<int32_t*>(dropped), B, E, k,
       cap, norm_topk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int repro_moe_dispatch(const void* h2, const void* src_tok,
-                                  void* src, int d, int B, int E, int cap,
-                                  void* stream) {
-  if (d <= 0 || B <= 0 || E <= 0 || cap <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = static_cast<size_t>(E) * d * cap;
-  const int threads = 256;
-  moe_dispatch_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                        threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h2), static_cast<const int32_t*>(src_tok),
-      static_cast<float*>(src), d, B, E, cap);
   return static_cast<int>(cudaGetLastError());
 }

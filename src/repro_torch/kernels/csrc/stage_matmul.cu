@@ -5,8 +5,9 @@
 // Replaces the Pallas TPU kernel `stage_matmul` (body `_stage_apply` /
 // `_stage_apply_seg`) of src/repro/kernels/layer_plan.py, and the stage
 // evaluations inside `step_plan_matmul` and `moe_plan_matmul` there, with
-// the SwiGLU after the gate/up stages (lines 356, 414, 454) and the MoE
-// combine after the down stage (lines 358-365) that those bodies run.
+// the MoE dispatch before the experts' gate/up stage (lines 350-354), the
+// SwiGLU after the gate/up stages (lines 356, 414, 454) and the MoE combine
+// after the down stage (lines 358-365) that those bodies run.
 //
 // What it computes, per layer (the PackedStage contract of kernels/ops.py):
 //   prep      inbuf[t] = sum of src[s'] over the pairs (s', t)
@@ -15,10 +16,12 @@
 //   output    out[o] = resid[o] + ((((sum over the slices of o's site of the
 //             slice's last-level row o - out_off) + fs_mat @ inbuf)
 //             + dw_mat @ src) + bias[o])
-// The output map — sites (disjoint output ranges), each a list of FP slices
-// whose rows [row0, row0 + odim) feed its outputs in order — is derived from
-// the stage's `outg` table once at upload (layer_plan.stage_slices) and
-// checked against it there; `outg` is not read here.
+// where src is the dense input [D, B] or, in the gathered-input mode, the
+// MoE dispatch's values read from h2 (below).  The output map — sites
+// (disjoint output ranges), each a list of FP slices whose rows [row0, row0
+// + odim) feed its outputs in order — is derived from the stage's `outg`
+// table once at upload (layer_plan.stage_slices) and checked against it
+// there; `outg` is not read here.
 //
 // Bound by bytes on this card.  Every live term is read once (int32 index +
 // int8 exponent + int8 sign = 6 bytes) for one fused multiply-add per batch
@@ -65,14 +68,23 @@
 //    dense blocks' dot products (fs_mat, dw_mat: a GEMV loop is enough at
 //    B <= 16) and add their partial sums by shuffles in a fixed order; the
 //    residual add of the decode step folds into it.
-//  * The elementwise kernels that followed a stage in the decode step have
-//    no launch of their own: each was pure launch latency (6-8 us for a few
-//    hundred KB), and the epilogue already forms every value they read.  In
-//    its gated mode it writes SwiGLU's output (silu of the gate row times
-//    the up row) in place of the [2 n, B] gate/up rows; in its combining mode
-//    it writes x plus each token's weighted sum of its k experts' outputs in
-//    place of the [E * d, cap] expert outputs, forming only the k * d * T
-//    values the tokens read.  Both give the separate kernels' bits.
+//  * The elementwise kernels around a stage in the decode step have no
+//    launch of their own: each was pure launch latency (6-8 us for a few
+//    hundred KB), and the stage already reads or forms every value they
+//    touch.  In its gated mode the epilogue writes SwiGLU's output (silu of
+//    the gate row times the up row) in place of the [2 n, B] gate/up rows;
+//    in its combining mode x plus each token's weighted sum of its k
+//    experts' outputs in place of the [E * d, cap] expert outputs, forming
+//    only the k * d * T values the tokens read.  In its gathered-input mode
+//    (independent of the output modes) the stage reads the MoE dispatch's
+//    [E * d, cap] expert input where it stands, in h2 [d, T] through the
+//    route's source token of each slot: src[e * d + i, c] is h2[i, src_tok[e
+//    * cap + c]], or 0 for an empty slot (src_tok -1), so the dispatch is
+//    never written.  The prep keeps its thread map (b fastest: neighbouring
+//    threads read neighbouring src_tok entries, 128 B at mixtral's width,
+//    through the read-only cache; h2, 196 KB, every block meets in L2).  Each
+//    mode gives the separate kernels' bits: the same floats are summed in
+//    the same order.
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,8 +94,28 @@
 namespace repro_torch {
 namespace {
 
+// The gathered-input mode's operands (h2 null: the dense mode, src [nl, D,
+// B]).  One layer, D = E * d, B = cap: src[e * d + i, c] reads as
+// src_at(g, e * d + i, c).
+struct Gather {
+  const float* h2;          // [d, T]
+  const int32_t* src_tok;   // [E * cap], -1 for an empty slot
+  int d, T;
+};
+
+// The expert input at row k, column b: what the MoE dispatch wrote there.
+__device__ __forceinline__ float src_at(const Gather& g, int k, int b,
+                                        int cap) {
+  const int e = k / g.d;
+  const int i = k - e * g.d;
+  const int tok = __ldg(g.src_tok + static_cast<size_t>(e) * cap + b);
+  return tok >= 0 ? __ldg(g.h2 + static_cast<size_t>(i) * g.T + tok) : 0.0f;
+}
+
 // inbuf[l, t, b] = sum_{i in [off[l, t], off[l, t + 1])} src[l, ssrc[l, i], b]
-__global__ void stage_prep_kernel(const float* __restrict__ src,
+// in pair order from 0; kGathered reads src through g (nl = 1).
+template <bool kGathered>
+__global__ void stage_prep_kernel(const float* __restrict__ src, Gather g,
                                   const int32_t* __restrict__ ssrc,
                                   const int32_t* __restrict__ off,
                                   float* __restrict__ inbuf, int nl, int D,
@@ -97,9 +129,14 @@ __global__ void stage_prep_kernel(const float* __restrict__ src,
   const int b = static_cast<int>(rem - static_cast<size_t>(t) * B);
   const int32_t* const o = off + static_cast<size_t>(l) * (K + 1);
   const int32_t* const s = ssrc + static_cast<size_t>(l) * M;
-  const float* const x = src + static_cast<size_t>(l) * D * B + b;
   float acc = 0.0f;
-  for (int j = o[t]; j < o[t + 1]; ++j) acc += x[static_cast<size_t>(s[j]) * B];
+  if constexpr (kGathered) {
+    for (int j = o[t]; j < o[t + 1]; ++j) acc += src_at(g, s[j], b, B);
+  } else {
+    const float* const x = src + static_cast<size_t>(l) * D * B + b;
+    for (int j = o[t]; j < o[t + 1]; ++j)
+      acc += x[static_cast<size_t>(s[j]) * B];
+  }
   inbuf[i] = acc;
 }
 
@@ -351,13 +388,15 @@ __device__ __forceinline__ float lanes_sum(float v) {
 }
 
 // The epilogue's operands.  mode: kPlain, kGated or kCombine (below);
-// combine's x [d, T], slot/wgt [T, k] and E, k, cap, T (B = cap).
+// combine's x [d, T], slot/wgt [T, k] and E, k, cap, T (B = cap); g.h2
+// non-null: dw reads its input through g.
 struct EpiArgs {
   const float* partial;
   const int4* esites;
   const int32_t* ebegin;
   const float* inbuf;
   const float* src;
+  Gather g;
   const float* fs;
   const float* dw;
   const float* bias;
@@ -414,9 +453,14 @@ __device__ __forceinline__ float stage_value(const EpiArgs& a, bool live,
     float f = 0.0f;
     if (live) {
       const float* const row = a.dw + (static_cast<size_t>(l) * a.O + o) * a.D;
-      const float* const x = a.src + static_cast<size_t>(l) * a.D * a.B + b;
-      for (int k = q; k < a.D; k += kLanes)
-        f = fmaf(row[k], x[static_cast<size_t>(k) * a.B], f);
+      if (a.g.h2 != nullptr) {
+        for (int k = q; k < a.D; k += kLanes)
+          f = fmaf(row[k], src_at(a.g, k, b, a.B), f);
+      } else {
+        const float* const x = a.src + static_cast<size_t>(l) * a.D * a.B + b;
+        for (int k = q; k < a.D; k += kLanes)
+          f = fmaf(row[k], x[static_cast<size_t>(k) * a.B], f);
+      }
     }
     acc += lanes_sum(f);
   }
@@ -535,19 +579,22 @@ cudaError_t launch_stage_rows(const ChainArgs& a, cudaStream_t st) {
 // kernel once a geometry group, epilogue, all on `stream`.  groups: host
 // int32 [ngroups][7] = first unit, units, bb, threads, tile, stages, rows N
 // (the group's longest slice).  K = 0: no prep; ngroups = 0: no streams;
-// fs/dw/bias/resid may be null.  mode 0 writes out [nl, O, B] (+ resid);
-// mode 1 (gated) out [nl, O / 2, B], O even, no resid; mode 2 (combining,
-// nl = 1, B = cap, O = E * d) out [d, T] from x [d, T], slot and wgt [T, k],
-// no resid.  Returns the first CUDA error (0 = every launch accepted).
+// fs/dw/bias/resid may be null.  The input is src [nl, D, B], or (gathered,
+// src null: nl = 1, B = cap, D = E * d) h2 [d, T] read through src_tok [E *
+// cap].  mode 0 writes out [nl, O, B] (+ resid); mode 1 (gated) out [nl, O
+// / 2, B], O even, no resid; mode 2 (combining, nl = 1, B = cap, O = E *
+// d') out [d', T] from x [d', T], slot and wgt [T, k], no resid.  Returns
+// the first CUDA error (0 = every launch accepted).
 extern "C" int repro_stage_matmul(
     const void* src, const void* prep_src, const void* prep_off, void* inbuf,
     const void* gidx, const void* gexp, const void* gsgn, const void* slices,
     const void* holes, const void* units, const void* esites,
     const void* ebegin, void* partial, const void* fs, const void* dw,
     const void* bias, const void* resid, void* out, const void* cx,
-    const void* cslot, const void* cwgt, int nl, int D, int B, int M, int K,
-    int P, int R, int S, int O, int mode, int E, int k, int cap, int T,
-    const void* groups, int ngroups, void* stream) {
+    const void* cslot, const void* cwgt, const void* h2, const void* src_tok,
+    int nl, int D, int B, int M, int K, int P, int R, int S, int O, int mode,
+    int E, int k, int cap, int T, int d, const void* groups, int ngroups,
+    void* stream) {
   using namespace repro_torch;
   auto st = static_cast<cudaStream_t>(stream);
   if (nl <= 0 || B <= 0 || O <= 0 || ngroups < 0 || mode < kPlain ||
@@ -560,15 +607,29 @@ extern "C" int repro_stage_matmul(
        T <= 0 || O % E != 0 || cx == nullptr || cslot == nullptr ||
        cwgt == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool gathered = h2 != nullptr;
+  if (gathered ? (nl != 1 || resid != nullptr || src != nullptr ||
+                  src_tok == nullptr || E <= 0 || d <= 0 ||
+                  static_cast<long long>(E) * d != D || cap != B || T <= 0)
+               : (src == nullptr || src_tok != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* x = static_cast<const float*>(src);
+  const Gather g{static_cast<const float*>(h2),
+                 static_cast<const int32_t*>(src_tok), d, T};
   auto* in = static_cast<float*>(inbuf);
   const int cthreads = 256;
   if (K > 0) {
     const size_t total = static_cast<size_t>(nl) * K * B;
-    stage_prep_kernel<<<static_cast<unsigned>((total + cthreads - 1) / cthreads),
-                        cthreads, 0, st>>>(
-        x, static_cast<const int32_t*>(prep_src),
-        static_cast<const int32_t*>(prep_off), in, nl, D, B, M, K);
+    const unsigned blocks =
+        static_cast<unsigned>((total + cthreads - 1) / cthreads);
+    const auto* ps = static_cast<const int32_t*>(prep_src);
+    const auto* po = static_cast<const int32_t*>(prep_off);
+    if (gathered)
+      stage_prep_kernel<true><<<blocks, cthreads, 0, st>>>(
+          x, g, ps, po, in, nl, D, B, M, K);
+    else
+      stage_prep_kernel<false><<<blocks, cthreads, 0, st>>>(
+          x, g, ps, po, in, nl, D, B, M, K);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -603,7 +664,7 @@ extern "C" int repro_stage_matmul(
   }
   const EpiArgs e{ngroups > 0 ? static_cast<const float*>(partial) : nullptr,
                   static_cast<const int4*>(esites),
-                  static_cast<const int32_t*>(ebegin), in, x,
+                  static_cast<const int32_t*>(ebegin), in, x, g,
                   static_cast<const float*>(fs), static_cast<const float*>(dw),
                   static_cast<const float*>(bias),
                   static_cast<const float*>(resid),

@@ -17,7 +17,10 @@ families:
   the bias and the residual.  The epilogue has two more output modes, which
   take over the elementwise kernels that followed a stage: ``gated=True``
   writes SwiGLU of the gate and up rows, ``combine=`` an MoE layer's gated
-  combine plus residual.  The output map the kernel follows (sites,
+  combine plus residual.  The input has one more mode, which takes over the
+  MoE dispatch that preceded the experts' stage: ``gather=`` reads the
+  experts' input from ``h2`` through the route's source token of each
+  slot, so it is never written.  The output map the kernel follows (sites,
   slices, depths) is derived from ``outg`` once at upload
   (:func:`stage_slices`) and checked against it entry by entry; ``outg``
   itself is read only by the plain version.
@@ -35,10 +38,11 @@ families:
   memory, a cluster of blocks a group of columns, each block a range of
   rows (:func:`plan_norm`), and takes its column sums in a fixed order.
 * ``step_plan_matmul(moe=...)`` (K8) replaces a layer's FFN with the routed
-  experts inside the same sequence: route, dispatch, stage eg (all experts'
-  gates and ups, e-major, SwiGLU in its epilogue), stage ed (all downs,
-  the gated combine + residual in its epilogue).  The route and dispatch
-  kernels are :mod:`~repro_torch.kernels.moe_route` (``csrc/moe_route.cu``).
+  experts inside the same sequence: route, stage eg (all experts' gates and
+  ups, e-major, the dispatch as its gathered input, SwiGLU in its
+  epilogue), stage ed (all downs, the gated combine + residual in its
+  epilogue).  The route kernel is :mod:`~repro_torch.kernels.moe_route`
+  (``csrc/moe_route.cu``).
 * :func:`moe_plan_matmul` (K9) runs one MoE layer's experts where the
   whole-step plan does not apply (MLA, shared experts): stage A (all gates
   and ups, SwiGLU in its epilogue), stage B (all downs) — two launches, no
@@ -69,8 +73,8 @@ import torch.nn.functional as F
 from . import build, dispatch
 from .lcc_chain_matmul import (MAX_SUMS, SM_SMEM, SMEM_LIMIT, launch_staging,
                                plan_launch, signed_pow2)
-from .moe_route import (capacity, moe_combine_plain, moe_dispatch,
-                        moe_dispatch_plain, moe_route, moe_route_plain)
+from .moe_route import (capacity, moe_combine_plain, moe_dispatch_plain,
+                        moe_route, moe_route_plain)
 from .ops import PackedStage
 
 __all__ = ["AttentionPlan", "DeviceStage", "NormPlan", "StageLaunch",
@@ -473,8 +477,9 @@ class DeviceStage:
 
     def shape_key(self, b: int, n_layers: int, mode: tuple = ()) -> tuple:
         """``(P, R, S, K_alloc, D_src, O, J, B, layers per launch)``, then
-        the epilogue's output mode where it is not the plain one:
-        ``("gated",)`` or ``("combine", T, k)`` (:func:`stage_matmul`)."""
+        the modes that are not the plain ones (:func:`stage_matmul`): the
+        gathered input ``("gather", d, T)``, then the epilogue's output mode
+        ``("gated",)`` or ``("combine", T, k)``."""
         d = self.dims
         return (d["P"], d["R"], d["S"], d["K"], d["D"], d["O"], d["J"], b,
                 n_layers, *mode)
@@ -723,15 +728,59 @@ def _stage_mode(ps: PackedStage, layer, resid, gated, combine) -> tuple:
     return ("combine", t, slot.shape[1])
 
 
-def stage_matmul_plain(ps: PackedStage, src: torch.Tensor, *,
+def _stage_input(ps: PackedStage, src, layer, resid, gather, combine
+                 ) -> tuple[int, tuple]:
+    """Checks the input of one stage application, on every device:
+    ``(B, ())`` for the dense ``src``, ``(cap, ("gather", d, T))`` for the
+    gathered input ``gather=(h2 [d, T], slot [T, k], src_tok [E * cap])``
+    (``D_src = E * d``); with ``combine=`` (checked by :func:`_stage_mode`)
+    both must route the same T tokens over the same E experts."""
+    if gather is None:
+        if src is None:
+            raise ValueError("a stage reads src, or gather=")
+        return src.shape[-1], ()
+    if src is not None:
+        raise ValueError("gather= is the stage's input: pass src=None")
+    if layer is None:
+        raise ValueError("the gathered input needs layer=")
+    if resid is not None:
+        raise ValueError("resid= is the dense input's; the gathered input "
+                         "takes none")
+    h2, slot, src_tok = gather
+    d = h2.shape[0] if h2.dim() == 2 else 0
+    if d <= 0 or ps.d_src % d:
+        raise ValueError(f"gather: h2 of shape {tuple(h2.shape)} does not "
+                         f"divide the stage's {ps.d_src} inputs into experts")
+    n_exp, t = ps.d_src // d, h2.shape[1]
+    if slot.dim() != 2 or slot.shape[0] != t or slot.shape[1] <= 0:
+        raise ValueError(f"gather: slot has shape {tuple(slot.shape)}, "
+                         f"expected ({t}, k)")
+    n = src_tok.numel()
+    if src_tok.dim() != 1 or n <= 0 or n % n_exp:
+        raise ValueError(f"gather: src_tok has shape {tuple(src_tok.shape)}, "
+                         f"expected ({n_exp} * cap,)")
+    if combine is not None and (combine[0].shape[1] != t or
+                                ps.out_dim // combine[0].shape[0] != n_exp):
+        raise ValueError("gather= and combine= route different tokens")
+    return n // n_exp, ("gather", d, t)
+
+
+def stage_matmul_plain(ps: PackedStage, src: torch.Tensor | None, *,
                        layer: int | None = None,
                        resid: torch.Tensor | None = None, gated: bool = False,
-                       combine: tuple | None = None) -> torch.Tensor:
+                       combine: tuple | None = None,
+                       gather: tuple | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`stage_matmul` (same arguments): the
     kernel's arithmetic step by step, sums in PyTorch's own order; the
-    gated mode ``F.silu(out[:n]) * out[n:]``, the combining mode
+    gathered input :func:`~repro_torch.kernels.moe_route.moe_dispatch_plain`
+    (the reference's scatter-add), the gated mode ``F.silu(out[:n]) *
+    out[n:]``, the combining mode
     :func:`~repro_torch.kernels.moe_route.moe_combine_plain`."""
     mode = _stage_mode(ps, layer, resid, gated, combine)
+    b, gmode = _stage_input(ps, src, layer, resid, gather, combine)
+    if gmode:
+        h2, slot, src_tok = gather
+        src = moe_dispatch_plain(h2, slot, src_tok, ps.d_src // gmode[1], b)
     ds = device_stage(ps, src.device)
     if layer is None:
         if resid is not None:
@@ -744,8 +793,7 @@ def stage_matmul_plain(ps: PackedStage, src: torch.Tensor, *,
         return F.silu(out[:n]) * out[n:]
     if mode:
         x, slot, wgt = combine
-        return moe_combine_plain(x, out, slot, wgt, ps.out_dim // x.shape[0],
-                                 src.shape[-1])
+        return moe_combine_plain(x, out, slot, wgt, ps.out_dim // x.shape[0], b)
     return out if resid is None else resid + out
 
 
@@ -770,10 +818,11 @@ def _ptr(t: torch.Tensor | None, layer: int = 0) -> int | None:
 _sm_count: dict[int, int] = {}
 
 
-def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
+def stage_matmul(ps: PackedStage, src: torch.Tensor | None, *,
                  layer: int | None = None,
                  resid: torch.Tensor | None = None, gated: bool = False,
-                 combine: tuple | None = None) -> torch.Tensor:
+                 combine: tuple | None = None,
+                 gather: tuple | None = None) -> torch.Tensor:
     """Apply a stage: ``src [L, D_src, B] -> [L, O, B]`` over every layer in
     one launch, or with ``layer=l``: ``src [D_src, B] -> [O, B]`` for layer
     ``l`` alone, plus ``resid [O, B]`` when given (the decode step's residual
@@ -793,20 +842,41 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
       :func:`~repro_torch.kernels.moe_route.moe_route` gives them; a slot
       outside ``[0, E * cap)`` is dropped).  Returns ``[d, T]``.
 
+    With ``layer=`` and ``src=None``, the stage can read an MoE layer's
+    expert input where it stands, independently of the output mode (no
+    ``resid``):
+
+    * ``gather=(h2, slot, src_tok)`` — ``src [E * d, cap]`` (e-major, ``D_src
+      = E * d``) as the reference's dispatch forms it from ``h2 [d, T]``:
+      ``src[e * d + i, c] = h2[i, src_tok[e * cap + c]]``, zero where
+      ``src_tok`` is -1 (``slot [T, k]``/``src_tok [E * cap]`` int32 as
+      :func:`~repro_torch.kernels.moe_route.moe_route` gives them; the
+      kernel reads ``src_tok``, the plain version scatter-adds through
+      ``slot``).  ``B = cap``.
+
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`stage_matmul_plain`."""
     mode = _stage_mode(ps, layer, resid, gated, combine)
-    if not dispatch.on_device(src):
+    b, gmode = _stage_input(ps, src, layer, resid, gather, combine)
+    if not dispatch.on_device(src if gather is None else gather[0]):
         return stage_matmul_plain(ps, src, layer=layer, resid=resid,
-                                  gated=gated, combine=combine)
-    dev = src.device
+                                  gated=gated, combine=combine, gather=gather)
+    dev = (src if gather is None else gather[0]).device
     ds = device_stage(ps, dev)
     l0, nl = (0, ps.n_layers) if layer is None else (layer, 1)
     if not 0 <= l0 < ps.n_layers:
         raise ValueError(f"layer {layer} outside [0, {ps.n_layers})")
-    b = src.shape[-1]
-    lead = (nl,) if layer is None else ()
-    dispatch.check_tensor("src", src, torch.float32, (*lead, ps.d_src, b), dev)
+    if gmode:
+        h2, slot, src_tok = gather
+        _, d, t = gmode
+        dispatch.check_tensor("h2", h2, torch.float32, (d, t), dev)
+        dispatch.check_tensor("slot", slot, torch.int32, (t, slot.shape[1]), dev)
+        dispatch.check_tensor("src_tok", src_tok, torch.int32,
+                              (ps.d_src // d * b,), dev)
+    else:
+        lead = (nl,) if layer is None else ()
+        dispatch.check_tensor("src", src, torch.float32, (*lead, ps.d_src, b),
+                              dev)
     if resid is not None:
         if layer is None:
             raise ValueError("resid= needs layer=")
@@ -820,18 +890,20 @@ def stage_matmul(ps: PackedStage, src: torch.Tensor, *,
     if b <= 0:
         raise ValueError("empty batch")
     return _launch_stage(ds, src, layer, resid, ds.launch(b, layer, _sms(dev)),
-                         mode=mode, combine=combine)
+                         mode=mode, combine=combine, gather=gather)
 
 
-def stage_args(ds: DeviceStage, src: torch.Tensor, layer: int | None,
+def stage_args(ds: DeviceStage, src: torch.Tensor | None, layer: int | None,
                resid: torch.Tensor | None, plan: StageLaunch,
-               out: torch.Tensor) -> tuple[list, list, list]:
-    """The pointer and size arguments of one launch of ``plan`` that every
-    output mode shares — ``(src ... resid out, nl D B M K P R S O, scratch
-    to keep alive)`` — the scratch (prep buffer, chunk sums) allocated."""
-    ps, dev, d = ds.ps, src.device, ds.dims
+               out: torch.Tensor, b: int | None = None
+               ) -> tuple[list, list, list]:
+    """The pointer and size arguments of one launch of ``plan`` at ``b``
+    columns (default ``src``'s) that every mode shares — ``(src ... resid
+    out, nl D B M K P R S O, scratch to keep alive)`` — the scratch (prep
+    buffer, chunk sums) allocated; ``src`` None for the gathered input."""
+    ps, dev, d = ds.ps, out.device, ds.dims
     l0, nl = (0, ps.n_layers) if layer is None else (layer, 1)
-    b = src.shape[-1]
+    b = src.shape[-1] if b is None else b
     inbuf = (torch.empty((nl, d["K"], b), dtype=torch.float32, device=dev)
              if d["K"] else None)
     partial = (torch.empty((plan.partial_rows, b), dtype=torch.float32,
@@ -841,7 +913,8 @@ def stage_args(ds: DeviceStage, src: torch.Tensor, layer: int | None,
     def dense(t, live):  # a layer whose block is all zero adds nothing
         return None if t is None or (one and not live[l0]) else _ptr(t, l0)
 
-    ptrs = [src.data_ptr(), _ptr(ds.prep_sorted_src, l0), _ptr(ds.prep_off, l0),
+    ptrs = [None if src is None else src.data_ptr(),
+            _ptr(ds.prep_sorted_src, l0), _ptr(ds.prep_off, l0),
             _ptr(inbuf), _ptr(ds.gidx, l0), _ptr(ds.gexp, l0),
             _ptr(ds.gsgn, l0), _ptr(ds.slice_tab), _ptr(ds.hole_bits),
             _ptr(plan.units), plan.esites.data_ptr(), plan.ebegin.data_ptr(),
@@ -852,17 +925,24 @@ def stage_args(ds: DeviceStage, src: torch.Tensor, layer: int | None,
     return ptrs, sizes, [inbuf, partial]
 
 
-def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
-                  resid: torch.Tensor | None, plan: StageLaunch,
-                  entry=None, mode: tuple = (),
-                  combine: tuple | None = None) -> torch.Tensor:
+def _launch_stage(ds: DeviceStage, src: torch.Tensor | None,
+                  layer: int | None, resid: torch.Tensor | None,
+                  plan: StageLaunch, entry=None, mode: tuple = (),
+                  combine: tuple | None = None,
+                  gather: tuple | None = None) -> torch.Tensor:
     """Allocate the outputs and scratch of one launch of ``plan`` and launch
     it (``entry``: the C entry point, default the library's) in output mode
-    ``mode`` (:func:`_stage_mode`); counts it."""
-    ps, dev = ds.ps, src.device
+    ``mode`` (:func:`_stage_mode`), from ``src`` or the gathered input
+    ``gather`` (:func:`_stage_input`); counts it."""
+    ps, dev = ds.ps, ds.device
     nl = ps.n_layers if layer is None else 1
-    b = src.shape[-1]
+    b, gmode = _stage_input(ps, src, layer, resid, gather, combine)
     code_mode, n_exp, top_k, tokens, cx = 0, 0, 0, 0, (None, None, None)
+    gx, d = (None, None), 0
+    if gmode:
+        _, d, tokens = gmode
+        n_exp = ps.d_src // d
+        gx = (gather[0].data_ptr(), gather[2].data_ptr())
     if not mode:
         shape = ((nl,) if layer is None else ()) + (ps.out_dim, b)
     elif mode[0] == "gated":
@@ -873,16 +953,17 @@ def _launch_stage(ds: DeviceStage, src: torch.Tensor, layer: int | None,
         shape = tuple(combine[0].shape)
         cx = tuple(t.data_ptr() for t in combine)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    ptrs, sizes, scratch = stage_args(ds, src, layer, resid, plan, out)
+    ptrs, sizes, scratch = stage_args(ds, src, layer, resid, plan, out, b)
     fn = entry or build.load().repro_stage_matmul
     with torch.cuda.device(dev):
-        code = fn(*ptrs, *cx, *sizes, code_mode, n_exp, top_k,
-                  b if code_mode == 2 else 0, tokens,
+        code = fn(*ptrs, *cx, *gx, *sizes, code_mode, n_exp, top_k,
+                  b if code_mode == 2 or gather else 0, tokens, d,
                   plan.host_groups.ctypes.data, len(plan.groups),
                   torch.cuda.current_stream().cuda_stream)
     del scratch  # enqueued: the caching allocator keeps it for the stream
     dispatch.check_launch(code, "repro_stage_matmul")
-    dispatch.record_launch("stage_matmul", shape=ds.shape_key(b, nl, mode))
+    dispatch.record_launch("stage_matmul",
+                           shape=ds.shape_key(b, nl, gmode + mode))
     return out
 
 
@@ -1270,8 +1351,8 @@ def step_plan_matmul_plain(stages: dict[str, PackedStage], *, n_heads: int,
     through :func:`step_attention_plain`, SwiGLU through the gated mode of
     :func:`stage_matmul_plain`.  With ``moe`` each layer's FFN is the
     routed block of the reference's ``moe_block``, through the plain
-    versions of the route and dispatch kernels and of the stages' gated and
-    combining modes."""
+    versions of the route kernel and of the stages' gathered input and
+    gated and combining modes."""
     n_layers, b = kpos.shape[0], x0.shape[1]
 
     kn = torch.empty((n_layers, b, n_kv_heads, head_dim), dtype=torch.float32,
@@ -1307,12 +1388,12 @@ def _moe_args(moe: dict, b: int, device) -> tuple:
 def _moe_layer_plain(stages, moe, l, h2, x):
     """One layer's routed FFN plus residual (the reference's ``moe_block``):
     x [d, B] + experts(h2 [d, B])."""
-    router, n_exp, top_k, cap = _moe_args(moe, h2.shape[1], h2.device)
+    router, _, top_k, cap = _moe_args(moe, h2.shape[1], h2.device)
     sel, wgt, slot, src_tok = moe_route_plain(
         h2, router[l], top_k=top_k, cap=cap, norm_topk=moe["norm_topk"],
         dropped=moe.get("dropped"))
-    src = moe_dispatch_plain(h2, slot, src_tok, n_exp, cap)
-    hf = stage_matmul_plain(stages["eg"], src, layer=l, gated=True)
+    hf = stage_matmul_plain(stages["eg"], None, layer=l, gated=True,
+                            gather=(h2, slot, src_tok))
     return stage_matmul_plain(stages["ed"], hf, layer=l,
                               combine=(x, slot, wgt))
 
@@ -1387,6 +1468,9 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
     if moe is not None:
         router, n_exp, top_k, cap = _moe_args(moe, b, dev)
         dispatch.check_tensor("router", router, f32, (n_layers, d, n_exp), dev)
+        if stages["eg"].d_src != n_exp * d:
+            raise ValueError(f"stage eg reads {stages['eg'].d_src} rows, "
+                             f"expected {n_exp} experts' inputs of {d}")
     kn = torch.empty((n_layers, b, nkv, hd), dtype=f32, device=dev)
     vn = torch.empty_like(kn)
     ws = _attention_ws(aplan, b, nkv, g, hd, dev)  # reused by every layer
@@ -1414,8 +1498,8 @@ def step_plan_matmul(stages: dict[str, PackedStage], *, n_heads: int,
             sel, wgt, slot, src_tok = moe_route(
                 h2, router[l], top_k=top_k, cap=cap,
                 norm_topk=moe["norm_topk"], dropped=moe.get("dropped"))
-            src = moe_dispatch(h2, slot, src_tok, n_exp, cap)
-            hf = stage_matmul(stages["eg"], src, layer=l, gated=True)
+            hf = stage_matmul(stages["eg"], None, layer=l, gated=True,
+                              gather=(h2, slot, src_tok))
             x = stage_matmul(stages["ed"], hf, layer=l, combine=(x, slot, wgt))
     return x, kn, vn
 

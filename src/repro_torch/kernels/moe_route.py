@@ -3,25 +3,25 @@
 Counterpart of the MoE branch of ``repro.kernels.layer_plan.step_plan_matmul``
 (Pallas TPU, body ``moe_block``).  A decode step's MoE layer runs
 
-    route -> dispatch -> stage eg (K6, SwiGLU in its gated epilogue)
+    route -> stage eg (K6: the dispatch as its gathered input, SwiGLU in
+                       its gated epilogue)
           -> stage ed (K6, the combine in its combining epilogue)
 
-where the two kernels of this module are hand-written CUDA
-(``csrc/moe_route.cu``):
+where :func:`moe_route` is this module's hand-written CUDA kernel
+(``csrc/moe_route.cu``): router logits (one pass over d, spread over blocks
+of ``ROUTE_ROWS`` rows, their sums added in block order by the second of its
+two kernels), softmax, top-k (ties to the lower expert index, as
+``jax.lax.top_k``), renormalisation and the capacity rank of every (token,
+choice) by the reference's exclusive cumsum over the token-major
+flattening; it emits each choice's expert, weight (gate * keep) and slot
+(``e * C + rank``, or ``E * C`` when dropped) and, per slot, its source
+token.
 
-* :func:`moe_route` — router logits (one pass over d, spread over blocks of
-  ``ROUTE_ROWS`` rows, their sums added in block order by the second of its
-  two kernels), softmax, top-k (ties to the lower
-  expert index, as ``jax.lax.top_k``), renormalisation and the capacity rank
-  of every (token, choice) by the reference's exclusive cumsum over the
-  token-major flattening; emits each choice's expert, weight (gate * keep)
-  and slot (``e * C + rank``, or ``E * C`` when dropped) and, per slot, its
-  source token;
-* :func:`moe_dispatch` — the e-major expert input ``src [E * d, C]`` as a
-  gather from ``h2`` (kept slots are unique).
-
+:func:`moe_dispatch_plain` — the e-major expert input ``src [E * d, C]``
+scatter-added as the reference does — is the plain version of the eg
+stage's gathered input (``layer_plan.stage_matmul(gather=...)``), and
 :func:`moe_combine_plain` — ``x + sum_j w_j * ob[slot_j]`` over the kept
-choices — is the plain version of the ed stage's combining epilogue
+choices — that of the ed stage's combining epilogue
 (``layer_plan.stage_matmul(combine=...)``).
 
 Routing is the reference's to the letter: every column of the batch is
@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from . import build, dispatch
 
 __all__ = ["MAX_TOP_K", "capacity", "route_tokens", "moe_route",
-           "moe_route_plain", "moe_dispatch", "moe_dispatch_plain",
+           "moe_route_plain", "moe_dispatch_plain",
            "moe_combine_plain"]
 
 MAX_TOP_K = 8  # the route kernel's bound on k (csrc/moe_route.cu)
@@ -158,9 +158,16 @@ def moe_route(h2: torch.Tensor, router: torch.Tensor, *, top_k: int,
 def moe_dispatch_plain(h2: torch.Tensor, slot: torch.Tensor,
                        src_tok: torch.Tensor, n_experts: int,
                        cap: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`moe_dispatch`: the reference's
-    scatter-add of every choice's token into its slot (dropped choices fall
-    off the end), then the e-major flattening ``[E * d, C]``."""
+    """The experts' input ``src [E * d, cap]`` (e-major, feature-major):
+    the reference's scatter-add of every choice's token ``h2[:, t]`` into
+    its slot (dropped choices fall off the end), then the e-major
+    flattening, so ``src[e * d + i, c]`` is ``h2[i, t]`` for the token
+    routed to slot ``e * cap + c`` and zero for an empty slot.  The plain
+    version of the gathered input of ``layer_plan.stage_matmul``, whose
+    kernel reads ``h2`` through ``src_tok``: kept slots are unique, so the
+    two agree in every value (a -0.0 of ``h2`` lands here as +0.0, which the
+    stage's sums from +0.0 do not tell apart).  ``src_tok`` is not read
+    here."""
     d, b = h2.shape
     top_k = slot.shape[1]
     xt = h2.T.to(torch.float32)
@@ -170,30 +177,6 @@ def moe_dispatch_plain(h2: torch.Tensor, slot: torch.Tensor,
         buf.index_add_(0, slot[:, j].long(), xt)
     return (buf[:-1].reshape(n_experts, cap, d).permute(0, 2, 1)
             .reshape(n_experts * d, cap))
-
-
-def moe_dispatch(h2: torch.Tensor, slot: torch.Tensor, src_tok: torch.Tensor,
-                 n_experts: int, cap: int) -> torch.Tensor:
-    """The experts' input ``src [E * d, cap]`` (e-major, feature-major):
-    ``src[e * d + i, c]`` is ``h2[i, t]`` for the token ``t`` routed to slot
-    ``e * cap + c``, zero for an empty slot.  The kernel gathers through
-    ``src_tok``; the plain version scatter-adds through ``slot`` as the
-    reference does (kept slots are unique, so the two agree exactly)."""
-    if not dispatch.on_device(h2):
-        return moe_dispatch_plain(h2, slot, src_tok, n_experts, cap)
-    dev = h2.device
-    d, b = h2.shape
-    dispatch.check_tensor("h2", h2, torch.float32, (d, b), dev)
-    dispatch.check_tensor("src_tok", src_tok, torch.int32, (n_experts * cap,), dev)
-    src = torch.empty((n_experts * d, cap), dtype=torch.float32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        code = lib.repro_moe_dispatch(
-            h2.data_ptr(), src_tok.data_ptr(), src.data_ptr(), d, b,
-            n_experts, cap, torch.cuda.current_stream().cuda_stream)
-    dispatch.check_launch(code, "repro_moe_dispatch")
-    dispatch.record_launch("moe_dispatch", shape=(d, b, n_experts, cap))
-    return src
 
 
 # ---------------------------------------------------------------- combine

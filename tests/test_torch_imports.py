@@ -104,11 +104,12 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
         "stage_matmul.cu", "step_plan.cu"]
     for entry in ("repro_stage_matmul", "repro_step_norm",
                   "repro_split_attention", "repro_moe_route",
-                  "repro_moe_dispatch", "repro_group_prox",
-                  "repro_lcc_factor_matmul"):
+                  "repro_group_prox", "repro_lcc_factor_matmul"):
         assert entry in build._SIGNATURES
-    # SwiGLU and the MoE combine are output modes of the stage's epilogue
-    for gone in ("repro_step_swiglu", "repro_moe_combine"):
+    # SwiGLU and the MoE combine are output modes of the stage's epilogue,
+    # the MoE dispatch its gathered input
+    for gone in ("repro_step_swiglu", "repro_moe_combine",
+                 "repro_moe_dispatch"):
         assert gone not in build._SIGNATURES
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-use_fast_math" not in build.NVCC_FLAGS

@@ -39,8 +39,9 @@ from repro.serving.executor import CompressedExecutor as JExecutor
 
 from repro_torch.convert import artifact_from_reference
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.layer_plan import (_stage_mode, device_stage,
-                                            stage_matmul, stage_matmul_plain,
+from repro_torch.kernels.layer_plan import (_stage_input, _stage_mode,
+                                            device_stage, stage_matmul,
+                                            stage_matmul_plain,
                                             step_plan_matmul_plain)
 from repro_torch.kernels.moe_route import moe_combine_plain
 from repro_torch.serving.executor import CompressedExecutor
@@ -225,16 +226,26 @@ def test_chip_smoke_modes_match_the_wrapper(plans):
              (mplan.stages["eg"], 4, cs.serve_mode(mcfg, "eg")),
              (mplan.stages["ed"], 4, cs.serve_mode(mcfg, "ed"))]
     assert [m if isinstance(m, str) else m[0] for _, _, m in cases] == [
-        "gated", "gated", "combine"]
+        "gated", "gather", "combine"]
+    assert cases[1][2][-1] == "gated"  # mixtral's eg: gathered and gated
     assert cs.serve_mode(ocfg, "dn") is None and cs.serve_mode(mcfg, "a") == "gated"
-    # K9's stage B stays plain: its caller combines, as in the reference
-    assert cs.serve_mode(cs.get_arch("deepseek-v2-lite-16b"), "ed") is None
+    # K9's stage A is gated only and its stage B plain: its caller
+    # dispatches and combines, as in the reference
+    deepseek = cs.get_arch("deepseek-v2-lite-16b")
+    assert cs.serve_mode(deepseek, "ed") is None
+    assert cs.serve_mode(deepseek, "eg") == "gated"
     for ps, b, mode in cases:
         kw, key_mode = cs.mode_kwargs(ps, b, mode, "cpu")
-        assert _stage_mode(ps, 0, None, kw.get("gated", False),
-                           kw.get("combine")) == key_mode
-        assert cs.MODE_ROW[key_mode[0]] in cs.KERNELS
-        assert cs.KERNELS[cs.MODE_ROW[key_mode[0]]]["source"].endswith(
+        gather = kw.get("gather")
+        want = _stage_mode(ps, 0, None, kw.get("gated", False),
+                           kw.get("combine"))
+        if gather is not None:
+            cap, gmode = _stage_input(ps, None, 0, None, gather, None)
+            assert cap == b
+            want = gmode + want
+        assert want == key_mode
+        assert cs.mode_row(key_mode) in cs.KERNELS
+        assert cs.KERNELS[cs.mode_row(key_mode)]["source"].endswith(
             "csrc/stage_matmul.cu")
         bytes_, flops = cs.mode_cost(device_stage(ps, "cpu"), 0, b, kw)
         assert bytes_ > 0 and flops > 0

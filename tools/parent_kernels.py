@@ -9,14 +9,17 @@ Builds the kernels of ``--root`` with that checkout's own build module (into
 its own ``build/``) beside this checkout's, and compares them by section
 (``--sections``, all by default):
 
-* ``modes``: at the stage launches the plan routes make in an output mode
-  (``chip_smoke.main_path_stages``: olmo-1b gate+up and mixtral-8x22b's
-  experts' gates+ups and deepseek-v2-lite-16b's K9 stage A, gated;
-  mixtral-8x22b's expert downs, combining for 8 tokens with a dropped
-  choice), the other checkout's pair — its ``repro_stage_matmul`` in the
-  plain mode, then its ``repro_step_swiglu`` or ``repro_moe_combine`` —
-  against this tree's one launch in the mode, held equal bit for bit; the
-  stage alone (this tree, plain mode) beside them;
+* ``modes``: at the stage launches the plan routes make in a mode other
+  than the plain ones (``chip_smoke.main_path_stages``: olmo-1b gate+up and
+  deepseek-v2-lite-16b's K9 stage A, gated; mixtral-8x22b's experts'
+  gates+ups, gathered and gated, and its expert downs, combining, for 8
+  tokens with a dropped choice and empty slots), the other checkout's
+  launches — its ``repro_moe_dispatch`` where this tree gathers, then its
+  ``repro_stage_matmul`` in the output mode (its signature before the
+  gathered input) — against this tree's one launch in the modes, held
+  equal bit for bit; beside them the stage alone (this tree, plain modes)
+  and, where it gathers, this tree's stage in the output mode alone on the
+  dispatched input;
 * ``prep``: at every region of ``chip_smoke.py --only prep``
   (``chip_smoke.region_preps``, the same members and inputs) the region
   prepared the way the other checkout's per-region route did — per member
@@ -103,40 +106,47 @@ def other_norm(lib, x, w, norm):
     return out
 
 
-def other_pair(lib, ps, src, kw, sm):
-    """A callable running stage ``ps`` (layer 0) through the other
-    checkout's plain-mode ``repro_stage_matmul`` (its signature before the
-    output modes), then its SwiGLU (``kw`` gated) or combine kernel."""
-    ds = device_stage(ps, src.device)
-    plan = ds.launch(src.shape[-1], 0, sm)
-    b = src.shape[-1]
+def other_pair(lib, ps, b, kw, sm, src=None):
+    """A callable running stage ``ps`` (layer 0) at ``b`` columns in the
+    modes of ``kw`` through the other checkout: its ``repro_moe_dispatch``
+    into a dense input where ``kw`` gathers (else ``src``), then its
+    ``repro_stage_matmul`` in the output mode (its signature before the
+    gathered input)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ds = device_stage(ps, dev)
+    plan = ds.launch(b, 0, sm)
+    n_exp = top_k = tokens = 0
+    cx = (None, None, None)
+    if kw.get("gated"):
+        mode, shape = 1, (ps.out_dim // 2, b)
+    elif "combine" in kw:
+        x, slot, _ = kw["combine"]
+        mode, shape, cx = 2, tuple(x.shape), tuple(t.data_ptr()
+                                                   for t in kw["combine"])
+        n_exp, tokens, top_k = ps.out_dim // x.shape[0], x.shape[1], slot.shape[1]
+    else:
+        mode, shape = 0, (ps.out_dim, b)
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
-        out = torch.empty((ps.out_dim, b), device=src.device)
-        ptrs, sizes, _scratch = stage_args(ds, src, 0, None, plan, out)
-        code = lib.repro_stage_matmul(*ptrs, *sizes,
+        x = src
+        if "gather" in kw:
+            h2, _, src_tok = kw["gather"]
+            x = torch.empty((ps.d_src, b), device=dev)
+            code = lib.repro_moe_dispatch(
+                h2.data_ptr(), src_tok.data_ptr(), x.data_ptr(), h2.shape[0],
+                h2.shape[1], ps.d_src // h2.shape[0], b, stream)
+            if code:
+                raise RuntimeError(f"repro_moe_dispatch: CUDA error {code}")
+        out = torch.empty(shape, device=dev)
+        ptrs, sizes, _scratch = stage_args(ds, x, 0, None, plan, out)
+        code = lib.repro_stage_matmul(*ptrs, *cx, *sizes, mode, n_exp, top_k,
+                                      b if mode == 2 else 0, tokens,
                                       plan.host_groups.ctypes.data,
                                       len(plan.groups), stream)
         if code:
             raise RuntimeError(f"repro_stage_matmul: CUDA error {code}")
-        if kw.get("gated"):
-            n = ps.out_dim // 2
-            hf = torch.empty((n, b), device=src.device)
-            code = lib.repro_step_swiglu(out.data_ptr(), hf.data_ptr(), n, b,
-                                         stream)
-            if code:
-                raise RuntimeError(f"repro_step_swiglu: CUDA error {code}")
-            return hf
-        x, slot, wgt = kw["combine"]
-        y = torch.empty_like(x)
-        code = lib.repro_moe_combine(
-            x.data_ptr(), out.data_ptr(), slot.data_ptr(), wgt.data_ptr(),
-            y.data_ptr(), x.shape[0], x.shape[1], ps.out_dim // x.shape[0],
-            slot.shape[1], b, stream)
-        if code:
-            raise RuntimeError(f"repro_moe_combine: CUDA error {code}")
-        return y
+        return out
     return run
 
 
@@ -148,28 +158,34 @@ def modes(lib, dev, timer) -> None:
             mode = cs.serve_mode(cfg, name)
             if mode is None:
                 continue  # launched in the plain mode
-            kw, _ = cs.mode_kwargs(ps, batch, mode, dev)
-            src = cs.dyadic(np.random.default_rng(71), (ps.d_src, batch), dev)
-            other = other_pair(lib, ps, src, kw, sm)
+            kw, key_mode = cs.mode_kwargs(ps, batch, mode, dev)
+            src, xin = cs.stage_input(ps, kw, np.random.default_rng(71),
+                                      batch, dev)
+            other = other_pair(lib, ps, batch, kw, sm, src=xin)
 
-            def this(ps=ps, src=src, kw=kw):
-                return stage_matmul(ps, src, layer=0, **kw)
+            def this(ps=ps, xin=xin, kw=kw):
+                return stage_matmul(ps, xin, layer=0, **kw)
             got_other, got_this = other(), this()
             torch.cuda.synchronize()
             if not torch.equal(got_other, got_this):
-                cs.fail(f"{label}: the output mode differs from the other "
-                        "checkout's stage and kernel by "
+                cs.fail(f"{label}: the modes differ from the other "
+                        "checkout's launches by "
                         f"{float((got_other - got_this).abs().max()):.3e}")
             other_ms, this_ms = in_turns(timer, other, this)
-            which = "gated" if "gated" in kw else "combine"
-            cs.emit(dict(kernel=cs.MODE_ROW[which], shape=label, mode=which,
+            extra = {}
+            if "gather" in kw:  # the output mode alone, on the dense input
+                out_kw = {k: v for k, v in kw.items() if k != "gather"}
+                extra["output_mode_ms"] = timer(
+                    lambda: stage_matmul(ps, src, layer=0, **out_kw))
+            cs.emit(dict(kernel=cs.mode_row(key_mode), shape=label,
+                         mode="+".join(m for m in key_mode if isinstance(m, str)),
                          other_pair_ms=other_ms, this_ms=this_ms,
                          stage_ms=timer(lambda ps=ps, src=src: stage_matmul(
                              ps, src, layer=0)),
                          bound_ms=cs.bound_of(*cs.mode_cost(
                              device_stage(ps, dev), 0, batch, kw))[0],
-                         bitwise_equal=True))
-            del other, src
+                         bitwise_equal=True, **extra))
+            del other, src, xin
             torch.cuda.empty_cache()
 
 
