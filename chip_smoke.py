@@ -87,7 +87,20 @@ kernel on those paths against its plain PyTorch version:
    ``make_train_step`` with ProxSGD over every site (batch 8 x 512 tokens):
    a warm and five timed steps, 7 K5 launches a step, the update through K5
    against the other route, a profiled step; the paper's MLP through the
-   port's launcher (``--arch mlp --prox``), 2 K5 launches a step.
+   port's launcher (``--arch mlp --prox``), 2 K5 launches a step;
+9. the compressor (``--only compress`` runs it alone, training the MLP
+   first): the trained MLP (784-300-10) compressed at full width by
+   ``models.api.compress_model`` on the card's host, under the compress
+   launcher's default config and the train launcher's handoff config
+   (dead inputs kept in place, so skipped and shrunk slice jobs), each at 1
+   and at 4 worker processes (a forkserver pool), bit for bit the same;
+   fc1 served through K1 on the held-out set (one launch a forward, bit for
+   bit the plain version in the kernel's order, logits against the
+   dense-effective forward and the CPU's plain route, accuracy dense ->
+   compressed); the reference launcher's --quickstart olmo-1b compressed by
+   the port and served through ``ServingEngine(artifact=...)``, bf16 on the
+   per-region route and float32 on the plan route, greedy tokens equal to
+   the dense-effective forward's, launches a step as predicted.
 
 One JSON object per line; a failed phase ends the run with a non-zero exit.
 Imports nothing of JAX.
@@ -287,15 +300,37 @@ def dyadic(rng, shape, device):
                             / 8.0).to(device)
 
 
+def levels_in_order(idx, exp, sign, cur):
+    """:func:`_levels_plain` with every row's S terms summed as the kernel
+    sums them: one after another, from +0.0 (a fused multiply-add by a power
+    of two rounds as the add of the exact product)."""
+    lead = idx.shape[:-3]
+    p_factors, n, s = idx.shape[-3:]
+    b = cur.shape[-1]
+    coef = signed_pow2(sign, exp)
+    for p in range(p_factors):
+        ii = idx[..., p, :, :].reshape(*lead, n * s).long()
+        g = torch.gather(cur, -2, ii[..., None].expand(*lead, n * s, b)
+                         ).reshape(*lead, n, s, b)
+        c = coef[..., p, :, :]
+        acc = torch.zeros((*lead, n, b), dtype=torch.float32, device=cur.device)
+        for t in range(s):
+            acc = acc + c[..., t, None] * g[..., t, :]
+        cur = acc
+    return cur
+
+
 def ordered_plain(ds, x, sm_count):
     """The plain version's per-slice results summed in the kernel's order:
-    slice by slice inside a block's chunk, then chunk by chunk."""
+    a row's terms one after another, slice by slice inside a block's chunk,
+    then chunk by chunk."""
     idx = ds.idx if ds.idx.dim() == 5 else ds.idx[None]
     g, e, _, n, _ = idx.shape
     c0, w, ln = (t.reshape(g, e) for t in (ds.slice_c0, ds.slice_w, ds.chain_len))
     d = max(n, int(w.max()))
-    per = _levels_plain(idx, ds.exp.reshape(idx.shape), ds.sign.reshape(idx.shape),
-                        _slice_inputs_plain(x, c0, w, d))  # [G, E, N, B]
+    per = levels_in_order(idx, ds.exp.reshape(idx.shape),
+                          ds.sign.reshape(idx.shape),
+                          _slice_inputs_plain(x, c0, w, d))  # [G, E, N, B]
     _, _, chunks, spb = plan_launch(n, x.shape[1], g, e, sm_count,
                                     idx.shape[-1])
     live = (ln > 0).cpu().numpy()
@@ -367,11 +402,10 @@ def kernel_case_chain(label, pk, rng, dev, timer, sm, batch=BATCH):
     torch.cuda.synchronize()
     plain = lcc_chain_matmul_plain(*args)
     err = check_close(label, y, plain, SUM_TOL)
-    # with two terms a row's sum is a single rounded add, so in the kernel's
-    # slice order the plain version must match bit for bit; with more terms
-    # torch.sum's order inside a row is its own
-    exact = pk.idx.shape[3] == 2
-    if exact and not torch.equal(y[None], ordered_plain(ds, x, sm)):
+    # in the kernel's order (a row's terms one after another, then slices
+    # and chunks in launch order) the plain version matches bit for bit
+    exact = True
+    if not torch.equal(y[None], ordered_plain(ds, x, sm)):
         fail(f"{label}: kernel differs from the plain version summed in the "
              "kernel's own (fixed) slice order")
     w_eff = decomposition_dense(pk, dev)
@@ -3206,14 +3240,17 @@ def phase_train_olmo(dev):
                 ), counts, by_shape, steps
 
 
-def phase_train_mlp():
+MLP_TRAIN_ARGS = ["--arch", "mlp", "--prox", "--lambda", "0.1", "--epochs", "3"]
+
+
+def phase_train_mlp(dev):
     """The port's launcher on the paper's MLP: --arch mlp --prox --lambda 0.1
-    --epochs 3, in process; K5 twice a step (fc1, fc2)."""
+    --epochs 3, in process; K5 twice a step (fc1, fc2).  The trained params
+    and the held-out set are returned for the compressor."""
     from repro_torch.launch import train
 
     dispatch.reset_launch_count()  # counts of the main path start here ...
-    stats = train.main(["--arch", "mlp", "--prox", "--lambda", "0.1",
-                        "--epochs", "3"])
+    stats, params, test = train.train_mlp(train.parse_args(MLP_TRAIN_ARGS), dev)
     counts = dispatch.launch_counts()  # ... and are read here
     by_shape = dispatch.launch_counts_by_shape()
     if counts != {"group_prox": 2 * stats["steps"]}:
@@ -3223,12 +3260,13 @@ def phase_train_mlp():
         fail(f"train mlp: accuracy {stats['accuracy']}")
     return (dict(phase="train_mlp", **stats,
                  group_prox_launches_per_step=counts["group_prox"] / stats["steps"]),
-            counts, by_shape, stats["steps"])
+            counts, by_shape, stats["steps"], (params, test, stats["accuracy"]))
 
 
 def run_train(dev):
     """The training phases: K5's cases, olmo-1b at full width, the MLP.
-    Returns the kernel rows and the training runs' launch counts."""
+    Returns the kernel rows, the training runs' launch counts and the trained
+    MLP (params, held-out set, accuracy)."""
     cfg = get_arch("olmo-1b")
     rows = phase_train_kernels(dev, cfg)
     emit(dict(phase="train_kernels", tolerance_float32=PROX_TOL,
@@ -3241,9 +3279,298 @@ def run_train(dev):
     serves = {f"{cfg.name} train": (counts, by_shape, steps)}
     gc.collect()
     torch.cuda.empty_cache()
-    mlp, counts, by_shape, steps = phase_train_mlp()
+    mlp, counts, by_shape, steps, trained = phase_train_mlp(dev)
     emit(mlp)
     serves["mlp train"] = (counts, by_shape, steps)
+    return rows, serves, trained
+
+
+# ------------------------------------ the compressor (Algorithm 1), PR 23
+
+# the compress launcher's default config (src/repro/launch/compress.py:61-62)
+COMPRESS_DEFAULT = dict(algorithm="fp", weight_sharing=True,
+                        max_share_rel_err=0.06)
+# the train launcher's handoff config (src/repro/launch/train.py:12): dead
+# input groups kept in place (skipped and shrunk slice jobs), no sharing, so
+# fc1's decomposition takes all 784 inputs, as mlp_forward_compressed needs
+COMPRESS_HANDOFF = dict(algorithm="fp", prune_tol=-1e-6, weight_sharing=False)
+COMPRESS_WORKERS = (1, 4)
+# the reference compress launcher's --quickstart olmo-1b
+# (src/repro/launch/compress.py:54-55)
+QUICKSTART = dict(vocab=64, n_layers=2, d_model=32, d_ff=48, n_heads=2,
+                  n_kv_heads=2, head_dim=16)
+MLP_SERVE = "mlp compressed"  # the serve name of fc1's K1 forward
+
+
+def artifact_diff(a, b) -> list[str]:
+    """Where two artifacts differ: records (kept columns, sharing, effective
+    maps, every factor's streams), packed buffers, effective params and the
+    report, compared bitwise.  Empty when they agree."""
+    bad = []
+    if list(a.records) != list(b.records):
+        return ["unit list"]
+    for name, ra in a.records.items():
+        rb = b.records[name]
+        same = (np.array_equal(ra.kept_columns, rb.kept_columns)
+                and ra.effective.tobytes() == rb.effective.tobytes()
+                and (ra.shared is None) == (rb.shared is None)
+                and (ra.shared is None
+                     or (ra.shared.labels.tobytes() == rb.shared.labels.tobytes()
+                         and ra.shared.centroids.tobytes()
+                         == rb.shared.centroids.tobytes()))
+                and ra.decomposition.meta == rb.decomposition.meta
+                and ra.decomposition.to_dense().tobytes()
+                == rb.decomposition.to_dense().tobytes())
+        pa, pb = a.packed[name], b.packed[name]
+        same = same and all(np.array_equal(getattr(pa, f), getattr(pb, f))
+                            for f in ("idx", "exp", "sign"))
+        same = same and pa.chain_lengths == pb.chain_lengths
+        if not same:
+            bad.append(name)
+    for ta, tb in zip(leaves(a.params), leaves(b.params), strict=True):
+        if not torch.equal(ta, tb):
+            bad.append("params")
+            break
+    if a.report.table() != b.report.table():
+        bad.append("report")
+    return bad
+
+
+def compress_runs(params, cfg, compression, label):
+    """``api.compress_model`` once a worker count of :data:`COMPRESS_WORKERS`
+    (the pool is a forkserver: this process has touched CUDA); the runs must
+    agree bit for bit.  Returns the first run's artifact and a summary: wall
+    s, jobs, skipped and shrunk jobs a run, adds baseline -> lcc a unit and
+    in total."""
+    from repro_torch.core.compress import CompressionConfig
+
+    runs = []
+    for n_workers in COMPRESS_WORKERS:
+        t0 = time.perf_counter()
+        art = api.compress_model(params, cfg, CompressionConfig(**compression),
+                                 n_workers=n_workers)
+        runs.append((n_workers, art, time.perf_counter() - t0))
+    bad = artifact_diff(runs[0][1], runs[1][1])
+    if bad:
+        fail(f"compress {label}: {COMPRESS_WORKERS} workers disagree at {bad}")
+    art, rep = runs[0][1], runs[0][1].report
+    units = {l.name: dict(baseline_adds=l.baseline_adds,
+                          lcc_adds=l.stage_adds["lcc"], ratio=l.ratio("lcc"),
+                          kept=l.extra["kept_cols"], clusters=l.extra["clusters"],
+                          dead_groups=l.extra["dead_groups"],
+                          achieved_snr_db=l.extra["achieved_snr_db"])
+             for l in rep.layers}
+    stats = {nw: {k: a.pipeline_stats[k] for k in (
+                 "jobs", "skipped_jobs", "shrunk_jobs", "dead_groups",
+                 "cache_hits", "cache_misses")} | {"wall_s": wall}
+             for nw, a, wall in runs}
+    return art, dict(label=label, config=compression, runs=stats,
+                     bitwise_equal_across_workers=True, units=units,
+                     baseline_adds=rep.total_baseline(),
+                     lcc_adds=rep.total_stage("lcc"), ratio=rep.ratio("lcc"))
+
+
+def phase_compress_mlp(dev, trained, timer, sm):
+    """The paper's MLP (784-300-10) as trained on the card, compressed at
+    full width under the compress launcher's default config and under the
+    train launcher's handoff config (each at 1 and 4 workers, bit for bit
+    the same); fc1 of the handoff artifact served through K1 on the held-out
+    set: one launch a forward, the kernel's output bit for bit its plain
+    version in the kernel's order, logits within STEP_TOL of the
+    dense-effective forward and of the plain route on the CPU.  Returns the
+    phase's line, K1's row at fc1's shape and the forward's counts."""
+    from repro_torch.models.mlp import (MLPConfig, mlp_forward,
+                                        mlp_forward_compressed)
+
+    params, (xte, yte), acc_dense = trained
+    cfg = MLPConfig(hidden=int(params["fc1"]["w"].shape[0]))
+    art_d, default = compress_runs(params, cfg, COMPRESS_DEFAULT, "mlp default")
+    art, handoff = compress_runs(params, cfg, COMPRESS_HANDOFF, "mlp handoff")
+    pk = art.packed["fc1"]
+    if pk.in_dim != cfg.in_dim or handoff["runs"][1]["skipped_jobs"] <= 0:
+        fail(f"compress mlp: fc1 takes {pk.in_dim} inputs, "
+             f"{handoff['runs'][1]['skipped_jobs']} skipped jobs")
+    x = xte.to(dev, torch.float32)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_count()  # counts of the compressed forward start here ...
+    with torch.no_grad():
+        logits = mlp_forward_compressed(art.params, pk, x)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    if counts != {"lcc_chain_matmul": 1}:
+        fail(f"compress mlp: the forward launched {counts}, expected one K1")
+    with torch.no_grad():
+        ds = pk.on(dev)
+        xt = x.T.contiguous()
+        y = lcc_chain_matmul(ds.idx, ds.exp, ds.sign, xt, ds.slice_c0,
+                             ds.slice_w, ds.chain_len)
+        torch.cuda.synchronize()
+        if not torch.equal(y[None], ordered_plain(ds, xt, sm)):
+            fail("compress mlp: K1 on fc1 differs from its plain version "
+                 "summed in the kernel's order")
+        plain = mlp_forward(art.params, x)
+        cpu = mlp_forward_compressed(to_device(art.params, "cpu"), pk, x.cpu())
+    err_dense = check_close("mlp compressed vs dense-effective", logits, plain,
+                            STEP_TOL)
+    err_cpu = check_close("mlp compressed vs the CPU plain route", logits.cpu(),
+                          cpu, STEP_TOL)
+
+    def acc(lg):
+        return float((torch.argmax(lg, -1).cpu() == yte.cpu()).float().mean())
+
+    row = kernel_case_chain(f"mlp fc1 E={pk.idx.shape[0]} N={pk.out_dim} "
+                            f"B={x.shape[0]}", pk, np.random.default_rng(60),
+                            dev, timer, sm, batch=x.shape[0])
+    row["serve"] = MLP_SERVE
+    line = dict(phase="compress_mlp", shape=[cfg.in_dim, cfg.hidden, cfg.classes],
+                default=default, handoff=handoff,
+                fc1_packed=dict(E=pk.idx.shape[0], P=pk.idx.shape[1],
+                                N_pad=pk.idx.shape[2], S=pk.idx.shape[3],
+                                live_slices=int(sum(1 for v in
+                                                    ds.chain_len.tolist() if v))),
+                held_out=int(x.shape[0]), launches=counts,
+                logits_vs_dense_effective=err_dense, logits_vs_cpu_plain=err_cpu,
+                tol=STEP_TOL, k1_bit_for_bit_in_kernel_order=True,
+                accuracy=dict(dense=acc_dense,
+                              default_effective=acc(mlp_forward(art_d.params, x)),
+                              handoff_effective=acc(plain), compressed_k1=acc(logits)))
+    return line, row, (counts, by_shape, 1)
+
+
+def quickstart_rows(cfg, art, plan, dev, timer, sm, route):
+    """Every kernel at the dimensions the quickstart serve on ``route``
+    launches it at, each distinct launch shape once: per-region, K1/K2 on
+    every layer's regions and K3 where a region prepares; plan, K6's four
+    stages in their modes, K7's norm and attention."""
+    rng = np.random.default_rng(70)
+    serve_name = f"quickstart {cfg.name} {route}"
+    rows, seen = [], set()
+    if route == "per-region":
+        for li in range(cfg.n_layers):
+            for names in site_groups(cfg, li):
+                members = [art.packed[n] for n in names]
+                k = site_weight(art.params, names[0]).shape[0]
+                if len(names) == 1:
+                    key = ("lcc_chain_matmul",
+                           (*members[0].idx.shape, members[0].in_dim, BATCH))
+                    if key not in seen:
+                        rows.append(kernel_case_chain(
+                            f"quickstart {names[0]}", members[0], rng, dev,
+                            timer, sm))
+                else:
+                    pg = ops.pack_group(members)
+                    key = ("lcc_group_matmul",
+                           (*pg.idx.shape, sum(m.in_dim for m in members), BATCH))
+                    if key not in seen:
+                        rows.append(kernel_case_group(
+                            "quickstart " + "+".join(names), members, rng,
+                            dev, timer, sm))
+                seen.add(key)
+                prep = site_prep([art.records[n] for n in names])
+                if prep.identity and len(names) == 1:
+                    continue
+                key = ("region_prep", prep.shape_key(k, BATCH, 2))
+                if key not in seen:
+                    seen.add(key)
+                    rows.append(kernel_case_prep(
+                        "quickstart " + "+".join(names), prep, k, BATCH,
+                        torch.bfloat16, False, dev, timer))
+    else:
+        for name in ("qkv", "o", "gu", "dn"):
+            rows.append(kernel_case_stage(
+                f"quickstart {name}", plan.stages[name], rng, dev, timer,
+                w=stage_weights(art, name, 0, dev), mode=serve_mode(cfg, name)))
+        rows.append(kernel_case_norm(cfg, dev, timer, label="quickstart norm"))
+        rows.append(kernel_case_attention(
+            "quickstart attention", cfg, MAX_LEN, cfg.attn_window,
+            serve_positions(rng), dev, timer))
+    for row in rows:
+        row["serve"] = serve_name
+    return rows
+
+
+def phase_compress_olmo(dev, timer, sm):
+    """The reference launcher's --quickstart olmo-1b, compressed by the port
+    (default config; bf16 and float32 parameters, the same seed) and served
+    through ``ServingEngine(artifact=...)``: bf16 on the per-region route
+    (K1, K2, K3), float32 on the whole-step plan (K6, K7).  Greedy tokens
+    equal the dense-effective forward's, launches a step as predicted."""
+    base = reduced_config(get_arch("olmo-1b"), **QUICKSTART)
+    lines, rows, serves = [], [], {}
+    for dtype, route in (("bfloat16", "per-region"), ("float32", "plan")):
+        cfg = replace(base, param_dtype=dtype, compute_dtype=dtype)
+        params = api.init_params(0, cfg, device=dev)
+        art, summary = compress_runs(params, cfg, COMPRESS_DEFAULT,
+                                     f"quickstart {dtype}")
+        plan = None
+        if route == "plan":
+            plan = CompressedExecutor(art, device=dev).step_plan(cfg)
+            predicted = 7 * cfg.n_layers
+            expected = set(PLAN)
+        else:
+            predicted = (region_launches_per_layer(cfg) * cfg.n_layers
+                         + region_preps_per_step(cfg, art.records))
+            expected = set(PER_REGION)
+        rows += quickstart_rows(cfg, art, plan, dev, timer, sm, route)
+        prompts = prompts_for(cfg, 6)
+        dispatch.reset_launch_count()  # counts of the serve start here ...
+        eng, res, step_s = serve(art, dev, use_kernel=True, n_slots=BATCH,
+                                 prompts=prompts, max_new=16)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()  # ... and are read here
+        by_shape = dispatch.launch_counts_by_shape()
+        _, res_d, _ = serve(art, dev, use_kernel=False, n_slots=BATCH,
+                            prompts=prompts, max_new=16)
+        for r in res + res_d:
+            if r.error or not r.finished or len(r.tokens) != r.prompt_len + 16:
+                fail(f"quickstart {route}: a request did not finish: {r.error}")
+        if [r.tokens for r in res] != [r.tokens for r in res_d]:
+            fail(f"quickstart {route}: greedy tokens differ from the "
+                 "dense-effective forward's")
+        ex = eng.executor
+        if ex.routed != ex.sites:
+            fail(f"quickstart {route}: unrouted sites {sorted(ex.sites - ex.routed)}")
+        if eng.kernel_launches_per_step != predicted or set(counts) != expected:
+            fail(f"quickstart {route}: {eng.kernel_launches_per_step} launches "
+                 f"a step of {sorted(counts)}, predicted {predicted} of "
+                 f"{sorted(expected)}")
+        name = f"quickstart {cfg.name} {route}"
+        serves[name] = (counts, by_shape, eng.step_dispatches)
+        lines.append(dict(serve=name, dtype=dtype, compress=summary,
+                          launches_per_step=eng.kernel_launches_per_step,
+                          predicted_launches_per_step=predicted,
+                          launches=counts, n_layer_plans=eng.n_layer_plans,
+                          tokens_equal_dense_effective=True,
+                          ms_per_step=float(np.median(step_s[1:] or step_s)) * 1e3,
+                          sample_tokens=res[0].tokens[res[0].prompt_len:]))
+        del eng, art, plan
+        gc.collect()
+    return lines, rows, serves
+
+
+def phase_compress(dev, trained=None):
+    """``--only compress``: the compressor on the card's host, feeding the
+    card.  Without ``trained`` (the full run passes its MLP training's) the
+    MLP is first trained here, as ``train_mlp`` trains it."""
+    from repro_torch.pipeline import runner
+
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    serves = {}
+    if trained is None:  # K5's rows at the MLP's shapes are the train phase's
+        line, *_, trained = phase_train_mlp(dev)
+        emit(line)
+    line, row, serves[MLP_SERVE] = phase_compress_mlp(dev, trained, timer, sm)
+    emit(line)
+    rows = [row]
+    olmo, orows, oserves = phase_compress_olmo(dev, timer, sm)
+    rows += orows
+    serves.update(oserves)
+    runner.shutdown_workers(wait=True)
+    emit(dict(phase="compress_quickstart_serves", serves=olmo))
+    emit(dict(phase="compress", seconds=time.perf_counter() - t0))
     return rows, serves
 
 
@@ -3253,7 +3580,7 @@ def main() -> None:
                     help="cut the depth of the olmo-1b serves (never the width)")
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
                                        "attention", "prep", "mixtral",
-                                       "deepseek", "train"),
+                                       "deepseek", "train", "compress"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
@@ -3272,8 +3599,11 @@ def main() -> None:
                          "mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
                          "deepseek-v2-lite-16b phases alone; train: the "
-                         "training phases alone (no final ok line in any "
-                         "case)")
+                         "training phases alone; compress: the compressor "
+                         "(the paper's MLP trained, compressed at full width "
+                         "at 1 and 4 workers, fc1 served through K1; the "
+                         "quickstart olmo-1b compressed and served on both "
+                         "routes) (no final ok line in any case)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -3293,7 +3623,7 @@ def main() -> None:
               build_seconds=build.last_build_seconds,
               sources=[p.name for p in build.sources()]))
 
-    rows, serves = [], {}
+    rows, serves, trained = [], {}, None
     if args.only in ("chain", "stage", "attention", "prep"):
         emit(dict(chain=phase_chain, stage=phase_stage,
                   attention=phase_attention, prep=phase_prep)[args.only](dev))
@@ -3334,9 +3664,15 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     if args.only in (None, "train"):
-        trows, tserves = run_train(dev)
+        trows, tserves, trained = run_train(dev)
         rows += trows
         serves.update(tserves)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "compress"):
+        crows, cserves = phase_compress(dev, trained)
+        rows += crows
+        serves.update(cserves)
 
     # the whole steps and K9 at the serves' dimensions: compositions of the
     # kernels below, with no launch of their own

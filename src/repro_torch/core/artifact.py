@@ -4,9 +4,11 @@ A :class:`CompressedModel` bundles what the serving engine needs: per-unit
 :class:`CompressedDense` records (prune indices, weight-sharing labels and
 centroids, the LCC decomposition), optional pre-packed kernel buffers,
 dense-effective ``params`` (a drop-in nested dict of tensors for the plain
-forward and for everything not compressed), the configs that produced it, and
-the layer plans an executor packed from it.  Persistence (``save``/``load``)
-is not part of this package yet, so plans live in memory only.
+forward and for everything not compressed), the cost report, the configs
+that produced it, the pipeline's run statistics, and the layer plans an
+executor packed from it.  ``models.api.compress_model`` builds one.
+Persistence (``save``/``load``) is not part of this package yet (ROADMAP
+A1b), so plans live in memory only.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ class CompressedModel:
     params: Any  # dense-effective nested dict of tensors
     records: dict[str, Any]  # unit name -> CompressedDense
     packed: dict[str, Any] = field(default_factory=dict)  # name -> PackedDecomposition
-    report: Any = None  # cost report (not carried over yet)
+    report: Any = None  # ModelCostReport (None for a converted or seeded artifact)
     compression: CompressionConfig = field(default_factory=CompressionConfig)
     unit_configs: dict[str, CompressionConfig] = field(default_factory=dict)
     pipeline_stats: dict = field(default_factory=dict)

@@ -7,9 +7,11 @@ artifact, on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --requests 3 --max-new 8 --kernel
 
-The offline compressor is not part of this package yet, so the artifact comes
-from the seeded fixture (``repro_torch.testing.seeded_artifact``): valid LCC
-chains at the model's width, random weights.
+The artifact comes from the seeded fixture
+(``repro_torch.testing.seeded_artifact``): valid LCC chains at the model's
+width, random weights.  The offline compressor
+(``repro_torch.models.api.compress_model``) runs for hours at these widths,
+and a compressed artifact cannot be read from disk yet (ROADMAP A1b).
 """
 import argparse
 import time

@@ -21,8 +21,10 @@ passes the constant to the step).  Weights are random from ``--seed``.
 
 Not available yet, refused with a message: the mesh, multi-device and
 gradient-compression flags and the elastic demo (the ``distributed/``
-entry), checkpoints (slice 6), the MLP's compression handoff and recovery
-(slice 6) and the metrics snapshot (the ``obs/`` entry).
+entry), checkpoints (A1b, the artifact on disk), the MLP's compression
+handoff and recovery (A2; the compressor itself is
+``repro_torch.models.api.compress_model``, which :func:`train_mlp`'s
+params feed) and the metrics snapshot (the ``obs/`` entry).
 """
 import argparse
 import time
@@ -47,12 +49,13 @@ _REFUSED = {
     "--elastic-demo": (lambda a: a.elastic_demo,
                        f"the distributed/ entry of {_QUEUE}"),
     "--checkpoint-dir": (lambda a: a.checkpoint_dir is not None,
-                         f"slice 6 of {_QUEUE} (checkpoints)"),
-    "--resume": (lambda a: a.resume, f"slice 6 of {_QUEUE} (checkpoints)"),
+                         f"A1b of {_QUEUE} (checkpoints, the artifact on disk)"),
+    "--resume": (lambda a: a.resume,
+                 f"A1b of {_QUEUE} (checkpoints, the artifact on disk)"),
     "--compress-out": (lambda a: a.compress_out is not None,
-                       f"slice 6 of {_QUEUE} (the compressor handoff)"),
+                       f"A2 of {_QUEUE} (the compressor handoff)"),
     "--recover": (lambda a: a.recover > 0,
-                  f"slice 6 of {_QUEUE} (recovery fine-tuning)"),
+                  f"A2 of {_QUEUE} (recovery fine-tuning)"),
     "--metrics-out": (lambda a: a.metrics_out is not None,
                       f"the obs/ entry of {_QUEUE}"),
 }
@@ -63,11 +66,13 @@ def _where(device: torch.device) -> str:
             else "cpu")
 
 
-def mlp_main(args, device: torch.device) -> dict:
+def train_mlp(args, device: torch.device):
     """--arch mlp: the training half of the paper's Sec. IV-A loop —
     (optionally prox-regularized) training on MNIST-scale stroke digits with
     the x0.95-every-3-epochs schedule, sparsity printed every third epoch,
-    held-out accuracy at the end."""
+    held-out accuracy at the end.  Returns ``(stats, params, (x_test,
+    y_test))``: the trained params (tensors on ``device``, detached) and the
+    held-out set feed the compressor."""
     from repro_torch.data.mnist_like import train_test
     from repro_torch.models.mlp import MLPConfig, init_mlp, mlp_accuracy, mlp_loss
 
@@ -120,7 +125,8 @@ def mlp_main(args, device: torch.device) -> dict:
           + (f", dead groups {stats['dead_group_fraction']:.1%}"
              if specs else "")
           + f", group_prox launches {stats['group_prox_launches']}")
-    return stats
+    params = tree_map(lambda p: p.detach(), params)
+    return stats, params, (xte_t, yte_t)
 
 
 def lm_main(args, device: torch.device) -> dict:
@@ -177,7 +183,7 @@ def lm_main(args, device: torch.device) -> dict:
             "group_prox_launches": launches}
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b",
                     help="a dense or MoE arch of the registry, or 'mlp'")
@@ -219,17 +225,21 @@ def main(argv=None) -> dict:
     ap.add_argument("--recover", type=int, default=0)
     ap.add_argument("--metrics-out", default=None)
     args = ap.parse_args(argv)
-
     for flag, (is_set, where) in _REFUSED.items():
         if is_set(args):
             raise SystemExit(f"{flag} is not available in this package yet: "
                              f"it comes with {where}")
+    return args
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train the "
                          "reduced config on the CPU")
     device = torch.device(args.device)
     if args.arch == "mlp":
-        return mlp_main(args, device)
+        return train_mlp(args, device)[0]
     return lm_main(args, device)
 
 

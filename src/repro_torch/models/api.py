@@ -3,6 +3,13 @@
 Launchers and the serving engine go through these functions so a new family
 only has to plug in here.  Every function that allocates takes ``device=`` and
 defaults to the GPU.
+
+The same file is the dispatch surface for *compression*: the compressible-
+unit adapter registry (:mod:`repro_torch.models.compress_adapters`) maps a
+family to its dense matrices, and :func:`compress_model` runs Algorithm 1
+over all of them, returning the
+:class:`repro_torch.core.artifact.CompressedModel` that
+``ServingEngine(artifact=...)`` serves.
 """
 from __future__ import annotations
 
@@ -14,7 +21,8 @@ from . import transformer
 
 __all__ = ["init_params", "abstract_params", "train_loss", "prefill",
            "decode", "sample_tokens", "paged_supported", "paged_layout",
-           "init_decode_state", "family_of"]
+           "init_decode_state", "family_of", "register_compress_adapter",
+           "compressible_units", "rebind", "compress_model"]
 
 
 def init_params(seed: int, cfg: ArchConfig, device="cuda"):
@@ -126,3 +134,108 @@ def init_decode_state(cfg: ArchConfig, batch: int, smax: int, *,
         kv_block = kv_blocks = None
     return transformer.init_decode_state(cfg, batch, smax, kv_block=kv_block,
                                          kv_blocks=kv_blocks, device=device)
+
+
+# ---------------------------------------------------------------------------
+# compression surface: family adapter registry + whole-model Algorithm 1
+# ---------------------------------------------------------------------------
+
+
+def register_compress_adapter(family: str, site_fn) -> None:
+    """Register ``site_fn(params, cfg) -> list[DenseSite | ConvSite]`` for a
+    family.  Built-in families are pre-registered by
+    :mod:`repro_torch.models.compress_adapters`."""
+    from . import compress_adapters
+
+    compress_adapters.register_family(family, site_fn)
+
+
+def compressible_units(params, cfg):
+    """Every compressible unit (CompressibleDense / CompressibleConv) of the
+    model, via the family's registered adapter."""
+    from . import compress_adapters
+
+    return compress_adapters.units_from_sites(
+        params, compress_adapters.sites_for(params, cfg))
+
+
+def rebind(params, cfg, name: str, effective):
+    """Write a unit's dense-effective map back into a new params tree."""
+    from . import compress_adapters
+
+    for site in compress_adapters.sites_for(params, cfg):
+        if site.name == name:
+            return compress_adapters.rebind_site(params, site, effective)
+    raise KeyError(f"no compressible unit named {name!r} for this model")
+
+
+def compress_model(params, cfg, compression=None, *, include=None,
+                   conv_channel_subsample=None, progress=None,
+                   build_packed: bool = True, n_workers: int = 1,
+                   budget_adds=None, cache_dir=None, run_dir=None,
+                   resume: bool = False, metrics=None):
+    """Steps 2-3 of Algorithm 1 over every compressible unit of a family,
+    executed by the :mod:`repro_torch.pipeline` job graph (counterpart of
+    ``repro.models.api.compress_model``, bitwise the same records).
+
+    ``params`` is a nested dict of tensors (any float dtype, any device).
+    Returns a :class:`repro_torch.core.artifact.CompressedModel`: per-unit
+    compressed records, packed kernel buffers
+    (``kernels.ops.pack_decomposition``), dense-effective params (each
+    compressed leaf a new tensor of the old leaf's dtype and device), the
+    :class:`ModelCostReport`, the per-unit plans that differ from
+    ``compression`` and the pipeline's run statistics.  ``include`` filters
+    unit names (callable or prefix string); ``build_packed=False`` skips the
+    kernel-buffer packing.
+
+    ``n_workers`` fans slice jobs out over worker processes (a forkserver
+    pool; the result is bitwise the serial one); ``budget_adds`` invokes the
+    adds-budget allocator; ``progress`` receives structured
+    ``repro_torch.pipeline.CompressionEvent``s.  ``cache_dir``, ``run_dir``
+    and ``resume`` (ROADMAP A1b) and ``metrics`` (A5) are refused with
+    ``NotImplementedError``.
+    """
+    import numpy as np
+
+    from repro_torch.core.artifact import CompressedModel
+    from repro_torch.core.compress import CompressionConfig
+    from repro_torch.kernels import ops
+    from repro_torch.pipeline import run_pipeline
+
+    from . import compress_adapters
+
+    if compression is None:
+        compression = CompressionConfig(algorithm="fp", weight_sharing=True,
+                                        max_share_rel_err=0.06)
+    sites = compress_adapters.sites_for(params, cfg)
+    if include is not None:
+        keep = include if callable(include) else lambda n: n.startswith(include)
+        sites = [s for s in sites if keep(s.name)]
+    units = compress_adapters.units_from_sites(params, sites)
+    res = run_pipeline(units, compression, n_workers=n_workers,
+                       budget_adds=budget_adds, cache_dir=cache_dir,
+                       run_dir=run_dir, resume=resume,
+                       conv_channel_subsample=conv_channel_subsample,
+                       progress=progress, metrics=metrics)
+    packed: dict[str, object] = {}
+    params_c = params
+    for site in sites:
+        rec = res.records[site.name]
+        if isinstance(site, compress_adapters.DenseSite):
+            w = site.weight(params)
+            eff = np.zeros_like(w)
+            eff[:, rec.kept_columns] = rec.effective
+            params_c = compress_adapters.rebind_site(params_c, site, eff)
+            if build_packed:
+                packed[site.name] = ops.pack_decomposition(rec.decomposition)
+        else:
+            kernel = site.kernel(params)
+            eff_k = compress_adapters.effective_conv_kernel(
+                kernel, rec, res.unit_configs[site.name].conv_method)
+            params_c = compress_adapters.rebind_site(params_c, site, eff_k)
+    # record only plans that differ from the global config (allocator output)
+    unit_configs = {n: c for n, c in res.unit_configs.items() if c != compression}
+    return CompressedModel(config=cfg, params=params_c, records=res.records,
+                           packed=packed, report=res.report,
+                           compression=compression, unit_configs=unit_configs,
+                           pipeline_stats=res.stats)

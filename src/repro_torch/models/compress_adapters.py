@@ -7,8 +7,11 @@ tree, its leading stacked indices (layer, expert) and how it is stored (the
 ``dense_init`` [K, N] layout vs the paper's [N, K] ``y = W x`` layout).
 Training derives its group-lasso layouts from these records
 (``training.regularize``), so the groups the prox zeroes are the ones the
-compressor slices.  Site names, paths, indices and ``transpose`` flags are
-the reference's, so artifact keys cross between the packages.
+compressor slices; the compressor reads each site's matrix as a float64
+numpy array (:meth:`DenseSite.weight`) and :func:`rebind_site` writes a
+dense-effective map back into a new params tree of tensors.  Site names,
+paths, indices and ``transpose`` flags are the reference's, so artifact keys
+cross between the packages.
 
 Families with a table here: dense (olmo-1b), moe (mixtral-8x22b, and
 deepseek-v2-lite with its MLA projections and shared experts) and mlp (the
@@ -19,7 +22,25 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["DenseSite", "sites_for", "register_family", "FAMILY_SITE_FNS"]
+import numpy as np
+import torch
+
+from repro_torch.core.compress import CompressibleConv, CompressibleDense
+
+__all__ = ["DenseSite", "ConvSite", "sites_for", "units_from_sites",
+           "rebind_site", "effective_conv_kernel", "register_family",
+           "FAMILY_SITE_FNS"]
+
+
+def _to_f64(a) -> np.ndarray:
+    """A tensor (any float dtype, any device) or array as float64 numpy.  A
+    bf16 or f16 tensor goes through float32, exactly, as numpy has no bf16."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to("cpu")
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.to(torch.float32)
+        a = t.numpy()
+    return np.asarray(a, np.float64)
 
 
 @dataclass(frozen=True)
@@ -30,6 +51,112 @@ class DenseSite:
     path: tuple  # keys into the params tree down to the array
     index: tuple = ()  # leading indices into stacked axes (layer, expert, ...)
     transpose: bool = True  # True: stored [K, N] (dense_init layout)
+
+    def weight(self, params) -> np.ndarray:
+        a = _lookup(params, self.path)
+        for i in self.index:
+            a = a[i]
+        w = _to_f64(a)
+        return w.T if self.transpose else w
+
+
+@dataclass(frozen=True)
+class ConvSite:
+    """One conv kernel [N, K, O, O] (NCHW/OIHW models)."""
+
+    name: str
+    path: tuple
+    index: tuple = ()
+
+    def kernel(self, params) -> np.ndarray:
+        a = _lookup(params, self.path)
+        for i in self.index:
+            a = a[i]
+        return _to_f64(a)
+
+
+def _lookup(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set_in(tree, path, value):
+    """Functional nested update; dict levels are copied, list levels rebuilt."""
+    if not path:
+        return value
+    k, rest = path[0], path[1:]
+    if isinstance(tree, list):
+        out = list(tree)
+        out[k] = _set_in(tree[k], rest, value)
+        return out
+    out = dict(tree)
+    out[k] = _set_in(tree[k], rest, value)
+    return out
+
+
+def _leaf_like(new: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``new`` as a tensor of ``like``'s dtype on its device.  A float64
+    array reaches a 16-bit dtype through float32, as the reference's
+    ``jnp.asarray(new, dtype)`` does."""
+    t = torch.from_numpy(np.ascontiguousarray(new))
+    if like.dtype in (torch.bfloat16, torch.float16):
+        t = t.to(torch.float32)
+    return t.to(dtype=like.dtype).to(like.device)
+
+
+def rebind_site(params, site: DenseSite | ConvSite, effective: np.ndarray):
+    """Write a dense-effective weight (or conv kernel) back at ``site``.
+
+    ``effective`` is [N, K_orig] for dense sites (pruned columns already
+    zero-expanded) and [N, K, O, O] for conv sites.  Returns a new params
+    tree whose leaf at ``site`` is a new tensor of the old leaf's dtype and
+    device; the original tree and its tensors are untouched.
+    """
+    arr = _lookup(params, site.path)
+    new = np.asarray(effective)
+    if isinstance(site, DenseSite) and site.transpose:
+        new = new.T
+    leaf = _leaf_like(new, arr)
+    if site.index:
+        out = arr.detach().clone()
+        out[site.index] = leaf
+        leaf = out
+    return _set_in(params, site.path, leaf)
+
+
+def units_from_sites(params, sites) -> list[CompressibleDense | CompressibleConv]:
+    out: list[CompressibleDense | CompressibleConv] = []
+    for s in sites:
+        if isinstance(s, DenseSite):
+            out.append(CompressibleDense(name=s.name, weight=s.weight(params)))
+        else:
+            out.append(CompressibleConv(name=s.name, kernel=s.kernel(params)))
+    return out
+
+
+def effective_conv_kernel(kernel: np.ndarray, conv_record: dict,
+                          method: str = "pk") -> np.ndarray:
+    """Dense-equivalent kernel of a ``compress_conv_kernel`` record.
+
+    Channels with a decomposition are replaced by the decomposition's dense
+    equivalent (inverting the FK/PK reshape); subsampled or pruned-out
+    channels keep their original values — the accounting already covers them.
+    """
+    n, k, oh, ow = kernel.shape
+    eff = np.array(kernel, np.float64, copy=True)
+    for ch, dec in conv_record["decompositions"].items():
+        m = dec.to_dense()
+        if method == "fk":
+            eff[:, ch] = m.reshape(n, oh, ow)
+        else:  # pk rows are (n, j): kernel columns of length oh
+            eff[:, ch] = m.reshape(n, ow, oh).transpose(0, 2, 1)
+    return eff
+
+
+# ---------------------------------------------------------------------------
+# per-family site enumerations
+# ---------------------------------------------------------------------------
 
 
 def _attn_sites(cfg, base_path, layer_index, tag) -> list[DenseSite]:
@@ -102,7 +229,7 @@ FAMILY_SITE_FNS = {
 }
 
 
-def sites_for(params, cfg) -> list[DenseSite]:
+def sites_for(params, cfg) -> list[DenseSite | ConvSite]:
     """All compressible sites of (params, cfg), from the family registry."""
     from .api import family_of
 

@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ["MLPConfig", "init_mlp_numpy", "init_mlp", "mlp_forward",
-           "mlp_forward_custom", "mlp_loss", "mlp_accuracy"]
+           "mlp_forward_custom", "mlp_forward_compressed", "mlp_loss",
+           "mlp_accuracy"]
 
 
 @dataclass(frozen=True)
@@ -56,6 +57,25 @@ def mlp_forward_custom(params, x, fc1_matvec=None):
     if fc1_matvec is None:
         return mlp_forward(params, x)
     h = torch.relu(fc1_matvec(x) + params["fc1"]["b"])
+    return h @ params["fc2"]["w"].T + params["fc2"]["b"]
+
+
+def mlp_forward_compressed(params, packed_fc1, x):
+    """Compressed-dense forward: fc1 runs as ONE fused whole-chain LCC launch
+    (K1, ``lcc_chain_matmul``, on a CUDA tensor; its plain version on a CPU
+    tensor).
+
+    ``packed_fc1`` is ``repro_torch.kernels.ops.pack_decomposition`` of an
+    LCC decomposition of fc1's whole weight (paper Sec. IV-A: the 784->300
+    layer), so it takes all ``in_dim`` inputs: a record compressed with
+    keep-in-place pruning (``prune_tol < 0``) and no weight sharing.  The
+    kernel contract is features-major, so the batch is transposed around the
+    fused call; fc2 stays dense (it is not the compression target).
+    """
+    from repro_torch.kernels import ops
+
+    h = ops.apply_packed_decomposition(packed_fc1, x.T).T
+    h = torch.relu(h + params["fc1"]["b"])
     return h @ params["fc2"]["w"].T + params["fc2"]["b"]
 
 

@@ -1,8 +1,8 @@
 """Fixtures, not features: a seeded compressed artifact without the compressor.
 
-The offline compressor (prune -> share -> LCC decompose) is not part of this
-package yet, and at full model width it runs for hours.  ``seeded_artifact``
-builds, from a seed alone, a :class:`~repro_torch.core.artifact.CompressedModel`
+The offline compressor (prune -> share -> LCC decompose,
+``models.api.compress_model``) runs for hours at full LM width.
+``seeded_artifact`` builds, from a seed alone, a :class:`~repro_torch.core.artifact.CompressedModel`
 with the *shape* the compressor produces — its slice grid
 (``plan_col_slices``), ``S = 2`` terms per row, mostly six factors per chain
 with some shorter ones (so identity padding is exercised), a few pruned

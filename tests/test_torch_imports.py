@@ -33,6 +33,14 @@ print("TRAIN", all(n in names for n in (
     "repro_torch.training.trainer", "repro_torch.training.regularize",
     "repro_torch.models.compress_adapters", "repro_torch.models.mlp",
     "repro_torch.data.mnist_like", "repro_torch.launch.train")))
+print("COMPRESSOR", all(n in names for n in (
+    "repro_torch.core.csd", "repro_torch.core.lcc", "repro_torch.core.cost",
+    "repro_torch.core.weight_sharing", "repro_torch.core.conv_reshape",
+    "repro_torch.core.compress", "repro_torch.pipeline.events",
+    "repro_torch.pipeline.cache", "repro_torch.pipeline.jobs",
+    "repro_torch.pipeline.allocator", "repro_torch.pipeline.runner",
+    "repro_torch.models.compress_adapters", "repro_torch.models.api",
+    "repro_torch.models.flops", "repro_torch.models.mlp")))
 print("BAD", bad)
 """
 
@@ -60,7 +68,35 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     assert lines["PLAN"] == "True"  # the layer-plan kernels (K6, K7) too
     assert lines["TRAIN"] == "True"  # the training path and K5
     assert lines["SLICE5"] == "True"  # K4 and deepseek-v2-lite
+    assert lines["COMPRESSOR"] == "True"  # Algorithm 1 and its pipeline
     assert lines["BAD"] == "[]"
+
+
+_JOBS_PROBE = r"""
+import sys
+import repro_torch.pipeline.jobs
+import torch
+print("CUDA_INIT", torch.cuda.is_initialized())
+print("MODS", sorted(m for m in sys.modules if m.startswith("repro_torch.")))
+"""
+
+
+def test_worker_job_module_touches_no_cuda():
+    """The forkserver preloads ``repro_torch.pipeline.jobs`` (and its
+    imports); none of it may initialise CUDA or load the kernel library."""
+    out = subprocess.run([sys.executable, "-c", _JOBS_PROBE], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT),
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
+    assert lines["CUDA_INIT"] == "False"
+    mods = lines["MODS"]
+    assert "repro_torch.core.compress" in mods
+    for heavy in ("repro_torch.kernels", "repro_torch.serving",
+                  "repro_torch.models"):
+        assert f"'{heavy}" not in mods, heavy
+    from repro_torch.pipeline import runner
+    assert "repro_torch.pipeline.jobs" in runner._make_executor.__code__.co_consts
 
 
 def test_no_source_file_of_the_port_names_jax_or_repro():
@@ -69,6 +105,9 @@ def test_no_source_file_of_the_port_names_jax_or_repro():
     assert SRC / "repro_torch" / "kernels" / "layer_plan.py" in files
     assert SRC / "repro_torch" / "training" / "trainer.py" in files
     assert SRC / "repro_torch" / "kernels" / "lcc_matmul.py" in files
+    for mod in ("core/csd.py", "core/cost.py", "core/conv_reshape.py",
+                "pipeline/jobs.py", "pipeline/runner.py", "models/flops.py"):
+        assert SRC / "repro_torch" / mod in files
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"

@@ -185,8 +185,8 @@ def test_lm_launcher_runs_on_the_cpu(capsys):
 REFUSED = [("--mesh", "2x2", "distributed/"), ("--devices", "4", "distributed/"),
            ("--grad-compression", None, "distributed/"),
            ("--elastic-demo", None, "distributed/"),
-           ("--checkpoint-dir", "ckpt", "slice 6"), ("--resume", None, "slice 6"),
-           ("--compress-out", "out", "slice 6"), ("--recover", "5", "slice 6"),
+           ("--checkpoint-dir", "ckpt", "A1b"), ("--resume", None, "A1b"),
+           ("--compress-out", "out", "A2"), ("--recover", "5", "A2"),
            ("--metrics-out", "m.json", "obs/")]
 
 
