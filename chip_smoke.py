@@ -110,6 +110,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import resource
 import subprocess
 import sys
@@ -125,6 +126,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import checkpointer, msgpack_codec  # noqa: E402
+from repro_torch.checkpoint.checkpointer import _flatten  # noqa: E402
 from repro_torch.configs import get_arch, reduced_config  # noqa: E402
 from repro_torch.data.synthetic import MarkovLM  # noqa: E402
 from repro_torch.kernels import build, dispatch, ops  # noqa: E402
@@ -1992,12 +1995,14 @@ def region_launches_per_layer(cfg) -> int:
     return attn + 3 + (2 if cfg.moe.n_shared else 0)
 
 
-def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
+def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None, keep=None):
     """The per-region route at full width: every projection a K1 or K2
     launch (an MoE projection's experts one K2 launch of E), each fused
     region's or pruned site's input made by one K3 region-prep launch.
     ``ref_params``: float32 dense-effective weights for the per-site check
-    where the records keep none on the host."""
+    where the records keep none on the host.  ``keep``: a dict that
+    receives the serve's results under ``"per-region"`` (see
+    :func:`route_results`)."""
     predicted = (region_launches_per_layer(cfg) * cfg.n_layers
                  + region_preps_per_step(cfg, art.records))
     prompts = prompts_for(cfg, 6)
@@ -2048,6 +2053,8 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     torch.cuda.synchronize()
     if max(site_err.values()) > 1e-3:
         fail(f"full serve: per-site output off the dense-effective: {site_err}")
+    if keep is not None:
+        keep["per-region"] = route_result(eng, res, step_s, counts, art, dev)
     profile = profile_steps(eng, prompts)
     tokens = sum(len(r.tokens) - r.prompt_len for r in res)
     steady = step_s[1:] or step_s
@@ -2093,7 +2100,8 @@ def two_step_logits(cfg, art, executor, dev):
 
 
 def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
-                     predicted=None, expected=None, n_plans=1, fallbacks=None):
+                     predicted=None, expected=None, n_plans=1, fallbacks=None,
+                     keep=None):
     """The plan route at full width, float32: the same 6 prompts x 16 new
     tokens on 8 slots, paged KV.  The whole-step plan (``stages``: its
     packed stages): a dense layer launches 4 stages (K6; gate+up with
@@ -2103,7 +2111,8 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
     (deepseek's per-layer expert plans) pass their own ``predicted``
     launches a step, ``expected`` kernels, ``n_plans`` and ``fallbacks``.
     ``l_reg``: the per-region route's two-step logits on the same artifact
-    (computed here when not given)."""
+    (computed here when not given).  ``keep``: a dict that receives the
+    serve's results under ``"plan"`` (see :func:`route_results`)."""
     moe = cfg.moe is not None
     if predicted is None:
         predicted = (8 if moe else 7) * cfg.n_layers
@@ -2150,6 +2159,8 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
     # two decode steps' logits: plan route against the per-region route
     # (K1-K3) and the dense-effective weights, on the same float32 artifact
     l_plan = two_step_logits(cfg, art, ex, dev)
+    if keep is not None:
+        keep["plan"] = route_result(eng, res, step_s, counts, art, dev, l_plan)
     if l_reg is None:
         l_reg = two_step_logits(
             cfg, art, CompressedExecutor(art, use_plans=False, device=dev), dev)
@@ -2574,21 +2585,253 @@ def run_olmo(dev, layers):
                                "results are bit-identical",
               step_tolerance=STEP_TOL, rows=rows))
     emit(phase_reduced_serve(dev, red_cfg))
+    kept = {}  # the in-memory serves' results, for the artifact phase
     full, full_counts, by_shape, eng = phase_full_serve(dev, base, art16,
-                                                        fixture_s)
+                                                        fixture_s, keep=kept)
     emit(full)
     # the plan serve's peak counts the plan route's own bytes: the bf16 cast
     # and the per-region streams go first
     del eng, art16
     drop_per_region_copies(art32)
     planned, plan_counts, plan_shape = phase_plan_serve(
-        dev, cfg32, art32, plan.stages.values(), plan.pack_s)
+        dev, cfg32, art32, plan.stages.values(), plan.pack_s, keep=kept)
     emit(planned)
+    box = [art32]  # the artifact phase drops it after saving
+    del art32, plan
+    emit(phase_artifact(dev, base, box, want=kept))
     return rows, {f"{base.name} per-region": (full_counts, by_shape,
                                               full["decode_steps"]),
                   f"{base.name} plan": (plan_counts, plan_shape,
                                         planned["decode_steps"]),
                   FACTOR_ROUTE: factor_serve}
+
+
+# ------------------------------------------------- the artifact on disk
+
+
+def rss_now() -> dict:
+    """Resident host memory now, in bytes: all of it and, where the kernel
+    reports them, anonymous and file backed (a mapped shard's pages count
+    as file)."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key = line.split(":")[0]
+            if key in ("VmRSS", "RssAnon", "RssFile"):
+                out[key] = int(line.split()[1]) * 1024
+    return out
+
+
+def reckon_artifact(art) -> tuple[dict, tuple[str, int]]:
+    """The bytes ``CompressedModel.save`` writes, by top-level group
+    (params, units, packed, plans; records' effective maps and centroids
+    as float64, as the format stores them), and the largest leaf."""
+    groups = dict.fromkeys(("params", "units", "packed", "plans"), 0)
+    leaves: dict[str, int] = {}
+
+    def add(group, name, nbytes):
+        groups[group] += nbytes
+        leaves[f"{group}/{name}"] = nbytes
+
+    stack = [("", art.params)]
+    while stack:
+        name, t = stack.pop()
+        if isinstance(t, dict):
+            stack += [(f"{name}/{k}", v) for k, v in t.items()]
+        else:
+            add("params", name, tensor_bytes(t))
+    for name, rec in art.records.items():
+        add("units", f"{name}/kept", 8 * rec.kept_columns.size)
+        add("units", f"{name}/effective", 8 * rec.effective.size)
+        if rec.shared is not None:
+            add("units", f"{name}/labels", rec.shared.labels.nbytes)
+            add("units", f"{name}/centroids", 8 * rec.shared.centroids.size)
+        for i, sl in enumerate(rec.decomposition.slices):
+            for j, f in enumerate(getattr(sl, "factors", ())):
+                for a in ("idx", "exp", "sign"):
+                    add("units", f"{name}/dec/s{i:03d}/f{j:02d}/{a}",
+                        getattr(f, a).nbytes)
+    for name, pk in art.packed.items():
+        for a in ("idx", "exp", "sign"):
+            add("packed", f"{name}/{a}", getattr(pk, a).nbytes)
+        for i, (_, w) in enumerate(pk.dense):
+            add("packed", f"{name}/dense/d{i:02d}", np.asarray(w).nbytes)
+    for key, stages in art.plans.items():
+        for sname, ps in stages.items():
+            for f in ("prep_src", "prep_tgt", "gidx", "gexp", "gsgn", "outg",
+                      "fs_mat", "dw_mat", "bias", "segs"):
+                if getattr(ps, f) is not None:
+                    add("plans", f"{key}/{sname}/{f}", getattr(ps, f).nbytes)
+    return groups, max(leaves.items(), key=lambda kv: kv[1])
+
+
+def route_result(eng, res, step_s, counts, art, dev, logits=None) -> dict:
+    """What the artifact phase keeps of a serve on ``art``: every request's
+    tokens, two decode steps' logits through the serve's executor, launches
+    a step and by kernel, ms a step and, on the plan route, ``pack_s``."""
+    if logits is None:
+        logits = two_step_logits(art.config, art, eng.executor, dev)
+    plan = eng.executor.step_plan(art.config) if eng.n_layer_plans else None
+    return dict(tokens=[r.tokens for r in res], logits=logits.cpu(),
+                launches_per_step=eng.kernel_launches_per_step,
+                launches=counts,
+                ms_per_step=float(np.median(step_s[1:] or step_s)) * 1e3,
+                pack_s=None if plan is None else plan.pack_s)
+
+
+def route_results(art, base, dev) -> dict:
+    """``art`` (float32, its step plan in ``plans``) served on both routes,
+    6 prompts x 16 tokens on 8 slots: the float32 plan (K6/K7) and, on a
+    bf16 cast of its parameters, the per-region route (K1/K2/K3).  For
+    each: every request's tokens, two decode steps' logits, launches a step
+    and the kernels launched."""
+    out = {}
+    prompts = prompts_for(base, 6)
+    art16 = replace(art, config=base, params=cast(art.params, torch.bfloat16),
+                    plans={})
+    for route, a in (("plan", art), ("per-region", art16)):
+        dispatch.reset_launch_count()  # counts of the serve start here ...
+        eng, res, step_s = serve(a, dev, use_kernel=True, n_slots=BATCH,
+                                 prompts=prompts, max_new=16)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()  # ... and are read here
+        for r in res:
+            if r.error or not r.finished or len(r.tokens) != r.prompt_len + 16:
+                fail(f"artifact {route}: a request did not finish: {r.error}")
+        out[route] = route_result(eng, res, step_s, counts, a, dev)
+        del eng
+    del art16
+    drop_per_region_copies(art)
+    return out
+
+
+def phase_artifact(dev, base, box, want=None):
+    """The artifact on disk at full width (``--only artifact``; in the full
+    run right after olmo-1b's float32 plan serve, on its fixture): the bytes
+    reckoned by group and the temp directory's free space checked (a lack
+    of room fails); the in-memory artifact served on both routes and only
+    those results kept; saved (``save_s``), dropped, loaded through the map
+    (``load_s``, host RSS after the load and after the plan's upload,
+    ``pack_s`` of the plan read from disk) and served again: tokens, two
+    steps' logits and launches bit for bit the in-memory serves'; then the
+    same shard decoded from one whole-file read through the same decoder,
+    the reference's way, for its time and RSS.  ``box`` holds the artifact
+    (float32, ``plans["step"]`` filled): the phase takes it out, so that
+    dropping it frees it.  ``want``: the in-memory serves' results where
+    the full run's serve phases kept them (served here otherwise).  The
+    directory is removed at the end."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.artifact import CompressedModel
+
+    t_phase = time.perf_counter()
+    art = box.pop()
+    cfg32 = art.config
+    groups, leaf = reckon_artifact(art)
+    total = sum(groups.values())
+    tmp_root = tempfile.gettempdir()
+    disk = shutil.disk_usage(tmp_root)
+    emit(dict(phase="artifact_reckoning", arch=base.name, layers=cfg32.n_layers,
+              d_model=cfg32.d_model, d_ff=cfg32.d_ff, bytes_by_group=groups,
+              bytes_total=total, largest_leaf=leaf[0], largest_leaf_bytes=leaf[1],
+              bin32_limit=msgpack_codec.BIN_LIMIT, tmp_dir=tmp_root,
+              disk_free_bytes=disk.free, disk_total_bytes=disk.total))
+    if leaf[1] > msgpack_codec.BIN_LIMIT:
+        fail(f"artifact: leaf {leaf[0]} is {leaf[1]} bytes, above msgpack's "
+             "bin32 limit: cut the depth")
+    if total > 0.95 * disk.free:
+        fail(f"artifact: {total} bytes do not fit the {disk.free} free bytes "
+             f"of {tmp_root}: cut the depth")
+    t0 = time.perf_counter()
+    if want is None:
+        want = route_results(art, base, dev)
+    mem_serve_s = time.perf_counter() - t0
+    d = tempfile.mkdtemp(prefix="chip_smoke_artifact_", dir=tmp_root)
+    try:
+        rss_before_save = rss_now()
+        t0 = time.perf_counter()
+        art.save(d)
+        save_s = time.perf_counter() - t0
+        shard = checkpointer.Checkpointer(d).shard_path(0)
+        file_bytes = os.path.getsize(shard)
+        del art
+        gc.collect()
+        torch.cuda.empty_cache()
+        rss_dropped = rss_now()
+        t0 = time.perf_counter()
+        loaded = CompressedModel.load(d, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rss_load = rss_now()
+        t0 = time.perf_counter()
+        plan = CompressedExecutor(loaded, device=dev).step_plan(cfg32)
+        for ps in plan.stages.values():
+            device_stage(ps, dev)  # validation, block tables, upload
+        torch.cuda.synchronize()
+        plan_upload_s = time.perf_counter() - t0
+        rss_upload = rss_now()
+        pack_s = plan.pack_s
+        if pack_s != 0.0 or plan.stages is not loaded.plans["step"]:
+            fail(f"artifact: the plan was packed again ({pack_s} s), not read "
+                 "from disk")
+        del plan
+        t0 = time.perf_counter()
+        got = route_results(loaded, base, dev)
+        disk_serve_s = time.perf_counter() - t0
+        predicted = {"plan": 7 * cfg32.n_layers,
+                     "per-region": (region_launches_per_layer(base) * base.n_layers
+                                    + region_preps_per_step(base, loaded.records))}
+        kernels = {"plan": set(PLAN), "per-region": set(PER_REGION)}
+        for route, w in want.items():
+            g = got[route]
+            if g["tokens"] != w["tokens"]:
+                fail(f"artifact {route}: the loaded artifact's tokens differ "
+                     "from the in-memory serve's")
+            if not torch.equal(g["logits"], w["logits"]):
+                fail(f"artifact {route}: two-step logits differ from the "
+                     "in-memory serve's")
+            if (g["launches"] != w["launches"]
+                    or g["launches_per_step"] != predicted[route]
+                    or set(g["launches"]) != kernels[route]):
+                fail(f"artifact {route}: {g['launches_per_step']} launches a "
+                     f"step of {g['launches']}, in memory {w['launches']}, "
+                     f"predicted {predicted[route]}")
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the reference's way, for comparison: one read() of the whole file,
+        # then the same decoder, crc checks and conversion
+        t0 = time.perf_counter()
+        with open(shard, "rb") as f:
+            buf = f.read()
+        flat = checkpointer.unpack_payload(msgpack_codec.unpackb(buf))
+        whole = CompressedModel.from_flat(flat, device=dev)
+        torch.cuda.synchronize()
+        read_load_s = time.perf_counter() - t0
+        rss_read = rss_now()
+        del whole, flat, buf
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(phase="artifact", arch=base.name, layers=cfg32.n_layers,
+                file_bytes=file_bytes, bytes_reckoned=total, save_s=save_s,
+                load_s=load_s, plan_upload_s=plan_upload_s, pack_s=pack_s,
+                read_load_s=read_load_s,
+                rss_before_save=rss_before_save, rss_dropped=rss_dropped,
+                rss_after_load=rss_load, rss_after_upload=rss_upload,
+                rss_after_whole_read=rss_read,
+                in_memory_serves_s=mem_serve_s, loaded_serves_s=disk_serve_s,
+                routes={r: dict(launches_per_step=got[r]["launches_per_step"],
+                                launches=got[r]["launches"],
+                                ms_per_step=got[r]["ms_per_step"],
+                                in_memory_ms_per_step=want[r]["ms_per_step"],
+                                pack_s=got[r]["pack_s"],
+                                tokens_equal=True, logits_bitwise=True,
+                                sample_tokens=got[r]["tokens"][0][-16:])
+                        for r in got},
+                seconds=time.perf_counter() - t_phase)
 
 
 # ------------------------- deepseek-v2-lite (MLA, shared experts, K9)
@@ -3177,6 +3420,53 @@ def check_update_routes(state, specs, step_batch, cfg, dev):
     return out
 
 
+def checkpoint_round_trip(state, step_fn, batch, specs) -> dict:
+    """The full-width train state through the Checkpointer: a blocking save,
+    ``restore_latest`` into a fresh state of the same structure (every leaf
+    bitwise what was saved, on the same device in the same dtype), then one
+    step from the restored state: K5 once a spec, a finite loss."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.optim.optimizers import tree_map
+
+    step = int(state.step)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        ck = checkpointer.Checkpointer(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(ck.shard_path(step))
+        fresh = dataclasses.replace(
+            state, params=tree_map(torch.empty_like, state.params),
+            opt_state=tree_map(torch.empty_like, state.opt_state),
+            step=torch.empty_like(state.step),
+            prox_report=tree_map(torch.empty_like, state.prox_report))
+        t0 = time.perf_counter()
+        got, restored = ck.restore_latest(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    saved = _flatten(state)
+    back = _flatten(restored)
+    bad = [k for k, v in saved.items()
+           if not (back[k].dtype == v.dtype and back[k].device == v.device
+                   and torch.equal(back[k], v))]
+    if got != step or list(back) != list(saved) or bad:
+        fail(f"train checkpoint: restored step {got} of {step}, leaves "
+             f"differing: {bad[:5]}")
+    n0 = dispatch.launch_count("group_prox")
+    restored, m = step_fn(restored, batch)
+    loss = float(m["loss"])
+    launches = dispatch.launch_count("group_prox") - n0
+    if not np.isfinite(loss) or launches != len(specs):
+        fail(f"train checkpoint: the step after restoring gave loss {loss} "
+             f"with {launches} group_prox launches")
+    return dict(step=step, leaves=len(saved), file_bytes=nbytes, save_s=save_s,
+                restore_s=restore_s, leaves_bitwise=True, next_loss=loss,
+                next_step_group_prox_launches=launches)
+
+
 def phase_train_olmo(dev):
     """olmo-1b at full width (configs/olmo_1b.py unchanged: bf16 parameters
     and compute, remat on) trained by the port's ``make_train_step`` with
@@ -3197,7 +3487,7 @@ def phase_train_olmo(dev):
     lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 lm.batch(TRAIN_BATCH, TRAIN_SEQ, seed=i).items()}
-               for i in range(TRAIN_STEPS + 3)]
+               for i in range(TRAIN_STEPS + 4)]
     param_bytes = tensor_bytes(*tree_leaves(state.params))
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launch_count()  # counts of the main path start here ...
@@ -3223,6 +3513,7 @@ def phase_train_olmo(dev):
              f"launches a step over {steps} steps and nothing else")
     state, prof = profile_train_step(cfg, opt, specs, state, batches[steps])
     check = check_update_routes(state, specs, batches[steps + 1], cfg, dev)
+    ckpt = checkpoint_round_trip(state, step_fn, batches[steps + 2], specs)
     ms = float(np.median(step_ms[1:]))
     return dict(phase="train_olmo", arch=cfg.name, layers=cfg.n_layers,
                 d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab,
@@ -3236,8 +3527,8 @@ def phase_train_olmo(dev):
                 group_prox_ms_per_step=prof["group_prox_device_ms"],
                 group_prox_share_of_step=prof["group_prox_device_ms"] / ms,
                 loss=losses, grad_norm=gnorm, dead_groups=dead,
-                prox_penalty=penalty, update_check=check, profile=prof
-                ), counts, by_shape, steps
+                prox_penalty=penalty, update_check=check, profile=prof,
+                checkpoint=ckpt), counts, by_shape, steps
 
 
 MLP_TRAIN_ARGS = ["--arch", "mlp", "--prox", "--lambda", "0.1", "--epochs", "3"]
@@ -3327,10 +3618,10 @@ def artifact_diff(a, b) -> list[str]:
         same = same and pa.chain_lengths == pb.chain_lengths
         if not same:
             bad.append(name)
-    for ta, tb in zip(leaves(a.params), leaves(b.params), strict=True):
-        if not torch.equal(ta, tb):
-            bad.append("params")
-            break
+    # by name: a loaded artifact's params come back in sorted key order
+    pa, pb = _flatten(a.params), _flatten(b.params)
+    if sorted(pa) != sorted(pb) or not all(torch.equal(pa[k], pb[k]) for k in pa):
+        bad.append("params")
     if a.report.table() != b.report.table():
         bad.append("report")
     return bad
@@ -3368,6 +3659,100 @@ def compress_runs(params, cfg, compression, label):
                      bitwise_equal_across_workers=True, units=units,
                      baseline_adds=rep.total_baseline(),
                      lcc_adds=rep.total_stage("lcc"), ratio=rep.ratio("lcc"))
+
+
+def save_and_load(art, dev):
+    """``art`` saved to a temp directory and loaded back with ``params`` on
+    ``dev`` (the directory is removed; the map lives on in the arrays).
+    Returns ``(loaded, save_s, load_s, file bytes)``."""
+    import tempfile
+
+    from repro_torch.core.artifact import CompressedModel
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_art_") as d:
+        t0 = time.perf_counter()
+        art.save(d)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(d).rglob("*.msgpack"))
+        t0 = time.perf_counter()
+        back = CompressedModel.load(d, device=dev)
+        torch.cuda.synchronize()
+        return back, save_s, time.perf_counter() - t0, nbytes
+
+
+def mlp_round_trip(art, x, want, dev) -> dict:
+    """The compressed MLP saved, loaded and served again: fc1 through one
+    K1 launch, logits bit for bit the in-memory forward's (``want``)."""
+    from repro_torch.models.mlp import mlp_forward_compressed
+
+    back, save_s, load_s, nbytes = save_and_load(art, dev)
+    dispatch.reset_launch_count()  # counts of the loaded forward start here ...
+    with torch.no_grad():
+        got = mlp_forward_compressed(back.params, back.packed["fc1"], x)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()  # ... and are read here
+    if counts != {"lcc_chain_matmul": 1}:
+        fail(f"compress mlp round trip: the forward launched {counts}")
+    if not torch.equal(got, want):
+        fail("compress mlp round trip: the loaded artifact's logits differ "
+             "from the in-memory forward's")
+    return dict(file_bytes=nbytes, save_s=save_s, load_s=load_s,
+                launches=counts, logits_bitwise=True)
+
+
+def launcher_resume(want, dev) -> dict:
+    """``python -m repro_torch.launch.compress --arch olmo-1b --quickstart
+    --workers 4`` in a session of its own, SIGKILLed with its worker pool
+    once four slice results are cached, then run again with ``--resume``:
+    the resumed artifact must be bit for bit ``want`` (the same weights and
+    config compressed in this process) and take at least four cache hits."""
+    import signal
+    import tempfile
+
+    from repro_torch.core.artifact import CompressedModel
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compress_") as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.compress", "--arch",
+               "olmo-1b", "--quickstart", "--workers", "4", "--seed", "0",
+               "--quiet", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, cwd=root,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, start_new_session=True)
+        cache = Path(out) / "cache"
+        cached = 0
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < 300:
+                cached = len(list(cache.glob("*.msgpack"))) if cache.exists() else 0
+                if cached >= 4:
+                    break
+                time.sleep(0.01)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)  # the launcher and its pool
+            killed = proc.wait() == -signal.SIGKILL
+        kill_s = time.perf_counter() - t0
+        if not killed or (Path(out) / "artifact").exists():
+            fail(f"compress launcher: not killed mid-run (rc {proc.returncode}, "
+                 f"{cached} entries): {proc.stderr.read().decode()[-2000:]}")
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + ["--resume"], env=env, cwd=root, timeout=300,
+                           capture_output=True, text=True)
+        resume_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"compress launcher --resume failed: {r.stderr[-2000:]}")
+        stats = json.loads((Path(out) / "stats.json").read_text())
+        resumed = CompressedModel.load(str(Path(out) / "artifact"), device=dev)
+    bad = artifact_diff(resumed, want)
+    if bad or stats["cache_hits"] < 4:
+        fail(f"compress launcher: the resumed artifact differs at {bad} from "
+             f"an uninterrupted compression, cache hits {stats['cache_hits']}")
+    return dict(workers=4, cached_when_killed=cached, kill_s=kill_s,
+                resume_s=resume_s, cache_hits=stats["cache_hits"],
+                cache_misses=stats["cache_misses"], jobs=stats["jobs"],
+                bitwise_equal_uninterrupted=True)
 
 
 def phase_compress_mlp(dev, trained, timer, sm):
@@ -3411,6 +3796,7 @@ def phase_compress_mlp(dev, trained, timer, sm):
                  "summed in the kernel's order")
         plain = mlp_forward(art.params, x)
         cpu = mlp_forward_compressed(to_device(art.params, "cpu"), pk, x.cpu())
+    round_trip = mlp_round_trip(art, x, logits, dev)
     err_dense = check_close("mlp compressed vs dense-effective", logits, plain,
                             STEP_TOL)
     err_cpu = check_close("mlp compressed vs the CPU plain route", logits.cpu(),
@@ -3430,6 +3816,7 @@ def phase_compress_mlp(dev, trained, timer, sm):
                                 live_slices=int(sum(1 for v in
                                                     ds.chain_len.tolist() if v))),
                 held_out=int(x.shape[0]), launches=counts,
+                round_trip=round_trip,
                 logits_vs_dense_effective=err_dense, logits_vs_cpu_plain=err_cpu,
                 tol=STEP_TOL, k1_bit_for_bit_in_kernel_order=True,
                 accuracy=dict(dense=acc_dense,
@@ -3537,11 +3924,32 @@ def phase_compress_olmo(dev, timer, sm):
                  f"{sorted(expected)}")
         name = f"quickstart {cfg.name} {route}"
         serves[name] = (counts, by_shape, eng.step_dispatches)
+        # the artifact saved, loaded and served again: the same tokens and
+        # launches (the float32 one carries its step plan to disk)
+        back, save_s, load_s, nbytes = save_and_load(art, dev)
+        dispatch.reset_launch_count()  # counts of the loaded serve start here ...
+        eng_l, res_l, _ = serve(back, dev, use_kernel=True, n_slots=BATCH,
+                                prompts=prompts, max_new=16)
+        torch.cuda.synchronize()
+        counts_l = dispatch.launch_counts()  # ... and are read here
+        if ([r.tokens for r in res_l] != [r.tokens for r in res]
+                or counts_l != counts
+                or eng_l.kernel_launches_per_step != predicted):
+            fail(f"quickstart {route}: the loaded artifact serves other tokens "
+                 f"or launches ({counts_l} against {counts})")
+        loaded_pack_s = (eng_l.executor.step_plan(cfg).pack_s
+                         if route == "plan" else None)
+        del eng_l, back
+        resumed = launcher_resume(art, dev) if route == "plan" else None
         lines.append(dict(serve=name, dtype=dtype, compress=summary,
                           launches_per_step=eng.kernel_launches_per_step,
                           predicted_launches_per_step=predicted,
                           launches=counts, n_layer_plans=eng.n_layer_plans,
                           tokens_equal_dense_effective=True,
+                          round_trip=dict(file_bytes=nbytes, save_s=save_s,
+                                          load_s=load_s, pack_s=loaded_pack_s,
+                                          tokens_and_launches_equal=True),
+                          launcher_resume=resumed,
                           ms_per_step=float(np.median(step_s[1:] or step_s)) * 1e3,
                           sample_tokens=res[0].tokens[res[0].prompt_len:]))
         del eng, art, plan
@@ -3579,8 +3987,9 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth of the olmo-1b serves (never the width)")
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
-                                       "attention", "prep", "mixtral",
-                                       "deepseek", "train", "compress"),
+                                       "attention", "prep", "artifact",
+                                       "mixtral", "deepseek", "train",
+                                       "compress"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
@@ -3595,7 +4004,10 @@ def main() -> None:
                          "K3's region prep alone at every region of the "
                          "three per-region serves and K7's norm alone at "
                          "the two plan serves' shapes, no fixture and no "
-                         "serve; "
+                         "serve; artifact: olmo-1b's full-width float32 "
+                         "fixture and its step plan saved, loaded through "
+                         "the map and served on both routes, bit for bit "
+                         "the in-memory serves; "
                          "mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
                          "deepseek-v2-lite-16b phases alone; train: the "
@@ -3603,7 +4015,9 @@ def main() -> None:
                          "(the paper's MLP trained, compressed at full width "
                          "at 1 and 4 workers, fc1 served through K1; the "
                          "quickstart olmo-1b compressed and served on both "
-                         "routes) (no final ok line in any case)")
+                         "routes; each artifact saved, loaded and served "
+                         "again; the compress launcher SIGKILLed and "
+                         "resumed) (no final ok line in any case)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -3627,6 +4041,17 @@ def main() -> None:
     if args.only in ("chain", "stage", "attention", "prep"):
         emit(dict(chain=phase_chain, stage=phase_stage,
                   attention=phase_attention, prep=phase_prep)[args.only](dev))
+        print(smi, flush=True)
+        return
+    if args.only == "artifact":
+        base = get_arch("olmo-1b")
+        if args.layers is not None:
+            base = replace(base, n_layers=args.layers)
+        cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+        box = [seeded_artifact(cfg32, seed=2, device=dev)]
+        # the step plan packed into the artifact's plans, as the serves do
+        CompressedExecutor(box[0], device=dev).step_plan(cfg32)
+        emit(phase_artifact(dev, base, box))
         print(smi, flush=True)
         return
     if args.only is None:

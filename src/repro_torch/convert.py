@@ -14,17 +14,21 @@ import torch
 from repro_torch.configs.base import ArchConfig, arch_from_dict
 from repro_torch.core.artifact import CompressedModel
 from repro_torch.core.compress import CompressedDense, CompressionConfig
+from repro_torch.core.cost import LayerCost, ModelCostReport
 from repro_torch.core.lcc import FSProgram, LCCChain, LCCDecomposition, LCCFactor
 from repro_torch.core.weight_sharing import SharedLayer
-from repro_torch.kernels.ops import PackedStage
+from repro_torch.kernels.ops import PackedDecomposition, PackedStage
 
 __all__ = ["params_from_numpy", "mlp_params_from_numpy",
            "train_state_from_numpy", "artifact_from_reference",
            "config_from_reference", "decomposition_from_reference",
+           "packed_from_reference", "report_from_reference",
            "stage_from_reference"]
 
 
 def _leaf_to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a loaded bf16 leaf
+        return a.to(device=device, dtype=dtype if a.is_floating_point() else None)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
         # bf16 crosses as its 16-bit pattern (numpy has no native bfloat16)
@@ -45,8 +49,9 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda", *,
                       _dtype: torch.dtype | None = None):
     """Nested dict/list of numpy arrays -> same nesting of tensors on
     ``device`` in ``cfg.param_dtype`` (integer leaves keep their type; bf16
-    leaves may come as ``bfloat16`` arrays or as their ``uint16`` view).  A
-    ``router`` leaf stays float32."""
+    leaves may come as ``bfloat16`` arrays, as their ``uint16`` view or as
+    bf16 CPU tensors, as a loaded artifact gives them).  A ``router`` leaf
+    stays float32."""
     dtype = cfg.pdtype if _dtype is None else _dtype
     if isinstance(tree, dict):
         return {k: params_from_numpy(
@@ -88,12 +93,17 @@ def train_state_from_numpy(state, cfg: ArchConfig, device="cuda"):
             report, cfg, device, _dtype=torch.float32))
 
 
-def config_from_reference(cfg) -> ArchConfig:
-    """An ``ArchConfig`` of either package -> this package's, field by field."""
-    if isinstance(cfg, ArchConfig):
+def config_from_reference(cfg):
+    """An ``ArchConfig`` or ``MLPConfig`` of either package -> this
+    package's, field by field."""
+    from repro_torch.models.mlp import MLPConfig
+
+    if isinstance(cfg, (ArchConfig, MLPConfig)):
         return cfg
     if not is_dataclass(cfg):
         raise TypeError(f"cannot convert config of type {type(cfg).__name__}")
+    if type(cfg).__name__ == "MLPConfig":
+        return MLPConfig(**asdict(cfg))
     d = asdict(cfg)
     d["mrope_sections"] = list(d["mrope_sections"])
     return arch_from_dict(d)
@@ -142,13 +152,39 @@ def stage_from_reference(ps) -> PackedStage:
                        seg_stats=ps.seg_stats, waste=ps.waste)
 
 
+def packed_from_reference(pk) -> PackedDecomposition:
+    """A JAX-package ``PackedDecomposition`` -> this package's, array for
+    array (the FS dense fallbacks as float32 numpy)."""
+    return PackedDecomposition(
+        idx=np.asarray(pk.idx), exp=np.asarray(pk.exp),
+        sign=np.asarray(pk.sign),
+        col_slices=tuple(tuple(int(c) for c in cs) for cs in pk.col_slices),
+        dense=tuple((tuple(int(c) for c in cs), np.asarray(w, np.float32))
+                    for cs, w in pk.dense),
+        in_dim=int(pk.in_dim), out_dim=int(pk.out_dim), d_pad=int(pk.d_pad),
+        first_width=int(pk.first_width),
+        chain_lengths=tuple(int(n) for n in pk.chain_lengths))
+
+
+def report_from_reference(rep) -> ModelCostReport:
+    """A JAX-package ``ModelCostReport`` -> this package's, row for row
+    (values as they are)."""
+    out = ModelCostReport()
+    for l in rep.layers:
+        out.add(LayerCost(name=l.name, baseline_adds=l.baseline_adds,
+                          stage_adds=dict(l.stage_adds),
+                          stage_bytes=dict(l.stage_bytes), extra=dict(l.extra)))
+    return out
+
+
 def artifact_from_reference(obj, device="cuda") -> CompressedModel:
     """Read a JAX-package ``CompressedModel`` by attribute into this package's
     classes: records (kept columns, shared labels/centroids, decompositions),
-    dense-effective params (as tensors on ``device``), configs and the layer
-    plans the reference packed (``plans``, reused by the executor).  Per-site
-    kernel buffers are not carried: the executor re-packs them (bitwise the
-    same)."""
+    the packed kernel buffers, dense-effective params (as tensors on
+    ``device``), the cost report, configs, run statistics and the layer
+    plans the reference packed (``plans``, reused by the executor)."""
+    from repro_torch.models.mlp import MLPConfig
+
     cfg = config_from_reference(obj.config)
     records: dict[str, CompressedDense] = {}
     for name, rec in obj.records.items():
@@ -172,9 +208,17 @@ def artifact_from_reference(obj, device="cuda") -> CompressedModel:
             return type(t)(to_np(v) for v in t)
         return np.asarray(t)
 
+    params = to_np(obj.params)
     return CompressedModel(
-        config=cfg, params=params_from_numpy(to_np(obj.params), cfg, device),
+        config=cfg,
+        params=(mlp_params_from_numpy(params, device)
+                if isinstance(cfg, MLPConfig)
+                else params_from_numpy(params, cfg, device)),
         records=records,
+        packed={n: packed_from_reference(pk)
+                for n, pk in getattr(obj, "packed", {}).items()},
+        report=(None if obj.report is None
+                else report_from_reference(obj.report)),
         compression=_compression_from_reference(obj.compression),
         unit_configs={n: _compression_from_reference(c)
                       for n, c in getattr(obj, "unit_configs", {}).items()},

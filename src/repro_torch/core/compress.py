@@ -423,8 +423,7 @@ def compress_model_params(
     ``n_workers > 1`` opts into the parallel pipeline with identical
     (bitwise) outputs.  ``progress`` receives structured
     :class:`repro_torch.pipeline.CompressionEvent` objects (their ``str()``
-    is the unit-name line).  ``cache_dir`` (the durable slice cache) is
-    refused: it comes with the artifact on disk, ROADMAP A1b.
+    is the unit-name line).  ``cache_dir`` makes the slice cache durable.
     """
     from repro_torch.pipeline import run_pipeline
 

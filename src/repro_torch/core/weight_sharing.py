@@ -199,7 +199,7 @@ def _labels(labels, device) -> torch.Tensor:
     stored as uint16, which torch does not index with)."""
     if isinstance(labels, torch.Tensor):
         return labels.to(device=device, dtype=torch.long)
-    return torch.from_numpy(np.asarray(labels, np.int64)).to(device)
+    return torch.from_numpy(np.array(labels, np.int64)).to(device)
 
 
 def _segment_sum(x: torch.Tensor, labels, n_segments: int) -> torch.Tensor:

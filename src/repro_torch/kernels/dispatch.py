@@ -11,17 +11,39 @@ device, and nowhere else — the plain versions never count.  One count is one
 call of a kernel's C entry point (the chain kernels enqueue their fixed-order
 reduction pass inside that same call).  A wrapper also passes the dimensions
 it launched at, so a run can be asked which shapes it really went through.
+
+Host arrays reach a device through :func:`upload`, which also takes the
+read-only, possibly unaligned views of a mapped artifact.
 """
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
-__all__ = ["on_device", "check_tensor", "check_launch", "record_launch",
-           "launch_count", "launch_counts", "launch_counts_by_shape",
-           "reset_launch_count"]
+__all__ = ["upload", "on_device", "check_tensor", "check_launch",
+           "record_launch", "launch_count", "launch_counts",
+           "launch_counts_by_shape", "reset_launch_count"]
 
 _launch_counts: dict[str, int] = {}
 _shape_counts: dict[tuple[str, tuple], int] = {}
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``.  A writable array goes through
+    ``torch.from_numpy`` (on the CPU the tensor shares its memory); a
+    read-only one (a view of a mapped artifact, possibly unaligned) is
+    always copied, on the CPU too, so that no tensor aliases the map and
+    nothing can write into it."""
+    if a.flags.writeable:
+        return torch.from_numpy(a).to(device)
+    with warnings.catch_warnings():
+        # torch warns that it cannot mark the tensor read-only: the copy
+        # below only reads it
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(a)
+    return src.to(device, copy=True)
 
 
 def on_device(t: torch.Tensor) -> bool:

@@ -563,7 +563,7 @@ class DeviceStage:
 
 
 def _tensor(a, device):
-    return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return None if a is None else dispatch.upload(np.ascontiguousarray(a), device)
 
 
 def _upload(ps: PackedStage, device: torch.device) -> DeviceStage:

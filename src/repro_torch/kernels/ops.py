@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.lcc import LCCChain, LCCDecomposition
 
+from .dispatch import upload
 from .lcc_chain_matmul import lcc_chain_matmul
 from .lcc_group_matmul import lcc_group_matmul
 from .lcc_matmul import lcc_factor_matmul
@@ -168,7 +169,7 @@ class PackedDecomposition:
         key = ("dense", torch.device(device))
         if key not in self._dev:
             self._dev[key] = tuple(
-                (cs, torch.from_numpy(np.asarray(wm, np.float32)).to(device))
+                (cs, upload(np.asarray(wm, np.float32), device))
                 for cs, wm in self.dense)
         return self._dev[key]
 
@@ -178,9 +179,9 @@ class PackedDecomposition:
             _check_streams(self.idx, self.sign, self.exp)
             c0, w, ln = self.slice_tables()
             self._dev[device] = DeviceStreams(
-                torch.from_numpy(self.idx).to(device),
-                torch.from_numpy(self.exp).to(device),
-                torch.from_numpy(self.sign).to(device),
+                upload(self.idx, device),
+                upload(self.exp, device),
+                upload(self.sign, device),
                 torch.from_numpy(c0).to(device),
                 torch.from_numpy(w).to(device),
                 torch.from_numpy(ln).to(device),

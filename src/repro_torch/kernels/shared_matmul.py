@@ -186,7 +186,7 @@ class RegionPrep:
         """``(src, segptr, rowinfo)`` on ``device`` (uploaded once)."""
         device = torch.device(device)
         if device not in self._dev:
-            self._dev[device] = tuple(torch.from_numpy(a).to(device) for a in
+            self._dev[device] = tuple(dispatch.upload(a, device) for a in
                                       (self.src, self.segptr, self.rowinfo))
         return self._dev[device]
 
@@ -196,8 +196,8 @@ class RegionPrep:
         key = (torch.device(device), "plain")
         if key not in self._dev:
             self._dev[key] = [
-                (torch.from_numpy(kept).to(device),
-                 None if labels is None else torch.from_numpy(labels).to(device),
+                (dispatch.upload(kept, device),
+                 None if labels is None else dispatch.upload(labels, device),
                  c) for kept, labels, c in self.members]
         return self._dev[key]
 

@@ -10,8 +10,9 @@ artifact, on the GPU unless ``--device cpu``.
 The artifact comes from the seeded fixture
 (``repro_torch.testing.seeded_artifact``): valid LCC chains at the model's
 width, random weights.  The offline compressor
-(``repro_torch.models.api.compress_model``) runs for hours at these widths,
-and a compressed artifact cannot be read from disk yet (ROADMAP A1b).
+(``repro_torch.models.api.compress_model``, ``repro_torch.launch.compress``)
+runs for hours at these widths; an artifact it wrote is served with
+``ServingEngine(artifact=CompressedModel.load(dir))``.
 """
 import argparse
 import time

@@ -12,25 +12,36 @@ Algorithm-1 step 1), on the GPU unless ``--device cpu``.
     # rehearsal without a GPU: --device cpu also reduces the LM config
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --prox --steps 3
 
+    # checkpoints every 10 steps (and at the end); a killed run resumes from
+    # the newest intact one with the same command and --resume
+    PYTHONPATH=src python -m repro_torch.launch.train --prox --steps 100 \
+        --checkpoint-dir /tmp/ckpt --checkpoint-every 10 --resume
+
 ``--prox`` derives the regularized groups from the same adapter sites the
 compressor slices (``training.regularize.site_group_specs``); on a GPU the
 prox runs through the hand-written kernel K5 (``kernels.group_prox``), one
 launch a regularized leaf a step.  The LM path trains at the constant
 ``--lr``, as the reference's launcher does (it builds a cosine schedule and
 passes the constant to the step).  Weights are random from ``--seed``.
+The LM path checkpoints the whole train state (``--checkpoint-dir``, every
+``--checkpoint-every`` steps on a background writer and blocking at the
+end, the last three kept); ``--resume`` restores the newest intact step and
+carries on from the next, and since each batch is seeded by its step, a
+resumed run sees the data an uninterrupted one would.
 
 Not available yet, refused with a message: the mesh, multi-device and
 gradient-compression flags and the elastic demo (the ``distributed/``
-entry), checkpoints (A1b, the artifact on disk), the MLP's compression
-handoff and recovery (A2; the compressor itself is
-``repro_torch.models.api.compress_model``, which :func:`train_mlp`'s
-params feed) and the metrics snapshot (the ``obs/`` entry).
+entry), the MLP's compression handoff and recovery (A2; the compressor
+itself is ``repro_torch.models.api.compress_model``, which
+:func:`train_mlp`'s params feed) and the metrics snapshot (the ``obs/``
+entry).  Checkpoints belong to the LM path: ``--arch mlp`` refuses them.
 """
 import argparse
 import time
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_arch, reduced_config
 from repro_torch.data.synthetic import MarkovLM, batches
 from repro_torch.kernels import dispatch
@@ -48,10 +59,6 @@ _REFUSED = {
                            f"the distributed/ entry of {_QUEUE}"),
     "--elastic-demo": (lambda a: a.elastic_demo,
                        f"the distributed/ entry of {_QUEUE}"),
-    "--checkpoint-dir": (lambda a: a.checkpoint_dir is not None,
-                         f"A1b of {_QUEUE} (checkpoints, the artifact on disk)"),
-    "--resume": (lambda a: a.resume,
-                 f"A1b of {_QUEUE} (checkpoints, the artifact on disk)"),
     "--compress-out": (lambda a: a.compress_out is not None,
                        f"A2 of {_QUEUE} (the compressor handoff)"),
     "--recover": (lambda a: a.recover > 0,
@@ -155,30 +162,44 @@ def lm_main(args, device: torch.device) -> dict:
     lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
     state = init_train_state(args.seed, cfg, opt, prox_specs=prox_specs,
                              device=device)
+    ck = (Checkpointer(args.checkpoint_dir, keep=3)
+          if args.checkpoint_dir else None)
+    start_step = 0
+    if ck and args.resume:
+        s, restored = ck.restore_latest(state)
+        if s is not None:
+            state, start_step = restored, s + 1
+            print(f"[resume] restored checkpoint step {s}")
     step_fn = make_train_step(cfg, opt, lr=lr, accum_steps=args.accum_steps,
                               prox_specs=prox_specs)
     launches0 = dispatch.launch_count("group_prox")
     t0 = time.time()
     m = {}
-    for i in range(args.steps):
+    for i in range(start_step, args.steps):
         b = lm.batch(batch, args.seq, seed=i)
         state, m = step_fn(state, {k: torch.from_numpy(v).to(device)
                                    for k, v in b.items()})
         if i % 10 == 0 or i == args.steps - 1:
             loss = float(m["loss"])  # the one host read, where it prints
-            tok_s = batch * args.seq * max(i, 1) / (time.time() - t0)
+            tok_s = batch * args.seq * max(i - start_step, 1) / (time.time() - t0)
             prox = (f"  dead {int(m['dead_groups'])}  "
                     f"pen {float(m['prox_penalty']):.2f}"
                     if "dead_groups" in m else "")
             print(f"step {i:4d}  loss {loss:.3f}  "
                   f"gnorm {float(m['grad_norm']):.2f}  tok/s {tok_s:.0f}"
                   + prox, flush=True)
+        if ck and i % args.checkpoint_every == 0 and i > start_step:
+            ck.save(i, state)  # the leaves reach the host before it returns
+    if ck:
+        ck.save(args.steps - 1, state, blocking=True)
+        print(f"[checkpoint] final save at step {args.steps - 1}")
     wall = time.time() - t0
     launches = dispatch.launch_count("group_prox") - launches0
-    print(f"done: {args.steps} steps in {wall:.1f}s on {_where(device)} "
+    print(f"done: {args.steps - start_step} steps in {wall:.1f}s on {_where(device)} "
           f"({cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}); "
           f"group_prox launches {launches}")
-    return {"arch": cfg.name, "steps": args.steps, "wall_s": wall,
+    return {"arch": cfg.name, "steps": args.steps - start_step,
+            "start_step": start_step, "wall_s": wall,
             "loss": float(m["loss"]) if m else None,
             "group_prox_launches": launches}
 
@@ -214,13 +235,17 @@ def parse_args(argv=None):
                     help="mlp: held-out examples")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="LM: save the train state here (last 3 kept)")
+    ap.add_argument("--checkpoint-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true",
+                    help="LM: restore the newest intact checkpoint of "
+                         "--checkpoint-dir and carry on from the next step")
     # refused: each names the slice or queue entry that brings it
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--elastic-demo", action="store_true")
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compress-out", default=None)
     ap.add_argument("--recover", type=int, default=0)
     ap.add_argument("--metrics-out", default=None)
@@ -229,6 +254,9 @@ def parse_args(argv=None):
         if is_set(args):
             raise SystemExit(f"{flag} is not available in this package yet: "
                              f"it comes with {where}")
+    if args.arch == "mlp" and (args.checkpoint_dir or args.resume):
+        raise SystemExit("--checkpoint-dir and --resume belong to the LM "
+                         "path; --arch mlp trains without checkpoints")
     return args
 
 

@@ -191,9 +191,10 @@ def compress_model(params, cfg, compression=None, *, include=None,
     ``n_workers`` fans slice jobs out over worker processes (a forkserver
     pool; the result is bitwise the serial one); ``budget_adds`` invokes the
     adds-budget allocator; ``progress`` receives structured
-    ``repro_torch.pipeline.CompressionEvent``s.  ``cache_dir``, ``run_dir``
-    and ``resume`` (ROADMAP A1b) and ``metrics`` (A5) are refused with
-    ``NotImplementedError``.
+    ``repro_torch.pipeline.CompressionEvent``s; ``cache_dir`` (durable
+    slice cache), ``run_dir`` (run manifest) and ``resume`` go to
+    :func:`~repro_torch.pipeline.run_pipeline`.  ``metrics`` (ROADMAP A5) is
+    refused with ``NotImplementedError``.
     """
     import numpy as np
 

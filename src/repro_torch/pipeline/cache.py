@@ -1,23 +1,26 @@
 """Content-addressed store for slice/channel decomposition results.
 
-Key = sha256(weight bytes + canonical knob JSON): re-runs and tied/shared
-weights (identical matrices under the same plan) are free.  Counterpart of
-``repro.pipeline.cache``, in memory only: the reference's durable store (one
-msgpack file an entry, its array leaves in the checkpointer's crc32
-envelope) comes with the artifact on disk and its decoder, ROADMAP A1b.  The
-in-memory map holds the same plain trees, array leaves in the same
-``{dtype, shape, data, crc}`` envelope, so a lookup hands back a fresh piece
-equal to the one stored.
+Key = sha256(weight bytes + canonical knob JSON): re-runs, resumed runs and
+tied/shared weights (identical matrices under the same plan) are free.  Each
+entry is one msgpack file whose array leaves carry the checkpointer's crc32
+envelope, written atomically (tmp + rename), so a SIGKILL mid-``put`` can
+never publish a torn entry — the property the resume path relies on.  A
+torn or corrupt entry reads as a miss and is overwritten.  Counterpart of
+``repro.pipeline.cache``, the same files byte for byte; without a directory
+the store is in memory only (same-run dedup of tied weights).  A lookup
+hands back a fresh piece decoded from the stored bytes (its arrays are
+read-only views of them).
 """
 from __future__ import annotations
 
 import hashlib
 import json
-import zlib
-from typing import Any
+import os
 
 import numpy as np
 
+from repro_torch.checkpoint import msgpack_codec
+from repro_torch.checkpoint.checkpointer import _pack_leaf, _unpack_leaf
 from repro_torch.core.lcc import FSProgram, LCCChain, LCCDecomposition, LCCFactor
 
 __all__ = ["SliceCache", "job_key", "piece_to_tree", "piece_from_tree"]
@@ -36,21 +39,8 @@ def job_key(mat: np.ndarray, knobs: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
-# piece <-> plain tree (scalars + array envelopes, the checkpointer's layout)
+# piece <-> plain tree (msgpack-able: scalars + _pack_leaf array envelopes)
 # ---------------------------------------------------------------------------
-
-
-def _pack_leaf(x) -> dict:
-    a = np.ascontiguousarray(np.asarray(x))
-    b = a.tobytes()
-    return {"dtype": a.dtype.str, "shape": list(a.shape), "data": b,
-            "crc": zlib.crc32(b)}
-
-
-def _unpack_leaf(d) -> np.ndarray:
-    if zlib.crc32(d["data"]) != d["crc"]:
-        raise IOError("slice cache crc mismatch")
-    return np.frombuffer(d["data"], np.dtype(d["dtype"])).reshape(d["shape"])
 
 
 def piece_to_tree(piece) -> dict:
@@ -102,23 +92,50 @@ def piece_from_tree(tree: dict):
 
 
 class SliceCache:
-    """In-memory cache keyed by :func:`job_key` (same-run dedup of tied
-    weights and of allocator probes)."""
+    """Filesystem cache keyed by :func:`job_key`; ``None`` directory disables
+    persistence but keeps an in-memory map (same-run dedup of tied weights)."""
 
-    def __init__(self):
-        self.mem: dict[str, Any] = {}
+    def __init__(self, directory: str | None = None):
+        self.dir = directory
+        self.mem: dict[str, bytes] = {}  # key -> the entry's msgpack bytes
         self.hits = 0
         self.misses = 0
+        if directory is not None:
+            os.makedirs(directory, exist_ok=True)
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.dir, f"{key}.msgpack")
 
     def get(self, key: str):
         if key in self.mem:
             self.hits += 1
-            return piece_from_tree(self.mem[key])
+            return piece_from_tree(msgpack_codec.unpackb(self.mem[key]))
+        if self.dir is not None and os.path.exists(self._path(key)):
+            try:
+                with open(self._path(key), "rb") as f:
+                    blob = f.read()
+                piece = piece_from_tree(msgpack_codec.unpackb(blob))  # crc per leaf
+            except (OSError, ValueError, KeyError, TypeError):
+                self.misses += 1
+                return None  # torn/corrupt entry: recompute and overwrite
+            self.mem[key] = blob
+            self.hits += 1
+            return piece
         self.misses += 1
         return None
 
     def put(self, key: str, piece) -> None:
-        self.mem[key] = piece_to_tree(piece)
+        blob = msgpack_codec.packb(piece_to_tree(piece))
+        self.mem[key] = blob
+        if self.dir is None:
+            return
+        path = self._path(key)
+        tmp = path + f".tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, path)  # atomic publish
 
     def __len__(self) -> int:
-        return len(self.mem)
+        if self.dir is None:
+            return len(self.mem)
+        return sum(1 for n in os.listdir(self.dir) if n.endswith(".msgpack"))

@@ -1,22 +1,28 @@
-"""Pipeline runner: worker fan-out and cached execution.
+"""Pipeline runner: worker fan-out, cached execution, resumable runs.
 
 Execution model
 ---------------
-1. resolve per-unit plans (explicit ``plans`` > the adds-budget allocator >
-   one global config);
+1. resolve per-unit plans (explicit ``plans`` > resumed manifest > the
+   adds-budget allocator > one global config);
 2. :class:`~repro_torch.pipeline.jobs.Planner` prepares units and emits the job
    graph (column-slice / conv-channel granularity);
 3. jobs not satisfied by the content-addressed cache run on a process pool
-   (``n_workers``);
+   (``n_workers``); every completed job is published to the cache immediately,
+   so a killed run loses at most the jobs in flight;
 4. deterministic reduction: units in planner order, slices sorted by job id —
    output is bitwise-identical to the serial path regardless of worker count
    or completion order.
 
-Counterpart of ``repro.pipeline.runner``, with the same reduction order.  The
-durable cache and the resumable run (``cache_dir=``, ``run_dir=``,
-``resume=True``: the reference's msgpack+crc32 manifest) come with the
-artifact on disk, ROADMAP A1b; ``metrics=`` with ``obs/``, ROADMAP A5.  Each
-is refused with ``NotImplementedError``.
+Resume
+------
+``run_dir`` holds a msgpack+crc32 ``Checkpointer`` manifest recording the
+chosen per-unit plans and a content hash per unit.  ``resume=True`` restores
+the manifest (so a budget run does not re-search), verifies the hashes, and
+re-executes the job graph — completed slices come straight from the cache.
+
+Counterpart of ``repro.pipeline.runner``, with the same reduction order and
+the same manifest and cache files.  ``metrics=`` comes with ``obs/``,
+ROADMAP A5, and is refused with ``NotImplementedError``.
 
 Worker processes never fork from the calling process, which may have
 initialised CUDA: the pool runs on a *forkserver* context, a fresh process
@@ -27,21 +33,27 @@ CUDA.
 from __future__ import annotations
 
 import atexit
+import json
 import multiprocessing
+import os
 import time
 from concurrent.futures import ProcessPoolExecutor, as_completed
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 
-from repro_torch.core.compress import (CompressionConfig, finish_conv,
-                                       finish_dense)
+import numpy as np
+
+from repro_torch.core.compress import (CompressibleDense, CompressionConfig,
+                                       finish_conv, finish_dense)
 from repro_torch.core.cost import ModelCostReport
 
 from .allocator import allocate_budget
-from .cache import SliceCache
+from .cache import SliceCache, job_key
 from .events import EventEmitter
 from .jobs import Planner, execute_job, execute_job_batch
 
 __all__ = ["PipelineResult", "run_pipeline", "shutdown_workers"]
+
+_MANIFEST_VERSION = 1
 
 
 @dataclass
@@ -54,6 +66,45 @@ class PipelineResult:
     unit_configs: dict[str, CompressionConfig]
     stats: dict = field(default_factory=dict)
     budget_info: dict | None = None
+
+
+def _unit_hash(u) -> str:
+    a = u.weight if isinstance(u, CompressibleDense) else u.kernel
+    return job_key(a, {"unit": u.name})
+
+
+def _save_manifest(run_dir: str, units, plans, budget_adds, sub, base) -> None:
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+
+    man = {
+        "version": _MANIFEST_VERSION,
+        "units": [u.name for u in units],
+        "unit_hash": {u.name: _unit_hash(u) for u in units},
+        "plans": {n: asdict(c) for n, c in plans.items()},
+        "base": asdict(base),
+        "budget_adds": budget_adds,
+        "conv_channel_subsample": sub,
+    }
+    tree = {"manifest": np.frombuffer(json.dumps(man).encode(), np.uint8).copy()}
+    Checkpointer(run_dir).save(0, tree, blocking=True)
+
+
+def _load_manifest(run_dir: str) -> dict | None:
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+
+    ckpt = Checkpointer(run_dir)
+    for step in reversed(ckpt.all_steps()):
+        try:
+            flat = ckpt.restore_flat(step)
+            man = json.loads(np.asarray(flat["manifest"], np.uint8)
+                             .tobytes().decode())
+        except (OSError, ValueError, KeyError) as e:
+            # corrupted manifest: fall back / fresh run
+            print(f"[pipeline] manifest step {step} unreadable ({e})")
+            continue
+        if man.get("version") == _MANIFEST_VERSION:
+            return man
+    return None
 
 
 _forkserver_preloaded = False
@@ -212,15 +263,7 @@ def _reduce(planned, results, walls, conv_channel_subsample, emit,
     return records, report
 
 
-def _refuse_unported(cache_dir, run_dir, resume, metrics) -> None:
-    for flag, is_set in (("cache_dir=", cache_dir is not None),
-                         ("run_dir=", run_dir is not None),
-                         ("resume=True", bool(resume))):
-        if is_set:
-            raise NotImplementedError(
-                f"{flag}: the durable slice cache and resumable runs are not "
-                "available in this package yet (they come with the artifact "
-                "on disk, ROADMAP A1b)")
+def _refuse_unported(metrics) -> None:
     if metrics is not None:
         raise NotImplementedError(
             "metrics=: the metrics registry is not available in this package "
@@ -241,27 +284,66 @@ def run_pipeline(
     progress=None,
     metrics=None,
 ) -> PipelineResult:
-    """Algorithm 1 over ``units`` as a parallel job graph.
+    """Algorithm 1 over ``units`` as a parallel, resumable job graph.
 
     ``compression`` is the global base config (as ``compress_model_params``
     took); ``plans`` overrides it per unit; ``budget_adds`` invokes the
     allocator to *choose* per-unit plans under a global additions budget.
     ``n_workers <= 1`` executes in-process — the serial baseline the parallel
-    path is bitwise-checked against.  ``cache_dir``, ``run_dir`` and
-    ``resume`` (ROADMAP A1b) and ``metrics`` (A5) raise
-    ``NotImplementedError``.
+    path is bitwise-checked against.  ``cache_dir`` makes the slice cache
+    durable; ``run_dir`` records the run's manifest (and, without
+    ``cache_dir``, holds the cache); ``resume=True`` replays a recorded run.
+    ``metrics`` (ROADMAP A5) raises ``NotImplementedError``.
     """
-    _refuse_unported(cache_dir, run_dir, resume, metrics)
+    _refuse_unported(metrics)
     t_start = time.time()
     emitter = EventEmitter(progress)
     base = compression if compression is not None else CompressionConfig()
-    cache = SliceCache()
+    cache = SliceCache(cache_dir)
+    if run_dir is not None and cache_dir is None:
+        # resumable runs need durable slice results; default next to the manifest
+        cache = SliceCache(os.path.join(run_dir, "slice_cache"))
     planner = Planner(conv_channel_subsample=conv_channel_subsample)
     budget_info = None
     by_name = {u.name: u for u in units}
     if len(by_name) != len(units):
         raise ValueError("duplicate unit names in the pipeline input")
 
+    # ---------------------------------------------------------------- plans
+    if plans is None and resume and run_dir is not None:
+        man = _load_manifest(run_dir)
+        if man is not None:
+            if man["units"] != [u.name for u in units]:
+                raise ValueError(
+                    "resume manifest unit list does not match the model: "
+                    f"{man['units']} vs {[u.name for u in units]}")
+            stale = [n for n, h in man["unit_hash"].items()
+                     if _unit_hash(by_name[n]) != h]
+            if stale:
+                raise ValueError(f"resume manifest weight hashes differ for "
+                                 f"{stale}; refusing to mix runs")
+            # resuming replays the RECORDED plans; a changed base config or
+            # budget would silently not apply, so refuse like a weight mismatch
+            if man.get("base") != asdict(base):
+                raise ValueError(
+                    "resume manifest was recorded under a different "
+                    "compression config; rerun without --resume (or with the "
+                    "original --config flags)")
+            if man.get("budget_adds") != budget_adds:
+                raise ValueError(
+                    f"resume manifest budget {man.get('budget_adds')} != "
+                    f"requested {budget_adds}; rerun without --resume to "
+                    "re-allocate")
+            if man.get("conv_channel_subsample") != conv_channel_subsample:
+                raise ValueError(
+                    f"resume manifest conv_channel_subsample "
+                    f"{man.get('conv_channel_subsample')} != requested "
+                    f"{conv_channel_subsample}; rerun without --resume")
+            plans = {n: CompressionConfig(**d) for n, d in man["plans"].items()}
+            budget_info = {"budget_adds": man.get("budget_adds"),
+                           "resumed": True}
+            emitter("resume", detail=f"{len(plans)} unit plans from manifest; "
+                                     f"{len(cache)} cached slices")
     executor = _get_executor(n_workers) if n_workers > 1 else None
     try:
         if plans is None and budget_adds is not None:
@@ -286,6 +368,9 @@ def run_pipeline(
         missing = [u.name for u in units if u.name not in plans]
         if missing:
             raise KeyError(f"no plan for units {missing}")
+        if run_dir is not None:
+            _save_manifest(run_dir, units, plans, budget_adds,
+                           conv_channel_subsample, base)
 
         # --------------------------------------------------------- execute
         planned = planner.plan(units, plans, emit=emitter)

@@ -3,6 +3,8 @@ reference's on the same seeded numpy weights, bitwise — dense units with
 pruning (dropped and kept in place) and weight sharing (affinity propagation
 and a fixed cluster count), conv kernels (FK and PK, a pruned channel,
 subsampling) and ``compress_model_params`` with its cost report."""
+import os
+
 import numpy as np
 import pytest
 
@@ -106,7 +108,7 @@ def test_conv_bitwise(method, sub):
     assert report_rows(ra) == report_rows(rb)
 
 
-def test_compress_model_params_and_report():
+def test_compress_model_params_and_report(tmp_path):
     rng = np.random.default_rng(5)
     units_a = [jc.CompressibleDense("d0", _weight(6)),
                jc.CompressibleDense("d1", rng.standard_normal((16, 12))),
@@ -126,5 +128,12 @@ def test_compress_model_params_and_report():
         assert repb.total_stage(stage) == repa.total_stage(stage)
         assert repb.ratio(stage) == repa.ratio(stage)
     assert repb.total_baseline() == repa.total_baseline()
-    with pytest.raises(NotImplementedError, match="A1b"):
-        tc.compress_model_params(units_b, tc.CompressionConfig(), cache_dir="x")
+    # cache_dir: the durable slice cache, the same records from a warm cache
+    cache = str(tmp_path / "cache")
+    rc, repc = tc.compress_model_params(units_b, tc.CompressionConfig(**cfg),
+                                        cache_dir=cache)
+    assert os.listdir(cache) and report_rows(repc) == report_rows(repb)
+    rw, _ = tc.compress_model_params(units_b, tc.CompressionConfig(**cfg),
+                                     cache_dir=cache)
+    assert_dense_equal(rw["d0"], rb["d0"])
+    assert_conv_equal(rw["c0"], rb["c0"])

@@ -77,7 +77,11 @@ def test_artifact_carries_across(arts):
         np.testing.assert_array_equal(tr.apply(xo), jr.apply(xo))
     assert tart.compression.algorithm == "fp"
     assert tart.unit_config_for("attn.q.l0") == tart.compression
-    assert tart.report is None
+    # the cost report and the packed kernel buffers cross too
+    assert tart.report.table() == jart.report.table()
+    assert list(tart.packed) == list(jart.packed)
+    for name, jp in jart.packed.items():
+        assert np.array_equal(tart.packed[name].idx, np.asarray(jp.idx))
 
 
 @pytest.mark.parametrize("name", ["attn.o.l0", "ffn.down.l1", "attn.q.l0"])

@@ -41,13 +41,18 @@ print("COMPRESSOR", all(n in names for n in (
     "repro_torch.pipeline.allocator", "repro_torch.pipeline.runner",
     "repro_torch.models.compress_adapters", "repro_torch.models.api",
     "repro_torch.models.flops", "repro_torch.models.mlp")))
+print("ARTIFACT", all(n in names for n in (
+    "repro_torch.checkpoint.msgpack_codec",
+    "repro_torch.checkpoint.checkpointer", "repro_torch.core.artifact",
+    "repro_torch.pipeline.cache", "repro_torch.launch.compress")))
+print("MSGPACK", sorted(m for m in sys.modules if m.split(".")[0] == "msgpack"))
 print("BAD", bad)
 """
 
 
 def _forbidden(module: str | None) -> bool:
     top = (module or "").split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "flax", "optax")
+    return top in ("jax", "jaxlib", "repro", "flax", "optax", "msgpack")
 
 
 def _imports(path: Path):
@@ -69,6 +74,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     assert lines["TRAIN"] == "True"  # the training path and K5
     assert lines["SLICE5"] == "True"  # K4 and deepseek-v2-lite
     assert lines["COMPRESSOR"] == "True"  # Algorithm 1 and its pipeline
+    assert lines["ARTIFACT"] == "True"  # the artifact on disk, its codec
+    assert lines["MSGPACK"] == "[]"  # the codec is the port's own
     assert lines["BAD"] == "[]"
 
 
@@ -172,12 +179,27 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
     "repro_torch.models.mlp:init_mlp",
     "repro_torch.convert:mlp_params_from_numpy",
     "repro_torch.convert:train_state_from_numpy",
+    "repro_torch.core.artifact:CompressedModel.load",
+    "repro_torch.core.artifact:CompressedModel.from_flat",
 ])
 def test_entry_points_default_to_the_gpu(path):
     import importlib
     mod, name = path.split(":")
-    fn = getattr(importlib.import_module(mod), name)
+    fn = importlib.import_module(mod)
+    for part in name.split("."):
+        fn = getattr(fn, part)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_compress_launcher_defaults_to_the_gpu(monkeypatch, tmp_path):
+    import torch
+
+    from repro_torch.launch import compress
+    assert compress.parse_args(["--out", str(tmp_path)]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        compress.main(["--out", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):

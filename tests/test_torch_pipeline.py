@@ -2,8 +2,8 @@
 reference's serial run, bitwise; its worker pool (``n_workers=2``, a
 forkserver pool) against its serial run; tied-weight cache hits; the
 allocator's chosen plans against the reference's; the event kinds in order;
-and the four options it refuses (the durable cache and resumable runs come
-with ROADMAP A1b, the metrics registry with A5)."""
+and the option it refuses (the metrics registry comes with ROADMAP A5).
+The durable cache and resumable runs are ``test_torch_pipeline_resume.py``'s."""
 import numpy as np
 import pytest
 
@@ -136,8 +136,7 @@ def test_events_in_order():
     assert all(e.unit in str(e) for e in done)
 
 
-REFUSED = [("cache_dir", "cache", "A1b"), ("run_dir", "run", "A1b"),
-           ("resume", True, "A1b"), ("metrics", object(), "A5")]
+REFUSED = [("metrics", object(), "A5")]
 
 
 @pytest.mark.parametrize("entry", ["run_pipeline", "compress_model"])

@@ -5,6 +5,7 @@ through the jitted JAX step and the port's step.  Two ProxSGD steps with
 site-derived specs (and the same with accumulation), two AdamW steps
 continued from a JAX state that has already taken one; site specs equal to
 the reference's; the LM launcher on the CPU and its refused flags."""
+import os
 from dataclasses import replace
 
 import jax
@@ -182,10 +183,45 @@ def test_lm_launcher_runs_on_the_cpu(capsys):
     assert np.isfinite(stats["loss"])
 
 
+@pytest.mark.parametrize("opt", [["--prox"], []], ids=["prox_sgd", "adamw"])
+def test_resumed_run_equals_a_straight_run(tmp_path, capsys, opt):
+    """4 steps straight == 2 steps, then --resume for 2 more: the final
+    checkpoints (params, optimizer state, step, sparsity report) bitwise."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch import train
+
+    base = ["--device", "cpu", "--batch", "2", "--seq", "16", *opt]
+    straight, split = str(tmp_path / "straight"), str(tmp_path / "split")
+    train.main([*base, "--steps", "4", "--checkpoint-dir", straight])
+    first = train.main([*base, "--steps", "2", "--checkpoint-dir", split])
+    assert first["steps"] == 2
+    # a second writer of step 1 left half-done (no DONE) is not a checkpoint
+    os.makedirs(os.path.join(split, "step_0000000001.tmp"))
+    rest = train.main([*base, "--steps", "4", "--checkpoint-dir", split,
+                       "--resume", "--checkpoint-every", "1"])
+    assert "[resume] restored checkpoint step 1" in capsys.readouterr().out
+    assert rest["start_step"] == 2 and rest["steps"] == 2
+    a = Checkpointer(straight).restore_flat(3)
+    b = Checkpointer(split).restore_flat(3)
+    assert sorted(a) == sorted(b)
+    assert any(k.startswith(".opt_state/") for k in a) and ".step" in a
+    for k, v in a.items():
+        assert v.dtype == b[k].dtype and v.tobytes() == b[k].tobytes(), k
+    assert int(a[".step"]) == 4
+    assert Checkpointer(split).all_steps() == [1, 3]
+
+
+def test_mlp_refuses_checkpoints():
+    from repro_torch.launch import train
+
+    for flags in (["--checkpoint-dir", "x"], ["--resume"]):
+        with pytest.raises(SystemExit, match="LM path"):
+            train.main(["--device", "cpu", "--arch", "mlp", *flags])
+
+
 REFUSED = [("--mesh", "2x2", "distributed/"), ("--devices", "4", "distributed/"),
            ("--grad-compression", None, "distributed/"),
            ("--elastic-demo", None, "distributed/"),
-           ("--checkpoint-dir", "ckpt", "A1b"), ("--resume", None, "A1b"),
            ("--compress-out", "out", "A2"), ("--recover", "5", "A2"),
            ("--metrics-out", "m.json", "obs/")]
 
