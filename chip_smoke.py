@@ -6,8 +6,8 @@
 Drives the port's main paths — prox-regularized training (olmo-1b at full
 width, the paper's MLP) and compressed serving at published width
 through ``Scheduler`` + ``ServingEngine(artifact=...)``: olmo-1b (dense),
-mixtral-8x22b (MoE, 8 experts top-2, cut to 2 layers) and deepseek-v2-lite-16b
-(MLA, 64 experts top-6 + 2 shared, cut to 4 layers), each once through the
+mixtral-8x22b (MoE, 8 experts top-2, cut to 1 layer) and deepseek-v2-lite-16b
+(MLA, 64 experts top-6 + 2 shared, cut to 2 layers), each once through the
 per-region route (bf16, kernels K1, K2 and K3's region prep; the experts as
 grouped K2 launches of E) and once in float32 — olmo and mixtral through the whole-step layer plan
 (K6 and K7; for mixtral K8, the routed FFN inside the step), deepseek (MLA
@@ -60,10 +60,21 @@ kernel on those paths against its plain PyTorch version:
 4. full-width serve, per-region route: olmo-1b in bf16 (the plan needs
    float32), d_model 2048, d_ff 8192, vocab 50304;
 5. full-width serve, plan route: the same model in float32, 16 layers; one
-   step's logits against the per-region route on the same artifact.
+   step's logits against the per-region route on the same artifact; then
+   the prefix cache (``--only prefix`` runs it alone): four prompts of one
+   96-token head and their own 8-token tails on both routes, the prefix
+   cache off (cold) and on (warm: the later requests prefill only their
+   tail, ``prefill_extend`` against the gathered head), cold and warm
+   prefill ms, hit tokens, COW copies, no block left in use, launches a
+   step unchanged, the plan route's warm tokens identical to the cold
+   ones (the bf16 route's first-step logits compared, a differing token
+   reported with its margin); the reduced deepseek-v2-lite (MLA) warm ==
+   cold and olmo-1b's tokenwise prefill == bulk; then the artifact on disk
+   (its own fixture, cut to ARTIFACT_LAYERS layers: saved, loaded through
+   the map and served bit for bit the in-memory serves).
    ``--layers`` cuts the depth of both olmo serves (never the width);
 6. mixtral-8x22b at full width (d_model 6144, 8 experts of d_ff 16384,
-   vocab 32768), 2 layers: its K8 route and a
+   vocab 32768), 1 layer: its K8 route and a
    reduced serve (plan == per-region == plain == dense, capacity drops
    occurring); the per-region kernels at its shapes and the bf16 per-region
    serve; then the plan packed and uploaded, K6 on its expert stages (eg
@@ -71,7 +82,7 @@ kernel on those paths against its plain PyTorch version:
    slots), one full-width step, and the float32 plan serve; plan vs
    per-region logits (``--only mixtral`` runs these alone);
 7. deepseek-v2-lite-16b at full width (d_model 2048, MLA kv_lora 512, 64
-   experts of d_ff 1408 top-6, 2 shared, vocab 102400), 4 layers: K9 on a
+   experts of d_ff 1408 top-6, 2 shared, vocab 102400), 2 layers: K9 on a
    reduced plan and a reduced serve (K9 route == per-region == plain ==
    dense, drops occurring); the per-region kernels at its shapes (uk+uv over
    the whole latent view at 1024 columns) and the bf16 per-region serve;
@@ -97,12 +108,17 @@ kernel on those paths against its plain PyTorch version:
    fc1 served through K1 on the held-out set (one launch a forward, bit for
    bit the plain version in the kernel's order, logits against the
    dense-effective forward and the CPU's plain route, accuracy dense ->
-   compressed); the reference launcher's --quickstart olmo-1b compressed by
+   compressed); recovery fine-tuning of the handoff artifact (60 steps,
+   written back) and fc1 served again through one K1 launch, bit for bit,
+   saved and loaded; the train launcher's whole loop (``--arch mlp --prox
+   --epochs 12 --compress-out D --recover 60``, its ``train_stats.json`` on
+   a line of its own); the reference launcher's --quickstart olmo-1b compressed by
    the port and served through ``ServingEngine(artifact=...)``, bf16 on the
    per-region route and float32 on the plan route, greedy tokens equal to
    the dense-effective forward's, launches a step as predicted.
 
-One JSON object per line; a failed phase ends the run with a non-zero exit.
+One JSON object per line (a phase's line carries ``at_s``, the seconds since
+the start); a failed phase ends the run with a non-zero exit.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -237,9 +253,14 @@ PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "moe_logits_kernel", "moe_router_kernel",
                 "group_prox_kernel", "lcc_factor_kernel")
 ROUTED = ("moe.gate", "moe.up", "moe.down")  # site prefixes of the routed experts
-MIXTRAL_LAYERS = 2  # the one cut: 56 layers do not fit one card
-# the one cut of deepseek-v2-lite: 27 layers need ~158 GB (PERF.md section 4)
-DEEPSEEK_LAYERS = 4
+# the depth cuts keep the whole script well inside its time limit: 56
+# mixtral layers do not fit one card, 27 deepseek-v2-lite layers need ~158 GB
+# (PERF.md section 4), and one layer of each exercises every kernel its
+# serves launch (every deepseek layer is an MoE layer)
+MIXTRAL_LAYERS = 1
+DEEPSEEK_LAYERS = 2
+# olmo-1b's artifact on disk: 16 layers write ~35 GB to the temp directory
+ARTIFACT_LAYERS = 4
 FACTOR_ROUTE = "olmo-1b per-factor"  # K4's path: fused=False on layer 0
 MAX_LEN = 128  # the serves' KV view: 8 blocks of 16 tokens
 # |step kernel - plain| <= STEP_TOL * max(1, max|plain|): float32 sums in
@@ -252,7 +273,14 @@ STEP_TOL = 1e-4
 ROUTE_TOL = 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``at_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -1806,6 +1834,9 @@ def prompts_for(cfg, n):
 
 
 def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
+    """The serves' 8-token prompts through ``Scheduler`` + ``ServingEngine``
+    (the prefix cache on, its default): they fill no 16-token block, so
+    nothing is registered and no request may find cached tokens."""
     eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=MAX_LEN,
                         use_kernel=use_kernel, kv_block=16, device=device)
     sched = Scheduler(eng)
@@ -1815,7 +1846,12 @@ def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
         t0 = time.perf_counter()
         sched.step()  # ends in the step's device->host copy: host time is right
         step_s.append(time.perf_counter() - t0)
-    return eng, [sched.take_result(r) for r in rids], step_s
+    res = [sched.take_result(r) for r in rids]
+    cached = [r.stats.get("cached_tokens", 0) for r in res]
+    if any(cached) or eng.pool_stats()["prefix_hit_tokens"]:
+        fail(f"serve: requests found cached tokens {cached}; these prompts "
+             "fill no block")
+    return eng, res, step_s
 
 
 def phase_reduced_serve(dev, cfg, *, n_slots=4, n_prompts=3):
@@ -1995,14 +2031,12 @@ def region_launches_per_layer(cfg) -> int:
     return attn + 3 + (2 if cfg.moe.n_shared else 0)
 
 
-def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None, keep=None):
+def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     """The per-region route at full width: every projection a K1 or K2
     launch (an MoE projection's experts one K2 launch of E), each fused
     region's or pruned site's input made by one K3 region-prep launch.
     ``ref_params``: float32 dense-effective weights for the per-site check
-    where the records keep none on the host.  ``keep``: a dict that
-    receives the serve's results under ``"per-region"`` (see
-    :func:`route_results`)."""
+    where the records keep none on the host."""
     predicted = (region_launches_per_layer(cfg) * cfg.n_layers
                  + region_preps_per_step(cfg, art.records))
     prompts = prompts_for(cfg, 6)
@@ -2053,8 +2087,6 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None, keep=None):
     torch.cuda.synchronize()
     if max(site_err.values()) > 1e-3:
         fail(f"full serve: per-site output off the dense-effective: {site_err}")
-    if keep is not None:
-        keep["per-region"] = route_result(eng, res, step_s, counts, art, dev)
     profile = profile_steps(eng, prompts)
     tokens = sum(len(r.tokens) - r.prompt_len for r in res)
     steady = step_s[1:] or step_s
@@ -2081,6 +2113,7 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None, keep=None):
                 site_rel_err_max=max(site_err.values()), site_rel_tol=1e-3,
                 peak_device_bytes=peak,
                 resident_device_bytes=torch.cuda.memory_allocated(),
+                cached_tokens=sum(r.stats["cached_tokens"] for r in res),
                 sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape, eng
 
 
@@ -2100,8 +2133,7 @@ def two_step_logits(cfg, art, executor, dev):
 
 
 def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
-                     predicted=None, expected=None, n_plans=1, fallbacks=None,
-                     keep=None):
+                     predicted=None, expected=None, n_plans=1, fallbacks=None):
     """The plan route at full width, float32: the same 6 prompts x 16 new
     tokens on 8 slots, paged KV.  The whole-step plan (``stages``: its
     packed stages): a dense layer launches 4 stages (K6; gate+up with
@@ -2111,8 +2143,7 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
     (deepseek's per-layer expert plans) pass their own ``predicted``
     launches a step, ``expected`` kernels, ``n_plans`` and ``fallbacks``.
     ``l_reg``: the per-region route's two-step logits on the same artifact
-    (computed here when not given).  ``keep``: a dict that receives the
-    serve's results under ``"plan"`` (see :func:`route_results`)."""
+    (computed here when not given)."""
     moe = cfg.moe is not None
     if predicted is None:
         predicted = (8 if moe else 7) * cfg.n_layers
@@ -2159,8 +2190,6 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
     # two decode steps' logits: plan route against the per-region route
     # (K1-K3) and the dense-effective weights, on the same float32 artifact
     l_plan = two_step_logits(cfg, art, ex, dev)
-    if keep is not None:
-        keep["plan"] = route_result(eng, res, step_s, counts, art, dev, l_plan)
     if l_reg is None:
         l_reg = two_step_logits(
             cfg, art, CompressedExecutor(art, use_plans=False, device=dev), dev)
@@ -2192,6 +2221,7 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
                 peak_device_bytes=peak, resident_before_serve_bytes=resident,
                 resident_device_bytes=torch.cuda.memory_allocated(),
                 param_bytes=param_bytes, plan_stage_bytes=stage_bytes,
+                cached_tokens=sum(r.stats["cached_tokens"] for r in res),
                 sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape
 
 
@@ -2466,7 +2496,7 @@ def mixtral_plan_cases(art, plan, dev, timer, serve):
 
 
 def run_mixtral(dev):
-    """mixtral-8x22b at full width, cut to 2 layers: K8 and the reduced
+    """mixtral-8x22b at full width, cut to MIXTRAL_LAYERS layers: K8 and the reduced
     serve, the fixture, the per-region kernels and serve (bf16), the plan
     (packed and uploaded), its kernels and the float32 plan serve.  Returns
     the kernel rows and the serves' launch counts."""
@@ -2539,10 +2569,250 @@ def run_mixtral(dev):
     return rows, serves
 
 
+# ------------------------------------------- the prefix cache (tail extend)
+
+PREFIX_HEAD = 96  # the shared head: 6 blocks of 16 tokens
+PREFIX_TAIL = 8  # each request's own tail
+PREFIX_REQUESTS = 4
+
+
+def prefix_prompts(cfg, head=PREFIX_HEAD, tail=PREFIX_TAIL, n=PREFIX_REQUESTS):
+    """``n`` prompts of one ``head``-token head and a ``tail``-token tail
+    each (Markov text, seeded)."""
+    lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
+    h = lm.sample(1, head, seed=200)[0, :head].tolist()
+    return [h + lm.sample(1, tail, seed=300 + i)[0, :tail].tolist()
+            for i in range(n)]
+
+
+class StepLogits:
+    """Keeps every decode step's logits ([B, V] float32, on the device)
+    while it is entered: ``api.decode``, which the engine's step calls,
+    wrapped for the span."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        self._real = api.decode
+
+        def spy(*a, **k):
+            out = self._real(*a, **k)
+            self.steps.append(out[0].float().clone())
+            return out
+
+        api.decode = spy
+        return self
+
+    def __exit__(self, *exc):
+        api.decode = self._real
+
+
+def prefix_serve(art, dev, prompts, *, prefix_cache, n_slots=BATCH,
+                 max_new=16):
+    """The prompts submitted one after another to a paged engine (the
+    prefill of each synced and timed), then decoded to the end through
+    ``step()`` with every step's logits kept.  The requests land in slots
+    0.. in order, so decode step j samples every request's j-th token."""
+    eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=MAX_LEN,
+                        kv_block=16, prefix_cache=prefix_cache, device=dev)
+    dispatch.reset_launch_count()  # counts of the serve start here ...
+    prefill_ms, rids = [], []
+    for p in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids.append(eng.submit(p, max_new=max_new))
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    step_s = []
+    with StepLogits() as lg:
+        while eng.active.any():
+            t0 = time.perf_counter()
+            eng.step()
+            step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    res = [eng.results[r] for r in rids]
+    for r in res:
+        if r.error or not r.finished or len(r.tokens) != r.prompt_len + max_new:
+            fail(f"prefix serve: a request did not finish cleanly: {r.error}")
+    stats = eng.pool_stats()
+    if stats["in_use_blocks"] != 0:
+        fail(f"prefix serve: {stats['in_use_blocks']} blocks still in use")
+    profiled = profile_prefill(eng, prompts[1])
+    return dict(eng=eng, res=res, prefill_ms=prefill_ms, step_s=step_s,
+                logits=torch.stack(lg.steps), counts=counts, by_shape=by_shape,
+                pool=stats, profiled=profiled)
+
+
+def profile_prefill(eng, prompt):
+    """One more admission of ``prompt`` on a served engine (a prefix hit
+    where the cache is on), its prefill under ``torch.profiler``: the synced
+    wall ms and the device's busy ms (kernels by time); the request is then
+    cancelled, returning its blocks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rid = eng.submit(prompt, max_new=1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    eng.cancel(rid)
+    if eng.pool_stats()["in_use_blocks"] != 0:
+        fail("prefix serve: the profiled request left blocks in use")
+    by_name = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return dict(cached_tokens=eng.results[rid].stats["cached_tokens"],
+                wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1.0 - busy / wall),
+                top_device_ms={k[:48]: round(v, 4) for k, v in top})
+
+
+def prefix_route(label, art, dev, prompts, *, exact):
+    """One route's cold serve (prefix cache off) and warm serve (on) of the
+    same prompts: prefill ms, hit tokens, COW copies, blocks in use, launches
+    a decode step (the warm serve's must equal the cold one's), the first
+    decode step's logits against each other; ``exact``: the greedy tokens
+    must be identical, else a differing token is reported with the cold
+    serve's top-2 margin at that step.  Returns the route's line and the two
+    serves' launch counts, summed."""
+    cold = prefix_serve(art, dev, prompts, prefix_cache=False)
+    warm = prefix_serve(art, dev, prompts, prefix_cache=True)
+    head = len(prompts[0]) - PREFIX_TAIL
+    cached = [r.stats["cached_tokens"] for r in warm["res"]]
+    if cached != [0] + [head] * (len(prompts) - 1) or any(
+            r.stats["cached_tokens"] for r in cold["res"]):
+        fail(f"prefix {label}: cached tokens {cached}, expected the head "
+             f"({head}) on every request after the first")
+    lps = [e["eng"].kernel_launches_per_step for e in (cold, warm)]
+    if lps[0] != lps[1] or set(cold["counts"]) != set(warm["counts"]):
+        fail(f"prefix {label}: launches a step cold/warm {lps}, kernels "
+             f"{sorted(cold['counts'])} / {sorted(warm['counts'])}")
+    n = len(prompts)
+    first = (warm["logits"][0, :n] - cold["logits"][0, :n]).abs().max()
+    differ = []
+    for i, (rc, rw) in enumerate(zip(cold["res"], warm["res"])):
+        tc, tw = rc.tokens[rc.prompt_len:], rw.tokens[rw.prompt_len:]
+        if tc != tw:
+            j = next(k for k in range(len(tc)) if tc[k] != tw[k])
+            top2 = torch.topk(cold["logits"][j, i], 2).values
+            differ.append(dict(request=i, step=j, cold_top2_margin=float(
+                top2[0] - top2[1])))
+    if exact and differ:
+        fail(f"prefix {label}: warm tokens differ from the cold serve's: {differ}")
+    summed = {k: cold["counts"].get(k, 0) + warm["counts"].get(k, 0)
+              for k in set(cold["counts"]) | set(warm["counts"])}
+    by_shape = {k: cold["by_shape"].get(k, 0) + warm["by_shape"].get(k, 0)
+                for k in set(cold["by_shape"]) | set(warm["by_shape"])}
+    steps = sum(e["eng"].step_dispatches for e in (cold, warm))
+    line = dict(route=label, dtype=art.config.compute_dtype,
+                prompts=[len(p) for p in prompts], head=head,
+                cold_prefill_ms=cold["prefill_ms"],
+                warm_prefill_ms=warm["prefill_ms"],
+                warm_hit_prefill_ms_mean=float(np.mean(warm["prefill_ms"][1:])),
+                cold_prefill_ms_mean=float(np.mean(cold["prefill_ms"][1:])),
+                cached_tokens=cached,
+                prefix_hit_tokens=warm["pool"]["prefix_hit_tokens"],
+                prefix_hit_rate=warm["pool"]["prefix_hit_rate"],
+                cow_copies=warm["pool"]["cow_copies"],
+                blocks_in_use_after=warm["pool"]["in_use_blocks"],
+                cached_blocks_after=warm["pool"]["cached_blocks"],
+                launches_per_step_cold_warm=lps,
+                ms_per_step_cold_warm=[float(np.median(e["step_s"][1:])) * 1e3
+                                       for e in (cold, warm)],
+                first_step_logits_max_abs_diff=float(first),
+                profiled_prefill_cold_warm=[cold["profiled"], warm["profiled"]],
+                tokens_identical=not differ, differing_tokens=differ)
+    return line, (summed, by_shape, steps)
+
+
+def prefix_reduced(dev):
+    """The reduced configs on the card: deepseek-v2-lite (MLA, the K9
+    route) warm == cold tokens through ``mla_extend``; olmo-1b's tokenwise
+    prefill (contiguous, one decode step a prompt token through the plan
+    route) == its bulk prefill."""
+    cfg = reduced_config(get_arch("deepseek-v2-lite-16b"), vocab=256)
+    art = seeded_artifact(cfg, seed=1, device=dev)
+    prompts = prefix_prompts(cfg, head=32, tail=5)
+    cold = prefix_serve(art, dev, prompts, prefix_cache=False, n_slots=4,
+                        max_new=8)
+    warm = prefix_serve(art, dev, prompts, prefix_cache=True, n_slots=4,
+                        max_new=8)
+    cached = [r.stats["cached_tokens"] for r in warm["res"]]
+    if ([r.tokens for r in warm["res"]] != [r.tokens for r in cold["res"]]
+            or cached != [0, 32, 32, 32]):
+        fail(f"prefix deepseek reduced: warm tokens differ from cold, or "
+             f"cached {cached}")
+    ocfg = reduced_config(get_arch("olmo-1b"), vocab=256)
+    oart = seeded_artifact(ocfg, seed=1, device=dev)
+    oprompts = [p[:9 + 2 * i] for i, p in enumerate(prefix_prompts(ocfg, 16, 1, 3))]
+    out = {}
+    for kind, bulk in (("bulk", True), ("tokenwise", False)):
+        eng = ServingEngine(artifact=oart, n_slots=2, max_len=64, kv_block=None,
+                            bulk_prefill=bulk, device=dev)
+        res = eng.generate(oprompts, max_new_tokens=8)
+        if {r.stats["prefill_kind"] for r in res} != {kind}:
+            fail(f"prefix olmo reduced: prefill kinds {res[0].stats}")
+        out[kind] = [r.tokens for r in res]
+    if out["bulk"] != out["tokenwise"]:
+        fail("prefix olmo reduced: tokenwise prefill tokens differ from bulk")
+    return dict(deepseek_reduced=dict(cached_tokens=cached,
+                                      tokens_warm_equal_cold=True,
+                                      prefill_ms_cold=cold["prefill_ms"],
+                                      prefill_ms_warm=warm["prefill_ms"]),
+                olmo_reduced_tokenwise_equals_bulk=True,
+                olmo_reduced_prompts=[len(p) for p in oprompts])
+
+
+def phase_prefix(dev, base, art32):
+    """The prefix cache at full width (``--only prefix``; in the full run
+    after olmo-1b's plan serve, on its fixture): four prompts of one
+    96-token head and their own 8-token tails, 16 new tokens each on 8
+    slots, ``max_len`` 128, served with the prefix cache off (cold) and on
+    (warm) — the float32 plan route on ``art32`` (its plan already
+    uploaded), then the bf16 per-region route on a cast of its params.  The
+    warm serve prefills the first request whole and each later one's tail
+    only (``prefill_extend`` against the gathered head).  Then the reduced
+    deepseek-v2-lite (MLA) warm == cold and olmo-1b's tokenwise == bulk.
+    Returns the line and, by route, the serves' summed launch counts."""
+    prompts = prefix_prompts(base)
+    t0 = time.perf_counter()
+    plan_line, plan_counts = prefix_route("plan", art32, dev, prompts,
+                                          exact=True)
+    art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
+                    plans={})
+    region_line, region_counts = prefix_route("per-region", art16, dev, prompts,
+                                              exact=False)
+    del art16
+    drop_per_region_copies(art32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = dict(phase="prefix", arch=base.name, n_slots=BATCH, max_len=MAX_LEN,
+                kv_block=16, max_new=16, routes=[plan_line, region_line],
+                **prefix_reduced(dev), seconds=time.perf_counter() - t0)
+    return line, {"plan": plan_counts, "per-region": region_counts}
+
+
+def merge_serve(a, b):
+    """Two serves' ``(counts, by_shape, decode steps)`` summed."""
+    return ({k: a[0].get(k, 0) + b[0].get(k, 0) for k in set(a[0]) | set(b[0])},
+            {k: a[1].get(k, 0) + b[1].get(k, 0) for k in set(a[1]) | set(b[1])},
+            a[2] + b[2])
+
+
 def run_olmo(dev, layers):
     """olmo-1b at full width: the kernel phase, the reduced serve, the bf16
-    per-region serve and the float32 plan serve.  Returns the kernel rows
-    and the serves' launch counts."""
+    per-region serve, the float32 plan serve, the prefix cache's cold and
+    warm serves on both routes and the artifact on disk.  Returns the kernel
+    rows and the serves' launch counts (a route's prefix serves counted
+    with its serve: they launch at its dimensions)."""
     base = get_arch("olmo-1b")
     if layers is not None:
         base = replace(base, n_layers=layers)
@@ -2585,24 +2855,28 @@ def run_olmo(dev, layers):
                                "results are bit-identical",
               step_tolerance=STEP_TOL, rows=rows))
     emit(phase_reduced_serve(dev, red_cfg))
-    kept = {}  # the in-memory serves' results, for the artifact phase
     full, full_counts, by_shape, eng = phase_full_serve(dev, base, art16,
-                                                        fixture_s, keep=kept)
+                                                        fixture_s)
     emit(full)
     # the plan serve's peak counts the plan route's own bytes: the bf16 cast
     # and the per-region streams go first
     del eng, art16
     drop_per_region_copies(art32)
     planned, plan_counts, plan_shape = phase_plan_serve(
-        dev, cfg32, art32, plan.stages.values(), plan.pack_s, keep=kept)
+        dev, cfg32, art32, plan.stages.values(), plan.pack_s)
     emit(planned)
-    box = [art32]  # the artifact phase drops it after saving
+    pline, pserves = phase_prefix(dev, base, art32)
+    emit(pline)
     del art32, plan
-    emit(phase_artifact(dev, base, box, want=kept))
-    return rows, {f"{base.name} per-region": (full_counts, by_shape,
-                                              full["decode_steps"]),
-                  f"{base.name} plan": (plan_counts, plan_shape,
-                                        planned["decode_steps"]),
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase_artifact(dev, base))
+    return rows, {f"{base.name} per-region": merge_serve(
+                      (full_counts, by_shape, full["decode_steps"]),
+                      pserves["per-region"]),
+                  f"{base.name} plan": merge_serve(
+                      (plan_counts, plan_shape, planned["decode_steps"]),
+                      pserves["plan"]),
                   FACTOR_ROUTE: factor_serve}
 
 
@@ -2665,12 +2939,11 @@ def reckon_artifact(art) -> tuple[dict, tuple[str, int]]:
     return groups, max(leaves.items(), key=lambda kv: kv[1])
 
 
-def route_result(eng, res, step_s, counts, art, dev, logits=None) -> dict:
+def route_result(eng, res, step_s, counts, art, dev) -> dict:
     """What the artifact phase keeps of a serve on ``art``: every request's
     tokens, two decode steps' logits through the serve's executor, launches
     a step and by kernel, ms a step and, on the plan route, ``pack_s``."""
-    if logits is None:
-        logits = two_step_logits(art.config, art, eng.executor, dev)
+    logits = two_step_logits(art.config, art, eng.executor, dev)
     plan = eng.executor.step_plan(art.config) if eng.n_layer_plans else None
     return dict(tokens=[r.tokens for r in res], logits=logits.cpu(),
                 launches_per_step=eng.kernel_launches_per_step,
@@ -2705,29 +2978,29 @@ def route_results(art, base, dev) -> dict:
     return out
 
 
-def phase_artifact(dev, base, box, want=None):
+def phase_artifact(dev, base):
     """The artifact on disk at full width (``--only artifact``; in the full
-    run right after olmo-1b's float32 plan serve, on its fixture): the bytes
-    reckoned by group and the temp directory's free space checked (a lack
-    of room fails); the in-memory artifact served on both routes and only
-    those results kept; saved (``save_s``), dropped, loaded through the map
-    (``load_s``, host RSS after the load and after the plan's upload,
-    ``pack_s`` of the plan read from disk) and served again: tokens, two
-    steps' logits and launches bit for bit the in-memory serves'; then the
-    same shard decoded from one whole-file read through the same decoder,
-    the reference's way, for its time and RSS.  ``box`` holds the artifact
-    (float32, ``plans["step"]`` filled): the phase takes it out, so that
-    dropping it frees it.  ``want``: the in-memory serves' results where
-    the full run's serve phases kept them (served here otherwise).  The
-    directory is removed at the end."""
+    run right after olmo-1b's prefix-cache serves), on a seeded float32
+    fixture of ``base`` cut to ARTIFACT_LAYERS layers with its step plan
+    packed into ``plans``: the bytes reckoned by group and the temp
+    directory's free space checked (a lack of room fails); the in-memory
+    artifact served on both routes and only those results kept; saved
+    (``save_s``), dropped, loaded through the map (``load_s``, host RSS
+    after the load and after the plan's upload, ``pack_s`` of the plan read
+    from disk) and served again: tokens, two steps' logits and launches bit
+    for bit the in-memory serves'; then the same shard decoded from one
+    whole-file read through the same decoder, the reference's way, for its
+    time and RSS.  The directory is removed at the end."""
     import shutil
     import tempfile
 
     from repro_torch.core.artifact import CompressedModel
 
     t_phase = time.perf_counter()
-    art = box.pop()
-    cfg32 = art.config
+    base = replace(base, n_layers=min(ARTIFACT_LAYERS, base.n_layers))
+    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+    art = seeded_artifact(cfg32, seed=2, device=dev)
+    CompressedExecutor(art, device=dev).step_plan(cfg32)  # into art.plans
     groups, leaf = reckon_artifact(art)
     total = sum(groups.values())
     tmp_root = tempfile.gettempdir()
@@ -2744,8 +3017,7 @@ def phase_artifact(dev, base, box, want=None):
         fail(f"artifact: {total} bytes do not fit the {disk.free} free bytes "
              f"of {tmp_root}: cut the depth")
     t0 = time.perf_counter()
-    if want is None:
-        want = route_results(art, base, dev)
+    want = route_results(art, base, dev)
     mem_serve_s = time.perf_counter() - t0
     d = tempfile.mkdtemp(prefix="chip_smoke_artifact_", dir=tmp_root)
     try:
@@ -3809,6 +4081,7 @@ def phase_compress_mlp(dev, trained, timer, sm):
                             f"B={x.shape[0]}", pk, np.random.default_rng(60),
                             dev, timer, sm, batch=x.shape[0])
     row["serve"] = MLP_SERVE
+    recovered, rcounts = recover_mlp(art, x, yte, dev, sm)
     line = dict(phase="compress_mlp", shape=[cfg.in_dim, cfg.hidden, cfg.classes],
                 default=default, handoff=handoff,
                 fc1_packed=dict(E=pk.idx.shape[0], P=pk.idx.shape[1],
@@ -3821,8 +4094,144 @@ def phase_compress_mlp(dev, trained, timer, sm):
                 tol=STEP_TOL, k1_bit_for_bit_in_kernel_order=True,
                 accuracy=dict(dense=acc_dense,
                               default_effective=acc(mlp_forward(art_d.params, x)),
-                              handoff_effective=acc(plain), compressed_k1=acc(logits)))
-    return line, row, (counts, by_shape, 1)
+                              handoff_effective=acc(plain), compressed_k1=acc(logits),
+                              recovered=recovered["accuracy"]["recovered"]),
+                recover=recovered)
+    # the compressed and the recovered forward: one K1 launch each, at the
+    # same dimensions (the residual is a dense slice beside the chains)
+    return line, row, merge_serve((counts, by_shape, 1), rcounts)
+
+
+RECOVER_STEPS = 60  # the train launcher's --recover in its docstring's run
+RECOVER_LR = 2e-3  # the train launcher's --recover-lr default
+RESIDUAL_FRAC = 0.15  # and its --residual-frac
+
+
+def recover_mlp(art, x, yte, dev, sm):
+    """Recovery fine-tuning on the handoff artifact, as the train launcher
+    runs it: 60 adam steps of the dense residual over the training set's
+    batches (128, seeded 1000 + epoch), written back at 15 % of each unit's
+    LCC adds.  Then fc1 through K1 on the held-out set: one launch a
+    forward, K1 bit for bit its plain version in the kernel's order on the
+    new packed object's fresh upload, logits within STEP_TOL of the
+    recovered dense-effective forward; the recovered artifact saved, loaded
+    and served the same.  Returns the summary and the forward's counts."""
+    from repro_torch.data.mnist_like import train_test
+    from repro_torch.data.synthetic import batches
+    from repro_torch.models.mlp import (mlp_accuracy, mlp_forward,
+                                        mlp_forward_compressed, mlp_loss)
+    from repro_torch.training.recover import recover_artifact
+
+    from repro_torch.launch import train
+
+    args = train.parse_args(MLP_TRAIN_ARGS)  # the data the MLP was trained on
+    (xs, ys), _ = train_test(args.train_n, args.test_n, seed=args.seed)
+
+    def rec_batches():
+        n, ep = 0, 0
+        while n < RECOVER_STEPS:
+            for xb, yb in batches(xs, ys, 128, seed=1000 + ep):
+                if n >= RECOVER_STEPS:
+                    return
+                yield torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+                n += 1
+            ep += 1
+
+    with torch.no_grad():
+        acc_c = float(mlp_accuracy(art.params, x, yte))
+    old = art.packed["fc1"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = recover_artifact(art, lambda p, b: mlp_loss(p, b[0], b[1]),
+                           rec_batches(), lr=RECOVER_LR,
+                           residual_frac=RESIDUAL_FRAC)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pk = art.packed["fc1"]
+    if pk is old or pk._dev:
+        fail("recover mlp: write_back kept the old packed fc1 or its device copy")
+    dispatch.reset_launch_count()  # counts of the recovered forward start here ...
+    with torch.no_grad():
+        logits = mlp_forward_compressed(art.params, pk, x)
+    torch.cuda.synchronize()
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    if counts != {"lcc_chain_matmul": 1}:
+        fail(f"recover mlp: the recovered forward launched {counts}")
+    with torch.no_grad():
+        ds = pk.on(dev)
+        xt = x.T.contiguous()
+        y = lcc_chain_matmul(ds.idx, ds.exp, ds.sign, xt, ds.slice_c0,
+                             ds.slice_w, ds.chain_len)
+        torch.cuda.synchronize()
+        if not torch.equal(y[None], ordered_plain(ds, xt, sm)):
+            fail("recover mlp: K1 on fc1 differs from its plain version "
+                 "summed in the kernel's order")
+        dense = mlp_forward(art.params, x)
+        acc_r = float(mlp_accuracy(art.params, x, yte))
+    err = check_close("recovered mlp vs its dense-effective forward", logits,
+                      dense, STEP_TOL)
+    round_trip = mlp_round_trip(art, x, logits, dev)
+    units = res["units"]
+    return dict(steps=len(res["losses"]), lr=RECOVER_LR,
+                residual_frac=RESIDUAL_FRAC, wall_s=wall,
+                loss_first=res["losses"][0], loss_last=res["losses"][-1],
+                accuracy=dict(compressed=acc_c, recovered=acc_r,
+                              recovered_k1=float((torch.argmax(logits, -1)
+                                                  == yte).float().mean())),
+                units=units,
+                lcc_adds=sum(u.get("lcc_adds", 0) for u in units.values()),
+                residual_adds=sum(u["recover_adds"] for u in units.values()),
+                fc1_dense_slices=len(pk.dense), launches=counts,
+                k1_bit_for_bit_in_kernel_order=True,
+                logits_vs_dense_effective=err, tol=STEP_TOL,
+                round_trip=round_trip), (counts, by_shape, 1)
+
+
+# the reference launcher's docstring run, end to end (--compress-out added)
+HANDOFF_ARGS = ["--arch", "mlp", "--prox", "--lambda", "0.1", "--epochs", "12",
+                "--recover", "60", "--compress-config", "algorithm=fp",
+                "prune_tol=-1e-6", "weight_sharing=false"]
+
+
+def phase_train_handoff(dev):
+    """``python -m repro_torch.launch.train`` with :data:`HANDOFF_ARGS` and
+    ``--compress-out`` to a temp directory, in process, its own output kept
+    apart: train -> compress -> recover -> fused serve.  Its
+    ``train_stats.json`` goes on a line of its own, beside the reference's
+    ``BENCH_train.json`` claim (a CPU record of the JAX package, not a
+    target)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_handoff_") as out:
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            train.main([*HANDOFF_ARGS, "--compress-out", out])
+        wall = time.perf_counter() - t0
+        files = sorted(p.name for p in Path(out).iterdir())
+        stats = json.loads((Path(out) / "train_stats.json").read_text())
+    if files != ["artifact", "cache", "run", "train_stats.json"]:
+        fail(f"train handoff: wrote {files}")
+    acc = stats["accuracy"]
+    if set(acc) != {"dense", "compressed", "recovered", "fused"} or \
+            stats["recover"]["steps"] != 60:
+        fail(f"train handoff: stats {sorted(acc)}, recover "
+             f"{stats.get('recover', {}).get('steps')}")
+    claim = None
+    bench = Path(__file__).resolve().parent / "BENCH_train.json"
+    if bench.exists():
+        b = json.loads(bench.read_text())
+        p0 = b["points"][0]
+        claim = dict(source="BENCH_train.json (the JAX package on a CPU)",
+                     task=b["task"], budget_frac=p0["budget_frac"],
+                     regularized_recovery=p0["regularized_recovery"])
+    return dict(phase="train_handoff", argv=HANDOFF_ARGS, wall_s=wall,
+                train_stats=stats, reference_claim=claim)
 
 
 def quickstart_rows(cfg, art, plan, dev, timer, sm, route):
@@ -3972,6 +4381,7 @@ def phase_compress(dev, trained=None):
         emit(line)
     line, row, serves[MLP_SERVE] = phase_compress_mlp(dev, trained, timer, sm)
     emit(line)
+    emit(phase_train_handoff(dev))
     rows = [row]
     olmo, orows, oserves = phase_compress_olmo(dev, timer, sm)
     rows += orows
@@ -3988,8 +4398,8 @@ def main() -> None:
                     help="cut the depth of the olmo-1b serves (never the width)")
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
                                        "attention", "prep", "artifact",
-                                       "mixtral", "deepseek", "train",
-                                       "compress"),
+                                       "prefix", "mixtral", "deepseek",
+                                       "train", "compress"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
@@ -4005,15 +4415,23 @@ def main() -> None:
                          "three per-region serves and K7's norm alone at "
                          "the two plan serves' shapes, no fixture and no "
                          "serve; artifact: olmo-1b's full-width float32 "
-                         "fixture and its step plan saved, loaded through "
+                         "fixture cut to ARTIFACT_LAYERS layers and its "
+                         "step plan saved, loaded through "
                          "the map and served on both routes, bit for bit "
-                         "the in-memory serves; "
+                         "the in-memory serves; prefix: olmo-1b's "
+                         "full-width fixture served with the prefix cache "
+                         "off and on (four prompts of one 96-token head), "
+                         "float32 plan and bf16 per-region, then the "
+                         "reduced deepseek-v2-lite warm == cold and olmo-1b "
+                         "tokenwise == bulk; "
                          "mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
                          "deepseek-v2-lite-16b phases alone; train: the "
                          "training phases alone; compress: the compressor "
                          "(the paper's MLP trained, compressed at full width "
-                         "at 1 and 4 workers, fc1 served through K1; the "
+                         "at 1 and 4 workers, fc1 served through K1, then "
+                         "recovered (60 steps) and served again; the train "
+                         "launcher's --compress-out --recover run; the "
                          "quickstart olmo-1b compressed and served on both "
                          "routes; each artifact saved, loaded and served "
                          "again; the compress launcher SIGKILLed and "
@@ -4043,15 +4461,18 @@ def main() -> None:
                   attention=phase_attention, prep=phase_prep)[args.only](dev))
         print(smi, flush=True)
         return
-    if args.only == "artifact":
+    if args.only in ("artifact", "prefix"):
         base = get_arch("olmo-1b")
         if args.layers is not None:
             base = replace(base, n_layers=args.layers)
-        cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
-        box = [seeded_artifact(cfg32, seed=2, device=dev)]
-        # the step plan packed into the artifact's plans, as the serves do
-        CompressedExecutor(box[0], device=dev).step_plan(cfg32)
-        emit(phase_artifact(dev, base, box))
+        if args.only == "prefix":
+            cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+            art32 = seeded_artifact(cfg32, seed=2, device=dev)
+            # the step plan packed into the artifact's plans, as the serves do
+            CompressedExecutor(art32, device=dev).step_plan(cfg32)
+            emit(phase_prefix(dev, base, art32)[0])
+        else:
+            emit(phase_artifact(dev, base))
         print(smi, flush=True)
         return
     if args.only is None:

@@ -117,7 +117,11 @@ class PackedChain:
     d_pad: int  # width of the running vector of the padded layout
     first_width: int  # padded input width addressable by the first factor
     n_factors: int  # real (un-padded) chain length
-    _dev: dict = field(default_factory=dict, repr=False, compare=False)
+    # device copies, made at first use; not an init field, so a
+    # ``dataclasses.replace`` that changes the streams or the dense slices
+    # starts with none rather than sharing (and serving) the old ones
+    _dev: dict = field(default_factory=dict, init=False, repr=False,
+                       compare=False)
 
     @property
     def compact_bytes(self) -> int:
@@ -153,7 +157,11 @@ class PackedDecomposition:
     d_pad: int
     first_width: int  # padded max slice width (first-factor column span)
     chain_lengths: tuple[int, ...]  # real factor count per FP slice
-    _dev: dict = field(default_factory=dict, repr=False, compare=False)
+    # device copies, made at first use; not an init field, so a
+    # ``dataclasses.replace`` that changes the streams or the dense slices
+    # starts with none rather than sharing (and serving) the old ones
+    _dev: dict = field(default_factory=dict, init=False, repr=False,
+                       compare=False)
 
     def slice_tables(self, base: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(c0, width, chain_len) int32 per FP slice; ``base`` shifts c0 (a
@@ -269,7 +277,11 @@ class PackedGroup:
     d_pad: int
     first_width: int
     waste: dict | None = None  # padding-waste fractions (see pack_group)
-    _dev: dict = field(default_factory=dict, repr=False, compare=False)
+    # device copies, made at first use; not an init field, so a
+    # ``dataclasses.replace`` that changes the streams or the dense slices
+    # starts with none rather than sharing (and serving) the old ones
+    _dev: dict = field(default_factory=dict, init=False, repr=False,
+                       compare=False)
 
     @property
     def n_groups(self) -> int:

@@ -7,6 +7,10 @@ artifact, on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --requests 3 --max-new 8 --kernel
 
+Paged engines share prefilled prompt-prefix blocks across requests by
+default (``--no-prefix-cache`` turns it off); the end-of-run line reports
+the prefix hit rate and the copy-on-write copies.
+
 The artifact comes from the seeded fixture
 (``repro_torch.testing.seeded_artifact``): valid LCC chains at the model's
 width, random weights.  The offline compressor
@@ -52,6 +56,10 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-blocks", type=int, default=None,
                     help="total usable KV pool blocks (default: one full "
                          "view per slot)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="share prefilled prompt-prefix blocks across "
+                         "requests (copy-on-write; paged engines only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -76,7 +84,8 @@ def main(argv=None) -> None:
     eng = ServingEngine(artifact=artifact, n_slots=args.slots, max_len=128,
                         temperature=args.temperature, seed=args.seed,
                         use_kernel=args.kernel, kv_block=args.kv_block or None,
-                        kv_blocks=args.kv_blocks, device=args.device)
+                        kv_blocks=args.kv_blocks,
+                        prefix_cache=args.prefix_cache, device=args.device)
     sched = Scheduler(eng)
     on_token = ((lambda rid, tok: print(f"  req{rid} += {tok}", flush=True))
                 if args.stream else None)
@@ -104,6 +113,9 @@ def main(argv=None) -> None:
     if ps["n_blocks"]:
         print(f"kv pool: {ps['n_blocks']} blocks x {ps['block_size']} tok, "
               f"peak {ps['peak_in_use_blocks']} in use, "
+              f"prefix hit-rate {ps['prefix_hit_rate']:.2f} "
+              f"({ps['prefix_hit_tokens']} tok), {ps['cow_copies']} COW, "
+              f"{ps['evictions']} evictions, "
               f"{sched.admitted_while_running} continuous admissions, "
               f"{sched.mem_stalls} block stalls")
     if eng.executor is not None:

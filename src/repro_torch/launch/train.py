@@ -9,6 +9,12 @@ Algorithm-1 step 1), on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mlp --prox \
         --lambda 0.1 --epochs 12
 
+    # the paper's full loop on the MLP: prox-regularized training ->
+    # prune-aware budgeted compression -> recovery fine-tune -> fused serve
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mlp --prox \
+        --lambda 0.1 --epochs 12 --compress-out /tmp/mlp_run --recover 60 \
+        --compress-config algorithm=fp prune_tol=-1e-6 weight_sharing=false
+
     # rehearsal without a GPU: --device cpu also reduces the LM config
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --prox --steps 3
 
@@ -29,14 +35,22 @@ end, the last three kept); ``--resume`` restores the newest intact step and
 carries on from the next, and since each batch is seeded by its step, a
 resumed run sees the data an uninterrupted one would.
 
+``--arch mlp --compress-out D`` goes on from the trained params to the
+rest of the paper's loop (:func:`compress_handoff`): the compressor
+(``models.api.compress_model`` with its durable slice cache under
+``D/cache`` and its run manifest under ``D/run``), ``--recover N`` steps of
+recovery fine-tuning (``training.recover``), the fused fc1 check (one K1
+launch on a GPU) on 256 held-out samples, then the artifact under
+``D/artifact`` and ``D/train_stats.json``.
+
 Not available yet, refused with a message: the mesh, multi-device and
 gradient-compression flags and the elastic demo (the ``distributed/``
-entry), the MLP's compression handoff and recovery (A2; the compressor
-itself is ``repro_torch.models.api.compress_model``, which
-:func:`train_mlp`'s params feed) and the metrics snapshot (the ``obs/``
-entry).  Checkpoints belong to the LM path: ``--arch mlp`` refuses them.
+entry) and the metrics snapshot (the ``obs/`` entry).  Checkpoints belong
+to the LM path: ``--arch mlp`` refuses them.
 """
 import argparse
+import json
+import os
 import time
 
 import torch
@@ -59,10 +73,6 @@ _REFUSED = {
                            f"the distributed/ entry of {_QUEUE}"),
     "--elastic-demo": (lambda a: a.elastic_demo,
                        f"the distributed/ entry of {_QUEUE}"),
-    "--compress-out": (lambda a: a.compress_out is not None,
-                       f"A2 of {_QUEUE} (the compressor handoff)"),
-    "--recover": (lambda a: a.recover > 0,
-                  f"A2 of {_QUEUE} (recovery fine-tuning)"),
     "--metrics-out": (lambda a: a.metrics_out is not None,
                       f"the obs/ entry of {_QUEUE}"),
 }
@@ -134,6 +144,130 @@ def train_mlp(args, device: torch.device):
           + f", group_prox launches {stats['group_prox_launches']}")
     params = tree_map(lambda p: p.detach(), params)
     return stats, params, (xte_t, yte_t)
+
+
+def compress_handoff(args, train_stats: dict, params, device: torch.device
+                     ) -> dict:
+    """--arch mlp --compress-out: the rest of the paper's Sec. IV-A loop on
+    the trained ``params``, as the reference's launcher runs it.
+
+    1. prune-aware budgeted compression through the pipeline
+       (``--compress-config``, ``--budget``, ``--workers``, ``--include``;
+       dead input columns become 0-add skipped/shrunk slice jobs);
+    2. ``--recover N`` steps of recovery fine-tuning of the artifact's dense
+       residual (frozen chains fixed), written back into every artifact
+       surface;
+    3. the fused-serving check: fc1 through the packed whole-chain kernel
+       on 256 held-out samples;
+    4. ``art.save(<out>/artifact)`` and ``<out>/train_stats.json`` with the
+       reference's keys.  Returns that stats dict."""
+    from repro_torch.data.mnist_like import train_test
+    from repro_torch.launch.compress import parse_compression
+    from repro_torch.models import api
+    from repro_torch.models.mlp import (MLPConfig, mlp_accuracy,
+                                        mlp_forward_compressed, mlp_loss)
+
+    batch = train_stats["batch"]
+    cfg = MLPConfig(hidden=args.hidden)
+    (xs, ys), (xte, yte) = train_test(args.train_n, args.test_n, seed=args.seed)
+    xte_t = torch.from_numpy(xte).to(device)
+    yte_t = torch.from_numpy(yte).to(device)
+    stats = {k: train_stats[k] for k in ("arch", "hidden", "prox", "lam",
+                                         "epochs", "batch")}
+    stats["train_wall_s"] = round(train_stats["train_wall_s"], 2)
+    stats["accuracy"] = {"dense": train_stats["accuracy"]}
+    if args.prox:
+        specs = regularize.site_group_specs(params, cfg, args.lam,
+                                            include=args.prox_include)
+        rep = regularize.sparsity_report(params, specs)
+        stats["dead_group_fraction"] = round(
+            regularize.dead_group_fraction(rep), 4)
+        stats["sparsity"] = {k: {kk: float(vv) for kk, vv in v.items()}
+                             for k, v in rep.items()}
+
+    compression = parse_compression(args.compress_config)
+    chatty = {"plan", "skip", "unit_done", "budget", "resume"}
+
+    def progress(ev):
+        if ev.kind in chatty:
+            print(f"[{ev.kind}] {ev}", flush=True)
+
+    t0 = time.time()
+    art = api.compress_model(
+        params, cfg, compression, include=args.include,
+        n_workers=args.workers, budget_adds=args.budget,
+        cache_dir=os.path.join(args.compress_out, "cache"),
+        run_dir=os.path.join(args.compress_out, "run"), progress=progress)
+    ps = art.pipeline_stats
+    stats["pipeline"] = {k: int(ps.get(k, 0)) for k in
+                         ("units", "jobs", "dead_groups", "skipped_jobs",
+                          "shrunk_jobs", "cache_hits", "cache_misses")}
+    stats["adds"] = {"baseline": int(art.report.total_baseline()),
+                     "lcc": int(art.report.total_stage("lcc"))}
+    stats["compress_wall_s"] = round(time.time() - t0, 2)
+    with torch.no_grad():
+        acc_c = float(mlp_accuracy(art.params, xte_t, yte_t))
+    stats["accuracy"]["compressed"] = acc_c
+    print(f"compress: adds {stats['adds']['baseline']} -> "
+          f"{stats['adds']['lcc']} (dead groups {ps['dead_groups']}, "
+          f"skipped {ps['skipped_jobs']} jobs, shrunk {ps['shrunk_jobs']}); "
+          f"accuracy {acc_c:.3f}")
+
+    if args.recover > 0:
+        from repro_torch.training.recover import recover_artifact
+
+        def loss_fn(p, b):
+            return mlp_loss(p, b[0], b[1])
+
+        def rec_batches():
+            n, ep = 0, 0
+            while n < args.recover:
+                for xb, yb in batches(xs, ys, batch, seed=1000 + ep):
+                    if n >= args.recover:
+                        return
+                    yield (torch.from_numpy(xb).to(device),
+                           torch.from_numpy(yb).to(device))
+                    n += 1
+                ep += 1
+
+        t0 = time.time()
+        res = recover_artifact(art, loss_fn, rec_batches(),
+                               lr=args.recover_lr,
+                               residual_frac=args.residual_frac,
+                               progress=lambda m: print(f"[recover] {m}",
+                                                        flush=True))
+        with torch.no_grad():
+            acc_r = float(mlp_accuracy(art.params, xte_t, yte_t))
+        residual = sum(u.get("recover_adds", 0) for u in res["units"].values())
+        stats["accuracy"]["recovered"] = acc_r
+        stats["adds"]["recover_residual"] = int(residual)
+        stats["adds"]["total_with_recover"] = stats["adds"]["lcc"] + int(residual)
+        stats["recover"] = {"steps": len(res["losses"]),
+                            "loss_first": round(res["losses"][0], 5),
+                            "loss_last": round(res["losses"][-1], 5),
+                            "units": res["units"],
+                            "wall_s": round(time.time() - t0, 2)}
+        print(f"recover: loss {stats['recover']['loss_first']:.4f} -> "
+              f"{stats['recover']['loss_last']:.4f} over "
+              f"{len(res['losses'])} steps; accuracy {acc_r:.3f} "
+              f"(+{residual} residual adds)")
+
+    # fused-serving check: fc1 through the packed whole-chain LCC kernel
+    pk = art.packed.get("fc1")
+    if pk is not None:
+        with torch.no_grad():
+            logits = mlp_forward_compressed(art.params, pk, xte_t[:256])
+        acc_f = float((torch.argmax(logits, -1) == yte_t[:256])
+                      .to(torch.float32).mean())
+        stats["accuracy"]["fused"] = acc_f
+        print(f"serve: fused fc1 kernel accuracy {acc_f:.3f} (256 samples)")
+
+    art.save(os.path.join(args.compress_out, "artifact"))
+    with open(os.path.join(args.compress_out, "train_stats.json"), "w") as f:
+        json.dump(stats, f, indent=2)
+        f.write("\n")
+    print(f"artifact -> {os.path.join(args.compress_out, 'artifact')}")
+    return stats
 
 
 def lm_main(args, device: torch.device) -> dict:
@@ -235,6 +369,24 @@ def parse_args(argv=None):
                     help="mlp: held-out examples")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    # --arch mlp: the full train -> compress -> recover -> serve loop
+    ap.add_argument("--compress-out", default=None,
+                    help="mlp: run dir; triggers the compression handoff")
+    ap.add_argument("--compress-config", nargs="*", default=[],
+                    metavar="KEY=VAL",
+                    help="mlp: CompressionConfig overrides (launch.compress)")
+    ap.add_argument("--budget", type=int, default=None,
+                    help="mlp: global adds budget (allocator)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="mlp: pipeline worker processes")
+    ap.add_argument("--include", default=None,
+                    help="mlp: compression unit-name prefix filter")
+    ap.add_argument("--recover", type=int, default=0,
+                    help="mlp: post-compression recovery fine-tune steps")
+    ap.add_argument("--recover-lr", type=float, default=2e-3)
+    ap.add_argument("--residual-frac", type=float, default=0.15,
+                    help="recovery residual adds budget as a fraction of the "
+                         "unit's LCC adds")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="LM: save the train state here (last 3 kept)")
     ap.add_argument("--checkpoint-every", type=int, default=20)
@@ -246,8 +398,6 @@ def parse_args(argv=None):
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--elastic-demo", action="store_true")
-    ap.add_argument("--compress-out", default=None)
-    ap.add_argument("--recover", type=int, default=0)
     ap.add_argument("--metrics-out", default=None)
     args = ap.parse_args(argv)
     for flag, (is_set, where) in _REFUSED.items():
@@ -267,7 +417,10 @@ def main(argv=None) -> dict:
                          "reduced config on the CPU")
     device = torch.device(args.device)
     if args.arch == "mlp":
-        return train_mlp(args, device)[0]
+        stats, params, _ = train_mlp(args, device)
+        if args.compress_out is None:
+            return stats
+        return compress_handoff(args, stats, params, device)
     return lm_main(args, device)
 
 

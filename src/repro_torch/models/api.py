@@ -20,7 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from . import transformer
 
 __all__ = ["init_params", "abstract_params", "train_loss", "prefill",
-           "decode", "sample_tokens", "paged_supported", "paged_layout",
+           "prefill_extend", "decode", "sample_tokens", "paged_supported", "paged_layout",
            "init_decode_state", "family_of", "register_compress_adapter",
            "compressible_units", "rebind", "compress_model"]
 
@@ -55,6 +55,15 @@ def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False):
     return transformer.forward(
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         collect_cache=collect_cache)
+
+
+def prefill_extend(params, cfg: ArchConfig, tokens, positions, past, last):
+    """Tail prefill against a resident KV prefix (prefix-cache hit path):
+    see :func:`repro_torch.models.transformer.forward_extend`."""
+    if not paged_supported(cfg):
+        raise ValueError(f"prefill_extend: family {cfg.family!r} is not paged")
+    return transformer.forward_extend(params, cfg, tokens, positions, past,
+                                      last)
 
 
 def decode(params, cfg: ArchConfig, state, token, pos, *, executor=None):

@@ -12,8 +12,12 @@ buffer): the tensors handed in are the ones handed back.
 MLA (DeepSeek-V2) caches the compressed KV latent ``c_kv`` and the shared,
 not yet rotated rope key ``k_rope`` a token; every step expands the whole
 latent view through ``uk``/``uv`` (one grouped launch when compressed), as
-the JAX package does.  Its prefix-cache continuation (``mla_extend``) is not
-carried over.
+the JAX package does.
+
+The prefix cache's tail prefill runs the unmatched tail tokens against a
+gathered resident prefix: :func:`attention_extend` (GQA) and
+:func:`mla_extend` (MLA).  Padded tail rows sit at position -1; every key is
+masked for them, and the finite ``_NEG`` keeps their softmax finite.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from .layers import apply_rope, linear, site_fmt, site_linear, site_linear_group
 __all__ = [
     "attention_prefill",
     "attention_decode",
+    "attention_extend",
     "KVCache",
     "PagedKVCache",
     "paged_view",
@@ -34,6 +39,7 @@ __all__ = [
     "PagedMLACache",
     "mla_prefill",
     "mla_decode",
+    "mla_extend",
 ]
 
 _NEG = -1e30
@@ -231,6 +237,43 @@ def attention_decode(
     return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache
 
 
+def _extend_mask(kpos: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Additive causal mask ``[B,1,1,T,C+T]`` of tail queries at
+    ``positions`` [B,T] over keys at ``kpos`` [B,C+T] (-1 = padding)."""
+    valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= positions[:, :, None])
+    zero = torch.zeros((), dtype=torch.float32, device=kpos.device)
+    return torch.where(valid, zero, zero + _NEG)[:, None, None]
+
+
+def attention_extend(p, x, positions, past_k, past_v, past_kpos, *,
+                     n_heads: int, n_kv: int, head_dim: int,
+                     rope_theta: float | None = 10000.0):
+    """Prefill continuation against a resident KV prefix (prefix-cache hit).
+
+    ``x`` [B,T,d] are the unmatched tail tokens at absolute ``positions``
+    [B,T]; ``past_k``/``past_v`` [B,C,Hkv,Dh] is the gathered prefix (already
+    rotary-encoded at its own positions, exactly as the pool stores it) with
+    validity mask ``past_kpos`` [B,C] (-1 = padding).  Returns
+    ``(out [B,T,d], k_tail, v_tail)`` — only the tail K/V, for scatter into
+    freshly allocated blocks.  Causal, non-windowed."""
+    b, t, _ = x.shape
+    g = n_heads // n_kv
+    positions = positions.long()
+    q = linear(p["q"], x).reshape(b, t, n_heads, head_dim)
+    k_t = linear(p["k"], x).reshape(b, t, n_kv, head_dim)
+    v_t = linear(p["v"], x).reshape(b, t, n_kv, head_dim)
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k_t = apply_rope(k_t, positions, rope_theta)
+    k = torch.cat([past_k, k_t], dim=1)
+    v = torch.cat([past_v, v_t], dim=1)
+    kpos = torch.cat([past_kpos.long(), positions], dim=1)  # [B, C+T]
+    qg = q.reshape(b, t, n_kv, g, head_dim)
+    out = _sdpa(qg, k, v, _extend_mask(kpos, positions))
+    out = out.reshape(b, t, n_heads * head_dim)
+    return linear(p["o"], out.to(x.dtype)), k_t, v_t
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2): low-rank compressed KV cache
 # ---------------------------------------------------------------------------
@@ -325,3 +368,25 @@ def mla_decode(p, x, cache, pos, *, n_heads, kv_lora, qk_nope, qk_rope, v_dim,
     out = _sdpa(qg, k, v, mask)
     out = out.reshape(b, 1, n_heads * v_dim)
     return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache
+
+
+def mla_extend(p, x, positions, past_c, past_kr, past_kpos, *, n_heads,
+               qk_nope, qk_rope, v_dim, rope_theta=10000.0):
+    """MLA prefill continuation against a resident latent prefix.
+
+    ``past_c`` [B,C,dc] / ``past_kr`` [B,C,Dr] are the gathered compressed-KV
+    prefix (pool layout: the rope branch unrotated, the latent as stored),
+    masked by ``past_kpos`` [B,C].  Returns ``(out, c_tail, kr_tail)``."""
+    b, t, _ = x.shape
+    positions = positions.long()
+    c_t = linear(p["dkv"], x)  # [B,T,dc]
+    kr_t = linear(p["kr"], x)  # [B,T,Dr]
+    c_all = torch.cat([past_c, c_t], dim=1)
+    kr_all = torch.cat([past_kr, kr_t], dim=1)
+    kpos = torch.cat([past_kpos.long(), positions], dim=1)  # [B, C+T]
+    q, k, v = _mla_qkv(p, x, c_all, kr_all, positions, kpos.clamp(min=0),
+                       n_heads, qk_nope, qk_rope, v_dim, rope_theta)
+    qg = q.reshape(b, t, n_heads, 1, qk_nope + qk_rope)
+    out = _sdpa(qg, k, v, _extend_mask(kpos, positions))
+    out = out.reshape(b, t, n_heads * v_dim)
+    return linear(p["o"], out.to(x.dtype)), c_t, kr_t

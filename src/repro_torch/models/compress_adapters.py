@@ -9,7 +9,9 @@ Training derives its group-lasso layouts from these records
 (``training.regularize``), so the groups the prox zeroes are the ones the
 compressor slices; the compressor reads each site's matrix as a float64
 numpy array (:meth:`DenseSite.weight`) and :func:`rebind_site` writes a
-dense-effective map back into a new params tree of tensors.  Site names,
+dense-effective map back into a new params tree of tensors
+(:func:`rebind_site_traced` does the same with a tensor that carries
+autograd, for recovery fine-tuning).  Site names,
 paths, indices and ``transpose`` flags are the reference's, so artifact keys
 cross between the packages.
 
@@ -28,8 +30,8 @@ import torch
 from repro_torch.core.compress import CompressibleConv, CompressibleDense
 
 __all__ = ["DenseSite", "ConvSite", "sites_for", "units_from_sites",
-           "rebind_site", "effective_conv_kernel", "register_family",
-           "FAMILY_SITE_FNS"]
+           "rebind_site", "rebind_site_traced", "effective_conv_kernel",
+           "register_family", "FAMILY_SITE_FNS"]
 
 
 def _to_f64(a) -> np.ndarray:
@@ -120,6 +122,27 @@ def rebind_site(params, site: DenseSite | ConvSite, effective: np.ndarray):
     leaf = _leaf_like(new, arr)
     if site.index:
         out = arr.detach().clone()
+        out[site.index] = leaf
+        leaf = out
+    return _set_in(params, site.path, leaf)
+
+
+def rebind_site_traced(params, site: DenseSite | ConvSite,
+                       effective: torch.Tensor):
+    """:func:`rebind_site` for a tensor ``effective`` that may require
+    grad: no host round trip, so recovery fine-tuning can build its loss
+    through the rebind and differentiate with respect to the compressed
+    parameterization.  The leaf is ``effective`` (transposed for a
+    ``[K, N]`` site) cast to the old leaf's dtype; at an indexed site it is
+    written into a clone of the stacked leaf, so the gradient reaches
+    ``effective`` through the write."""
+    arr = _lookup(params, site.path)
+    new = effective
+    if isinstance(site, DenseSite) and site.transpose:
+        new = new.transpose(-1, -2)
+    leaf = new.to(arr.dtype)
+    if site.index:
+        out = arr.clone()
         out[site.index] = leaf
         leaf = out
     return _set_in(params, site.path, leaf)

@@ -24,15 +24,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 
 from .attention import (KVCache, MLACache, PagedKVCache, PagedMLACache,
-                        attention_decode, attention_prefill, mla_decode,
-                        mla_prefill)
+                        attention_decode, attention_extend, attention_prefill,
+                        mla_decode, mla_extend, mla_prefill)
 from .layers import (linear, non_parametric_ln, rms_norm, site_linear,
                      site_linear_group, swiglu)
 from .moe import moe_ffn
 
 __all__ = ["init_params", "init_params_numpy", "abstract_params", "forward",
-           "logits_from_hidden", "loss_fn", "decode_step", "init_decode_state",
-           "paged_layout"]
+           "forward_extend", "logits_from_hidden", "loss_fn", "decode_step",
+           "init_decode_state", "paged_layout"]
 
 
 def _norm(cfg: ArchConfig, p, x):
@@ -252,6 +252,53 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     x = _norm(cfg, params["final_ln"], x)
     cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
     return x, cache
+
+
+def forward_extend(params, cfg: ArchConfig, tokens, positions, past, last):
+    """Prefix-cache tail prefill: run ``tokens`` [B,T] at absolute
+    ``positions`` [B,T] attending to a resident per-layer KV prefix.
+
+    ``past`` holds the *gathered* pool views for the cached prefix —
+    dense: ``{"k","v": [L,B,C,Hkv,hd], "kpos": [L,B,C]}``; MLA:
+    ``{"c_kv","k_rope","kpos"}`` — masked by ``kpos == -1`` (so padding the
+    prefix view is harmless).  Padded tail entries carry position ``-1``:
+    they are excluded from every real query's key set and their own
+    activations stay confined to their row (an MoE block still routes them,
+    so they take expert capacity, as in the reference).  ``last`` [B]
+    indexes the final real tail token.  Returns ``(logits [B,V] at
+    ``last``, tail caches with [L,B,T,...] leaves)`` — only the tail K/V
+    (MLA: latents), for scatter into freshly allocated blocks.  Dense
+    weights throughout, as the bulk prefill."""
+    _require_supported(cfg)
+    b, t = tokens.shape
+    x = params["embed"][tokens.long()].to(cfg.cdtype)
+    positions = positions.long()
+    outs = ([], [])
+    for li, bp in enumerate(_unbind_layers(params["blocks"], cfg.n_layers)):
+        h = _norm(cfg, bp["ln1"], x)
+        if cfg.mla is not None:
+            m = cfg.mla
+            y, a_t, b_t = mla_extend(
+                bp["attn"], h, positions, past["c_kv"][li],
+                past["k_rope"][li], past["kpos"][li], n_heads=cfg.n_heads,
+                qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_dim=m.v_dim,
+                rope_theta=cfg.rope_theta)
+        else:
+            y, a_t, b_t = attention_extend(
+                bp["attn"], h, positions, past["k"][li], past["v"][li],
+                past["kpos"][li], n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.hd,
+                rope_theta=None if cfg.pos == "none" else cfg.rope_theta)
+        x = x + y
+        x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x))
+        outs[0].append(a_t)
+        outs[1].append(b_t)
+    names = ("c_kv", "k_rope") if cfg.mla is not None else ("k", "v")
+    tails = {n: torch.stack(o) for n, o in zip(names, outs)}
+    h = x[torch.arange(b, device=x.device), last.long()][:, None]  # [B,1,d]
+    h = _norm(cfg, params["final_ln"], h)
+    logits = logits_from_hidden(params, cfg, h)[:, 0]
+    return logits, tails
 
 
 def logits_from_hidden(params, cfg: ArchConfig, h):

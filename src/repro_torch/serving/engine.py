@@ -2,13 +2,24 @@
 
 The engine keeps a fixed decode batch of ``n_slots``; finished sequences free
 their slot and queued requests are prefilled into it (one bulk ``api.prefill``
-writes the slot's KV cache in a single forward).  Decoding is **device-side**:
-one eager step function runs the forward pass, greedy/temperature sampling
-(per-request keys, so draws are independent of slot order and of which other
-requests are in flight), position/budget bookkeeping and the EOS/headroom
-``done`` flags — the host receives a single small packed ``[3, n_slots]``
-tensor (sampled token + emit/done masks) per step instead of round-tripping
-logits.  The KV state is updated in place.
+writes the slot's KV cache in a single forward; ``bulk_prefill=False`` on a
+contiguous engine runs one decode step a prompt token instead).  Decoding
+is **device-side**: one eager step function runs the forward pass,
+greedy/temperature sampling (per-request keys, so draws are independent of
+slot order and of which other requests are in flight), position/budget
+bookkeeping and the EOS/headroom ``done`` flags — the host receives a
+single small packed ``[3, n_slots]`` tensor (sampled token + emit/done
+masks) per step instead of round-tripping logits.  The KV state is updated
+in place.
+
+Paged engines (``kv_block``, the default) keep the cache in a block pool
+(:mod:`repro_torch.serving.kvpool`) with a **prefix cache** (on by default,
+as in the reference): a prompt's full blocks are registered under their
+exact token chain once prefilled; a later prompt that shares them maps the
+same blocks (copy-on-write for a partly shared last block) and prefills
+only its tail, in one ``api.prefill_extend`` forward against the gathered
+resident prefix.  Windowed attention turns sharing off (the ring rewrites
+shared blocks as it wraps).
 
 Scheduling (queues, priorities, admission, streaming callbacks, failed-request
 isolation) lives in :class:`repro_torch.serving.scheduler.Scheduler`;
@@ -24,8 +35,7 @@ attention and, in float32, one expert plan a layer (``moe_plan_matmul``):
 the shift-add runtime the paper targets either way.  Prefill runs on the artifact's dense-effective weights.
 
 Not available yet, and refused with an error when asked for: ``mesh=``
-(multi-device decode), ``prefix_cache=True`` (prefix sharing with its
-tail-extend prefill), and ``metrics=``/``tracer=`` telemetry.
+(multi-device decode) and ``metrics=``/``tracer=`` telemetry.
 """
 from __future__ import annotations
 
@@ -78,22 +88,14 @@ class ServingEngine:
                  temperature: float = 0.0, seed: int = 0,
                  use_kernel: bool = True, bulk_prefill: bool = True,
                  mesh=None, kv_block: int | None = 16,
-                 kv_blocks: int | None = None, prefix_cache: bool = False,
+                 kv_blocks: int | None = None, prefix_cache: bool = True,
                  metrics=None, tracer=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("mesh=: multi-device serving is not "
                                       "available in this package yet")
-        if prefix_cache:
-            raise NotImplementedError("prefix_cache=True: prefix sharing and "
-                                      "its tail-extend prefill are not "
-                                      "available in this package yet")
         if metrics not in (None, False) or tracer not in (None, False):
             raise NotImplementedError("metrics=/tracer=: telemetry is not "
                                       "available in this package yet")
-        if not bulk_prefill:
-            raise NotImplementedError("bulk_prefill=False: the tokenwise "
-                                      "prefill is not available in this "
-                                      "package yet")
         if artifact is not None:
             if cfg is None:
                 cfg = artifact.config
@@ -112,19 +114,24 @@ class ServingEngine:
         self.max_new = max_len
         self.eos = eos_id
         self.temp = temperature
+        self.bulk_prefill = bulk_prefill
         self.seed = seed
         self.metrics = None  # telemetry hooks the scheduler reads
         self.tracer = None
         # paged KV: the cache lives in a block pool (kv_block=None restores
-        # the contiguous per-slot slabs)
-        self.paged = kv_block is not None and api.paged_supported(cfg)
+        # the contiguous per-slot slabs; the tokenwise prefill needs them)
+        self.paged = (kv_block is not None and bulk_prefill
+                      and api.paged_supported(cfg))
         self.pool: KVPool | None = None
         if self.paged:
             bs, mb, nb = api.paged_layout(cfg, max_len, kv_block, kv_blocks,
                                           n_slots)
             self.pool = KVPool(
                 n_slots=n_slots, n_blocks=nb - 1, block_size=bs, view_blocks=mb,
-                prefix_cache=False, windowed=cfg.attn_window is not None)
+                # the tail-extend prefill has no mrope path; windowed rings
+                # rewrite shared prefixes as they wrap — both disable sharing
+                prefix_cache=(prefix_cache and cfg.pos in ("rope", "none")),
+                windowed=cfg.attn_window is not None)
             self.state = api.init_decode_state(cfg, n_slots, max_len,
                                                kv_block=kv_block,
                                                kv_blocks=kv_blocks,
@@ -133,7 +140,8 @@ class ServingEngine:
         else:
             self.state = api.init_decode_state(cfg, n_slots, max_len,
                                                device=self.device)
-        # the per-token cache leaves a prefill writes: MLA caches its latents
+        # the per-token cache leaves a prefill writes (and a paged engine
+        # keeps in its pool): MLA caches its latents
         self._cache_leaves = (("c_kv", "k_rope") if "c_kv" in self.state
                               else ("k", "v"))
         # host mirrors of the device-side per-slot control state
@@ -225,8 +233,8 @@ class ServingEngine:
 
     def can_admit(self, prompt: list[int]) -> bool:
         """Whether ``submit(prompt)`` would succeed *right now*: a free slot,
-        and (paged) enough free blocks.  The scheduler's continuous-batching
-        gate."""
+        and (paged) enough free or evictable blocks after prefix sharing.
+        The scheduler's continuous-batching gate."""
         if self.active.all():
             return False
         return self.pool is None or self.pool.can_admit(prompt)
@@ -262,7 +270,9 @@ class ServingEngine:
         rid = self._next_req
         self._next_req += 1
         t_pre = time.perf_counter()
-        kind = "paged" if self.paged else "bulk"
+        cached_tokens = 0
+        kind = ("paged" if self.paged
+                else "bulk" if self.bulk_prefill else "tokenwise")
         if self.paged:
             plan = self.pool.admit(slot, prompt)
             if plan is None:
@@ -272,10 +282,17 @@ class ServingEngine:
                     f"prompt ({self.pool.available_blocks} available); step() "
                     "until a request finishes")
             self._prefill_slot_paged(slot, prompt, plan)
-        else:
+            self.pool.register_prefix(slot, prompt)
+            cached_tokens = plan.cached_tokens
+        elif kind == "bulk":
             # one bulk forward writes the whole slot cache (and rewrites the
             # full kpos row, so stale entries need no separate reset)
             self._prefill_slot(slot, prompt)
+        else:
+            # the slot column is reset first so the previous occupant's
+            # cache entries and kpos never leak
+            self._reset_slot_state(slot)
+            self._prefill_slot_tokenwise(slot, prompt)
         self.pos[slot] = len(prompt)
         self.active[slot] = True
         self._last_tok[slot] = prompt[-1]
@@ -293,10 +310,50 @@ class ServingEngine:
         self.results[rid] = GenerationResult(
             tokens=list(prompt), prompt_len=len(prompt), finished=False,
             stats={"prefill_s": time.perf_counter() - t_pre,
-                   "prefill_kind": kind, "cached_tokens": 0})
+                   "prefill_kind": kind, "cached_tokens": cached_tokens})
         return rid
 
     # -------------------------------------------------------------- prefill
+    @torch.no_grad()
+    def _reset_slot_state(self, slot: int) -> None:
+        """Clear one slot's column of every decode-state leaf, in place
+        (``kpos`` to -1, caches to 0) so a reused slot never sees its
+        previous occupant's KV entries."""
+        for name, v in self.state.items():
+            v[:, slot] = -1 if "kpos" in name else 0
+
+    @torch.no_grad()
+    def _merge_slot_state(self, old, new, slot: int) -> None:
+        """Copy ``new``'s batch column ``slot`` into ``old``, in place — the
+        tokenwise prefill must not touch other slots' cache."""
+        for name, v in old.items():
+            v[:, slot] = new[name][:, slot]
+
+    @torch.no_grad()
+    def _prefill_slot_tokenwise(self, slot: int, prompt: list[int]) -> None:
+        """Legacy prefill: one decode step per prompt token, through the
+        engine's executor as a decode step goes (kept as the bulk path's
+        equivalence and latency baseline).  Decode rows are independent, so
+        the loop runs on a scratch copy of the state (the other slots feed
+        token 0 at their last position, as in the reference) and only the
+        target slot's column is merged back."""
+        scratch = {k: v.clone() for k, v in self.state.items()}
+        for t, tok in enumerate(prompt):
+            _logits, scratch = api.decode(
+                self.params, self.cfg, scratch, self._token_batch(slot, tok),
+                self._pos_batch(slot, t), executor=self.executor)
+        self._merge_slot_state(self.state, scratch, slot)
+
+    def _token_batch(self, slot: int, tok: int) -> torch.Tensor:
+        t = torch.zeros((self.n_slots, 1), dtype=torch.long)
+        t[slot, 0] = tok
+        return t.to(self.device)
+
+    def _pos_batch(self, slot: int, pos: int) -> torch.Tensor:
+        p = np.asarray(self.pos - 1, np.int64).clip(0)
+        p[slot] = pos
+        return torch.from_numpy(p).to(self.device)
+
     @torch.no_grad()
     def _prefill_caches(self, prompt: list[int]):
         """ONE ``api.prefill`` forward over the prompt -> (k, v) caches
@@ -327,12 +384,24 @@ class ServingEngine:
         st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
 
     # --------------------------------------------------------- paged prefill
+    def _scatter_pool(self, name: str, tbl_row: np.ndarray, vidx: np.ndarray,
+                      vals: torch.Tensor) -> None:
+        """Write per-token values ``vals`` [L, n, ...] into the pool leaf
+        ``name`` at the slot's logical view indices ``vidx`` (block =
+        table[v // bs], offset v % bs)."""
+        bs = self.pool.block_size
+        blocks = torch.from_numpy(tbl_row[vidx // bs].astype(np.int64)).to(self.device)
+        offs = torch.from_numpy((vidx % bs).astype(np.int64)).to(self.device)
+        leaf = self.state[name]
+        leaf[:, blocks, offs] = vals.to(leaf.dtype)
+
     @torch.no_grad()
     def _prefill_slot_paged(self, slot: int, prompt: list[int], plan) -> None:
         """Apply an :class:`~repro_torch.serving.kvpool.AdmitPlan`: install the
-        block table row, prefill the prompt in one bulk forward and scatter
-        the fresh K/V (MLA: latents) into the slot's blocks (block =
-        table[v // bs], offset v % bs)."""
+        block table row, device-copy the COW block, prefill only the
+        non-cached tail (one bulk forward when cold, ``api.prefill_extend``
+        against the gathered resident prefix on a prefix hit), and scatter
+        the fresh K/V (MLA: latents) into the slot's blocks."""
         st = self.state
         cfg, pool = self.cfg, self.pool
         bs, plen = pool.block_size, len(prompt)
@@ -340,25 +409,65 @@ class ServingEngine:
         tbl_row = plan.table
         self._tbl_host[slot] = tbl_row
         st["block_tbl"].copy_(torch.from_numpy(self._tbl_host))
+        if plan.cow is not None:
+            src, dst = plan.cow
+            for name in self._cache_leaves:
+                st[name][:, dst] = st[name][:, src]
+        cached = plan.cached_tokens
         kpos_row = np.full(view, -1, np.int32)
-        if cfg.attn_window is not None:  # ring layout
+        if cfg.attn_window is not None:  # ring layout, no prefix sharing
             ps = np.arange(max(0, plen - view), plen)
             vidx = ps % view
             kpos_row[vidx] = ps
         else:
-            ps = np.arange(plen)
+            ps = np.arange(cached, plen)
             vidx = ps
-            kpos_row[:plen] = ps
-        caches = self._prefill_caches(prompt)
-        blocks = torch.from_numpy(tbl_row[vidx // bs].astype(np.int64)).to(self.device)
-        offs = torch.from_numpy((vidx % bs).astype(np.int64)).to(self.device)
-        ps_d = torch.from_numpy(ps).to(self.device)
-        for name, c_all in zip(self._cache_leaves, caches):
-            st[name][:, blocks, offs] = c_all[:, 0, ps_d].to(st[name].dtype)
+            kpos_row[:plen] = np.arange(plen)
+        if ps.size:  # uncached tail to prefill (cached == plen: nothing —
+            # the first decode step recomputes the last token's K/V anyway)
+            if cached == 0:
+                caches = self._prefill_caches(prompt)
+                ps_d = torch.from_numpy(ps).to(self.device)
+                for name, c_all in zip(self._cache_leaves, caches):
+                    self._scatter_pool(name, tbl_row, vidx, c_all[:, 0, ps_d])
+            else:
+                self._extend_tail(prompt, cached, tbl_row, vidx, view)
         st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
 
+    @torch.no_grad()
+    def _extend_tail(self, prompt: list[int], cached: int, tbl_row: np.ndarray,
+                     vidx: np.ndarray, view: int) -> None:
+        """Prefix-hit tail prefill: gather the resident prefix through the
+        block table (the exact contiguous view), run the tail tokens against
+        it in one forward, scatter the tail K/V back.  The tail is padded to
+        the reference's bucket ``max(8, next power of two)`` at position -1:
+        an MoE block routes the padded rows too, so the same bucket keeps
+        the same expert capacity and drops."""
+        cfg, dev, plen = self.cfg, self.device, len(prompt)
+        tl = plen - cached
+        t_pad = max(8, 1 << (tl - 1).bit_length())
+        toks = torch.zeros((1, t_pad), dtype=torch.long)
+        toks[0, :tl] = torch.tensor(prompt[cached:])
+        posn = torch.full((1, t_pad), -1, dtype=torch.long)
+        posn[0, :tl] = torch.arange(cached, plen)
+        tbl = torch.from_numpy(tbl_row.astype(np.int64)).to(dev)
+        past = {}
+        for name in self._cache_leaves:
+            pool_leaf = self.state[name]  # [L, Nb, bs, ...]
+            past[name] = pool_leaf[:, tbl].reshape(
+                pool_leaf.shape[0], 1, view, *pool_leaf.shape[3:])
+        pk = torch.full((1, view), -1, dtype=torch.int32)
+        pk[0, :cached] = torch.arange(cached)
+        past["kpos"] = pk.to(dev)[None].expand(cfg.n_layers, 1, view)
+        _logits, tails = api.prefill_extend(
+            self.params, cfg, toks.to(dev), posn.to(dev), past,
+            torch.tensor([tl - 1], device=dev))
+        for name, tail in tails.items():  # [L, 1, t_pad, ...]
+            self._scatter_pool(name, tbl_row, vidx, tail[:, 0, :tl])
+
     def _release_slot(self, slot: int) -> None:
-        """Return a retired slot's blocks to the pool and clear its table row."""
+        """Return a retired slot's blocks to the pool (registered prefix
+        blocks stay cached) and clear its table row."""
         self.pool.release(slot)
         self._tbl_host[slot] = 0
         self.state["block_tbl"].copy_(torch.from_numpy(self._tbl_host))

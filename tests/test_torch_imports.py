@@ -45,6 +45,10 @@ print("ARTIFACT", all(n in names for n in (
     "repro_torch.checkpoint.msgpack_codec",
     "repro_torch.checkpoint.checkpointer", "repro_torch.core.artifact",
     "repro_torch.pipeline.cache", "repro_torch.launch.compress")))
+print("RECOVER", all(n in names for n in (
+    "repro_torch.training.recover", "repro_torch.models.compress_adapters",
+    "repro_torch.launch.train", "repro_torch.models.attention",
+    "repro_torch.serving.engine", "repro_torch.launch.serve")))
 print("MSGPACK", sorted(m for m in sys.modules if m.split(".")[0] == "msgpack"))
 print("BAD", bad)
 """
@@ -75,6 +79,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     assert lines["SLICE5"] == "True"  # K4 and deepseek-v2-lite
     assert lines["COMPRESSOR"] == "True"  # Algorithm 1 and its pipeline
     assert lines["ARTIFACT"] == "True"  # the artifact on disk, its codec
+    assert lines["RECOVER"] == "True"  # recovery, the prefix cache's modules
     assert lines["MSGPACK"] == "[]"  # the codec is the port's own
     assert lines["BAD"] == "[]"
 
@@ -113,7 +118,8 @@ def test_no_source_file_of_the_port_names_jax_or_repro():
     assert SRC / "repro_torch" / "training" / "trainer.py" in files
     assert SRC / "repro_torch" / "kernels" / "lcc_matmul.py" in files
     for mod in ("core/csd.py", "core/cost.py", "core/conv_reshape.py",
-                "pipeline/jobs.py", "pipeline/runner.py", "models/flops.py"):
+                "pipeline/jobs.py", "pipeline/runner.py", "models/flops.py",
+                "training/recover.py"):
         assert SRC / "repro_torch" / mod in files
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]

@@ -55,8 +55,8 @@ def _run(engine_cls, sched_cls, art, prompts, max_new, **kw):
 def test_greedy_token_streams_identical_to_the_reference_engine(arts):
     jart, tart = arts
     prompts = _prompts(3)
-    _, _, jres = _run(JEngine, JScheduler, jart, prompts, 6,
-                      prefix_cache=False, metrics=False)
+    # both engines at their default, the prefix cache on
+    jeng, _, jres = _run(JEngine, JScheduler, jart, prompts, 6, metrics=False)
     eng, sched, tres = _run(ServingEngine, Scheduler, tart, prompts, 6,
                             device="cpu")
     for jr, tr in zip(jres, tres):
@@ -70,7 +70,10 @@ def test_greedy_token_streams_identical_to_the_reference_engine(arts):
     assert eng.executor.routed == eng.executor.sites
     assert eng.pool.in_use_blocks == 0 and not eng.active.any()
     ps = eng.pool_stats()
-    assert ps["peak_in_use_blocks"] > 0 and ps["free_blocks"] == ps["n_blocks"]
+    # every block is back: free, or kept by the prefix cache for a later hit
+    assert ps["peak_in_use_blocks"] > 0 and ps["cached_blocks"] > 0
+    assert ps["free_blocks"] + ps["cached_blocks"] == ps["n_blocks"]
+    assert ps == jeng.pool_stats()
 
 
 def test_routes_agree_kernel_dense_contiguous(arts):
@@ -215,10 +218,8 @@ def test_sampling_is_independent_of_slot_placement(arts):
 
 @pytest.mark.parametrize("kw,msg", [
     (dict(mesh=object()), "mesh"),
-    (dict(prefix_cache=True), "prefix_cache"),
     (dict(metrics=object()), "telemetry"),
     (dict(tracer=True), "telemetry"),
-    (dict(bulk_prefill=False), "bulk_prefill"),
 ])
 def test_refused_options_raise(arts, kw, msg):
     _, tart = arts

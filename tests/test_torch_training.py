@@ -222,7 +222,6 @@ def test_mlp_refuses_checkpoints():
 REFUSED = [("--mesh", "2x2", "distributed/"), ("--devices", "4", "distributed/"),
            ("--grad-compression", None, "distributed/"),
            ("--elastic-demo", None, "distributed/"),
-           ("--compress-out", "out", "A2"), ("--recover", "5", "A2"),
            ("--metrics-out", "m.json", "obs/")]
 
 
