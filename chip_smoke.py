@@ -115,7 +115,24 @@ kernel on those paths against its plain PyTorch version:
    a line of its own); the reference launcher's --quickstart olmo-1b compressed by
    the port and served through ``ServingEngine(artifact=...)``, bf16 on the
    per-region route and float32 on the plan route, greedy tokens equal to
-   the dense-effective forward's, launches a step as predicted.
+   the dense-effective forward's, launches a step as predicted;
+10. ResNet-34 (``--only resnet`` runs it alone): the paper's second model at
+   full width (widths 64-512, 36 conv sites, 200 classes) on the seeded conv
+   artifact (``testing.seeded_conv_artifact``: a chain for every input
+   channel), TinyImageNet-shaped 64 x 64 textures, in FK and in PK: the
+   forward at B = 8 through ``CompressedExecutor`` (36 K2 launches, the
+   head's K1 and its region prep), fused logits against the dense-effective
+   ``F.conv2d`` forward, ``routed == sites``; K2 at every distinct conv
+   launch shape (stem to stage 4, the 1x1 ``proj``) against its plain
+   version, bit for bit in its order, beside its bound and one ``bmm``; at
+   B = 8 and 32 ms a forward, images/s, peak device bytes, K2 ms by stage,
+   a profiled forward and the cuDNN forward beside; then the reduced
+   ResNet trained on the card as the reference's example trains it,
+   compressed for real on the card's host (Table I: FK/PK x FP/FS), each
+   artifact saved, loaded and served through ``ConvLCC`` (accuracy dense
+   -> effective -> fused); then, inside the phase's share of the script,
+   ResNet-34 compressed on every 32nd input channel and served (chains
+   through K2 beside the residual conv).
 
 One JSON object per line (a phase's line carries ``at_s``, the seconds since
 the start); a failed phase ends the run with a non-zero exit.
@@ -386,10 +403,13 @@ def live_terms(packed_list) -> int:
     return total
 
 
-def chain_bound(packed_list, k_rows, n_out, b):
+def chain_bound(packed_list, k_rows, b):
     """(bound_ms, bound_by): streams + input + output bytes over the memory
-    rate against 2 operations per live term and column over the f32 rate."""
+    rate against 2 operations per live term and column over the f32 rate.
+    The output is the members' own rows (``out_dim``), not the padded rows
+    the kernel's layout writes."""
     terms = live_terms(packed_list)
+    n_out = sum(m.out_dim for m in packed_list)
     bytes_ = 6 * terms + 4 * b * (k_rows + n_out)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * terms * b / F32_FLOPS * 1e3
@@ -446,7 +466,7 @@ def kernel_case_chain(label, pk, rng, dev, timer, sm, batch=BATCH):
         "lcc_chain_matmul", label, dict(E=e, P=p, N=n, S=s, K=k, B=batch),
         (e, p, n, s, k, batch), err, exact,
         lambda: lcc_chain_matmul(*args), lambda: lcc_chain_matmul_plain(*args),
-        lambda: torch.matmul(w_eff, x), chain_bound([pk], k, n, batch), timer,
+        lambda: torch.matmul(w_eff, x), chain_bound([pk], k, batch), timer,
         warm_l2_ms=timer(lambda: lcc_chain_matmul(*args), cold=False))
 
 
@@ -479,7 +499,7 @@ def kernel_case_group(label, members, rng, dev, timer, sm, batch=BATCH):
         "lcc_group_matmul", label, dict(G=g, E=e, P=p, N=n, S=s, K=k, B=batch),
         (g, e, p, n, s, k, batch), err, True,
         lambda: lcc_group_matmul(*args), lambda: lcc_group_matmul_plain(*args),
-        lambda: torch.bmm(w_eff, xg), chain_bound(members, k, g * n, batch),
+        lambda: torch.bmm(w_eff, xg), chain_bound(members, k, batch),
         timer, warm_l2_ms=timer(lambda: lcc_group_matmul(*args), cold=False))
 
 
@@ -1919,6 +1939,18 @@ def phase_reduced_serve(dev, cfg, *, n_slots=4, n_prompts=3):
                 dropped_kernel_plain=drops)
 
 
+def device_ms_by_name(prof, per: int = 1):
+    """A profile's device ms by kernel name (each divided by ``per``) and
+    launches by name, for the kernels that took device time."""
+    by_name, counts = {}, {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3 / per
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return by_name, counts
+
+
 def profile_steps(eng, prompts, n_steps: int = 4):
     """Where a steady decode step's time goes on a warm engine, three windows
     of ``n_steps`` steps each: the host's wall time with every profiler off;
@@ -1951,13 +1983,8 @@ def profile_steps(eng, prompts, n_steps: int = 4):
     host.disable()
     while eng.active.any():
         eng.step()
-    by_name, launched, counts = {}, 0, {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3 / n_steps
-            launched += ev.count
-            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    by_name, counts = device_ms_by_name(prof, n_steps)
+    launched = sum(counts.values())
     busy = sum(by_name.values())
     if busy <= 0:
         fail("the profiler reported no device time for the decode steps")
@@ -2662,11 +2689,7 @@ def profile_prefill(eng, prompt):
     eng.cancel(rid)
     if eng.pool_stats()["in_use_blocks"] != 0:
         fail("prefix serve: the profiled request left blocks in use")
-    by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or 0
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    by_name, _ = device_ms_by_name(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return dict(cached_tokens=eng.results[rid].stats["cached_tokens"],
@@ -3608,12 +3631,8 @@ def profile_train_step(cfg, opt, specs, state, batch):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
-    by_name, launched = {}, 0
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if dev_us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + dev_us / 1e3
-            launched += e.count
+    by_name, counts = device_ms_by_name(prof)
+    launched = sum(counts.values())
     busy = sum(by_name.values())
     if busy <= 0:
         fail("the profiler reported no device time for the train step")
@@ -4392,6 +4411,455 @@ def phase_compress(dev, trained=None):
     return rows, serves
 
 
+# ------------------------------------------ ResNet-34: conv units (K2)
+
+
+RESNET_SIZE = 64  # TinyImageNet's 64 x 64 images
+RESNET_CLASSES = 200
+RESNET_BATCHES = (8, 32)
+RESNET_GATED = 8  # the batch whose forward's launches the kernel rows hold
+RESNET_METHODS = ("fk", "pk")
+RESNET_SEED = 3
+# fused logits vs the dense-effective forward (F.conv2d, float32, TF32
+# off): both float32, each conv's channel sums in other orders, 36 convs deep
+RESNET_TOL = 1e-3
+# the reduced loop, the recipe of the JAX package's example
+# (examples/resnet_compress.py): 512 textures of 24 x 24, 6 classes, 12
+# epochs of SGD
+SMALL_TRAIN = dict(n=512, size=24, classes=6, epochs=12, batch=64, lr=0.05)
+SMALL_TEST = 128
+RESNET_WORKERS = 4
+# ResNet-34 compressed for real on every 32nd channel (the reference's
+# conv_channel_subsample), under --only resnet
+SAMPLED_SUBSAMPLE = 32
+
+
+class ConvRecorder:
+    """An executor proxy that keeps each conv site's input, stride and
+    padding as the forward hands them over (the kernel rows rebuild each
+    launch's input from them, as ``ConvLCC`` does)."""
+
+    def __init__(self, ex):
+        self.ex, self.seen = ex, {}
+
+    def conv(self, name):
+        cv = self.ex.conv(name)
+        if cv is None:
+            return None
+
+        def run(h, stride=1, padding="SAME"):
+            self.seen[name] = (h, stride, padding)
+            return cv(h, stride=stride, padding=padding)
+        return run
+
+    def matvec(self, name):
+        return self.ex.matvec(name)
+
+
+def resnet_stage(name, cfg) -> str:
+    """``stem``, ``stage1`` .. ``stage4`` of a conv site."""
+    if not name.startswith("block"):
+        return name
+    i = int(name[len("block"):].split(".")[0])
+    return f"stage{int(np.searchsorted(np.cumsum(cfg.stages), i, 'right')) + 1}"
+
+
+def resnet_images(batch, seed, dev):
+    """``batch`` TinyImageNet-shaped procedural textures (images, labels)."""
+    from repro_torch.data.synthetic import textures_like
+
+    x, y = textures_like(batch, size=RESNET_SIZE, classes=RESNET_CLASSES,
+                         seed=seed)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def profile_forward(fn) -> dict:
+    """One profiled forward (device activity only): device busy ms, K2's
+    ms (its chain and reduce kernels) and the top kernels by device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, _ = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    if busy <= 0:
+        fail("the profiler reported no device time for the ResNet forward")
+    k2 = sum(v for k, v in by_name.items()
+             if "lcc_chain_kernel" in k or "lcc_reduce_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(device_busy_ms=busy, k2_device_ms=k2,
+                top_device_ms={k.replace("(anonymous namespace)::", "")[:48]:
+                               round(v, 4) for k, v in top})
+
+
+def kernel_case_conv(label, cv, xs, dev, timer, sm, serve):
+    """K2 at one conv site's launch: the site's group (one member a
+    decomposed input channel) on the FK patches / PK windows ``ConvLCC``
+    extracts from the site's input in the served forward.  Against its
+    plain version (``SUM_TOL``), bit for bit in the kernel's order, and
+    against the dense members (one ``bmm`` over ``[G, N, K_g] x [G, K_g,
+    B]``, the library yardstick)."""
+    pg = cv.group
+    ds = pg.on(dev)
+    args = (ds.idx, ds.exp, ds.sign, xs, ds.slice_c0, ds.slice_w, ds.chain_len)
+    y = lcc_group_matmul(*args)
+    torch.cuda.synchronize()
+    err = check_close(label, y, lcc_group_matmul_plain(*args), SUM_TOL)
+    if not torch.equal(y, ordered_plain(ds, xs, sm)):
+        fail(f"{label}: kernel differs from the plain version summed in the "
+             "kernel's own (fixed) slice order")
+    torch.cuda.empty_cache()
+    g, e, p, n, s = pg.idx.shape
+    kg = pg.members[0].in_dim
+    w_eff = torch.stack([decomposition_dense(m, dev) for m in pg.members])
+    xg = xs.view(g, kg, xs.shape[1])
+    check_close(label + " vs dense", y[:, : w_eff.shape[1]],
+                torch.bmm(w_eff, xg), 1e-4)
+    del y
+    k, b = xs.shape
+    return kernel_row(
+        "lcc_group_matmul", label,
+        dict(G=g, E=e, P=p, N=n, S=s, K=k, K_g=kg, B=b, method=cv.method),
+        (g, e, p, n, s, k, b), err, True,
+        lambda: lcc_group_matmul(*args), lambda: lcc_group_matmul_plain(*args),
+        lambda: torch.bmm(w_eff, xg), chain_bound(pg.members, k, b),
+        timer, serve=serve,
+        warm_l2_ms=timer(lambda: lcc_group_matmul(*args), cold=False))
+
+
+def k2_ms_by_stage(cfg, ex, rec, timer) -> dict:
+    """K2's device ms a forward by stage: every conv site's launch at its
+    served input, timed alone (median, L2 flushed), summed by stage."""
+    out = {}
+    for name, (h, stride, padding) in rec.seen.items():
+        cv = ex._convs[name]
+        xs = cv.group_input(h, stride=stride, padding=padding)
+        ds = cv.group.on(xs.device)
+        args = (ds.idx, ds.exp, ds.sign, xs, ds.slice_c0, ds.slice_w,
+                ds.chain_len)
+        st = resnet_stage(name, cfg)
+        out[st] = out.get(st, 0.0) + timer(lambda: lcc_group_matmul(*args))
+        del xs, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet_serve(dev, method, timer, sm, batches=RESNET_BATCHES):
+    """ResNet-34 (``resnet34_config(200)``) at full width on the seeded conv
+    artifact in ``method`` (FK or PK), TinyImageNet-shaped textures: the
+    forward at B = 8 with its counts reset just before and read just after
+    (36 K2, the head's K1 and its region prep), fused logits against the
+    dense-effective ``F.conv2d`` forward; K2 at every distinct launch shape
+    of that forward, the head's K1 and K3 as kernel rows; at each of
+    ``batches`` ms a forward (CUDA events around one forward, median of 3),
+    images/s, peak device bytes, K2 ms by stage, a profiled forward and the
+    cuDNN forward beside."""
+    from repro_torch.models.resnet import resnet34_config, resnet_forward
+    from repro_torch.testing import seeded_conv_artifact
+
+    cfg = resnet34_config(classes=RESNET_CLASSES)
+    serve = f"resnet-34 {method}"
+    t_phase = t0 = time.perf_counter()
+    art = seeded_conv_artifact(cfg, seed=RESNET_SEED, device=dev, method=method)
+    fixture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = CompressedExecutor(art, device=dev)
+    pack_s = time.perf_counter() - t0
+    head, k_head = ex._matvecs["head"], cfg.widths[-1]
+    want = {"lcc_group_matmul": len(ex._convs), "lcc_chain_matmul": 1}
+    if head.prep.launches(torch.empty(k_head, 1)):
+        want["region_prep"] = 1
+    x8, _ = resnet_images(RESNET_GATED, RESNET_GATED, dev)
+    rec = ConvRecorder(ex)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        resnet_forward(art.params, x8, executor=rec)  # uploads the groups
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        dispatch.reset_launch_count()  # counts of the served forward start here ...
+        y8 = resnet_forward(art.params, x8, executor=ex)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()  # ... and are read here
+        by_shape = dispatch.launch_counts_by_shape()
+        if counts != want:
+            fail(f"{serve}: the forward launched {counts}, predicted {want}")
+        if ex.routed != ex.sites or len(ex.sites) != len(art.records):
+            fail(f"{serve}: routed {len(ex.routed)} of {len(ex.sites)} sites")
+        err = check_close(f"{serve} fused vs dense-effective", y8,
+                          resnet_forward(art.params, x8), RESNET_TOL)
+        rows, shapes = [], set()
+        for name, (h, stride, padding) in rec.seen.items():
+            cv = ex._convs[name]
+            xs = cv.group_input(h, stride=stride, padding=padding)
+            key = (*cv.group.idx.shape, *xs.shape)
+            if key not in shapes:
+                shapes.add(key)
+                g, _, _, n, _ = cv.group.idx.shape
+                rows.append(kernel_case_conv(
+                    f"{serve} {name} G={g} N={n} B={xs.shape[1]}", cv, xs,
+                    dev, timer, sm, serve))
+            del xs
+        pk = head.packed
+        row = kernel_case_chain(
+            f"{serve} head E={pk.idx.shape[0]} N={pk.out_dim} K={pk.in_dim} "
+            f"B={RESNET_GATED}", pk, np.random.default_rng(61), dev, timer,
+            sm, batch=RESNET_GATED)
+        rows.append({**row, "serve": serve})
+        if "region_prep" in want:
+            rows.append(kernel_case_prep(
+                f"{serve} head prep K={k_head} B={RESNET_GATED}", head.prep,
+                k_head, RESNET_GATED, torch.float32, False, dev, timer,
+                serve=serve))
+    del rec, y8
+    per_batch = {}
+    short = Timer(dev, iters=3)
+    for b in batches:
+        xb, _ = resnet_images(b, b, dev)
+        rec_b = ConvRecorder(ex)
+        with torch.no_grad():
+            dispatch.reset_launch_count()
+            yb = resnet_forward(art.params, xb, executor=rec_b)
+            torch.cuda.synchronize()
+            cb = dispatch.launch_counts()
+            if cb != want:
+                fail(f"{serve} B={b}: the forward launched {cb}, predicted "
+                     f"{want}")
+            err_b = check_close(f"{serve} B={b} fused vs dense-effective", yb,
+                                resnet_forward(art.params, xb), RESNET_TOL)
+            del yb
+            torch.cuda.reset_peak_memory_stats(dev)
+            fused = short(lambda: resnet_forward(art.params, xb, executor=ex),
+                          cold=False)
+            peak = torch.cuda.max_memory_allocated(dev)
+            cudnn = short(lambda: resnet_forward(art.params, xb), cold=False)
+            prof = profile_forward(
+                lambda: resnet_forward(art.params, xb, executor=ex))
+            k2 = k2_ms_by_stage(cfg, ex, rec_b, short)
+        per_batch[b] = dict(
+            ms_per_forward=fused, images_per_s=b / fused * 1e3,
+            cudnn_ms_per_forward=cudnn, cudnn_images_per_s=b / cudnn * 1e3,
+            peak_device_bytes=peak, launches=cb,
+            logits_vs_dense_effective=err_b,
+            k2_ms_by_stage=k2, k2_ms=sum(k2.values()),
+            profiled=prof,
+            device_idle_share=max(0.0, 1.0 - prof["device_busy_ms"] / fused))
+        del rec_b, xb
+        torch.cuda.empty_cache()
+    stream_bytes = sum(cv.group.idx.nbytes + cv.group.exp.nbytes
+                       + cv.group.sign.nbytes for cv in ex._convs.values())
+    line = dict(phase="resnet_serve", serve=serve, model="resnet-34",
+                method=method, classes=RESNET_CLASSES,
+                image=[3, RESNET_SIZE, RESNET_SIZE],
+                conv_sites=len(ex._convs),
+                channels=sum(len(cv.channels) for cv in ex._convs.values()),
+                fixture_s=fixture_s, pack_s=pack_s, first_forward_s=first_s,
+                k2_stream_bytes=stream_bytes,
+                launches_per_forward=counts, predicted=want,
+                routed_equals_sites=True, logits_vs_dense_effective=err,
+                tol=RESNET_TOL, k2_shapes=len(shapes), per_batch=per_batch,
+                seconds=time.perf_counter() - t_phase)
+    del ex, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, rows, (counts, by_shape, 1)
+
+
+def train_resnet_small(dev):
+    """The reduced ResNet trained on textures as the reference's example
+    trains it (SGD, momentum 0.9, lr 0.05, batch 64, 12 epochs).  Returns
+    ``(params, cfg, (x_test, y_test), dense accuracy, train s, mean loss
+    an epoch)``."""
+    from repro_torch.data.synthetic import batches, textures_like
+    from repro_torch.models.resnet import (init_resnet, resnet_loss,
+                                           resnet_small_config)
+    from repro_torch.optim.optimizers import sgd, tree_leaves, tree_map
+
+    t = SMALL_TRAIN
+    cfg = resnet_small_config(classes=t["classes"])
+    xs, ys = textures_like(t["n"], size=t["size"], classes=t["classes"], seed=0)
+    xte, yte = textures_like(SMALL_TEST, size=t["size"], classes=t["classes"],
+                             seed=1)
+    params = init_resnet(torch.Generator().manual_seed(0), cfg, dev)
+    opt = sgd(momentum=0.9)
+    state = opt.init(params)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    # the loss sits near ln 6 for a few epochs before it falls, so a run
+    # amplifies rounding: cuDNN's deterministic algorithms make the card's
+    # run repeatable from call to call
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    losses = []
+    t0 = time.perf_counter()
+    for ep in range(t["epochs"]):
+        ep_loss = []
+        for xb, yb in batches(xs, ys, t["batch"], seed=ep):
+            loss = resnet_loss(params, torch.from_numpy(xb).to(dev),
+                               torch.from_numpy(yb).to(dev))
+            it = iter(torch.autograd.grad(loss, leaves))
+            grads = tree_map(lambda _: next(it), params)
+            params, state = opt.update(grads, state, params, t["lr"])
+            ep_loss.append(loss.detach())
+        losses.append(float(torch.stack(ep_loss).mean()))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+    params = tree_map(lambda p: p.detach(), params)
+    test = (torch.from_numpy(xte).to(dev), torch.from_numpy(yte).to(dev))
+    return params, cfg, test, resnet_accuracy(params, test), train_s, losses
+
+
+def resnet_accuracy(params, test, executor=None) -> float:
+    from repro_torch.models.resnet import resnet_forward
+
+    with torch.no_grad():
+        logits = resnet_forward(params, test[0], executor=executor)
+    return float((torch.argmax(logits, -1) == test[1]).float().mean())
+
+
+def phase_resnet_small(dev):
+    """The paper's Table I loop on the reduced ResNet, for real: trained on
+    the card, compressed on its host (the residual blocks, FK/PK x FP/FS, no
+    sharing, :data:`RESNET_WORKERS` workers), each artifact saved, loaded
+    and served through ``ConvLCC`` (FP: one K2 launch a block conv; FS: the
+    members' dense fallbacks); accuracy dense -> effective kernels -> fused,
+    the fused logits within ``STEP_TOL`` of the effective forward."""
+    from repro_torch.core.compress import CompressionConfig
+    from repro_torch.models.resnet import resnet_forward
+
+    t_phase = time.perf_counter()
+    params, cfg, test, acc_dense, train_s, losses = train_resnet_small(dev)
+    grid = []
+    for method in RESNET_METHODS:
+        for alg in ("fp", "fs"):
+            t0 = time.perf_counter()
+            art = api.compress_model(
+                params, cfg, CompressionConfig(algorithm=alg,
+                                               conv_method=method,
+                                               weight_sharing=False),
+                include="block", n_workers=RESNET_WORKERS, build_packed=False)
+            wall = time.perf_counter() - t0
+            back, save_s, load_s, nbytes = save_and_load(art, dev)
+            ex = CompressedExecutor(back, device=dev)
+            with torch.no_grad():
+                dispatch.reset_launch_count()
+                fused = resnet_forward(back.params, test[0], executor=ex)
+                torch.cuda.synchronize()
+                counts = dispatch.launch_counts()
+                eff = resnet_forward(back.params, test[0])
+            k2 = counts.get("lcc_group_matmul", 0)
+            if ex.routed != ex.sites or k2 != (len(ex._convs) if alg == "fp"
+                                               else 0):
+                fail(f"resnet-small {method}/{alg}: routed "
+                     f"{len(ex.routed)}/{len(ex.sites)}, launches {counts}")
+            err = check_close(f"resnet-small {method}/{alg} fused vs effective",
+                              fused, eff, STEP_TOL)
+            rep = art.report
+            grid.append(dict(
+                method=method, alg=alg, adds_ratio=rep.ratio("lcc"),
+                baseline_adds=rep.total_baseline(),
+                lcc_adds=rep.total_stage("lcc"), compress_wall_s=wall,
+                jobs=art.pipeline_stats["jobs"], save_s=save_s, load_s=load_s,
+                bytes=nbytes, launches=counts, fused_vs_effective=err,
+                accuracy=dict(dense=acc_dense,
+                              effective=float((torch.argmax(eff, -1) == test[1])
+                                              .float().mean()),
+                              fused=float((torch.argmax(fused, -1) == test[1])
+                                          .float().mean()))))
+            del art, back, ex
+    return dict(phase="resnet_small", config=dict(stages=list(cfg.stages),
+                                                  widths=list(cfg.widths),
+                                                  classes=cfg.classes),
+                train=dict(SMALL_TRAIN, test=SMALL_TEST, train_s=train_s,
+                           loss_by_epoch=losses, accuracy=acc_dense),
+                workers=RESNET_WORKERS, table1=grid,
+                seconds=time.perf_counter() - t_phase)
+
+
+def phase_resnet_sampled(dev, timer):
+    """ResNet-34 at full width compressed for real on every
+    :data:`SAMPLED_SUBSAMPLE`-th input channel (FK, FP, no sharing; random
+    He-normal weights), served through ``ConvLCC`` at B = 8: the sampled
+    channels' chains through K2 beside the residual ``F.conv2d`` of the
+    others, the head through K1; logits against the dense-effective
+    forward."""
+    from repro_torch.core.compress import CompressionConfig
+    from repro_torch.models.resnet import (init_resnet, resnet34_config,
+                                           resnet_forward)
+
+    cfg = resnet34_config(classes=RESNET_CLASSES)
+    t_phase = time.perf_counter()
+    params = init_resnet(torch.Generator().manual_seed(1), cfg, dev)
+    t0 = time.perf_counter()
+    art = api.compress_model(
+        params, cfg, CompressionConfig(algorithm="fp", conv_method="fk",
+                                       weight_sharing=False),
+        conv_channel_subsample=SAMPLED_SUBSAMPLE, n_workers=RESNET_WORKERS)
+    wall = time.perf_counter() - t0
+    ex = CompressedExecutor(art, device=dev)
+    x, _ = resnet_images(RESNET_GATED, 99, dev)
+    with torch.no_grad():
+        resnet_forward(art.params, x, executor=ex)
+        torch.cuda.synchronize()
+        dispatch.reset_launch_count()
+        fused = resnet_forward(art.params, x, executor=ex)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+        err = check_close("resnet-34 sampled fused vs dense-effective", fused,
+                          resnet_forward(art.params, x), RESNET_TOL)
+        ms = timer(lambda: resnet_forward(art.params, x, executor=ex),
+                   cold=False)
+    if counts.get("lcc_group_matmul") != len(ex._convs) or \
+            ex.routed != ex.sites:
+        fail(f"resnet-34 sampled: launches {counts}, routed "
+             f"{len(ex.routed)}/{len(ex.sites)}")
+    rep = art.report
+    return dict(phase="resnet_sampled", subsample=SAMPLED_SUBSAMPLE,
+                channels=sum(len(cv.channels) for cv in ex._convs.values()),
+                residual_sites=sum(cv.rest is not None
+                                   for cv in ex._convs.values()),
+                compress_wall_s=wall, jobs=art.pipeline_stats["jobs"],
+                adds_ratio=rep.ratio("lcc"), baseline_adds=rep.total_baseline(),
+                lcc_adds=rep.total_stage("lcc"), launches_per_forward=counts,
+                logits_vs_dense_effective=err, tol=RESNET_TOL,
+                ms_per_forward=ms, batch=RESNET_GATED,
+                seconds=time.perf_counter() - t_phase)
+
+
+def run_resnet(dev, full: bool):
+    """ResNet-34 served at full width in FK and PK (the kernel rows of both
+    serves, their forwards timed at B = 8, FK's also at 32) and the reduced
+    ResNet's Table I loop for real; ``full`` (``--only resnet``) adds PK's
+    forward at B = 32 and ResNet-34 compressed on sampled channels, which
+    the whole script has no time for."""
+    from repro_torch.pipeline import runner
+
+    t0 = time.perf_counter()
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, serves = [], {}
+    for method in RESNET_METHODS:
+        batches = (RESNET_BATCHES if full or method == "fk"
+                   else RESNET_BATCHES[:1])
+        line, mrows, serves[line["serve"]] = phase_resnet_serve(
+            dev, method, timer, sm, batches)
+        emit(line)
+        rows += mrows
+    emit(phase_resnet_small(dev))
+    if full:
+        emit(phase_resnet_sampled(dev, Timer(dev, iters=3)))
+    runner.shutdown_workers(wait=True)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="resnet", seconds=time.perf_counter() - t0))
+    return rows, serves
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None,
@@ -4399,7 +4867,7 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
                                        "attention", "prep", "artifact",
                                        "prefix", "mixtral", "deepseek",
-                                       "train", "compress"),
+                                       "train", "compress", "resnet"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
@@ -4435,7 +4903,12 @@ def main() -> None:
                          "quickstart olmo-1b compressed and served on both "
                          "routes; each artifact saved, loaded and served "
                          "again; the compress launcher SIGKILLed and "
-                         "resumed) (no final ok line in any case)")
+                         "resumed); resnet: ResNet-34 served at full width "
+                         "in FK and PK on the seeded conv artifact (K2 at "
+                         "every conv shape, the head's K1 and K3), the "
+                         "reduced ResNet's Table I loop, and, left out of "
+                         "the full run, PK's forward at B = 32 and ResNet-34 "
+                         "on sampled channels (no final ok line in any case)")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -4519,6 +4992,12 @@ def main() -> None:
         crows, cserves = phase_compress(dev, trained)
         rows += crows
         serves.update(cserves)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "resnet"):
+        rrows, rserves = run_resnet(dev, full=args.only == "resnet")
+        rows += rrows
+        serves.update(rserves)
 
     # the whole steps and K9 at the serves' dimensions: compositions of the
     # kernels below, with no launch of their own

@@ -130,7 +130,9 @@ def _pack_leaves(leaves: list) -> list[dict]:
     """Leaf envelopes ``{dtype, shape, data, crc}`` (``data``: the host
     array itself, written out by the encoder)."""
     arrays = [_leaf_array(x) for x in leaves]
-    crcs = _crcs([memoryview(a).cast("B") for _, a in arrays])
+    # an empty leaf (an FS program without nodes: [0, 6]) has no bytes to
+    # sum, and a memoryview with a zero in its shape cannot be cast
+    crcs = _crcs([memoryview(a).cast("B") if a.size else b"" for _, a in arrays])
     return [{"dtype": dt, "shape": list(a.shape), "data": a, "crc": c}
             for (dt, a), c in zip(arrays, crcs)]
 

@@ -78,7 +78,8 @@ def _bin_view(obj) -> memoryview:
     if n > BIN_LIMIT:
         raise _Oversize(n)
     if isinstance(obj, np.ndarray):
-        obj = np.ascontiguousarray(obj)
+        # reshape(-1): a view with a zero in its shape cannot be cast
+        obj = np.ascontiguousarray(obj).reshape(-1)
     return memoryview(obj).cast("B")
 
 

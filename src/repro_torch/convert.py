@@ -20,8 +20,9 @@ from repro_torch.core.weight_sharing import SharedLayer
 from repro_torch.kernels.ops import PackedDecomposition, PackedStage
 
 __all__ = ["params_from_numpy", "mlp_params_from_numpy",
-           "train_state_from_numpy", "artifact_from_reference",
-           "config_from_reference", "decomposition_from_reference",
+           "resnet_params_from_numpy", "train_state_from_numpy",
+           "artifact_from_reference", "config_from_reference",
+           "conv_record_from_reference", "decomposition_from_reference",
            "packed_from_reference", "report_from_reference",
            "stage_from_reference"]
 
@@ -70,6 +71,14 @@ def mlp_params_from_numpy(tree, device="cuda", dtype=torch.float32):
     return params_from_numpy(tree, None, device, _dtype=dtype)
 
 
+def resnet_params_from_numpy(tree, cfg, device="cuda"):
+    """The ResNet's parameters (``stem``, a ``blocks`` list of dicts,
+    ``head``; numpy arrays) -> the same nesting of tensors on ``device`` in
+    ``cfg.dtype``."""
+    return params_from_numpy(tree, None, device,
+                             _dtype=getattr(torch, cfg.dtype))
+
+
 def train_state_from_numpy(state, cfg: ArchConfig, device="cuda"):
     """A JAX-package ``TrainState`` whose leaves are numpy arrays (the caller
     runs ``jax.tree.map(np.asarray, state)``), read by attribute -> this
@@ -94,16 +103,21 @@ def train_state_from_numpy(state, cfg: ArchConfig, device="cuda"):
 
 
 def config_from_reference(cfg):
-    """An ``ArchConfig`` or ``MLPConfig`` of either package -> this
-    package's, field by field."""
+    """An ``ArchConfig``, ``MLPConfig`` or ``ResNetConfig`` of either
+    package -> this package's, field by field."""
     from repro_torch.models.mlp import MLPConfig
+    from repro_torch.models.resnet import ResNetConfig
 
-    if isinstance(cfg, (ArchConfig, MLPConfig)):
+    if isinstance(cfg, (ArchConfig, MLPConfig, ResNetConfig)):
         return cfg
     if not is_dataclass(cfg):
         raise TypeError(f"cannot convert config of type {type(cfg).__name__}")
     if type(cfg).__name__ == "MLPConfig":
         return MLPConfig(**asdict(cfg))
+    if type(cfg).__name__ == "ResNetConfig":
+        d = asdict(cfg)
+        return ResNetConfig(**{**d, "stages": tuple(d["stages"]),
+                               "widths": tuple(d["widths"])})
     d = asdict(cfg)
     d["mrope_sections"] = list(d["mrope_sections"])
     return arch_from_dict(d)
@@ -131,6 +145,18 @@ def decomposition_from_reference(dec) -> LCCDecomposition:
     out.meta.update({k: v for k, v in getattr(dec, "meta", {}).items()
                      if isinstance(v, (int, float, str, bool, type(None)))})
     return out
+
+
+def conv_record_from_reference(rec: dict) -> dict:
+    """A JAX-package conv record (``compress_conv_kernel``'s dict) -> this
+    package's: integer channel keys in the record's own order, each
+    decomposition converted."""
+    return {"decompositions": {int(ch): decomposition_from_reference(dec)
+                               for ch, dec in rec["decompositions"].items()},
+            "channels_nonzero": [int(c) for c in rec["channels_nonzero"]],
+            "baseline_adds": int(rec["baseline_adds"]),
+            "lcc_adds": int(rec["lcc_adds"]),
+            "scale": float(rec["scale"])}
 
 
 def _compression_from_reference(c) -> CompressionConfig:
@@ -179,18 +205,20 @@ def report_from_reference(rep) -> ModelCostReport:
 
 def artifact_from_reference(obj, device="cuda") -> CompressedModel:
     """Read a JAX-package ``CompressedModel`` by attribute into this package's
-    classes: records (kept columns, shared labels/centroids, decompositions),
-    the packed kernel buffers, dense-effective params (as tensors on
-    ``device``), the cost report, configs, run statistics and the layer
-    plans the reference packed (``plans``, reused by the executor)."""
+    classes: records (kept columns, shared labels/centroids, decompositions;
+    conv records as :func:`conv_record_from_reference`), the packed kernel
+    buffers, dense-effective params (as tensors on ``device``), the cost
+    report, configs, run statistics and the layer plans the reference
+    packed (``plans``, reused by the executor)."""
     from repro_torch.models.mlp import MLPConfig
+    from repro_torch.models.resnet import ResNetConfig
 
     cfg = config_from_reference(obj.config)
-    records: dict[str, CompressedDense] = {}
+    records: dict[str, CompressedDense | dict] = {}
     for name, rec in obj.records.items():
         if not hasattr(rec, "decomposition"):
-            raise NotImplementedError(f"unit {name!r} is not a dense record; "
-                                      "conv units are not available yet")
+            records[name] = conv_record_from_reference(rec)
+            continue
         shared = None
         if rec.shared is not None:
             shared = SharedLayer(centroids=np.asarray(rec.shared.centroids),
@@ -209,11 +237,15 @@ def artifact_from_reference(obj, device="cuda") -> CompressedModel:
         return np.asarray(t)
 
     params = to_np(obj.params)
+    if isinstance(cfg, MLPConfig):
+        params = mlp_params_from_numpy(params, device)
+    elif isinstance(cfg, ResNetConfig):
+        params = resnet_params_from_numpy(params, cfg, device)
+    else:
+        params = params_from_numpy(params, cfg, device)
     return CompressedModel(
         config=cfg,
-        params=(mlp_params_from_numpy(params, device)
-                if isinstance(cfg, MLPConfig)
-                else params_from_numpy(params, cfg, device)),
+        params=params,
         records=records,
         packed={n: packed_from_reference(pk)
                 for n, pk in getattr(obj, "packed", {}).items()},

@@ -3,7 +3,9 @@ counterpart of ``repro.core.artifact``, the same files byte for byte.
 
 A :class:`CompressedModel` bundles what the serving engine needs: per-unit
 :class:`CompressedDense` records (prune indices, weight-sharing labels and
-centroids, the LCC decomposition), optional pre-packed kernel buffers,
+centroids, the LCC decomposition) and conv records (``finish_conv``'s dict:
+one decomposition per input channel, keyed by the channel as an int, in
+the order the compressor wrote them), optional pre-packed kernel buffers,
 dense-effective ``params`` (a drop-in nested dict of tensors for the plain
 forward and for everything not compressed), the cost report, the configs
 that produced it, the pipeline's run statistics, and the layer plans an
@@ -17,8 +19,7 @@ with a printed warning, exactly like training restore.  Records, packed
 buffers and plan stages come back as numpy arrays viewing the map
 (read-only, possibly unaligned: code that would write into one must copy
 first); ``params`` come back as tensors on ``device``.  A loaded plan stage
-carries no ``seg_stats``/``waste`` (the reference stores neither).  Conv
-records and ``ResNetConfig`` wait for the conv units (ROADMAP A6).
+carries no ``seg_stats``/``waste`` (the reference stores neither).
 """
 from __future__ import annotations
 
@@ -40,8 +41,6 @@ _FORMAT_VERSION = 1
 # segs=None
 _STAGE_ARRAYS = ("prep_src", "prep_tgt", "gidx", "gexp", "gsgn", "outg",
                  "fs_mat", "dw_mat", "bias", "segs")
-_CONV = ("conv units (compressed conv records, ResNetConfig) are not "
-         "available in this package yet: they come with ROADMAP A6")
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +99,36 @@ def _dec_from_tree(meta: dict, arrays: dict) -> LCCDecomposition:
     return dec
 
 
+def _conv_to_tree(rec: dict) -> tuple[dict, dict]:
+    """A conv record -> (arrays under ``ch<NNNN>``, manifest entry), the
+    channels in the record's own order, as the reference writes them."""
+    chans, decs_meta = {}, {}
+    for ch, dec in rec["decompositions"].items():
+        dm, da = _dec_to_tree(dec)
+        chans[f"ch{ch:04d}"] = da
+        decs_meta[str(ch)] = dm
+    return chans, {
+        "type": "conv", "decs": decs_meta,
+        "channels_nonzero": [int(c) for c in rec["channels_nonzero"]],
+        "baseline_adds": int(rec["baseline_adds"]),
+        "lcc_adds": int(rec["lcc_adds"]),
+        "scale": float(rec["scale"]),
+    }
+
+
+def _conv_from_tree(um: dict, chans: dict) -> dict:
+    """A conv record from its manifest entry and arrays: integer channel
+    keys in the manifest's (the writer's) order — never the keys' string
+    order, in which "10" comes before "2"."""
+    return {"decompositions": {
+                int(ch): _dec_from_tree(dm, chans.get(f"ch{int(ch):04d}", {}))
+                for ch, dm in um["decs"].items()},
+            "channels_nonzero": list(um["channels_nonzero"]),
+            "baseline_adds": um["baseline_adds"],
+            "lcc_adds": um["lcc_adds"],
+            "scale": um["scale"]}
+
+
 # ---------------------------------------------------------------------------
 # flat-name tree reconstruction ("blocks/0/conv1" -> list index 0)
 # ---------------------------------------------------------------------------
@@ -148,26 +177,27 @@ def _report_from_json(rows: list[dict]) -> ModelCostReport:
 def _config_to_manifest(cfg) -> tuple[str, dict]:
     from repro_torch.configs.base import ArchConfig, arch_to_dict
     from repro_torch.models.mlp import MLPConfig
+    from repro_torch.models.resnet import ResNetConfig
 
     if isinstance(cfg, ArchConfig):
         return "arch", arch_to_dict(cfg)
-    if isinstance(cfg, MLPConfig):
-        return "MLPConfig", asdict(cfg)
-    if type(cfg).__name__ == "ResNetConfig":
-        raise NotImplementedError(_CONV)
+    if isinstance(cfg, (MLPConfig, ResNetConfig)):
+        return type(cfg).__name__, asdict(cfg)
     raise TypeError(f"cannot save an artifact of config {type(cfg).__name__}")
 
 
 def _config_from_manifest(kind: str, d: dict):
     from repro_torch.configs.base import arch_from_dict
     from repro_torch.models.mlp import MLPConfig
+    from repro_torch.models.resnet import ResNetConfig
 
     if kind == "arch":
         return arch_from_dict(d)
+    if kind == "ResNetConfig":
+        return ResNetConfig(**{**d, "stages": tuple(d["stages"]),
+                               "widths": tuple(d["widths"])})
     if kind == "MLPConfig":
         return MLPConfig(**d)
-    if kind == "ResNetConfig":
-        raise NotImplementedError(_CONV)
     raise ValueError(f"unknown config kind {kind!r} in artifact manifest")
 
 
@@ -176,9 +206,12 @@ def _params_on(tree, config, device):
     ``device``, as ``convert`` converts a reference artifact's."""
     from repro_torch import convert
     from repro_torch.configs.base import ArchConfig
+    from repro_torch.models.resnet import ResNetConfig
 
     if isinstance(config, ArchConfig):
         return convert.params_from_numpy(tree, config, device)
+    if isinstance(config, ResNetConfig):
+        return convert.resnet_params_from_numpy(tree, config, device)
     return convert.mlp_params_from_numpy(tree, device)
 
 
@@ -189,9 +222,9 @@ def _params_on(tree, config, device):
 
 @dataclass
 class CompressedModel:
-    config: Any  # ArchConfig | MLPConfig
+    config: Any  # ArchConfig | MLPConfig | ResNetConfig
     params: Any  # dense-effective nested dict of tensors
-    records: dict[str, Any]  # unit name -> CompressedDense
+    records: dict[str, Any]  # unit name -> CompressedDense | conv dict
     packed: dict[str, Any] = field(default_factory=dict)  # name -> PackedDecomposition
     report: Any = None  # ModelCostReport (None for a seeded artifact)
     compression: CompressionConfig = field(default_factory=CompressionConfig)
@@ -207,7 +240,9 @@ class CompressedModel:
 
     @property
     def family(self) -> str:
-        return self.config.family
+        from repro_torch.models.api import family_of
+
+        return family_of(self.config)
 
     def dense_unit_names(self) -> list[str]:
         return [n for n, r in self.records.items()
@@ -217,16 +252,18 @@ class CompressedModel:
     def save(self, directory: str, step: int = 0) -> None:
         """Write the artifact as step ``step`` under ``directory`` (blocking).
         ``report=None`` is saved as the empty report.  Raises ``ValueError``
-        for a record without a host ``effective`` map (the format stores it)
-        and ``NotImplementedError`` for conv records (ROADMAP A6)."""
+        for a dense record without a host ``effective`` map (the format
+        stores it)."""
         from repro_torch.checkpoint.checkpointer import Checkpointer
 
         units_tree: dict[str, Any] = {}
+        conv_tree: dict[str, Any] = {}
         packed_tree: dict[str, Any] = {}
         man_units: dict[str, Any] = {}
         for name, rec in self.records.items():
             if not isinstance(rec, CompressedDense):
-                raise NotImplementedError(f"unit {name!r}: {_CONV}")
+                conv_tree[name], man_units[name] = _conv_to_tree(rec)
+                continue
             if rec.effective is None:
                 raise ValueError(
                     f"unit {name!r} keeps no host effective map "
@@ -293,6 +330,8 @@ class CompressedModel:
                 "params": self.params}
         if units_tree:
             tree["units"] = units_tree
+        if conv_tree:
+            tree["conv"] = conv_tree
         if packed_tree:
             tree["packed"] = packed_tree
         if plans_tree:
@@ -333,7 +372,9 @@ class CompressedModel:
         records: dict[str, Any] = {}
         for name, um in manifest["units"].items():
             if um["type"] != "dense":
-                raise NotImplementedError(f"unit {name!r}: {_CONV}")
+                records[name] = _conv_from_tree(
+                    um, tree.get("conv", {}).get(name, {}))
+                continue
             t = tree["units"][name]
             shared = None
             if um["has_shared"]:

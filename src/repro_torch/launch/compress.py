@@ -15,6 +15,10 @@
     PYTHONPATH=src python -m repro_torch.launch.compress --device cpu \
         --workers 2 --out /tmp/comp
 
+    # the reduced ResNet's conv units (FK/PK per --config conv_method=...)
+    PYTHONPATH=src python -m repro_torch.launch.compress --arch resnet-small \
+        --device cpu --workers 2 --out /tmp/comp_resnet
+
 The run directory layout under ``--out``:
 
     run/          pipeline manifest (chosen per-unit plans, unit hashes)
@@ -25,8 +29,7 @@ The run directory layout under ``--out``:
 The artifact is what ``ServingEngine(artifact=CompressedModel.load(...))``
 serves, and the reference's ``CompressedModel.load`` reads it too.  The
 decomposition runs on the host (numpy, worker processes); the parameters
-live on ``--device``.  ``--arch resnet-small`` (conv units, ROADMAP A6) and
-``--metrics-out`` (``obs/``, A5) are refused.
+live on ``--device``.  ``--metrics-out`` (``obs/``, A5) is refused.
 """
 import argparse
 import json
@@ -41,19 +44,23 @@ _QUEUE = "ROADMAP Queue A"
 
 
 def build_model(arch: str, quickstart: bool, seed: int, device):
-    """(params, cfg) for a registry arch or the paper's MLP, parameters on
-    ``device``.
+    """(params, cfg) for a registry arch, the paper's MLP or the reduced
+    ResNet (6 classes, as the reference's), parameters on ``device``.
 
     Parameters are keyed by ``--seed`` so repeated invocations (and the
     resume path) see identical weights; point this at a training checkpoint
     restore for real runs.  They come from this package's initialisers
-    (numpy generators seeded by ``seed``): ``jax.random`` streams cannot be
+    (numpy generators seeded by ``seed``; the ResNet's a
+    ``torch.Generator``): ``jax.random`` streams cannot be
     reproduced here, so the same seed gives other weights than the
     reference launcher's.
     """
     if arch == "resnet-small":
-        raise SystemExit(f"--arch resnet-small is not available in this "
-                         f"package yet: conv units come with A6 of {_QUEUE}")
+        from repro_torch.models.resnet import init_resnet, resnet_small_config
+
+        cfg = resnet_small_config(classes=6)
+        return init_resnet(torch.Generator().manual_seed(seed), cfg,
+                           device), cfg
     if arch == "mlp":
         from repro_torch.models.mlp import MLPConfig, init_mlp
 
@@ -98,7 +105,7 @@ def parse_compression(pairs: list[str]) -> CompressionConfig:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="olmo-1b",
-                    help="registry arch id or 'mlp' ('resnet-small' is refused)")
+                    help="registry arch id, 'mlp' or 'resnet-small'")
     ap.add_argument("--family", default=None,
                     help="expected architecture family (sanity check)")
     ap.add_argument("--quickstart", action="store_true",

@@ -17,6 +17,11 @@ width, random weights.  The offline compressor
 (``repro_torch.models.api.compress_model``, ``repro_torch.launch.compress``)
 runs for hours at these widths; an artifact it wrote is served with
 ``ServingEngine(artifact=CompressedModel.load(dir))``.
+
+The reference launcher's ``--compress`` (compress, then serve: ROADMAP A8),
+``--dp``/``--tp`` (a device mesh: A7) and ``--metrics-out``,
+``--trace-out``, ``--metrics-port`` (telemetry: A5) are accepted and
+refused by name.
 """
 import argparse
 import time
@@ -29,6 +34,20 @@ from repro_torch.data.synthetic import MarkovLM
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.testing import seeded_artifact
+
+_QUEUE = "ROADMAP Queue A"
+# the reference launcher's flags: flag -> (is it set?, what brings it)
+_REFUSED = {
+    "--compress": (lambda a: a.compress, f"A8 of {_QUEUE}"),
+    "--dp": (lambda a: a.dp != 1, f"the distributed/ entry (A7) of {_QUEUE}"),
+    "--tp": (lambda a: a.tp != 1, f"the distributed/ entry (A7) of {_QUEUE}"),
+    "--metrics-out": (lambda a: a.metrics_out is not None,
+                      f"the obs/ entry (A5) of {_QUEUE}"),
+    "--trace-out": (lambda a: a.trace_out is not None,
+                    f"the obs/ entry (A5) of {_QUEUE}"),
+    "--metrics-port": (lambda a: a.metrics_port is not None,
+                       f"the obs/ entry (A5) of {_QUEUE}"),
+}
 
 
 def main(argv=None) -> None:
@@ -62,7 +81,18 @@ def main(argv=None) -> None:
                          "requests (copy-on-write; paged engines only)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    # the reference's flags, refused below
+    ap.add_argument("--compress", action="store_true")
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--metrics-port", type=int, default=None)
     args = ap.parse_args(argv)
+    for flag, (is_set, where) in _REFUSED.items():
+        if is_set(args):
+            raise SystemExit(f"{flag} is not available in this package yet: "
+                             f"it comes with {where}")
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "

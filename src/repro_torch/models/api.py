@@ -41,13 +41,16 @@ def train_loss(params, cfg: ArchConfig, batch):
 
 
 def family_of(cfg) -> str:
-    """Adapter-registry key of a config object (``ArchConfig`` or
-    ``MLPConfig``)."""
+    """Adapter-registry key of a config object (``ArchConfig``,
+    ``MLPConfig`` or ``ResNetConfig``, whose family is ``"resnet"``)."""
     fam = getattr(cfg, "family", None)
-    if fam is None:
-        raise TypeError(
-            f"cannot infer architecture family from {type(cfg).__name__}")
-    return fam
+    if fam is not None:
+        return fam
+    from .resnet import ResNetConfig
+
+    if isinstance(cfg, ResNetConfig):
+        return "resnet"
+    raise TypeError(f"cannot infer architecture family from {type(cfg).__name__}")
 
 
 def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False):

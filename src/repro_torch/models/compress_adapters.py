@@ -16,9 +16,11 @@ paths, indices and ``transpose`` flags are the reference's, so artifact keys
 cross between the packages.
 
 Families with a table here: dense (olmo-1b), moe (mixtral-8x22b, and
-deepseek-v2-lite with its MLA projections and shared experts) and mlp (the
-paper's MLP).  The others raise ``NotImplementedError`` naming where they
-stand in the roadmap.
+deepseek-v2-lite with its MLA projections and shared experts), mlp (the
+paper's MLP) and resnet (every conv kernel as a :class:`ConvSite` — the
+stem, each block's conv1/conv2 and its 1x1 ``proj`` — and the linear head).
+The others raise ``NotImplementedError`` naming where they stand in the
+roadmap.
 """
 from __future__ import annotations
 
@@ -232,6 +234,17 @@ def _mlp_sites(params, cfg) -> list[DenseSite]:
             DenseSite(name="fc2", path=("fc2", "w"), transpose=False)]
 
 
+def _resnet_sites(params, cfg) -> list[DenseSite | ConvSite]:
+    sites: list[DenseSite | ConvSite] = [ConvSite(name="stem", path=("stem",))]
+    for i, blk in enumerate(params["blocks"]):
+        sites.append(ConvSite(name=f"block{i}.conv1", path=("blocks", i, "conv1")))
+        sites.append(ConvSite(name=f"block{i}.conv2", path=("blocks", i, "conv2")))
+        if "proj" in blk:
+            sites.append(ConvSite(name=f"block{i}.proj", path=("blocks", i, "proj")))
+    sites.append(DenseSite(name="head", path=("head", "w"), transpose=False))
+    return sites
+
+
 def _not_ported(family: str, where: str):
     def fn(params, cfg):
         raise NotImplementedError(
@@ -248,7 +261,7 @@ FAMILY_SITE_FNS = {
     "ssm": _not_ported("ssm", _LATER),
     "hybrid": _not_ported("hybrid", _LATER),
     "audio": _not_ported("audio", _LATER),
-    "resnet": _not_ported("resnet", _LATER + " (ResNet + ConvLCC)"),
+    "resnet": _resnet_sites,
 }
 
 

@@ -35,7 +35,8 @@ attention and, in float32, one expert plan a layer (``moe_plan_matmul``):
 the shift-add runtime the paper targets either way.  Prefill runs on the artifact's dense-effective weights.
 
 Not available yet, and refused with an error when asked for: ``mesh=``
-(multi-device decode) and ``metrics=``/``tracer=`` telemetry.
+(multi-device decode), ``metrics=``/``tracer=`` telemetry and the step
+profiler's ``fence_every=`` (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -89,13 +90,18 @@ class ServingEngine:
                  use_kernel: bool = True, bulk_prefill: bool = True,
                  mesh=None, kv_block: int | None = 16,
                  kv_blocks: int | None = None, prefix_cache: bool = True,
-                 metrics=None, tracer=None, device="cuda"):
+                 metrics=None, tracer=None, fence_every: int | None = None,
+                 device="cuda"):
         if mesh is not None:
             raise NotImplementedError("mesh=: multi-device serving is not "
                                       "available in this package yet")
         if metrics not in (None, False) or tracer not in (None, False):
             raise NotImplementedError("metrics=/tracer=: telemetry is not "
                                       "available in this package yet")
+        if fence_every is not None:
+            raise NotImplementedError("fence_every=: the step profiler is not "
+                                      "available in this package yet (the "
+                                      "obs/ entry, ROADMAP A5)")
         if artifact is not None:
             if cfg is None:
                 cfg = artifact.config

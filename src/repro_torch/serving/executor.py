@@ -28,7 +28,10 @@ Three kernel routes:
   their chains in ONE ``lcc_group_matmul`` launch.
 
 The last two are the per-region route, taken where no plan applies (other
-compute dtypes, ``use_plans=False``).  Models never import this module —
+compute dtypes, ``use_plans=False``).  :class:`ConvLCC` serves one
+compressed conv site of the ResNet: every decomposed input channel's chain
+in ONE ``lcc_group_matmul`` launch over the FK or PK window extraction.
+Models never import this module —
 they receive the executor as an opaque object with the protocol
 ``matvec(name)``, ``grouped(names)``, ``conv(name)``, ``step_plan(cfg)``
 (each returning a callable, a plan or None).  Nothing here is traced or
@@ -42,15 +45,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compress import CompressedDense
+from repro_torch.core.conv_reshape import (extract_patches,
+                                           extract_vert_windows, same_pad_2d)
 from repro_torch.kernels import layer_plan, ops
 from repro_torch.kernels.shared_matmul import RegionPrep
 from repro_torch.models.attention import _paged_index
 from repro_torch.models.layers import _rope_sincos
 
-__all__ = ["CompressedExecutor", "LCCMatvec", "GroupedLCCMatvec", "StepPlan",
-           "MoEPlan", "matvecs_from_artifact", "site_prep"]
+__all__ = ["CompressedExecutor", "LCCMatvec", "GroupedLCCMatvec", "ConvLCC",
+           "StepPlan", "MoEPlan", "matvecs_from_artifact", "site_prep"]
 
 
 def site_prep(records) -> RegionPrep:
@@ -124,6 +131,110 @@ class GroupedLCCMatvec:
 
     def __call__(self, xs) -> list[torch.Tensor]:
         return ops.apply_packed_group(self.group, self.prep(xs))
+
+
+class ConvLCC:
+    """One compressed conv layer executed in the compressed domain (the
+    reference's ``ConvLCC``), a drop-in for the "SAME"/"VALID" conv of
+    ``models.resnet`` at any stride.
+
+    The decomposed input channels run their FK/PK chains in ONE
+    ``lcc_group_matmul`` (K2) launch, one group member a channel, in
+    ascending channel order:
+
+    * FK: member c reads channel c's patches ``[O*O, B*P*P]`` (rows the
+      kernel's (kh, kw), columns the output positions (b, p, q)) and writes
+      ``[N, B*P*P]``;
+    * PK: member c reads channel c's vertical windows ``[O, B*P*Zp]`` and
+      writes the column products ``[N*O, B*P*Zp]`` (rows (n, j)); output
+      ``(p, q)`` adds the products at input column ``q*stride + j`` over j.
+
+    The members' outputs are summed after the launch, member 0 first (the
+    reference's ``sum(ys)``); channels without a decomposition (subsampled
+    or pruned) go through one ``F.conv2d`` on the residual kernel, whose
+    decomposed channels are zero.  A group that fails to pack or launch
+    raises.
+    """
+
+    def __init__(self, name: str, kernel: np.ndarray, record: dict,
+                 method: str, *, block: int = 128, device="cuda"):
+        if method not in ("fk", "pk"):
+            raise ValueError(f"conv site {name!r}: unknown conv method {method!r}")
+        self.name = name
+        self.method = method
+        self.device = torch.device(device)
+        self.n, _, self.o, _ = kernel.shape
+        self.channels = sorted(record["decompositions"])
+        packed = [ops.pack_decomposition(record["decompositions"][ch], block)
+                  for ch in self.channels]
+        self.group = ops.pack_group(packed) if packed else None
+        rest = np.array(kernel, np.float32)
+        rest[:, self.channels] = 0.0  # chain channels leave the dense conv
+        self.rest = (torch.from_numpy(rest).to(self.device)
+                     if np.abs(rest).max() > 0 else None)
+        self._chan = torch.tensor(self.channels, dtype=torch.long,
+                                  device=self.device)
+
+    def _padded(self, x: torch.Tensor, stride: int, padding: str):
+        """(x padded as ``padding`` asks, output rows P, padded width Zp)."""
+        if padding == "SAME":
+            lo, hi = same_pad_2d(x.shape[2], self.o, stride)
+            x = F.pad(x, (lo, hi, lo, hi))
+        elif padding != "VALID":
+            raise ValueError(f"padding {padding!r}: SAME or VALID")
+        zp = x.shape[2]
+        return x, (zp - self.o) // stride + 1, zp
+
+    def group_input(self, x: torch.Tensor, *, stride: int = 1,
+                    padding: str = "SAME") -> torch.Tensor:
+        """The K2 launch's concatenated input: the decomposed channels'
+        patches ``[C*O*O, B*P*P]`` (FK) or vertical windows
+        ``[C*O, B*P*Zp]`` (PK), member by member."""
+        xp, p, zp = self._padded(x, stride, padding)
+        return self._windows(xp, p, zp, stride)
+
+    def _windows(self, xp, p, zp, stride):
+        b, o, c = xp.shape[0], self.o, len(self.channels)
+        xc = xp.index_select(1, self._chan).to(torch.float32)
+        if self.method == "fk":
+            pat = extract_patches(xc, o, stride)  # [B, C, P, P, O, O]
+            return pat.permute(1, 4, 5, 0, 2, 3).reshape(c * o * o, b * p * p)
+        win = extract_vert_windows(xc, o, stride)  # [B, C, P, Zp, O]
+        return win.permute(1, 4, 0, 2, 3).reshape(c * o, b * p * zp)
+
+    def __call__(self, x: torch.Tensor, *, stride: int = 1,
+                 padding: str = "SAME") -> torch.Tensor:
+        b, o, n = x.shape[0], self.o, self.n
+        xp, p, zp = self._padded(x, stride, padding)
+        y = None
+        if self.rest is not None:
+            y = F.conv2d(xp.to(torch.float32), self.rest, stride=stride)
+        if self.group is not None:
+            ys = ops.apply_packed_group(self.group,
+                                        self._windows(xp, p, zp, stride))
+            if self.method == "fk":
+                yc = _member_sum(ys).reshape(n, b, p, p).permute(1, 0, 2, 3)
+            else:
+                part = _member_sum(ys).reshape(n, o, b, p, zp)
+                # y[b, n, p, q] = sum_j part[(n, j), (b, p, q*stride + j)]
+                yc = None
+                for j in range(o):
+                    t = part[:, j, :, :, j: j + stride * (p - 1) + 1: stride]
+                    yc = t if yc is None else yc + t
+                yc = yc.permute(1, 0, 2, 3)
+            y = yc if y is None else y + yc
+        if y is None:
+            raise ValueError(f"conv site {self.name!r}: nothing to execute")
+        return y.to(x.dtype).contiguous()
+
+
+def _member_sum(ys: list[torch.Tensor]) -> torch.Tensor:
+    """The group members' outputs summed one after another, member 0 first
+    (the order of the reference's ``sum(ys)``)."""
+    acc = ys[0].clone()
+    for yg in ys[1:]:
+        acc += yg
+    return acc
 
 
 def matvecs_from_artifact(artifact, *, include=None, block: int = 128,
@@ -408,7 +519,7 @@ class CompressedExecutor:
     * ``grouped(names)`` -> one-launch callable over a *fused region* (list of
       per-site ``[K_g, B]`` inputs -> list of ``[N_g, B]`` outputs), or None
       unless every name is a compressed dense site.
-    * ``conv(name)``     -> None (conv sites are not carried over yet).
+    * ``conv(name)``     -> :class:`ConvLCC` of a conv record, or None.
     * ``step_plan(cfg)`` -> :class:`StepPlan` or None: the whole-step plan,
       built on first use and cached, when ``use_plans`` is set and the config
       is eligible (dense family, float32 compute dtype, ...); otherwise the
@@ -434,14 +545,33 @@ class CompressedExecutor:
         self._plans: dict[str, StepPlan | MoEPlan | None] = {}
         self._matvecs = matvecs_from_artifact(artifact, block=block,
                                               device=device)
-        # record ineligibility eagerly, as the reference does
-        if self.use_plans:
+        # record ineligibility eagerly, as the reference does (plans are a
+        # transformer route: a ResNet or MLP artifact has no step)
+        if self.use_plans and isinstance(artifact.config, ArchConfig):
             reason = _plan_ineligible_reason(artifact.config,
                                              bool(self._matvecs))
             if reason is not None:
                 self.plan_fallbacks.setdefault("step", reason)
         self._groups: dict[tuple, GroupedLCCMatvec | None] = {}
         self.routed: set[str] = set()
+        self._convs: dict[str, ConvLCC] = {}
+        conv_names = [n for n, r in artifact.records.items()
+                      if not isinstance(r, CompressedDense)]
+        if conv_names:
+            from repro_torch.models import compress_adapters as ca
+
+            conv_sites = {s.name: s for s in ca.sites_for(artifact.params,
+                                                          artifact.config)
+                          if isinstance(s, ca.ConvSite)}
+            for name in conv_names:
+                cv = ConvLCC(name, conv_sites[name].kernel(artifact.params),
+                             artifact.records[name],
+                             artifact.unit_config_for(name).conv_method,
+                             block=block, device=device)
+                self._convs[name] = cv
+                if cv.group is not None and cv.group.waste is not None:
+                    artifact.pipeline_stats.setdefault(
+                        "padding_waste", {})[name] = cv.group.waste
         # dropped (token, choice) assignments of the MoE layers over every
         # decode step on either route, int32 [1] on the device (made on
         # first use)
@@ -462,10 +592,10 @@ class CompressedExecutor:
     @property
     def sites(self) -> set[str]:
         """Every site this executor can serve through a fused kernel."""
-        return set(self._matvecs)
+        return set(self._matvecs) | set(self._convs)
 
     def __contains__(self, name: str) -> bool:
-        return name in self._matvecs
+        return name in self._matvecs or name in self._convs
 
     def matvec(self, name: str):
         fn = self._matvecs.get(name)
@@ -495,7 +625,10 @@ class CompressedExecutor:
         return g
 
     def conv(self, name: str):
-        return None
+        fn = self._convs.get(name)
+        if fn is not None:
+            self.routed.add(name)
+        return fn
 
     def step_plan(self, cfg):
         """Whole-decode-step plan, or None (the reason in

@@ -10,7 +10,10 @@ columns per site and weight sharing on some sites — whose chains are valid
 LCC chains, so every runtime path (packing, the three kernels, the executor,
 the engine) is driven exactly as by a real artifact.  The weights mean
 nothing; the dense-effective parameters are computed from the chains, so the
-kernel route and the dense route agree.
+kernel route and the dense route agree.  ``seeded_conv_artifact`` does the
+same for the ResNet: one chain per input channel of every conv site, on the
+FK or PK reshape, in conv records shaped as ``core.compress.finish_conv``
+writes them.
 """
 from __future__ import annotations
 
@@ -31,16 +34,19 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.lcc_chain_matmul import _levels_plain
 
 __all__ = ["seeded_decomposition", "decomposition_dense", "dense_sites",
-           "moe_sites", "seeded_artifact", "seeded_prep"]
+           "moe_sites", "seeded_artifact", "seeded_conv_artifact",
+           "seeded_prep"]
 
 SHARED_SITES = ("attn.k", "attn.o", "ffn.up", "moe.up")
 
 
 def _seeded_chains(n: int, k: int, rng: np.random.Generator, *,
                    s_terms: int = 2, n_factors: int = 6,
-                   short_frac: float = 0.15, unused_frac: float = 0.02
+                   short_frac: float = 0.15, unused_frac: float = 0.02,
+                   gain_exp: int = 0
                    ) -> tuple[LCCDecomposition, ops.PackedDecomposition]:
-    """``(decomposition, packed)``; see :func:`seeded_decomposition`.  The
+    """``(decomposition, packed)``; see :func:`seeded_decomposition`
+    (``gain_exp`` scales the chains by ``2**gain_exp``).  The
     factors are drawn straight into the packed ``[E, P, N, S]`` layout and
     the decomposition's factors are views of those arrays, so the two share
     their memory (at full width a site's streams take hundreds of MB).  When
@@ -51,7 +57,7 @@ def _seeded_chains(n: int, k: int, rng: np.random.Generator, *,
     e = len(cols)
     widths = np.asarray([c1 - c0 for c0, c1 in cols], np.int64)
     e0 = int(round(math.log2(1.0 / math.sqrt(1.5 * e * s_terms))))
-    e0 = max(e0, -14)
+    e0 = max(e0 + gain_exp, -14)
 
     def signs(shape):
         sg = (rng.integers(0, 2, size=shape, dtype=np.int8) * 2 - 1).astype(np.int8)
@@ -302,4 +308,82 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     return CompressedModel(
         config=cfg, params=params, records=records, packed=packed,
         compression=CompressionConfig(algorithm="fp", weight_sharing=True),
+        pipeline_stats={"fixture": "seeded", "seed": seed})
+
+
+def seeded_conv_artifact(cfg, seed: int = 0, device="cuda", *,
+                         method: str = "fk", head_pruned: int = 2
+                         ) -> CompressedModel:
+    """A compressed ResNet artifact for ``cfg`` (a ``ResNetConfig``) made
+    from ``seed`` alone.  Every input channel of every conv site (the stem,
+    each block's conv1/conv2 and ``proj``) has a valid chain on the
+    compressor's slice grid for its ``method`` matrix (FK ``[N, O*O]``, PK
+    ``[N*O, O]``), scaled by about ``1/sqrt(C_in)`` so a conv's output keeps
+    its input's scale; the records are ``finish_conv``'s dicts (every
+    channel decomposed, ``scale`` 1, ``lcc_adds`` from the chains,
+    ``baseline_adds`` 0: there is no dense original).  The head is a
+    compressed dense site with ``head_pruned`` pruned columns (so its input
+    goes through the region prep).  ``params`` are the dense-effective
+    weights (what ``models.compress_adapters.effective_conv_kernel`` gives)
+    in ``cfg.dtype`` on ``device``: GroupNorm scales one, head bias zero.
+    Each site is drawn from its own generator."""
+    from repro_torch.core.conv_reshape import conv_layer_adds
+    from repro_torch.models import compress_adapters as ca
+    from repro_torch.models.resnet import init_resnet
+
+    def dense(dec):
+        """The chains applied to the identity of each slice's width: the
+        decomposition's dense matrix without ``to_dense``'s N x N factor
+        products (7,555 channels at ResNet-34's width)."""
+        w = np.zeros(dec.shape)
+        for (c0, c1), chain in zip(dec.col_slices, dec.slices):
+            w[:, c0:c1] = chain.apply(np.eye(c1 - c0))
+        return w
+
+    dt = getattr(torch, cfg.dtype)
+    shapes = init_resnet(torch.Generator().manual_seed(seed), cfg, "meta")
+    sites = ca.sites_for(shapes, cfg)
+    convs = [s for s in sites if isinstance(s, ca.ConvSite)]
+
+    def run(job):
+        si, site = job
+        n, k, o, _ = ca._lookup(shapes, site.path).shape
+        rows, cols = (n, o * o) if method == "fk" else (n * o, o)
+        rng = np.random.default_rng((seed, 1 + si))
+        gain = -int(round(0.5 * math.log2(k)))
+        decs = {ch: _seeded_chains(rows, cols, rng, gain_exp=gain)[0]
+                for ch in range(k)}
+        lcc = conv_layer_adds([d.num_adds() for d in decs.values()], n, o,
+                              method, k)
+        rec = {"decompositions": decs, "channels_nonzero": list(range(k)),
+               "baseline_adds": 0, "lcc_adds": lcc, "scale": 1.0}
+        # the FK/PK reshape inverted, as effective_conv_kernel inverts it
+        mats = np.stack([dense(decs[ch]) for ch in range(k)])
+        eff = mats.reshape(k, n, o, o).transpose(
+            (1, 0, 2, 3) if method == "fk" else (1, 0, 3, 2))
+        return site, rec, torch.from_numpy(np.ascontiguousarray(eff)).to(
+            device=device, dtype=dt)
+
+    # one thread: the channels are small numpy calls, and threads contend
+    # for the interpreter lock (8 threads took 5x as long as one)
+    built = [run(job) for job in enumerate(convs)]
+    params = {"stem": None, "blocks": [
+        {k: (torch.ones(v.shape, dtype=dt, device=device)
+             if k.startswith("gn") else None) for k, v in blk.items()}
+        for blk in shapes["blocks"]]}
+    records = {}
+    for site, rec, eff in built:
+        params = ca._set_in(params, site.path, eff)
+        records[site.name] = rec
+    c = cfg.widths[-1]
+    head, pk, full = _seeded_site("head", cfg.classes, c,
+                                  np.random.default_rng((seed, 0)), False,
+                                  head_pruned, device, True)
+    params["head"] = {"w": full.to(dt),
+                      "b": torch.zeros((cfg.classes,), dtype=dt, device=device)}
+    records["head"] = head
+    return CompressedModel(
+        config=cfg, params=params, records=records, packed={"head": pk},
+        compression=CompressionConfig(algorithm="fp", conv_method=method,
+                                      weight_sharing=False),
         pipeline_stats={"fixture": "seeded", "seed": seed})

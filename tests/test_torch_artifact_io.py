@@ -7,8 +7,9 @@ object; the reference's ``load`` of the port's save equals the original; the
 port's shard file is byte for byte the reference's; the port's engine on the
 loaded artifact gives the in-memory artifact's tokens and logits bit for bit
 (plain route, CPU); corrupt shards fall back to an older step; ``effective
-= None`` and conv records are refused; loaded arrays are read-only views of
-the map."""
+= None`` is refused; a conv record and a ``ResNetConfig`` save and load
+(the ResNet's own round trips: ``test_torch_conv_artifact.py``); loaded
+arrays are read-only views of the map."""
 import dataclasses
 import json
 import os
@@ -272,16 +273,37 @@ def test_refusals(tmp_path):
                        "fc1": dataclasses.replace(rec, effective=None)})
     with pytest.raises(ValueError, match="effective"):
         no_eff.save(str(tmp_path / "a"))
-    conv = dataclasses.replace(tart, records={**tart.records, "c0": {
-        "decompositions": {}, "channels_nonzero": [], "baseline_adds": 0,
-        "lcc_adds": 0, "scale": 1.0}})
-    with pytest.raises(NotImplementedError, match="A6"):
-        conv.save(str(tmp_path / "b"))
-    # the reference's conv artifact (a ResNet config) is refused on load
-    from repro_torch.core import artifact as tart_mod
-    with pytest.raises(NotImplementedError, match="A6"):
-        tart_mod._config_from_manifest("ResNetConfig", {})
     assert not (tmp_path / "a" / SHARD).exists()
+
+
+def test_a_conv_record_and_a_resnet_config_save_and_load(tmp_path):
+    """Formerly refused (conv units came with ROADMAP A6): a conv record
+    beside the MLP's dense records saves byte for byte as the reference's
+    and loads back in both packages; the manifest's ``ResNetConfig`` comes
+    back as the port's config."""
+    from repro.models.resnet import resnet34_config
+    from repro_torch.core import artifact as tart_mod
+    from repro_torch.models.resnet import ResNetConfig
+
+    jart = _mlp()
+    conv = {"decompositions": {}, "channels_nonzero": [], "baseline_adds": 0,
+            "lcc_adds": 0, "scale": 1.0}
+    jart.records["c0"] = dict(conv)
+    tart = artifact_from_reference(jart, "cpu")
+    assert tart.records["c0"] == conv
+    tart.save(str(tmp_path / "port"))
+    jart.save(str(tmp_path / "ref"))
+    assert (tmp_path / "port" / SHARD).read_bytes() == \
+        (tmp_path / "ref" / SHARD).read_bytes()
+    assert CompressedModel.load(str(tmp_path / "port"),
+                                device="cpu").records["c0"] == conv
+    assert JModel.load(str(tmp_path / "port")).records["c0"] == conv
+    cfg = tart_mod._config_from_manifest(
+        "ResNetConfig", json.loads(json.dumps(
+            dataclasses.asdict(resnet34_config()))))
+    assert cfg == ResNetConfig() and isinstance(cfg.stages, tuple)
+    assert tart_mod._config_to_manifest(cfg) == (
+        "ResNetConfig", dataclasses.asdict(resnet34_config()))
 
 
 def test_seeded_report_none_saves_as_the_empty_report(tmp_path):

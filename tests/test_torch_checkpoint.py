@@ -165,6 +165,25 @@ def test_either_package_reads_the_others_checkpoint_bitwise(tmp_path):
     assert back["params/w"].tobytes() == got["params/w"].tobytes()
 
 
+def test_empty_leaves_save_byte_for_byte_as_the_reference(tmp_path):
+    """A leaf with a zero in its shape (an FS program without nodes is
+    ``[0, 6]``; a budgeted compression writes one) saves as the reference's
+    and reads back in both packages."""
+    tree = {"nodes": np.zeros((0, 6), np.int64),
+            "w": np.zeros((3, 0), np.float32), "x": np.arange(4.0)}
+    jck.Checkpointer(str(tmp_path / "ref")).save(0, tree, blocking=True)
+    Checkpointer(str(tmp_path / "port")).save(0, tree, blocking=True)
+    with open(_shard(tmp_path / "ref", 0), "rb") as f:
+        ref_bytes = f.read()
+    with open(_shard(tmp_path / "port", 0), "rb") as f:
+        assert f.read() == ref_bytes
+    got = Checkpointer(str(tmp_path / "ref")).restore_flat(0)
+    assert got["nodes"].shape == (0, 6) and got["nodes"].dtype == np.int64
+    assert got["w"].shape == (3, 0)
+    back = jck.Checkpointer(str(tmp_path / "port")).restore_flat(0)
+    assert np.asarray(back["nodes"]).shape == (0, 6)
+
+
 def test_train_state_flat_names_and_shard_equal_the_reference(tmp_path):
     """Reduced olmo under ProxSGD (``mu``, the sparsity report), error_fb
     None: the same leaf names in the same order, the same shard bytes."""

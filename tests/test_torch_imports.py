@@ -49,6 +49,9 @@ print("RECOVER", all(n in names for n in (
     "repro_torch.training.recover", "repro_torch.models.compress_adapters",
     "repro_torch.launch.train", "repro_torch.models.attention",
     "repro_torch.serving.engine", "repro_torch.launch.serve")))
+print("RESNET", all(n in names for n in (
+    "repro_torch.models.resnet", "repro_torch.serving.executor",
+    "repro_torch.data.synthetic", "repro_torch.launch.compress")))
 print("MSGPACK", sorted(m for m in sys.modules if m.split(".")[0] == "msgpack"))
 print("BAD", bad)
 """
@@ -80,6 +83,7 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     assert lines["COMPRESSOR"] == "True"  # Algorithm 1 and its pipeline
     assert lines["ARTIFACT"] == "True"  # the artifact on disk, its codec
     assert lines["RECOVER"] == "True"  # recovery, the prefix cache's modules
+    assert lines["RESNET"] == "True"  # the ResNet and its conv serving
     assert lines["MSGPACK"] == "[]"  # the codec is the port's own
     assert lines["BAD"] == "[]"
 
@@ -119,7 +123,7 @@ def test_no_source_file_of_the_port_names_jax_or_repro():
     assert SRC / "repro_torch" / "kernels" / "lcc_matmul.py" in files
     for mod in ("core/csd.py", "core/cost.py", "core/conv_reshape.py",
                 "pipeline/jobs.py", "pipeline/runner.py", "models/flops.py",
-                "training/recover.py"):
+                "training/recover.py", "models/resnet.py"):
         assert SRC / "repro_torch" / mod in files
     for f in files:
         bad = [m for m in _imports(f) if _forbidden(m)]
@@ -187,6 +191,10 @@ def test_every_kernel_has_a_cuda_source_with_its_note():
     "repro_torch.convert:train_state_from_numpy",
     "repro_torch.core.artifact:CompressedModel.load",
     "repro_torch.core.artifact:CompressedModel.from_flat",
+    "repro_torch.models.resnet:init_resnet",
+    "repro_torch.convert:resnet_params_from_numpy",
+    "repro_torch.serving.executor:ConvLCC",
+    "repro_torch.testing:seeded_conv_artifact",
 ])
 def test_entry_points_default_to_the_gpu(path):
     import importlib

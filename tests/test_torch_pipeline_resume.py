@@ -217,7 +217,21 @@ def test_resume_after_sigkill_matches_uninterrupted(tmp_path):
 def test_launcher_refusals(tmp_path):
     from repro_torch.launch import compress
 
-    for argv, where in ((["--arch", "resnet-small"], "A6"),
-                        (["--metrics-out", "m.json"], "obs/")):
+    for argv, where in ((["--metrics-out", "m.json"], "obs/"),):
         with pytest.raises(SystemExit, match=where):
             compress.main(["--device", "cpu", "--out", str(tmp_path), *argv])
+
+
+def test_launcher_resnet_small_is_no_longer_refused(tmp_path):
+    """``--arch resnet-small`` compresses the reduced ResNet's conv units
+    and its head (it was refused until the conv units were ported)."""
+    from repro_torch.core.artifact import CompressedModel
+    from repro_torch.launch import compress
+
+    stats = compress.main(["--device", "cpu", "--out", str(tmp_path),
+                           "--arch", "resnet-small", "--quiet",
+                           "--include", "block0"])
+    assert stats["units"] == 2
+    art = CompressedModel.load(str(tmp_path / "artifact"), device="cpu")
+    assert art.family == "resnet" and art.config.classes == 6
+    assert sorted(art.records) == ["block0.conv1", "block0.conv2"]

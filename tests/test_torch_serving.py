@@ -227,6 +227,33 @@ def test_refused_options_raise(arts, kw, msg):
         ServingEngine(artifact=tart, device="cpu", **kw)
 
 
+REFERENCE_OPTIONS = [
+    ("launcher", ["--compress"], "A8"), ("launcher", ["--dp", "2"], "A7"),
+    ("launcher", ["--tp", "2"], "A7"),
+    ("launcher", ["--metrics-out", "m.json"], "A5"),
+    ("launcher", ["--trace-out", "t.jsonl"], "A5"),
+    ("launcher", ["--metrics-port", "0"], "A5"),
+    ("engine", dict(fence_every=32), "A5"),
+]
+
+
+@pytest.mark.parametrize("where,option,entry", REFERENCE_OPTIONS,
+                         ids=[str(o[1]) for o in REFERENCE_OPTIONS])
+def test_reference_options_are_refused_by_name(arts, where, option, entry):
+    """The reference serve launcher's flags and the engine's
+    ``fence_every=`` are accepted and refused naming the slice that brings
+    them (argparse no longer rejects the flags as unknown)."""
+    if where == "engine":
+        _, tart = arts
+        with pytest.raises(NotImplementedError, match=entry):
+            ServingEngine(artifact=tart, device="cpu", **option)
+        return
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit, match=f"{option[0]} .*{entry}"):
+        serve.main(["--reduced", "--device", "cpu", *option])
+
+
 def test_windowed_engine_serves_through_the_ring(arts):
     from dataclasses import replace
     _, tart = arts

@@ -88,3 +88,62 @@ def test_handoff_without_recovery_skips_its_keys(tmp_path):
     assert "recover" not in stats and "recovered" not in stats["accuracy"]
     assert "dead_group_fraction" not in stats  # no --prox
     assert (tmp_path / "artifact").is_dir()
+
+
+def _same_params(hidden=32, seed=11):
+    """MLP weights with prox-dead fc1 inputs (whole zero columns, as the
+    prox leaves them), so the compress half skips and shrinks slice jobs."""
+    from repro_torch.models.mlp import init_mlp_numpy
+
+    p = init_mlp_numpy(seed, hidden=hidden)
+    dead = np.random.default_rng(seed).choice(784, 500, replace=False)
+    p["fc1"]["w"][:, dead] = 0.0
+    p["fc1"]["w"][:, :28] = 0.0  # the stroke images' blank top row
+    return p
+
+
+@pytest.mark.parametrize("extra", [[], ["--budget", "2500"]],
+                         ids=["handoff", "budget"])
+def test_compress_half_matches_the_reference_on_the_same_params(
+        tmp_path, monkeypatch, extra):
+    """Both launchers' compress half (``--epochs 0``: the params go to the
+    compressor untrained) on the same converted params: the same adds,
+    units, jobs and skipped/shrunk jobs in ``train_stats.json``, and the
+    saved records bitwise."""
+    import jax.numpy as jnp
+    import repro.models.mlp as jmlp_mod
+    from repro.core.artifact import CompressedModel as JModel
+    from repro.launch import train as jtrain
+
+    import repro_torch.models.mlp as tmlp_mod
+    from repro_torch.launch import train
+
+    from test_torch_compress import assert_dense_equal, report_rows
+
+    p = _same_params()
+    monkeypatch.setattr(
+        tmlp_mod, "init_mlp", lambda seed, hidden, device, **kw: {
+            k: {n: torch.from_numpy(a.copy()).to(device) for n, a in l.items()}
+            for k, l in p.items()})
+    monkeypatch.setattr(jmlp_mod, "init_mlp", lambda key, hidden, **kw: {
+        k: {n: jnp.asarray(a) for n, a in l.items()} for k, l in p.items()})
+    argv = ["--arch", "mlp", "--epochs", "0", "--hidden", "32",
+            "--train-n", "128", "--test-n", "64", *HANDOFF, *extra]
+    stats = train.main(["--device", "cpu", *argv, "--compress-out",
+                        str(tmp_path / "port")])
+    monkeypatch.setattr(sys, "argv", ["train", *argv, "--compress-out",
+                                      str(tmp_path / "ref")])
+    jtrain.main()
+    ref = json.loads((tmp_path / "ref" / "train_stats.json").read_text())
+    assert stats["adds"] == ref["adds"]
+    assert stats["pipeline"] == ref["pipeline"]
+    assert stats["pipeline"]["skipped_jobs"] > 0
+    assert stats["accuracy"]["compressed"] == pytest.approx(
+        ref["accuracy"]["compressed"], abs=1 / 64 + 1e-9)
+    port = CompressedModel.load(str(tmp_path / "port" / "artifact"),
+                                device="cpu")
+    back = JModel.load(str(tmp_path / "ref" / "artifact"))
+    assert list(port.records) == list(back.records) == ["fc1", "fc2"]
+    for name, rec in port.records.items():
+        assert_dense_equal(rec, back.records[name])
+    assert report_rows(port.report) == report_rows(back.report)
