@@ -6,22 +6,24 @@
 Drives the port's main paths — prox-regularized training (olmo-1b at full
 width, the paper's MLP) and compressed serving at published width
 through ``Scheduler`` + ``ServingEngine(artifact=...)``: olmo-1b (dense),
-mixtral-8x22b (MoE, 8 experts top-2, cut to 1 layer) and deepseek-v2-lite-16b
-(MLA, 64 experts top-6 + 2 shared, cut to 2 layers), each once through the
+mixtral-8x22b (MoE, 8 experts top-2, cut to 1 layer), deepseek-v2-lite-16b
+(MLA, 64 experts top-6 + 2 shared, cut to 1 layer) and qwen2.5-3b (QKV
+bias, cut to 2 layers), each once through the
 per-region route (bf16, kernels K1, K2 and K3's region prep; the experts as
 grouped K2 launches of E) and once in float32 — olmo and mixtral through the whole-step layer plan
 (K6 and K7; for mixtral K8, the routed FFN inside the step), deepseek (MLA
 refuses the step plan) through one expert plan a layer (K9) beside per-region
-MLA — plus K4's per-factor route on olmo's layer 0, and holds every CUDA
-kernel on those paths against its plain PyTorch version:
+MLA — and qwen2-vl-7b (m-RoPE, cut to 2 layers) per-region in both dtypes,
+plus K4's per-factor route on olmo's layer 0, and holds every CUDA kernel
+on those paths against its plain PyTorch version:
 
 1. device and build: needs a CUDA device (exits non-zero without one), prints
    the card's name and power limit, builds the kernels with ``nvcc``; then
    the full-width float32 artifact and its layer plan (stage packing timed);
-   ``--only chain`` instead times K1 and K2 alone at every shape the three
+   ``--only chain`` instead times K1 and K2 alone at every shape the seven
    per-region serves launch them at (members drawn at the fixture's (N, K),
    no fixture, no serve, a few minutes) and stops; ``--only stage`` times K6
-   alone at the ten shapes of the three float32 plan routes, each in the
+   alone at the 22 shapes of the six float32 plan routes, each in the
    modes the serve launches it in (gate+up and the experts' gates+ups
    gated: K7's SwiGLU in the epilogue; mixtral's experts' gates+ups also
    gathered: K8's dispatch read by the prep; mixtral's expert downs
@@ -35,11 +37,12 @@ kernel on those paths against its plain PyTorch version:
    beside its bound and ``scaled_dot_product_attention``, and K8's route
    alone at mixtral's width; the full run starts with the same phase;
    ``--only prep`` times K3's region
-   prep alone at every region the three per-region serves prepare (members
-   drawn at the fixture's widths, bf16 and, for deepseek's K9 route,
-   float32 inputs laid out as the models pass them), bit for bit against
-   its plain version and in its own order, beside one ``index_add_``, and
-   K7's norm alone at the olmo-1b and mixtral-8x22b plan serves' shapes
+   prep alone at every region the seven per-region serves prepare (members
+   drawn at the fixture's widths, bf16 and, for deepseek's K9 route and
+   qwen2-vl's float32 engine, float32 inputs laid out as the models pass
+   them), bit for bit against its plain version and in its own order,
+   beside one ``index_add_``, and K7's norm alone at the five plan serves'
+   shapes (olmo-1b, mixtral-8x22b, qwen2.5-3b, llama3.2-3b, yi-9b)
    against its plain version, its own order and ``F.layer_norm`` /
    ``F.rms_norm``, in under a minute;
 2. kernels: ``lcc_chain_matmul``, ``lcc_group_matmul``, ``region_prep``,
@@ -82,7 +85,7 @@ kernel on those paths against its plain PyTorch version:
    slots), one full-width step, and the float32 plan serve; plan vs
    per-region logits (``--only mixtral`` runs these alone);
 7. deepseek-v2-lite-16b at full width (d_model 2048, MLA kv_lora 512, 64
-   experts of d_ff 1408 top-6, 2 shared, vocab 102400), 2 layers: K9 on a
+   experts of d_ff 1408 top-6, 2 shared, vocab 102400), 1 layer: K9 on a
    reduced plan and a reduced serve (K9 route == per-region == plain ==
    dense, drops occurring); the per-region kernels at its shapes (uk+uv over
    the whole latent view at 1024 columns) and the bf16 per-region serve;
@@ -90,7 +93,19 @@ kernel on those paths against its plain PyTorch version:
    gated), K9 at
    layer 0, the float32 serve on the K9 route; K9 vs per-region logits
    (``--only deepseek`` runs these alone);
-8. training (``--only train`` runs these alone): K5 ``group_prox`` on the
+8. the rest of the dense family and the VLM, each at full width cut to
+   QWEN_LAYERS layers (``--only qwen`` runs these alone): qwen2.5-3b (d
+   2048, 16 heads over 2 kv heads, d_ff 11008, vocab 151936, tied, seeded
+   non-zero q/k/v biases) on the bf16 per-region route and the float32
+   plan (K6's ``qkv`` stage with its live bias in the epilogue, K7's norm
+   and attention at G = 8), plan against per-region logits; qwen2-vl-7b
+   (d 3584, 28 heads over 4, d_ff 18944, vocab 152064, m-RoPE) per-region
+   only: its plan is refused with ``pos:mrope`` as in the reference, so its
+   bf16 and its float32 engines both serve per-region (the prefix cache
+   off), the float32 route's logits against the dense weights.
+   ``--only dense`` serves llama3.2-3b and yi-9b the same way as
+   qwen2.5-3b, cut to DENSE_LAYERS layers (left out of the full run);
+9. training (``--only train`` runs these alone): K5 ``group_prox`` on the
    reference's hard cases and rows of every width to 16384 in float32 and
    bf16, then at the training runs' own views, each against its plain
    version and the oracle, bitwise from run to run, in place == out of
@@ -99,7 +114,7 @@ kernel on those paths against its plain PyTorch version:
    a warm and five timed steps, 7 K5 launches a step, the update through K5
    against the other route, a profiled step; the paper's MLP through the
    port's launcher (``--arch mlp --prox``), 2 K5 launches a step;
-9. the compressor (``--only compress`` runs it alone, training the MLP
+10. the compressor (``--only compress`` runs it alone, training the MLP
    first): the trained MLP (784-300-10) compressed at full width by
    ``models.api.compress_model`` on the card's host, under the compress
    launcher's default config and the train launcher's handoff config
@@ -116,7 +131,7 @@ kernel on those paths against its plain PyTorch version:
    the port and served through ``ServingEngine(artifact=...)``, bf16 on the
    per-region route and float32 on the plan route, greedy tokens equal to
    the dense-effective forward's, launches a step as predicted;
-10. ResNet-34 (``--only resnet`` runs it alone): the paper's second model at
+11. ResNet-34 (``--only resnet`` runs it alone): the paper's second model at
    full width (widths 64-512, 36 conv sites, 200 classes) on the seeded conv
    artifact (``testing.seeded_conv_artifact``: a chain for every input
    channel), TinyImageNet-shaped 64 x 64 textures, in FK and in PK: the
@@ -273,9 +288,14 @@ ROUTED = ("moe.gate", "moe.up", "moe.down")  # site prefixes of the routed exper
 # the depth cuts keep the whole script well inside its time limit: 56
 # mixtral layers do not fit one card, 27 deepseek-v2-lite layers need ~158 GB
 # (PERF.md section 4), and one layer of each exercises every kernel its
-# serves launch (every deepseek layer is an MoE layer)
+# serves launch (every deepseek layer is an MoE layer; one since the dense
+# family's and the VLM's phases joined the run)
 MIXTRAL_LAYERS = 1
-DEEPSEEK_LAYERS = 2
+DEEPSEEK_LAYERS = 1
+# qwen2.5-3b's 36 layers hold ~2.8 B site weights and qwen2-vl-7b's 28 ~6.5 B
+# (2.6x and 6x olmo-1b's phase); two layers launch every kernel of each route
+QWEN_LAYERS = 2
+DENSE_LAYERS = 2  # llama3.2-3b and yi-9b, under --only dense
 # olmo-1b's artifact on disk: 16 layers write ~35 GB to the temp directory
 ARTIFACT_LAYERS = 4
 FACTOR_ROUTE = "olmo-1b per-factor"  # K4's path: fused=False on layer 0
@@ -756,8 +776,8 @@ def chain_cases(arch):
 
 
 def phase_chain(dev):
-    """``--only chain``: K1 and K2 at every shape the olmo-1b, mixtral-8x22b
-    and deepseek-v2-lite-16b per-region serves launch them at, members drawn
+    """``--only chain``: K1 and K2 at every shape the per-region serves of
+    PREP_ARCHS launch them at, members drawn
     by ``testing.seeded_decomposition`` at the fixture's (N, K) — no fixture,
     no serve.  Each case as in the kernel phase: bit for bit against the
     plain version in the kernel's order, against the dense product, timed
@@ -767,7 +787,7 @@ def phase_chain(dev):
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     with ThreadPoolExecutor(max_workers=8) as pool:
-        for arch in ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b"):
+        for arch in PREP_ARCHS:
             for ci, (label, names, batch, members) in enumerate(chain_cases(arch)):
                 def draw(job):
                     mi, (n, k) = job
@@ -1115,6 +1135,7 @@ def kernel_case_stage(label, ps, rng, dev, timer, *, layer=0, batch=BATCH,
         live_terms=ds.live_terms[layer],
         run_terms=ds.maps[layer].run_terms if ds.maps else 0,
         segs=ps.segs is not None,
+        live_bias=bool(ps.bias is not None and np.any(ps.bias[layer])),
         warm_l2_ms=timer(lambda: stage_matmul(ps, xin, layer=layer, **kw),
                          cold=False), **extra)
 
@@ -1244,15 +1265,17 @@ def hand_stage_cases(rng, dev, timer):
                               mode=("gather", 4, BATCH, 2, None))]
 
 
-STAGE_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b")
+STAGE_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b",
+               "qwen2.5-3b", "llama3.2-3b", "yi-9b")
 
 
 def main_path_stages(dev, archs=STAGE_ARCHS):
-    """The K6 launches of the three float32 plan routes, one architecture
+    """The K6 launches of the six float32 plan routes, one architecture
     at a time: yields ``(arch, host times, [(label, name, stage, batch)],
-    artifact)`` — olmo-1b qkv/o/gu/dn and mixtral-8x22b qkv/o at B =
-    n_slots, mixtral eg/ed and deepseek-v2-lite-16b's K9 stages A and B at B
-    = capacity — each from layer 0 of a one-layer seeded artifact of the
+    artifact)`` — olmo-1b, qwen2.5-3b, llama3.2-3b and yi-9b qkv/o/gu/dn and
+    mixtral-8x22b qkv/o at B = n_slots, mixtral eg/ed and
+    deepseek-v2-lite-16b's K9 stages A and B at B = capacity — each from
+    layer 0 of a one-layer seeded artifact of the
     full-width config (widths never cut), packed and uploaded as the serves
     do.  ``name`` is the stage's kind: qkv/o/gu/dn/eg/ed."""
     for arch in archs:
@@ -1295,7 +1318,7 @@ def main_path_stages(dev, archs=STAGE_ARCHS):
 
 
 def phase_stage(dev):
-    """``--only stage``: K6 alone at the ten shapes the three float32 plan
+    """``--only stage``: K6 alone at the 22 shapes the six float32 plan
     routes launch it at (:func:`main_path_stages`), each in the modes the
     serve launches it in (:func:`serve_mode`), plus the hand-built exact
     stages.  No serve.  Each case as in the kernel phase: against the plain
@@ -1772,16 +1795,20 @@ def phase_attention(dev):
                 tolerance=SUM_TOL, rows=rows)
 
 
-PREP_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b")
-NORM_ARCHS = ("olmo-1b", "mixtral-8x22b")  # the plan serves
+# the per-region serves (--only chain times their K1/K2 shapes too) and the
+# plan serves
+PREP_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b",
+              "qwen2.5-3b", "llama3.2-3b", "yi-9b", "qwen2-vl-7b")
+NORM_ARCHS = ("olmo-1b", "mixtral-8x22b", "qwen2.5-3b", "llama3.2-3b", "yi-9b")
 
 
 def phase_prep(dev):
-    """``--only prep``: K3's region prep alone at every region the three
+    """``--only prep``: K3's region prep alone at every region the seven
     per-region serves prepare (:func:`region_preps`: members drawn as the
     fixture draws them, no fixture, no serve; bf16 inputs, and float32 for
-    deepseek's MLA and shared experts as its K9 serve passes them), then
-    K7's norm alone at the olmo-1b and mixtral-8x22b plan serves' shapes
+    deepseek's MLA and shared experts as its K9 serve passes them and for
+    qwen2-vl's float32 engine), then K7's norm alone at the five plan
+    serves' shapes
     (``tools/norm_sweep.py`` times it at every other geometry)."""
     t0 = time.perf_counter()
     timer = Timer(dev)
@@ -1793,6 +1820,9 @@ def phase_prep(dev):
             rows += [dict(r, k9=True) for r in region_cases(
                 cfg, dev, timer, dtype=torch.float32,
                 keep=lambda n: not n[0].startswith(ROUTED))]
+        elif cfg.pos == "mrope":  # its float32 engine serves per-region too
+            rows += [dict(r, f32_engine=True) for r in region_cases(
+                cfg, dev, timer, dtype=torch.float32)]
     for arch in NORM_ARCHS:
         rows.append(kernel_case_norm(get_arch(arch), dev, timer))
     return dict(phase="prep", seconds=time.perf_counter() - t0,
@@ -2273,6 +2303,49 @@ def drop_per_region_copies(art) -> None:
     torch.cuda.empty_cache()
 
 
+def upload_plan(arch, plan, dev, **extra) -> dict:
+    """Validate, tabulate and upload a whole-step plan's stages; returns
+    the phase line: host times and each stage's streams."""
+    t0 = time.perf_counter()
+    for ps in plan.stages.values():
+        device_stage(ps, dev)  # validation, block tables, upload
+    torch.cuda.synchronize()
+    return dict(phase="fixture_and_plan", arch=arch, **extra,
+                pack_s=plan.pack_s, upload_s=time.perf_counter() - t0,
+                stages={name: dict(shape=list(ps.gidx.shape),
+                                   outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
+                                   slices=device_stage(ps, dev).dims["E"],
+                                   max_rows=device_stage(ps, dev).max_rows,
+                                   live_terms=sum(device_stage(ps, dev).live_terms),
+                                   stream_bytes=6 * ps.gidx.size,
+                                   waste=ps.waste)
+                        for name, ps in plan.stages.items()})
+
+
+def fixture_line(base, art32, fixture_s) -> dict:
+    """The phase line of a full-width seeded fixture cut in depth."""
+    return dict(phase="fixture", arch=base.name, layers=base.n_layers,
+                fixture_s=fixture_s, sites=len(art32.records),
+                param_bytes=sum(tensor_bytes(t) for t in leaves(art32.params)),
+                packed_host_bytes=sum(pk.idx.nbytes + pk.exp.nbytes + pk.sign.nbytes
+                                      for pk in art32.packed.values()),
+                host_peak_rss_bytes=host_peak_rss_bytes())
+
+
+def seeded_cut(arch, layers, dev):
+    """``(bf16 config, float32 config, float32 artifact, fixture seconds)``
+    of ``arch`` at full width cut to ``layers`` layers; its phase line
+    emitted."""
+    base = replace(get_arch(arch), n_layers=layers)
+    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    art32 = seeded_artifact(cfg32, seed=2, device=dev, host_effective=False)
+    torch.cuda.synchronize()
+    fixture_s = time.perf_counter() - t0
+    emit(fixture_line(base, art32, fixture_s))
+    return base, cfg32, art32, fixture_s
+
+
 def cast(tree, dtype):
     """The parameters in ``dtype``; an MoE router stays float32, as in the
     reference and ``convert.params_from_numpy``."""
@@ -2538,18 +2611,8 @@ def run_mixtral(dev):
     emit(phase_reduced_serve(dev, red, n_slots=8, n_prompts=8))
     torch.cuda.empty_cache()
 
-    base = replace(get_arch("mixtral-8x22b"), n_layers=MIXTRAL_LAYERS)
-    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
-    t0 = time.perf_counter()
-    art32 = seeded_artifact(cfg32, seed=2, device=dev, host_effective=False)
-    torch.cuda.synchronize()
-    fixture_s = time.perf_counter() - t0
-    emit(dict(phase="fixture", arch=base.name, layers=base.n_layers,
-              fixture_s=fixture_s, sites=len(art32.records),
-              param_bytes=sum(tensor_bytes(t) for t in leaves(art32.params)),
-              packed_host_bytes=sum(pk.idx.nbytes + pk.exp.nbytes + pk.sign.nbytes
-                                    for pk in art32.packed.values()),
-              host_peak_rss_bytes=host_peak_rss_bytes()))
+    base, cfg32, art32, fixture_s = seeded_cut("mixtral-8x22b", MIXTRAL_LAYERS,
+                                               dev)
 
     # per-region route: bf16, a cast of the same parameters
     region = f"{base.name} per-region"
@@ -2571,21 +2634,8 @@ def run_mixtral(dev):
 
     # plan route: float32
     plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
-    t0 = time.perf_counter()
-    for ps in plan.stages.values():
-        device_stage(ps, dev)  # validation, block tables, upload
-    torch.cuda.synchronize()
-    emit(dict(phase="fixture_and_plan", arch=base.name, pack_s=plan.pack_s,
-              upload_s=time.perf_counter() - t0,
-              host_peak_rss_bytes=host_peak_rss_bytes(),
-              stages={name: dict(shape=list(ps.gidx.shape),
-                                 outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
-                                 slices=device_stage(ps, dev).dims["E"],
-                                 max_rows=device_stage(ps, dev).max_rows,
-                                 live_terms=sum(device_stage(ps, dev).live_terms),
-                                 stream_bytes=6 * ps.gidx.size,
-                                 waste=ps.waste)
-                      for name, ps in plan.stages.items()}))
+    emit(upload_plan(base.name, plan, dev,
+                     host_peak_rss_bytes=host_peak_rss_bytes()))
     psv = f"{base.name} plan"
     rows += mixtral_plan_cases(art32, plan, dev, timer, psv)
     planned, pcounts, pshape = phase_plan_serve(
@@ -2853,20 +2903,7 @@ def run_olmo(dev, layers):
     art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
                     plans={})
     plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
-    t0 = time.perf_counter()
-    for ps in plan.stages.values():
-        device_stage(ps, dev)  # validation, block tables, upload
-    torch.cuda.synchronize()
-    emit(dict(phase="fixture_and_plan", arch=base.name, fixture_s=fixture_s,
-              pack_s=plan.pack_s, upload_s=time.perf_counter() - t0,
-              stages={name: dict(shape=list(ps.gidx.shape),
-                                 outg=list(ps.outg.shape), k_alloc=ps.k_alloc,
-                                 slices=device_stage(ps, dev).dims["E"],
-                                 max_rows=device_stage(ps, dev).max_rows,
-                                 live_terms=sum(device_stage(ps, dev).live_terms),
-                                 stream_bytes=6 * ps.gidx.size,
-                                 waste=ps.waste)
-                      for name, ps in plan.stages.items()}))
+    emit(upload_plan(base.name, plan, dev, fixture_s=fixture_s))
 
     rows = phase_kernels(dev, art32, plan, red_cfg)
     frows, factor_serve = phase_factor_route(dev, art32, Timer(dev))
@@ -3251,19 +3288,9 @@ def run_deepseek(dev):
     emit(phase_reduced_serve(dev, red, n_slots=8, n_prompts=8))
     torch.cuda.empty_cache()
 
-    base = replace(get_arch("deepseek-v2-lite-16b"), n_layers=DEEPSEEK_LAYERS)
-    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+    base, cfg32, art32, fixture_s = seeded_cut("deepseek-v2-lite-16b",
+                                               DEEPSEEK_LAYERS, dev)
     ne, dff, d = base.moe.n_experts, base.moe.d_ff_expert, base.d_model
-    t0 = time.perf_counter()
-    art32 = seeded_artifact(cfg32, seed=2, device=dev, host_effective=False)
-    torch.cuda.synchronize()
-    fixture_s = time.perf_counter() - t0
-    emit(dict(phase="fixture", arch=base.name, layers=base.n_layers,
-              fixture_s=fixture_s, sites=len(art32.records),
-              param_bytes=sum(tensor_bytes(t) for t in leaves(art32.params)),
-              packed_host_bytes=sum(pk.idx.nbytes + pk.exp.nbytes + pk.sign.nbytes
-                                    for pk in art32.packed.values()),
-              host_peak_rss_bytes=host_peak_rss_bytes()))
 
     region, k9 = f"{base.name} per-region", f"{base.name} K9"
     art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
@@ -3351,6 +3378,161 @@ def run_deepseek(dev):
     planned["host_peak_rss_bytes"] = host_peak_rss_bytes()
     emit(planned)
     serves[k9] = (pcounts, pshape, planned["decode_steps"])
+    return rows, serves
+
+
+# ------------------------ the rest of the dense family and the VLM (A4)
+
+
+def region_rows(art, dev, timer, sm, serve):
+    """The per-region kernels at a dense or VLM serve's own dimensions
+    (:func:`main_path_kernel_cases`: K1 on ``attn.o`` and ``ffn.down``, K2
+    on q+k+v and gate+up, K3 on every region), named for the model and held
+    to ``serve``'s launches."""
+    rows = main_path_kernel_cases(art, dev, timer, sm)
+    for row in rows:
+        if row["shape"].startswith("full "):
+            row["shape"] = art.config.name + row["shape"][4:]
+        row["serve"] = serve
+    return rows
+
+
+def run_dense_arch(dev, arch, layers):
+    """A dense-family model at full width cut to ``layers`` layers, on both
+    routes (qwen2.5-3b with its q/k/v biases; llama3.2-3b and yi-9b under
+    ``--only dense``): the fixture, the per-region kernels at its shapes
+    and the bf16 per-region serve (``plan_fallbacks`` ``cdtype``); the
+    plan packed and uploaded, K6 on its four stages (``qkv`` with a live
+    bias where the model has one, gate+up gated), K7's norm and attention
+    at its shapes and one whole step, and the float32 plan serve (7
+    launches a layer) against the per-region route and the dense weights.
+    Returns the kernel rows and the serves' launch counts."""
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    base, cfg32, art32, fixture_s = seeded_cut(arch, layers, dev)
+    region, planned = f"{base.name} per-region", f"{base.name} plan"
+    art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
+                    plans={})
+    rows = region_rows(art16, dev, timer, sm, region)
+    full, counts, by_shape, eng = phase_full_serve(dev, base, art16, fixture_s,
+                                                   ref_params=art32.params)
+    full["host_peak_rss_bytes"] = host_peak_rss_bytes()
+    emit(full)
+    if full["plan_fallbacks"] != {"step": "cdtype"}:
+        fail(f"{base.name} bf16 serve: plan fallbacks {full['plan_fallbacks']}")
+    ex32 = CompressedExecutor(art32, use_plans=False, device=dev)
+    ex32._groups = eng.executor._groups
+    l_reg = two_step_logits(cfg32, art32, ex32, dev)
+    serves = {region: (counts, by_shape, full["decode_steps"])}
+    del eng, ex32, art16
+    drop_per_region_copies(art32)
+
+    plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
+    emit(upload_plan(base.name, plan, dev))
+    stage_rows = main_path_stage_cases(art32, plan, dev, timer)
+    for row in stage_rows:
+        row["shape"] = base.name + row["shape"][4:]
+        row["serve"] = planned
+    qkv = stage_rows[0]
+    if qkv["live_bias"] != base.qkv_bias:
+        fail(f"{base.name} qkv stage: live bias {qkv['live_bias']}, the model "
+             f"{'has' if base.qkv_bias else 'has no'} q/k/v biases")
+    rows += stage_rows
+    rng = np.random.default_rng(70)
+    rows.append(kernel_case_norm(cfg32, dev, timer, serve=planned))
+    rows.append(kernel_case_attention(
+        f"{base.name} serve S={MAX_LEN}", cfg32, MAX_LEN, cfg32.attn_window,
+        serve_positions(rng), dev, timer, serve=planned))
+    rows.append(kernel_case_step(f"{base.name} step", cfg32, plan, rng, dev,
+                                 timer, serve=planned))
+    torch.cuda.empty_cache()
+    line, pcounts, pshape = phase_plan_serve(dev, cfg32, art32,
+                                             plan.stages.values(), plan.pack_s,
+                                             l_reg=l_reg)
+    line["host_peak_rss_bytes"] = host_peak_rss_bytes()
+    emit(line)
+    serves[planned] = (pcounts, pshape, line["decode_steps"])
+    return rows, serves
+
+
+def run_vlm(dev, layers=QWEN_LAYERS):
+    """qwen2-vl-7b at full width cut to ``layers`` layers: m-RoPE refuses
+    the whole-step plan (``pos:mrope``, as in the reference), so both of
+    its engines serve per-region — bf16, and float32, whose engine must
+    report that fallback.  The per-region kernels at its shapes (K2 q+k+v
+    with k and v padded to q's 3584 rows, gate+up at 18944 rows, K1 ``o``
+    and ``down`` at K 18944, K3 on every region in both dtypes), both
+    serves (the prefix cache off), and the float32 route's two-step logits
+    against the dense float32 weights.  Returns the kernel rows and the
+    serves' launch counts."""
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    base, cfg32, art32, fixture_s = seeded_cut("qwen2-vl-7b", layers, dev)
+    region, region32 = f"{base.name} per-region", f"{base.name} per-region f32"
+    art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
+                    plans={})
+    rows = region_rows(art16, dev, timer, sm, region)
+    rows += [dict(row, serve=region32) for row in rows
+             if row["name"] != "region_prep"]
+    rows += region_cases(cfg32, dev, timer, records=art32.records,
+                         dtype=torch.float32, serve=region32)
+    serves, lines, engines = {}, {}, {}
+    for name, cfg, art in ((region, base, art16), (region32, cfg32, art32)):
+        line, counts, by_shape, eng = phase_full_serve(
+            dev, cfg, art, fixture_s, ref_params=art32.params)
+        line.update(prefix_cache=eng.pool.prefix_cache,
+                    n_layer_plans=eng.n_layer_plans,
+                    host_peak_rss_bytes=host_peak_rss_bytes())
+        emit(line)
+        if (line["plan_fallbacks"] != {"step": "pos:mrope"}
+                or eng.n_layer_plans or eng.pool.prefix_cache):
+            fail(f"{name} serve: plan fallbacks {line['plan_fallbacks']}, "
+                 f"{eng.n_layer_plans} plans, prefix cache "
+                 f"{eng.pool.prefix_cache}; m-RoPE takes the per-region route "
+                 "with the prefix cache off")
+        serves[name] = (counts, by_shape, line["decode_steps"])
+        lines[name] = line
+        engines[name] = eng.executor
+    # the two routes' logits against the dense float32 weights: two decode
+    # steps from a fresh cache (text positions on all three m-RoPE axes)
+    l32 = two_step_logits(cfg32, art32, engines[region32], dev)
+    l16 = two_step_logits(base, art16, engines[region], dev)
+    del engines
+    torch.cuda.empty_cache()
+    l_dense = two_step_logits(cfg32, art32, None, dev)
+    scale = max(1.0, float(l_dense.abs().max()))
+    err32 = float((l32 - l_dense).abs().max()) / scale
+    err16 = float((l16 - l_dense).abs().max()) / scale
+    emit(dict(phase="vlm_routes", arch=base.name,
+              float32_vs_dense=err32, route_tol=ROUTE_TOL, bf16_vs_dense=err16,
+              launches_per_step={n: lines[n]["launches_per_step"] for n in lines},
+              plan_fallbacks=lines[region32]["plan_fallbacks"]))
+    if not err32 <= ROUTE_TOL or not bool(torch.isfinite(l16).all()):
+        fail(f"{base.name}: float32 per-region logits {err32} off the dense "
+             f"weights (tolerance {ROUTE_TOL}), or bf16 logits not finite")
+    return rows, serves
+
+
+def run_qwen(dev):
+    """qwen2.5-3b on both routes, then qwen2-vl-7b per-region, each at full
+    width cut to QWEN_LAYERS layers."""
+    rows, serves = run_dense_arch(dev, "qwen2.5-3b", QWEN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vrows, vserves = run_vlm(dev)
+    return rows + vrows, {**serves, **vserves}
+
+
+def run_dense(dev):
+    """``--only dense``: llama3.2-3b and yi-9b on both routes at full width,
+    cut to DENSE_LAYERS layers."""
+    rows, serves = [], {}
+    for arch in ("llama3.2-3b", "yi-9b"):
+        r, sv = run_dense_arch(dev, arch, DENSE_LAYERS)
+        rows += r
+        serves.update(sv)
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows, serves
 
 
@@ -4867,21 +5049,22 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
                                        "attention", "prep", "artifact",
                                        "prefix", "mixtral", "deepseek",
-                                       "train", "compress", "resnet"),
+                                       "qwen", "dense", "train", "compress",
+                                       "resnet"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
-                         "shape the three per-region serves launch them at, "
+                         "shape the seven per-region serves launch them at, "
                          "no fixture and no serve; stage: K6 alone at the "
-                         "ten shapes of the three float32 plan routes and "
+                         "shapes of the six float32 plan routes and "
                          "on the hand-built stages, no serve; attention: "
                          "K7's attention alone at the olmo-1b and "
                          "mixtral-8x22b plan serves' shapes and at their "
                          "long caches (S = 2048, 4096; random and full), and "
                          "K8's route alone, no fixture and no serve; prep: "
                          "K3's region prep alone at every region of the "
-                         "three per-region serves and K7's norm alone at "
-                         "the two plan serves' shapes, no fixture and no "
+                         "seven per-region serves and K7's norm alone at "
+                         "the five plan serves' shapes, no fixture and no "
                          "serve; artifact: olmo-1b's full-width float32 "
                          "fixture cut to ARTIFACT_LAYERS layers and its "
                          "step plan saved, loaded through "
@@ -4894,7 +5077,12 @@ def main() -> None:
                          "tokenwise == bulk; "
                          "mixtral: run the "
                          "mixtral-8x22b phases alone; deepseek: the "
-                         "deepseek-v2-lite-16b phases alone; train: the "
+                         "deepseek-v2-lite-16b phases alone; qwen: the "
+                         "qwen2.5-3b (both routes) and qwen2-vl-7b "
+                         "(per-region, bf16 and float32) phases alone; "
+                         "dense: llama3.2-3b and yi-9b at full width cut to "
+                         "DENSE_LAYERS layers on both routes (left out of "
+                         "the full run); train: the "
                          "training phases alone; compress: the compressor "
                          "(the paper's MLP trained, compressed at full width "
                          "at 1 and 4 workers, fc1 served through K1, then "
@@ -4982,6 +5170,15 @@ def main() -> None:
         del drows, dserves
         gc.collect()
         torch.cuda.empty_cache()
+    if args.only in (None, "qwen"):
+        qrows, qserves = run_qwen(dev)
+        rows += qrows
+        serves.update(qserves)
+        del qrows, qserves
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only == "dense":
+        rows, serves = run_dense(dev)
     if args.only in (None, "train"):
         trows, tserves, trained = run_train(dev)
         rows += trows

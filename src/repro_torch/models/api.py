@@ -36,7 +36,8 @@ def abstract_params(cfg: ArchConfig):
 
 
 def train_loss(params, cfg: ArchConfig, batch):
-    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``)."""
+    """Mean next-token cross-entropy of ``batch`` (``tokens`` or
+    ``embeds``, ``labels``; ``positions3`` for an m-RoPE model)."""
     return transformer.loss_fn(params, cfg, batch)
 
 
@@ -57,7 +58,7 @@ def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False):
     """Returns final hidden states (and caches when collect_cache)."""
     return transformer.forward(
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
-        collect_cache=collect_cache)
+        positions3=batch.get("positions3"), collect_cache=collect_cache)
 
 
 def prefill_extend(params, cfg: ArchConfig, tokens, positions, past, last):

@@ -25,7 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from .layers import apply_rope, linear, site_fmt, site_linear, site_linear_group
+from .layers import (apply_mrope, apply_rope, linear, site_fmt, site_linear,
+                     site_linear_group)
 
 __all__ = [
     "attention_prefill",
@@ -138,15 +139,21 @@ def _sdpa(q, k, v, mask):
 def attention_prefill(
     p, x, positions, *, n_heads: int, n_kv: int, head_dim: int,
     causal: bool = True, window: int | None = None,
-    rope_theta: float | None = 10000.0, q_chunk: int = 1024,
+    rope_theta: float | None = 10000.0, mrope_sections=None,
+    mrope_positions=None, q_chunk: int = 1024,
 ):
-    """Returns (out [B,S,d_model], k, v) — k/v rotary-encoded, as cached."""
+    """Returns (out [B,S,d_model], k, v) — k/v rotary-encoded, as cached.
+    With ``mrope_sections`` q and k take m-RoPE at ``mrope_positions``
+    [3, B, S] (at the default theta, as the JAX package rotates them)."""
     b, s, _ = x.shape
     g = n_heads // n_kv
     q = linear(p["q"], x).reshape(b, s, n_heads, head_dim)
     k = linear(p["k"], x).reshape(b, s, n_kv, head_dim)
     v = linear(p["v"], x).reshape(b, s, n_kv, head_dim)
-    if rope_theta is not None:
+    if mrope_sections is not None:
+        q = apply_mrope(q, mrope_positions, mrope_sections)
+        k = apply_mrope(k, mrope_positions, mrope_sections)
+    elif rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     qg = q.reshape(b, s, n_kv, g, head_dim)
@@ -174,9 +181,12 @@ def attention_prefill(
 def attention_decode(
     p, x, cache, pos, *, n_heads: int, n_kv: int, head_dim: int,
     window: int | None = None, rope_theta: float | None = 10000.0,
+    mrope_sections=None, mrope_positions=None,
     executor=None, site: str | None = None,
 ):
-    """One-token decode. x [B,1,d]; pos [B] absolute position of this token.
+    """One-token decode. x [B,1,d]; pos [B] absolute position of this token
+    (with ``mrope_sections``, q and the new k take m-RoPE at
+    ``mrope_positions`` [3, B, 1] instead).
 
     Returns (out [B,1,d], cache) — the cache is the one passed in, updated in
     place.  With ``window`` the cache is a ring buffer (slot = pos % window).
@@ -204,7 +214,10 @@ def attention_decode(
     q = q_raw.reshape(b, 1, n_heads, head_dim)
     k_new = k_raw.reshape(b, 1, n_kv, head_dim)
     v_new = v_raw.reshape(b, 1, n_kv, head_dim)
-    if rope_theta is not None:
+    if mrope_sections is not None:
+        q = apply_mrope(q, mrope_positions, mrope_sections)
+        k_new = apply_mrope(k_new, mrope_positions, mrope_sections)
+    elif rope_theta is not None:
         q = apply_rope(q, pos[:, None], rope_theta)
         k_new = apply_rope(k_new, pos[:, None], rope_theta)
     smax = cache.kpos.shape[1]

@@ -255,9 +255,9 @@ def _not_ported(family: str, where: str):
 _LATER = "the remaining families, ROADMAP Queue A"
 FAMILY_SITE_FNS = {
     "dense": _dense_sites,
+    "vlm": _dense_sites,
     "moe": _moe_sites,
     "mlp": _mlp_sites,
-    "vlm": _not_ported("vlm", _LATER + " (qwen2-vl m-RoPE)"),
     "ssm": _not_ported("ssm", _LATER),
     "hybrid": _not_ported("hybrid", _LATER),
     "audio": _not_ported("audio", _LATER),

@@ -20,6 +20,7 @@ __all__ = [
     "rms_norm",
     "non_parametric_ln",
     "apply_rope",
+    "apply_mrope",
     "swiglu",
 ]
 
@@ -115,6 +116,28 @@ def apply_rope(x, positions, theta: float = 10000.0):
     sin, cos = _rope_sincos(positions, d, theta)  # [B, S, d/2]
     sin = sin[:, :, None, :]
     cos = cos[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections: tuple[int, int, int],
+                theta: float = 10000.0):
+    """Qwen2-VL multimodal RoPE. x [B, S, H, D], positions3 [3, B, S]
+    (temporal / height / width position ids); ``sections`` split the D/2
+    rotary frequencies among the three axes (sum(sections) == D // 2): band
+    ``i`` rotates at the position of the axis its section names."""
+    d = x.shape[-1]
+    half = d // 2
+    assert sum(sections) == half, (sections, half)
+    dev = positions3.device
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=dev) / half)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=dev),
+                                     torch.tensor(sections, device=dev))
+    pos_sel = positions3.to(torch.float32)[sec_id]  # [half, B, S]
+    ang = pos_sel.movedim(0, -1) * freqs  # [B, S, half]
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -43,19 +43,26 @@ def _norm(cfg: ArchConfig, p, x):
 
 def _require_supported(cfg: ArchConfig) -> None:
     """The dense and MoE rope/no-position decoders, with GQA or MLA
-    attention and with or without shared experts."""
+    attention and with or without shared experts, and the VLM decoder
+    (m-RoPE, dense FFN).  Still refused: the ssm, hybrid and audio
+    (encoder-decoder) families and the manual expert-parallel MoE."""
     if cfg.moe is not None and cfg.moe_manual:
         raise NotImplementedError(
             f"{cfg.name}: the manual expert-parallel MoE (moe_manual) is not "
             "available in this package yet: it shards the experts over a "
             "device mesh, which comes with the distributed/ entry (mesh=)")
-    if (cfg.family not in ("dense", "moe") or (cfg.family == "moe")
-            != (cfg.moe is not None) or cfg.enc_layers > 0
-            or cfg.pos not in ("rope", "none")):
+    vlm = cfg.family == "vlm" and cfg.pos == "mrope" and cfg.moe is None
+    if not vlm and (cfg.family not in ("dense", "moe") or (cfg.family == "moe")
+                    != (cfg.moe is not None) or cfg.pos not in ("rope", "none")):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE rope/no-position decoder "
-            f"families are available in this package (family={cfg.family!r}, "
+            f"{cfg.name}: the ssm, hybrid and audio families are not available "
+            "in this package yet; it serves the dense and MoE rope/no-position "
+            f"decoders and the m-RoPE vlm decoder (family={cfg.family!r}, "
             f"pos={cfg.pos!r})")
+    if cfg.enc_layers > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models (the audio family) are not "
+            "available in this package yet")
 
 
 def _ffn(cfg: ArchConfig, p, x, executor=None, li: int | None = None):
@@ -204,11 +211,23 @@ def _unbind_layers(blocks, n: int) -> list:
     return list(blocks.unbind(0))
 
 
+def _rope_kw(cfg: ArchConfig, positions3) -> dict:
+    """The attention's rotary arguments: m-RoPE at ``positions3`` (at the
+    default theta, as the reference rotates it), or RoPE at
+    ``cfg.rope_theta``, or none."""
+    if cfg.pos == "mrope":
+        return dict(rope_theta=None, mrope_sections=cfg.mrope_sections,
+                    mrope_positions=positions3)
+    return dict(rope_theta=None if cfg.pos == "none" else cfg.rope_theta)
+
+
 def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
-            positions=None, collect_cache: bool = False):
+            positions=None, positions3=None, collect_cache: bool = False):
     """Prefill forward -> (hidden [B,S,d], (k, v) caches [L,B,S,Hkv,hd] —
     for MLA (c_kv [L,B,S,dc], k_rope [L,B,S,Dr]) — or None).  MoE experts
-    run as a batched product of the dense weights, as in the reference."""
+    run as a batched product of the dense weights, as in the reference.
+    An m-RoPE model rotates at ``positions3`` [3, B, S] (temporal, height,
+    width), by default ``arange(S)`` on all three axes."""
     _require_supported(cfg)
     if embeds is not None:
         x = embeds.to(cfg.cdtype)
@@ -218,6 +237,10 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
         x = params["embed"][tokens.long()].to(cfg.cdtype)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if cfg.pos == "mrope" and positions3 is None:
+        positions3 = torch.arange(s, device=x.device)[None, None].expand(3, b, s)
+    rope = _rope_kw(cfg, positions3)
+
     def block(x, bp):
         if cfg.mla is not None:  # the cache holds (c_kv, k_rope)
             m = cfg.mla
@@ -230,9 +253,8 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
             y, k, v = attention_prefill(
                 bp["attn"], _norm(cfg, bp["ln1"], x), positions,
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                causal=True, window=cfg.attn_window,
-                rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
-                q_chunk=cfg.q_chunk)
+                causal=True, window=cfg.attn_window, q_chunk=cfg.q_chunk,
+                **rope)
         x = x + y
         return x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x)), k, v
 
@@ -312,7 +334,8 @@ def loss_fn(params, cfg: ArchConfig, batch, *, seq_chunk: int = 512):
     go to float32 one chunk of at most ``seq_chunk`` positions at a time, so
     ``[B, S, V]`` float32 logits are never held at once."""
     h, _ = forward(params, cfg, tokens=batch.get("tokens"),
-                   embeds=batch.get("embeds"))
+                   embeds=batch.get("embeds"),
+                   positions3=batch.get("positions3"))
     labels = batch["labels"]
     b, s = labels.shape
     c = min(seq_chunk, s)
@@ -435,6 +458,9 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     plan = (executor.step_plan(cfg)
             if executor is not None and hasattr(executor, "step_plan")
             and cfg.mla is None else None)
+    # text-only decode: m-RoPE at the token's position on all three axes
+    rope = _rope_kw(cfg, pos.long()[None, :, None].expand(3, -1, 1)
+                    if cfg.pos == "mrope" else None)
     if plan is not None:
         x, state = plan.decode_layers(state, x, pos)
     else:
@@ -460,8 +486,7 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
                 y, _ = attention_decode(
                     bp["attn"], _norm(cfg, bp["ln1"], x), cache, pos,
                     n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                    window=cfg.attn_window,
-                    rope_theta=None if cfg.pos == "none" else cfg.rope_theta,
+                    window=cfg.attn_window, **rope,
                     executor=executor, site=site)
             x = x + y
             x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x), executor, li)

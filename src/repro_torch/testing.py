@@ -38,6 +38,7 @@ __all__ = ["seeded_decomposition", "decomposition_dense", "dense_sites",
            "seeded_prep"]
 
 SHARED_SITES = ("attn.k", "attn.o", "ffn.up", "moe.up")
+BIAS_SCALE = 0.5  # std of a qkv_bias model's seeded q/k/v biases
 
 
 def _seeded_chains(n: int, k: int, rng: np.random.Generator, *,
@@ -247,7 +248,10 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     for the MoE family every expert's gate, up and down and the shared
     experts' — is a compressed site (MLA: q, dkv, kr, uk, uv, o); ``shared_sites`` (site prefixes) additionally get weight sharing,
     so the segment-sum kernel is on the decode path.  An MoE block gets a
-    seeded float32 router ``[L, d, E]``.  ``params`` are the dense-effective
+    seeded float32 router ``[L, d, E]``; a ``qkv_bias`` model gets seeded
+    non-zero q/k/v biases ``[L, out]`` (std ``BIAS_SCALE``, from a generator
+    of their own, so every other leaf is what it is without them).
+    ``params`` are the dense-effective
     weights in ``cfg.param_dtype`` (the router in float32) on ``device``;
     pre-packed kernel buffers come along in ``packed``.  With
     ``host_effective=False`` the records keep no host copy of their
@@ -280,6 +284,12 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
             jobs.append((f"{prefix}.l{li}", n, k, (seed, 1 + li, si),
                          prefix in shared_sites,
                          (node[path[-1]]["w"], (li,))))
+    if cfg.qkv_bias:  # a generator of their own: other configs stay as they were
+        brng = np.random.default_rng((seed, 0, 1))
+        for proj, n in (("q", cfg.n_heads * cfg.hd), ("k", cfg.n_kv_heads * cfg.hd),
+                        ("v", cfg.n_kv_heads * cfg.hd)):
+            b = brng.standard_normal((L, n), dtype=np.float32) * np.float32(BIAS_SCALE)
+            params["blocks"]["attn"][proj]["b"] = torch.from_numpy(b).to(**pd)
     if cfg.moe is not None:
         ne = cfg.moe.n_experts
         ffn = params["blocks"]["ffn"]

@@ -29,8 +29,9 @@ CUH = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "lcc_chain.cuh"
 SM = 132  # H100 SXM
 
 # (label, N, B, G, E, bb): the K1/K2 launches of the olmo-1b, mixtral-8x22b
-# and deepseek-v2-lite-16b per-region serves (chip_smoke.chain_cases), and
-# ROADMAP B1's qwen2-vl FFN widths
+# and deepseek-v2-lite-16b per-region serves (chip_smoke.chain_cases), ROADMAP
+# B1's qwen2-vl FFN widths, and the widest launches of the dense family's and
+# the VLM's serves (the fixture's E)
 MAIN_PATH = [
     ("olmo attn.o", 2048, 8, 1, 175, 8),
     ("olmo ffn.down", 2048, 8, 1, 745, 8),
@@ -52,6 +53,14 @@ MAIN_PATH = [
     ("deepseek moe.down", 2048, 4, 64, 128, 4),
     ("qwen2-vl ffn.gate+up", 18944, 8, 2, 100, 1),
     ("qwen ffn.gate+up", 11008, 8, 2, 100, 1),
+    ("qwen2.5 ffn.gate+up", 11008, 8, 2, 158, 1),
+    ("qwen2.5 ffn.down", 2048, 8, 1, 1001, 8),
+    ("llama3.2 ffn.gate+up", 8192, 8, 2, 237, 2),
+    ("yi ffn.gate+up", 11008, 8, 2, 315, 1),
+    ("yi attn.q+k+v", 4096, 8, 3, 455, 4),
+    ("qwen2-vl-7b ffn.gate+up", 18944, 8, 2, 256, 1),
+    ("qwen2-vl-7b ffn.down", 3584, 8, 1, 1579, 4),
+    ("qwen2-vl-7b attn.q+k+v", 3584, 8, 3, 398, 4),
 ]
 LARGEST_N_BB1 = 26164  # at S = 2: 8 N + two 960-row slots <= SMEM_LIMIT
 
@@ -163,6 +172,28 @@ def test_chain_cases_cover_the_serves_and_fit():
         n = max(m[0] for m in members)
         e = max(len(plan_col_slices(*m)) for m in members)
         _check_plan(n, batch, len(members), e)
+
+
+def test_chain_cases_cover_the_dense_family_and_the_vlm():
+    """The four new serves' launches: attn.o, ffn.down, q+k+v (k and v
+    padded to q's rows) and gate+up, each fitting the planner; qwen2-vl's
+    18944 rows at one column on 960 row threads."""
+    cs = _chip_smoke()
+    from repro_torch.core.lcc import plan_col_slices
+    archs = ("qwen2.5-3b", "llama3.2-3b", "yi-9b", "qwen2-vl-7b")
+    cases = {label: (batch, members) for arch in archs
+             for label, _, batch, members in cs.chain_cases(arch)}
+    assert len(cases) == 16
+    assert cases["qwen2-vl-7b attn.q+k+v B=8"][1] == [
+        (3584, 3582), (512, 3359), (512, 3582)]
+    assert cases["qwen2-vl-7b ffn.gate+up B=8"][1] == [(18944, 3582),
+                                                       (18944, 3359)]
+    assert cases["qwen2.5-3b ffn.down B=8"][1] == [(2048, 11006)]
+    for batch, members in cases.values():
+        n = max(m[0] for m in members)
+        e = max(len(plan_col_slices(*m)) for m in members)
+        _check_plan(n, batch, len(members), e)
+    assert plan_launch(18944, 8, 2, 256, SM)[:2] == (1, 960)
 
 
 @pytest.mark.parametrize("sm", [1, 8, 132])

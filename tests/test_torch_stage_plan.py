@@ -54,12 +54,13 @@ def _fixture_k(k, shared):
     return kept - max(1, kept // 16) if shared else kept
 
 
-def _main_path_stages():
-    """(label, B, [(site width, slices)]) of every stage the olmo-1b,
-    mixtral-8x22b and deepseek-v2-lite-16b float32 plan routes launch,
-    from the configs and the fixture's slice grid (no packing)."""
+def _main_path_stages(archs=("olmo-1b", "mixtral-8x22b",
+                             "deepseek-v2-lite-16b")):
+    """(label, B, [(site width, slices)]) of every stage the float32 plan
+    routes of ``archs`` launch, from the configs and the fixture's slice
+    grid (no packing)."""
     out = []
-    for arch in ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b"):
+    for arch in archs:
         cfg = get_arch(arch)
         dims = {p: (n, k) for p, _, n, k in dense_sites(cfg)}
         dims.update({p: (n, k) for p, _, n, k in moe_sites(cfg)})
@@ -89,6 +90,8 @@ def _main_path_stages():
 
 
 MAIN_PATH = _main_path_stages()
+# the dense family's plan routes (qwen2.5-3b's qkv carries its biases)
+DENSE_FAMILY = _main_path_stages(("qwen2.5-3b", "llama3.2-3b", "yi-9b"))
 
 
 def test_the_main_path_has_ten_stage_shapes():
@@ -121,8 +124,8 @@ def _check_geometry(n, s, b):
     return bb, threads, tile, stages, per_sm
 
 
-@pytest.mark.parametrize("label,b,sites", MAIN_PATH,
-                         ids=[m[0] for m in MAIN_PATH])
+@pytest.mark.parametrize("label,b,sites", MAIN_PATH + DENSE_FAMILY,
+                         ids=[m[0] for m in MAIN_PATH + DENSE_FAMILY])
 def test_planner_fits_every_main_path_stage(label, b, sites):
     """Buffers, staging ring and register sums fit at the longest slice of
     each stage (S = 4: the fused levels), and one wave of chunks covers the

@@ -65,6 +65,8 @@ def test_the_step_takes_the_plain_norm_on_the_cpu():
 @pytest.mark.parametrize("d,b,cols,groups,split", [
     (2048, 8, 1, 8, 8),    # olmo-1b's plan serve: 256 rows a block, 64 blocks
     (6144, 8, 4, 2, 8),    # mixtral-8x22b's: 16-byte copies, 16 blocks
+    (3072, 8, 4, 2, 8),    # llama3.2-3b's: 384 rows a block, 4 columns
+    (4096, 8, 4, 2, 8),    # yi-9b's: 512 rows a block
     (64, 3, 1, 3, 8),      # small d: one column a cluster
     (96, 12, 1, 12, 8),
     (64, 1, 1, 1, 8),

@@ -2,7 +2,9 @@
 on the reduced olmo-1b config: the JAX state is converted (params never
 re-drawn: ``jax.random`` cannot be reproduced), the same numpy batches go
 through the jitted JAX step and the port's step.  Two ProxSGD steps with
-site-derived specs (and the same with accumulation), two AdamW steps
+site-derived specs (and the same with accumulation; and on the reduced
+qwen2.5-3b, QKV biases, and qwen2-vl-7b, an embeddings batch with m-RoPE
+ids), two AdamW steps
 continued from a JAX state that has already taken one; site specs equal to
 the reference's; the LM launcher on the CPU and its refused flags."""
 import os
@@ -40,7 +42,19 @@ def _cfgs(arch="olmo-1b"):
 
 
 def _batch(cfg, i, b=4, s=32):
-    return MarkovLM(vocab=cfg.vocab, k=8, seed=0).batch(b, s, seed=i)
+    """Markov-chain tokens; an embeddings-input config (the VLM) takes
+    seeded embeddings and m-RoPE ids instead: text positions with a 4 x 4
+    patch grid at one temporal position, as Qwen2-VL lays an image out."""
+    batch = MarkovLM(vocab=cfg.vocab, k=8, seed=0).batch(b, s, seed=i)
+    if cfg.inputs != "embeds":
+        return batch
+    rng = np.random.default_rng(i)
+    pos3 = np.broadcast_to(np.arange(s), (3, b, s)).copy()
+    pos3[0, :, 4:20] = 4
+    pos3[1, :, 4:20] = 4 + np.repeat(np.arange(4), 4)
+    pos3[2, :, 4:20] = 4 + np.tile(np.arange(4), 4)
+    return {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(np.float32),
+            "positions3": pos3.astype(np.int32), "labels": batch["labels"]}
 
 
 def _np_tree(t):
@@ -92,9 +106,11 @@ def _pre_prox_margin(jcfg, jstate, specs, batch, thresh, momentum=0.9):
     return float(np.min(np.abs(norms - thresh) / thresh))
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_two_prox_steps_match_the_reference(accum):
-    jcfg, tcfg = _cfgs()
+@pytest.mark.parametrize("arch,accum", [
+    ("olmo-1b", 1), ("olmo-1b", 2), ("qwen2.5-3b", 1), ("qwen2-vl-7b", 1)],
+    ids=["1", "2", "qwen2.5-3b", "qwen2-vl-7b"])
+def test_two_prox_steps_match_the_reference(arch, accum):
+    jcfg, tcfg = _cfgs(arch)
     jspecs = jreg.site_group_specs(japi.abstract_params(jcfg), jcfg, LAM)
     tspecs = treg.site_group_specs(tapi.abstract_params(tcfg), tcfg, LAM)
     jopt, topt = jo.prox_sgd(0.9, specs=jspecs), to.prox_sgd(0.9, specs=tspecs)
@@ -150,6 +166,24 @@ def test_adamw_continues_a_reference_state():
     assert "dead_groups" not in tm
     _assert_state_close(ts, js)
     assert int(ts.opt_state["t"]) == 2
+
+
+def test_accumulation_cannot_split_positions3_in_either_package():
+    """Both packages split every batch leaf along its leading dimension into
+    microbatches (``src/repro/training/trainer.py:116``); ``positions3``
+    leads with its three m-RoPE axes, not the batch, so accumulation over
+    an m-RoPE batch fails in both."""
+    jcfg, tcfg = _cfgs("qwen2-vl-7b")
+    b = _batch(tcfg, 0)
+    jopt, topt = jo.sgd(0.9), to.sgd(0.9)
+    js = jtr.init_train_state(jax.random.PRNGKey(0), jcfg, jopt)
+    ts = train_state_from_numpy(_np_tree(js), tcfg, "cpu")
+    with pytest.raises(TypeError, match="reshape"):
+        jtr.make_train_step(jcfg, jopt, lr=LR, accum_steps=2)(
+            js, {k: jnp.asarray(v) for k, v in b.items()})
+    with pytest.raises(RuntimeError, match="shape"):
+        ttr.make_train_step(tcfg, topt, lr=LR, accum_steps=2)(
+            ts, {k: torch.from_numpy(v) for k, v in b.items()})
 
 
 def test_step_metrics_stay_on_the_device_and_refusals_name_their_entry():

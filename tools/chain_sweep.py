@@ -6,8 +6,8 @@ time with diagnostic builds.
     python3 tools/chain_sweep.py --diagnose           # + diagnostic builds
     python3 tools/chain_sweep.py --shapes uk+uv,moe.gate
 
-Shapes are ``chip_smoke.chain_cases``: the K1/K2 launches of the olmo-1b,
-mixtral-8x22b and deepseek-v2-lite-16b per-region serves, members drawn by
+Shapes are ``chip_smoke.chain_cases``: the K1/K2 launches of the per-region
+serves of ``ARCHS`` (the seven archs of the registry), members drawn by
 ``testing.seeded_decomposition`` at the fixture's (N, K); ``--shapes`` keeps
 the labels that contain one of its words.  Every configuration launches the
 group entry point of ``csrc/lcc_chain.cuh`` with an explicit geometry —
@@ -55,7 +55,8 @@ from repro_torch.kernels.lcc_chain_matmul import (  # noqa: E402
     _slice_inputs_plain, launch_staging, plan_launch, slot_bytes)
 from repro_torch.testing import seeded_decomposition  # noqa: E402
 
-ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b")
+ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b", "qwen2.5-3b",
+         "llama3.2-3b", "yi-9b", "qwen2-vl-7b")
 ENTRY = "repro_lcc_group_matmul"
 # diagnostic builds: (old, new) snippets of csrc/lcc_chain.cuh
 _PAIR_TERMS = ("""        const int2 j0 = reinterpret_cast<const int2*>(s_idx)[r];
