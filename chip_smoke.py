@@ -149,6 +149,18 @@ on those paths against its plain PyTorch version:
    ResNet-34 compressed on every 32nd input channel and served (chains
    through K2 beside the residual conv).
 
+Telemetry (``repro_torch.obs``) is on in every serve, as the engine's
+default: each ``serve`` fails unless the engine's registry counted the
+steps it timed, the tokens it returned and the newest step's launches,
+and the process-wide ``kernel_launches_total`` rose by every launch; the
+olmo-1b serves' lines carry the step profiler's summary.  Besides: the
+serve launcher in process with ``--metrics-out`` and ``--trace-out``
+(after the reduced serve); telemetry's overhead on olmo-1b's float32 plan
+route (full telemetry against ``metrics=False``, the best of three
+attempts within 3 %, identical tokens; after the plan serve); the live
+roofline of the quickstart olmo-1b on both routes (the compressor phase);
+``record_step_metrics`` at olmo-1b's training steps.
+
 One JSON object per line (a phase's line carries ``at_s``, the seconds since
 the start); a failed phase ends the run with a non-zero exit.
 Imports nothing of JAX.
@@ -201,6 +213,8 @@ from repro_torch.kernels.moe_route import (  # noqa: E402
 from repro_torch.kernels.shared_matmul import (  # noqa: E402
     RegionPrep, region_layout, region_prep_plain)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.obs import (StepProfiler, get_global,  # noqa: E402
+                             live_roofline)
 from repro_torch.models.layers import _rope_sincos  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import (  # noqa: E402
@@ -297,7 +311,7 @@ DEEPSEEK_LAYERS = 1
 QWEN_LAYERS = 2
 DENSE_LAYERS = 2  # llama3.2-3b and yi-9b, under --only dense
 # olmo-1b's artifact on disk: 16 layers write ~35 GB to the temp directory
-ARTIFACT_LAYERS = 4
+ARTIFACT_LAYERS = 2
 FACTOR_ROUTE = "olmo-1b per-factor"  # K4's path: fused=False on layer 0
 MAX_LEN = 128  # the serves' KV view: 8 blocks of 16 tokens
 # |step kernel - plain| <= STEP_TOL * max(1, max|plain|): float32 sums in
@@ -1883,15 +1897,31 @@ def prompts_for(cfg, n):
     return [lm.sample(1, 8, seed=100 + i)[0, :8].tolist() for i in range(n)]
 
 
+def global_launches() -> float:
+    """The process-wide ``kernel_launches_total`` counter (0 before the
+    first launch creates it)."""
+    c = get_global().get("kernel_launches_total")
+    return 0.0 if c is None else c.value
+
+
+def metric(eng, name, **labels) -> float:
+    return eng.metrics.get(name).get(**labels)
+
+
 def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
     """The serves' 8-token prompts through ``Scheduler`` + ``ServingEngine``
     (the prefix cache on, its default): they fill no 16-token block, so
-    nothing is registered and no request may find cached tokens."""
+    nothing is registered and no request may find cached tokens.  The
+    engine's default telemetry (a registry of its own, the step profiler)
+    is on, and must have counted what the serve saw: the steps it timed,
+    the tokens it returned, the launches of the newest step under its
+    bucket, and every launch in the process-wide counter."""
     eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=MAX_LEN,
                         use_kernel=use_kernel, kv_block=16, device=device)
     sched = Scheduler(eng)
     rids = [sched.enqueue(p, max_new=max_new) for p in prompts]
     step_s = []
+    n0, g0 = dispatch.launch_count(), global_launches()
     while sched.pending or sched.inflight or eng.active.any():
         t0 = time.perf_counter()
         sched.step()  # ends in the step's device->host copy: host time is right
@@ -1901,7 +1931,29 @@ def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
     if any(cached) or eng.pool_stats()["prefix_hit_tokens"]:
         fail(f"serve: requests found cached tokens {cached}; these prompts "
              "fill no block")
+    seen = dict(
+        decode_steps=(metric(eng, "serving_decode_steps_total"), len(step_s)),
+        tokens=(metric(eng, "serving_tokens_total"),
+                sum(len(r.tokens) - r.prompt_len for r in res)),
+        launches_per_step=(metric(eng, "serving_kernel_launches_per_step",
+                                  bucket=f"{n_slots}x1"),
+                           eng.kernel_launches_per_step),
+        launches=(global_launches() - g0, dispatch.launch_count() - n0),
+        profiled_steps=(eng.profiler.total_steps, len(step_s)))
+    if any(got != want for got, want in seen.values()):
+        fail(f"serve: telemetry (got, saw) disagree: {seen}")
     return eng, res, step_s
+
+
+def serve_telemetry(eng) -> dict:
+    """A serve's telemetry for its line, read before anything else steps
+    the engine: the step profiler's summary and the registry's counts."""
+    return dict(profiler=eng.profiler.summary(),
+                decode_steps=metric(eng, "serving_decode_steps_total"),
+                tokens=metric(eng, "serving_tokens_total"),
+                launches_per_step=metric(
+                    eng, "serving_kernel_launches_per_step",
+                    bucket=f"{eng.n_slots}x1"))
 
 
 def phase_reduced_serve(dev, cfg, *, n_slots=4, n_prompts=3):
@@ -2107,6 +2159,7 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     counts = dispatch.launch_counts()  # ... and are read here
     by_shape = dispatch.launch_counts_by_shape()
     peak = torch.cuda.max_memory_allocated()
+    telemetry = serve_telemetry(eng)
     for r in res:
         if r.error or not r.finished or len(r.tokens) != r.prompt_len + 16:
             fail(f"full serve: request did not finish cleanly: {r.error}")
@@ -2159,7 +2212,7 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
                 first_step_ms=step_s[0] * 1e3,
                 ms_per_step=float(np.median(steady)) * 1e3,
                 steady_tokens_per_s=len(prompts) / float(np.median(steady)),
-                profile=profile,
+                profile=profile, telemetry=telemetry,
                 launches_per_step=eng.kernel_launches_per_step,
                 decode_steps=steps,
                 predicted_launches_per_step=predicted, launches=counts,
@@ -2225,6 +2278,7 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
     counts = dispatch.launch_counts()  # ... and are read here
     by_shape = dispatch.launch_counts_by_shape()
     peak = torch.cuda.max_memory_allocated()
+    telemetry = serve_telemetry(eng)
     for r in res:
         if r.error or not r.finished or len(r.tokens) != r.prompt_len + 16:
             fail(f"plan serve: request did not finish cleanly: {r.error}")
@@ -2268,7 +2322,8 @@ def phase_plan_serve(dev, cfg, art, stages, pack_s, l_reg=None, *,
                 first_step_ms=step_s[0] * 1e3,
                 ms_per_step=float(np.median(steady)) * 1e3,
                 steady_tokens_per_s=len(prompts) / float(np.median(steady)),
-                profile=profile, launches_per_step=eng.kernel_launches_per_step,
+                profile=profile, telemetry=telemetry,
+                launches_per_step=eng.kernel_launches_per_step,
                 predicted_launches_per_step=predicted, decode_steps=steps,
                 launches=counts, routed=len(ex.routed), sites=len(ex.sites),
                 routed_equals_sites=ex.routed == ex.sites,
@@ -2873,6 +2928,153 @@ def phase_prefix(dev, base, art32):
     return line, {"plan": plan_counts, "per-region": region_counts}
 
 
+# ------------------------------------------------- telemetry (obs/)
+
+OVERHEAD_ROUNDS = 150  # single steps of each engine an attempt
+OVERHEAD_ATTEMPTS = 3  # up to three, as the reference's test
+OVERHEAD_BOUND = 0.03  # the reference's bound (tests/test_obs.py)
+OVERHEAD_MAX_LEN = 512  # room for 2 + 3 x 150 steps after an 8-token prompt
+
+
+def phase_overhead(dev, cfg, art):
+    """Telemetry's cost on olmo-1b's float32 plan route (its uploaded
+    artifact): an engine with full telemetry (registry, profiler, tracer,
+    the scheduler's spans and gauges) against one with ``metrics=False``,
+    8 slots each held busy, alternated one step at a time, the order
+    rotated each round, compared on per-step medians; as in the reference's
+    test, attempts stop at the first within its 3 % and the best of (up to)
+    three must be, with identical tokens.  Also one profiler fence on a
+    CUDA tensor."""
+    prompts = prompts_for(cfg, BATCH)
+
+    def prime(**kw):
+        eng = ServingEngine(artifact=art, n_slots=BATCH,
+                            max_len=OVERHEAD_MAX_LEN, kv_block=16,
+                            device=dev, **kw)
+        sched = Scheduler(eng)
+        for p in prompts:
+            sched.enqueue(p, max_new=eng.max_len)
+        for _ in range(2):  # admit + warm
+            sched.step()
+        return eng, sched
+
+    engines = {"on": prime(tracer=True), "off": prime(metrics=False)}
+
+    def measure() -> dict:
+        walls = {k: [] for k in engines}
+        order = list(engines)
+        for i in range(OVERHEAD_ROUNDS):
+            for k in order[i % 2:] + order[:i % 2]:
+                sched = engines[k][1]
+                t0 = time.perf_counter()
+                sched.step()  # ends in the step's device->host copy
+                walls[k].append(time.perf_counter() - t0)
+        med = {k: float(np.median(w)) for k, w in walls.items()}
+        return dict(median_ms_on=med["on"] * 1e3, median_ms_off=med["off"] * 1e3,
+                    overhead=med["on"] / med["off"] - 1.0)
+
+    t0 = time.perf_counter()
+    attempts = []
+    for _ in range(OVERHEAD_ATTEMPTS):
+        attempts.append(measure())
+        if attempts[-1]["overhead"] <= OVERHEAD_BOUND:
+            break
+    seconds = time.perf_counter() - t0
+    (on, son), (off, soff) = engines["on"], engines["off"]
+    if not (on.active.all() and off.active.all()):
+        fail("telemetry overhead: a batch drained before the last timed step")
+    tokens_on = [r.tokens for _, r in sorted(son.results.items())]
+    tokens_off = [r.tokens for _, r in sorted(soff.results.items())]
+    if tokens_on != tokens_off:
+        fail("telemetry overhead: the engines with and without telemetry "
+             "sampled other tokens")
+    steps = 2 + len(attempts) * OVERHEAD_ROUNDS
+    if (on.profiler.total_steps != steps
+            or metric(on, "serving_decode_steps_total") != steps
+            or on.tracer.open_count != BATCH):
+        fail(f"telemetry overhead: {on.profiler.total_steps} profiled steps, "
+             f"{on.tracer.open_count} open spans; expected {steps}, {BATCH}")
+    best = min(a["overhead"] for a in attempts)
+    if best > OVERHEAD_BOUND:
+        fail(f"telemetry overhead {best:.2%} exceeds the "
+             f"{OVERHEAD_BOUND:.0%} bound: {attempts}")
+    # the profiler's fence on the card: one synchronize, counted
+    prof = StepProfiler(fence_every=1)
+    prof.end(prof.begin(), fence={"x": torch.ones(4, device=dev)})
+    if prof.summary()["fenced"] != 1:
+        fail("telemetry overhead: the profiler's CUDA fence was not counted")
+    line = dict(phase="telemetry_overhead", arch=cfg.name,
+                dtype=cfg.compute_dtype, route="plan", n_slots=BATCH,
+                max_len=OVERHEAD_MAX_LEN, rounds=OVERHEAD_ROUNDS,
+                attempts=attempts, overhead_best=best,
+                overhead_bound=OVERHEAD_BOUND,
+                telemetry_host_us_per_step=(
+                    min(a["median_ms_on"] - a["median_ms_off"]
+                        for a in attempts) * 1e3),
+                launches_per_step=on.kernel_launches_per_step,
+                tokens_identical=True, cuda_fence_counted=True,
+                profiler=on.profiler.summary(),
+                trace_open_spans=on.tracer.open_count, seconds=seconds)
+    del engines, on, off, son, soff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_serve_launcher(dev):
+    """The serve launcher, in process, on the card (``--reduced --kernel``,
+    the reduced float32 plan route): its ``--metrics-out`` file holds the
+    engine's registry and the process-wide launch counter, its
+    ``--trace-out`` file one span a request, each ``ok``."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import serve as serve_launcher
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        mpath, tpath = os.path.join(d, "metrics.json"), os.path.join(d, "trace.jsonl")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            serve_launcher.main(["--reduced", "--kernel", "--metrics-out",
+                                 mpath, "--trace-out", tpath])
+        seconds = time.perf_counter() - t0
+        payload = json.loads(Path(mpath).read_text())
+        spans = [json.loads(line) for line in
+                 Path(tpath).read_text().splitlines()]
+    metrics = payload["metrics"]
+
+    def value(name, **labels):
+        rows = [r for r in metrics.get(name, {}).get("values", [])
+                if r["labels"] == labels]
+        return rows[0]["value"] if rows else None
+
+    requests, max_new = 6, 16  # the launcher's defaults
+    got = dict(kernel_launches_total=value("kernel_launches_total"),
+               launches_per_step=value("serving_kernel_launches_per_step",
+                                       bucket="4x1"),
+               tokens=value("serving_tokens_total"),
+               requests_ok=value("serving_requests_total", status="ok"),
+               layer_plans=value("serving_layer_plans"),
+               spans=len(spans),
+               statuses=sorted({s["status"] for s in spans}))
+    if (not got["kernel_launches_total"] or got["launches_per_step"] != 14
+            or got["tokens"] != requests * max_new
+            or got["requests_ok"] != requests or got["layer_plans"] != 1
+            or got["spans"] != requests or got["statuses"] != ["ok"]
+            or set(payload) != {"metrics", "trace_summary", "profiler",
+                                "live_roofline"}):
+        fail(f"serve launcher: telemetry files hold {got}")
+    return dict(phase="serve_launcher", argv="--reduced --kernel "
+                "--metrics-out F --trace-out G", seconds=seconds,
+                metrics=len(metrics), **got,
+                trace_summary=payload["trace_summary"],
+                profiler=payload["profiler"],
+                summary_lines=[line for line in out.getvalue().splitlines()
+                               if line.startswith("  ")][:8])
+
+
 def merge_serve(a, b):
     """Two serves' ``(counts, by_shape, decode steps)`` summed."""
     return ({k: a[0].get(k, 0) + b[0].get(k, 0) for k in set(a[0]) | set(b[0])},
@@ -2915,6 +3117,7 @@ def run_olmo(dev, layers):
                                "results are bit-identical",
               step_tolerance=STEP_TOL, rows=rows))
     emit(phase_reduced_serve(dev, red_cfg))
+    emit(phase_serve_launcher(dev))
     full, full_counts, by_shape, eng = phase_full_serve(dev, base, art16,
                                                         fixture_s)
     emit(full)
@@ -2925,6 +3128,7 @@ def run_olmo(dev, layers):
     planned, plan_counts, plan_shape = phase_plan_serve(
         dev, cfg32, art32, plan.stages.values(), plan.pack_s)
     emit(planned)
+    emit(phase_overhead(dev, cfg32, art32))
     pline, pserves = phase_prefix(dev, base, art32)
     emit(pline)
     del art32, plan
@@ -3945,9 +4149,12 @@ def phase_train_olmo(dev):
     and compute, remat on) trained by the port's ``make_train_step`` with
     ProxSGD over every site's groups: one warm step and TRAIN_STEPS timed
     ones, the kernel-vs-XLA-route update check, and a profiled step."""
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.optim.optimizers import prox_sgd, tree_leaves
     from repro_torch.training.regularize import site_group_specs
-    from repro_torch.training.trainer import init_train_state, make_train_step
+    from repro_torch.training.trainer import (init_train_state,
+                                              make_train_step,
+                                              record_step_metrics)
 
     cfg = get_arch("olmo-1b")
     specs = site_group_specs(api.abstract_params(cfg), cfg, TRAIN_LAM)
@@ -3963,6 +4170,8 @@ def phase_train_olmo(dev):
                for i in range(TRAIN_STEPS + 4)]
     param_bytes = tensor_bytes(*tree_leaves(state.params))
     torch.cuda.reset_peak_memory_stats()
+    registry = MetricsRegistry()
+    g0 = global_launches()
     dispatch.reset_launch_count()  # counts of the main path start here ...
     step_ms, losses, dead, penalty, gnorm = [], [], [], [], []
     for i in range(TRAIN_STEPS + 1):
@@ -3975,6 +4184,8 @@ def phase_train_olmo(dev):
         gnorm.append(float(m["grad_norm"]))
         dead.append(int(m["dead_groups"]))
         penalty.append(float(m["prox_penalty"]))
+        # where the loop reads the metrics anyway, as the launcher records
+        record_step_metrics(registry, m, step=i)
     counts = dispatch.launch_counts()  # ... and are read here
     by_shape = dispatch.launch_counts_by_shape()
     peak = torch.cuda.max_memory_allocated()
@@ -3984,6 +4195,14 @@ def phase_train_olmo(dev):
     if set(counts) != {"group_prox"} or counts["group_prox"] != len(specs) * steps:
         fail(f"train olmo: launched {counts}, expected {len(specs)} group_prox "
              f"launches a step over {steps} steps and nothing else")
+    train_metrics = {name: row["values"][0]["value"]
+                     for name, row in registry.snapshot().items()}
+    if (train_metrics["train_steps_total"] != steps
+            or train_metrics["train_step"] != steps - 1
+            or train_metrics["train_loss"] != losses[-1]
+            or global_launches() - g0 != counts["group_prox"]):
+        fail(f"train olmo: the registry holds {train_metrics} after {steps} "
+             f"steps (kernel_launches_total +{global_launches() - g0})")
     state, prof = profile_train_step(cfg, opt, specs, state, batches[steps])
     check = check_update_routes(state, specs, batches[steps + 1], cfg, dev)
     ckpt = checkpoint_round_trip(state, step_fn, batches[steps + 2], specs)
@@ -4001,7 +4220,7 @@ def phase_train_olmo(dev):
                 group_prox_share_of_step=prof["group_prox_device_ms"] / ms,
                 loss=losses, grad_norm=gnorm, dead_groups=dead,
                 prox_penalty=penalty, update_check=check, profile=prof,
-                checkpoint=ckpt), counts, by_shape, steps
+                checkpoint=ckpt, train_metrics=train_metrics), counts, by_shape, steps
 
 
 MLP_TRAIN_ARGS = ["--arch", "mlp", "--prox", "--lambda", "0.1", "--epochs", "3"]
@@ -4487,6 +4706,29 @@ def quickstart_rows(cfg, art, plan, dev, timer, sm, route):
     return rows
 
 
+def live_roofline_line(eng, art, route) -> dict:
+    """The live roofline of a serve of a really compressed artifact: the
+    artifact's shift-add budget (its cost report) times the decode tok/s
+    the engine's profiler measured, launches a step beside it."""
+    live = live_roofline(eng)
+    if live is None:
+        fail(f"live roofline ({route}): none for an artifact with a report")
+    tok_s = live["profiler"]["tok_s"]
+    if (live["total_lcc_adds"] != art.report.total_stage("lcc")
+            or not (tok_s is not None and np.isfinite(tok_s) and tok_s > 0)):
+        fail(f"live roofline ({route}): lcc adds {live['total_lcc_adds']} "
+             f"against the report's {art.report.total_stage('lcc')}, tok/s "
+             f"{tok_s}")
+    return dict(phase="live_roofline", serve=f"quickstart {art.config.name}",
+                route=route, dtype=art.config.compute_dtype,
+                **{k: live[k] for k in (
+                    "total_baseline_adds", "total_lcc_adds",
+                    "decode_tok_s_n8", "kernel_launches", "n_layer_plans",
+                    "achieved_adds_per_s")},
+                tok_s=tok_s, profiler=live["profiler"],
+                sites=len(live["sites"]))
+
+
 def phase_compress_olmo(dev, timer, sm):
     """The reference launcher's --quickstart olmo-1b, compressed by the port
     (default config; bf16 and float32 parameters, the same seed) and served
@@ -4517,6 +4759,7 @@ def phase_compress_olmo(dev, timer, sm):
         torch.cuda.synchronize()
         counts = dispatch.launch_counts()  # ... and are read here
         by_shape = dispatch.launch_counts_by_shape()
+        emit(live_roofline_line(eng, art, route))
         _, res_d, _ = serve(art, dev, use_kernel=False, n_slots=BATCH,
                             prompts=prompts, max_new=16)
         for r in res + res_d:

@@ -11,6 +11,9 @@ device, and nowhere else — the plain versions never count.  One count is one
 call of a kernel's C entry point (the chain kernels enqueue their fixed-order
 reduction pass inside that same call).  A wrapper also passes the dimensions
 it launched at, so a run can be asked which shapes it really went through.
+Every launch also increments ``kernel_launches_total`` in the process-wide
+:mod:`repro_torch.obs` registry (the reference's ``pallas_launches_total``,
+which counts at trace time).
 
 Host arrays reach a device through :func:`upload`, which also takes the
 read-only, possibly unaligned views of a mapped artifact.
@@ -28,6 +31,7 @@ __all__ = ["upload", "on_device", "check_tensor", "check_launch",
 
 _launch_counts: dict[str, int] = {}
 _shape_counts: dict[tuple[str, tuple], int] = {}
+_launch_metric = None  # lazily resolved obs counter (process-global registry)
 
 
 def upload(a: np.ndarray, device) -> torch.Tensor:
@@ -77,8 +81,18 @@ def check_launch(code: int, name: str) -> None:
 
 
 def record_launch(name: str, n: int = 1, *, shape: tuple | None = None) -> None:
-    """Count ``n`` launches of kernel ``name``, launched at dimensions ``shape``."""
+    """Count ``n`` launches of kernel ``name``, launched at dimensions
+    ``shape``; also published as the live ``kernel_launches_total`` counter
+    of the process-global :mod:`repro_torch.obs` registry (resolved lazily,
+    so importing this module sets up no telemetry)."""
+    global _launch_metric
     _launch_counts[name] = _launch_counts.get(name, 0) + n
+    if _launch_metric is None:
+        from repro_torch.obs import get_global
+        _launch_metric = get_global().counter(
+            "kernel_launches_total",
+            "kernel launches recorded at run time, process-wide")
+    _launch_metric.inc(n)
     if shape is not None:
         key = (name, tuple(shape))
         _shape_counts[key] = _shape_counts.get(key, 0) + n

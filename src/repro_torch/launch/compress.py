@@ -29,7 +29,9 @@ The run directory layout under ``--out``:
 The artifact is what ``ServingEngine(artifact=CompressedModel.load(...))``
 serves, and the reference's ``CompressedModel.load`` reads it too.  The
 decomposition runs on the host (numpy, worker processes); the parameters
-live on ``--device``.  ``--metrics-out`` (``obs/``, A5) is refused.
+live on ``--device``.  ``--metrics-out F`` writes the run's metrics
+(the pipeline's events and run stats, ``pipeline_adds{stage}`` and the
+process-wide registry) as JSON at exit, as the reference's launcher does.
 """
 import argparse
 import json
@@ -39,8 +41,6 @@ import time
 import torch
 
 from repro_torch.core import CompressionConfig
-
-_QUEUE = "ROADMAP Queue A"
 
 
 def build_model(arch: str, quickstart: bool, seed: int, device):
@@ -128,13 +128,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="where the parameters live; 'cpu' also implies "
                          "--quickstart")
-    # refused: names the queue entry that brings it
-    ap.add_argument("--metrics-out", default=None)
-    args = ap.parse_args(argv)
-    if args.metrics_out is not None:
-        raise SystemExit(f"--metrics-out is not available in this package "
-                         f"yet: it comes with the obs/ entry of {_QUEUE}")
-    return args
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the run's metrics snapshot as JSON at exit")
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
@@ -143,8 +139,10 @@ def main(argv=None) -> dict:
         raise SystemExit("no CUDA device: pass --device cpu to compress the "
                          "quickstart config on the CPU")
     from repro_torch.models import api
+    from repro_torch.obs import MetricsRegistry, dump_metrics, get_global
     from repro_torch.pipeline import runner
 
+    metrics = MetricsRegistry() if args.metrics_out else None
     params, cfg = build_model(args.arch,
                               args.quickstart or args.device == "cpu",
                               args.seed, torch.device(args.device))
@@ -170,6 +168,7 @@ def main(argv=None) -> dict:
         run_dir=os.path.join(args.out, "run"),
         resume=args.resume,
         progress=progress,
+        metrics=metrics,
     )
     art.save(os.path.join(args.out, "artifact"))
     wall = time.time() - t0
@@ -189,6 +188,13 @@ def main(argv=None) -> dict:
     with open(os.path.join(args.out, "stats.json"), "w") as f:
         json.dump(stats, f, indent=2)
         f.write("\n")
+    if args.metrics_out:
+        adds = metrics.gauge("pipeline_adds", "artifact adds by stage",
+                             labels=("stage",))
+        adds.set(art.report.total_baseline(), stage="baseline")
+        adds.set(lcc, stage="lcc")
+        dump_metrics(args.metrics_out, [get_global(), metrics])
+        print(f"wrote {args.metrics_out}")
     print(f"artifact -> {os.path.join(args.out, 'artifact')}")
     runner.shutdown_workers(wait=True)  # the pool's processes end with the run
     return stats

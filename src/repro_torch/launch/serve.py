@@ -18,10 +18,18 @@ width, random weights.  The offline compressor
 runs for hours at these widths; an artifact it wrote is served with
 ``ServingEngine(artifact=CompressedModel.load(dir))``.
 
-The reference launcher's ``--compress`` (compress, then serve: ROADMAP A8),
-``--dp``/``--tp`` (a device mesh: A7) and ``--metrics-out``,
-``--trace-out``, ``--metrics-port`` (telemetry: A5) are accepted and
-refused by name.
+Telemetry, as in the reference: the engine traces every request
+(``tracer=True``) and the end-of-run summary prints queue wait, TTFT, TPOT
+and end-to-end p50/p99, the profiler's decode steps and tok/s, and the live
+roofline when the artifact carries a cost report (the seeded fixture has
+none).  ``--metrics-out F`` writes the merged metrics (the engine's and the
+process-wide registry) with the trace summary, the profiler summary and
+the live roofline as JSON; ``--trace-out G`` one span a request as JSONL;
+``--metrics-port P`` serves ``GET /metrics`` (Prometheus text) on
+127.0.0.1 for the run (0 picks a free port; its URL is printed).
+
+The reference launcher's ``--compress`` (compress, then serve: ROADMAP A8)
+and ``--dp``/``--tp`` (a device mesh: A7) are accepted and refused by name.
 """
 import argparse
 import time
@@ -29,6 +37,7 @@ from dataclasses import replace
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_arch, reduced_config
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.serving.engine import ServingEngine
@@ -41,12 +50,6 @@ _REFUSED = {
     "--compress": (lambda a: a.compress, f"A8 of {_QUEUE}"),
     "--dp": (lambda a: a.dp != 1, f"the distributed/ entry (A7) of {_QUEUE}"),
     "--tp": (lambda a: a.tp != 1, f"the distributed/ entry (A7) of {_QUEUE}"),
-    "--metrics-out": (lambda a: a.metrics_out is not None,
-                      f"the obs/ entry (A5) of {_QUEUE}"),
-    "--trace-out": (lambda a: a.trace_out is not None,
-                    f"the obs/ entry (A5) of {_QUEUE}"),
-    "--metrics-port": (lambda a: a.metrics_port is not None,
-                       f"the obs/ entry (A5) of {_QUEUE}"),
 }
 
 
@@ -79,15 +82,20 @@ def main(argv=None) -> None:
                     default=True,
                     help="share prefilled prompt-prefix blocks across "
                          "requests (copy-on-write; paged engines only)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the merged metrics snapshot (+ trace summary "
+                         "and live roofline) as JSON at exit")
+    ap.add_argument("--trace-out", default=None,
+                    help="write per-request spans as JSONL at exit")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve GET /metrics (Prometheus text) on this port "
+                         "for the run's duration (0 = ephemeral)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     # the reference's flags, refused below
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--metrics-out", default=None)
-    ap.add_argument("--trace-out", default=None)
-    ap.add_argument("--metrics-port", type=int, default=None)
     args = ap.parse_args(argv)
     for flag, (is_set, where) in _REFUSED.items():
         if is_set(args):
@@ -115,7 +123,24 @@ def main(argv=None) -> None:
                         temperature=args.temperature, seed=args.seed,
                         use_kernel=args.kernel, kv_block=args.kv_block or None,
                         kv_blocks=args.kv_blocks,
-                        prefix_cache=args.prefix_cache, device=args.device)
+                        prefix_cache=args.prefix_cache, tracer=True,
+                        device=args.device)
+    registries = [obs.get_global(), eng.metrics]
+    srv = None
+    if args.metrics_port is not None:
+        srv = obs.start_metrics_server(registries, port=args.metrics_port)
+        print(f"metrics: http://127.0.0.1:{srv.server_port}/metrics")
+    try:
+        _run(args, eng, prompts, registries)
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+
+
+def _run(args, eng, prompts, registries) -> None:
+    """Serve ``prompts`` through a scheduler, print the results and the
+    end-of-run telemetry, write ``--trace-out`` / ``--metrics-out``."""
     sched = Scheduler(eng)
     on_token = ((lambda rid, tok: print(f"  req{rid} += {tok}", flush=True))
                 if args.stream else None)
@@ -152,6 +177,39 @@ def main(argv=None) -> None:
         print(f"routed {len(eng.executor.routed)}/{len(eng.executor.sites)} "
               f"sites through fused kernels, {eng.n_layer_plans} layer plan(s); "
               f"plan fallbacks {eng.plan_stats()['fallbacks']}")
+
+    # -------------------------------------------------- end-of-run telemetry
+    tsum = eng.tracer.summary()
+    prof = eng.profiler.summary()
+
+    def ms(v):
+        return "-" if v is None else f"{v * 1e3:8.1f}"
+
+    print("telemetry summary")
+    print(f"  {'metric':<14}{'p50 ms':>10}{'p99 ms':>10}{'n':>6}")
+    for name in ("queue_wait_s", "ttft_s", "tpot_s", "e2e_s"):
+        st = tsum[name]
+        print(f"  {name[:-2]:<14}{ms(st['p50']):>10}{ms(st['p99']):>10}"
+              f"{st['n']:>6}")
+    print(f"  requests: {tsum['by_status']} ({tsum['open']} unclosed), "
+          f"decode steps {prof['steps']}"
+          + (f" @ {prof['tok_s']:.1f} tok/s" if prof["tok_s"] else ""))
+    live = obs.live_roofline(eng)
+    if live is not None:
+        print(f"  live roofline: {live['total_lcc_adds']} lcc adds/token x "
+              f"{live['decode_tok_s_n8']} tok/s = "
+              f"{live['achieved_adds_per_s']} adds/s "
+              f"({live['kernel_launches']} launches / "
+              f"{live['n_layer_plans']} plans per step)")
+    if args.trace_out:
+        n_open = eng.tracer.dump_jsonl(args.trace_out)
+        print(f"wrote {args.trace_out} ({tsum['completed']} spans, "
+              f"{n_open} unclosed)")
+    if args.metrics_out:
+        obs.dump_metrics(args.metrics_out, registries,
+                         trace_summary=tsum, profiler=prof,
+                         live_roofline=live)
+        print(f"wrote {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -43,10 +43,14 @@ recovery fine-tuning (``training.recover``), the fused fc1 check (one K1
 launch on a GPU) on 256 held-out samples, then the artifact under
 ``D/artifact`` and ``D/train_stats.json``.
 
+``--metrics-out F`` writes the run's metrics as JSON at exit, as the
+reference's launcher does: the LM path's ``train_*`` gauges and
+``train_tok_s`` where it prints, the MLP's ``train_accuracy{stage}`` and
+the compressor's pipeline metrics, and the process-wide registry.
+
 Not available yet, refused with a message: the mesh, multi-device and
 gradient-compression flags and the elastic demo (the ``distributed/``
-entry) and the metrics snapshot (the ``obs/`` entry).  Checkpoints belong
-to the LM path: ``--arch mlp`` refuses them.
+entry).  Checkpoints belong to the LM path: ``--arch mlp`` refuses them.
 """
 import argparse
 import json
@@ -59,6 +63,7 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_arch, reduced_config
 from repro_torch.data.synthetic import MarkovLM, batches
 from repro_torch.kernels import dispatch
+from repro_torch.obs import MetricsRegistry, dump_metrics, get_global
 from repro_torch.optim.optimizers import (adamw, prox_sgd, step_decay,
                                           tree_leaves, tree_map)
 from repro_torch.training import regularize
@@ -73,8 +78,6 @@ _REFUSED = {
                            f"the distributed/ entry of {_QUEUE}"),
     "--elastic-demo": (lambda a: a.elastic_demo,
                        f"the distributed/ entry of {_QUEUE}"),
-    "--metrics-out": (lambda a: a.metrics_out is not None,
-                      f"the obs/ entry of {_QUEUE}"),
 }
 
 
@@ -83,13 +86,20 @@ def _where(device: torch.device) -> str:
             else "cpu")
 
 
-def train_mlp(args, device: torch.device):
+def _accuracy_gauge(metrics, acc: float, stage: str) -> None:
+    if metrics is not None:
+        metrics.gauge("train_accuracy", "held-out accuracy by stage",
+                      labels=("stage",)).set(acc, stage=stage)
+
+
+def train_mlp(args, device: torch.device, metrics=None):
     """--arch mlp: the training half of the paper's Sec. IV-A loop —
     (optionally prox-regularized) training on MNIST-scale stroke digits with
     the x0.95-every-3-epochs schedule, sparsity printed every third epoch,
-    held-out accuracy at the end.  Returns ``(stats, params, (x_test,
-    y_test))``: the trained params (tensors on ``device``, detached) and the
-    held-out set feed the compressor."""
+    held-out accuracy at the end (``train_accuracy{stage="dense"}`` in
+    ``metrics``).  Returns ``(stats, params, (x_test, y_test))``: the
+    trained params (tensors on ``device``, detached) and the held-out set
+    feed the compressor."""
     from repro_torch.data.mnist_like import train_test
     from repro_torch.models.mlp import MLPConfig, init_mlp, mlp_accuracy, mlp_loss
 
@@ -128,6 +138,7 @@ def train_mlp(args, device: torch.device):
                   flush=True)
     with torch.no_grad():
         acc = float(mlp_accuracy(params, xte_t, yte_t))
+    _accuracy_gauge(metrics, acc, "dense")
     stats = {"arch": "mlp", "hidden": cfg.hidden, "prox": bool(args.prox),
              "lam": args.lam, "epochs": args.epochs, "batch": batch,
              "steps": steps, "train_wall_s": time.time() - t0,
@@ -146,8 +157,8 @@ def train_mlp(args, device: torch.device):
     return stats, params, (xte_t, yte_t)
 
 
-def compress_handoff(args, train_stats: dict, params, device: torch.device
-                     ) -> dict:
+def compress_handoff(args, train_stats: dict, params, device: torch.device,
+                     metrics=None) -> dict:
     """--arch mlp --compress-out: the rest of the paper's Sec. IV-A loop on
     the trained ``params``, as the reference's launcher runs it.
 
@@ -160,7 +171,10 @@ def compress_handoff(args, train_stats: dict, params, device: torch.device
     3. the fused-serving check: fc1 through the packed whole-chain kernel
        on 256 held-out samples;
     4. ``art.save(<out>/artifact)`` and ``<out>/train_stats.json`` with the
-       reference's keys.  Returns that stats dict."""
+       reference's keys.  Returns that stats dict.
+
+    ``metrics`` receives the compressor's pipeline metrics and
+    ``train_accuracy{stage="compressed"}``."""
     from repro_torch.data.mnist_like import train_test
     from repro_torch.launch.compress import parse_compression
     from repro_torch.models import api
@@ -197,7 +211,8 @@ def compress_handoff(args, train_stats: dict, params, device: torch.device
         params, cfg, compression, include=args.include,
         n_workers=args.workers, budget_adds=args.budget,
         cache_dir=os.path.join(args.compress_out, "cache"),
-        run_dir=os.path.join(args.compress_out, "run"), progress=progress)
+        run_dir=os.path.join(args.compress_out, "run"), progress=progress,
+        metrics=metrics)
     ps = art.pipeline_stats
     stats["pipeline"] = {k: int(ps.get(k, 0)) for k in
                          ("units", "jobs", "dead_groups", "skipped_jobs",
@@ -208,6 +223,7 @@ def compress_handoff(args, train_stats: dict, params, device: torch.device
     with torch.no_grad():
         acc_c = float(mlp_accuracy(art.params, xte_t, yte_t))
     stats["accuracy"]["compressed"] = acc_c
+    _accuracy_gauge(metrics, acc_c, "compressed")
     print(f"compress: adds {stats['adds']['baseline']} -> "
           f"{stats['adds']['lcc']} (dead groups {ps['dead_groups']}, "
           f"skipped {ps['skipped_jobs']} jobs, shrunk {ps['shrunk_jobs']}); "
@@ -270,9 +286,11 @@ def compress_handoff(args, train_stats: dict, params, device: torch.device
     return stats
 
 
-def lm_main(args, device: torch.device) -> dict:
+def lm_main(args, device: torch.device, metrics=None) -> dict:
     from repro_torch.models import api
-    from repro_torch.training.trainer import init_train_state, make_train_step
+    from repro_torch.training.trainer import (init_train_state,
+                                              make_train_step,
+                                              record_step_metrics)
 
     batch = 8 if args.batch is None else args.batch
     lr = 3e-3 if args.lr is None else args.lr
@@ -316,6 +334,11 @@ def lm_main(args, device: torch.device) -> dict:
         if i % 10 == 0 or i == args.steps - 1:
             loss = float(m["loss"])  # the one host read, where it prints
             tok_s = batch * args.seq * max(i - start_step, 1) / (time.time() - t0)
+            # recorded where the loop already reads the metrics to print,
+            # so telemetry adds no device round trip of its own
+            record_step_metrics(metrics, m, step=i)
+            if metrics is not None:
+                metrics.gauge("train_tok_s", "training throughput").set(tok_s)
             prox = (f"  dead {int(m['dead_groups'])}  "
                     f"pen {float(m['prox_penalty']):.2f}"
                     if "dead_groups" in m else "")
@@ -398,7 +421,8 @@ def parse_args(argv=None):
     ap.add_argument("--devices", type=int, default=None)
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--elastic-demo", action="store_true")
-    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the run's metrics snapshot as JSON at exit")
     args = ap.parse_args(argv)
     for flag, (is_set, where) in _REFUSED.items():
         if is_set(args):
@@ -416,12 +440,17 @@ def main(argv=None) -> dict:
         raise SystemExit("no CUDA device: pass --device cpu to train the "
                          "reduced config on the CPU")
     device = torch.device(args.device)
+    metrics = MetricsRegistry() if args.metrics_out else None
     if args.arch == "mlp":
-        stats, params, _ = train_mlp(args, device)
-        if args.compress_out is None:
-            return stats
-        return compress_handoff(args, stats, params, device)
-    return lm_main(args, device)
+        stats, params, _ = train_mlp(args, device, metrics)
+        if args.compress_out is not None:
+            stats = compress_handoff(args, stats, params, device, metrics)
+    else:
+        stats = lm_main(args, device, metrics)
+    if args.metrics_out:
+        dump_metrics(args.metrics_out, [get_global(), metrics])
+        print(f"wrote {args.metrics_out}")
+    return stats
 
 
 if __name__ == "__main__":

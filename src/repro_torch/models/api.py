@@ -206,8 +206,9 @@ def compress_model(params, cfg, compression=None, *, include=None,
     adds-budget allocator; ``progress`` receives structured
     ``repro_torch.pipeline.CompressionEvent``s; ``cache_dir`` (durable
     slice cache), ``run_dir`` (run manifest) and ``resume`` go to
-    :func:`~repro_torch.pipeline.run_pipeline`.  ``metrics`` (ROADMAP A5) is
-    refused with ``NotImplementedError``.
+    :func:`~repro_torch.pipeline.run_pipeline`.  ``metrics`` (a
+    ``repro_torch.obs.MetricsRegistry``) additionally publishes the
+    pipeline's events and run stats.
     """
     import numpy as np
 

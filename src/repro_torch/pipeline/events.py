@@ -4,8 +4,7 @@
 string; pipeline consumers need machine-readable progress (unit, wall-time,
 adds before/after, cache activity) to make multi-hour runs observable from
 the CLI.  ``str(event)`` renders the human line, so ``progress=print``
-works.  Counterpart of ``repro.pipeline.events``; publishing the events into a
-metrics registry (``metrics=``) comes with ``obs/`` (ROADMAP A5).
+works.  Counterpart of ``repro.pipeline.events``.
 """
 from __future__ import annotations
 
@@ -54,12 +53,29 @@ class CompressionEvent:
 
 
 class EventEmitter:
-    """Nil-safe fan-out to the user's progress callback (the reference's
-    ``metrics=`` registry comes with ``obs/``, ROADMAP A5)."""
+    """Nil-safe fan-out to the user's progress callback.
 
-    def __init__(self, progress=None):
+    With ``metrics=`` (a :class:`~repro_torch.obs.metrics.MetricsRegistry`)
+    every event also increments ``pipeline_events_total{kind}`` and
+    ``slice_done`` walls feed the ``pipeline_job_wall_seconds`` histogram —
+    so a multi-hour compression run is observable from the same registry as
+    everything else.
+    """
+
+    def __init__(self, progress=None, metrics=None):
         self.progress = progress
+        self._m_events = self._m_wall = None
+        if metrics is not None:
+            self._m_events = metrics.counter(
+                "pipeline_events_total", "compression events by kind",
+                labels=("kind",))
+            self._m_wall = metrics.histogram(
+                "pipeline_job_wall_seconds", "per-job compression wall")
 
     def __call__(self, kind: str, **kw) -> None:
+        if self._m_events is not None:
+            self._m_events.inc(1, kind=kind)
+            if kind == "slice_done" and self._m_wall is not None:
+                self._m_wall.observe(kw.get("wall_s", 0.0))
         if self.progress is not None:
             self.progress(CompressionEvent(kind=kind, **kw))

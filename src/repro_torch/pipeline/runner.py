@@ -21,8 +21,7 @@ the manifest (so a budget run does not re-search), verifies the hashes, and
 re-executes the job graph — completed slices come straight from the cache.
 
 Counterpart of ``repro.pipeline.runner``, with the same reduction order and
-the same manifest and cache files.  ``metrics=`` comes with ``obs/``,
-ROADMAP A5, and is refused with ``NotImplementedError``.
+the same manifest and cache files.
 
 Worker processes never fork from the calling process, which may have
 initialised CUDA: the pool runs on a *forkserver* context, a fresh process
@@ -263,13 +262,6 @@ def _reduce(planned, results, walls, conv_channel_subsample, emit,
     return records, report
 
 
-def _refuse_unported(metrics) -> None:
-    if metrics is not None:
-        raise NotImplementedError(
-            "metrics=: the metrics registry is not available in this package "
-            "yet (it comes with obs/, ROADMAP A5)")
-
-
 def run_pipeline(
     units,
     compression: CompressionConfig | None = None,
@@ -293,11 +285,11 @@ def run_pipeline(
     path is bitwise-checked against.  ``cache_dir`` makes the slice cache
     durable; ``run_dir`` records the run's manifest (and, without
     ``cache_dir``, holds the cache); ``resume=True`` replays a recorded run.
-    ``metrics`` (ROADMAP A5) raises ``NotImplementedError``.
+    ``metrics=`` publishes the event stream and the final run stats into a
+    :mod:`repro_torch.obs` registry.
     """
-    _refuse_unported(metrics)
     t_start = time.time()
-    emitter = EventEmitter(progress)
+    emitter = EventEmitter(progress, metrics=metrics)
     base = compression if compression is not None else CompressionConfig()
     cache = SliceCache(cache_dir)
     if run_dir is not None and cache_dir is None:
@@ -406,5 +398,11 @@ def run_pipeline(
     if h0 or m0:  # allocator search traffic, reported separately
         stats["search_cache_hits"] = h0
         stats["search_cache_misses"] = m0
+    if metrics is not None:
+        g = metrics.gauge("pipeline_run", "final pipeline run stats",
+                          labels=("stat",))
+        for k, v in stats.items():
+            if isinstance(v, (int, float)) and v is not None:
+                g.set(v, stat=k)
     return PipelineResult(records=records, report=report, unit_configs=plans,
                           stats=stats, budget_info=budget_info)

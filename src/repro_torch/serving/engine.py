@@ -34,9 +34,14 @@ otherwise attention q/k/v/o and FFN gate/up/down as fused per-region launches
 attention and, in float32, one expert plan a layer (``moe_plan_matmul``):
 the shift-add runtime the paper targets either way.  Prefill runs on the artifact's dense-effective weights.
 
+Telemetry (:mod:`repro_torch.obs`), as in the reference: ``metrics=None``
+builds a registry per engine, ``metrics=False`` turns telemetry off, a
+``MetricsRegistry`` passed in is shared; ``tracer=True`` adds a request
+tracer on the same registry, which the scheduler drives.  The step
+profiler times every decode step (``fence_every``: its fencing period).
+
 Not available yet, and refused with an error when asked for: ``mesh=``
-(multi-device decode), ``metrics=``/``tracer=`` telemetry and the step
-profiler's ``fence_every=`` (ROADMAP A5).
+(multi-device decode).
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import api
+from repro_torch.obs import MetricsRegistry, RequestTracer, StepProfiler
 from repro_torch.serving.executor import CompressedExecutor
 from repro_torch.serving.kvpool import KVPool, empty_stats
 
@@ -90,18 +96,11 @@ class ServingEngine:
                  use_kernel: bool = True, bulk_prefill: bool = True,
                  mesh=None, kv_block: int | None = 16,
                  kv_blocks: int | None = None, prefix_cache: bool = True,
-                 metrics=None, tracer=None, fence_every: int | None = None,
+                 metrics=None, tracer=None, fence_every: int = 32,
                  device="cuda"):
         if mesh is not None:
             raise NotImplementedError("mesh=: multi-device serving is not "
                                       "available in this package yet")
-        if metrics not in (None, False) or tracer not in (None, False):
-            raise NotImplementedError("metrics=/tracer=: telemetry is not "
-                                      "available in this package yet")
-        if fence_every is not None:
-            raise NotImplementedError("fence_every=: the step profiler is not "
-                                      "available in this package yet (the "
-                                      "obs/ entry, ROADMAP A5)")
         if artifact is not None:
             if cfg is None:
                 cfg = artifact.config
@@ -122,8 +121,6 @@ class ServingEngine:
         self.temp = temperature
         self.bulk_prefill = bulk_prefill
         self.seed = seed
-        self.metrics = None  # telemetry hooks the scheduler reads
-        self.tracer = None
         # paged KV: the cache lives in a block pool (kv_block=None restores
         # the contiguous per-slot slabs; the tokenwise prefill needs them)
         self.paged = (kv_block is not None and bulk_prefill
@@ -168,6 +165,66 @@ class ServingEngine:
                          if use_kernel else None)
         self.step_dispatches = 0  # decode steps run (observability)
         self._step_launches = 0  # kernel launches of the newest decode step
+        # telemetry: metrics=None -> fresh per-engine registry; metrics=False
+        # -> fully off (the A/B baseline for overhead measurement); any
+        # MetricsRegistry -> shared.  tracer=True builds a RequestTracer
+        # publishing into the same registry; the scheduler reads engine.tracer.
+        if metrics is False:
+            self.metrics = None
+        else:
+            self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.profiler = (StepProfiler(fence_every=fence_every)
+                         if self.metrics is not None else None)
+        if tracer is True:
+            self.tracer: RequestTracer | None = RequestTracer(
+                metrics=self.metrics)
+        else:
+            self.tracer = tracer or None
+        m = self.metrics
+        if m is not None:
+            # pre-resolved metric objects: the per-step hot path never walks
+            # the registry's name table
+            self._m_steps = m.counter(
+                "serving_decode_steps_total", "fused decode step dispatches")
+            self._m_tokens = m.counter(
+                "serving_tokens_total", "decode tokens sampled")
+            self._m_step_hist = m.histogram(
+                "serving_decode_step_seconds",
+                "fused decode step wall (host-synced)")
+            self._m_prefills = m.counter(
+                "serving_prefills_total", "prompt admissions by prefill kind",
+                labels=("kind",))
+            self._m_prefill_hist = m.histogram(
+                "serving_prefill_seconds", "submit() prefill wall")
+            self._m_launches = m.gauge(
+                "serving_kernel_launches_per_step",
+                "kernel launches in the newest decode step (run-time count)",
+                labels=("bucket",))
+            self._m_grown = m.counter(
+                "serving_blocks_grown_total",
+                "KV blocks allocated mid-decode")
+            self._m_exhausted = m.counter(
+                "serving_pool_exhausted_total",
+                "requests errored by KV pool exhaustion")
+            self._m_pool = m.gauge(
+                "serving_kv_pool", "KV block pool stats", labels=("stat",))
+            m.gauge("serving_slots", "decode slots").set(n_slots)
+            # the executor builds layer plans lazily at their first use, so
+            # this gauge is refreshed alongside the launch gauge every step
+            self._m_plans = m.gauge(
+                "serving_layer_plans", "distinct layer plans in the executor")
+            self._m_plans.set(self.n_layer_plans)
+            self._m_plan_fallbacks = m.counter(
+                "serving_plan_fallbacks_total",
+                "layer-plan builds that fell back to the per-region route",
+                labels=("reason",))
+        else:
+            self._m_steps = self._m_tokens = self._m_step_hist = None
+            self._m_prefills = self._m_prefill_hist = self._m_launches = None
+            self._m_grown = self._m_exhausted = self._m_pool = None
+            self._m_plans = self._m_plan_fallbacks = None
+        self._fb_seen: set[str] = set()  # plan keys already counted
+        self._bucket = f"{n_slots}x1"  # the decode step's input bucket (BxT)
 
     @staticmethod
     def _build_executor(artifact, device):
@@ -245,9 +302,22 @@ class ServingEngine:
             return False
         return self.pool is None or self.pool.can_admit(prompt)
 
+    def _sync_plan_fallbacks(self) -> None:
+        """Publish newly-recorded plan fallbacks (the executor builds plans
+        lazily at their first use, so this runs after every step)."""
+        ex = self.executor
+        if ex is None or len(ex.plan_fallbacks) == len(self._fb_seen):
+            return
+        for key, reason in ex.plan_fallbacks.items():
+            if key not in self._fb_seen:
+                self._fb_seen.add(key)
+                if self._m_plan_fallbacks is not None:
+                    self._m_plan_fallbacks.inc(1, reason=reason)
+
     def plan_stats(self) -> dict:
         """Layer-plan telemetry: plans built, measured launches per step, and
         every plan key that fell back to the per-region route with its reason."""
+        self._sync_plan_fallbacks()
         fallbacks = (dict(self.executor.plan_fallbacks)
                      if self.executor is not None else {})
         return {"n_layer_plans": self.n_layer_plans,
@@ -256,8 +326,14 @@ class ServingEngine:
 
     def pool_stats(self) -> dict:
         """KV-pool telemetry.  Always the full key set — contiguous engines
-        report every key zeroed (``n_blocks == 0`` distinguishes them)."""
-        return empty_stats() if self.pool is None else self.pool.stats()
+        report every key zeroed (``n_blocks == 0`` distinguishes them).
+        Mirrored into the registry's ``serving_kv_pool{stat=...}`` gauge when
+        metrics are enabled."""
+        s = empty_stats() if self.pool is None else self.pool.stats()
+        if self._m_pool is not None:
+            for k, v in s.items():
+                self._m_pool.set(v, stat=k)
+        return s
 
     def submit(self, prompt: list[int], *, max_new: int | None = None,
                temperature: float | None = None) -> int:
@@ -313,10 +389,14 @@ class ServingEngine:
         self.slot_req[slot] = rid
         # host wall of the whole admission (dispatch + bookkeeping; the
         # device work may still be in flight)
+        prefill_s = time.perf_counter() - t_pre
+        if self._m_prefills is not None:
+            self._m_prefills.inc(1, kind=kind)
+            self._m_prefill_hist.observe(prefill_s)
         self.results[rid] = GenerationResult(
             tokens=list(prompt), prompt_len=len(prompt), finished=False,
-            stats={"prefill_s": time.perf_counter() - t_pre,
-                   "prefill_kind": kind, "cached_tokens": cached_tokens})
+            stats={"prefill_s": prefill_s, "prefill_kind": kind,
+                   "cached_tokens": cached_tokens})
         return rid
 
     # -------------------------------------------------------------- prefill
@@ -515,12 +595,23 @@ class ServingEngine:
                               torch.from_numpy(self.pos).to(dev),
                               torch.from_numpy(self.active).to(dev),
                               torch.from_numpy(self._new_count).to(dev))
+        t0 = self.profiler.begin() if self.profiler is not None else 0.0
         n0 = dispatch.launch_count()
         packed, self._slot_dev = self._fused_step(*self._slot_dev,
                                                   *self._ctrl_dev, eos)
         self._step_launches = dispatch.launch_count() - n0
         self.step_dispatches += 1
         nxt, emit, done = packed.cpu().numpy()  # the one small host transfer
+        if self.profiler is not None:
+            # the .cpu() copy above already synced the step, so no fence needed
+            n_emit = int(emit.sum())
+            dt = self.profiler.end(t0, tokens=n_emit)
+            self._m_steps.inc()
+            self._m_tokens.inc(n_emit)
+            self._m_step_hist.observe(dt)
+            self._m_launches.set(self._step_launches, bucket=self._bucket)
+            self._m_plans.set(self.n_layer_plans)
+        self._sync_plan_fallbacks()
         for slot in np.where(self.active)[0]:
             rid = self.slot_req[slot]
             r = self.results[rid]
@@ -561,6 +652,8 @@ class ServingEngine:
                 r.error = ("KV block pool exhausted mid-decode "
                            f"({self.pool.in_use_blocks} blocks in use)")
                 r.stats["exhausted"] = True
+                if self._m_exhausted is not None:
+                    self._m_exhausted.inc()
                 self.active[slot] = False
                 self._slot_dev = None
                 self._release_slot(slot)
@@ -569,6 +662,8 @@ class ServingEngine:
             self._tbl_host[slot, bi] = bid
             r = self.results[self.slot_req[slot]]
             r.stats["blocks_grown"] = r.stats.get("blocks_grown", 0) + 1
+            if self._m_grown is not None:
+                self._m_grown.inc()
             dirty = True
         if dirty:
             self.state["block_tbl"].copy_(torch.from_numpy(self._tbl_host))

@@ -17,8 +17,9 @@ request lifecycle:
   ``GenerationResult(error=...)``; the rest of the batch is unaffected.
 
 Both ``ServingEngine.generate()`` and ``repro_torch.launch.serve`` drive their
-batches through this class.  Request tracing and metrics are not wired in
-(this package has no telemetry layer yet).
+batches through this class.  With the engine's tracer (``tracer=True``) every
+request gets a span (:mod:`repro_torch.obs.trace`), and with its registry
+the continuous-batching counters and queue gauges are published there.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ class Request:
     temperature: float | None = None
     priority: int = 0
     on_token: Callable[[int, int], None] | None = field(default=None, repr=False)
+    sid: int | None = None  # tracer span id (tracer namespace, not rid)
     # aliased engine result: survives the engine-side eviction at retire
     result: GenerationResult | None = field(default=None, repr=False)
 
@@ -55,9 +57,29 @@ class Scheduler:
         self._next_rid = 0
         self.results: dict[int, GenerationResult] = {}
         self._inflight: dict[int, Request] = {}  # engine rid -> request
-        # continuous-batching telemetry
+        # continuous-batching telemetry (ints kept for direct access; the
+        # engine's registry mirrors them as counters when metrics are on)
         self.admitted_while_running = 0  # admissions joining a live batch
         self.mem_stalls = 0  # admit() passes blocked on KV blocks, not slots
+        m = engine.metrics
+        if m is not None:
+            self._m_admit_run = m.counter(
+                "sched_admitted_while_running_total",
+                "admissions that joined a live batch (continuous batching)")
+            self._m_stalls = m.counter(
+                "sched_mem_stalls_total",
+                "admission passes blocked on KV blocks, not slots")
+            self._m_pending = m.gauge("sched_pending", "queued requests")
+            self._m_inflight = m.gauge("sched_inflight", "in-flight requests")
+        else:
+            self._m_admit_run = self._m_stalls = None
+            self._m_pending = self._m_inflight = None
+
+    @property
+    def tracer(self):
+        """The engine's tracer, read live (it may be attached after this
+        scheduler was built)."""
+        return self.engine.tracer
 
     # ---------------------------------------------------------------- queue
     def enqueue(self, prompt: list[int], *, max_new: int | None = None,
@@ -70,11 +92,16 @@ class Scheduler:
         req = Request(rid=rid, prompt=list(prompt), max_new=max_new,
                       temperature=temperature, priority=priority,
                       on_token=on_token)
+        tr = self.tracer
+        if tr is not None:
+            req.sid = tr.enqueue(rid, len(req.prompt))
         err = self.engine.validate_prompt(req.prompt)
         if err is not None:
             self.results[rid] = GenerationResult(
                 tokens=list(req.prompt), prompt_len=len(req.prompt),
                 finished=True, error=err)
+            if req.sid is not None:
+                tr.retire(req.sid, status="error", error=err)
             return rid
         heapq.heappush(self._heap, (-priority, self._seq, req))
         self._seq += 1
@@ -107,10 +134,13 @@ class Scheduler:
         never starved by small ones slipping past it (no head-of-line
         bypass)."""
         admitted: list[int] = []
+        tr = self.tracer
         while self._heap and (~self.engine.active).any():
             req = self._heap[0][2]
             if not self.engine.can_admit(req.prompt):
                 self.mem_stalls += 1
+                if self._m_stalls is not None:
+                    self._m_stalls.inc()
                 break
             heapq.heappop(self._heap)
             was_running = bool(self.engine.active.any())
@@ -121,6 +151,8 @@ class Scheduler:
                 self.results[req.rid] = GenerationResult(  # strands the batch
                     tokens=list(req.prompt), prompt_len=len(req.prompt),
                     finished=True, error=str(e))
+                if tr is not None and req.sid is not None:
+                    tr.retire(req.sid, status="error", error=str(e))
                 continue
             # alias the engine's live result object: token appends and the
             # finished flag propagate without copying
@@ -129,6 +161,10 @@ class Scheduler:
             self._inflight[erid] = req
             admitted.append(req.rid)
             self.admitted_while_running += was_running
+            if tr is not None and req.sid is not None:
+                tr.admit(req.sid)
+            if was_running and self._m_admit_run is not None:
+                self._m_admit_run.inc()
         return admitted
 
     # ---------------------------------------------------------------- drive
@@ -139,6 +175,7 @@ class Scheduler:
         id namespace never surfaces here)."""
         self.admit()
         events = self.engine.step()
+        tr = self.tracer
         out: list[StepEvent] = []
         for ev in events:
             req = self._inflight.get(ev.rid)
@@ -146,6 +183,8 @@ class Scheduler:
                 continue  # slot submitted outside this scheduler
             out.append(StepEvent(rid=req.rid, token=ev.token,
                                  finished=ev.finished))
+            if ev.token is not None and tr is not None and req.sid is not None:
+                tr.token(req.sid)
             if ev.token is not None and req.on_token is not None:
                 try:
                     req.on_token(req.rid, ev.token)
@@ -173,8 +212,20 @@ class Scheduler:
         for erid in [e for e, rq in self._inflight.items()
                      if self.engine.results.get(e) is None
                      or rq.result.finished]:
-            self._inflight.pop(erid)
+            req = self._inflight.pop(erid)
             self.engine.results.pop(erid, None)
+            if tr is not None and req.sid is not None:
+                r = req.result
+                tr.annotate(req.sid, **r.stats)
+                if r.stats.get("cancelled"):
+                    tr.retire(req.sid, status="cancelled", error=r.error)
+                elif r.error is not None:
+                    tr.retire(req.sid, status="error", error=r.error)
+                else:
+                    tr.retire(req.sid, status="ok")
+        if self._m_pending is not None:
+            self._m_pending.set(len(self._heap))
+            self._m_inflight.set(len(self._inflight))
         return out
 
     def run(self) -> dict[int, GenerationResult]:

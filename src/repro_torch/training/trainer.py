@@ -20,11 +20,34 @@ from repro_torch.models import api
 from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
                                           tree_leaves, tree_map, zip_leaves)
 
-__all__ = ["TrainState", "init_train_state", "make_train_step"]
+__all__ = ["TrainState", "init_train_state", "make_train_step",
+           "record_step_metrics"]
 
 _DISTRIBUTED = ("is not available in this package yet: the trainer's mesh and "
                 "int8 cross-pod gradient compression come with the "
                 "distributed/ entry of ROADMAP Queue A")
+
+
+def record_step_metrics(registry, metrics: dict, *, step=None) -> None:
+    """Publish one train step's metric dict (``loss``, ``grad_norm``, and —
+    under ProxSGD — ``dead_groups`` / ``prox_penalty``) into a
+    :mod:`repro_torch.obs` registry as ``train_<name>`` gauges plus the
+    ``train_steps_total`` counter.  Values may still be device tensors: each
+    ``float()`` reads one to the host, so call this where the loop already
+    reads them (where it prints) and telemetry never forces a sync of its
+    own."""
+    if registry is None:
+        return
+    registry.counter("train_steps_total", "recorded train steps").inc()
+    if step is not None:
+        registry.gauge("train_step", "last recorded optimizer step").set(
+            int(step))
+    for k, v in metrics.items():
+        try:
+            fv = float(v)
+        except (TypeError, ValueError):
+            continue  # non-scalar extras stay out of the registry
+        registry.gauge(f"train_{k}", f"train step metric {k!r}").set(fv)
 
 
 @dataclass

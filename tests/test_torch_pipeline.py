@@ -2,7 +2,7 @@
 reference's serial run, bitwise; its worker pool (``n_workers=2``, a
 forkserver pool) against its serial run; tied-weight cache hits; the
 allocator's chosen plans against the reference's; the event kinds in order;
-and the option it refuses (the metrics registry comes with ROADMAP A5).
+and the metrics registry the reference's ``metrics=`` feeds.
 The durable cache and resumable runs are ``test_torch_pipeline_resume.py``'s."""
 import numpy as np
 import pytest
@@ -136,16 +136,24 @@ def test_events_in_order():
     assert all(e.unit in str(e) for e in done)
 
 
-REFUSED = [("metrics", object(), "A5")]
+OPTIONS = [("metrics", "pipeline_events_total")]
 
 
 @pytest.mark.parametrize("entry", ["run_pipeline", "compress_model"])
-@pytest.mark.parametrize("kw,value,where", REFUSED, ids=[r[0] for r in REFUSED])
-def test_unported_options_are_refused(entry, kw, value, where):
+@pytest.mark.parametrize("kw,metric", OPTIONS, ids=[r[0] for r in OPTIONS])
+def test_unported_options_are_refused(entry, kw, metric):
+    """The reference's options, each taken now: ``metrics=`` (a
+    ``MetricsRegistry``) receives the event stream and the run stats."""
     from repro_torch.models.mlp import MLPConfig, init_mlp
-    with pytest.raises(NotImplementedError, match=where):
-        if entry == "run_pipeline":
-            trun(_units(tc), _cfg(tc), **{kw: value})
-        else:
-            params = init_mlp(0, in_dim=8, hidden=6, classes=3, device="cpu")
-            tapi.compress_model(params, MLPConfig(8, 6, 3), **{kw: value})
+    from repro_torch.obs import MetricsRegistry
+
+    reg = MetricsRegistry()
+    if entry == "run_pipeline":
+        res = trun(_units(tc), _cfg(tc), **{kw: reg})
+        stats = res.stats
+    else:
+        params = init_mlp(0, in_dim=8, hidden=6, classes=3, device="cpu")
+        stats = tapi.compress_model(params, MLPConfig(8, 6, 3),
+                                    **{kw: reg}).pipeline_stats
+    assert reg.get(metric).get(kind="unit_done") == stats["units"]
+    assert reg.get("pipeline_run").get(stat="jobs") == stats["jobs"]

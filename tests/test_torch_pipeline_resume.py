@@ -215,11 +215,21 @@ def test_resume_after_sigkill_matches_uninterrupted(tmp_path):
 
 
 def test_launcher_refusals(tmp_path):
+    """The reference launcher's ``--metrics-out`` (refused until the
+    telemetry was ported) writes the run's metrics."""
     from repro_torch.launch import compress
 
-    for argv, where in ((["--metrics-out", "m.json"], "obs/"),):
-        with pytest.raises(SystemExit, match=where):
-            compress.main(["--device", "cpu", "--out", str(tmp_path), *argv])
+    out = tmp_path / "m.json"
+    stats = compress.main(["--device", "cpu", "--out", str(tmp_path),
+                           "--quiet", "--include", "ffn.down",
+                           "--metrics-out", str(out)])
+    metrics = json.loads(out.read_text())["metrics"]
+    adds = {v["labels"]["stage"]: v["value"]
+            for v in metrics["pipeline_adds"]["values"]}
+    assert set(adds) == {"baseline", "lcc"} and adds["lcc"] < adds["baseline"]
+    run = {v["labels"]["stat"]: v["value"]
+           for v in metrics["pipeline_run"]["values"]}
+    assert run["units"] == stats["units"] == 2
 
 
 def test_launcher_resnet_small_is_no_longer_refused(tmp_path):

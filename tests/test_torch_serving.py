@@ -1,6 +1,8 @@
 """The slice as a whole: ``Scheduler`` over ``ServingEngine(artifact=...)`` on
 the CPU (plain kernel versions), against the JAX engine on the same artifact
 and prompts — greedy token streams must be identical."""
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -216,42 +218,80 @@ def test_sampling_is_independent_of_slot_placement(arts):
     assert len(g.tokens) == 10
 
 
-@pytest.mark.parametrize("kw,msg", [
-    (dict(mesh=object()), "mesh"),
-    (dict(metrics=object()), "telemetry"),
-    (dict(tracer=True), "telemetry"),
-])
-def test_refused_options_raise(arts, kw, msg):
+ENGINE_OPTIONS = [("mesh", "mesh"), ("metrics", None), ("tracer", None)]
+
+
+@pytest.mark.parametrize("name,msg", ENGINE_OPTIONS,
+                         ids=["kw0-mesh", "kw1-telemetry", "kw2-telemetry"])
+def test_refused_options_raise(arts, name, msg):
+    """``mesh=`` is refused naming it; the telemetry options work as in the
+    reference: a ``MetricsRegistry`` passed as ``metrics=`` is the engine's
+    (shared, not copied), ``tracer=True`` adds a tracer on that registry."""
+    from repro_torch.obs import MetricsRegistry, RequestTracer
+
     _, tart = arts
-    with pytest.raises(NotImplementedError, match=msg):
-        ServingEngine(artifact=tart, device="cpu", **kw)
+    if msg is not None:
+        with pytest.raises(NotImplementedError, match=msg):
+            ServingEngine(artifact=tart, device="cpu", mesh=object())
+        return
+    reg = MetricsRegistry()
+    kw = {"metrics": reg} if name == "metrics" else {"tracer": True}
+    eng = ServingEngine(artifact=tart, n_slots=2, max_len=32, device="cpu",
+                        **kw)
+    res = eng.generate(_prompts(2), max_new_tokens=3)
+    assert all(r.error is None and len(r.tokens) == 11 for r in res)
+    if name == "metrics":
+        assert eng.metrics is reg and eng.tracer is None
+    else:
+        assert isinstance(eng.tracer, RequestTracer)
+        assert [s.status for s in eng.tracer.spans()] == ["ok", "ok"]
+    assert eng.metrics.get("serving_tokens_total").value == 6
+    assert eng.metrics.get("serving_decode_steps_total").value == \
+        eng.step_dispatches == eng.profiler.total_steps
 
 
 REFERENCE_OPTIONS = [
     ("launcher", ["--compress"], "A8"), ("launcher", ["--dp", "2"], "A7"),
     ("launcher", ["--tp", "2"], "A7"),
-    ("launcher", ["--metrics-out", "m.json"], "A5"),
-    ("launcher", ["--trace-out", "t.jsonl"], "A5"),
-    ("launcher", ["--metrics-port", "0"], "A5"),
-    ("engine", dict(fence_every=32), "A5"),
+    ("launcher", ["--metrics-out", "m.json"], None),
+    ("launcher", ["--trace-out", "t.jsonl"], None),
+    ("launcher", ["--metrics-port", "0"], None),
+    ("engine", dict(fence_every=32), None),
 ]
 
 
 @pytest.mark.parametrize("where,option,entry", REFERENCE_OPTIONS,
                          ids=[str(o[1]) for o in REFERENCE_OPTIONS])
-def test_reference_options_are_refused_by_name(arts, where, option, entry):
+def test_reference_options_are_refused_by_name(arts, where, option, entry,
+                                               tmp_path, monkeypatch, capsys):
     """The reference serve launcher's flags and the engine's
-    ``fence_every=`` are accepted and refused naming the slice that brings
-    them (argparse no longer rejects the flags as unknown)."""
+    ``fence_every=``: those of a slice still to come are refused naming it
+    (argparse does not reject them as unknown); the telemetry ones work."""
     if where == "engine":
         _, tart = arts
-        with pytest.raises(NotImplementedError, match=entry):
-            ServingEngine(artifact=tart, device="cpu", **option)
+        eng = ServingEngine(artifact=tart, device="cpu", **option)
+        assert eng.profiler.fence_every == option["fence_every"]
         return
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit, match=f"{option[0]} .*{entry}"):
-        serve.main(["--reduced", "--device", "cpu", *option])
+    argv = ["--reduced", "--device", "cpu", "--requests", "2", "--max-new",
+            "3", *option]
+    if entry is not None:
+        with pytest.raises(SystemExit, match=f"{option[0]} .*{entry}"):
+            serve.main(argv)
+        return
+    monkeypatch.chdir(tmp_path)
+    serve.main(argv)
+    out = capsys.readouterr().out
+    assert "telemetry summary" in out and "{'ok': 2} (0 unclosed)" in out
+    if option[0] == "--metrics-out":
+        metrics = json.loads((tmp_path / "m.json").read_text())["metrics"]
+        assert metrics["serving_tokens_total"]["values"][0]["value"] == 6
+    elif option[0] == "--trace-out":
+        spans = (tmp_path / "t.jsonl").read_text().splitlines()
+        assert [json.loads(l)["status"] for l in spans] == ["ok", "ok"]
+    else:
+        assert "metrics: http://127.0.0.1:" in out
 
 
 def test_windowed_engine_serves_through_the_ring(arts):

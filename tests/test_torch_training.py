@@ -7,6 +7,7 @@ qwen2.5-3b, QKV biases, and qwen2-vl-7b, an embeddings batch with m-RoPE
 ids), two AdamW steps
 continued from a JAX state that has already taken one; site specs equal to
 the reference's; the LM launcher on the CPU and its refused flags."""
+import json
 import os
 from dataclasses import replace
 
@@ -256,16 +257,29 @@ def test_mlp_refuses_checkpoints():
 REFUSED = [("--mesh", "2x2", "distributed/"), ("--devices", "4", "distributed/"),
            ("--grad-compression", None, "distributed/"),
            ("--elastic-demo", None, "distributed/"),
-           ("--metrics-out", "m.json", "obs/")]
+           ("--metrics-out", "m.json", None)]
 
 
 @pytest.mark.parametrize("flag,value,where", REFUSED, ids=[r[0] for r in REFUSED])
-def test_launcher_refuses_what_is_not_ported(flag, value, where):
+def test_launcher_refuses_what_is_not_ported(flag, value, where, tmp_path,
+                                             monkeypatch):
+    """The reference launcher's flags: those of ``distributed/`` are refused
+    naming it; ``--metrics-out`` (ported with the telemetry) writes the
+    step metrics recorded where the loop prints."""
     from repro_torch.launch import train
 
     argv = ["--device", "cpu", flag] + ([value] if value is not None else [])
-    with pytest.raises(SystemExit, match=where):
-        train.main(argv)
+    if where is not None:
+        with pytest.raises(SystemExit, match=where):
+            train.main(argv)
+        return
+    monkeypatch.chdir(tmp_path)
+    train.main(argv + ["--steps", "2", "--batch", "2", "--seq", "16"])
+    metrics = json.loads((tmp_path / value).read_text())["metrics"]
+    # the loop prints (and records) at step 0 and at the last step
+    assert metrics["train_steps_total"]["values"][0]["value"] == 2
+    assert metrics["train_step"]["values"][0]["value"] == 1
+    assert {"train_loss", "train_grad_norm", "train_tok_s"} <= set(metrics)
 
 
 def test_launcher_without_a_card_exits_non_zero(monkeypatch):
