@@ -14,8 +14,10 @@ grouped K2 launches of E) and once in float32 — olmo and mixtral through the w
 (K6 and K7; for mixtral K8, the routed FFN inside the step), deepseek (MLA
 refuses the step plan) through one expert plan a layer (K9) beside per-region
 MLA — and qwen2-vl-7b (m-RoPE, cut to 2 layers) per-region in both dtypes,
-plus K4's per-factor route on olmo's layer 0, and holds every CUDA kernel
-on those paths against its plain PyTorch version:
+the recurrent families per-region in both dtypes — rwkv6-1.6b (ssm, cut to
+2 layers) and zamba2-7b (hybrid, cut to 7 layers) — plus K4's per-factor
+route on olmo's layer 0, and holds every CUDA kernel on those paths against
+its plain PyTorch version:
 
 1. device and build: needs a CUDA device (exits non-zero without one), prints
    the card's name and power limit, builds the kernels with ``nvcc``; then
@@ -105,6 +107,22 @@ on those paths against its plain PyTorch version:
    off), the float32 route's logits against the dense weights.
    ``--only dense`` serves llama3.2-3b and yi-9b the same way as
    qwen2.5-3b, cut to DENSE_LAYERS layers (left out of the full run);
+   then the recurrent families (``--only recurrent`` runs these alone), at
+   full width: rwkv6-1.6b (d 2048, 32 heads of 64, d_ff 7168, vocab 65536)
+   cut to RWKV_LAYERS = 2 and zamba2-7b (d 3584, d_inner 7168, 112 SSM
+   heads of 64, d_state 64; shared attention 32 x 112, d_ff 14336, vocab
+   32000) cut to ZAMBA_LAYERS = 7 (one group of six mamba layers, the
+   weight-shared block, one tail layer).  Both refuse the whole-step plan
+   (``family:ssm`` / ``family:hybrid``, printed), so their float32 and
+   bf16 engines serve per-region from a contiguous recurrent state,
+   prefilling token by token into 8 slots (the full run serves float32
+   only: the bf16 serves and their K3 rows run under ``--only
+   recurrent``, for the script's time): K2 on rwkv6's r+k+v+g (four distinct
+   inputs, one stacked buffer for K3) and k+r, K1 on o and v; K1 on
+   mamba's in/out projections, K2 on the shared block's q+k+v and gate+up,
+   K1 on its o and down; K3 on every region in both dtypes, each launch
+   shape bit for bit against its plain version; the float32 route's
+   two-step logits against the dense float32 weights within STEP_TOL;
 9. training (``--only train`` runs these alone): K5 ``group_prox`` on the
    reference's hard cases and rows of every width to 16384 in float32 and
    bf16, then at the training runs' own views, each against its plain
@@ -220,10 +238,11 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.executor import (  # noqa: E402
     CompressedExecutor, region_site, site_prep)
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
+from repro_torch.convert import F32_LEAVES  # noqa: E402
 from repro_torch.testing import (SHARED_SITES,  # noqa: E402
                                  decomposition_dense, dense_sites, moe_sites,
                                  seeded_artifact, seeded_decomposition,
-                                 seeded_prep)
+                                 seeded_prep, unstacked_sites)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -299,6 +318,9 @@ PORT_KERNELS = ("lcc_chain_kernel", "lcc_reduce_kernel",
                 "moe_logits_kernel", "moe_router_kernel",
                 "group_prox_kernel", "lcc_factor_kernel")
 ROUTED = ("moe.gate", "moe.up", "moe.down")  # site prefixes of the routed experts
+# regions whose members read distinct inputs, views of one stacked buffer:
+# the experts, and rwkv6's r/k/v/g (their four token-shifted mixes)
+STACKED = ROUTED + ("tm.r",)
 # the depth cuts keep the whole script well inside its time limit: 56
 # mixtral layers do not fit one card, 27 deepseek-v2-lite layers need ~158 GB
 # (PERF.md section 4), and one layer of each exercises every kernel its
@@ -310,6 +332,12 @@ DEEPSEEK_LAYERS = 1
 # (2.6x and 6x olmo-1b's phase); two layers launch every kernel of each route
 QWEN_LAYERS = 2
 DENSE_LAYERS = 2  # llama3.2-3b and yi-9b, under --only dense
+# the recurrent families: rwkv6-1.6b's 24 layers hold ~1.2 B site weights,
+# zamba2-7b's 81 ~6.5 B; two rwkv6 layers launch every kernel of its route,
+# and zamba2's seven run one group of six mamba layers, the shared block
+# and one layer of the tail (81 = 13 x 6 + 3)
+RWKV_LAYERS = 2
+ZAMBA_LAYERS = 7
 # olmo-1b's artifact on disk: 16 layers write ~35 GB to the temp directory
 ARTIFACT_LAYERS = 2
 FACTOR_ROUTE = "olmo-1b per-factor"  # K4's path: fused=False on layer 0
@@ -638,16 +666,17 @@ def region_preps(cfg, records=None, seed=0):
     them (``testing.seeded_prep``: the same widths and table sizes).  B is
     n_slots, the capacity for the experts (views of one stacked buffer) and
     n_slots x max_len for MLA's uk+uv over the latent view."""
-    k_of = {p: k for p, _, _, k in dense_sites(cfg) + moe_sites(cfg)}
+    k_of = {p: k for p, _, _, k in dense_sites(cfg) + moe_sites(cfg)
+            + unstacked_sites(cfg)}
     cap = (capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
                     cfg.moe.n_experts) if cfg.moe is not None else None)
     rng = np.random.default_rng(seed)
     out = []
-    for names in site_groups(cfg):
+    for names in site_groups(cfg) + shared_groups(cfg):
         prefixes = [region_site(n) for n in names]
         k = k_of[prefixes[0]]
-        stacked = prefixes[0] in ROUTED
-        batch = (cap if stacked else BATCH * MAX_LEN
+        stacked = prefixes[0] in STACKED
+        batch = (cap if prefixes[0] in ROUTED else BATCH * MAX_LEN
                  if prefixes[0] == "attn.uk" else BATCH)
         if records is not None:
             prep = site_prep([records[n] for n in names])
@@ -656,7 +685,7 @@ def region_preps(cfg, records=None, seed=0):
                 (kept, labels, k_dec) for kept, labels, k_dec in (
                     seeded_prep(k_of[p], rng, p in SHARED_SITES)
                     for p in prefixes)], "+".join(dict.fromkeys(prefixes)))
-        label = (f"{prefixes[0]} G={len(names)}" if stacked
+        label = (f"{prefixes[0]} G={len(names)}" if prefixes[0] in ROUTED
                  else "+".join(prefixes))
         out.append((f"{cfg.name} {label}", prep, k, batch, stacked, names))
     return out
@@ -680,11 +709,14 @@ def region_cases(cfg, dev, timer, *, records=None, dtype=torch.bfloat16,
 def region_preps_per_step(cfg, records, keep=None) -> int:
     """Region-prep launches a decode step of the per-region route: one a
     fused region of every layer and one a single site that prunes or shares
-    (a site with an identity keep and no sharing takes none); ``keep(names)``
-    filters the regions."""
+    (a site with an identity keep and no sharing takes none), the hybrid's
+    shared block's regions once an insertion; ``keep(names)`` filters the
+    regions."""
     n = 0
-    for li in range(cfg.n_layers):
-        for names in site_groups(cfg, li):
+    runs = [site_groups(cfg, li) for li in range(cfg.n_layers)]
+    runs += [shared_groups(cfg)] * shared_insertions(cfg)
+    for groups in runs:
+        for names in groups:
             if keep is not None and not keep(names):
                 continue
             prep = site_prep([records[nm] for nm in names])
@@ -763,10 +795,16 @@ def chain_cases(arch):
     cfg = get_arch(arch)
     dims = {prefix: (n, k) for prefix, _, n, k in dense_sites(cfg)}
     dims.update({prefix: (n, k) for prefix, _, n, k in moe_sites(cfg)})
+    dims.update({name: (n, k) for name, _, n, k in unstacked_sites(cfg)})
     chains = [("attn.o",), ("ffn.down",)]
     groups = [(("attn.q", "attn.k", "attn.v"), BATCH),
               (("ffn.gate", "ffn.up"), BATCH)]
-    if cfg.mla is not None:
+    if cfg.family in ("ssm", "hybrid"):  # layer 0's regions, the shared block's
+        regions = [tuple(region_site(n) for n in g)
+                   for g in site_groups(cfg) + shared_groups(cfg)]
+        chains = [g for g in regions if len(g) == 1]
+        groups = [(g, BATCH) for g in regions if len(g) > 1]
+    elif cfg.mla is not None:
         chains = [("attn.q",), ("attn.o",), ("moe.shared.down",)]
         groups = [(("attn.dkv", "attn.kr"), BATCH),
                   (("attn.uk", "attn.uv"), BATCH * MAX_LEN),
@@ -1812,7 +1850,8 @@ def phase_attention(dev):
 # the per-region serves (--only chain times their K1/K2 shapes too) and the
 # plan serves
 PREP_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b",
-              "qwen2.5-3b", "llama3.2-3b", "yi-9b", "qwen2-vl-7b")
+              "qwen2.5-3b", "llama3.2-3b", "yi-9b", "qwen2-vl-7b",
+              "rwkv6-1.6b", "zamba2-7b")
 NORM_ARCHS = ("olmo-1b", "mixtral-8x22b", "qwen2.5-3b", "llama3.2-3b", "yi-9b")
 
 
@@ -1834,7 +1873,8 @@ def phase_prep(dev):
             rows += [dict(r, k9=True) for r in region_cases(
                 cfg, dev, timer, dtype=torch.float32,
                 keep=lambda n: not n[0].startswith(ROUTED))]
-        elif cfg.pos == "mrope":  # its float32 engine serves per-region too
+        elif cfg.pos == "mrope" or cfg.family in ("ssm", "hybrid"):
+            # their float32 engines serve per-region too
             rows += [dict(r, f32_engine=True) for r in region_cases(
                 cfg, dev, timer, dtype=torch.float32)]
     for arch in NORM_ARCHS:
@@ -2098,8 +2138,11 @@ def profile_steps(eng, prompts, n_steps: int = 4):
 def site_weight(params, name):
     """Site ``name``'s dense-effective ``[K, N]`` weight in ``params``:
     ``attn.q.l0`` -> blocks.attn.q.w[0], ``moe.up.l1.e3`` -> blocks.ffn.up[1, 3],
-    ``moe.shared.down.l2`` -> blocks.ffn.shared.down.w[2]."""
+    ``moe.shared.down.l2`` -> blocks.ffn.shared.down.w[2],
+    ``shared_attn.ffn.up`` -> shared_attn.ffn.up.w."""
     parts = name.split(".")
+    if parts[0] == "shared_attn":  # the hybrid's unstacked shared block
+        return params["shared_attn"][parts[1]][parts[2]]["w"]
     if parts[:2] == ["moe", "shared"]:
         return params["blocks"]["ffn"]["shared"][parts[2]]["w"][int(parts[3][1:])]
     li = int(parts[2][1:])
@@ -2111,6 +2154,12 @@ def site_weight(params, name):
 def site_groups(cfg, li: int = 0):
     """Layer ``li``'s fused regions (and single sites) as the per-region
     route groups them."""
+    if cfg.family == "ssm":  # rwkv6: time-mix r/k/v/g and o, channel-mix k/r and v
+        return tuple(tuple(f"{q}.l{li}" for q in g) for g in (
+            ("tm.r", "tm.k", "tm.v", "tm.g"), ("tm.o",), ("cm.k", "cm.r"),
+            ("cm.v",)))
+    if cfg.family == "hybrid":  # the mamba layers (the shared block: below)
+        return ((f"mamba.in_proj.l{li}",), (f"mamba.out_proj.l{li}",))
     attn = ((("attn.q",), ("attn.dkv", "attn.kr"), ("attn.uk", "attn.uv"),
              ("attn.o",))
             if cfg.mla is not None else
@@ -2128,16 +2177,30 @@ def site_groups(cfg, li: int = 0):
                  for g in groups for p in (g[0],))
 
 
-def region_launches_per_layer(cfg) -> int:
-    """K1/K2 launches a layer on the per-region route (the region preps come
-    on top, :func:`region_preps_per_step`): GQA q+k+v and o, or MLA q,
-    dkv+kr, uk+uv and o;
-    SwiGLU gate+up and down, or the experts' gate, up and down (one launch
-    of E each) plus the shared experts' gate+up and down."""
-    attn = 4 if cfg.mla is not None else 2
-    if cfg.moe is None:
-        return attn + 2
-    return attn + 3 + (2 if cfg.moe.n_shared else 0)
+def shared_groups(cfg):
+    """The hybrid's weight-shared block's regions (no layer index: one set
+    of sites, run once an insertion); none for the other families."""
+    if cfg.family != "hybrid":
+        return ()
+    return (("shared_attn.attn.q", "shared_attn.attn.k", "shared_attn.attn.v"),
+            ("shared_attn.attn.o",),
+            ("shared_attn.ffn.gate", "shared_attn.ffn.up"),
+            ("shared_attn.ffn.down",))
+
+
+def shared_insertions(cfg) -> int:
+    """Insertions of the hybrid's shared block in a decode step."""
+    return cfg.n_layers // cfg.hybrid_period if cfg.family == "hybrid" else 0
+
+
+def region_launches_per_step(cfg) -> int:
+    """K1/K2 launches a decode step of the per-region route (the region
+    preps come on top, :func:`region_preps_per_step`): one a region of
+    :func:`site_groups` in every layer (an MoE projection's experts one
+    launch of E) and one a region of the hybrid's shared block at every
+    insertion."""
+    return (len(site_groups(cfg)) * cfg.n_layers
+            + len(shared_groups(cfg)) * shared_insertions(cfg))
 
 
 def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
@@ -2146,7 +2209,7 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     region's or pruned site's input made by one K3 region-prep launch.
     ``ref_params``: float32 dense-effective weights for the per-site check
     where the records keep none on the host."""
-    predicted = (region_launches_per_layer(cfg) * cfg.n_layers
+    predicted = (region_launches_per_step(cfg)
                  + region_preps_per_step(cfg, art.records))
     prompts = prompts_for(cfg, 6)
     torch.cuda.reset_peak_memory_stats()
@@ -2180,7 +2243,7 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     rng = np.random.default_rng(3)
     site_err = {}
     with torch.no_grad():
-        for names in site_groups(cfg):
+        for names in site_groups(cfg) + shared_groups(cfg):
             k_in = site_weight(art.params, names[0]).shape[0]
             x = torch.from_numpy(rng.standard_normal((k_in, BATCH)).astype(np.float32)).to(dev)
             ys = (ex.grouped(names)([x] * len(names)) if len(names) > 1
@@ -2224,6 +2287,10 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
                 peak_device_bytes=peak,
                 resident_device_bytes=torch.cuda.memory_allocated(),
                 cached_tokens=sum(r.stats["cached_tokens"] for r in res),
+                prefill_kinds=sorted({r.stats["prefill_kind"] for r in res}),
+                # a tokenwise prefill runs one decode step a prompt token
+                prefill_steps=sum(r.prompt_len for r in res
+                                  if r.stats["prefill_kind"] == "tokenwise"),
                 sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape, eng
 
 
@@ -2402,10 +2469,12 @@ def seeded_cut(arch, layers, dev):
 
 
 def cast(tree, dtype):
-    """The parameters in ``dtype``; an MoE router stays float32, as in the
-    reference and ``convert.params_from_numpy``."""
+    """The parameters in ``dtype``; the leaves the reference keeps in
+    float32 (``convert.F32_LEAVES``: an MoE router, the recurrent mixes'
+    small leaves) stay float32, as in ``convert.params_from_numpy``."""
     if isinstance(tree, dict):
-        return {k: v if k == "router" else cast(v, dtype) for k, v in tree.items()}
+        return {k: v if k in F32_LEAVES else cast(v, dtype)
+                for k, v in tree.items()}
     return tree.to(dtype)
 
 
@@ -3316,7 +3385,7 @@ def phase_artifact(dev, base):
         got = route_results(loaded, base, dev)
         disk_serve_s = time.perf_counter() - t0
         predicted = {"plan": 7 * cfg32.n_layers,
-                     "per-region": (region_launches_per_layer(base) * base.n_layers
+                     "per-region": (region_launches_per_step(base)
                                     + region_preps_per_step(base, loaded.records))}
         kernels = {"plan": set(PLAN), "per-region": set(PER_REGION)}
         for route, w in want.items():
@@ -3738,6 +3807,111 @@ def run_dense(dev):
         gc.collect()
         torch.cuda.empty_cache()
     return rows, serves
+
+
+# ------------------------------- the recurrent families (ssm and hybrid)
+
+
+def recurrent_kernel_cases(art, dev, timer, sm, serve):
+    """K1 and K2 on every region of layer 0 and of the hybrid's shared
+    block (the fixture's own packed decompositions, grouped as the executor
+    groups them: rwkv6's r+k+v+g and k+r, the shared block's q+k+v and
+    gate+up), K3 on each region in the serve's dtype, all held to
+    ``serve``'s launches."""
+    cfg = art.config
+    rng = np.random.default_rng(20)
+    rows = []
+    for names in site_groups(cfg) + shared_groups(cfg):
+        label = f"{cfg.name} " + "+".join(region_site(n) for n in names)
+        pk = [art.packed[n] for n in names]
+        rows.append(kernel_case_chain(label, pk[0], rng, dev, timer, sm)
+                    if len(pk) == 1 else
+                    kernel_case_group(label, pk, rng, dev, timer, sm))
+        torch.cuda.empty_cache()
+    rows += region_cases(cfg, dev, timer, records=art.records,
+                         dtype=cfg.cdtype)
+    for row in rows:
+        row["serve"] = serve
+    return rows
+
+
+def run_recurrent_arch(dev, arch, layers, bf16: bool):
+    """A recurrent model at full width cut to ``layers`` layers, served on
+    the per-region route (both families refuse the whole-step plan,
+    ``family:ssm`` / ``family:hybrid``, as in the reference) in float32 and,
+    with ``bf16``, in bf16 too, tokenwise prefill into 8 slots: K1/K2/K3 at
+    every region's shapes in the serve's dtype, the serves, and the float32
+    route's two-step logits against the dense float32 weights within
+    STEP_TOL.  Returns the kernel rows and the serves' launch counts."""
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    base, cfg32, art32, fixture_s = seeded_cut(arch, layers, dev)
+    region, region32 = f"{base.name} per-region", f"{base.name} per-region f32"
+    rows = recurrent_kernel_cases(art32, dev, timer, sm, region32)
+    routes = [(region32, cfg32, art32)]
+    if bf16:
+        art16 = replace(art32, config=base,
+                        params=cast(art32.params, torch.bfloat16), plans={})
+        rows += [dict(row, serve=region) for row in rows
+                 if row["name"] != "region_prep"]
+        rows += [dict(row, serve=region) for row in region_cases(
+            base, dev, timer, records=art16.records, dtype=torch.bfloat16)]
+        routes.append((region, base, art16))
+    serves, lines, engines = {}, {}, {}
+    refusal = {"step": f"family:{base.family}"}
+    for name, cfg, art in routes:
+        line, counts, by_shape, eng = phase_full_serve(
+            dev, cfg, art, fixture_s, ref_params=art32.params)
+        kinds = set(line["prefill_kinds"])
+        line.update(pool=eng.pool is not None, n_layer_plans=eng.n_layer_plans,
+                    host_peak_rss_bytes=host_peak_rss_bytes())
+        emit(line)
+        print(f"{name}: plan refused, {line['plan_fallbacks']}", flush=True)
+        if (line["plan_fallbacks"] != refusal or eng.n_layer_plans
+                or kinds != {"tokenwise"} or eng.pool is not None):
+            fail(f"{name} serve: plan fallbacks {line['plan_fallbacks']}, "
+                 f"{eng.n_layer_plans} plans, prefill {sorted(kinds)}, pool "
+                 f"{eng.pool is not None}; a recurrent family takes the "
+                 "per-region route and prefills token by token into its "
+                 "contiguous state")
+        # the serve's launches came from its decode steps and the tokenwise
+        # prefill's, each one step of the same kernels
+        serves[name] = (counts, by_shape,
+                        line["decode_steps"] + line["prefill_steps"])
+        lines[name] = line
+        engines[name] = eng.executor
+    l32 = two_step_logits(cfg32, art32, engines[region32], dev)
+    l16 = (two_step_logits(base, art16, engines[region], dev) if bf16
+           else None)
+    del engines
+    torch.cuda.empty_cache()
+    l_dense = two_step_logits(cfg32, art32, None, dev)
+    scale = max(1.0, float(l_dense.abs().max()))
+    err32 = float((l32 - l_dense).abs().max()) / scale
+    err16 = (None if l16 is None
+             else float((l16 - l_dense).abs().max()) / scale)
+    emit(dict(phase="recurrent_routes", arch=base.name, layers=base.n_layers,
+              float32_vs_dense=err32, step_tol=STEP_TOL, bf16_vs_dense=err16,
+              launches_per_step={n: lines[n]["launches_per_step"] for n in lines},
+              plan_fallbacks=lines[region32]["plan_fallbacks"]))
+    if not err32 <= STEP_TOL or (l16 is not None
+                                 and not bool(torch.isfinite(l16).all())):
+        fail(f"{base.name}: float32 per-region logits {err32} off the dense "
+             f"weights (tolerance {STEP_TOL}), or bf16 logits not finite")
+    return rows, serves
+
+
+def run_recurrent(dev, bf16: bool):
+    """rwkv6-1.6b (ssm) cut to RWKV_LAYERS layers, then zamba2-7b (hybrid)
+    cut to ZAMBA_LAYERS (one group of six mamba layers, the shared block,
+    one tail layer), each at full width on the per-region route in float32
+    and, with ``bf16`` (``--only recurrent``; the full run leaves it out
+    for time), in bf16 too."""
+    rows, serves = run_recurrent_arch(dev, "rwkv6-1.6b", RWKV_LAYERS, bf16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zrows, zserves = run_recurrent_arch(dev, "zamba2-7b", ZAMBA_LAYERS, bf16)
+    return rows + zrows, {**serves, **zserves}
 
 
 # ------------------------------------------- K4: the per-factor route
@@ -4748,7 +4922,7 @@ def phase_compress_olmo(dev, timer, sm):
             predicted = 7 * cfg.n_layers
             expected = set(PLAN)
         else:
-            predicted = (region_launches_per_layer(cfg) * cfg.n_layers
+            predicted = (region_launches_per_step(cfg)
                          + region_preps_per_step(cfg, art.records))
             expected = set(PER_REGION)
         rows += quickstart_rows(cfg, art, plan, dev, timer, sm, route)
@@ -5292,8 +5466,8 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
                                        "attention", "prep", "artifact",
                                        "prefix", "mixtral", "deepseek",
-                                       "qwen", "dense", "train", "compress",
-                                       "resnet"),
+                                       "qwen", "dense", "recurrent", "train",
+                                       "compress", "resnet"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
@@ -5325,7 +5499,13 @@ def main() -> None:
                          "(per-region, bf16 and float32) phases alone; "
                          "dense: llama3.2-3b and yi-9b at full width cut to "
                          "DENSE_LAYERS layers on both routes (left out of "
-                         "the full run); train: the "
+                         "the full run); recurrent: rwkv6-1.6b (ssm, "
+                         "RWKV_LAYERS layers) and zamba2-7b (hybrid, "
+                         "ZAMBA_LAYERS layers: a group, the shared block, "
+                         "a tail layer) at full width on the per-region "
+                         "route, float32 and bf16 (the full run leaves the "
+                         "bf16 serves out), tokenwise prefill; "
+                         "train: the "
                          "training phases alone; compress: the compressor "
                          "(the paper's MLP trained, compressed at full width "
                          "at 1 and 4 workers, fc1 served through K1, then "
@@ -5422,6 +5602,13 @@ def main() -> None:
         torch.cuda.empty_cache()
     if args.only == "dense":
         rows, serves = run_dense(dev)
+    if args.only in (None, "recurrent"):
+        srows, sserves = run_recurrent(dev, bf16=args.only == "recurrent")
+        rows += srows
+        serves.update(sserves)
+        del srows, sserves
+        gc.collect()
+        torch.cuda.empty_cache()
     if args.only in (None, "train"):
         trows, tserves, trained = run_train(dev)
         rows += trows

@@ -42,8 +42,11 @@ def _leaf_to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 # leaves that keep float32 whatever ``param_dtype`` is, as in the JAX package:
-# an MoE router stays float32 for a stable top-k
-F32_LEAVES = ("router",)
+# an MoE router (a stable top-k), rwkv6's mixes, decay, bonus and head-norm
+# scale (time-mix ``mix_mu``/``w0``/``u``/``ln_w``, channel-mix ``mix_mu_k``)
+# and mamba2's ``A_log``/``D``/``dt_bias``
+F32_LEAVES = ("router", "mix_mu", "w0", "u", "ln_w", "mix_mu_k", "A_log", "D",
+              "dt_bias")
 
 
 def params_from_numpy(tree, cfg: ArchConfig, device="cuda", *,
@@ -51,8 +54,8 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda", *,
     """Nested dict/list of numpy arrays -> same nesting of tensors on
     ``device`` in ``cfg.param_dtype`` (integer leaves keep their type; bf16
     leaves may come as ``bfloat16`` arrays, as their ``uint16`` view or as
-    bf16 CPU tensors, as a loaded artifact gives them).  A ``router`` leaf
-    stays float32."""
+    bf16 CPU tensors, as a loaded artifact gives them).  A leaf named in
+    :data:`F32_LEAVES` stays float32."""
     dtype = cfg.pdtype if _dtype is None else _dtype
     if isinstance(tree, dict):
         return {k: params_from_numpy(
@@ -82,8 +85,8 @@ def resnet_params_from_numpy(tree, cfg, device="cuda"):
 def train_state_from_numpy(state, cfg: ArchConfig, device="cuda"):
     """A JAX-package ``TrainState`` whose leaves are numpy arrays (the caller
     runs ``jax.tree.map(np.asarray, state)``), read by attribute -> this
-    package's ``TrainState``: params in ``cfg.param_dtype`` (a router
-    float32), the optimizer state (``mu``, or ``m``/``v``/``t``) float32 with
+    package's ``TrainState``: params in ``cfg.param_dtype`` (the
+    :data:`F32_LEAVES` float32), the optimizer state (``mu``, or ``m``/``v``/``t``) float32 with
     ``t`` int32, the step, and the sparsity report.  A state carrying
     gradient-compression residuals is refused (not ported)."""
     from repro_torch.training.trainer import TrainState

@@ -7,6 +7,10 @@ artifact, on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --requests 3 --max-new 8 --kernel
 
+    # the recurrent families (tokenwise prefill, the per-region route)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --reduced --device cpu --kernel
+
 Paged engines share prefilled prompt-prefix blocks across requests by
 default (``--no-prefix-cache`` turns it off); the end-of-run line reports
 the prefix hit rate and the copy-on-write copies.

@@ -364,7 +364,8 @@ def lm_main(args, device: torch.device, metrics=None) -> dict:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b",
-                    help="a dense or MoE arch of the registry, or 'mlp'")
+                    help="an arch of the registry (dense, MoE, VLM, ssm "
+                         "rwkv6-1.6b or hybrid zamba2-7b), or 'mlp'")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (2 layers, d_model 128, f32)")
     ap.add_argument("--steps", type=int, default=50)

@@ -15,12 +15,14 @@ autograd, for recovery fine-tuning).  Site names,
 paths, indices and ``transpose`` flags are the reference's, so artifact keys
 cross between the packages.
 
-Families with a table here: dense (olmo-1b), moe (mixtral-8x22b, and
-deepseek-v2-lite with its MLA projections and shared experts), mlp (the
-paper's MLP) and resnet (every conv kernel as a :class:`ConvSite` — the
-stem, each block's conv1/conv2 and its 1x1 ``proj`` — and the linear head).
-The others raise ``NotImplementedError`` naming where they stand in the
-roadmap.
+Families with a table here: dense and vlm (olmo-1b and relatives), moe
+(mixtral-8x22b, and deepseek-v2-lite with its MLA projections and shared
+experts), ssm (rwkv6's time-mix r/k/v/g/o and channel-mix k/v/r), hybrid
+(zamba2's mamba in/out projections a layer and the weight-shared block's
+sites, unstacked and without a layer index), mlp (the paper's MLP) and
+resnet (every conv kernel as a :class:`ConvSite` — the stem, each block's
+conv1/conv2 and its 1x1 ``proj`` — and the linear head).  The audio family
+raises ``NotImplementedError`` naming where it stands in the roadmap.
 """
 from __future__ import annotations
 
@@ -226,6 +228,30 @@ def _moe_sites(params, cfg) -> list[DenseSite]:
     return sites
 
 
+def _ssm_sites(params, cfg) -> list[DenseSite]:
+    sites: list[DenseSite] = []
+    for li in range(cfg.n_layers):
+        for p in ("r", "k", "v", "g", "o"):
+            sites.append(DenseSite(name=f"tm.{p}.l{li}",
+                                   path=("blocks", "tm", p, "w"), index=(li,)))
+        for p in ("k", "v", "r"):
+            sites.append(DenseSite(name=f"cm.{p}.l{li}",
+                                   path=("blocks", "cm", p, "w"), index=(li,)))
+    return sites
+
+
+def _hybrid_sites(params, cfg) -> list[DenseSite]:
+    sites: list[DenseSite] = []
+    for li in range(cfg.n_layers):
+        for p in ("in_proj", "out_proj"):
+            sites.append(DenseSite(name=f"mamba.{p}.l{li}",
+                                   path=("blocks", "mamba", p, "w"), index=(li,)))
+    # the one weight-shared attention+MLP block (unstacked)
+    sites += _ffn_sites((), tag="shared_attn.ffn", base=("shared_attn", "ffn"))
+    sites += _attn_sites(cfg, ("shared_attn", "attn"), (), "shared_attn.attn")
+    return sites
+
+
 def _mlp_sites(params, cfg) -> list[DenseSite]:
     # weights are stored [N, K] acting as y = W x (the paper layout): no
     # transpose.  fc1 is the paper's compression target (Sec. IV-A); fc2 is
@@ -252,15 +278,14 @@ def _not_ported(family: str, where: str):
     return fn
 
 
-_LATER = "the remaining families, ROADMAP Queue A"
 FAMILY_SITE_FNS = {
     "dense": _dense_sites,
     "vlm": _dense_sites,
     "moe": _moe_sites,
     "mlp": _mlp_sites,
-    "ssm": _not_ported("ssm", _LATER),
-    "hybrid": _not_ported("hybrid", _LATER),
-    "audio": _not_ported("audio", _LATER),
+    "ssm": _ssm_sites,
+    "hybrid": _hybrid_sites,
+    "audio": _not_ported("audio", "the audio family, ROADMAP Queue A"),
     "resnet": _resnet_sites,
 }
 

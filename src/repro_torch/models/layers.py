@@ -64,18 +64,28 @@ def site_linear(executor, name, p, x):
     return y
 
 
-def site_linear_group(executor, names, ps, x):
-    """Several projections of one *fused region* (the same activations ``x``:
-    attention q/k/v, SwiGLU gate/up) in ONE grouped kernel launch when the
-    executor covers every site — the region gets one transposed view of
-    ``x`` for all its members — and per-site :func:`site_linear` otherwise.
-    Returns the per-site outputs in order.
+def site_linear_group(executor, names, ps, xs):
+    """Several projections of one *fused region* (attention q/k/v, SwiGLU
+    gate/up, RWKV r/k/v/g) in ONE grouped kernel launch when the executor
+    covers every site, and per-site :func:`site_linear` otherwise.
+
+    ``xs`` is one activation tensor shared by every site (the region gets
+    one transposed view of it for all its members) or a per-site list of
+    equally spaced slices of one stacked tensor (``z[g]`` of a contiguous
+    ``[G, ..., d]`` buffer; the region gets their transposed views, see
+    ``kernels.shared_matmul.region_layout``).  Returns the per-site outputs
+    in order.
     """
+    shared = isinstance(xs, torch.Tensor)
+    xlist = [xs] * len(names) if shared else list(xs)
     fused = executor.grouped(tuple(names)) if executor is not None else None
     if fused is None:
-        return [site_linear(executor, n, p, x) for n, p in zip(names, ps)]
+        return [site_linear(executor, n, p, x)
+                for n, p, x in zip(names, ps, xlist)]
+    x = xlist[0]
     lead = x.shape[:-1]
-    ys = fused(x.reshape(-1, x.shape[-1]).T)
+    ys = fused(x.reshape(-1, x.shape[-1]).T if shared
+               else [v.reshape(-1, v.shape[-1]).T for v in xlist])
     outs = []
     for y, p in zip(ys, ps):
         o = y.T.reshape(*lead, -1).to(x.dtype)

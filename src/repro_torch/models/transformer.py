@@ -1,18 +1,27 @@
-"""Decoder backbone — the dense family (olmo-1b and relatives) and the MoE
+"""Decoder backbone — the dense family (olmo-1b and relatives), the MoE
 family (mixtral-8x22b; deepseek-v2-lite with MLA attention and shared
-experts).
+experts), the VLM, and the recurrent families: ssm (rwkv6) and hybrid
+(zamba2).
 
-Block layout:  dense  x += attn(norm(x));      x += swiglu(norm(x))
-               moe    x += attn|mla(norm(x));  x += moe(norm(x)) [+ shared]
+Block layout:  dense   x += attn(norm(x));      x += swiglu(norm(x))
+               moe     x += attn|mla(norm(x));  x += moe(norm(x)) [+ shared]
+               ssm     x += timemix(norm(x));   x += channelmix(norm(x))
+               hybrid  groups of ``hybrid_period`` mamba2 blocks, one
+                       *weight-shared* attention+SwiGLU block after each
+                       group, then the tail's mamba2 blocks
 
 Parameters are stacked per layer ([L, ...] leaves, the JAX package's scanned
 layout) and a Python loop walks the layers, so layer ``li`` binds its own
-kernel buffers when a compressed executor is present.  **Decode updates the
-KV state in place** (the JAX package returned new arrays and relied on
-``donate_argnums``): ``decode_step`` hands back the dict it was given.
+kernel buffers when a compressed executor is present (the hybrid's shared
+block is one unstacked set of weights and sites, with one KV cache an
+insertion).  **Decode updates the state in place** (the JAX package
+returned new arrays and relied on ``donate_argnums``): ``decode_step``
+hands back the dict it was given, its KV caches or recurrent states
+written.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -28,7 +37,10 @@ from .attention import (KVCache, MLACache, PagedKVCache, PagedMLACache,
                         mla_decode, mla_extend, mla_prefill)
 from .layers import (linear, non_parametric_ln, rms_norm, site_linear,
                      site_linear_group, swiglu)
+from .mamba2 import Mamba2State, mamba2_decode, mamba2_prefill
 from .moe import moe_ffn
+from .rwkv6 import (LORA_MIX, LORA_W, MIX, RWKV6State, rwkv6_channelmix,
+                    rwkv6_timemix_decode, rwkv6_timemix_prefill)
 
 __all__ = ["init_params", "init_params_numpy", "abstract_params", "forward",
            "forward_extend", "logits_from_hidden", "loss_fn", "decode_step",
@@ -43,26 +55,29 @@ def _norm(cfg: ArchConfig, p, x):
 
 def _require_supported(cfg: ArchConfig) -> None:
     """The dense and MoE rope/no-position decoders, with GQA or MLA
-    attention and with or without shared experts, and the VLM decoder
-    (m-RoPE, dense FFN).  Still refused: the ssm, hybrid and audio
-    (encoder-decoder) families and the manual expert-parallel MoE."""
+    attention and with or without shared experts, the VLM decoder (m-RoPE,
+    dense FFN), the ssm decoder (rwkv6) and the hybrid (mamba2 + a shared
+    attention block).  Still refused: the audio (encoder-decoder) family
+    and the manual expert-parallel MoE."""
     if cfg.moe is not None and cfg.moe_manual:
         raise NotImplementedError(
             f"{cfg.name}: the manual expert-parallel MoE (moe_manual) is not "
             "available in this package yet: it shards the experts over a "
             "device mesh, which comes with the distributed/ entry (mesh=)")
-    vlm = cfg.family == "vlm" and cfg.pos == "mrope" and cfg.moe is None
-    if not vlm and (cfg.family not in ("dense", "moe") or (cfg.family == "moe")
-                    != (cfg.moe is not None) or cfg.pos not in ("rope", "none")):
+    if cfg.family == "audio" or cfg.enc_layers > 0:
         raise NotImplementedError(
-            f"{cfg.name}: the ssm, hybrid and audio families are not available "
-            "in this package yet; it serves the dense and MoE rope/no-position "
-            f"decoders and the m-RoPE vlm decoder (family={cfg.family!r}, "
-            f"pos={cfg.pos!r})")
-    if cfg.enc_layers > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models (the audio family) are not "
+            f"{cfg.name}: the audio family (encoder-decoder models) is not "
             "available in this package yet")
+    vlm = cfg.family == "vlm" and cfg.pos == "mrope" and cfg.moe is None
+    recurrent = cfg.family in ("ssm", "hybrid") and cfg.moe is None
+    if not (vlm or recurrent) and (
+            cfg.family not in ("dense", "moe")
+            or (cfg.family == "moe") != (cfg.moe is not None)
+            or cfg.pos not in ("rope", "none")):
+        raise NotImplementedError(
+            f"{cfg.name}: this package serves the dense and MoE "
+            "rope/no-position decoders, the m-RoPE vlm decoder and the ssm "
+            f"and hybrid families (family={cfg.family!r}, pos={cfg.pos!r})")
 
 
 def _ffn(cfg: ArchConfig, p, x, executor=None, li: int | None = None):
@@ -99,15 +114,44 @@ def _trunc_normal(rng: np.random.Generator, shape, scale: float) -> np.ndarray:
 def _param_tree(cfg: ArchConfig, normal, trunc, const) -> dict:
     """The parameter tree, leaf by leaf in draw order: ``normal(shape,
     scale)``, ``trunc(shape, scale)`` (fan-in truncated normal) and
-    ``const(shape, value)`` make the leaves."""
-    L, d, dff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    ``const(shape, value)`` make the leaves.  The block leaves of every
+    family, the recurrent mixes' small leaves included, carry the JAX
+    package's init values and distributions."""
+    d = cfg.d_model
+    recurrent = cfg.family in ("ssm", "hybrid")
+    # the attention families draw their attention weights before the
+    # embedding (this package's draw order since the dense family)
+    attn = None if recurrent else _attention_tree(cfg, trunc, const)
+    params: dict[str, Any] = {"embed": normal((cfg.vocab, d), d ** -0.5),
+                              "final_ln": const((d,), 1.0)}
+    if cfg.family == "ssm":
+        params["blocks"] = rwkv6_block_tree(cfg, normal, trunc, const)
+    elif cfg.family == "hybrid":
+        params["blocks"] = mamba2_block_tree(cfg, normal, trunc, const)
+    else:
+        params["blocks"] = _attention_blocks(cfg, attn, trunc, const)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": trunc((d, cfg.vocab), 1.0 / math.sqrt(d))}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = shared_attn_tree(cfg, trunc, const)
+    return params
+
+
+def _dense(trunc, const, lead: tuple, i: int, o: int, bias: bool = False):
+    p = {"w": trunc((*lead, i, o), 1.0 / math.sqrt(i))}
+    if bias:
+        p["b"] = const((*lead, o), 0.0)
+    return p
+
+
+def _attention_tree(cfg: ArchConfig, trunc, const) -> dict:
+    """The stacked attention of the dense, MoE and VLM families: GQA
+    q/k/v/o (q/k/v biases with ``qkv_bias``) or MLA's projections."""
+    L, d = cfg.n_layers, cfg.d_model
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def dense(i, o, bias=False):
-        p = {"w": trunc((L, i, o), 1.0 / math.sqrt(i))}
-        if bias:
-            p["b"] = const((L, o), 0.0)
-        return p
+        return _dense(trunc, const, (L,), i, o, bias)
 
     if cfg.mla is not None:
         m = cfg.mla
@@ -121,37 +165,109 @@ def _param_tree(cfg: ArchConfig, normal, trunc, const) -> dict:
                 "k": dense(d, nkv * hd, cfg.qkv_bias),
                 "v": dense(d, nkv * hd, cfg.qkv_bias),
                 "o": dense(nq * hd, d)}
-    params: dict[str, Any] = {
-        "embed": normal((cfg.vocab, d), d ** -0.5),
-        "final_ln": const((d,), 1.0),
-        "blocks": {"ln1": const((L, d), 1.0), "ln2": const((L, d), 1.0),
-                   "attn": attn},
-    }
+    return attn
+
+
+def _attention_blocks(cfg: ArchConfig, attn: dict, trunc, const) -> dict:
+    """The stacked blocks of the dense, MoE and VLM families around their
+    attention ``attn``: the norms and the SwiGLU FFN or the experts."""
+    L, d, dff = cfg.n_layers, cfg.d_model, cfg.d_ff
+
+    def dense(i, o):
+        return _dense(trunc, const, (L,), i, o)
+
+    blocks = {"ln1": const((L, d), 1.0), "ln2": const((L, d), 1.0),
+              "attn": attn}
     if cfg.moe is None:
-        params["blocks"]["ffn"] = {"gate": dense(d, dff), "up": dense(d, dff),
-                                   "down": dense(dff, d)}
+        blocks["ffn"] = {"gate": dense(d, dff), "up": dense(d, dff),
+                         "down": dense(dff, d)}
     else:
         ne, edff = cfg.moe.n_experts, cfg.moe.d_ff_expert
-        params["blocks"]["ffn"] = {
+        blocks["ffn"] = {
             "router": trunc((L, d, ne), 1.0 / math.sqrt(d)),
             "gate": trunc((L, ne, d, edff), 1.0 / math.sqrt(d)),
             "up": trunc((L, ne, d, edff), 1.0 / math.sqrt(d)),
             "down": trunc((L, ne, edff, d), 1.0 / math.sqrt(edff))}
         if cfg.moe.n_shared > 0:
             sff = cfg.moe.n_shared * edff
-            params["blocks"]["ffn"]["shared"] = {
+            blocks["ffn"]["shared"] = {
                 "gate": dense(d, sff), "up": dense(d, sff),
                 "down": dense(sff, d)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": trunc((d, cfg.vocab), 1.0 / math.sqrt(d))}
-    return params
+    return blocks
+
+
+def rwkv6_block_tree(cfg: ArchConfig, normal, trunc, const) -> dict:
+    """The ssm family's stacked blocks: the rwkv6 time-mix ``tm`` (the five
+    mixes' ``mix_mu``, their LoRA ``mix_A``/``mix_B``, r/k/v/g/o, the decay
+    ``w0`` and its LoRA ``wA``/``wB``, the bonus ``u``, the per-head norm
+    scale ``ln_w``) and channel-mix ``cm`` (``mix_mu_k``, k/v/r)."""
+    L, d, dff, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.hd
+    nm = len(MIX)
+
+    def dense(i, o):
+        return _dense(trunc, const, (L,), i, o)
+
+    return {
+        "ln1": const((L, d), 1.0), "ln2": const((L, d), 1.0),
+        "tm": {"mix_mu": const((L, nm, d), 0.5),
+               "mix_A": normal((L, d, LORA_MIX * nm), 0.01),
+               "mix_B": normal((L, nm, LORA_MIX, d), 0.01),
+               "r": dense(d, d), "k": dense(d, d), "v": dense(d, d),
+               "g": dense(d, d), "o": dense(d, d),
+               "w0": const((L, d), -5.0),
+               "wA": normal((L, d, LORA_W), 0.01),
+               "wB": normal((L, LORA_W, d), 0.01),
+               "u": normal((L, d // hd, hd), 0.1),
+               "ln_w": const((L, d), 1.0)},
+        "cm": {"mix_mu_k": const((L, d), 0.5), "k": dense(d, dff),
+               "v": dense(dff, d), "r": dense(d, d)},
+    }
+
+
+def mamba2_block_tree(cfg: ArchConfig, normal, trunc, const) -> dict:
+    """The hybrid family's stacked mamba2 blocks (one norm each, no FFN):
+    ``in_proj`` to z, x, B, C and dt, the depthwise conv over x, B and C,
+    ``A_log``, ``D``, ``dt_bias``, the gated norm's scale and ``out_proj``."""
+    L, d, sc = cfg.n_layers, cfg.d_model, cfg.ssm
+    h = sc.d_inner // sc.head_dim
+    conv_dim = sc.d_inner + 2 * sc.d_state
+
+    def dense(i, o):
+        return _dense(trunc, const, (L,), i, o)
+
+    return {"ln1": const((L, d), 1.0),
+            "mamba": {"in_proj": dense(d, 2 * sc.d_inner + 2 * sc.d_state + h),
+                      "conv_w": normal((L, conv_dim, sc.d_conv), 0.2),
+                      "conv_b": const((L, conv_dim), 0.0),
+                      "A_log": const((L, h), 0.0),
+                      "D": const((L, h), 1.0),
+                      "dt_bias": const((L, h), 0.0),
+                      "norm_w": const((L, sc.d_inner), 1.0),
+                      "out_proj": dense(sc.d_inner, d)}}
+
+
+def shared_attn_tree(cfg: ArchConfig, trunc, const) -> dict:
+    """Zamba2's weight-shared attention + SwiGLU block: one unstacked set
+    of weights (no q/k/v bias)."""
+    d, dff = cfg.d_model, cfg.d_ff
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def dense(i, o):
+        return _dense(trunc, const, (), i, o)
+
+    return {"ln1": const((d,), 1.0), "ln2": const((d,), 1.0),
+            "attn": {"q": dense(d, nq * hd), "k": dense(d, nkv * hd),
+                     "v": dense(d, nkv * hd), "o": dense(nq * hd, d)},
+            "ffn": {"gate": dense(d, dff), "up": dense(d, dff),
+                    "down": dense(dff, d)}}
 
 
 def init_params_numpy(seed: int, cfg: ArchConfig) -> dict:
     """Random parameters as float32 numpy arrays — the JAX package's pytree
     layout, drawn from a numpy generator so a test can hand the same arrays
     to both packages.  Fan-in truncated-normal projections; an MoE block
-    holds raw expert stacks (no ``"w"`` level) and a float32 router."""
+    holds raw expert stacks (no ``"w"`` level) and a float32 router; the
+    recurrent families' small leaves take the reference's init values."""
     _require_supported(cfg)
     rng = np.random.default_rng(seed)
     return _param_tree(
@@ -164,7 +280,8 @@ def init_params_numpy(seed: int, cfg: ArchConfig) -> dict:
 
 def abstract_params(cfg: ArchConfig) -> dict:
     """The parameter tree as tensors on the ``meta`` device: shapes and
-    dtypes (``cfg.param_dtype``, a router float32), nothing allocated."""
+    dtypes (``cfg.param_dtype``; ``convert.F32_LEAVES`` float32), nothing
+    allocated."""
     from repro_torch.convert import F32_LEAVES
 
     _require_supported(cfg)
@@ -227,7 +344,11 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     for MLA (c_kv [L,B,S,dc], k_rope [L,B,S,Dr]) — or None).  MoE experts
     run as a batched product of the dense weights, as in the reference.
     An m-RoPE model rotates at ``positions3`` [3, B, S] (temporal, height,
-    width), by default ``arange(S)`` on all three axes."""
+    width), by default ``arange(S)`` on all three axes.  The recurrent
+    families' caches are their final states: ssm an ``RWKV6State`` of
+    stacked ``[L, ...]`` leaves, hybrid ``{"mamba": [Mamba2State] a layer,
+    "attn": [(k, v)] an insertion of the shared block}``, as the
+    reference's collect-cache forms give them."""
     _require_supported(cfg)
     if embeds is not None:
         x = embeds.to(cfg.cdtype)
@@ -239,6 +360,9 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if cfg.pos == "mrope" and positions3 is None:
         positions3 = torch.arange(s, device=x.device)[None, None].expand(3, b, s)
+    if cfg.family in ("ssm", "hybrid"):
+        x, cache = _recurrent_forward(params, cfg, x, positions, collect_cache)
+        return _norm(cfg, params["final_ln"], x), cache
     rope = _rope_kw(cfg, positions3)
 
     def block(x, bp):
@@ -275,6 +399,82 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
     cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
     return x, cache
 
+
+
+def _ssm_block(cfg: ArchConfig, x, bp):
+    """One rwkv6 block over ``x [B, S, d]``: (x', time-mix state)."""
+    y, st = rwkv6_timemix_prefill(bp["tm"], _norm(cfg, bp["ln1"], x),
+                                  head_dim=cfg.hd, chunk=cfg.ssm_chunk)
+    x = x + y
+    y, _ = rwkv6_channelmix(bp["cm"], _norm(cfg, bp["ln2"], x))
+    return x + y, st
+
+
+def _mamba_block(cfg: ArchConfig, x, bp):
+    """One mamba2 block over ``x [B, S, d]``: (x', Mamba2State)."""
+    sc = cfg.ssm
+    y, st = mamba2_prefill(bp["mamba"], _norm(cfg, bp["ln1"], x),
+                           d_inner=sc.d_inner, d_state=sc.d_state,
+                           head_dim=sc.head_dim, d_conv=sc.d_conv,
+                           chunk=cfg.ssm_chunk)
+    return x + y, st
+
+
+def _shared_attn_block(cfg: ArchConfig, p, x, positions):
+    """The hybrid's weight-shared attention + SwiGLU block: (x', (k, v))."""
+    y, k, v = attention_prefill(
+        p["attn"], _norm(cfg, p["ln1"], x), positions, n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv_heads, head_dim=cfg.hd, causal=True,
+        window=cfg.attn_window, rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk)
+    x = x + y
+    return x + swiglu(p["ffn"], _norm(cfg, p["ln2"], x)), (k, v)
+
+
+def hybrid_schedule(cfg: ArchConfig) -> list[tuple[str, int]]:
+    """The hybrid's depth in order: ``("mamba", layer)`` and ``("shared",
+    insertion)`` — ``hybrid_period`` mamba layers then the shared block,
+    ``n_layers // hybrid_period`` times, then the tail's mamba layers."""
+    period = cfg.hybrid_period
+    n_groups = cfg.n_layers // period
+    out = []
+    for g in range(n_groups):
+        out += [("mamba", g * period + i) for i in range(period)]
+        out.append(("shared", g))
+    out += [("mamba", li) for li in range(n_groups * period, cfg.n_layers)]
+    return out
+
+
+def _recurrent_forward(params, cfg: ArchConfig, x, positions,
+                       collect_cache: bool):
+    """The ssm and hybrid layer stacks over embedded ``x`` -> (x, cache)."""
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+
+    def run(fn, *args):
+        if remat:  # the state is not needed in training
+            return checkpoint(lambda *a: fn(*a)[0], *args,
+                              use_reentrant=False), None
+        return fn(*args)
+
+    layers = _unbind_layers(params["blocks"], cfg.n_layers)
+    if cfg.family == "ssm":
+        states = []
+        for bp in layers:
+            x, st = run(functools.partial(_ssm_block, cfg), x, bp)
+            states.append(st)
+        if not collect_cache:
+            return x, None
+        return x, RWKV6State(wkv=torch.stack([s.wkv for s in states]),
+                             x_prev=torch.stack([s.x_prev for s in states]))
+    caches = {"mamba": [], "attn": []}
+    for kind, i in hybrid_schedule(cfg):
+        if kind == "mamba":
+            x, st = run(functools.partial(_mamba_block, cfg), x, layers[i])
+            caches["mamba"].append(st)
+        else:
+            x, kv = run(functools.partial(_shared_attn_block, cfg),
+                        params["shared_attn"], x, positions)
+            caches["attn"].append(kv)
+    return x, caches if collect_cache else None
 
 def forward_extend(params, cfg: ArchConfig, tokens, positions, past, last):
     """Prefix-cache tail prefill: run ``tokens`` [B,T] at absolute
@@ -384,16 +584,36 @@ def init_decode_state(cfg: ArchConfig, batch: int, smax: int, *,
                       kv_block: int | None = None,
                       kv_blocks: int | None = None, device="cuda"):
     """Per-layer decode caches: ``k``/``v`` for GQA, the latents ``c_kv``/
-    ``k_rope`` for MLA, and ``kpos``.
+    ``k_rope`` for MLA, and ``kpos``.  The recurrent families keep their
+    contiguous states: ssm the wkv state (float32) and the two token
+    shifts; hybrid the SSM state (float32) and the conv window a layer and
+    the shared block's contiguous KV cache an insertion (``attn_k``/
+    ``attn_v``/``attn_kpos``).
 
-    ``kv_block`` switches to a paged layout: per-layer block *pools*
-    ``[L, pool, bs, ...]`` plus one shared block table ``[batch,
-    view_blocks]`` (see ``serving.kvpool``).
+    ``kv_block`` switches the attention families to a paged layout:
+    per-layer block *pools* ``[L, pool, bs, ...]`` plus one shared block
+    table ``[batch, view_blocks]`` (see ``serving.kvpool``).
     """
     _require_supported(cfg)
     L, cd = cfg.n_layers, cfg.cdtype
     z = dict(dtype=cd, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.hd
+        return {"wkv": torch.zeros((L, batch, h, cfg.hd, cfg.hd), **f32),
+                "x_prev_tm": torch.zeros((L, batch, cfg.d_model), **z),
+                "x_prev_cm": torch.zeros((L, batch, cfg.d_model), **z)}
+    if cfg.family == "hybrid":
+        sc = cfg.ssm
+        n_attn = cfg.n_layers // cfg.hybrid_period
+        kv = (n_attn, batch, smax, cfg.n_kv_heads, cfg.hd)
+        return {"ssm": torch.zeros((L, batch, sc.d_inner // sc.head_dim,
+                                    sc.d_state, sc.head_dim), **f32),
+                "conv": torch.zeros((L, batch, sc.d_inner + 2 * sc.d_state,
+                                     sc.d_conv - 1), **z),
+                "attn_k": torch.zeros(kv, **z), "attn_v": torch.zeros(kv, **z),
+                "attn_kpos": torch.full((n_attn, batch, smax), -1, **i32)}
     if cfg.mla is not None:
         dc, dr = cfg.mla.kv_lora, cfg.mla.qk_rope
         if kv_block is not None:
@@ -442,16 +662,26 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
 
     ``executor`` (compressed serving): a site-keyed registry — see
     ``repro_torch.serving.executor.CompressedExecutor`` — consulted for every
-    compressible site (attention q/k/v/o, FFN gate/up/down, MoE experts).
-    Covered sites execute their LCC chains through fused kernel launches;
+    compressible site (attention q/k/v/o, FFN gate/up/down, MoE experts,
+    the recurrent mixes).  Covered sites execute their LCC chains through fused kernel launches;
     sites the executor does not cover fall back to the dense weights.  A
     whole-step layer plan, when the executor offers one, replaces the
     per-layer loop (its MoE layers route inside the step); MLA never has
     one (reason ``"mla"``), and its MoE layers may take a per-layer expert
-    plan instead.
+    plan instead.  The recurrent families never ask for one (the executor
+    records ``"family:ssm"`` / ``"family:hybrid"`` when it is built): their
+    sites — rwkv6's r/k/v/g (one grouped launch), o, channel-mix k/r (one
+    grouped launch) and v; mamba2's in/out projections and the shared
+    block's q/k/v, o, gate/up and down — take the per-region route.
     """
     _require_supported(cfg)
     x = params["embed"][token.long()].to(cfg.cdtype)
+    if cfg.family == "ssm":
+        x = _ssm_decode(params, cfg, state, x, executor)
+        return _decode_logits(params, cfg, x), state
+    if cfg.family == "hybrid":
+        x = _hybrid_decode(params, cfg, state, x, pos, executor)
+        return _decode_logits(params, cfg, x), state
     tbl = state.get("block_tbl")
     # MLA never asks for the whole-step plan (the executor records "mla" when
     # it is built), as in the reference
@@ -490,6 +720,68 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
                     executor=executor, site=site)
             x = x + y
             x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x), executor, li)
+    return _decode_logits(params, cfg, x), state
+
+
+def _decode_logits(params, cfg: ArchConfig, x):
     h = _norm(cfg, params["final_ln"], x)
-    logits = logits_from_hidden(params, cfg, h)[:, 0]
-    return logits, state
+    return logits_from_hidden(params, cfg, h)[:, 0]
+
+
+def _ssm_decode(params, cfg: ArchConfig, state, x, executor):
+    """The rwkv6 layers' decode step on ``x [B, 1, d]``; the wkv state and
+    both token shifts written in place (the channel mix's shift holds its
+    *normed* input, as the reference's does)."""
+    ex = executor is not None
+    for li in range(cfg.n_layers):
+        bp = _layer(params["blocks"], li)
+        tm_in = _norm(cfg, bp["ln1"], x)
+        y, st = rwkv6_timemix_decode(
+            bp["tm"], tm_in, RWKV6State(wkv=state["wkv"][li],
+                                        x_prev=state["x_prev_tm"][li]),
+            head_dim=cfg.hd, executor=executor,
+            site=f"tm.{{}}.l{li}" if ex else None)
+        x = x + y
+        cm_in = _norm(cfg, bp["ln2"], x)
+        y, _ = rwkv6_channelmix(bp["cm"], cm_in,
+                                x_prev_last=state["x_prev_cm"][li],
+                                executor=executor,
+                                site=f"cm.{{}}.l{li}" if ex else None)
+        x = x + y
+        state["wkv"][li].copy_(st.wkv)
+        state["x_prev_tm"][li].copy_(st.x_prev)
+        state["x_prev_cm"][li].copy_(cm_in[:, 0])
+    return x
+
+
+def _hybrid_decode(params, cfg: ArchConfig, state, x, pos, executor):
+    """The hybrid's decode step on ``x [B, 1, d]`` in :func:`hybrid_schedule`
+    order; each mamba layer's SSM state and conv window and each insertion's
+    KV cache written in place."""
+    sc, sp = cfg.ssm, params["shared_attn"]
+    ex = executor is not None
+    for kind, i in hybrid_schedule(cfg):
+        if kind == "mamba":
+            bp = _layer(params["blocks"], i)
+            y, st = mamba2_decode(
+                bp["mamba"], _norm(cfg, bp["ln1"], x),
+                Mamba2State(ssm=state["ssm"][i], conv=state["conv"][i]),
+                d_inner=sc.d_inner, d_state=sc.d_state, head_dim=sc.head_dim,
+                d_conv=sc.d_conv, executor=executor,
+                site=f"mamba.{{}}.l{i}" if ex else None)
+            state["ssm"][i].copy_(st.ssm)
+            state["conv"][i].copy_(st.conv)
+            x = x + y
+            continue
+        cache = KVCache(k=state["attn_k"][i], v=state["attn_v"][i],
+                        kpos=state["attn_kpos"][i])
+        y, _ = attention_decode(
+            sp["attn"], _norm(cfg, sp["ln1"], x), cache, pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+            window=cfg.attn_window, rope_theta=cfg.rope_theta,
+            executor=executor, site="shared_attn.attn.{}" if ex else None)
+        x = x + y
+        ffn_in = _norm(cfg, sp["ln2"], x)
+        x = x + (_sites_swiglu(executor, "shared_attn.ffn.{}")(sp["ffn"], ffn_in)
+                 if ex else swiglu(sp["ffn"], ffn_in))
+    return x

@@ -3,7 +3,9 @@
 The engine keeps a fixed decode batch of ``n_slots``; finished sequences free
 their slot and queued requests are prefilled into it (one bulk ``api.prefill``
 writes the slot's KV cache in a single forward; ``bulk_prefill=False`` on a
-contiguous engine runs one decode step a prompt token instead).  Decoding
+contiguous engine runs one decode step a prompt token instead, as the
+recurrent families — rwkv6's ssm, zamba2's hybrid — always do: their
+contiguous recurrent state is reset and then advanced for the slot alone).  Decoding
 is **device-side**: one eager step function runs the forward pass,
 greedy/temperature sampling (per-request keys, so draws are independent of
 slot order and of which other requests are in flight), position/budget
@@ -32,7 +34,9 @@ configs the whole-step layer plan (``stage_matmul`` / ``step_plan_matmul``),
 otherwise attention q/k/v/o and FFN gate/up/down as fused per-region launches
 (``lcc_chain_matmul`` / ``lcc_group_matmul``); MLA models take the per-region
 attention and, in float32, one expert plan a layer (``moe_plan_matmul``):
-the shift-add runtime the paper targets either way.  Prefill runs on the artifact's dense-effective weights.
+the shift-add runtime the paper targets either way.  A bulk prefill runs on
+the artifact's dense-effective weights; the recurrent families' tokenwise
+prefill runs through the executor, as their decode steps do.
 
 Telemetry (:mod:`repro_torch.obs`), as in the reference: ``metrics=None``
 builds a registry per engine, ``metrics=False`` turns telemetry off, a
@@ -353,8 +357,12 @@ class ServingEngine:
         self._next_req += 1
         t_pre = time.perf_counter()
         cached_tokens = 0
-        kind = ("paged" if self.paged
-                else "bulk" if self.bulk_prefill else "tokenwise")
+        # bulk only where the state is a KV sequence a forward can write
+        # (the reference's rule): the recurrent families prefill token by
+        # token, the hybrid's shared-block cache (``attn_k``) included
+        kind = ("paged" if self.paged else "bulk" if self.bulk_prefill
+                and ("k" in self.state or "c_kv" in self.state)
+                else "tokenwise")
         if self.paged:
             plan = self.pool.admit(slot, prompt)
             if plan is None:
@@ -372,7 +380,7 @@ class ServingEngine:
             self._prefill_slot(slot, prompt)
         else:
             # the slot column is reset first so the previous occupant's
-            # cache entries and kpos never leak
+            # cache entries, kpos and recurrent state never leak
             self._reset_slot_state(slot)
             self._prefill_slot_tokenwise(slot, prompt)
         self.pos[slot] = len(prompt)
@@ -403,23 +411,25 @@ class ServingEngine:
     @torch.no_grad()
     def _reset_slot_state(self, slot: int) -> None:
         """Clear one slot's column of every decode-state leaf, in place
-        (``kpos`` to -1, caches to 0) so a reused slot never sees its
-        previous occupant's KV entries."""
+        (``kpos``/``attn_kpos`` to -1; caches, ``wkv``/``x_prev_*`` and
+        ``ssm``/``conv`` to 0) so a reused slot never sees its previous
+        occupant's KV entries or recurrent state."""
         for name, v in self.state.items():
             v[:, slot] = -1 if "kpos" in name else 0
 
     @torch.no_grad()
     def _merge_slot_state(self, old, new, slot: int) -> None:
         """Copy ``new``'s batch column ``slot`` into ``old``, in place — the
-        tokenwise prefill must not touch other slots' cache."""
+        tokenwise prefill must not touch other slots' cache or advance their
+        recurrent state."""
         for name, v in old.items():
             v[:, slot] = new[name][:, slot]
 
     @torch.no_grad()
     def _prefill_slot_tokenwise(self, slot: int, prompt: list[int]) -> None:
-        """Legacy prefill: one decode step per prompt token, through the
-        engine's executor as a decode step goes (kept as the bulk path's
-        equivalence and latency baseline).  Decode rows are independent, so
+        """Tokenwise prefill: one decode step per prompt token, through the
+        engine's executor as a decode step goes (the recurrent families'
+        prefill, and the bulk path's equivalence and latency baseline).  Decode rows are independent, so
         the loop runs on a scratch copy of the state (the other slots feed
         token 0 at their last position, as in the reference) and only the
         target slot's column is merged back."""

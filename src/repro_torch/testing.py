@@ -34,10 +34,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.lcc_chain_matmul import _levels_plain
 
 __all__ = ["seeded_decomposition", "decomposition_dense", "dense_sites",
-           "moe_sites", "seeded_artifact", "seeded_conv_artifact",
-           "seeded_prep"]
+           "moe_sites", "unstacked_sites", "seeded_artifact",
+           "seeded_conv_artifact", "seeded_prep"]
 
-SHARED_SITES = ("attn.k", "attn.o", "ffn.up", "moe.up")
+SHARED_SITES = ("attn.k", "attn.o", "ffn.up", "moe.up", "tm.k", "tm.o",
+                "cm.k", "mamba.in_proj", "shared_attn.attn.k",
+                "shared_attn.attn.o", "shared_attn.ffn.up")
 BIAS_SCALE = 0.5  # std of a qkv_bias model's seeded q/k/v biases
 
 
@@ -163,9 +165,20 @@ def dense_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, ...], int, int]]:
     [li]`` of shape ``[K, N]``.  Attention is GQA (q/k/v/o) or MLA
     (q/dkv/kr/uk/uv/o); an MoE family lists its shared experts
     (``moe.shared.*``, path ``ffn.shared``) and leaves the routed experts to
-    :func:`moe_sites`."""
+    :func:`moe_sites`.  The ssm family lists rwkv6's time-mix r/k/v/g/o and
+    channel-mix k/v/r, the hybrid its mamba in/out projections (the shared
+    block's sites are :func:`unstacked_sites`)."""
     d, dff = cfg.d_model, cfg.d_ff
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cfg.family == "ssm":
+        return ([(f"tm.{p}", ("tm", p), d, d) for p in ("r", "k", "v", "g", "o")]
+                + [("cm.k", ("cm", "k"), dff, d), ("cm.v", ("cm", "v"), d, dff),
+                   ("cm.r", ("cm", "r"), d, d)])
+    if cfg.family == "hybrid":
+        sc = cfg.ssm
+        n_in = 2 * sc.d_inner + 2 * sc.d_state + sc.d_inner // sc.head_dim
+        return [("mamba.in_proj", ("mamba", "in_proj"), n_in, d),
+                ("mamba.out_proj", ("mamba", "out_proj"), d, sc.d_inner)]
     if cfg.mla is not None:
         m = cfg.mla
         sites = [("attn.q", ("attn", "q"), nq * (m.qk_nope + m.qk_rope), d),
@@ -201,6 +214,61 @@ def moe_sites(cfg: ArchConfig) -> list[tuple[str, str, int, int]]:
     d, dff = cfg.d_model, cfg.moe.d_ff_expert
     return [("moe.gate", "gate", dff, d), ("moe.up", "up", dff, d),
             ("moe.down", "down", d, dff)]
+
+
+def unstacked_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, ...], int, int]]:
+    """Compressible sites outside the layer stack: ``(site name, path from
+    the params root, N out, K in)``, weight ``params[path...]["w"]`` of
+    shape ``[K, N]``.  The hybrid's weight-shared attention + SwiGLU block
+    (``shared_attn.*``, one site a projection for every insertion); no other
+    family has any."""
+    if cfg.family != "hybrid":
+        return []
+    d, dff = cfg.d_model, cfg.d_ff
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dims = {"attn": {"q": (nq * hd, d), "k": (nkv * hd, d),
+                     "v": (nkv * hd, d), "o": (d, nq * hd)},
+            "ffn": {"gate": (dff, d), "up": (dff, d), "down": (d, dff)}}
+    return [(f"shared_attn.{part}.{p}", ("shared_attn", part, p), n, k)
+            for part in ("attn", "ffn") for p, (n, k) in dims[part].items()]
+
+
+def _recurrent_tree(cfg: ArchConfig, seed: int, device) -> dict:
+    """The ssm or hybrid parameter tree without its site weights (None
+    there): the embedding's and head's places, the norms, and the
+    recurrent blocks' small leaves drawn as the reference initialises them
+    from a generator of their own (``F32_LEAVES`` float32, the rest in
+    ``cfg.param_dtype``)."""
+    from repro_torch.convert import F32_LEAVES
+    from repro_torch.models import transformer
+
+    rng = np.random.default_rng((seed, 0, 2))
+    d = cfg.d_model
+
+    def normal(shape, scale):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    def const(shape, value):
+        return np.full(shape, value, np.float32)
+
+    def none(shape, scale):
+        return None
+
+    fn = (transformer.rwkv6_block_tree if cfg.family == "ssm"
+          else transformer.mamba2_block_tree)
+    tree = {"final_ln": const((d,), 1.0),
+            "blocks": fn(cfg, normal, none, const)}
+    if cfg.family == "hybrid":
+        tree["shared_attn"] = transformer.shared_attn_tree(cfg, none, const)
+
+    def to_tensors(t, dtype):
+        if isinstance(t, dict):
+            return {k: to_tensors(v, torch.float32 if k in F32_LEAVES else dtype)
+                    for k, v in t.items()}
+        return None if t is None else torch.from_numpy(t).to(device=device,
+                                                             dtype=dtype)
+
+    return to_tensors(tree, cfg.pdtype)
 
 
 def seeded_prep(k: int, rng: np.random.Generator, shared: bool,
@@ -246,13 +314,18 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     """A compressed artifact for ``cfg`` made from ``seed`` alone (see the
     module docstring).  Every attention and FFN projection of every layer —
     for the MoE family every expert's gate, up and down and the shared
-    experts' — is a compressed site (MLA: q, dkv, kr, uk, uv, o); ``shared_sites`` (site prefixes) additionally get weight sharing,
+    experts' — is a compressed site (MLA: q, dkv, kr, uk, uv, o; ssm:
+    rwkv6's mixes; hybrid: mamba's in/out projections and the shared
+    block's, see :func:`unstacked_sites`); the recurrent blocks' other
+    leaves are drawn as the reference initialises them, from a generator
+    of their own; ``shared_sites`` (site prefixes) additionally get weight sharing,
     so the segment-sum kernel is on the decode path.  An MoE block gets a
     seeded float32 router ``[L, d, E]``; a ``qkv_bias`` model gets seeded
     non-zero q/k/v biases ``[L, out]`` (std ``BIAS_SCALE``, from a generator
     of their own, so every other leaf is what it is without them).
     ``params`` are the dense-effective
-    weights in ``cfg.param_dtype`` (the router in float32) on ``device``;
+    weights in ``cfg.param_dtype`` (``convert.F32_LEAVES`` in float32) on
+    ``device``;
     pre-packed kernel buffers come along in ``packed``.  With
     ``host_effective=False`` the records keep no host copy of their
     dense-effective matrix (``effective`` is None: at mixtral-8x22b's width
@@ -264,11 +337,15 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     rng = np.random.default_rng((seed, 0))
     pd = dict(dtype=cfg.pdtype, device=device)
     embed = rng.standard_normal((cfg.vocab, d), dtype=np.float32) * np.float32(d ** -0.5)
-    params = {"embed": torch.from_numpy(embed).to(**pd),
-              "final_ln": torch.ones((d,), **pd),
-              "blocks": {"ln1": torch.ones((L, d), **pd),
-                         "ln2": torch.ones((L, d), **pd),
-                         "attn": {}, "ffn": {}}}
+    if cfg.family in ("ssm", "hybrid"):
+        params = {"embed": torch.from_numpy(embed).to(**pd),
+                  **_recurrent_tree(cfg, seed, device)}
+    else:
+        params = {"embed": torch.from_numpy(embed).to(**pd),
+                  "final_ln": torch.ones((d,), **pd),
+                  "blocks": {"ln1": torch.ones((L, d), **pd),
+                             "ln2": torch.ones((L, d), **pd),
+                             "attn": {}, "ffn": {}}}
     if not cfg.tie_embeddings:
         head = rng.standard_normal((d, cfg.vocab), dtype=np.float32) * np.float32(d ** -0.5)
         params["lm_head"] = {"w": torch.from_numpy(head).to(**pd)}
@@ -284,6 +361,13 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
             jobs.append((f"{prefix}.l{li}", n, k, (seed, 1 + li, si),
                          prefix in shared_sites,
                          (node[path[-1]]["w"], (li,))))
+    for si, (name, path, n, k) in enumerate(unstacked_sites(cfg)):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = {"w": torch.empty((k, n), **pd)}
+        jobs.append((name, n, k, (seed, 0, 3, si), name in shared_sites,
+                     (node[path[-1]]["w"], ())))
     if cfg.qkv_bias:  # a generator of their own: other configs stay as they were
         brng = np.random.default_rng((seed, 0, 1))
         for proj, n in (("q", cfg.n_heads * cfg.hd), ("k", cfg.n_kv_heads * cfg.hd),

@@ -30,8 +30,9 @@ SM = 132  # H100 SXM
 
 # (label, N, B, G, E, bb): the K1/K2 launches of the olmo-1b, mixtral-8x22b
 # and deepseek-v2-lite-16b per-region serves (chip_smoke.chain_cases), ROADMAP
-# B1's qwen2-vl FFN widths, and the widest launches of the dense family's and
-# the VLM's serves (the fixture's E)
+# B1's qwen2-vl FFN widths, the widest launches of the dense family's and
+# the VLM's serves, and every launch of the recurrent families' serves (the
+# fixture's E)
 MAIN_PATH = [
     ("olmo attn.o", 2048, 8, 1, 175, 8),
     ("olmo ffn.down", 2048, 8, 1, 745, 8),
@@ -61,6 +62,17 @@ MAIN_PATH = [
     ("qwen2-vl-7b ffn.gate+up", 18944, 8, 2, 256, 1),
     ("qwen2-vl-7b ffn.down", 3584, 8, 1, 1579, 4),
     ("qwen2-vl-7b attn.q+k+v", 3584, 8, 3, 398, 4),
+    # the recurrent families' per-region serves (fixture widths)
+    ("rwkv6 tm.o", 2048, 8, 1, 175, 8),
+    ("rwkv6 cm.v", 2048, 8, 1, 652, 8),
+    ("rwkv6 tm.r+k+v+g", 2048, 8, 4, 186, 8),
+    ("rwkv6 cm.k+r", 7168, 8, 2, 186, 2),
+    ("zamba2 mamba.in_proj", 14576, 8, 1, 240, 1),
+    ("zamba2 mamba.out_proj", 3584, 8, 1, 598, 4),
+    ("zamba2 shared attn.o", 3584, 8, 1, 280, 4),
+    ("zamba2 shared ffn.down", 3584, 8, 1, 1195, 4),
+    ("zamba2 shared attn.q+k+v", 3584, 8, 3, 299, 4),
+    ("zamba2 shared ffn.gate+up", 14336, 8, 2, 256, 1),
 ]
 LARGEST_N_BB1 = 26164  # at S = 2: 8 N + two 960-row slots <= SMEM_LIMIT
 
@@ -194,6 +206,32 @@ def test_chain_cases_cover_the_dense_family_and_the_vlm():
         e = max(len(plan_col_slices(*m)) for m in members)
         _check_plan(n, batch, len(members), e)
     assert plan_launch(18944, 8, 2, 256, SM)[:2] == (1, 960)
+
+
+def test_chain_cases_cover_the_recurrent_serves():
+    """The recurrent serves' launches: rwkv6's r+k+v+g (four members of
+    2048 rows) and k+r (r padded to k's 7168 rows, as the reference groups
+    them), o and v; zamba2's in/out projections (14576 = 2 x 7168 + 2 x 64 +
+    112 rows) and the shared block's q+k+v, o, gate+up (14336 rows at one
+    column) and down, each fitting the planner."""
+    cs = _chip_smoke()
+    from repro_torch.core.lcc import plan_col_slices
+    cases = {label: (batch, members)
+             for arch in ("rwkv6-1.6b", "zamba2-7b")
+             for label, _, batch, members in cs.chain_cases(arch)}
+    assert len(cases) == 10
+    assert cases["rwkv6-1.6b tm.r+k+v+g B=8"][1] == [
+        (2048, 2046), (2048, 1919), (2048, 2046), (2048, 2046)]
+    assert cases["rwkv6-1.6b cm.k+r B=8"][1] == [(7168, 1919), (2048, 2046)]
+    assert cases["zamba2-7b mamba.in_proj B=8"][1] == [(14576, 3359)]
+    assert cases["zamba2-7b shared_attn.ffn.gate+up B=8"][1] == [
+        (14336, 3582), (14336, 3359)]
+    for batch, members in cases.values():
+        n = max(m[0] for m in members)
+        e = max(len(plan_col_slices(*m)) for m in members)
+        _check_plan(n, batch, len(members), e)
+    assert plan_launch(14336, 8, 2, 256, SM)[:2] == (1, 512)
+    assert plan_launch(14576, 8, 1, 240, SM)[:2] == (1, 512)
 
 
 @pytest.mark.parametrize("sm", [1, 8, 132])

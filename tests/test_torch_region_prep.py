@@ -246,6 +246,39 @@ def test_chip_smoke_regions_are_the_serves_regions(arch):
         assert np.array_equal(prep.src, want.src)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_chip_smoke_regions_of_the_recurrent_serves(arch):
+    """The recurrent serves' regions: rwkv6's r+k+v+g read four distinct
+    inputs (a stacked buffer, as the experts'), k+r one shared input; the
+    hybrid's shared block's regions come once, without a layer, and run
+    once an insertion (5 layers at period 2: two insertions and a tail)."""
+    cs = _chip_smoke()
+    cfg = reduced_config(get_arch(arch), vocab=64)
+    if cfg.family == "hybrid":
+        cfg = replace(cfg, n_layers=5)
+    art = seeded_artifact(cfg, seed=0, device="cpu")
+    drawn = cs.region_preps(cfg)
+    real = cs.region_preps(cfg, art.records)
+    assert [(lb, p.name, p.n_members, p.rows, p.src.size, k, b, st)
+            for lb, p, k, b, st, _ in drawn] == \
+        [(lb, p.name, p.n_members, p.rows, p.src.size, k, b, st)
+         for lb, p, k, b, st, _ in real]
+    groups = cs.site_groups(cfg) + cs.shared_groups(cfg)
+    assert sorted(n for g in groups for n in g) == sorted(
+        n for n in art.records if ".l0" in n or n.startswith("shared_attn."))
+    stacked = {names[0]: st for _, _, _, _, st, names in real}
+    if cfg.family == "ssm":
+        assert stacked == {"tm.r.l0": True, "tm.o.l0": False,
+                           "cm.k.l0": False, "cm.v.l0": False}
+        per_step = 4 * cfg.n_layers
+    else:
+        assert not any(stacked.values())
+        assert cs.shared_insertions(cfg) == 2
+        per_step = 2 * cfg.n_layers + 4 * 2
+    assert cs.region_preps_per_step(cfg, art.records) == per_step
+    assert cs.region_launches_per_step(cfg) == per_step
+
+
 @pytest.mark.parametrize("name,site", [
     ("attn.q.l3", "attn.q"), ("moe.up.l0.e5", "moe.up"),
     ("attn.dkv.l12", "attn.dkv"), ("head", "head")])
