@@ -15,14 +15,15 @@ grouped K2 launches of E) and once in float32 — olmo and mixtral through the w
 refuses the step plan) through one expert plan a layer (K9) beside per-region
 MLA — and qwen2-vl-7b (m-RoPE, cut to 2 layers) per-region in both dtypes,
 the recurrent families per-region in both dtypes — rwkv6-1.6b (ssm, cut to
-2 layers) and zamba2-7b (hybrid, cut to 7 layers) — plus K4's per-factor
-route on olmo's layer 0, and holds every CUDA kernel on those paths against
+2 layers) and zamba2-7b (hybrid, cut to 7 layers) — and the audio family's
+whisper-small (encoder-decoder, per-region, cut to 2 + 2 layers) — plus K4's
+per-factor route on olmo's layer 0, and holds every CUDA kernel on those paths against
 its plain PyTorch version:
 
 1. device and build: needs a CUDA device (exits non-zero without one), prints
    the card's name and power limit, builds the kernels with ``nvcc``; then
    the full-width float32 artifact and its layer plan (stage packing timed);
-   ``--only chain`` instead times K1 and K2 alone at every shape the seven
+   ``--only chain`` instead times K1 and K2 alone at every shape the ten
    per-region serves launch them at (members drawn at the fixture's (N, K),
    no fixture, no serve, a few minutes) and stops; ``--only stage`` times K6
    alone at the 22 shapes of the six float32 plan routes, each in the
@@ -39,7 +40,7 @@ its plain PyTorch version:
    beside its bound and ``scaled_dot_product_attention``, and K8's route
    alone at mixtral's width; the full run starts with the same phase;
    ``--only prep`` times K3's region
-   prep alone at every region the seven per-region serves prepare (members
+   prep alone at every region the ten per-region serves prepare (members
    drawn at the fixture's widths, bf16 and, for deepseek's K9 route and
    qwen2-vl's float32 engine, float32 inputs laid out as the models pass
    them), bit for bit against its plain version and in its own order,
@@ -123,6 +124,19 @@ its plain PyTorch version:
    K1 on its o and down; K3 on every region in both dtypes, each launch
    shape bit for bit against its plain version; the float32 route's
    two-step logits against the dense float32 weights within STEP_TOL;
+   then the audio family (``--only audio`` runs it alone): whisper-small
+   (d 768, 12 heads of 64, d_ff 3072, vocab 51865, ``max_decoder_len``
+   448) cut to WHISPER_LAYERS = 2 encoder and 2 decoder layers in the full
+   run (float32 only) and uncut (12 + 12) under ``--only audio`` in float32
+   and bf16; the plan refused (``encoder_decoder``), so both engines serve
+   per-region from a contiguous state, 8 slots over whisper's 30-second
+   window (``max_len`` = 1500 encoder positions), each slot's static
+   cross-KV filled from the port's encoder over its own seeded frames
+   before the serve and unchanged after it, prefilling token by token:
+   K2 on the decoder's q+k+v, K1 on attn.o, xattn.q (one launch shape with
+   attn.o), xattn.o, fc1 and fc2, K3 on each region, each launch shape bit
+   for bit; the float32 route's two-step logits against the dense float32
+   weights within STEP_TOL;
 9. training (``--only train`` runs these alone): K5 ``group_prox`` on the
    reference's hard cases and rows of every width to 16384 in float32 and
    bf16, then at the training runs' own views, each against its plain
@@ -240,7 +254,8 @@ from repro_torch.serving.executor import (  # noqa: E402
 from repro_torch.serving.scheduler import Scheduler  # noqa: E402
 from repro_torch.convert import F32_LEAVES  # noqa: E402
 from repro_torch.testing import (SHARED_SITES,  # noqa: E402
-                                 decomposition_dense, dense_sites, moe_sites,
+                                 audio_sites, decomposition_dense,
+                                 dense_sites, fill_cross_kv, moe_sites,
                                  seeded_artifact, seeded_decomposition,
                                  seeded_prep, unstacked_sites)
 
@@ -338,6 +353,11 @@ DENSE_LAYERS = 2  # llama3.2-3b and yi-9b, under --only dense
 # and one layer of the tail (81 = 13 x 6 + 3)
 RWKV_LAYERS = 2
 ZAMBA_LAYERS = 7
+# whisper-small's 12 + 12 layers hold ~0.2 B site weights; its launch shapes
+# do not depend on depth, so the full run serves 2 encoder + 2 decoder
+# layers and ``--only audio`` the uncut model
+WHISPER_LAYERS = 2
+WHISPER_ENC = 1500  # whisper's 30-second encoder window: the cross-KV's rows
 # olmo-1b's artifact on disk: 16 layers write ~35 GB to the temp directory
 ARTIFACT_LAYERS = 2
 FACTOR_ROUTE = "olmo-1b per-factor"  # K4's path: fused=False on layer 0
@@ -667,7 +687,7 @@ def region_preps(cfg, records=None, seed=0):
     n_slots, the capacity for the experts (views of one stacked buffer) and
     n_slots x max_len for MLA's uk+uv over the latent view."""
     k_of = {p: k for p, _, _, k in dense_sites(cfg) + moe_sites(cfg)
-            + unstacked_sites(cfg)}
+            + unstacked_sites(cfg) + audio_sites(cfg)}
     cap = (capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor,
                     cfg.moe.n_experts) if cfg.moe is not None else None)
     rng = np.random.default_rng(seed)
@@ -795,11 +815,12 @@ def chain_cases(arch):
     cfg = get_arch(arch)
     dims = {prefix: (n, k) for prefix, _, n, k in dense_sites(cfg)}
     dims.update({prefix: (n, k) for prefix, _, n, k in moe_sites(cfg)})
-    dims.update({name: (n, k) for name, _, n, k in unstacked_sites(cfg)})
+    dims.update({name: (n, k) for name, _, n, k in unstacked_sites(cfg)
+                 + audio_sites(cfg)})
     chains = [("attn.o",), ("ffn.down",)]
     groups = [(("attn.q", "attn.k", "attn.v"), BATCH),
               (("ffn.gate", "ffn.up"), BATCH)]
-    if cfg.family in ("ssm", "hybrid"):  # layer 0's regions, the shared block's
+    if cfg.family in ("ssm", "hybrid", "audio"):  # layer 0's regions, the shared block's
         regions = [tuple(region_site(n) for n in g)
                    for g in site_groups(cfg) + shared_groups(cfg)]
         chains = [g for g in regions if len(g) == 1]
@@ -816,13 +837,21 @@ def chain_cases(arch):
         ne = cfg.moe.n_experts
         cap = capacity(BATCH, cfg.moe.top_k, cfg.moe.capacity_factor, ne)
         groups += [((f"moe.{proj}",) * ne, cap) for proj in ("gate", "up", "down")]
-    out = []
+    out, seen = [], {}
     for names, batch in [(c, BATCH) for c in chains] + groups:
         members = [(dims[nm][0], fixture_k(dims[nm][1], nm in SHARED_SITES))
                    for nm in names]
         label = names[0] if len(names) == 1 else (
             f"{names[0]} G={len(names)}" if len(set(names)) == 1 else
             names[0] + "+" + "+".join(nm.rsplit(".", 1)[1] for nm in names[1:]))
+        key = (tuple(members), batch)
+        if key in seen:  # one launch shape of two sites (whisper's attn.o
+            # and xattn.q): one case, both names in its label
+            i = seen[key]
+            lab, nm, b, mem = out[i]
+            out[i] = (lab.replace(f" B={b}", f"|{label} B={b}"), nm, b, mem)
+            continue
+        seen[key] = len(out)
         out.append((f"{arch} {label} B={batch}", names, batch, members))
     return out
 
@@ -1851,12 +1880,12 @@ def phase_attention(dev):
 # plan serves
 PREP_ARCHS = ("olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b",
               "qwen2.5-3b", "llama3.2-3b", "yi-9b", "qwen2-vl-7b",
-              "rwkv6-1.6b", "zamba2-7b")
+              "rwkv6-1.6b", "zamba2-7b", "whisper-small")
 NORM_ARCHS = ("olmo-1b", "mixtral-8x22b", "qwen2.5-3b", "llama3.2-3b", "yi-9b")
 
 
 def phase_prep(dev):
-    """``--only prep``: K3's region prep alone at every region the seven
+    """``--only prep``: K3's region prep alone at every region the ten
     per-region serves prepare (:func:`region_preps`: members drawn as the
     fixture draws them, no fixture, no serve; bf16 inputs, and float32 for
     deepseek's MLA and shared experts as its K9 serve passes them and for
@@ -1873,7 +1902,7 @@ def phase_prep(dev):
             rows += [dict(r, k9=True) for r in region_cases(
                 cfg, dev, timer, dtype=torch.float32,
                 keep=lambda n: not n[0].startswith(ROUTED))]
-        elif cfg.pos == "mrope" or cfg.family in ("ssm", "hybrid"):
+        elif cfg.pos == "mrope" or cfg.family in ("ssm", "hybrid", "audio"):
             # their float32 engines serve per-region too
             rows += [dict(r, f32_engine=True) for r in region_cases(
                 cfg, dev, timer, dtype=torch.float32)]
@@ -1948,16 +1977,20 @@ def metric(eng, name, **labels) -> float:
     return eng.metrics.get(name).get(**labels)
 
 
-def serve(art, device, *, use_kernel, n_slots, prompts, max_new):
+def serve(art, device, *, use_kernel, n_slots, prompts, max_new,
+          max_len=MAX_LEN, setup=None):
     """The serves' 8-token prompts through ``Scheduler`` + ``ServingEngine``
     (the prefix cache on, its default): they fill no 16-token block, so
     nothing is registered and no request may find cached tokens.  The
     engine's default telemetry (a registry of its own, the step profiler)
     is on, and must have counted what the serve saw: the steps it timed,
     the tokens it returned, the launches of the newest step under its
-    bucket, and every launch in the process-wide counter."""
-    eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=MAX_LEN,
+    bucket, and every launch in the process-wide counter.  ``setup(eng)``
+    runs on the new engine before the first request (whisper's cross-KV)."""
+    eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=max_len,
                         use_kernel=use_kernel, kv_block=16, device=device)
+    if setup is not None:
+        setup(eng)
     sched = Scheduler(eng)
     rids = [sched.enqueue(p, max_new=max_new) for p in prompts]
     step_s = []
@@ -2139,8 +2172,12 @@ def site_weight(params, name):
     """Site ``name``'s dense-effective ``[K, N]`` weight in ``params``:
     ``attn.q.l0`` -> blocks.attn.q.w[0], ``moe.up.l1.e3`` -> blocks.ffn.up[1, 3],
     ``moe.shared.down.l2`` -> blocks.ffn.shared.down.w[2],
-    ``shared_attn.ffn.up`` -> shared_attn.ffn.up.w."""
+    ``shared_attn.ffn.up`` -> shared_attn.ffn.up.w,
+    ``dec.xattn.q.l1`` -> dec_blocks.xattn.q.w[1]."""
     parts = name.split(".")
+    if parts[0] in ("enc", "dec"):  # whisper: enc_blocks / dec_blocks
+        return params[f"{parts[0]}_blocks"][parts[1]][parts[2]]["w"][
+            int(parts[3][1:])]
     if parts[0] == "shared_attn":  # the hybrid's unstacked shared block
         return params["shared_attn"][parts[1]][parts[2]]["w"]
     if parts[:2] == ["moe", "shared"]:
@@ -2160,6 +2197,10 @@ def site_groups(cfg, li: int = 0):
             ("cm.v",)))
     if cfg.family == "hybrid":  # the mamba layers (the shared block: below)
         return ((f"mamba.in_proj.l{li}",), (f"mamba.out_proj.l{li}",))
+    if cfg.family == "audio":  # whisper's decoder (xattn.k/v: static KV)
+        return tuple(tuple(f"dec.{q}.l{li}" for q in g) for g in (
+            ("attn.q", "attn.k", "attn.v"), ("attn.o",), ("xattn.q",),
+            ("xattn.o",), ("mlp.fc1",), ("mlp.fc2",)))
     attn = ((("attn.q",), ("attn.dkv", "attn.kr"), ("attn.uk", "attn.uv"),
              ("attn.o",))
             if cfg.mla is not None else
@@ -2203,12 +2244,15 @@ def region_launches_per_step(cfg) -> int:
             + len(shared_groups(cfg)) * shared_insertions(cfg))
 
 
-def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
+def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None, *,
+                     max_len=MAX_LEN, setup=None, routed=None):
     """The per-region route at full width: every projection a K1 or K2
     launch (an MoE projection's experts one K2 launch of E), each fused
     region's or pruned site's input made by one K3 region-prep launch.
     ``ref_params``: float32 dense-effective weights for the per-site check
-    where the records keep none on the host."""
+    where the records keep none on the host.  ``max_len`` and ``setup``
+    go to :func:`serve`; ``routed(sites)`` is the set of sites the decode
+    step runs (every site by default)."""
     predicted = (region_launches_per_step(cfg)
                  + region_preps_per_step(cfg, art.records))
     prompts = prompts_for(cfg, 6)
@@ -2216,7 +2260,8 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
     dispatch.reset_launch_count()  # counts of the main path start here ...
     t0 = time.perf_counter()
     eng, res, step_s = serve(art, dev, use_kernel=True, n_slots=BATCH,
-                             prompts=prompts, max_new=16)
+                             prompts=prompts, max_new=16, max_len=max_len,
+                             setup=setup)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dispatch.launch_counts()  # ... and are read here
@@ -2229,8 +2274,10 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
         if not all(0 <= t < cfg.vocab for t in r.tokens):
             fail("full serve: token outside the vocabulary")
     ex = eng.executor
-    if ex.routed != ex.sites:
-        fail(f"full serve: unrouted sites {sorted(ex.sites - ex.routed)[:5]}")
+    want_routed = ex.sites if routed is None else routed(ex.sites)
+    if ex.routed != want_routed:
+        fail(f"full serve: routed sites off by "
+             f"{sorted(ex.routed ^ want_routed)[:5]}")
     if eng.kernel_launches_per_step != predicted:
         fail(f"full serve: {eng.kernel_launches_per_step} launches per step, "
              f"the site table predicts {predicted}")
@@ -2281,6 +2328,7 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
                 predicted_launches_per_step=predicted, launches=counts,
                 routed=len(ex.routed), sites=len(ex.sites),
                 routed_equals_sites=ex.routed == ex.sites,
+                max_len=max_len,
                 plan_fallbacks=eng.plan_stats()["fallbacks"],
                 dropped_per_step=None if dropped is None else dropped / steps,
                 site_rel_err_max=max(site_err.values()), site_rel_tol=1e-3,
@@ -2294,11 +2342,15 @@ def phase_full_serve(dev, cfg, art, fixture_s, ref_params=None):
                 sample_tokens=res[0].tokens[res[0].prompt_len:]), counts, by_shape, eng
 
 
-def two_step_logits(cfg, art, executor, dev):
-    """Two decode steps' logits [2, B, V] float32 from a fresh cache."""
+def two_step_logits(cfg, art, executor, dev, *, smax=MAX_LEN, setup=None):
+    """Two decode steps' logits [2, B, V] float32 from a fresh cache
+    (``setup(state)`` fills what the caller keeps in it: whisper's
+    cross-KV)."""
     rng = np.random.default_rng(4)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, BATCH, 1))).to(dev)
-    st = api.init_decode_state(cfg, BATCH, MAX_LEN, device=dev)
+    st = api.init_decode_state(cfg, BATCH, smax, device=dev)
+    if setup is not None:
+        setup(st)
     out = []
     with torch.no_grad():
         for t in range(2):
@@ -2454,11 +2506,11 @@ def fixture_line(base, art32, fixture_s) -> dict:
                 host_peak_rss_bytes=host_peak_rss_bytes())
 
 
-def seeded_cut(arch, layers, dev):
+def seeded_cut(arch, layers, dev, **cut):
     """``(bf16 config, float32 config, float32 artifact, fixture seconds)``
-    of ``arch`` at full width cut to ``layers`` layers; its phase line
-    emitted."""
-    base = replace(get_arch(arch), n_layers=layers)
+    of ``arch`` at full width cut to ``layers`` layers (``cut``: other
+    depths, whisper's ``enc_layers``); its phase line emitted."""
+    base = replace(get_arch(arch), n_layers=layers, **cut)
     cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
     t0 = time.perf_counter()
     art32 = seeded_artifact(cfg32, seed=2, device=dev, host_effective=False)
@@ -3812,21 +3864,29 @@ def run_dense(dev):
 # ------------------------------- the recurrent families (ssm and hybrid)
 
 
-def recurrent_kernel_cases(art, dev, timer, sm, serve):
+def region_kernel_cases(art, dev, timer, sm, serve):
     """K1 and K2 on every region of layer 0 and of the hybrid's shared
     block (the fixture's own packed decompositions, grouped as the executor
     groups them: rwkv6's r+k+v+g and k+r, the shared block's q+k+v and
-    gate+up), K3 on each region in the serve's dtype, all held to
-    ``serve``'s launches."""
+    gate+up, whisper's decoder q+k+v), once a launch shape (whisper's
+    attn.o and xattn.q share theirs: one row, both names in its label), K3
+    on each region in the serve's dtype, all held to ``serve``'s
+    launches."""
     cfg = art.config
     rng = np.random.default_rng(20)
-    rows = []
+    rows, seen = [], {}
     for names in site_groups(cfg) + shared_groups(cfg):
         label = f"{cfg.name} " + "+".join(region_site(n) for n in names)
         pk = [art.packed[n] for n in names]
+        key = (*pk[0].idx.shape, pk[0].in_dim) if len(pk) == 1 else None
+        if key in seen:
+            seen[key]["shape"] += "|" + region_site(names[0])
+            continue
         rows.append(kernel_case_chain(label, pk[0], rng, dev, timer, sm)
                     if len(pk) == 1 else
                     kernel_case_group(label, pk, rng, dev, timer, sm))
+        if key is not None:
+            seen[key] = rows[-1]
         torch.cuda.empty_cache()
     rows += region_cases(cfg, dev, timer, records=art.records,
                          dtype=cfg.cdtype)
@@ -3847,7 +3907,7 @@ def run_recurrent_arch(dev, arch, layers, bf16: bool):
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     base, cfg32, art32, fixture_s = seeded_cut(arch, layers, dev)
     region, region32 = f"{base.name} per-region", f"{base.name} per-region f32"
-    rows = recurrent_kernel_cases(art32, dev, timer, sm, region32)
+    rows = region_kernel_cases(art32, dev, timer, sm, region32)
     routes = [(region32, cfg32, art32)]
     if bf16:
         art16 = replace(art32, config=base,
@@ -3912,6 +3972,130 @@ def run_recurrent(dev, bf16: bool):
     torch.cuda.empty_cache()
     zrows, zserves = run_recurrent_arch(dev, "zamba2-7b", ZAMBA_LAYERS, bf16)
     return rows + zrows, {**serves, **zserves}
+
+
+# ----------------------------------------- whisper-small (the audio family)
+
+
+def whisper_frames(cfg, slot, dev):
+    """Slot ``slot``'s seeded encoder input: WHISPER_ENC frame embeddings
+    of ``d_model``, drawn on the card (another set for every slot)."""
+    g = torch.Generator(device=dev).manual_seed(1000 + slot)
+    return torch.randn((WHISPER_ENC, cfg.d_model), generator=g, device=dev)
+
+
+def fill_slots(art, cfg, state, dev) -> None:
+    """Every slot's static cross-KV from the port's encoder over the slot's
+    own frames (``testing.fill_cross_kv``, the reference's recipe), on the
+    artifact's dense-effective weights."""
+    for slot in range(state["cross_k"].shape[1]):
+        fill_cross_kv(art.params, cfg, state, slot,
+                      whisper_frames(cfg, slot, dev))
+
+
+def decoder_routed(sites) -> set:
+    """The sites a whisper decode step routes (the reference's rule): the
+    decoder's, without ``dec.xattn.k/v`` (their KV is static); the
+    encoder's run in no step."""
+    return {n for n in sites if n.startswith("dec.")
+            and not n.startswith(("dec.xattn.k.", "dec.xattn.v."))}
+
+
+def run_audio(dev, full: bool):
+    """whisper-small (the encoder-decoder) at full width, cut to
+    WHISPER_LAYERS encoder and decoder layers in the full run and uncut
+    with ``full`` (``--only audio``), on the per-region route (the plan is
+    refused with ``encoder_decoder``, as in the reference) in float32 and,
+    with ``full``, in bf16 too: 8 slots over whisper's 30-second window
+    (``max_len`` = WHISPER_ENC encoder positions), each slot's cross-KV
+    filled from the port's encoder over its own seeded frames before the
+    serve and unchanged after it (and after the profiled steps), tokenwise
+    prefill into the contiguous state, ``routed`` the decoder's sites but
+    xattn.k/v; K1/K2/K3 at every launch shape of the six decoder regions
+    bit for bit; the float32 route's two-step logits against the dense
+    float32 weights within STEP_TOL.  Returns the kernel rows and the
+    serves' launch counts."""
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    layers = get_arch("whisper-small").n_layers if full else WHISPER_LAYERS
+    base, cfg32, art32, fixture_s = seeded_cut("whisper-small", layers, dev,
+                                               enc_layers=layers)
+    region, region32 = f"{base.name} per-region", f"{base.name} per-region f32"
+    rows = region_kernel_cases(art32, dev, timer, sm, region32)
+    routes = [(region32, cfg32, art32)]
+    if full:
+        art16 = replace(art32, config=base,
+                        params=cast(art32.params, torch.bfloat16), plans={})
+        rows += [dict(row, serve=region) for row in rows
+                 if row["name"] != "region_prep"]
+        rows += [dict(row, serve=region) for row in region_cases(
+            base, dev, timer, records=art16.records, dtype=torch.bfloat16)]
+        routes.append((region, base, art16))
+    serves, lines, engines = {}, {}, {}
+    refusal = {"step": "encoder_decoder"}
+    for name, cfg, art in routes:
+        held = {}
+
+        def setup(eng, cfg=cfg, art=art, held=held):
+            t0 = time.perf_counter()
+            fill_slots(art, cfg, eng.state, dev)
+            torch.cuda.synchronize()
+            held.update(fill_s=time.perf_counter() - t0,
+                        kv={n: eng.state[n].clone()
+                            for n in ("cross_k", "cross_v")})
+
+        line, counts, by_shape, eng = phase_full_serve(
+            dev, cfg, art, fixture_s, ref_params=art32.params,
+            max_len=WHISPER_ENC, setup=setup, routed=decoder_routed)
+        kinds = set(line["prefill_kinds"])
+        kept = all(torch.equal(eng.state[n], v) for n, v in held["kv"].items())
+        line.update(pool=eng.pool is not None, n_layer_plans=eng.n_layer_plans,
+                    enc_layers=cfg.enc_layers, cross_kv_fill_s=held["fill_s"],
+                    cross_kv_unchanged=kept,
+                    host_peak_rss_bytes=host_peak_rss_bytes())
+        emit(line)
+        print(f"{name}: plan refused, {line['plan_fallbacks']}", flush=True)
+        if (line["plan_fallbacks"] != refusal or eng.n_layer_plans
+                or kinds != {"tokenwise"} or eng.pool is not None or not kept):
+            fail(f"{name} serve: plan fallbacks {line['plan_fallbacks']}, "
+                 f"{eng.n_layer_plans} plans, prefill {sorted(kinds)}, pool "
+                 f"{eng.pool is not None}, cross-KV unchanged {kept}; the "
+                 "encoder-decoder takes the per-region route, prefills token "
+                 "by token into its contiguous state and keeps the cross-KV "
+                 "its caller wrote")
+        serves[name] = (counts, by_shape,
+                        line["decode_steps"] + line["prefill_steps"])
+        lines[name] = line
+        engines[name] = eng.executor
+        del eng, held
+        torch.cuda.empty_cache()
+
+    def filled(art, cfg):
+        return lambda st: fill_slots(art, cfg, st, dev)
+
+    kw = dict(smax=WHISPER_ENC)
+    l32 = two_step_logits(cfg32, art32, engines[region32], dev,
+                          setup=filled(art32, cfg32), **kw)
+    l16 = (two_step_logits(base, art16, engines[region], dev,
+                           setup=filled(art16, base), **kw) if full else None)
+    del engines
+    torch.cuda.empty_cache()
+    l_dense = two_step_logits(cfg32, art32, None, dev,
+                              setup=filled(art32, cfg32), **kw)
+    scale = max(1.0, float(l_dense.abs().max()))
+    err32 = float((l32 - l_dense).abs().max()) / scale
+    err16 = (None if l16 is None
+             else float((l16 - l_dense).abs().max()) / scale)
+    emit(dict(phase="audio_routes", arch=base.name, layers=base.n_layers,
+              enc_layers=base.enc_layers, enc_len=WHISPER_ENC,
+              float32_vs_dense=err32, step_tol=STEP_TOL, bf16_vs_dense=err16,
+              launches_per_step={n: lines[n]["launches_per_step"] for n in lines},
+              plan_fallbacks=lines[region32]["plan_fallbacks"]))
+    if not err32 <= STEP_TOL or (l16 is not None
+                                 and not bool(torch.isfinite(l16).all())):
+        fail(f"{base.name}: float32 per-region logits {err32} off the dense "
+             f"weights (tolerance {STEP_TOL}), or bf16 logits not finite")
+    return rows, serves
 
 
 # ------------------------------------------- K4: the per-factor route
@@ -5466,12 +5650,12 @@ def main() -> None:
     ap.add_argument("--only", choices=("kernels", "chain", "stage",
                                        "attention", "prep", "artifact",
                                        "prefix", "mixtral", "deepseek",
-                                       "qwen", "dense", "recurrent", "train",
-                                       "compress", "resnet"),
+                                       "qwen", "dense", "recurrent", "audio",
+                                       "train", "compress", "resnet"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
-                         "shape the seven per-region serves launch them at, "
+                         "shape the ten per-region serves launch them at, "
                          "no fixture and no serve; stage: K6 alone at the "
                          "shapes of the six float32 plan routes and "
                          "on the hand-built stages, no serve; attention: "
@@ -5480,7 +5664,7 @@ def main() -> None:
                          "long caches (S = 2048, 4096; random and full), and "
                          "K8's route alone, no fixture and no serve; prep: "
                          "K3's region prep alone at every region of the "
-                         "seven per-region serves and K7's norm alone at "
+                         "ten per-region serves and K7's norm alone at "
                          "the five plan serves' shapes, no fixture and no "
                          "serve; artifact: olmo-1b's full-width float32 "
                          "fixture cut to ARTIFACT_LAYERS layers and its "
@@ -5504,8 +5688,13 @@ def main() -> None:
                          "ZAMBA_LAYERS layers: a group, the shared block, "
                          "a tail layer) at full width on the per-region "
                          "route, float32 and bf16 (the full run leaves the "
-                         "bf16 serves out), tokenwise prefill; "
-                         "train: the "
+                         "bf16 serves out), tokenwise prefill; audio: "
+                         "whisper-small uncut (12 + 12 layers) at full "
+                         "width on the per-region route, float32 and bf16, "
+                         "8 slots over 1500 encoder positions, each slot's "
+                         "cross-KV from the port's encoder (the full run "
+                         "cuts it to WHISPER_LAYERS and serves float32 "
+                         "only); train: the "
                          "training phases alone; compress: the compressor "
                          "(the paper's MLP trained, compressed at full width "
                          "at 1 and 4 workers, fc1 served through K1, then "
@@ -5607,6 +5796,13 @@ def main() -> None:
         rows += srows
         serves.update(sserves)
         del srows, sserves
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "audio"):
+        arows, aserves = run_audio(dev, full=args.only == "audio")
+        rows += arows
+        serves.update(aserves)
+        del arows, aserves
         gc.collect()
         torch.cuda.empty_cache()
     if args.only in (None, "train"):

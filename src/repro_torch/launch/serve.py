@@ -11,6 +11,11 @@ artifact, on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --reduced --device cpu --kernel
 
+    # the encoder-decoder (whisper-small): tokenwise prefill, per-region,
+    # the cross-KV left at zero (the engine's caller owns it)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --reduced --device cpu --kernel
+
 Paged engines share prefilled prompt-prefix blocks across requests by
 default (``--no-prefix-cache`` turns it off); the end-of-run line reports
 the prefix hit rate and the copy-on-write copies.
@@ -20,7 +25,11 @@ The artifact comes from the seeded fixture
 width, random weights.  The offline compressor
 (``repro_torch.models.api.compress_model``, ``repro_torch.launch.compress``)
 runs for hours at these widths; an artifact it wrote is served with
-``ServingEngine(artifact=CompressedModel.load(dir))``.
+``ServingEngine(artifact=CompressedModel.load(dir))``.  A whisper engine's
+cross-KV (``state["cross_k"/"cross_v"]``, the encoder's states through each
+decoder layer's ``xattn.k/v``) is its caller's to fill per slot
+(``testing.fill_cross_kv``); this launcher, as the reference's, leaves it
+at zero.
 
 Telemetry, as in the reference: the engine traces every request
 (``tracer=True``) and the end-of-run summary prints queue wait, TTFT, TPOT

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-from . import transformer
+from . import transformer, whisper
 
 __all__ = ["init_params", "abstract_params", "train_loss", "prefill",
            "prefill_extend", "decode", "sample_tokens", "paged_supported", "paged_layout",
@@ -26,18 +26,25 @@ __all__ = ["init_params", "abstract_params", "train_loss", "prefill",
 
 
 def init_params(seed: int, cfg: ArchConfig, device="cuda"):
+    if cfg.enc_layers > 0:
+        return whisper.init_params(seed, cfg, device)
     return transformer.init_params(seed, cfg, device)
 
 
 def abstract_params(cfg: ArchConfig):
     """Shapes and dtypes of the parameters as ``meta`` tensors — nothing
     allocated (what ``site_group_specs`` needs before a model exists)."""
+    if cfg.enc_layers > 0:
+        return whisper.abstract_params(cfg)
     return transformer.abstract_params(cfg)
 
 
 def train_loss(params, cfg: ArchConfig, batch):
     """Mean next-token cross-entropy of ``batch`` (``tokens`` or
-    ``embeds``, ``labels``; ``positions3`` for an m-RoPE model)."""
+    ``embeds``, ``labels``; ``positions3`` for an m-RoPE model; ``frames``
+    too for the encoder-decoder)."""
+    if cfg.enc_layers > 0:
+        return whisper.loss_fn(params, cfg, batch)
     return transformer.loss_fn(params, cfg, batch)
 
 
@@ -55,7 +62,12 @@ def family_of(cfg) -> str:
 
 
 def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False):
-    """Returns final hidden states (and caches when collect_cache)."""
+    """Returns final hidden states (and caches when collect_cache); the
+    encoder-decoder returns its encoder's states of ``batch["frames"]`` and
+    None (its decoder runs token by token against the cross-KV the caller
+    fills)."""
+    if cfg.enc_layers > 0:
+        return whisper.encode(params, cfg, batch["frames"]), None
     return transformer.forward(
         params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         positions3=batch.get("positions3"), collect_cache=collect_cache)
@@ -75,6 +87,9 @@ def decode(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     ``executor`` is the compressed-serving hook: a site-keyed registry
     (``repro_torch.serving.executor.CompressedExecutor``) that routes every
     covered projection through fused LCC kernel launches."""
+    if cfg.enc_layers > 0:
+        return whisper.decode_step(params, cfg, state, token, pos,
+                                   executor=executor)
     return transformer.decode_step(params, cfg, state, token, pos,
                                    executor=executor)
 
@@ -130,7 +145,9 @@ def request_key(seed: int, rid: int) -> int:
 
 def paged_supported(cfg: ArchConfig) -> bool:
     """True when the family's decode cache can live in a paged block pool:
-    pure-attention decoders."""
+    pure-attention decoders.  The recurrent families' state is not a KV
+    sequence and the encoder-decoder carries a cross cache: both keep the
+    contiguous layout."""
     return cfg.enc_layers == 0 and cfg.family not in ("ssm", "hybrid")
 
 
@@ -143,6 +160,12 @@ def paged_layout(cfg: ArchConfig, smax: int, kv_block: int,
 def init_decode_state(cfg: ArchConfig, batch: int, smax: int, *,
                       kv_block: int | None = None, kv_blocks: int | None = None,
                       device="cuda"):
+    """The decode state of ``batch`` slots over ``smax`` positions (paged
+    with ``kv_block`` where :func:`paged_supported`); the encoder-decoder's
+    cross-KV spans ``smax`` encoder positions."""
+    if cfg.enc_layers > 0:
+        return whisper.init_decode_state(cfg, batch, enc_len=smax,
+                                         device=device)
     if not paged_supported(cfg):
         kv_block = kv_blocks = None
     return transformer.init_decode_state(cfg, batch, smax, kv_block=kv_block,

@@ -1,13 +1,16 @@
-"""Attention: GQA (full / sliding-window) and MLA, prefill and one-token decode.
+"""Attention: GQA (full / sliding-window / bidirectional / cross) and MLA,
+prefill and one-token decode.
 
 Written with ``einsum``/``softmax`` as the JAX package writes it (that package
 has no attention kernel, so none is ported and no fused library attention is
 called).  Prefill is query-chunked (memory O(S * chunk) instead of O(S^2)).
 
 KV caches are named tuples of tensors.  Sliding-window attention uses a ring
-buffer of size ``window``.  **Decode updates the cache in place** (the JAX
-package returned a new cache and relied on ``donate_argnums`` to reuse the
-buffer): the tensors handed in are the ones handed back.
+buffer of size ``window``; cross-attention (whisper's decoder) reads a static
+cache of the encoder's keys and values that decode never writes.  **Decode
+updates the cache in place** (the JAX package returned a new cache and
+relied on ``donate_argnums`` to reuse the buffer): the tensors handed in are
+the ones handed back.
 
 MLA (DeepSeek-V2) caches the compressed KV latent ``c_kv`` and the shared,
 not yet rotated rope key ``k_rope`` a token; every step expands the whole
@@ -107,10 +110,12 @@ def _paged_scatter(pool: torch.Tensor, tbl: torch.Tensor, slot: torch.Tensor,
 
 
 def _row_scatter(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor) -> None:
-    """``buf[b, slot[b]] = vals[b]`` in place for rows with ``slot >= 0``;
-    rows with ``slot == -1`` rewrite their own old value (no write, no sync)."""
-    active = slot >= 0
-    safe = slot.clamp(min=0)
+    """``buf[b, slot[b]] = vals[b]`` in place for rows with ``0 <= slot <
+    buf.shape[1]``; the other rows (``slot == -1``, or past the end: the
+    JAX package's ``one_hot(slot, smax)`` is all zeros there) rewrite a
+    value of their own with itself (no write, no sync)."""
+    active = (slot >= 0) & (slot < buf.shape[1])
+    safe = slot.clamp(0, buf.shape[1] - 1)
     bi = torch.arange(buf.shape[0], device=buf.device)
     mask = active.reshape(-1, *([1] * (vals.dim() - 1)))
     buf[bi, safe] = torch.where(mask, vals.to(buf.dtype), buf[bi, safe])
@@ -141,26 +146,35 @@ def attention_prefill(
     causal: bool = True, window: int | None = None,
     rope_theta: float | None = 10000.0, mrope_sections=None,
     mrope_positions=None, q_chunk: int = 1024,
+    kv_x: torch.Tensor | None = None,
 ):
     """Returns (out [B,S,d_model], k, v) — k/v rotary-encoded, as cached.
     With ``mrope_sections`` q and k take m-RoPE at ``mrope_positions``
-    [3, B, S] (at the default theta, as the JAX package rotates them)."""
+    [3, B, S] (at the default theta, as the JAX package rotates them).
+
+    ``kv_x`` [B, Sk, d] switches to cross-attention: k and v come from it
+    (rotated, where rope is on, at ``arange(Sk)``) and no query is masked,
+    whatever ``causal`` says."""
     b, s, _ = x.shape
     g = n_heads // n_kv
+    src = x if kv_x is None else kv_x
+    sk = src.shape[1]
     q = linear(p["q"], x).reshape(b, s, n_heads, head_dim)
-    k = linear(p["k"], x).reshape(b, s, n_kv, head_dim)
-    v = linear(p["v"], x).reshape(b, s, n_kv, head_dim)
+    k = linear(p["k"], src).reshape(b, sk, n_kv, head_dim)
+    v = linear(p["v"], src).reshape(b, sk, n_kv, head_dim)
     if mrope_sections is not None:
         q = apply_mrope(q, mrope_positions, mrope_sections)
         k = apply_mrope(k, mrope_positions, mrope_sections)
     elif rope_theta is not None:
+        kpos = (positions if kv_x is None else
+                torch.arange(sk, device=x.device)[None].expand(b, sk))
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        k = apply_rope(k, kpos, rope_theta)
     qg = q.reshape(b, s, n_kv, g, head_dim)
-    kpos_all = torch.arange(s, device=x.device)
+    kpos_all = torch.arange(sk, device=x.device)
 
     def chunk_out(q_c, qpos_c):
-        if not causal:
+        if not causal or kv_x is not None:
             return _sdpa(q_c, k, v, None)
         m = kpos_all[None, :] <= qpos_c[:, None]
         if window is not None:
@@ -181,7 +195,7 @@ def attention_prefill(
 def attention_decode(
     p, x, cache, pos, *, n_heads: int, n_kv: int, head_dim: int,
     window: int | None = None, rope_theta: float | None = 10000.0,
-    mrope_sections=None, mrope_positions=None,
+    mrope_sections=None, mrope_positions=None, cross: bool = False,
     executor=None, site: str | None = None,
 ):
     """One-token decode. x [B,1,d]; pos [B] absolute position of this token
@@ -190,6 +204,9 @@ def attention_decode(
 
     Returns (out [B,1,d], cache) — the cache is the one passed in, updated in
     place.  With ``window`` the cache is a ring buffer (slot = pos % window).
+    ``cross=True`` reads a static cross-attention cache (``cache.k``/
+    ``cache.v`` over the encoder's positions): q alone goes through its
+    site, the cache is returned untouched and no key is masked.
 
     ``executor``/``site`` (compressed serving): q/k/v/o route through the
     executor's fused LCC kernels — q/k/v as ONE grouped launch (they share the
@@ -203,22 +220,35 @@ def attention_decode(
 
     A row with ``pos == -1`` (serving's idle-slot sentinel) writes nothing:
     contiguous caches rewrite the old value, paged caches sink the write into
-    the null block, and ``kpos`` keeps -1 so nothing attends to it.
+    the null block, and ``kpos`` keeps -1 so nothing attends to it.  Nor
+    does a contiguous, unwindowed row at ``pos >= Smax`` (as in the JAX
+    package: whisper's self-KV holds ``max_decoder_len`` rows): it attends
+    to the rows already cached.
     """
     b = x.shape[0]
     pos = pos.long()
     paged = isinstance(cache, PagedKVCache)
     sn = site_fmt(site)
-    q_raw, k_raw, v_raw = site_linear_group(
-        executor, (sn("q"), sn("k"), sn("v")), (p["q"], p["k"], p["v"]), x)
+    if cross:
+        q_raw = site_linear(executor, sn("q"), p["q"], x)
+    else:
+        q_raw, k_raw, v_raw = site_linear_group(
+            executor, (sn("q"), sn("k"), sn("v")), (p["q"], p["k"], p["v"]), x)
     q = q_raw.reshape(b, 1, n_heads, head_dim)
+    if mrope_sections is not None:
+        q = apply_mrope(q, mrope_positions, mrope_sections)
+    elif rope_theta is not None:
+        q = apply_rope(q, pos[:, None], rope_theta)
+    g = n_heads // n_kv
+    qg = q.reshape(b, 1, n_kv, g, head_dim)
+    if cross:
+        out = _sdpa(qg, cache.k, cache.v, None).reshape(b, 1, n_heads * head_dim)
+        return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache
     k_new = k_raw.reshape(b, 1, n_kv, head_dim)
     v_new = v_raw.reshape(b, 1, n_kv, head_dim)
     if mrope_sections is not None:
-        q = apply_mrope(q, mrope_positions, mrope_sections)
         k_new = apply_mrope(k_new, mrope_positions, mrope_sections)
     elif rope_theta is not None:
-        q = apply_rope(q, pos[:, None], rope_theta)
         k_new = apply_rope(k_new, pos[:, None], rope_theta)
     smax = cache.kpos.shape[1]
     # negative pos must stay out of the ring too: plain pos % smax would wrap
@@ -238,8 +268,6 @@ def attention_decode(
         k, v = cache.k, cache.v
     _row_scatter(cache.kpos, slot, pos.to(cache.kpos.dtype))
     kpos = cache.kpos
-    g = n_heads // n_kv
-    qg = q.reshape(b, 1, n_kv, g, head_dim)
     valid = (kpos >= 0) & (kpos <= pos[:, None])
     if window is not None:
         valid = valid & (kpos > (pos[:, None] - window))

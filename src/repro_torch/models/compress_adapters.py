@@ -21,8 +21,9 @@ experts), ssm (rwkv6's time-mix r/k/v/g/o and channel-mix k/v/r), hybrid
 (zamba2's mamba in/out projections a layer and the weight-shared block's
 sites, unstacked and without a layer index), mlp (the paper's MLP) and
 resnet (every conv kernel as a :class:`ConvSite` — the stem, each block's
-conv1/conv2 and its 1x1 ``proj`` — and the linear head).  The audio family
-raises ``NotImplementedError`` naming where it stands in the roadmap.
+conv1/conv2 and its 1x1 ``proj`` — and the linear head) and audio
+(whisper's encoder layers' MLP and attention, then the decoder layers' MLP,
+self-attention and cross-attention, every q/k/v/o).
 """
 from __future__ import annotations
 
@@ -252,6 +253,20 @@ def _hybrid_sites(params, cfg) -> list[DenseSite]:
     return sites
 
 
+def _audio_sites(params, cfg) -> list[DenseSite]:
+    sites: list[DenseSite] = []
+    for li in range(cfg.enc_layers):
+        sites += _ffn_sites((li,), tag="enc.mlp", projs=("fc1", "fc2"),
+                            base=("enc_blocks", "mlp"))
+        sites += _attn_sites(cfg, ("enc_blocks", "attn"), (li,), "enc.attn")
+    for li in range(cfg.n_layers):
+        sites += _ffn_sites((li,), tag="dec.mlp", projs=("fc1", "fc2"),
+                            base=("dec_blocks", "mlp"))
+        sites += _attn_sites(cfg, ("dec_blocks", "attn"), (li,), "dec.attn")
+        sites += _attn_sites(cfg, ("dec_blocks", "xattn"), (li,), "dec.xattn")
+    return sites
+
+
 def _mlp_sites(params, cfg) -> list[DenseSite]:
     # weights are stored [N, K] acting as y = W x (the paper layout): no
     # transpose.  fc1 is the paper's compression target (Sec. IV-A); fc2 is
@@ -271,13 +286,6 @@ def _resnet_sites(params, cfg) -> list[DenseSite | ConvSite]:
     return sites
 
 
-def _not_ported(family: str, where: str):
-    def fn(params, cfg):
-        raise NotImplementedError(
-            f"family {family!r} has no site table in this package yet ({where})")
-    return fn
-
-
 FAMILY_SITE_FNS = {
     "dense": _dense_sites,
     "vlm": _dense_sites,
@@ -285,7 +293,7 @@ FAMILY_SITE_FNS = {
     "mlp": _mlp_sites,
     "ssm": _ssm_sites,
     "hybrid": _hybrid_sites,
-    "audio": _not_ported("audio", "the audio family, ROADMAP Queue A"),
+    "audio": _audio_sites,
     "resnet": _resnet_sites,
 }
 

@@ -18,10 +18,13 @@ __all__ = [
     "site_linear",
     "site_linear_group",
     "rms_norm",
+    "layer_norm",
     "non_parametric_ln",
     "apply_rope",
     "apply_mrope",
     "swiglu",
+    "gelu",
+    "gelu_mlp",
 ]
 
 
@@ -102,6 +105,18 @@ def rms_norm(x, w, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps)).to(dt) * w
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm as the JAX package computes it: the statistics and the
+    normalisation in float32, the result cast back to ``x``'s dtype, and only
+    then the affine ``* w + b`` in that dtype (``F.layer_norm`` applies the
+    affine in float32, which rounds otherwise in bf16)."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * w + b
+
+
 def non_parametric_ln(x, eps: float = 1e-5):
     """OLMo-style LayerNorm without learnable affine parameters."""
     dt = x.dtype
@@ -158,3 +173,14 @@ def swiglu(p, x):
     g = linear(p["gate"], x)
     u = linear(p["up"], x)
     return linear(p["down"], F.silu(g) * u)
+
+
+def gelu(x):
+    """GELU in its tanh form, ``jax.nn.gelu``'s default (``F.gelu``'s
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(p, x):
+    """Two-layer GELU MLP (whisper-style), biases on both layers."""
+    return linear(p["fc2"], gelu(linear(p["fc1"], x)))

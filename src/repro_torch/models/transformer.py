@@ -57,17 +57,19 @@ def _require_supported(cfg: ArchConfig) -> None:
     """The dense and MoE rope/no-position decoders, with GQA or MLA
     attention and with or without shared experts, the VLM decoder (m-RoPE,
     dense FFN), the ssm decoder (rwkv6) and the hybrid (mamba2 + a shared
-    attention block).  Still refused: the audio (encoder-decoder) family
-    and the manual expert-parallel MoE."""
+    attention block).  The encoder-decoder (audio) family is served by
+    ``models/whisper.py`` through ``models/api``, not here.  Still refused:
+    the manual expert-parallel MoE."""
     if cfg.moe is not None and cfg.moe_manual:
         raise NotImplementedError(
             f"{cfg.name}: the manual expert-parallel MoE (moe_manual) is not "
             "available in this package yet: it shards the experts over a "
             "device mesh, which comes with the distributed/ entry (mesh=)")
     if cfg.family == "audio" or cfg.enc_layers > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the audio family (encoder-decoder models) is not "
-            "available in this package yet")
+        raise ValueError(
+            f"{cfg.name}: the audio family (encoder-decoder models) is served "
+            "by models/whisper.py through models/api, not by the decoder "
+            "backbone")
     vlm = cfg.family == "vlm" and cfg.pos == "mrope" and cfg.moe is None
     recurrent = cfg.family in ("ssm", "hybrid") and cfg.moe is None
     if not (vlm or recurrent) and (

@@ -4,8 +4,10 @@ The engine keeps a fixed decode batch of ``n_slots``; finished sequences free
 their slot and queued requests are prefilled into it (one bulk ``api.prefill``
 writes the slot's KV cache in a single forward; ``bulk_prefill=False`` on a
 contiguous engine runs one decode step a prompt token instead, as the
-recurrent families — rwkv6's ssm, zamba2's hybrid — always do: their
-contiguous recurrent state is reset and then advanced for the slot alone).  Decoding
+recurrent families — rwkv6's ssm, zamba2's hybrid — and whisper's decoder
+always do: their contiguous state is reset and then advanced for the slot
+alone; whisper's static cross-KV, which the caller writes per slot before
+``submit``, is never reset).  Decoding
 is **device-side**: one eager step function runs the forward pass,
 greedy/temperature sampling (per-request keys, so draws are independent of
 slot order and of which other requests are in flight), position/budget
@@ -411,11 +413,14 @@ class ServingEngine:
     @torch.no_grad()
     def _reset_slot_state(self, slot: int) -> None:
         """Clear one slot's column of every decode-state leaf, in place
-        (``kpos``/``attn_kpos`` to -1; caches, ``wkv``/``x_prev_*`` and
-        ``ssm``/``conv`` to 0) so a reused slot never sees its previous
-        occupant's KV entries or recurrent state."""
+        (``kpos``/``attn_kpos``/``self_kpos`` to -1; caches, ``wkv``/
+        ``x_prev_*`` and ``ssm``/``conv`` to 0) so a reused slot never sees
+        its previous occupant's KV entries or recurrent state.  Whisper's
+        cross-KV (``cross_*``) is kept: the caller sets it per slot, as in
+        the reference."""
         for name, v in self.state.items():
-            v[:, slot] = -1 if "kpos" in name else 0
+            if not name.startswith("cross_"):
+                v[:, slot] = -1 if "kpos" in name else 0
 
     @torch.no_grad()
     def _merge_slot_state(self, old, new, slot: int) -> None:
@@ -423,7 +428,8 @@ class ServingEngine:
         tokenwise prefill must not touch other slots' cache or advance their
         recurrent state."""
         for name, v in old.items():
-            v[:, slot] = new[name][:, slot]
+            if new[name] is not v:  # a shared leaf (the cross-KV) is both
+                v[:, slot] = new[name][:, slot]
 
     @torch.no_grad()
     def _prefill_slot_tokenwise(self, slot: int, prompt: list[int]) -> None:
@@ -432,8 +438,10 @@ class ServingEngine:
         prefill, and the bulk path's equivalence and latency baseline).  Decode rows are independent, so
         the loop runs on a scratch copy of the state (the other slots feed
         token 0 at their last position, as in the reference) and only the
-        target slot's column is merged back."""
-        scratch = {k: v.clone() for k, v in self.state.items()}
+        target slot's column is merged back.  A decode step never writes
+        whisper's static cross-KV, so the scratch shares it."""
+        scratch = {k: v if k.startswith("cross_") else v.clone()
+                   for k, v in self.state.items()}
         for t, tok in enumerate(prompt):
             _logits, scratch = api.decode(
                 self.params, self.cfg, scratch, self._token_batch(slot, tok),

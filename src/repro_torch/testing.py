@@ -34,13 +34,14 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.lcc_chain_matmul import _levels_plain
 
 __all__ = ["seeded_decomposition", "decomposition_dense", "dense_sites",
-           "moe_sites", "unstacked_sites", "seeded_artifact",
-           "seeded_conv_artifact", "seeded_prep"]
+           "moe_sites", "unstacked_sites", "audio_sites", "seeded_artifact",
+           "seeded_conv_artifact", "seeded_prep", "fill_cross_kv"]
 
 SHARED_SITES = ("attn.k", "attn.o", "ffn.up", "moe.up", "tm.k", "tm.o",
                 "cm.k", "mamba.in_proj", "shared_attn.attn.k",
-                "shared_attn.attn.o", "shared_attn.ffn.up")
-BIAS_SCALE = 0.5  # std of a qkv_bias model's seeded q/k/v biases
+                "shared_attn.attn.o", "shared_attn.ffn.up", "enc.attn.k",
+                "dec.attn.k", "dec.xattn.o", "dec.mlp.fc1")
+BIAS_SCALE = 0.5  # std of the seeded q/k/v (and whisper's fc1/fc2) biases
 
 
 def _seeded_chains(n: int, k: int, rng: np.random.Generator, *,
@@ -167,9 +168,12 @@ def dense_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, ...], int, int]]:
     (``moe.shared.*``, path ``ffn.shared``) and leaves the routed experts to
     :func:`moe_sites`.  The ssm family lists rwkv6's time-mix r/k/v/g/o and
     channel-mix k/v/r, the hybrid its mamba in/out projections (the shared
-    block's sites are :func:`unstacked_sites`)."""
+    block's sites are :func:`unstacked_sites`).  The audio family's sites
+    live outside ``blocks``: :func:`audio_sites`."""
     d, dff = cfg.d_model, cfg.d_ff
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if cfg.family == "audio":
+        return []
     if cfg.family == "ssm":
         return ([(f"tm.{p}", ("tm", p), d, d) for p in ("r", "k", "v", "g", "o")]
                 + [("cm.k", ("cm", "k"), dff, d), ("cm.v", ("cm", "v"), d, dff),
@@ -231,6 +235,52 @@ def unstacked_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, ...], int, in
             "ffn": {"gate": (dff, d), "up": (dff, d), "down": (d, dff)}}
     return [(f"shared_attn.{part}.{p}", ("shared_attn", part, p), n, k)
             for part in ("attn", "ffn") for p, (n, k) in dims[part].items()]
+
+
+def audio_sites(cfg: ArchConfig) -> list[tuple[str, tuple[str, ...], int, int]]:
+    """The audio family's stacked sites in the reference's order:
+    ``(site prefix, path from the params root, N out, K in)``; the site of
+    layer ``li`` is ``f"{prefix}.l{li}"`` and its weight ``params[path...]
+    ["w"][li]`` of shape ``[K, N]``, over ``enc_layers`` layers for the
+    encoder's ``enc.*`` prefixes and ``n_layers`` for the decoder's
+    ``dec.*``.  No other family has any."""
+    if cfg.family != "audio":
+        return []
+    d, dff = cfg.d_model, cfg.d_ff
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = (("q", nq * hd, d), ("k", nkv * hd, d), ("v", nkv * hd, d),
+            ("o", d, nq * hd))
+    out = []
+    for part, parts in (("enc", ("attn",)), ("dec", ("attn", "xattn"))):
+        blocks = f"{part}_blocks"
+        out += [(f"{part}.mlp.{p}", (blocks, "mlp", p), n, k)
+                for p, n, k in (("fc1", dff, d), ("fc2", d, dff))]
+        out += [(f"{part}.{a}.{p}", (blocks, a, p), n, k)
+                for a in parts for p, n, k in attn]
+    return out
+
+
+def _audio_layers(cfg: ArchConfig, prefix: str) -> int:
+    return cfg.enc_layers if prefix.startswith("enc.") else cfg.n_layers
+
+
+def _audio_tree(cfg: ArchConfig, rng: np.random.Generator, pd: dict) -> dict:
+    """Whisper's parameter tree without its site weights: the LayerNorms
+    (scales one, biases zero) and the learned decoder positions, drawn from
+    ``rng`` as the reference initialises them."""
+    d = cfg.d_model
+
+    def ln(*lead):
+        return {"w": torch.ones((*lead, d), **pd),
+                "b": torch.zeros((*lead, d), **pd)}
+
+    pos = rng.standard_normal((cfg.max_decoder_len, d), dtype=np.float32)
+    return {"enc_blocks": {"ln1": ln(cfg.enc_layers), "ln2": ln(cfg.enc_layers)},
+            "enc_ln": ln(),
+            "dec_blocks": {"ln1": ln(cfg.n_layers), "ln2": ln(cfg.n_layers),
+                           "ln_x": ln(cfg.n_layers)},
+            "dec_ln": ln(),
+            "dec_pos": torch.from_numpy(pos * np.float32(0.01)).to(**pd)}
 
 
 def _recurrent_tree(cfg: ArchConfig, seed: int, device) -> dict:
@@ -318,11 +368,14 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     rwkv6's mixes; hybrid: mamba's in/out projections and the shared
     block's, see :func:`unstacked_sites`); the recurrent blocks' other
     leaves are drawn as the reference initialises them, from a generator
-    of their own; ``shared_sites`` (site prefixes) additionally get weight sharing,
+    of their own; audio: every site of :func:`audio_sites`, the encoder's
+    included, beside the LayerNorms and the learned positions;
+    ``shared_sites`` (site prefixes) additionally get weight sharing,
     so the segment-sum kernel is on the decode path.  An MoE block gets a
     seeded float32 router ``[L, d, E]``; a ``qkv_bias`` model gets seeded
     non-zero q/k/v biases ``[L, out]`` (std ``BIAS_SCALE``, from a generator
-    of their own, so every other leaf is what it is without them).
+    of their own, so every other leaf is what it is without them), and so
+    does whisper, on q/k/v and fc1/fc2 of every layer (o has none).
     ``params`` are the dense-effective
     weights in ``cfg.param_dtype`` (``convert.F32_LEAVES`` in float32) on
     ``device``;
@@ -337,7 +390,10 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
     rng = np.random.default_rng((seed, 0))
     pd = dict(dtype=cfg.pdtype, device=device)
     embed = rng.standard_normal((cfg.vocab, d), dtype=np.float32) * np.float32(d ** -0.5)
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "audio":
+        params = {"embed": torch.from_numpy(embed).to(**pd),
+                  **_audio_tree(cfg, rng, pd)}
+    elif cfg.family in ("ssm", "hybrid"):
         params = {"embed": torch.from_numpy(embed).to(**pd),
                   **_recurrent_tree(cfg, seed, device)}
     else:
@@ -346,7 +402,7 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
                   "blocks": {"ln1": torch.ones((L, d), **pd),
                              "ln2": torch.ones((L, d), **pd),
                              "attn": {}, "ffn": {}}}
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings and cfg.family != "audio":  # whisper reads embed
         head = rng.standard_normal((d, cfg.vocab), dtype=np.float32) * np.float32(d ** -0.5)
         params["lm_head"] = {"w": torch.from_numpy(head).to(**pd)}
     # one job a site: (name, N, K, generator key, weight-shared, where the
@@ -368,6 +424,23 @@ def seeded_artifact(cfg: ArchConfig, seed: int = 0, device="cuda", *,
         node[path[-1]] = {"w": torch.empty((k, n), **pd)}
         jobs.append((name, n, k, (seed, 0, 3, si), name in shared_sites,
                      (node[path[-1]]["w"], ())))
+    for si, (prefix, path, n, k) in enumerate(audio_sites(cfg), len(sites)):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        n_l = _audio_layers(cfg, prefix)
+        node[path[-1]] = {"w": torch.empty((n_l, k, n), **pd)}
+        for li in range(n_l):
+            jobs.append((f"{prefix}.l{li}", n, k, (seed, 1 + li, si),
+                         prefix in shared_sites, (node[path[-1]]["w"], (li,))))
+    if cfg.family == "audio":  # biases from a generator of their own
+        brng = np.random.default_rng((seed, 0, 4))
+        for prefix, path, n, _ in audio_sites(cfg):
+            if path[-1] != "o":
+                b = brng.standard_normal((_audio_layers(cfg, prefix), n),
+                                         dtype=np.float32)
+                params[path[0]][path[1]][path[2]]["b"] = torch.from_numpy(
+                    b * np.float32(BIAS_SCALE)).to(**pd)
     if cfg.qkv_bias:  # a generator of their own: other configs stay as they were
         brng = np.random.default_rng((seed, 0, 1))
         for proj, n in (("q", cfg.n_heads * cfg.hd), ("k", cfg.n_kv_heads * cfg.hd),
@@ -481,3 +554,29 @@ def seeded_conv_artifact(cfg, seed: int = 0, device="cuda", *,
         compression=CompressionConfig(algorithm="fp", conv_method=method,
                                       weight_sharing=False),
         pipeline_stats={"fixture": "seeded", "seed": seed})
+
+
+@torch.no_grad()
+def fill_cross_kv(params, cfg: ArchConfig, state, slot: int, frames) -> None:
+    """Write slot ``slot``'s static cross-KV into a whisper decode state, the
+    reference's recipe (its ``test_whisper_decode_consistency``): ``frames``
+    [S, d] through ``whisper.encode``, then each decoder layer's
+    ``xattn.k``/``xattn.v`` (the dense weights in ``params``, biases
+    included) into ``state["cross_k"/"cross_v"][layer, slot]``.  ``S``
+    must be the state's encoder length: cross-attention masks no row.  A
+    test and benchmark helper, not an engine feature: the engine leaves the
+    cross-KV to its caller."""
+    from repro_torch.models.layers import linear
+    from repro_torch.models.whisper import encode
+
+    s = frames.shape[0]
+    if s != state["cross_k"].shape[2]:
+        raise ValueError(f"{s} frames for a cross-KV of "
+                         f"{state['cross_k'].shape[2]} encoder positions")
+    enc = encode(params, cfg, frames[None])[0]
+    xattn = params["dec_blocks"]["xattn"]
+    for li in range(cfg.n_layers):
+        for leaf, proj in (("cross_k", "k"), ("cross_v", "v")):
+            p = {n: t[li] for n, t in xattn[proj].items()}
+            state[leaf][li, slot] = linear(p, enc).reshape(
+                s, cfg.n_kv_heads, cfg.hd).to(state[leaf].dtype)

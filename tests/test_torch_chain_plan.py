@@ -31,8 +31,8 @@ SM = 132  # H100 SXM
 # (label, N, B, G, E, bb): the K1/K2 launches of the olmo-1b, mixtral-8x22b
 # and deepseek-v2-lite-16b per-region serves (chip_smoke.chain_cases), ROADMAP
 # B1's qwen2-vl FFN widths, the widest launches of the dense family's and
-# the VLM's serves, and every launch of the recurrent families' serves (the
-# fixture's E)
+# the VLM's serves, and every launch of the recurrent families' and
+# whisper's serves (the fixture's E)
 MAIN_PATH = [
     ("olmo attn.o", 2048, 8, 1, 175, 8),
     ("olmo ffn.down", 2048, 8, 1, 745, 8),
@@ -73,6 +73,12 @@ MAIN_PATH = [
     ("zamba2 shared ffn.down", 3584, 8, 1, 1195, 4),
     ("zamba2 shared attn.q+k+v", 3584, 8, 3, 299, 4),
     ("zamba2 shared ffn.gate+up", 14336, 8, 2, 256, 1),
+    # whisper-small's decoder (per-region serve, fixture widths)
+    ("whisper dec.attn.o|xattn.q", 768, 8, 1, 77, 8),
+    ("whisper dec.xattn.o", 768, 8, 1, 72, 8),
+    ("whisper dec.mlp.fc1", 3072, 8, 1, 60, 4),
+    ("whisper dec.mlp.fc2", 768, 8, 1, 307, 8),
+    ("whisper dec.attn.q+k+v", 768, 8, 3, 77, 8),
 ]
 LARGEST_N_BB1 = 26164  # at S = 2: 8 N + two 960-row slots <= SMEM_LIMIT
 
@@ -232,6 +238,30 @@ def test_chain_cases_cover_the_recurrent_serves():
         _check_plan(n, batch, len(members), e)
     assert plan_launch(14336, 8, 2, 256, SM)[:2] == (1, 512)
     assert plan_launch(14576, 8, 1, 240, SM)[:2] == (1, 512)
+
+
+def test_chain_cases_cover_whisper():
+    """whisper-small's decoder launches: q+k+v (k weight-shared), one
+    launch shape for attn.o and xattn.q (the same N and kept K, neither
+    shared: one case naming both), xattn.o, fc1 (3072 rows) and fc2; the
+    encoder's sites and xattn.k/v launch nothing in decode."""
+    cs = _chip_smoke()
+    from repro_torch.core.lcc import plan_col_slices
+    cases = {label: (names, batch, members)
+             for label, names, batch, members in cs.chain_cases("whisper-small")}
+    assert sorted(cases) == sorted(
+        f"whisper-small {s} B=8" for s in (
+            "dec.attn.o|dec.xattn.q", "dec.xattn.o", "dec.mlp.fc1",
+            "dec.mlp.fc2", "dec.attn.q+k+v"))
+    assert cases["whisper-small dec.attn.q+k+v B=8"][2] == [
+        (768, 766), (768, 719), (768, 766)]
+    assert cases["whisper-small dec.mlp.fc2 B=8"][2] == [(768, 3070)]
+    for names, batch, members in cases.values():
+        assert all(n.startswith("dec.") and not n.startswith(
+            ("dec.xattn.k", "dec.xattn.v")) for n in names)
+        n = max(m[0] for m in members)
+        e = max(len(plan_col_slices(*m)) for m in members)
+        _check_plan(n, batch, len(members), e)
 
 
 @pytest.mark.parametrize("sm", [1, 8, 132])

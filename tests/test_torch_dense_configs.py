@@ -59,9 +59,9 @@ def test_config_equals_the_reference(arch):
             j, t = jreduced(j), reduced_config(t)
         assert jarch_to_dict(j) == arch_to_dict(t)
         assert config_from_reference(j) == t
-    assert set(ARCHS) <= set(JARCHS) and len(ARCHS) == 9
+    assert set(ARCHS) == set(JARCHS) and len(ARCHS) == 10
     assert set(NEW) | {"olmo-1b", "mixtral-8x22b", "deepseek-v2-lite-16b",
-                       "rwkv6-1.6b", "zamba2-7b"} == set(ARCHS)
+                       "rwkv6-1.6b", "zamba2-7b", "whisper-small"} == set(ARCHS)
 
 
 @pytest.fixture(scope="module", params=DENSE)

@@ -243,15 +243,10 @@ def test_idle_slot_writes_nothing(model, kv_block, window):
 
 
 def test_other_families_are_refused(model):
-    """What stays refused, by name: the audio family (encoder-decoder) and
-    the manual expert-parallel MoE; a dense config with m-RoPE is not the
-    vlm family."""
+    """What stays refused, by name: the manual expert-parallel MoE; a dense
+    config with m-RoPE is not the vlm family.  (The audio family is served:
+    ``tests/test_torch_whisper.py``.)"""
     _, _, tcfg, tparams = model
-    with pytest.raises(NotImplementedError, match="audio"):
-        tapi.init_decode_state(replace(tcfg, enc_layers=2), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="audio"):
-        tapi.init_decode_state(replace(tcfg, family="audio"), 1, 8,
-                               device="cpu")
     manual = replace(get_arch("mixtral-8x22b"), moe_manual=True)
     with pytest.raises(NotImplementedError, match="moe_manual"):
         tapi.init_decode_state(manual, 1, 8, device="cpu")

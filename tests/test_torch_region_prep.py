@@ -279,6 +279,30 @@ def test_chip_smoke_regions_of_the_recurrent_serves(arch):
     assert cs.region_launches_per_step(cfg) == per_step
 
 
+def test_chip_smoke_regions_of_the_whisper_serve():
+    """whisper's decoder regions a layer: q+k+v (k weight-shared), attn.o,
+    xattn.q, xattn.o (shared), fc1 (shared) and fc2 — one region prep and
+    one K1/K2 launch each, 12 launches a layer; the encoder's sites and
+    xattn.k/v are in the artifact but in no region of a decode step."""
+    cs = _chip_smoke()
+    cfg = reduced_config(get_arch("whisper-small"), vocab=64)
+    art = seeded_artifact(cfg, seed=0, device="cpu")
+    drawn = cs.region_preps(cfg)
+    real = cs.region_preps(cfg, art.records)
+    assert [(lb, p.name, p.n_members, p.rows, p.src.size, k, b, st)
+            for lb, p, k, b, st, _ in drawn] == \
+        [(lb, p.name, p.n_members, p.rows, p.src.size, k, b, st)
+         for lb, p, k, b, st, _ in real]
+    in_regions = {n for g in cs.site_groups(cfg) for n in g}
+    assert in_regions == {n for n in cs.decoder_routed(art.records)
+                          if n.endswith(".l0")}
+    assert len(in_regions) == 8 and not any(st for *_, st, _ in real)
+    shared = {names[0] for _, p, _, _, _, names in real if p.rows < p.src.size}
+    assert shared == {"dec.attn.q.l0", "dec.xattn.o.l0", "dec.mlp.fc1.l0"}
+    assert cs.region_preps_per_step(cfg, art.records) == 6 * cfg.n_layers
+    assert cs.region_launches_per_step(cfg) == 6 * cfg.n_layers
+
+
 @pytest.mark.parametrize("name,site", [
     ("attn.q.l3", "attn.q"), ("moe.up.l0.e5", "moe.up"),
     ("attn.dkv.l12", "attn.dkv"), ("head", "head")])
