@@ -143,9 +143,21 @@ its plain PyTorch version:
    version and the oracle, bitwise from run to run, in place == out of
    place, timed; olmo-1b at full width (bf16, remat) trained by
    ``make_train_step`` with ProxSGD over every site (batch 8 x 512 tokens):
-   a warm and five timed steps, 7 K5 launches a step, the update through K5
+   a warm and five timed steps, 7 K5 launches a step, one step of the
+   meshed step over a one-rank NCCL mesh against the unsharded step from
+   the same state (bit for bit, ``meshed_step``), the update through K5
    against the other route, a profiled step; the paper's MLP through the
    port's launcher (``--arch mlp --prox``), 2 K5 launches a step;
+   ``--only distributed`` (not in the full run beyond that one step):
+   olmo-1b at full width on a one-rank NCCL world — the meshed step over
+   1 x 1 against the unsharded step over MESH_STEPS steps from one state
+   (every leaf, loss and grad norm bitwise, 7 K5 launches and the
+   predicted collectives a step), the compressed step over 1 x 1 x 1 (the
+   residuals' 2 rows -> 1), ``compressed_psum`` on layer 0's gradients
+   bit for bit the CPU's and timed on the whole model's beside its byte
+   bound, GPipe and the overlapped matmul at one rank, the train
+   launcher's ``--mesh 1x1x1 --grad-compression`` and ``--mesh 1x1
+   --elastic-demo``;
 10. the compressor (``--only compress`` runs it alone, training the MLP
    first): the trained MLP (784-300-10) compressed at full width by
    ``models.api.compress_model`` on the card's host, under the compress
@@ -4525,7 +4537,7 @@ def phase_train_olmo(dev):
     lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 lm.batch(TRAIN_BATCH, TRAIN_SEQ, seed=i).items()}
-               for i in range(TRAIN_STEPS + 4)]
+               for i in range(TRAIN_STEPS + 5)]
     param_bytes = tensor_bytes(*tree_leaves(state.params))
     torch.cuda.reset_peak_memory_stats()
     registry = MetricsRegistry()
@@ -4561,6 +4573,12 @@ def phase_train_olmo(dev):
             or global_launches() - g0 != counts["group_prox"]):
         fail(f"train olmo: the registry holds {train_metrics} after {steps} "
              f"steps (kernel_launches_total +{global_launches() - g0})")
+    # the meshed step (a one-rank NCCL mesh) == the unsharded step, one step
+    with one_rank_world():
+        t0 = time.perf_counter()
+        meshed = meshed_vs_unsharded(cfg, opt, specs, state,
+                                     [batches[steps + 3]])
+        meshed["wall_s"] = time.perf_counter() - t0
     state, prof = profile_train_step(cfg, opt, specs, state, batches[steps])
     check = check_update_routes(state, specs, batches[steps + 1], cfg, dev)
     ckpt = checkpoint_round_trip(state, step_fn, batches[steps + 2], specs)
@@ -4578,7 +4596,8 @@ def phase_train_olmo(dev):
                 group_prox_share_of_step=prof["group_prox_device_ms"] / ms,
                 loss=losses, grad_norm=gnorm, dead_groups=dead,
                 prox_penalty=penalty, update_check=check, profile=prof,
-                checkpoint=ckpt, train_metrics=train_metrics), counts, by_shape, steps
+                checkpoint=ckpt, train_metrics=train_metrics,
+                meshed_step=meshed), counts, by_shape, steps
 
 
 MLP_TRAIN_ARGS = ["--arch", "mlp", "--prox", "--lambda", "0.1", "--epochs", "3"]
@@ -4624,6 +4643,379 @@ def run_train(dev):
     emit(mlp)
     serves["mlp train"] = (counts, by_shape, steps)
     return rows, serves, trained
+
+
+# ------------------------------------------------ distributed/ (slice 20)
+
+# one card: an NCCL world of one rank; more ranks run on the CPU with gloo
+# (tests/test_torch_distributed_*.py)
+MESH_STEPS = 3  # --only distributed: meshed == unsharded over these steps
+LAUNCHER_ARGS = ["--seq", str(TRAIN_SEQ), "--steps", "3"]
+
+
+class one_rank_world:
+    """This process as the one rank of an NCCL world (a file store under a
+    temporary directory) while the block runs."""
+
+    def __enter__(self):
+        import tempfile
+
+        from repro_torch.distributed import device_mesh
+
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+        device_mesh.join(0, 1, backend="nccl", device_index=0,
+                         init_method=f"file://{os.path.join(self.tmp, 'store')}")
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+
+        from repro_torch.distributed import device_mesh
+
+        device_mesh.leave()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def spec_axes(specs) -> int:
+    """Named axes over every spec of a tree: the gathers of one pass."""
+    from repro_torch.distributed.placement import axes_of
+    from repro_torch.distributed.sharding import P
+
+    if isinstance(specs, P):
+        return sum(len(axes_of(e)) for e in specs)
+    if specs is None:
+        return 0
+    if isinstance(specs, dict):
+        return sum(spec_axes(v) for v in specs.values())
+    if isinstance(specs, (list, tuple)):
+        return sum(spec_axes(v) for v in specs)
+    import dataclasses
+    return sum(spec_axes(getattr(specs, f.name))
+               for f in dataclasses.fields(specs)
+               if not f.metadata.get("static"))
+
+
+def predicted_collectives(state, compressed: bool) -> dict:
+    """The collectives one meshed step issues on a one-rank mesh: a gather
+    a named axis of every leaf of the state; a float32 all-reduce a
+    gradient leaf (the one batch axis) and one for the loss; compressed,
+    also two a leaf across pods (row max, int32 sum), one gather a leaf of
+    the new residual rows and one for the loss across pods."""
+    n = len(tree_leaves_of(state.params))
+    gathers = spec_axes(state.pspecs)
+    if not compressed:
+        return {"all_gather": gathers, "all_reduce": n + 1}
+    return {"all_gather": gathers + n, "all_reduce": n + 1 + 2 * n + 1}
+
+
+def tree_leaves_of(tree):
+    from repro_torch.optim.optimizers import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def timed(fn, *a):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equal (signed zeros and NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    w = view[a.element_size()]
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    return torch.equal(a.contiguous().view(w), b.contiguous().view(w))
+
+
+def meshed_vs_unsharded(cfg, opt, specs, state, batches) -> dict:
+    """From one state: the unsharded step on ``state`` and the meshed step
+    over a one-rank 1 x 1 mesh on a sharded copy, batch for batch.  Loss,
+    grad norm and, after the last step, every parameter and optimizer leaf
+    bit for bit; 7 K5 launches a step on both; the collectives per step as
+    :func:`predicted_collectives` says.  Updates ``state`` in place."""
+    from repro_torch.distributed import collectives, device_mesh
+    from repro_torch.distributed.placement import gather_state, shard_state
+    from repro_torch.training.trainer import make_train_step
+
+    mesh = device_mesh.make_mesh((1, 1), ("data", "model"))
+    sharded = shard_state(state, mesh)
+    fns = {"unsharded": make_train_step(cfg, opt, lr=TRAIN_LR,
+                                        prox_specs=specs),
+           "meshed": make_train_step(cfg, opt, lr=TRAIN_LR, prox_specs=specs,
+                                     mesh=mesh)}
+    ms = {k: [] for k in fns}
+    peak, launches, counts, want = {}, {k: [] for k in fns}, [], []
+    for b in batches:
+        m = {}
+        for tag, fn in fns.items():
+            torch.cuda.reset_peak_memory_stats()
+            n0 = dispatch.launch_count("group_prox")
+            collectives.reset_collective_counts()
+            if tag == "meshed":
+                want.append(predicted_collectives(sharded, False))
+                (sharded, m[tag]), t = timed(fn, sharded, b)
+                counts.append(collectives.collective_counts())
+            else:
+                (state, m[tag]), t = timed(fn, state, b)
+            ms[tag].append(t)
+            launches[tag].append(dispatch.launch_count("group_prox") - n0)
+            peak[tag] = max(peak.get(tag, 0), torch.cuda.max_memory_allocated())
+        for k in ("loss", "grad_norm", "dead_groups", "prox_penalty"):
+            if not same_bits(m["meshed"][k], m["unsharded"][k]):
+                fail(f"meshed step: {k} {float(m['meshed'][k])} against the "
+                     f"unsharded step's {float(m['unsharded'][k])}")
+    whole = _flatten(gather_state(sharded, mesh))
+    plain = _flatten(state)
+    bad = [k for k, v in plain.items() if not same_bits(whole[k], v)]
+    if list(whole) != list(plain) or bad:
+        fail(f"meshed step: leaves differing from the unsharded step {bad[:5]}")
+    if counts != want:
+        fail(f"meshed step: collectives {counts}, predicted {want}")
+    if set(launches["meshed"]) != {len(specs)} or launches["meshed"] != launches["unsharded"]:
+        fail(f"meshed step: group_prox launches {launches}, expected "
+             f"{len(specs)} a step on both")
+    del sharded, whole
+    torch.cuda.empty_cache()
+    return dict(mesh={"data": 1, "model": 1}, steps=len(batches),
+                leaves_bitwise=len(plain), ms_per_step=ms,
+                peak_device_bytes=peak, group_prox_launches=launches,
+                collectives_per_step=counts)
+
+
+def compressed_psum_check(grads, group, cpu_group, dev) -> dict:
+    """``compressed_psum`` over one whole layer's leaves (layer 0 of each
+    stacked leaf; residuals seeded) on the card against the same function
+    on the CPU (a gloo group of the same rank), bit for bit, in the
+    gradients' bf16 and in float32; at one pod g_hat + e' == v within
+    float32 rounding (the float32 call).  Then the whole model's gradients
+    and residuals timed, beside their byte bound."""
+    from repro_torch.distributed.compress_grads import compressed_psum
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    layer = {k: v[0] for k, v in _flatten(grads["blocks"]).items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = tree_map(lambda g: torch.randn(g.shape, generator=gen, device=dev)
+                    * 1e-4, layer)
+    out = dict(layer_leaves=len(layer),
+               layer_elements=sum(g.numel() for g in layer.values()))
+    worst_sum = 0.0
+    for tag, cast in (("bf16", lambda t: t), ("float32", lambda t: t.float())):
+        g = tree_map(cast, layer)
+        h_dev, e_dev = compressed_psum(g, errs, group)
+        h_cpu, e_cpu = compressed_psum(tree_map(lambda t: t.cpu(), g),
+                                       tree_map(lambda t: t.cpu(), errs),
+                                       cpu_group)
+        for name in layer:
+            if not (same_bits(h_dev[name], h_cpu[name])
+                    and same_bits(e_dev[name], e_cpu[name])):
+                fail(f"compressed_psum ({tag}): {name} on the card differs "
+                     "from the CPU's")
+        if tag == "float32":
+            for name, gv in g.items():
+                v = gv + errs[name]
+                err = (h_dev[name] + e_dev[name] - v).abs()
+                bound = 2.0 ** -23 * v.abs().amax(-1, keepdim=True) + 1e-30
+                worst_sum = max(worst_sum, float((err / bound).max()))
+                if (err > bound).any():
+                    fail(f"compressed_psum: g_hat + e' != v for {name} "
+                         f"({float(err.max())})")
+        del h_dev, e_dev, h_cpu, e_cpu
+    out["bitwise_cpu"] = True
+    out["sum_check_worst_in_f32_rounding"] = worst_sum
+    # the whole model: every gradient leaf and its float32 residual row
+    res = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                         device=dev), grads)
+    compressed_psum(grads, res, group)  # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    compressed_psum(grads, res, group)
+    ev[1].record()
+    torch.cuda.synchronize()
+    leaves = tree_leaves(grads)
+    n = sum(g.numel() for g in leaves)
+    nbytes = sum(2 * g.numel() * g.element_size() + 2 * 4 * g.numel()
+                 for g in leaves)
+    out.update(model_elements=n, model_ms=ev[0].elapsed_time(ev[1]),
+               bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    return out
+
+
+def compressed_steps(cfg, opt, specs, box, batches, dev) -> dict:
+    """The compressed step over a one-rank 1 x 1 x 1 mesh from
+    ``box["state"]`` given the reference's default residuals (2 rows):
+    finite losses, the residuals' rows 2 -> 1, 7 K5 launches and the
+    predicted collectives a step; then ``compressed_psum_check`` on
+    gradients of the stepped params.  Takes the state out of ``box`` so
+    its whole leaves are freed once sharded."""
+    import dataclasses
+
+    from repro_torch.distributed import collectives, device_mesh
+    from repro_torch.distributed.placement import gather_state, shard_state
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.training.trainer import make_train_step
+
+    mesh = device_mesh.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    state = box.pop("state")
+    efb = tree_map(lambda p: torch.zeros((2,) + tuple(p.shape),
+                                         dtype=torch.float32, device=dev),
+                   state.params)
+    sharded = shard_state(dataclasses.replace(state, error_fb=efb), mesh)
+    del efb, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows0 = {t.shape[0] for t in tree_leaves(sharded.error_fb)}
+    fn = make_train_step(cfg, opt, lr=TRAIN_LR, prox_specs=specs, mesh=mesh,
+                         grad_compression=True)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, counts, want, launches = [], [], [], [], []
+    for b in batches:
+        want.append(predicted_collectives(sharded, True))
+        collectives.reset_collective_counts()
+        n0 = dispatch.launch_count("group_prox")
+        (sharded, m), t = timed(fn, sharded, b)
+        launches.append(dispatch.launch_count("group_prox") - n0)
+        counts.append(collectives.collective_counts())
+        ms.append(t)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    rows = {t.shape[0] for t in tree_leaves(sharded.error_fb)}
+    if not all(np.isfinite(losses)) or rows0 != {2} or rows != {1}:
+        fail(f"compressed step: losses {losses}, residual rows {rows0} -> {rows}")
+    if counts != want or set(launches) != {len(specs)}:
+        fail(f"compressed step: collectives {counts} (predicted {want}), "
+             f"group_prox launches {launches}")
+    whole = gather_state(sharded, mesh)
+    del sharded
+    params = whole.params
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = api.train_loss(params, cfg, batches[-1])
+    it = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                  materialize_grads=True))
+    grads = tree_map(lambda _: next(it), params)
+    del loss, whole, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    import torch.distributed as tdist
+
+    psum = compressed_psum_check(grads, mesh.group("pod"),
+                                 tdist.new_group([0], backend="gloo"), dev)
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(mesh={"pod": 1, "data": 1, "model": 1}, ms_per_step=ms,
+                loss=losses, residual_rows=[sorted(rows0), sorted(rows)],
+                peak_device_bytes=peak, group_prox_launches=launches,
+                collectives_per_step=counts, compressed_psum=psum)
+
+
+def ring_checks(dev) -> dict:
+    """GPipe and the overlapped all-gather matmul at one rank on CUDA
+    tensors (a ring of one: no peer, the schedule and the final sum still
+    run): GPipe within 1e-5 of the sequential layers, the matmul within
+    1e-4 of ``x @ w``."""
+    from repro_torch.distributed import device_mesh
+    from repro_torch.distributed.overlap import overlapped_ag_matmul
+    from repro_torch.distributed.pipeline import gpipe_forward, split_stages
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    d, n_layers = 2048, 4
+    w = torch.randn(n_layers, d, d, generator=gen, device=dev) / d ** 0.5
+    bias = torch.randn(n_layers, d, generator=gen, device=dev) * 0.1
+    x = torch.randn(4, BATCH, d, generator=gen, device=dev)
+
+    def stage_fn(p, h):
+        for i in range(p["w"].shape[0]):
+            h = torch.tanh(h @ p["w"][i] + p["b"][i])
+        return h
+
+    pipe = device_mesh.make_mesh((1,), ("pipe",))
+    got = gpipe_forward(split_stages({"w": w, "b": bias}, 1), x, stage_fn,
+                        mesh=pipe)
+    want = torch.stack([stage_fn({"w": w, "b": bias}, xm) for xm in x])
+    gp_err = float((got - want).abs().max())
+    model = device_mesh.make_mesh((1,), ("model",))
+    xm = torch.randn(BATCH, d, generator=gen, device=dev)
+    wm = torch.randn(d, 8192, generator=gen, device=dev)
+    ov_err = float((overlapped_ag_matmul(xm, wm, mesh=model) - xm @ wm).abs().max())
+    if gp_err > 1e-5 or ov_err > 1e-4:
+        fail(f"gpipe max err {gp_err} (1e-5), overlapped matmul {ov_err} (1e-4)")
+    return dict(gpipe_max_abs_err=gp_err, gpipe_shape=list(x.shape),
+                overlap_max_abs_err=ov_err, overlap_shape=[BATCH, d, 8192])
+
+
+def distributed_launchers() -> dict:
+    """The train launcher at full width on one rank: ``--mesh 1x1x1
+    --grad-compression`` and ``--mesh 1x1 --elastic-demo`` (which fires
+    nothing at one rank, as in the reference)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    out = {}
+    for tag, flags in (("compressed", ["--mesh", "1x1x1", "--grad-compression"]),
+                       ("elastic", ["--mesh", "1x1", "--elastic-demo"])):
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            stats = train.main(flags + LAUNCHER_ARGS)
+        text = log.getvalue()
+        if not np.isfinite(stats["loss"]) or "[elastic]" in text:
+            fail(f"train launcher {flags}: {stats} / {text[-400:]}")
+        out[tag] = dict(flags=flags + LAUNCHER_ARGS, wall_s=time.perf_counter() - t0,
+                        loss=stats["loss"], mesh=stats["mesh"],
+                        steps=stats["steps"], last_line=text.strip().splitlines()[-1])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_distributed(dev) -> dict:
+    """``--only distributed``: olmo-1b at full width (bf16, remat, ProxSGD
+    over every site, batch 8 x 512) on a one-rank NCCL world: the meshed
+    step against the unsharded step over MESH_STEPS steps from one state,
+    then the compressed step at 1 x 1 x 1 and ``compressed_psum`` on the
+    card against the CPU; GPipe and the overlapped matmul at one rank; the
+    launcher's mesh flags."""
+    from repro_torch.optim.optimizers import prox_sgd
+    from repro_torch.training.regularize import site_group_specs
+    from repro_torch.training.trainer import init_train_state
+
+    cfg = get_arch("olmo-1b")
+    specs = site_group_specs(api.abstract_params(cfg), cfg, TRAIN_LAM)
+    opt = prox_sgd(momentum=0.9, specs=specs)
+    t0 = time.perf_counter()
+    state = init_train_state(0, cfg, opt, prox_specs=specs, device=dev)
+    init_s = time.perf_counter() - t0
+    lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                lm.batch(TRAIN_BATCH, TRAIN_SEQ, seed=i).items()}
+               for i in range(MESH_STEPS + 2)]
+    box = {"state": state}
+    del state
+    with one_rank_world():
+        meshed = meshed_vs_unsharded(cfg, opt, specs, box["state"],
+                                     batches[:MESH_STEPS])
+        compressed = compressed_steps(cfg, opt, specs, box,
+                                      batches[MESH_STEPS:], dev)
+        rings = ring_checks(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(phase="distributed", arch=cfg.name, layers=cfg.n_layers,
+                d_model=cfg.d_model, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                backend="nccl", world=1, init_s=init_s, meshed=meshed,
+                compressed=compressed, rings=rings,
+                launchers=distributed_launchers())
 
 
 # ------------------------------------ the compressor (Algorithm 1), PR 23
@@ -5651,7 +6043,8 @@ def main() -> None:
                                        "attention", "prep", "artifact",
                                        "prefix", "mixtral", "deepseek",
                                        "qwen", "dense", "recurrent", "audio",
-                                       "train", "compress", "resnet"),
+                                       "train", "distributed", "compress",
+                                       "resnet"),
                     default=None,
                     help="kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
@@ -5695,7 +6088,13 @@ def main() -> None:
                          "cross-KV from the port's encoder (the full run "
                          "cuts it to WHISPER_LAYERS and serves float32 "
                          "only); train: the "
-                         "training phases alone; compress: the compressor "
+                         "training phases alone; distributed: olmo-1b at "
+                         "full width on a one-rank NCCL mesh (the meshed "
+                         "step == the unsharded step over 3 steps, the "
+                         "compressed step at 1x1x1 and compressed_psum "
+                         "against the CPU, GPipe and the overlapped matmul "
+                         "at one rank, the launcher's --mesh flags); "
+                         "compress: the compressor "
                          "(the paper's MLP trained, compressed at full width "
                          "at 1 and 4 workers, fc1 served through K1, then "
                          "recovered (60 steps) and served again; the train "
@@ -5805,6 +6204,12 @@ def main() -> None:
         del arows, aserves
         gc.collect()
         torch.cuda.empty_cache()
+    if args.only == "distributed":
+        emit(phase_distributed(dev))
+        emit(dict(phase="done", seconds=time.perf_counter() - t_start,
+                  host_peak_rss_bytes=host_peak_rss_bytes()))
+        print(smi, flush=True)
+        return
     if args.only in (None, "train"):
         trows, tserves, trained = run_train(dev)
         rows += trows

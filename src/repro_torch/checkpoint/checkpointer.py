@@ -47,8 +47,11 @@ def _children(node):
     if isinstance(node, (list, tuple)):
         return [(str(i), v) for i, v in enumerate(node)]
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        # a field marked static (a sharded TrainState's spec tree) holds
+        # no leaves
         return [(f".{f.name}", getattr(node, f.name))
-                for f in dataclasses.fields(node)]
+                for f in dataclasses.fields(node)
+                if not f.metadata.get("static")]
     return None
 
 
@@ -80,7 +83,7 @@ def _rebuild(like, leaves):
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
         return dataclasses.replace(like, **{
             f.name: _rebuild(getattr(like, f.name), leaves)
-            for f in dataclasses.fields(like)})
+            for f in dataclasses.fields(like) if not f.metadata.get("static")})
     return next(leaves)
 
 

@@ -86,21 +86,22 @@ def train_state_from_numpy(state, cfg: ArchConfig, device="cuda"):
     """A JAX-package ``TrainState`` whose leaves are numpy arrays (the caller
     runs ``jax.tree.map(np.asarray, state)``), read by attribute -> this
     package's ``TrainState``: params in ``cfg.param_dtype`` (the
-    :data:`F32_LEAVES` float32), the optimizer state (``mu``, or ``m``/``v``/``t``) float32 with
-    ``t`` int32, the step, and the sparsity report.  A state carrying
-    gradient-compression residuals is refused (not ported)."""
+    :data:`F32_LEAVES` float32), the optimizer state (``mu``, or
+    ``m``/``v``/``t``) float32 with ``t`` int32, the step, the
+    gradient-compression residuals (float32 ``[n_pods, ...]``) and the
+    sparsity report."""
     from repro_torch.training.trainer import TrainState
 
-    if getattr(state, "error_fb", None) is not None:
-        raise NotImplementedError("gradient-compression residuals (error_fb) "
-                                  "are not available in this package yet")
     report = getattr(state, "prox_report", None)
+    efb = getattr(state, "error_fb", None)
     return TrainState(
         params=params_from_numpy(state.params, cfg, device),
         opt_state=params_from_numpy(state.opt_state, cfg, device,
                                     _dtype=torch.float32),
         step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                           device=device),
+        error_fb=None if efb is None else params_from_numpy(
+            efb, cfg, device, _dtype=torch.float32),
         prox_report=None if report is None else params_from_numpy(
             report, cfg, device, _dtype=torch.float32))
 

@@ -48,13 +48,30 @@ reference's launcher does: the LM path's ``train_*`` gauges and
 ``train_tok_s`` where it prints, the MLP's ``train_accuracy{stage}`` and
 the compressor's pipeline metrics, and the process-wide registry.
 
-Not available yet, refused with a message: the mesh, multi-device and
-gradient-compression flags and the elastic demo (the ``distributed/``
-entry).  Checkpoints belong to the LM path: ``--arch mlp`` refuses them.
+The LM path trains sharded on a mesh (``--mesh 2x2``: 1-3 dims, axes
+``data``, ``data x model`` or ``pod x data x model``) over ``--devices N``
+ranks started here — gloo on the CPU under ``--device cpu``, NCCL over N
+visible GPUs otherwise — or over the world of an enclosing ``torchrun``;
+without ``--devices`` a mesh runs on one rank.  ``--grad-compression``
+(int8 error-feedback all-reduce across pods) needs the pod axis;
+``--elastic-demo`` drops half the ranks at step ``steps // 2`` when the
+mesh has more than 2, remeshes the survivors, reshards the state from a
+host copy and carries on without compression.  Rank 0 prints, checkpoints
+(the state gathered to it) and writes ``--metrics-out``.  Checkpoints
+belong to the LM path: ``--arch mlp`` refuses them.
+
+    # a 2 x 2 mesh of 4 CPU ranks (gloo), then the pod axis with compression
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --devices 4 --mesh 2x2 --elastic-demo --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --devices 2 --mesh 2x1x1 --grad-compression --steps 4
 """
 import argparse
+import dataclasses
 import json
 import os
+import shutil
+import tempfile
 import time
 
 import torch
@@ -68,17 +85,21 @@ from repro_torch.optim.optimizers import (adamw, prox_sgd, step_decay,
                                           tree_leaves, tree_map)
 from repro_torch.training import regularize
 
-_QUEUE = "ROADMAP Queue A"
-# flag -> (is it set?, what brings it)
-_REFUSED = {
-    "--mesh": (lambda a: a.mesh is not None, f"the distributed/ entry of {_QUEUE}"),
-    "--devices": (lambda a: a.devices is not None,
-                  f"the distributed/ entry of {_QUEUE}"),
-    "--grad-compression": (lambda a: a.grad_compression,
-                           f"the distributed/ entry of {_QUEUE}"),
-    "--elastic-demo": (lambda a: a.elastic_demo,
-                       f"the distributed/ entry of {_QUEUE}"),
-}
+_MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def mesh_dims(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``--mesh 2x2`` -> ((2, 2), ("data", "model"))."""
+    dims = tuple(int(x) for x in spec.split("x"))
+    return dims, _MESH_AXES[len(dims)]
+
+
+def build_mesh(spec: str | None):
+    if not spec:
+        return None
+    from repro_torch.distributed.device_mesh import make_mesh
+
+    return make_mesh(*mesh_dims(spec))
 
 
 def _where(device: torch.device) -> str:
@@ -286,11 +307,19 @@ def compress_handoff(args, train_stats: dict, params, device: torch.device,
     return stats
 
 
-def lm_main(args, device: torch.device, metrics=None) -> dict:
+def lm_main(args, device: torch.device, metrics=None, mesh=None) -> dict:
+    """The LM path; under ``mesh`` on every rank of it (rank 0 prints,
+    checkpoints and returns the stats; the others return None)."""
     from repro_torch.models import api
     from repro_torch.training.trainer import (init_train_state,
                                               make_train_step,
                                               record_step_metrics)
+
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+
+    def say(msg: str) -> None:
+        if rank0:
+            print(msg, flush=True)
 
     batch = 8 if args.batch is None else args.batch
     lr = 3e-3 if args.lr is None else args.lr
@@ -303,8 +332,8 @@ def lm_main(args, device: torch.device, metrics=None) -> dict:
         prox_specs = regularize.site_group_specs(
             api.abstract_params(cfg), cfg, args.lam, include=args.prox_include)
         opt = prox_sgd(momentum=0.9, specs=prox_specs)
-        print(f"[prox] {len(prox_specs)} site-derived group specs "
-              f"(lambda {args.lam})")
+        say(f"[prox] {len(prox_specs)} site-derived group specs "
+            f"(lambda {args.lam})")
     elif args.group_lasso > 0:
         opt = prox_sgd(momentum=0.9,
                        prox_spec={"ffn": (args.group_lasso, "columns")})
@@ -312,8 +341,11 @@ def lm_main(args, device: torch.device, metrics=None) -> dict:
         opt = adamw(weight_decay=0.01)
 
     lm = MarkovLM(vocab=cfg.vocab, k=8, seed=0)
-    state = init_train_state(args.seed, cfg, opt, prox_specs=prox_specs,
-                             device=device)
+    # the residuals keep the reference's default of 2 rows, whatever the
+    # mesh's pod count (its launcher never passes it)
+    state = init_train_state(args.seed, cfg, opt,
+                             grad_compression=args.grad_compression,
+                             prox_specs=prox_specs, device=device)
     ck = (Checkpointer(args.checkpoint_dir, keep=3)
           if args.checkpoint_dir else None)
     start_step = 0
@@ -321,9 +353,21 @@ def lm_main(args, device: torch.device, metrics=None) -> dict:
         s, restored = ck.restore_latest(state)
         if s is not None:
             state, start_step = restored, s + 1
-            print(f"[resume] restored checkpoint step {s}")
-    step_fn = make_train_step(cfg, opt, lr=lr, accum_steps=args.accum_steps,
-                              prox_specs=prox_specs)
+            say(f"[resume] restored checkpoint step {s}")
+    if mesh is not None:
+        from repro_torch.distributed.placement import gather_state, shard_state
+
+        state = shard_state(state, mesh)
+
+    def whole(state):
+        return state if mesh is None else gather_state(state, mesh)
+
+    def make_step(mesh):
+        return make_train_step(cfg, opt, lr=lr, accum_steps=args.accum_steps,
+                               grad_compression=args.grad_compression,
+                               mesh=mesh, prox_specs=prox_specs)
+
+    step_fn = make_step(mesh)
     launches0 = dispatch.launch_count("group_prox")
     t0 = time.time()
     m = {}
@@ -331,7 +375,7 @@ def lm_main(args, device: torch.device, metrics=None) -> dict:
         b = lm.batch(batch, args.seq, seed=i)
         state, m = step_fn(state, {k: torch.from_numpy(v).to(device)
                                    for k, v in b.items()})
-        if i % 10 == 0 or i == args.steps - 1:
+        if rank0 and (i % 10 == 0 or i == args.steps - 1):
             loss = float(m["loss"])  # the one host read, where it prints
             tok_s = batch * args.seq * max(i - start_step, 1) / (time.time() - t0)
             # recorded where the loop already reads the metrics to print,
@@ -346,19 +390,65 @@ def lm_main(args, device: torch.device, metrics=None) -> dict:
                   f"gnorm {float(m['grad_norm']):.2f}  tok/s {tok_s:.0f}"
                   + prox, flush=True)
         if ck and i % args.checkpoint_every == 0 and i > start_step:
-            ck.save(i, state)  # the leaves reach the host before it returns
+            full = whole(state)  # every rank gathers; rank 0 writes
+            if rank0:
+                ck.save(i, full)  # the leaves reach the host before it returns
+            del full
+        if (args.elastic_demo and mesh is not None and mesh.size > 2
+                and i == args.steps // 2):
+            mesh, state = _remesh(mesh, whole(state), say)
+            if mesh is None:
+                return None  # this rank was lost
+            args.grad_compression = False  # single pod left
+            step_fn = make_step(mesh)
     if ck:
-        ck.save(args.steps - 1, state, blocking=True)
-        print(f"[checkpoint] final save at step {args.steps - 1}")
+        full = whole(state)
+        if rank0:
+            ck.save(args.steps - 1, full, blocking=True)
+        say(f"[checkpoint] final save at step {args.steps - 1}")
+    if not rank0:
+        return None
     wall = time.time() - t0
     launches = dispatch.launch_count("group_prox") - launches0
-    print(f"done: {args.steps - start_step} steps in {wall:.1f}s on {_where(device)} "
+    where = _where(device) + ("" if mesh is None else
+                              f" x {torch.distributed.get_world_size()} ranks,"
+                              f" mesh {dict(mesh.shape)}")
+    print(f"done: {args.steps - start_step} steps in {wall:.1f}s on {where} "
           f"({cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}); "
           f"group_prox launches {launches}")
     return {"arch": cfg.name, "steps": args.steps - start_step,
             "start_step": start_step, "wall_s": wall,
             "loss": float(m["loss"]) if m else None,
-            "group_prox_launches": launches}
+            "group_prox_launches": launches,
+            "mesh": None if mesh is None else dict(mesh.shape)}
+
+
+def _remesh(mesh, full, say):
+    """The elastic demo's recovery (the reference launcher's): the first
+    half of the world survives (at least 2 ranks), remeshed by
+    ``plan_for_devices`` with a model axis of ``min(2, n)``; the state is
+    resharded from a host copy.  Every rank of the world calls it; returns
+    (new mesh, this rank's chunks), or (None, None) on a rank that was
+    lost."""
+    from repro_torch.distributed.elastic import plan_for_devices, reshard_tree
+    from repro_torch.distributed.sharding import map_tree, params_pspecs
+
+    world = torch.distributed.get_world_size()
+    survivors = list(range(world))[: max(world // 2, 2)]
+    plan = plan_for_devices(len(survivors),
+                            model_parallel=min(2, len(survivors)),
+                            multi_pod_threshold=1 << 30)
+    new_mesh = plan.build(survivors)
+    say(f"[elastic] simulated pod failure; remeshing {mesh.shape} -> "
+        f"{new_mesh.shape} and resharding state")
+    if not new_mesh.member:
+        return None, None
+    device = new_mesh.device
+    host = map_tree(lambda x: x.detach().cpu(), full)
+    specs = params_pspecs(host, new_mesh)
+    state = dataclasses.replace(reshard_tree(host, new_mesh, specs, device),
+                                pspecs=specs)
+    return new_mesh, state
 
 
 def parse_args(argv=None):
@@ -417,22 +507,74 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="LM: restore the newest intact checkpoint of "
                          "--checkpoint-dir and carry on from the next step")
-    # refused: each names the slice or queue entry that brings it
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--devices", type=int, default=None)
-    ap.add_argument("--grad-compression", action="store_true")
-    ap.add_argument("--elastic-demo", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="LM: train sharded on a mesh, e.g. 2x2 or 2x2x2 "
+                         "(data / data x model / pod x data x model)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="LM: ranks to start for the mesh (gloo on the CPU "
+                         "under --device cpu, NCCL over that many GPUs)")
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="LM: int8 error-feedback all-reduce across pods")
+    ap.add_argument("--elastic-demo", action="store_true",
+                    help="simulate losing half the devices mid-run and recover")
     ap.add_argument("--metrics-out", default=None,
                     help="write the run's metrics snapshot as JSON at exit")
     args = ap.parse_args(argv)
-    for flag, (is_set, where) in _REFUSED.items():
-        if is_set(args):
-            raise SystemExit(f"{flag} is not available in this package yet: "
-                             f"it comes with {where}")
+    if args.arch != "mlp" and args.grad_compression and (
+            args.mesh is None or "pod" not in mesh_dims(args.mesh)[1]):
+        raise SystemExit("--grad-compression needs a mesh with a pod axis "
+                         "(e.g. 2x2x2)")
     if args.arch == "mlp" and (args.checkpoint_dir or args.resume):
         raise SystemExit("--checkpoint-dir and --resume belong to the LM "
                          "path; --arch mlp trains without checkpoints")
     return args
+
+
+def _rank_main(rank: int, world: int, args) -> dict | None:
+    """One rank of a meshed LM run: its device (the CPU under gloo, card
+    ``rank`` under NCCL), the mesh, the run.  A rank outside the mesh has
+    nothing to train and returns at once."""
+    from repro_torch.distributed.device_mesh import mesh_device
+
+    mesh = build_mesh(args.mesh)
+    if not mesh.member:
+        return None
+    metrics = MetricsRegistry() if args.metrics_out else None
+    stats = lm_main(args, mesh_device(), metrics, mesh)
+    if stats is not None and args.metrics_out:
+        dump_metrics(args.metrics_out, [get_global(), metrics])
+        print(f"wrote {args.metrics_out}")
+    return stats
+
+
+def mesh_main(args) -> dict | None:
+    """``--mesh``: the ranks of the run — those of an enclosing torchrun,
+    ``--devices N`` spawned here, or this process alone — each through
+    :func:`_rank_main`.  Returns rank 0's stats."""
+    from repro_torch.distributed import device_mesh
+
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    if device_mesh.in_torchrun():
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        device_mesh.join(rank, world, backend=backend, init_method=None,
+                         device_index=int(os.environ.get("LOCAL_RANK", rank)))
+        try:
+            return _rank_main(rank, world, args)
+        finally:
+            device_mesh.leave()
+    n = args.devices or 1
+    if n > 1:
+        threads = max(1, (os.cpu_count() or 1) // n) if backend == "gloo" else None
+        return device_mesh.run_ranks(_rank_main, n, args, backend=backend,
+                                     threads=threads)[0]
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        device_mesh.join(0, 1, backend=backend,
+                         init_method=f"file://{os.path.join(tmp, 'store')}")
+        return _rank_main(0, 1, args)
+    finally:
+        device_mesh.leave()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv=None) -> dict:
@@ -440,6 +582,12 @@ def main(argv=None) -> dict:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train the "
                          "reduced config on the CPU")
+    if (args.device.startswith("cuda") and args.devices is not None
+            and args.devices > torch.cuda.device_count()):
+        raise SystemExit(f"--devices {args.devices}: only "
+                         f"{torch.cuda.device_count()} CUDA device(s) visible")
+    if args.arch != "mlp" and args.mesh is not None:
+        return mesh_main(args)
     device = torch.device(args.device)
     metrics = MetricsRegistry() if args.metrics_out else None
     if args.arch == "mlp":

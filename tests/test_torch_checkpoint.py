@@ -212,3 +212,41 @@ def test_train_state_flat_names_and_shard_equal_the_reference(tmp_path):
     assert step == 0
     for name, leaf in tck._flatten(back).items():
         assert torch.equal(leaf, tck._flatten(ts)[name]), name
+
+
+def test_train_state_with_residuals_saves_as_the_reference(tmp_path):
+    """A reference state with gradient-compression residuals (``error_fb``
+    float32 ``[2, ...]``, the reference's default pod count) converts,
+    saves byte for byte as the reference's shard, and each package restores
+    the other's checkpoint into its own state bit for bit."""
+    jcfg = jreduced(jget_arch("olmo-1b"), vocab=256)
+    tcfg = reduced_config(get_arch("olmo-1b"), vocab=256)
+    js = jtr.init_train_state(jax.random.PRNGKey(1), jcfg,
+                              jo.adamw(weight_decay=0.01),
+                              grad_compression=True)
+    rng = np.random.default_rng(0)
+    js = jtr.TrainState(  # residuals that are not all zeros
+        params=js.params, opt_state=js.opt_state, step=js.step,
+        error_fb=jax.tree.map(lambda e: jnp.asarray(
+            rng.standard_normal(e.shape), jnp.float32), js.error_fb))
+    ts = train_state_from_numpy(jax.tree.map(np.asarray, js), tcfg, "cpu")
+    leaves = jax.tree_util.tree_leaves(ts.error_fb)
+    assert leaves and all(t.dtype == torch.float32 and t.shape[0] == 2
+                          for t in leaves)
+    jnames = list(jck._flatten(js)[0])
+    assert list(tck._flatten(ts)) == jnames
+    assert any(n.startswith(".error_fb/") for n in jnames)
+    jck.Checkpointer(str(tmp_path / "ref")).save(5, js, blocking=True)
+    Checkpointer(str(tmp_path / "port")).save(5, ts, blocking=True)
+    with open(_shard(tmp_path / "ref", 5), "rb") as a, \
+            open(_shard(tmp_path / "port", 5), "rb") as b:
+        assert a.read() == b.read()
+    step, back = Checkpointer(str(tmp_path / "ref")).restore_latest(ts)
+    assert step == 5
+    for name, leaf in tck._flatten(back).items():
+        assert torch.equal(leaf, tck._flatten(ts)[name]), name
+    jstep, jback = jck.Checkpointer(str(tmp_path / "port")).restore_latest(js)
+    assert jstep == 5
+    for (p, a), b in zip(jax.tree_util.tree_flatten_with_path(jback)[0],
+                         jax.tree_util.tree_leaves(js)):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), p

@@ -6,7 +6,8 @@ site-derived specs (and the same with accumulation; and on the reduced
 qwen2.5-3b, QKV biases, and qwen2-vl-7b, an embeddings batch with m-RoPE
 ids), two AdamW steps
 continued from a JAX state that has already taken one; site specs equal to
-the reference's; the LM launcher on the CPU and its refused flags."""
+the reference's; the meshed step at one rank; the LM launcher on the CPU
+and its distributed flags over gloo ranks."""
 import json
 import os
 from dataclasses import replace
@@ -187,21 +188,49 @@ def test_accumulation_cannot_split_positions3_in_either_package():
             ts, {k: torch.from_numpy(v) for k, v in b.items()})
 
 
-def test_step_metrics_stay_on_the_device_and_refusals_name_their_entry():
+def test_step_metrics_stay_on_the_device_and_refusals_name_their_entry(
+        tmp_path):
+    """The step's metrics are device tensors and it updates in place; a
+    meshed step (a one-rank gloo mesh in this process) equals the unsharded
+    one bit for bit and takes only a sharded state; compression needs a
+    pod axis, as the reference asserts."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed import device_mesh
+    from repro_torch.distributed.placement import gather_state, shard_state
+
     _, tcfg = _cfgs()
     specs = treg.site_group_specs(tapi.abstract_params(tcfg), tcfg, 0.1)
     opt = to.prox_sgd(0.9, specs=specs)
     state = ttr.init_train_state(0, tcfg, opt, prox_specs=specs, device="cpu")
     assert set(state.prox_report) == {s.name for s in specs}
     params = state.params
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg, 0).items()}
+    sharded = None
+    device_mesh.join(0, 1, backend="gloo",
+                     init_method=f"file://{tmp_path / 'store'}")
+    try:
+        mesh = device_mesh.make_mesh((1, 1), ("data", "model"))
+        sharded = shard_state(state, mesh)
+        meshed = ttr.make_train_step(tcfg, opt, lr=LR, prox_specs=specs,
+                                     mesh=mesh)
+        with pytest.raises(ValueError, match="sharded state"):
+            meshed(state, batch)
+        sharded, ms = meshed(sharded, batch)
+        sharded = gather_state(sharded, mesh)
+    finally:
+        device_mesh.leave()
     state, m = ttr.make_train_step(tcfg, opt, lr=LR, prox_specs=specs)(
-        state, {k: torch.from_numpy(v) for k, v in _batch(tcfg, 0).items()})
+        state, batch)
     assert state.params is params  # updated in place
     assert all(isinstance(v, torch.Tensor) for v in m.values())
-    assert int(state.step) == 1
-    for kw in ({"grad_compression": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="distributed/"):
-            ttr.make_train_step(tcfg, opt, **kw)
+    assert int(state.step) == 1 and int(sharded.step) == 1
+    assert {k: float(v) for k, v in ms.items()} == {k: float(v) for k, v in m.items()}
+    for a, b in to.zip_leaves(state.params, sharded.params):
+        assert torch.equal(a, b)
+    for mesh in (None, SimpleNamespace(shape={"data": 2, "model": 2})):
+        with pytest.raises(ValueError, match="need a pod axis"):
+            ttr.make_train_step(tcfg, opt, grad_compression=True, mesh=mesh)
 
 
 def test_lm_launcher_runs_on_the_cpu(capsys):
@@ -254,32 +283,85 @@ def test_mlp_refuses_checkpoints():
             train.main(["--device", "cpu", "--arch", "mlp", *flags])
 
 
-REFUSED = [("--mesh", "2x2", "distributed/"), ("--devices", "4", "distributed/"),
-           ("--grad-compression", None, "distributed/"),
-           ("--elastic-demo", None, "distributed/"),
-           ("--metrics-out", "m.json", None)]
+LAUNCHER_FLAGS = [
+    ("--mesh", ["--mesh", "1x1"]),
+    ("--devices", ["--devices", "2", "--mesh", "2x1"]),
+    ("--grad-compression", ["--devices", "2", "--mesh", "2x1x1",
+                            "--grad-compression"]),
+    ("--elastic-demo", ["--devices", "4", "--mesh", "2x2", "--elastic-demo",
+                        "--steps", "6"]),
+    ("--metrics-out", ["--metrics-out", "m.json"]),
+]
 
 
-@pytest.mark.parametrize("flag,value,where", REFUSED, ids=[r[0] for r in REFUSED])
-def test_launcher_refuses_what_is_not_ported(flag, value, where, tmp_path,
-                                             monkeypatch):
-    """The reference launcher's flags: those of ``distributed/`` are refused
-    naming it; ``--metrics-out`` (ported with the telemetry) writes the
-    step metrics recorded where the loop prints."""
+@pytest.mark.parametrize("flag,argv", LAUNCHER_FLAGS,
+                         ids=[r[0] for r in LAUNCHER_FLAGS])
+def test_launcher_refuses_what_is_not_ported(flag, argv, tmp_path,
+                                             monkeypatch, capfd):
+    """The reference launcher's flags, each run: ``--mesh 1x1`` at one rank
+    (bit for bit the unsharded run), ``--devices 2 --mesh 2x1`` over two
+    gloo ranks (its checkpoint resumed at one rank), the pod axis with
+    ``--grad-compression`` (and the reference's message without it), the
+    elastic demo remeshing 4 ranks to 2, and ``--metrics-out`` writing the
+    step metrics recorded where the loop prints.  More GPUs than there are
+    exit non-zero."""
     from repro_torch.launch import train
 
-    argv = ["--device", "cpu", flag] + ([value] if value is not None else [])
-    if where is not None:
-        with pytest.raises(SystemExit, match=where):
-            train.main(argv)
-        return
     monkeypatch.chdir(tmp_path)
-    train.main(argv + ["--steps", "2", "--batch", "2", "--seq", "16"])
-    metrics = json.loads((tmp_path / value).read_text())["metrics"]
-    # the loop prints (and records) at step 0 and at the last step
-    assert metrics["train_steps_total"]["values"][0]["value"] == 2
-    assert metrics["train_step"]["values"][0]["value"] == 1
-    assert {"train_loss", "train_grad_norm", "train_tok_s"} <= set(metrics)
+    base = ["--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16"]
+    if flag == "--metrics-out":
+        train.main(base + argv)
+        metrics = json.loads((tmp_path / argv[1]).read_text())["metrics"]
+        # the loop prints (and records) at step 0 and at the last step
+        assert metrics["train_steps_total"]["values"][0]["value"] == 2
+        assert metrics["train_step"]["values"][0]["value"] == 1
+        assert {"train_loss", "train_grad_norm", "train_tok_s"} <= set(metrics)
+        return
+    if flag == "--grad-compression":
+        with pytest.raises(SystemExit, match="needs a mesh with a pod axis"):
+            train.main(base + ["--grad-compression"])
+    if flag == "--devices":
+        argv = argv + ["--checkpoint-dir", "ck"]
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="only 1 CUDA device"):
+            train.main(["--devices", "2", "--mesh", "2x1"])
+        monkeypatch.undo()
+        monkeypatch.chdir(tmp_path)
+    stats = train.main(base + argv)
+    out = capfd.readouterr().out
+    dims = tuple(int(x) for x in argv[argv.index("--mesh") + 1].split("x"))
+    if flag == "--elastic-demo":
+        dims = (1, 2)  # the survivors' mesh: data 1 x model min(2, 2)
+    assert tuple(stats["mesh"].values()) == dims
+    assert np.isfinite(stats["loss"]) and "step    0" in out
+    if flag == "--mesh":
+        plain = train.main(base)
+        assert plain["mesh"] is None and plain["loss"] == stats["loss"]
+    if flag == "--devices":
+        # written by rank 0 from the gathered state; resumed at one rank
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+
+        saved = Checkpointer("ck").restore_flat(1)
+        rest = train.main(base[:2] + ["--steps", "3", "--batch", "4", "--seq",
+                                      "16", "--mesh", "1x1", "--resume",
+                                      "--checkpoint-dir", "ck"])
+        assert "[resume] restored checkpoint step 1" in capfd.readouterr().out
+        assert rest["start_step"] == 2 and rest["steps"] == 1
+        straight = train.main(base[:2] + ["--steps", "2", "--batch", "4",
+                                          "--seq", "16", "--checkpoint-dir",
+                                          "one"])
+        assert abs(straight["loss"] - stats["loss"]) <= 1e-5 * abs(stats["loss"])
+        one = Checkpointer("one").restore_flat(1)
+        assert sorted(one) == sorted(saved)
+        for k, v in one.items():
+            np.testing.assert_allclose(saved[k], v, rtol=0,
+                                       atol=1e-5 * max(1.0, np.abs(v).max()))
+    if flag == "--elastic-demo":
+        assert ("[elastic] simulated pod failure; remeshing OrderedDict("
+                "{'data': 2, 'model': 2}) -> OrderedDict({'data': 1, "
+                "'model': 2}) and resharding state") in out
+        assert "step    5" in out and stats["steps"] == 6
 
 
 def test_launcher_without_a_card_exits_non_zero(monkeypatch):
