@@ -64,10 +64,12 @@ its plain PyTorch version:
 3. reduced serve: plan route == per-region route == plain route (CPU) ==
    dense-effective;
 4. full-width serve, per-region route: olmo-1b in bf16 (the plan needs
-   float32), d_model 2048, d_ff 8192, vocab 50304;
+   float32), d_model 2048, d_ff 8192, vocab 50304, the fixture's first
+   OLMO_CUT_LAYERS layers;
 5. full-width serve, plan route: the same model in float32, 16 layers; one
    step's logits against the per-region route on the same artifact; then
-   the prefix cache (``--only prefix`` runs it alone): four prompts of one
+   the prefix cache (``--only prefix`` runs it alone; in the full run on
+   the first OLMO_CUT_LAYERS layers): four prompts of one
    96-token head and their own 8-token tails on both routes, the prefix
    cache off (cold) and on (warm: the later requests prefill only their
    tail, ``prefill_extend`` against the gathered head), cold and warm
@@ -75,7 +77,12 @@ its plain PyTorch version:
    step unchanged, the plan route's warm tokens identical to the cold
    ones (the bf16 route's first-step logits compared, a differing token
    reported with its margin); the reduced deepseek-v2-lite (MLA) warm ==
-   cold and olmo-1b's tokenwise prefill == bulk; then the artifact on disk
+   cold and olmo-1b's tokenwise prefill == bulk; then the serving mesh
+   (``mesh_serve``, the fixture's first MESH_SERVE_LAYERS layers on both
+   routes: ``ServingEngine(mesh=)`` over a one-rank NCCL 1 x 1 mesh
+   against the unsharded engine — tokens and two steps' logits bit for
+   bit, launches a step equal, the collectives a step predicted, ms a
+   step and peak bytes of both); then the artifact on disk
    (its own fixture, cut to ARTIFACT_LAYERS layers: saved, loaded through
    the map and served bit for bit the in-memory serves).
    ``--layers`` cuts the depth of both olmo serves (never the width);
@@ -141,15 +148,20 @@ its plain PyTorch version:
    reference's hard cases and rows of every width to 16384 in float32 and
    bf16, then at the training runs' own views, each against its plain
    version and the oracle, bitwise from run to run, in place == out of
-   place, timed; olmo-1b at full width (bf16, remat) trained by
+   place, timed; olmo-1b at full width (bf16, remat; the full run trains
+   TRAIN_LAYERS layers, ``--only train`` all 16) trained by
    ``make_train_step`` with ProxSGD over every site (batch 8 x 512 tokens):
    a warm and five timed steps, 7 K5 launches a step, one step of the
    meshed step over a one-rank NCCL mesh against the unsharded step from
    the same state (bit for bit, ``meshed_step``), the update through K5
    against the other route, a profiled step; the paper's MLP through the
    port's launcher (``--arch mlp --prox``), 2 K5 launches a step;
-   ``--only distributed`` (not in the full run beyond that one step):
-   olmo-1b at full width on a one-rank NCCL world — the meshed step over
+   ``--only distributed`` (not in the full run beyond that one step and
+   ``mesh_serve``): first the serving mesh — ``mesh_serve`` at
+   MESH_SERVE_LAYERS layers and uncut, and mixtral-8x22b at
+   MIXTRAL_LAYERS in float32 with ``moe_manual`` meshed 1 x 1 against
+   unsharded, bit for bit — then olmo-1b training at full width on a
+   one-rank NCCL world — the meshed step over
    1 x 1 against the unsharded step over MESH_STEPS steps from one state
    (every leaf, loss and grad norm bitwise, 7 K5 launches and the
    predicted collectives a step), the compressed step over 1 x 1 x 1 (the
@@ -372,6 +384,14 @@ WHISPER_LAYERS = 2
 WHISPER_ENC = 1500  # whisper's 30-second encoder window: the cross-KV's rows
 # olmo-1b's artifact on disk: 16 layers write ~35 GB to the temp directory
 ARTIFACT_LAYERS = 2
+# room in the full run for the serving mesh's check: olmo-1b's
+# bf16 per-region serve and the prefix cache's serves run the first
+# OLMO_CUT_LAYERS layers of the uncut fixture (whose float32 plan serve
+# stays uncut; every layer launches the same kernels at the same shapes),
+# and olmo-1b trains TRAIN_LAYERS layers
+OLMO_CUT_LAYERS = 4
+TRAIN_LAYERS = 8
+MESH_SERVE_LAYERS = 2  # the full run's mesh_serve check
 FACTOR_ROUTE = "olmo-1b per-factor"  # K4's path: fused=False on layer 0
 MAX_LEN = 128  # the serves' KV view: 8 blocks of 16 tokens
 # |step kernel - plain| <= STEP_TOL * max(1, max|plain|): float32 sums in
@@ -1990,7 +2010,7 @@ def metric(eng, name, **labels) -> float:
 
 
 def serve(art, device, *, use_kernel, n_slots, prompts, max_new,
-          max_len=MAX_LEN, setup=None):
+          max_len=MAX_LEN, setup=None, mesh=None):
     """The serves' 8-token prompts through ``Scheduler`` + ``ServingEngine``
     (the prefix cache on, its default): they fill no 16-token block, so
     nothing is registered and no request may find cached tokens.  The
@@ -1998,9 +2018,11 @@ def serve(art, device, *, use_kernel, n_slots, prompts, max_new,
     is on, and must have counted what the serve saw: the steps it timed,
     the tokens it returned, the launches of the newest step under its
     bucket, and every launch in the process-wide counter.  ``setup(eng)``
-    runs on the new engine before the first request (whisper's cross-KV)."""
+    runs on the new engine before the first request (whisper's cross-KV);
+    ``mesh`` serves over a device mesh."""
     eng = ServingEngine(artifact=art, n_slots=n_slots, max_len=max_len,
-                        use_kernel=use_kernel, kv_block=16, device=device)
+                        use_kernel=use_kernel, kv_block=16, device=device,
+                        mesh=mesh)
     if setup is not None:
         setup(eng)
     sched = Scheduler(eng)
@@ -3217,10 +3239,12 @@ def merge_serve(a, b):
 
 def run_olmo(dev, layers):
     """olmo-1b at full width: the kernel phase, the reduced serve, the bf16
-    per-region serve, the float32 plan serve, the prefix cache's cold and
-    warm serves on both routes and the artifact on disk.  Returns the kernel
-    rows and the serves' launch counts (a route's prefix serves counted
-    with its serve: they launch at its dimensions)."""
+    per-region serve (cut to OLMO_CUT_LAYERS), the float32 plan serve, the
+    prefix cache's cold and warm serves on both routes (cut to
+    OLMO_CUT_LAYERS), the serving mesh's check (cut to MESH_SERVE_LAYERS)
+    and the artifact on disk.  Returns the kernel rows and the serves'
+    launch counts (a route's prefix serves counted with its serve: they
+    launch at its dimensions)."""
     base = get_arch("olmo-1b")
     if layers is not None:
         base = replace(base, n_layers=layers)
@@ -3235,8 +3259,12 @@ def run_olmo(dev, layers):
     art32 = seeded_artifact(cfg32, seed=2, device=dev)
     torch.cuda.synchronize()
     fixture_s = time.perf_counter() - t0
-    art16 = replace(art32, config=base, params=cast(art32.params, torch.bfloat16),
-                    plans={})
+    # the per-region serve and the prefix cache's serves: the fixture's
+    # first OLMO_CUT_LAYERS layers (the per-region one a bf16 cast of them)
+    n_cut = min(OLMO_CUT_LAYERS, base.n_layers)
+    cut32 = first_layers(art32, n_cut)
+    cut16 = replace(cut32, config=replace(base, n_layers=n_cut),
+                    params=cast(cut32.params, torch.bfloat16))
     plan = CompressedExecutor(art32, device=dev).step_plan(cfg32)
     emit(upload_plan(base.name, plan, dev, fixture_s=fixture_s))
 
@@ -3251,19 +3279,23 @@ def run_olmo(dev, layers):
               step_tolerance=STEP_TOL, rows=rows))
     emit(phase_reduced_serve(dev, red_cfg))
     emit(phase_serve_launcher(dev))
-    full, full_counts, by_shape, eng = phase_full_serve(dev, base, art16,
-                                                        fixture_s)
+    full, full_counts, by_shape, eng = phase_full_serve(dev, cut16.config,
+                                                        cut16, fixture_s)
     emit(full)
     # the plan serve's peak counts the plan route's own bytes: the bf16 cast
     # and the per-region streams go first
-    del eng, art16
+    del eng, cut16
     drop_per_region_copies(art32)
     planned, plan_counts, plan_shape = phase_plan_serve(
         dev, cfg32, art32, plan.stages.values(), plan.pack_s)
     emit(planned)
     emit(phase_overhead(dev, cfg32, art32))
-    pline, pserves = phase_prefix(dev, base, art32)
+    CompressedExecutor(cut32, device=dev).step_plan(cut32.config)
+    pline, pserves = phase_prefix(dev, replace(base, n_layers=n_cut), cut32)
     emit(pline)
+    del cut32
+    emit(phase_mesh_serve(dev, first_layers(
+        art32, min(MESH_SERVE_LAYERS, base.n_layers))))
     del art32, plan
     gc.collect()
     torch.cuda.empty_cache()
@@ -4514,11 +4546,12 @@ def checkpoint_round_trip(state, step_fn, batch, specs) -> dict:
                 next_step_group_prox_launches=launches)
 
 
-def phase_train_olmo(dev):
-    """olmo-1b at full width (configs/olmo_1b.py unchanged: bf16 parameters
-    and compute, remat on) trained by the port's ``make_train_step`` with
-    ProxSGD over every site's groups: one warm step and TRAIN_STEPS timed
-    ones, the kernel-vs-XLA-route update check, and a profiled step."""
+def phase_train_olmo(dev, cfg):
+    """olmo-1b at full width (``cfg``: configs/olmo_1b.py, in the full run
+    cut to TRAIN_LAYERS layers: bf16 parameters and compute, remat on)
+    trained by the port's ``make_train_step`` with ProxSGD over every
+    site's groups: one warm step and TRAIN_STEPS timed ones, the
+    kernel-vs-XLA-route update check, and a profiled step."""
     from repro_torch.obs import MetricsRegistry
     from repro_torch.optim.optimizers import prox_sgd, tree_leaves
     from repro_torch.training.regularize import site_group_specs
@@ -4526,7 +4559,6 @@ def phase_train_olmo(dev):
                                               make_train_step,
                                               record_step_metrics)
 
-    cfg = get_arch("olmo-1b")
     specs = site_group_specs(api.abstract_params(cfg), cfg, TRAIN_LAM)
     opt = prox_sgd(momentum=0.9, specs=specs)
     t0 = time.perf_counter()
@@ -4623,18 +4655,21 @@ def phase_train_mlp(dev):
             counts, by_shape, stats["steps"], (params, test, stats["accuracy"]))
 
 
-def run_train(dev):
-    """The training phases: K5's cases, olmo-1b at full width, the MLP.
-    Returns the kernel rows, the training runs' launch counts and the trained
-    MLP (params, held-out set, accuracy)."""
+def run_train(dev, layers=None):
+    """The training phases: K5's cases, olmo-1b at full width (cut to
+    ``layers`` layers when given), the MLP.  Returns the kernel rows, the
+    training runs' launch counts and the trained MLP (params, held-out set,
+    accuracy)."""
     cfg = get_arch("olmo-1b")
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
     rows = phase_train_kernels(dev, cfg)
     emit(dict(phase="train_kernels", tolerance_float32=PROX_TOL,
               tolerance_bf16=f"one bf16 ulp of the plain version + "
                              f"{PROX_TOL} * |a|",
               killed_rows_margin=PROX_MARGIN, rows=rows))
     torch.cuda.empty_cache()
-    olmo, counts, by_shape, steps = phase_train_olmo(dev)
+    olmo, counts, by_shape, steps = phase_train_olmo(dev, cfg)
     emit(olmo)
     serves = {f"{cfg.name} train": (counts, by_shape, steps)}
     gc.collect()
@@ -5016,6 +5051,228 @@ def phase_distributed(dev) -> dict:
                 backend="nccl", world=1, init_s=init_s, meshed=meshed,
                 compressed=compressed, rings=rings,
                 launchers=distributed_launchers())
+
+
+# ------------------------------------------------- the serving mesh
+
+# ServingEngine(mesh=) on a one-rank NCCL world: the 1 x 1 mesh runs every
+# collective of the sharded step through NCCL (each gather one copy) and
+# must give the unsharded engine's tokens and logits bit for bit; 2- and
+# 4-rank meshes run on the CPU (tests/test_torch_sharded_serving.py)
+MESH_PROMPTS = 6
+MESH_MAX_NEW = 16
+MOE_MANUAL_MAX_NEW = 4
+
+
+def first_layers(art, n: int):
+    """``art`` cut to its first ``n`` layers: those layers' records and
+    packed sites, the stacked parameters' first ``n`` rows (views), no
+    plans (each serve packs its own)."""
+    import re
+
+    def layer(name):
+        return int(re.search(r"\.l(\d+)(?:\.|$)", name).group(1))
+
+    records = {k: v for k, v in art.records.items() if layer(k) < n}
+    params = dict(art.params)
+    params["blocks"] = {k: tree_cut(v, n) for k, v in art.params["blocks"].items()}
+    return replace(art, config=replace(art.config, n_layers=n),
+                   records=records, params=params, plans={},
+                   packed={k: v for k, v in art.packed.items() if k in records})
+
+
+def tree_cut(tree, n):
+    if isinstance(tree, dict):
+        return {k: tree_cut(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def mesh_step_collectives(route: str, n_layers: int) -> dict:
+    """The collectives of one olmo-1b decode step over a 1 x 1 mesh (the
+    slots do not split; every weight's spec names both axes): the
+    embedding gathers its "data" axis and all-reduces its vocabulary split,
+    the tied head gathers "data" and its vocabulary columns; the plan route
+    gathers the K and V pools for its kernels, the per-region route's
+    attention all-reduces its partial scores and gathers its output a
+    layer (the projections run on whole compressed sites)."""
+    if route == "plan":
+        return {"all_gather": 1 + 2 + 2, "all_reduce": 1}
+    return {"all_gather": 1 + 2 + n_layers, "all_reduce": 1 + n_layers}
+
+
+def mesh_copy_bytes(eng) -> int:
+    """The bytes one meshed olmo-1b decode step copies through its gathers
+    at world size 1: the embedding table twice (the lookup, the tied head),
+    and the K and V pools (plan route) or each layer's attention output
+    (per-region route)."""
+    cfg = eng.cfg
+    emb = eng.params["embed"].local
+    out = 2 * emb.numel() * emb.element_size()
+    if eng.n_layer_plans:
+        return out + sum(eng.state[k].numel() * eng.state[k].element_size()
+                         for k in ("k", "v"))
+    return out + cfg.n_layers * BATCH * cfg.n_heads * cfg.hd * 4
+
+
+def engine_logits(art, dev, mesh) -> torch.Tensor:
+    """Two decode steps' logits [2, B, V] of a fresh engine on ``art`` (over
+    ``mesh`` when given) after an 8-token prompt in every slot: seeded
+    tokens at positions 8 and 9, each row written into its slot's own
+    block (rows of a fresh table all map the null block, and a scatter of
+    duplicate indices leaves any one of them on the card)."""
+    eng = ServingEngine(artifact=art, n_slots=BATCH, max_len=MAX_LEN,
+                        kv_block=16, device=dev, mesh=mesh, metrics=False)
+    for p in prompts_for(art.config, BATCH):
+        eng.submit(p)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, art.config.vocab, (2, BATCH, 1)))
+    out = [eng.decode_logits(toks[t], torch.full((BATCH,), 8 + t)).float()
+           for t in range(2)]
+    del eng
+    return torch.stack(out)
+
+
+def step_collectives(eng, prompts) -> dict:
+    """The collectives of one decode step of ``eng`` (idle after its serve):
+    the prompts admitted again, one step taken, the next one counted."""
+    from repro_torch.distributed import collectives
+
+    for p in prompts:
+        eng.submit(p, max_new=4)
+    eng.step()
+    collectives.reset_collective_counts()
+    eng.step()
+    torch.cuda.synchronize()
+    return collectives.collective_counts()
+
+
+def mesh_pair(art, dev, mesh, route, *, max_new=MESH_MAX_NEW, predict=True):
+    """``art`` served unsharded and over ``mesh`` (6 prompts on 8 slots):
+    tokens and two steps' logits bit for bit, the same launches a step,
+    the meshed step's collectives as :func:`mesh_step_collectives` says
+    (``predict``), ms a step and peak device bytes of both."""
+    from repro_torch.distributed import collectives
+
+    cfg = art.config
+    prompts = prompts_for(cfg, MESH_PROMPTS)
+    out, toks = {}, {}
+    for tag, m in (("unsharded", None), ("meshed", mesh)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_collective_counts()
+        eng, res, step_s = serve(art, dev, use_kernel=True, n_slots=BATCH,
+                                 prompts=prompts, max_new=max_new, mesh=m)
+        torch.cuda.synchronize()
+        served = collectives.collective_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for r in res:
+            if r.error or not r.finished or len(r.tokens) != r.prompt_len + max_new:
+                fail(f"mesh {route} {tag}: a request did not finish: {r.error}")
+        toks[tag] = [r.tokens for r in res]
+        stats = eng.plan_stats()
+        out[tag] = dict(ms_per_step=float(np.median(step_s[1:] or step_s)) * 1e3,
+                        steps=len(step_s), peak_device_bytes=peak,
+                        launches_per_step=eng.kernel_launches_per_step,
+                        n_layer_plans=stats["n_layer_plans"],
+                        fallbacks=stats["fallbacks"],
+                        serve_collectives=served)
+        if m is not None:
+            out[tag].update(mesh=stats["mesh"],
+                            step_collectives=step_collectives(eng, prompts),
+                            copy_bytes_per_step=mesh_copy_bytes(eng))
+        del eng, res
+    lg = {tag: engine_logits(art, dev, m)
+          for tag, m in (("unsharded", None), ("meshed", mesh))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = mesh_step_collectives(route, cfg.n_layers) if predict else None
+    m, u = out["meshed"], out["unsharded"]
+    if toks["meshed"] != toks["unsharded"]:
+        fail(f"mesh {route}: tokens differ from the unsharded engine's")
+    if not same_bits(lg["meshed"], lg["unsharded"]):
+        fail(f"mesh {route}: logits differ from the unsharded engine's by "
+             f"{float((lg['meshed'] - lg['unsharded']).abs().max())}")
+    if (m["launches_per_step"] != u["launches_per_step"]
+            or m["fallbacks"] != u["fallbacks"] or m["mesh"]["fallbacks"]
+            and cfg.moe is None):
+        fail(f"mesh {route}: launches/fallbacks {m} against {u}")
+    if predict and m["step_collectives"] != want:
+        fail(f"mesh {route}: collectives a step {m['step_collectives']}, "
+             f"predicted {want}")
+    return dict(route=route, arch=cfg.name, layers=cfg.n_layers,
+                dtype=cfg.compute_dtype, tokens_bitwise=True,
+                logits_bitwise=True, logits_shape=list(lg["meshed"].shape),
+                predicted_collectives=want,
+                sample_tokens=toks["meshed"][0][-max_new:], **out)
+
+
+def phase_mesh_serve(dev, art32) -> dict:
+    """The serving mesh's check on ``art32`` (olmo-1b's float32 fixture at
+    full width, cut in depth): ``ServingEngine(mesh=make_mesh((1, 1),
+    ("data", "model")))`` against the unsharded engine, on the float32
+    plan route and on the bf16 per-region route of a cast of its
+    parameters (:func:`mesh_pair`)."""
+    from repro_torch.distributed.device_mesh import make_mesh
+
+    t0 = time.perf_counter()
+    base = replace(art32.config, param_dtype=get_arch("olmo-1b").param_dtype,
+                   compute_dtype=get_arch("olmo-1b").compute_dtype)
+    art16 = replace(art32, config=base,
+                    params=cast(art32.params, torch.bfloat16))
+    CompressedExecutor(art32, device=dev).step_plan(art32.config)
+    with one_rank_world():
+        mesh = make_mesh((1, 1), ("data", "model"))
+        routes = [mesh_pair(art32, dev, mesh, "plan"),
+                  mesh_pair(art16, dev, mesh, "per-region")]
+    del art16
+    drop_per_region_copies(art32)
+    return dict(phase="mesh_serve", arch=art32.config.name,
+                layers=art32.config.n_layers, mesh={"data": 1, "model": 1},
+                backend="nccl", world=1, n_slots=BATCH,
+                requests=MESH_PROMPTS, max_new=MESH_MAX_NEW, routes=routes,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_mesh_distributed(dev) -> dict:
+    """``--only distributed``'s serving checks: the full run's mesh_serve
+    check (olmo-1b cut to MESH_SERVE_LAYERS), olmo-1b uncut on both routes
+    under the 1 x 1 mesh, and mixtral-8x22b cut to MIXTRAL_LAYERS in
+    float32 with ``moe_manual`` (the step plan refused by name: the experts
+    on their dense weights through ``moe_ffn_manual`` under the mesh,
+    ``moe_ffn`` without it) — each against the unsharded engine, tokens and
+    logits bit for bit."""
+    from repro_torch.distributed.device_mesh import make_mesh
+
+    t0 = time.perf_counter()
+    base = get_arch("olmo-1b")
+    cfg32 = replace(base, param_dtype="float32", compute_dtype="float32")
+    art32 = seeded_artifact(cfg32, seed=2, device=dev)
+    cut = phase_mesh_serve(dev, first_layers(art32, MESH_SERVE_LAYERS))
+    emit(cut)
+    uncut = phase_mesh_serve(dev, art32)
+    emit(dict(uncut, phase="mesh_serve_uncut"))
+    del art32
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = replace(get_arch("mixtral-8x22b"), n_layers=MIXTRAL_LAYERS,
+                   param_dtype="float32", compute_dtype="float32",
+                   moe_manual=True)
+    t1 = time.perf_counter()
+    mart = seeded_artifact(mcfg, seed=2, device=dev, host_effective=False)
+    fixture_s = time.perf_counter() - t1
+    with one_rank_world():
+        mesh = make_mesh((1, 1), ("data", "model"))
+        manual = mesh_pair(mart, dev, mesh, "per-region",
+                           max_new=MOE_MANUAL_MAX_NEW, predict=False)
+    if manual["meshed"]["fallbacks"] != {"step": "moe_manual"}:
+        fail(f"moe_manual: plan fallbacks {manual['meshed']['fallbacks']}")
+    del mart
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(phase="mesh_moe_manual", arch=mcfg.name, layers=mcfg.n_layers,
+                fixture_s=fixture_s, moe_manual=manual,
+                seconds=time.perf_counter() - t0)
 
 
 # ------------------------------------ the compressor (Algorithm 1), PR 23
@@ -6088,7 +6345,11 @@ def main() -> None:
                          "cross-KV from the port's encoder (the full run "
                          "cuts it to WHISPER_LAYERS and serves float32 "
                          "only); train: the "
-                         "training phases alone; distributed: olmo-1b at "
+                         "training phases alone (olmo-1b uncut); "
+                         "distributed: ServingEngine(mesh=) over a one-rank "
+                         "NCCL 1x1 mesh == unsharded bit for bit (olmo-1b "
+                         "at 2 layers and uncut on both routes, mixtral "
+                         "moe_manual at 1 layer), then olmo-1b training at "
                          "full width on a one-rank NCCL mesh (the meshed "
                          "step == the unsharded step over 3 steps, the "
                          "compressed step at 1x1x1 and compressed_psum "
@@ -6205,13 +6466,15 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     if args.only == "distributed":
+        emit(phase_mesh_distributed(dev))
         emit(phase_distributed(dev))
         emit(dict(phase="done", seconds=time.perf_counter() - t_start,
                   host_peak_rss_bytes=host_peak_rss_bytes()))
         print(smi, flush=True)
         return
     if args.only in (None, "train"):
-        trows, tserves, trained = run_train(dev)
+        trows, tserves, trained = run_train(
+            dev, TRAIN_LAYERS if args.only is None else None)
         rows += trows
         serves.update(tserves)
         gc.collect()

@@ -3,11 +3,17 @@
 
 The reference's models call ``constrain(x, ...)`` with symbolic axes to
 anchor GSPMD's sharding propagation inside layers.  The port has no
-propagation to anchor: its sharded train step computes each rank's part
-explicitly (:mod:`repro_torch.training.trainer`), so :func:`constrain`
-resolves the spec the reference would pin — for the record and for code
-that wants it (:func:`resolve`) — and returns ``x`` unchanged.  The port's
-models need no call sites.
+propagation to anchor: its sharded train step and its sharded serving step
+compute each rank's part explicitly (:mod:`repro_torch.training.trainer`,
+:mod:`repro_torch.distributed.tp`), so :func:`constrain` resolves the spec
+the reference would pin — for the record and for code that wants it
+(:func:`resolve`) — and returns ``x`` unchanged.  The port's models need no
+call sites.
+
+The current mesh (:func:`mesh_context`, :func:`get_mesh`) is the serving
+step's: ``models.api`` enters it for a call given ``mesh=``, and the models
+read it where the reference's do — ``moe_ffn_manual``'s mesh, the decode
+step's KV split, the step plan run per shard.
 
 Symbolic axes: "batch" -> ("pod","data") (whichever exist), "data",
 "model", None; any axis that does not divide becomes None, and an axis an

@@ -55,18 +55,20 @@ def capacity(n_tokens: int, top_k: int, capacity_factor: float,
                    round(n_tokens * top_k * capacity_factor / n_experts)))
 
 
-def route_tokens(xt: torch.Tensor, router: torch.Tensor, *, top_k: int,
-                 cap: int, norm_topk: bool):
+def route_tokens(xt: torch.Tensor, router: torch.Tensor | None, *,
+                 top_k: int, cap: int, norm_topk: bool, logits=None):
     """Routing of ``T`` tokens, ``xt [T, d]`` float32, ``router [d, E]``
     float32 -> ``(probs [T, E], gates [T, k], sel [T, k], keep [T, k],
     slot [T, k])``: softmax, top-k by a stable descending sort (an equal
     probability keeps the lower expert first), renormalisation, the rank of
     each (token, choice) in its expert's queue by the exclusive cumsum over
     the ``[T * k, E]`` one-hot, and the flat slot ``e * cap + rank``
-    (``E * cap`` when the rank is beyond capacity)."""
+    (``E * cap`` when the rank is beyond capacity).  ``logits [T, E]``, when
+    given, are ``xt @ router`` already computed (a partitioned router)."""
     t = xt.shape[0]
-    n_exp = router.shape[1]
-    logits = xt @ router
+    if logits is None:
+        logits = xt @ router
+    n_exp = logits.shape[1]
     probs = torch.softmax(logits, dim=-1)
     gates, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, sel = gates[:, :top_k], sel[:, :top_k]

@@ -41,10 +41,25 @@ the live roofline as JSON; ``--trace-out G`` one span a request as JSONL;
 ``--metrics-port P`` serves ``GET /metrics`` (Prometheus text) on
 127.0.0.1 for the run (0 picks a free port; its URL is printed).
 
+``--dp D --tp T`` serves over a ("data", "model") mesh of D x T ranks
+(1 x 1 is no mesh, as in the reference): the ranks of an enclosing
+``torchrun``, or D x T ranks started here — gloo on the CPU under ``--device
+cpu``, NCCL over the visible GPUs (one rank a card).  Every rank builds the
+same artifact and serves the same requests (``ServingEngine(mesh=)``); rank
+0 prints the lines below, its ``where`` field ``mesh DxT``, and writes the
+telemetry files.
+
+    # 4 gloo ranks on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --dp 2 --tp 2
+
 The reference launcher's ``--compress`` (compress, then serve: ROADMAP A8)
-and ``--dp``/``--tp`` (a device mesh: A7) are accepted and refused by name.
+is accepted and refused by name.
 """
 import argparse
+import contextlib
+import io
+import os
 import time
 from dataclasses import replace
 
@@ -61,9 +76,17 @@ _QUEUE = "ROADMAP Queue A"
 # the reference launcher's flags: flag -> (is it set?, what brings it)
 _REFUSED = {
     "--compress": (lambda a: a.compress, f"A8 of {_QUEUE}"),
-    "--dp": (lambda a: a.dp != 1, f"the distributed/ entry (A7) of {_QUEUE}"),
-    "--tp": (lambda a: a.tp != 1, f"the distributed/ entry (A7) of {_QUEUE}"),
 }
+
+
+def build_mesh(dp: int, tp: int):
+    """A ("data", "model") mesh of ``dp`` x ``tp`` ranks of this process's
+    group, or None for 1 x 1."""
+    if dp * tp <= 1:
+        return None
+    from repro_torch.distributed.device_mesh import make_mesh
+
+    return make_mesh((dp, tp), ("data", "model"))
 
 
 def main(argv=None) -> None:
@@ -105,10 +128,11 @@ def main(argv=None) -> None:
                          "for the run's duration (0 = ephemeral)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    # the reference's flags, refused below
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel mesh axis")
+    # the reference's flag, refused below
     ap.add_argument("--compress", action="store_true")
-    ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1)
     args = ap.parse_args(argv)
     for flag, (is_set, where) in _REFUSED.items():
         if is_set(args):
@@ -118,13 +142,65 @@ def main(argv=None) -> None:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "versions on the CPU")
+    n = args.dp * args.tp
+    if n > 1:
+        if args.device.startswith("cuda") and n > torch.cuda.device_count():
+            raise SystemExit(f"--dp {args.dp} x --tp {args.tp} needs {n} "
+                             f"GPUs, {torch.cuda.device_count()} visible")
+        print(mesh_main(args), end="")
+        return
+    serve(args, torch.device(args.device))
+
+
+def _rank_main(rank: int, world: int, args) -> str | None:
+    """One rank of a meshed serve: its mesh, its engine, the run; returns
+    what rank 0 printed (the other ranks print nothing and write no
+    telemetry file).  A rank outside the mesh returns at once."""
+    from repro_torch.distributed.device_mesh import mesh_device
+
+    mesh = build_mesh(args.dp, args.tp)
+    if not mesh.member:
+        return None
+    if rank != 0:
+        args = argparse.Namespace(**{**vars(args), "metrics_out": None,
+                                     "trace_out": None, "metrics_port": None})
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve(args, mesh_device(), mesh)
+    return out.getvalue() if rank == 0 else None
+
+
+def mesh_main(args) -> str:
+    """``--dp``/``--tp``: the ranks of an enclosing torchrun, or D x T ranks
+    started here, each through :func:`_rank_main`.  Returns rank 0's
+    output (empty on the other ranks of a torchrun)."""
+    from repro_torch.distributed import device_mesh
+
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    n = args.dp * args.tp
+    if device_mesh.in_torchrun():
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        device_mesh.join(rank, world, backend=backend, init_method=None,
+                         device_index=int(os.environ.get("LOCAL_RANK", rank)))
+        try:
+            return _rank_main(rank, world, args) or ""
+        finally:
+            device_mesh.leave()
+    threads = max(1, (os.cpu_count() or 1) // n) if backend == "gloo" else None
+    return device_mesh.run_ranks(_rank_main, n, args, backend=backend,
+                                 threads=threads)[0]
+
+
+def serve(args, device: torch.device, mesh=None) -> None:
+    """Build the seeded artifact and its engine (over ``mesh`` when given)
+    and serve the launcher's requests."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg, vocab=256)
     if args.layers is not None:
         cfg = replace(cfg, n_layers=args.layers)
     t0 = time.time()
-    artifact = seeded_artifact(cfg, seed=args.seed, device=args.device)
+    artifact = seeded_artifact(cfg, seed=args.seed, device=device)
     print(f"seeded artifact: {len(artifact.records)} sites, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model} "
           f"({time.time() - t0:.1f}s)")
@@ -137,7 +213,7 @@ def main(argv=None) -> None:
                         use_kernel=args.kernel, kv_block=args.kv_block or None,
                         kv_blocks=args.kv_blocks,
                         prefix_cache=args.prefix_cache, tracer=True,
-                        device=args.device)
+                        device=device, mesh=mesh)
     registries = [obs.get_global(), eng.metrics]
     srv = None
     if args.metrics_port is not None:
@@ -172,8 +248,11 @@ def _run(args, eng, prompts, registries) -> None:
         tag = f" [error: {r.error}]" if r.error else ""
         print(f"req{i}: prompt={r.tokens[:r.prompt_len]} -> "
               f"{r.tokens[r.prompt_len:]}{tag}")
-    where = (torch.cuda.get_device_name(eng.device)
-             if eng.device.type == "cuda" else "cpu")
+    if eng.mesh is not None:
+        where = f"mesh {args.dp}x{args.tp}"
+    else:
+        where = (torch.cuda.get_device_name(eng.device)
+                 if eng.device.type == "cuda" else "cpu")
     print(f"{tok} tokens in {dt:.1f}s ({tok / dt:.1f} tok/s, "
           f"{args.slots} slots, {eng.step_dispatches} steps, "
           f"{eng.kernel_launches_per_step} kernel launches/step, {where})")

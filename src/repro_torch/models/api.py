@@ -10,12 +10,20 @@ family to its dense matrices, and :func:`compress_model` runs Algorithm 1
 over all of them, returning the
 :class:`repro_torch.core.artifact.CompressedModel` that
 ``ServingEngine(artifact=...)`` serves.
+
+``prefill``, ``prefill_extend`` and ``decode`` take ``mesh=`` (a serving
+mesh): the call runs inside :class:`repro_torch.distributed.act_shard
+.mesh_context`, and the models compute this rank's part of it from
+:class:`~repro_torch.distributed.tp.Sharded` parameters.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.act_shard import mesh_context
 
 from . import transformer, whisper
 
@@ -61,28 +69,38 @@ def family_of(cfg) -> str:
     raise TypeError(f"cannot infer architecture family from {type(cfg).__name__}")
 
 
-def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False):
+def _on(mesh):
+    return contextlib.nullcontext() if mesh is None else mesh_context(mesh)
+
+
+def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
+            mesh=None):
     """Returns final hidden states (and caches when collect_cache); the
     encoder-decoder returns its encoder's states of ``batch["frames"]`` and
     None (its decoder runs token by token against the cross-KV the caller
     fills)."""
     if cfg.enc_layers > 0:
         return whisper.encode(params, cfg, batch["frames"]), None
-    return transformer.forward(
-        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
-        positions3=batch.get("positions3"), collect_cache=collect_cache)
+    with _on(mesh):
+        return transformer.forward(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), positions3=batch.get("positions3"),
+            collect_cache=collect_cache)
 
 
-def prefill_extend(params, cfg: ArchConfig, tokens, positions, past, last):
+def prefill_extend(params, cfg: ArchConfig, tokens, positions, past, last, *,
+                   mesh=None):
     """Tail prefill against a resident KV prefix (prefix-cache hit path):
     see :func:`repro_torch.models.transformer.forward_extend`."""
     if not paged_supported(cfg):
         raise ValueError(f"prefill_extend: family {cfg.family!r} is not paged")
-    return transformer.forward_extend(params, cfg, tokens, positions, past,
-                                      last)
+    with _on(mesh):
+        return transformer.forward_extend(params, cfg, tokens, positions,
+                                          past, last)
 
 
-def decode(params, cfg: ArchConfig, state, token, pos, *, executor=None):
+def decode(params, cfg: ArchConfig, state, token, pos, *, executor=None,
+           mesh=None):
     """One decode step; ``state`` is updated in place and returned.
     ``executor`` is the compressed-serving hook: a site-keyed registry
     (``repro_torch.serving.executor.CompressedExecutor``) that routes every
@@ -90,8 +108,9 @@ def decode(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     if cfg.enc_layers > 0:
         return whisper.decode_step(params, cfg, state, token, pos,
                                    executor=executor)
-    return transformer.decode_step(params, cfg, state, token, pos,
-                                   executor=executor)
+    with _on(mesh):
+        return transformer.decode_step(params, cfg, state, token, pos,
+                                       executor=executor)
 
 
 # splitmix64 constants, as signed 64-bit integers

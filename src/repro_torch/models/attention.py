@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import tp
+
 from .layers import (apply_mrope, apply_rope, linear, site_fmt, site_linear,
                      site_linear_group)
 
@@ -196,7 +198,7 @@ def attention_decode(
     p, x, cache, pos, *, n_heads: int, n_kv: int, head_dim: int,
     window: int | None = None, rope_theta: float | None = 10000.0,
     mrope_sections=None, mrope_positions=None, cross: bool = False,
-    executor=None, site: str | None = None,
+    executor=None, site: str | None = None, kv_split=None,
 ):
     """One-token decode. x [B,1,d]; pos [B] absolute position of this token
     (with ``mrope_sections``, q and the new k take m-RoPE at
@@ -224,6 +226,11 @@ def attention_decode(
     does a contiguous, unwindowed row at ``pos >= Smax`` (as in the JAX
     package: whisper's self-KV holds ``max_decoder_len`` rows): it attends
     to the rows already cached.
+
+    ``kv_split`` ``(mesh, dim)`` (a serving mesh): the cache holds this
+    rank's slice of the keys and values along ``dim`` (-1 head_dim, -2 the
+    kv heads); the new row is rotated whole, its slice written, and the
+    attention runs through :func:`repro_torch.distributed.tp.attend`.
     """
     b = x.shape[0]
     pos = pos.long()
@@ -257,14 +264,17 @@ def attention_decode(
         slot = torch.where(pos >= 0, pos % smax, torch.full_like(pos, -1))
     else:
         slot = pos
+    k_w, v_w = k_new[:, 0], v_new[:, 0]
+    if kv_split is not None:
+        k_w, v_w = (tp.kv_local(t, *kv_split) for t in (k_w, v_w))
     if paged:
-        _paged_scatter(cache.k, cache.tbl, slot, k_new[:, 0])
-        _paged_scatter(cache.v, cache.tbl, slot, v_new[:, 0])
+        _paged_scatter(cache.k, cache.tbl, slot, k_w)
+        _paged_scatter(cache.v, cache.tbl, slot, v_w)
         k = paged_view(cache.k, cache.tbl)
         v = paged_view(cache.v, cache.tbl)
     else:
-        _row_scatter(cache.k, slot, k_new[:, 0])
-        _row_scatter(cache.v, slot, v_new[:, 0])
+        _row_scatter(cache.k, slot, k_w)
+        _row_scatter(cache.v, slot, v_w)
         k, v = cache.k, cache.v
     _row_scatter(cache.kpos, slot, pos.to(cache.kpos.dtype))
     kpos = cache.kpos
@@ -273,7 +283,8 @@ def attention_decode(
         valid = valid & (kpos > (pos[:, None] - window))
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     mask = torch.where(valid, zero, zero + _NEG)[:, None, None, None, :]
-    out = _sdpa(qg, k, v, mask)
+    out = (_sdpa(qg, k, v, mask) if kv_split is None
+           else tp.attend(qg, k, v, mask, *kv_split))
     out = out.reshape(b, 1, n_heads * head_dim)
     return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache
 

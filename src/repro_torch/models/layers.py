@@ -3,6 +3,12 @@
 Plain functions on tensors; parameters are nested dicts of tensors.  Compute
 dtype and accumulation dtype are explicit (bf16 compute / f32 statistics at
 full width, f32 throughout in the reduced configs).
+
+Under a serving mesh a parameter may be a
+:class:`~repro_torch.distributed.tp.Sharded` leaf (this rank's chunk and its
+spec): :func:`linear` then computes this rank's part through
+:mod:`repro_torch.distributed.tp`, and a norm gain or a bias is gathered at
+use.  Plain tensors take the code below unchanged.
 """
 from __future__ import annotations
 
@@ -10,6 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tp
 
 __all__ = [
     "linear",
@@ -29,6 +37,8 @@ __all__ = [
 
 
 def linear(p, x):
+    if isinstance(p["w"], tp.Sharded):
+        return tp.linear(x, p["w"], p.get("b"))
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
@@ -63,7 +73,7 @@ def site_linear(executor, name, p, x):
         return linear(p, x)
     y = matvec_acts(fn, x)
     if "b" in p:
-        y = y + p["b"]
+        y = y + tp.whole(p["b"])
     return y
 
 
@@ -93,7 +103,7 @@ def site_linear_group(executor, names, ps, xs):
     for y, p in zip(ys, ps):
         o = y.T.reshape(*lead, -1).to(x.dtype)
         if "b" in p:
-            o = o + p["b"]
+            o = o + tp.whole(p["b"])
         outs.append(o)
     return outs
 
@@ -102,7 +112,7 @@ def rms_norm(x, w, eps: float = 1e-6):
     dt = x.dtype
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(dt) * w
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * tp.whole(w)
 
 
 def layer_norm(x, w, b, eps: float = 1e-5):

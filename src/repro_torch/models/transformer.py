@@ -18,6 +18,15 @@ insertion).  **Decode updates the state in place** (the JAX package
 returned new arrays and relied on ``donate_argnums``): ``decode_step``
 hands back the dict it was given, its KV caches or recurrent states
 written.
+
+Under a serving mesh (``act_shard.get_mesh()``, which ``models.api`` sets
+for a call given ``mesh=``) the dense and MoE decoders take
+:class:`~repro_torch.distributed.tp.Sharded` parameters: the embedding, the
+projections and the tied head compute this rank's part through
+:mod:`repro_torch.distributed.tp`, and the decode step's KV cache holds this
+rank's slice (``tp.kv_split``).  ``moe_manual`` runs
+:func:`~repro_torch.models.moe.moe_ffn_manual` (without an executor, as in
+the reference); without a mesh it is ``moe_ffn``.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tp
+from repro_torch.distributed.act_shard import get_mesh
 
 from .attention import (KVCache, MLACache, PagedKVCache, PagedMLACache,
                         attention_decode, attention_extend, attention_prefill,
@@ -38,7 +49,7 @@ from .attention import (KVCache, MLACache, PagedKVCache, PagedMLACache,
 from .layers import (linear, non_parametric_ln, rms_norm, site_linear,
                      site_linear_group, swiglu)
 from .mamba2 import Mamba2State, mamba2_decode, mamba2_prefill
-from .moe import moe_ffn
+from .moe import moe_ffn, moe_ffn_manual
 from .rwkv6 import (LORA_MIX, LORA_W, MIX, RWKV6State, rwkv6_channelmix,
                     rwkv6_timemix_decode, rwkv6_timemix_prefill)
 
@@ -58,13 +69,7 @@ def _require_supported(cfg: ArchConfig) -> None:
     attention and with or without shared experts, the VLM decoder (m-RoPE,
     dense FFN), the ssm decoder (rwkv6) and the hybrid (mamba2 + a shared
     attention block).  The encoder-decoder (audio) family is served by
-    ``models/whisper.py`` through ``models/api``, not here.  Still refused:
-    the manual expert-parallel MoE."""
-    if cfg.moe is not None and cfg.moe_manual:
-        raise NotImplementedError(
-            f"{cfg.name}: the manual expert-parallel MoE (moe_manual) is not "
-            "available in this package yet: it shards the experts over a "
-            "device mesh, which comes with the distributed/ entry (mesh=)")
+    ``models/whisper.py`` through ``models/api``, not here."""
     if cfg.family == "audio" or cfg.enc_layers > 0:
         raise ValueError(
             f"{cfg.name}: the audio family (encoder-decoder models) is served "
@@ -84,15 +89,17 @@ def _require_supported(cfg: ArchConfig) -> None:
 
 def _ffn(cfg: ArchConfig, p, x, executor=None, li: int | None = None):
     """The block's FFN on ``x [B, S, d]``: SwiGLU, or the routed experts.
-    With an executor, layer ``li``'s compressed sites run through it."""
+    With an executor, layer ``li``'s compressed sites run through it
+    (``moe_manual``'s experts never do, as in the reference)."""
     if cfg.moe is not None:
-        kw = ({"executor": executor, "site_tag": f"l{li}"}
-              if executor is not None else {})
-        y, _ = moe_ffn(p, x, n_experts=cfg.moe.n_experts,
-                       top_k=cfg.moe.top_k,
-                       capacity_factor=cfg.moe.capacity_factor,
-                       norm_topk=cfg.moe.norm_topk, **kw)
-        return y
+        kw = dict(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                  capacity_factor=cfg.moe.capacity_factor,
+                  norm_topk=cfg.moe.norm_topk)
+        if cfg.moe_manual:
+            return moe_ffn_manual(p, x, **kw)[0]
+        if executor is not None:
+            kw.update(executor=executor, site_tag=f"l{li}")
+        return moe_ffn(p, x, **kw)[0]
     if executor is not None:
         return _sites_swiglu(executor, f"ffn.{{}}.l{li}")(p, x)
     return swiglu(p, x)
@@ -357,7 +364,7 @@ def forward(params, cfg: ArchConfig, *, tokens=None, embeds=None,
         b, s = x.shape[:2]
     else:
         b, s = tokens.shape
-        x = params["embed"][tokens.long()].to(cfg.cdtype)
+        x = _embed(params, tokens).to(cfg.cdtype)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     if cfg.pos == "mrope" and positions3 is None:
@@ -495,7 +502,7 @@ def forward_extend(params, cfg: ArchConfig, tokens, positions, past, last):
     weights throughout, as the bulk prefill."""
     _require_supported(cfg)
     b, t = tokens.shape
-    x = params["embed"][tokens.long()].to(cfg.cdtype)
+    x = _embed(params, tokens).to(cfg.cdtype)
     positions = positions.long()
     outs = ([], [])
     for li, bp in enumerate(_unbind_layers(params["blocks"], cfg.n_layers)):
@@ -525,9 +532,21 @@ def forward_extend(params, cfg: ArchConfig, tokens, positions, past, last):
     return logits, tails
 
 
+def _embed(params, tokens):
+    """The embedding rows of ``tokens`` (a partitioned table: this rank's
+    rows, all-reduced)."""
+    table = params["embed"]
+    if isinstance(table, tp.Sharded):
+        return tp.embed(table, tokens.long())
+    return table[tokens.long()]
+
+
 def logits_from_hidden(params, cfg: ArchConfig, h):
     if cfg.tie_embeddings:
-        return h @ params["embed"].T.to(h.dtype)
+        table = params["embed"]
+        if isinstance(table, tp.Sharded):  # the vocabulary columns gathered
+            return tp.linear(h, table.T.to(h.dtype))
+        return h @ table.T.to(h.dtype)
     return linear(params["lm_head"], h)
 
 
@@ -677,7 +696,7 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     block's q/k/v, o, gate/up and down — take the per-region route.
     """
     _require_supported(cfg)
-    x = params["embed"][token.long()].to(cfg.cdtype)
+    x = _embed(params, token).to(cfg.cdtype)
     if cfg.family == "ssm":
         x = _ssm_decode(params, cfg, state, x, executor)
         return _decode_logits(params, cfg, x), state
@@ -693,6 +712,10 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     # text-only decode: m-RoPE at the token's position on all three axes
     rope = _rope_kw(cfg, pos.long()[None, :, None].expand(3, -1, 1)
                     if cfg.pos == "mrope" else None)
+    mesh = get_mesh()
+    kv_split = (None if mesh is None or cfg.mla is not None else
+                (mesh, tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
+                                   state["k"].shape[2])))
     if plan is not None:
         x, state = plan.decode_layers(state, x, pos)
     else:
@@ -719,7 +742,7 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
                     bp["attn"], _norm(cfg, bp["ln1"], x), cache, pos,
                     n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                     window=cfg.attn_window, **rope,
-                    executor=executor, site=site)
+                    executor=executor, site=site, kv_split=kv_split)
             x = x + y
             x = x + _ffn(cfg, bp["ffn"], _norm(cfg, bp["ln2"], x), executor, li)
     return _decode_logits(params, cfg, x), state

@@ -46,11 +46,29 @@ builds a registry per engine, ``metrics=False`` turns telemetry off, a
 tracer on the same registry, which the scheduler drives.  The step
 profiler times every decode step (``fence_every``: its fencing period).
 
-Not available yet, and refused with an error when asked for: ``mesh=``
-(multi-device decode).
+Multi-device serving: ``mesh=`` (a :class:`~repro_torch.distributed
+.device_mesh.Mesh` of this process's group; one rank a device) serves the
+dense family and the GQA MoE over the ranks.  Every rank builds the same
+engine from the same whole params or artifact and runs the same host code
+(scheduler, pool, block tables, slot mirrors) on the same requests.  Each
+keeps on its device only its chunk of each parameter
+(:func:`~repro_torch.distributed.sharding.params_pspecs`, computed through
+:mod:`repro_torch.distributed.tp`) and of the decode state
+(:func:`~repro_torch.distributed.sharding.decode_state_pspecs`), with one
+exception: a paged pool keeps its block axis whole on every rank (any slot
+may map any block, and a prefix block is shared across slots), so every
+rank runs every admission's prefill and copy-on-write.  A decode step runs
+on the rank's slots (:func:`~repro_torch.distributed.sharding
+.plan_batch_spec`; all of them when the slots do not divide, and always for
+the MoE family, whose routing capacity is global — the reference's
+``replicate`` rule), and the packed ``[3, n_slots]`` is gathered before its
+one host copy.  Compressed sites, step plans and their stage buffers stay
+whole on every rank.  Refused under ``mesh=``: the MLA, vlm, ssm, hybrid
+and audio families and the tokenwise prefill.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
@@ -58,6 +76,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tp
+from repro_torch.distributed.placement import (chunk_slices, gather_leaf,
+                                               shard_leaf)
+from repro_torch.distributed.sharding import (P, decode_state_pspecs,
+                                              plan_batch_spec)
 from repro_torch.kernels import dispatch
 from repro_torch.models import api
 from repro_torch.obs import MetricsRegistry, RequestTracer, StepProfiler
@@ -93,7 +116,9 @@ class ServingEngine:
     config come from the artifact, and every compressed site runs on the fused
     LCC kernel path unless ``use_kernel=False``).  Everything lives on
     ``device`` (the GPU unless told otherwise); ``params`` must already be
-    there."""
+    there.  ``mesh=`` serves over a device mesh (see the module docstring):
+    ``params`` are whole, and each rank keeps its chunks on the mesh's
+    device."""
 
     def __init__(self, params=None, cfg: ArchConfig | None = None, *,
                  artifact=None, n_slots: int = 8,
@@ -104,9 +129,6 @@ class ServingEngine:
                  kv_blocks: int | None = None, prefix_cache: bool = True,
                  metrics=None, tracer=None, fence_every: int = 32,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh=: multi-device serving is not "
-                                      "available in this package yet")
         if artifact is not None:
             if cfg is None:
                 cfg = artifact.config
@@ -115,6 +137,9 @@ class ServingEngine:
         if params is None or cfg is None:
             raise ValueError("ServingEngine needs (params, cfg) or artifact=...")
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = _mesh_device(mesh, cfg, bulk_prefill, self.device)
         self.params = params
         self.cfg = cfg
         self.artifact = artifact
@@ -149,6 +174,9 @@ class ServingEngine:
         else:
             self.state = api.init_decode_state(cfg, n_slots, max_len,
                                                device=self.device)
+        self._lo, self._hi = 0, n_slots  # this rank's slots
+        if mesh is not None:
+            self._place(params)
         # the per-token cache leaves a prefill writes (and a paged engine
         # keeps in its pool): MLA caches its latents
         self._cache_leaves = (("c_kv", "k_rope") if "c_kv" in self.state
@@ -232,6 +260,58 @@ class ServingEngine:
         self._fb_seen: set[str] = set()  # plan keys already counted
         self._bucket = f"{n_slots}x1"  # the decode step's input bucket (BxT)
 
+    # ------------------------------------------------------------- the mesh
+    def _place(self, params) -> None:
+        """Keep this rank's chunk of every parameter and decode-state leaf
+        (the module docstring's rules); record the specs, the rank's slots
+        and which of the reference's fallbacks the step takes."""
+        mesh, cfg = self.mesh, self.cfg
+        self.params = tp.shard_params(params, mesh, self.device)
+        fallbacks = {}
+        batch_ranks = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
+        if cfg.moe is not None:
+            bspec = None
+            if batch_ranks > 1:
+                fallbacks["slots"] = "replicate:moe"
+            if cfg.moe_manual and self.n_slots % batch_ranks:
+                fallbacks["moe_manual"] = "moe_ffn"
+        else:
+            bspec = plan_batch_spec(mesh, self.n_slots)
+            if bspec is None and batch_ranks > 1:
+                fallbacks["slots"] = "replicate"
+        self._bspec = bspec
+        if bspec is not None:
+            sl = chunk_slices((self.n_slots,), P(bspec), mesh)[0]
+            self._lo, self._hi = sl.start, sl.stop
+        pool = ("k", "v") if self.paged else ()  # block axis kept whole
+        specs = {}
+        for name, spec in decode_state_pspecs(self.state, mesh).items():
+            spec = list(spec) + [None] * (self.state[name].dim() - len(spec))
+            if name != "block_tbl":  # whole blocks; otherwise the slot rule
+                spec[1] = None if name in pool else bspec
+            specs[name] = P(*spec)
+        self.state_specs = specs
+        self._kv_dim = tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
+                                   self.state["k"].shape[2])
+        self.state = {name: shard_leaf(v, specs[name], mesh, self.device)
+                      for name, v in self.state.items()}
+        self.mesh_stats = {"dims": dict(mesh.shape), "slot_axes": bspec,
+                           "local_slots": (self._lo, self._hi),
+                           "fallbacks": fallbacks}
+
+    def _local_slot(self, slot: int) -> int | None:
+        """``slot``'s row in this rank's slot-split leaves (None: not here)."""
+        return slot - self._lo if self._lo <= slot < self._hi else None
+
+    def _step_state(self) -> dict:
+        """The decode state a step takes: the whole block table's rows of
+        this rank's slots (the other leaves are stored that way)."""
+        if self.mesh is None or "block_tbl" not in self.state:
+            return self.state
+        st = dict(self.state)
+        st["block_tbl"] = st["block_tbl"][self._lo:self._hi]
+        return st
+
     @staticmethod
     def _build_executor(artifact, device):
         """Site-keyed :class:`CompressedExecutor` over the artifact (None when
@@ -257,8 +337,8 @@ class ServingEngine:
         # cache
         toks = torch.where(emit, last_tok, torch.zeros_like(last_tok))[:, None]
         dpos = torch.where(emit, pos - 1, torch.full_like(pos, -1))
-        logits, self.state = api.decode(self.params, cfg, self.state, toks,
-                                        dpos, executor=self.executor)
+        logits, _ = api.decode(self.params, cfg, self._step_state(), toks,
+                               dpos, executor=self.executor, mesh=self.mesh)
         nxt = api.sample_tokens(logits.to(torch.float32), keys, new_count, temps)
         nxt = torch.where(emit, nxt, last_tok)
         pos2 = pos + emit
@@ -266,11 +346,29 @@ class ServingEngine:
         done = emit & ((nxt == eos) | (count2 >= max_new) | (pos2 >= max_len))
         done = done | (active & ~can_emit)
         packed = torch.stack([nxt, emit.long(), done.long()])
+        if self.mesh is not None and self._bspec is not None:
+            packed = gather_leaf(packed, P(None, self._bspec), self.mesh)
         # carried device ctrl state: mirrors exactly the host-side updates in
         # step(), so the next step needs no H2D re-upload of it (nxt already
         # carries last_tok for non-emitting rows)
         ctrl = (nxt, pos2, active & ~done, count2)
         return packed, ctrl
+
+    @torch.no_grad()
+    def decode_logits(self, tokens, pos) -> torch.Tensor:
+        """The logits ``[n_slots, V]`` of one decode step at ``tokens``
+        ``[n_slots, 1]`` and positions ``pos`` ``[n_slots]`` over this
+        engine's state and executor (the state is written as a step writes
+        it; under a mesh the ranks' rows are gathered)."""
+        mine = slice(self._lo, self._hi)
+        logits, _ = api.decode(
+            self.params, self.cfg, self._step_state(),
+            torch.as_tensor(tokens, device=self.device)[mine],
+            torch.as_tensor(pos, device=self.device)[mine],
+            executor=self.executor, mesh=self.mesh)
+        if self.mesh is not None and self._bspec is not None:
+            logits = gather_leaf(logits, P(self._bspec), self.mesh)
+        return logits
 
     @property
     def kernel_launches_per_step(self) -> int:
@@ -326,9 +424,12 @@ class ServingEngine:
         self._sync_plan_fallbacks()
         fallbacks = (dict(self.executor.plan_fallbacks)
                      if self.executor is not None else {})
-        return {"n_layer_plans": self.n_layer_plans,
-                "kernel_launches_per_step": self.kernel_launches_per_step,
-                "fallbacks": fallbacks}
+        out = {"n_layer_plans": self.n_layer_plans,
+               "kernel_launches_per_step": self.kernel_launches_per_step,
+               "fallbacks": fallbacks}
+        if self.mesh is not None:
+            out["mesh"] = self.mesh_stats
+        return out
 
     def pool_stats(self) -> dict:
         """KV-pool telemetry.  Always the full key set — contiguous engines
@@ -465,8 +566,14 @@ class ServingEngine:
         the prompt is not padded."""
         toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
         _h, caches = api.prefill(self.params, self.cfg, {"tokens": toks},
-                                 collect_cache=True)
+                                 collect_cache=True, mesh=self.mesh)
         return caches
+
+    def _kv_local(self, vals: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of whole K/V values (all of them unmeshed)."""
+        if self.mesh is None:
+            return vals
+        return tp.kv_local(vals, self.mesh, self._kv_dim)
 
     @torch.no_grad()
     def _prefill_slot(self, slot: int, prompt: list[int]) -> None:
@@ -483,9 +590,13 @@ class ServingEngine:
         kpos_row[slots] = ps
         ps_d = torch.from_numpy(ps).to(self.device)
         slots_d = torch.from_numpy(slots).to(self.device)
+        row = self._local_slot(slot)
+        if row is None:  # another rank's slot: it computed, it writes
+            return
         for name, c_all in zip(self._cache_leaves, caches):
-            st[name][:, slot, slots_d] = c_all[:, 0, ps_d].to(st[name].dtype)
-        st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
+            st[name][:, row, slots_d] = self._kv_local(
+                c_all[:, 0, ps_d]).to(st[name].dtype)
+        st["kpos"][:, row] = torch.from_numpy(kpos_row).to(self.device)
 
     # --------------------------------------------------------- paged prefill
     def _scatter_pool(self, name: str, tbl_row: np.ndarray, vidx: np.ndarray,
@@ -497,7 +608,7 @@ class ServingEngine:
         blocks = torch.from_numpy(tbl_row[vidx // bs].astype(np.int64)).to(self.device)
         offs = torch.from_numpy((vidx % bs).astype(np.int64)).to(self.device)
         leaf = self.state[name]
-        leaf[:, blocks, offs] = vals.to(leaf.dtype)
+        leaf[:, blocks, offs] = self._kv_local(vals).to(leaf.dtype)
 
     @torch.no_grad()
     def _prefill_slot_paged(self, slot: int, prompt: list[int], plan) -> None:
@@ -536,7 +647,9 @@ class ServingEngine:
                     self._scatter_pool(name, tbl_row, vidx, c_all[:, 0, ps_d])
             else:
                 self._extend_tail(prompt, cached, tbl_row, vidx, view)
-        st["kpos"][:, slot] = torch.from_numpy(kpos_row).to(self.device)
+        row = self._local_slot(slot)
+        if row is not None:
+            st["kpos"][:, row] = torch.from_numpy(kpos_row).to(self.device)
 
     @torch.no_grad()
     def _extend_tail(self, prompt: list[int], cached: int, tbl_row: np.ndarray,
@@ -560,12 +673,14 @@ class ServingEngine:
             pool_leaf = self.state[name]  # [L, Nb, bs, ...]
             past[name] = pool_leaf[:, tbl].reshape(
                 pool_leaf.shape[0], 1, view, *pool_leaf.shape[3:])
+            if self.mesh is not None:  # this rank's slice -> whole
+                past[name] = tp.gather_kv(past[name], self.mesh, self._kv_dim)
         pk = torch.full((1, view), -1, dtype=torch.int32)
         pk[0, :cached] = torch.arange(cached)
         past["kpos"] = pk.to(dev)[None].expand(cfg.n_layers, 1, view)
         _logits, tails = api.prefill_extend(
             self.params, cfg, toks.to(dev), posn.to(dev), past,
-            torch.tensor([tl - 1], device=dev))
+            torch.tensor([tl - 1], device=dev), mesh=self.mesh)
         for name, tail in tails.items():  # [L, 1, t_pad, ...]
             self._scatter_pool(name, tbl_row, vidx, tail[:, 0, :tl])
 
@@ -604,15 +719,16 @@ class ServingEngine:
                 return events
         dev = self.device
         eos = -1 if self.eos is None else int(self.eos)
+        mine = slice(self._lo, self._hi)  # this rank's slots (all unmeshed)
         if self._ctrl_dev is None:  # max_new/temps/keys only change at submit
-            self._ctrl_dev = (torch.from_numpy(self._max_new_arr).to(dev),
-                              torch.from_numpy(self._temp_arr).to(dev),
-                              torch.from_numpy(self._keys).to(dev))
+            self._ctrl_dev = tuple(
+                torch.from_numpy(a[mine]).to(dev)
+                for a in (self._max_new_arr, self._temp_arr, self._keys))
         if self._slot_dev is None:  # first step after a host-side mutation
-            self._slot_dev = (torch.from_numpy(self._last_tok).to(dev),
-                              torch.from_numpy(self.pos).to(dev),
-                              torch.from_numpy(self.active).to(dev),
-                              torch.from_numpy(self._new_count).to(dev))
+            self._slot_dev = tuple(
+                torch.from_numpy(a[mine]).to(dev)
+                for a in (self._last_tok, self.pos, self.active,
+                          self._new_count))
         t0 = self.profiler.begin() if self.profiler is not None else 0.0
         n0 = dispatch.launch_count()
         packed, self._slot_dev = self._fused_step(*self._slot_dev,
@@ -704,3 +820,38 @@ class ServingEngine:
                               on_token=on_token) for p in prompts]
         sched.run()
         return [sched.take_result(r) for r in rids]
+
+
+_MESH_REFUSED = "ROADMAP A7c: the reference partitions it through GSPMD"
+
+
+def _mesh_device(mesh, cfg, bulk_prefill: bool, device) -> torch.device:
+    """The device a meshed engine lives on (the mesh's: a card under NCCL,
+    the CPU under gloo), after refusing what ``mesh=`` does not serve."""
+    import torch.distributed as dist
+
+    family = api.family_of(cfg)
+    if cfg.mla is not None:
+        what = "MLA attention"
+    elif family in ("vlm", "ssm", "hybrid", "audio") or cfg.enc_layers > 0:
+        what = f"the {family} family"
+    elif not bulk_prefill:
+        what = "the tokenwise prefill"
+    else:
+        what = None
+    if what is not None:
+        raise NotImplementedError(f"mesh=: {what} is not served over a mesh "
+                                  f"in this package yet ({_MESH_REFUSED})")
+    if not dist.is_initialized():
+        raise RuntimeError("mesh=: the process group is not up (join() or "
+                           "run_ranks before building the mesh)")
+    if not mesh.member:
+        raise ValueError("mesh=: this rank is outside the mesh")
+    if "model" not in mesh.shape:
+        raise ValueError("mesh=: the policy places parameters over a "
+                         "'model' axis; give the mesh one (of size 1 for no "
+                         "tensor parallelism)")
+    if device.type != mesh.device.type:
+        raise ValueError(f"mesh=: the mesh's ranks live on "
+                         f"{mesh.device.type}, the engine was given {device}")
+    return mesh.device

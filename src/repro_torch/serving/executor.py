@@ -51,6 +51,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compress import CompressedDense
 from repro_torch.core.conv_reshape import (extract_patches,
                                            extract_vert_windows, same_pad_2d)
+from repro_torch.distributed import tp
+from repro_torch.distributed.act_shard import get_mesh
 from repro_torch.kernels import layer_plan, ops
 from repro_torch.kernels.shared_matmul import RegionPrep
 from repro_torch.models.attention import _paged_index
@@ -368,13 +370,25 @@ class StepPlan:
 
     def decode_layers(self, state, x, pos):
         """x [B, 1, d] embedded tokens -> (x' [B, 1, d], state), the KV state
-        updated in place."""
+        updated in place.
+
+        Under a serving mesh (``act_shard.get_mesh()``) this is the plan per
+        shard, the counterpart of the reference's ``_mesh_wrap``: ``x``,
+        ``pos``, ``kpos`` and the block table are the rank's slots (all of
+        them where the engine replicates), the stages are whole on every
+        rank, and the cache — this rank's slice over "model" — is gathered
+        whole for the kernels; the new rows' slice is written back."""
         cfg = self.cfg
         self.executor.routed.update(self.covered)
         k_state, v_state, kpos = state["k"], state["v"], state["kpos"]
         tbl = state.get("block_tbl")
         nkv, hd = cfg.n_kv_heads, cfg.hd
         b = x.shape[0]
+        mesh = get_mesh()
+        kc, vc, split = k_state, v_state, None
+        if mesh is not None:
+            split = tp.kv_split(mesh, nkv, hd, k_state.shape[2])
+            kc, vc = (tp.gather_kv(t, mesh, split) for t in (k_state, v_state))
         pos = pos.to(torch.int32)
         cos = sin = None
         rope = cfg.pos == "rope"
@@ -384,8 +398,10 @@ class StepPlan:
             self.stages, n_heads=cfg.n_heads, n_kv_heads=nkv, head_dim=hd,
             d_ff=cfg.d_ff, norm=cfg.norm, rope=rope,
             x0=x[:, 0, :].to(torch.float32).T.contiguous(), pos=pos, cos=cos,
-            sin=sin, ln1=self.ln1, ln2=self.ln2, kc=k_state, vc=v_state,
+            sin=sin, ln1=self.ln1, ln2=self.ln2, kc=kc, vc=vc,
             kpos=kpos, moe=self.moe, window=cfg.attn_window, block_tbl=tbl)
+        if split is not None:
+            kn, vn = (tp.kv_local(t, mesh, split) for t in (kn, vn))
         # write the new rows back; an idle slot (pos == -1) writes nothing:
         # its K/V row goes to the null block (paged) or rewrites the old
         # value (contiguous), and its kpos stays -1

@@ -122,6 +122,10 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     if grad_compression and (mesh is None or "pod" not in mesh.shape):
         raise ValueError("grad compression targets the cross-pod all-reduce; "
                          "need a pod axis")
+    if mesh is not None and cfg.moe is not None and cfg.moe_manual:
+        raise NotImplementedError(
+            "moe_manual under the train step's mesh: its backward needs a "
+            "differentiable all-reduce over 'model' (ROADMAP A7c)")
 
     def value_and_grad(params, batch):
         leaves = tree_leaves(params)

@@ -200,3 +200,165 @@ def step_run(rank, world, inp):
         out[name] = _run(mesh, inp["efb_state"], inp["batches"][:1], step)
         out[name]["pod"] = mesh.coord("pod")
     return out
+
+
+# ------------------------------------------------------------ sharded serving
+
+
+SERVE_MESHES = {"data": ("data", "model"), "model": ("model", "data")}
+SERVE_PROMPTS = [[5, 9, 2], [7, 1], [4, 4, 4, 8], [30]]
+# two prompts sharing a 20-token head (one whole 16-token block) land on
+# slots 0 and 2: on different ranks of a 2-way "data" axis
+SHARED_HEAD = list(range(1, 21))
+SHARED_PROMPTS = [SHARED_HEAD + [3, 5], [9, 9], SHARED_HEAD + [7]]
+LOGIT_TOK = [[3], [1], [2], [7]]
+LOGIT_POS = [2, 1, 3, 0]
+
+
+def serving_engine(case, mesh=None, kv_block=16):
+    """The case's engine: 4 slots, its ``max_len``, on the CPU (paged, or
+    contiguous with ``kv_block=None``)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    kw = dict(n_slots=4, max_len=case["max_len"], device="cpu", mesh=mesh,
+              kv_block=kv_block)
+    if case.get("artifact") is not None:
+        return ServingEngine(artifact=case["artifact"], **kw)
+    return ServingEngine(case["params"], case["cfg"], **kw)
+
+
+def serve_case(case, mesh=None, shared=True) -> dict:
+    """Tokens, plan and pool stats of a generate (and of a contiguous
+    cache's engine where ``case["contiguous"]``); with ``shared``, the
+    shared-prefix pair's tokens and pool stats; the collectives and launches of one decode step
+    (the second, all four slots live); the logits of one step at
+    ``LOGIT_TOK``/``LOGIT_POS`` on a fresh state; each stored leaf's shape,
+    its spec and its whole shape."""
+    from repro_torch.distributed.tp import Sharded
+    from repro_torch.models import api
+
+    eng = serving_engine(case, mesh)
+    out = {"tokens": [r.tokens for r in eng.generate(SERVE_PROMPTS, 6)],
+           "plan_stats": eng.plan_stats(), "pool": eng.pool_stats()}
+    if case.get("contiguous"):
+        con = serving_engine(case, mesh, kv_block=None)
+        out["contiguous"] = [r.tokens for r in con.generate(SERVE_PROMPTS, 6)]
+    if shared:
+        pre = serving_engine(case, mesh)
+        out["shared"] = [r.tokens for r in pre.generate(SHARED_PROMPTS, 4)]
+        out["shared_pool"] = pre.pool_stats()
+    one = serving_engine(case, mesh)
+    for p in SERVE_PROMPTS:
+        one.submit(p, max_new=6)
+    one.step()
+    collectives.reset_collective_counts()
+    one.step()
+    out["step_counts"] = collectives.collective_counts()
+    out["launches"] = one.kernel_launches_per_step
+    out["logits"] = _np(serving_engine(case, mesh).decode_logits(
+        torch.tensor(LOGIT_TOK), torch.tensor(LOGIT_POS)))
+    if mesh is not None:
+        leaves = {}
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    walk(v, path + (k,))
+            else:
+                assert isinstance(tree, Sharded)
+                leaves["/".join(path)] = (tuple(tree.local.shape),
+                                          tuple(tree.spec), tuple(tree.shape))
+        walk(eng.params, ())
+        out["param_leaves"] = leaves
+        cfg = eng.cfg
+        whole = api.init_decode_state(cfg, 4, case["max_len"], kv_block=16,
+                                      device="meta")
+        out["state_leaves"] = {k: (tuple(v.shape), tuple(eng.state_specs[k]),
+                                   tuple(whole[k].shape))
+                               for k, v in eng.state.items()}
+        out["mesh_stats"] = eng.plan_stats()["mesh"]
+    return out
+
+
+FAMILY_ARCHS = ("qwen2.5-3b", "mixtral-8x22b")
+
+
+def family_tokens(mesh=None) -> dict:
+    """The reduced qwen2.5-3b (q/k/v biases, GQA) and mixtral-8x22b (the
+    experts' stacks partitioned) seeded artifacts served on the dense
+    weights and on the plan route: each generate's tokens."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.testing import seeded_artifact
+
+    out = {}
+    for arch in FAMILY_ARCHS:
+        art = seeded_artifact(reduced_config(get_arch(arch), vocab=64),
+                              seed=1, device="cpu")
+        for use_kernel in (False, True):
+            eng = ServingEngine(artifact=art, n_slots=4, max_len=32,
+                                use_kernel=use_kernel, device="cpu",
+                                mesh=mesh)
+            out[(arch, use_kernel)] = [
+                r.tokens for r in eng.generate(SERVE_PROMPTS, 6)]
+    return out
+
+
+def sharded_serving_run(rank, world, cases):
+    """At 2 ranks: every case and :func:`family_tokens` served over the
+    2 x 1 meshes of ``SERVE_MESHES``; on rank 0 alone, over a 1 x 1 mesh beside the
+    unsharded engine in this process (tokens and logits compared bit for
+    bit here, where both run on the same threads)."""
+    out = {}
+    for mname, axes in SERVE_MESHES.items():
+        mesh = make_mesh((2, 1), axes)
+        for cname, case in cases.items():
+            out[(cname, mname)] = serve_case(case, mesh)
+        out[("family", mname)] = family_tokens(mesh)
+    mesh = mesh_over([0], (1, 1), ("data", "model"))
+    if mesh.member:
+        for cname, case in cases.items():
+            a = serve_case(case, mesh, shared=False)
+            b = serve_case(case, shared=False)
+            out[(cname, "1x1")] = dict(
+                tokens=a["tokens"] == b["tokens"],
+                logits=np.array_equal(a["logits"], b["logits"]),
+                launches=(a["launches"], b["launches"]),
+                counts=a["step_counts"])
+    else:
+        try:
+            serving_engine(cases["raw"], mesh)
+        except ValueError as e:
+            out["outside"] = str(e)
+    return out
+
+
+# ------------------------------------------------------------ moe_ffn_manual
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(tree)
+
+
+def moe_manual_run(rank, world, inp):
+    """At 2 ranks: ``moe_ffn_manual`` on every case's mesh, inputs and
+    parameters (whole on every rank); the collectives each issued; and the
+    reduced mixtral artifact with ``moe_manual`` served over both 2 x 1
+    meshes."""
+    from repro_torch.models.moe import moe_ffn_manual
+
+    out = {}
+    for name, c in inp["cases"].items():
+        mesh = make_mesh(c["dims"], ("data", "model"))
+        collectives.reset_collective_counts()
+        y, _ = moe_ffn_manual(_torch_tree(c["p"]), torch.from_numpy(c["x"]),
+                              n_experts=c["e"], top_k=2,
+                              capacity_factor=c["cf"], mesh=mesh)
+        out[name] = dict(y=_np(y), counts=collectives.collective_counts())
+    for mname, axes in SERVE_MESHES.items():
+        eng = serving_engine(inp["serve"], make_mesh((2, 1), axes))
+        out[("serve", mname)] = dict(
+            tokens=[r.tokens for r in eng.generate(SERVE_PROMPTS, 6)],
+            stats=eng.plan_stats(), routed=sorted(eng.executor.routed))
+    return out

@@ -243,13 +243,15 @@ def test_idle_slot_writes_nothing(model, kv_block, window):
 
 
 def test_other_families_are_refused(model):
-    """What stays refused, by name: the manual expert-parallel MoE; a dense
-    config with m-RoPE is not the vlm family.  (The audio family is served:
-    ``tests/test_torch_whisper.py``.)"""
+    """What stays refused, by name: a dense config with m-RoPE is not the
+    vlm family.  The manual expert-parallel MoE is served (its decode state
+    is the MoE family's; ``tests/test_torch_moe_manual.py``), and so is the
+    audio family (``tests/test_torch_whisper.py``)."""
     _, _, tcfg, tparams = model
-    manual = replace(get_arch("mixtral-8x22b"), moe_manual=True)
-    with pytest.raises(NotImplementedError, match="moe_manual"):
-        tapi.init_decode_state(manual, 1, 8, device="cpu")
+    manual = replace(reduced_config(get_arch("mixtral-8x22b")),
+                     moe_manual=True)
+    st = tapi.init_decode_state(manual, 1, 8, device="cpu")
+    assert set(st) == {"k", "v", "kpos"}
     with pytest.raises(NotImplementedError):
         tapi.prefill(tparams, replace(tcfg, pos="mrope"),
                      {"tokens": torch.zeros((1, 2), dtype=torch.long)})

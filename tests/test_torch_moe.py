@@ -1,8 +1,9 @@
 """The MoE FFN of the port (``repro_torch.models.moe.moe_ffn``) against
 ``repro.models.moe.moe_ffn`` at reduced mixtral-8x22b widths, the router's
 float32 through conversion, shared experts and MLA against the reference,
-the manual expert-parallel MoE still refused, the configuration and the
-seeded MoE fixture.
+the manual expert-parallel MoE without a mesh (``moe_ffn``) and refused
+under the train step's mesh, the router's load-balance loss, the
+configuration and the seeded MoE fixture.
 
 The same numpy parameters and activations go through both functions.  The
 routing must be the same — the experts chosen (``sel``), their order, and
@@ -173,14 +174,54 @@ def test_prefill_logits_equal_the_reference():
 
 @pytest.mark.parametrize("what", ["moe_manual"])
 def test_deepseek_features_are_refused(what):
-    """The manual expert-parallel MoE shards experts over a mesh: refused,
-    naming the distributed/ entry that brings it."""
-    cfg = reduced_config(get_arch("mixtral-8x22b"), vocab=64)
-    cfg = {"moe_manual": replace(cfg, moe_manual=True)}[what]
-    with pytest.raises(NotImplementedError, match="distributed/"):
-        tapi.init_decode_state(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh="):
-        tapi.prefill({}, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.long)})
+    """The manual expert-parallel MoE (``moe_manual``): without a mesh it is
+    ``moe_ffn`` (prefill and decode bit for bit the config without it);
+    under the train step's mesh it stays refused, naming ROADMAP A7c (its
+    backward needs a differentiable all-reduce)."""
+    from types import SimpleNamespace
+
+    from repro_torch.optim.optimizers import prox_sgd
+    from repro_torch.training.trainer import make_train_step
+
+    base = reduced_config(get_arch("mixtral-8x22b"), vocab=64)
+    cfg = {"moe_manual": replace(base, moe_manual=True)}[what]
+    params = tapi.init_params(0, base, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, 6)))
+    with torch.no_grad():
+        outs = [tapi.prefill(params, c, {"tokens": toks}, collect_cache=True)
+                for c in (base, cfg)]
+        steps = []
+        for c in (base, cfg):
+            st = tapi.init_decode_state(c, 2, 8, device="cpu")
+            steps.append(tapi.decode(params, c, st, toks[:, :1],
+                                     torch.tensor([0, -1]))[0])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(steps[0], steps[1])
+    mesh = SimpleNamespace(shape={"data": 1, "model": 1})
+    with pytest.raises(NotImplementedError, match="A7c"):
+        make_train_step(cfg, prox_sgd(0.9), mesh=mesh)
+
+
+def test_router_aux_losses_match_the_reference():
+    from repro.models.moe import router_aux_losses as jrouter_aux_losses
+
+    from repro_torch.models.moe import router_aux_losses
+
+    rng = np.random.default_rng(7)
+    d, n_exp, dff = 32, 4, 16
+    p = _params(rng, d, n_exp, dff)
+    x = rng.standard_normal((2, 16, d)).astype(np.float32)
+    kw = dict(n_experts=n_exp, top_k=2, capacity_factor=0.5)
+    _, jaux = jmoe_ffn({n: jnp.asarray(v) for n, v in p.items()},
+                       jnp.asarray(x), **kw)
+    _, taux = moe_ffn({n: torch.from_numpy(v) for n, v in p.items()},
+                      torch.from_numpy(x), **kw)
+    want = jrouter_aux_losses(jaux, n_exp)
+    got = router_aux_losses(taux, n_exp)
+    assert set(got) == set(want) == {"load_balance", "dropped_frac"}
+    assert float(got["dropped_frac"]) > 0
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), abs=1e-6)
 
 
 @pytest.mark.parametrize("what", ["shared_experts", "mla"])

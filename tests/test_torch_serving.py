@@ -221,18 +221,48 @@ def test_sampling_is_independent_of_slot_placement(arts):
 ENGINE_OPTIONS = [("mesh", "mesh"), ("metrics", None), ("tracer", None)]
 
 
+def _one_rank_mesh_serves(tart, tmp_path):
+    """``mesh=`` over a 1 x 1 mesh of this process's one-rank gloo group:
+    the unsharded engine's tokens; a mesh on another device type is
+    refused, and so is a mesh whose process group is gone."""
+    from repro_torch.distributed import device_mesh
+
+    prompts = _prompts(2)
+    want = [r.tokens for r in ServingEngine(
+        artifact=tart, n_slots=2, max_len=32, device="cpu").generate(
+            prompts, max_new_tokens=3)]
+    device_mesh.join(0, 1, backend="gloo",
+                     init_method=f"file://{tmp_path / 'store'}")
+    try:
+        mesh = device_mesh.make_mesh((1, 1), ("data", "model"))
+        eng = ServingEngine(artifact=tart, n_slots=2, max_len=32,
+                            device="cpu", mesh=mesh)
+        got = [r.tokens for r in eng.generate(prompts, max_new_tokens=3)]
+        assert got == want
+        st = eng.plan_stats()
+        assert st["n_layer_plans"] == 1 and st["fallbacks"] == {}
+        assert st["mesh"]["fallbacks"] == {}
+        with pytest.raises(ValueError, match="engine was given"):
+            ServingEngine(artifact=tart, device="cuda", mesh=mesh)
+    finally:
+        device_mesh.leave()
+    with pytest.raises(RuntimeError, match="process group is not up"):
+        ServingEngine(artifact=tart, device="cpu", mesh=mesh)
+
+
 @pytest.mark.parametrize("name,msg", ENGINE_OPTIONS,
                          ids=["kw0-mesh", "kw1-telemetry", "kw2-telemetry"])
-def test_refused_options_raise(arts, name, msg):
-    """``mesh=`` is refused naming it; the telemetry options work as in the
-    reference: a ``MetricsRegistry`` passed as ``metrics=`` is the engine's
-    (shared, not copied), ``tracer=True`` adds a tracer on that registry."""
+def test_refused_options_raise(arts, name, msg, tmp_path):
+    """``mesh=`` serves over a mesh (here one rank's, bit for bit the
+    unsharded engine; ``tests/test_torch_sharded_serving.py`` at 2 ranks);
+    the telemetry options work as in the reference: a ``MetricsRegistry``
+    passed as ``metrics=`` is the engine's (shared, not copied),
+    ``tracer=True`` adds a tracer on that registry."""
     from repro_torch.obs import MetricsRegistry, RequestTracer
 
     _, tart = arts
     if msg is not None:
-        with pytest.raises(NotImplementedError, match=msg):
-            ServingEngine(artifact=tart, device="cpu", mesh=object())
+        _one_rank_mesh_serves(tart, tmp_path)
         return
     reg = MetricsRegistry()
     kw = {"metrics": reg} if name == "metrics" else {"tracer": True}
@@ -251,8 +281,9 @@ def test_refused_options_raise(arts, name, msg):
 
 
 REFERENCE_OPTIONS = [
-    ("launcher", ["--compress"], "A8"), ("launcher", ["--dp", "2"], "A7"),
-    ("launcher", ["--tp", "2"], "A7"),
+    ("launcher", ["--compress"], "A8"), ("launcher", ["--dp", "2"], "mesh"),
+    ("launcher", ["--tp", "2"], "mesh"),
+    ("launcher", ["--dp", "2", "--tp", "2", "--kernel"], "mesh"),
     ("launcher", ["--metrics-out", "m.json"], None),
     ("launcher", ["--trace-out", "t.jsonl"], None),
     ("launcher", ["--metrics-port", "0"], None),
@@ -266,7 +297,9 @@ def test_reference_options_are_refused_by_name(arts, where, option, entry,
                                                tmp_path, monkeypatch, capsys):
     """The reference serve launcher's flags and the engine's
     ``fence_every=``: those of a slice still to come are refused naming it
-    (argparse does not reject them as unknown); the telemetry ones work."""
+    (argparse does not reject them as unknown); the telemetry ones work;
+    ``--dp``/``--tp`` serve over that many gloo ranks, rank 0 printing the
+    unsharded launcher's request tokens."""
     if where == "engine":
         _, tart = arts
         eng = ServingEngine(artifact=tart, device="cpu", **option)
@@ -276,6 +309,20 @@ def test_reference_options_are_refused_by_name(arts, where, option, entry,
 
     argv = ["--reduced", "--device", "cpu", "--requests", "2", "--max-new",
             "3", *option]
+    if entry == "mesh":
+        serve.main(argv)
+        meshed = capsys.readouterr().out
+        serve.main(argv[:7] + [o for o in option if o == "--kernel"])
+        plain = capsys.readouterr().out
+
+        def reqs(out):
+            return [ln for ln in out.splitlines() if ln.startswith("req")]
+
+        assert reqs(meshed) == reqs(plain) and len(reqs(plain)) == 2
+        dp = option[option.index("--dp") + 1] if "--dp" in option else "1"
+        tp = option[option.index("--tp") + 1] if "--tp" in option else "1"
+        assert f", mesh {dp}x{tp})" in meshed
+        return
     if entry is not None:
         with pytest.raises(SystemExit, match=f"{option[0]} .*{entry}"):
             serve.main(argv)
