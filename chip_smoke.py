@@ -187,6 +187,14 @@ its plain PyTorch version:
    the port and served through ``ServingEngine(artifact=...)``, bf16 on the
    per-region route and float32 on the plan route, greedy tokens equal to
    the dense-effective forward's, launches a step as predicted;
+   then ``examples/torch/quickstart.py`` in process (``quickstart``: its
+   adds lines the reference's, its one K1 launch bit for bit the plain
+   version in the kernel's order) and the serve launcher's ``--reduced
+   --compress --kernel`` in process (``launcher_compress``: the report
+   table printed, scripts/ci_torch.sh's telemetry gates, K6/K7 at its
+   serve's dimensions); ``--only examples`` runs the three other examples
+   (the MLP loop at full width, the ResNet grid, the transformer example)
+   in process instead, each with its seconds and launches by shape;
 11. ResNet-34 (``--only resnet`` runs it alone): the paper's second model at
    full width (widths 64-512, 36 conv sites, 200 classes) on the seeded conv
    artifact (``testing.seeded_conv_artifact``: a chain for every input
@@ -204,6 +212,11 @@ its plain PyTorch version:
    -> effective -> fused); then, inside the phase's share of the script,
    ResNet-34 compressed on every 32nd input channel and served (chains
    through K2 beside the residual conv).
+
+The dry run (``launch/dryrun.py --arch all --shape all --mesh both``,
+phase ``dryrun``) runs in a process of its own on the host from the start
+of the full run, on the meta device; its 80 records are read at the end
+(PASS / SKIP / FAIL counts, zero FAIL).
 
 Telemetry (``repro_torch.obs``) is on in every serve, as the engine's
 default: each ``serve`` fails unless the engine's registry counted the
@@ -224,6 +237,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import os
@@ -1570,7 +1584,8 @@ def serve_positions(rng, batch=BATCH):
     """Decode positions as the plan serves have them: 6 prompts of 8 tokens
     with up to 16 new ones on 8 slots, the last two slots idle."""
     pos = np.full(batch, -1, np.int32)
-    pos[:6] = 8 + rng.integers(0, 16, 6)
+    live = min(6, batch)
+    pos[:live] = 8 + rng.integers(0, 16, live)
     return pos
 
 
@@ -1830,7 +1845,8 @@ def ordered_norm_plain(x, w, norm, plan):
     return out[:, :b]
 
 
-def kernel_case_norm(cfg, dev, timer, *, serve=None, plan=None, label=None):
+def kernel_case_norm(cfg, dev, timer, *, serve=None, plan=None, label=None,
+                     batch=BATCH):
     """K7's norm (``step_norm``) alone at ``cfg``'s plan-serve shape ``[d,
     n_slots]`` (``plan``: the same launch at another geometry than the
     planner's, a ``norm_geometry``): against its plain version (SUM_TOL) and
@@ -1839,7 +1855,7 @@ def kernel_case_norm(cfg, dev, timer, *, serve=None, plan=None, label=None):
     ``F.rms_norm`` / ``F.layer_norm`` on the ``[B, d]`` transpose laid out
     beforehand."""
     torch.manual_seed(zlib.crc32(cfg.name.encode()))
-    d, b = cfg.d_model, BATCH
+    d, b = cfg.d_model, batch
     x = torch.randn((d, b), device=dev)
     xt = x.T.contiguous()
     rms = cfg.norm == "rms"
@@ -5661,13 +5677,15 @@ def phase_train_handoff(dev):
                 train_stats=stats, reference_claim=claim)
 
 
-def quickstart_rows(cfg, art, plan, dev, timer, sm, route):
+def quickstart_rows(cfg, art, plan, dev, timer, sm, route, *,
+                    serve_name=None, batch=BATCH, smax=MAX_LEN):
     """Every kernel at the dimensions the quickstart serve on ``route``
-    launches it at, each distinct launch shape once: per-region, K1/K2 on
-    every layer's regions and K3 where a region prepares; plan, K6's four
-    stages in their modes, K7's norm and attention."""
+    launches it at (or the serve ``serve_name`` of ``batch`` slots over a
+    ``smax``-position view), each distinct launch shape once: per-region,
+    K1/K2 on every layer's regions and K3 where a region prepares; plan,
+    K6's four stages in their modes, K7's norm and attention."""
     rng = np.random.default_rng(70)
-    serve_name = f"quickstart {cfg.name} {route}"
+    serve_name = serve_name or f"quickstart {cfg.name} {route}"
     rows, seen = [], set()
     if route == "per-region":
         for li in range(cfg.n_layers):
@@ -5700,14 +5718,17 @@ def quickstart_rows(cfg, art, plan, dev, timer, sm, route):
                         "quickstart " + "+".join(names), prep, k, BATCH,
                         torch.bfloat16, False, dev, timer))
     else:
+        tag = "quickstart" if batch == BATCH else serve_name
         for name in ("qkv", "o", "gu", "dn"):
             rows.append(kernel_case_stage(
-                f"quickstart {name}", plan.stages[name], rng, dev, timer,
-                w=stage_weights(art, name, 0, dev), mode=serve_mode(cfg, name)))
-        rows.append(kernel_case_norm(cfg, dev, timer, label="quickstart norm"))
+                f"{tag} {name}", plan.stages[name], rng, dev, timer,
+                batch=batch, w=stage_weights(art, name, 0, dev),
+                mode=serve_mode(cfg, name)))
+        rows.append(kernel_case_norm(cfg, dev, timer, label=f"{tag} norm",
+                                     batch=batch))
         rows.append(kernel_case_attention(
-            "quickstart attention", cfg, MAX_LEN, cfg.attn_window,
-            serve_positions(rng), dev, timer))
+            f"{tag} attention", cfg, smax, cfg.attn_window,
+            serve_positions(rng, batch), dev, timer))
     for row in rows:
         row["serve"] = serve_name
     return rows
@@ -5840,6 +5861,260 @@ def phase_compress(dev, trained=None):
     runner.shutdown_workers(wait=True)
     emit(dict(phase="compress_quickstart_serves", serves=olmo))
     emit(dict(phase="compress", seconds=time.perf_counter() - t0))
+    return rows, serves
+
+
+# ------------------------------------- the examples, --compress, the dry run
+
+EXAMPLES = Path(__file__).resolve().parent / "examples" / "torch"
+# the reference's examples/quickstart.py prints these three lines
+QUICKSTART_LINES = [
+    "CSD shift-add baseline:        15501 additions",
+    "LCC-FP: 7200 additions (ratio 2.15x, SNR 61.0 dB)",
+    "LCC-FS: 6850 additions (ratio 2.26x, SNR 61.3 dB)"]
+QUICKSTART_REL_ERR = "relative error 9.09e-04"
+# the serve launcher's compressed path as scripts/ci_torch.sh drives it
+LAUNCHER_COMPRESS = ["--reduced", "--compress", "--kernel", "--requests", "2",
+                     "--max-new", "8", "--slots", "2"]
+DRYRUN_RECORDS = 80  # 10 archs x 4 cells x 2 meshes
+DRYRUN_REF_SKIPS = 14  # long_500k for 7 archs, on both meshes
+
+
+def load_example(name: str):
+    """``examples/torch/{name}.py`` as a module (its ``main(argv)``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list[str]):
+    """One example in process on the card, its launches counted from its
+    start to its end: ``(result, printed lines, seconds, counts, by
+    shape)``."""
+    import contextlib
+    import io
+
+    mod = load_example(name)
+    out = io.StringIO()
+    dispatch.reset_launch_count()  # counts of the example start here ...
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dispatch.launch_counts()  # ... and are read here
+    by_shape = dispatch.launch_counts_by_shape()
+    return res, out.getvalue().splitlines(), seconds, counts, by_shape
+
+
+def shape_counts(by_shape) -> dict:
+    """Launches by kernel and dimensions, for a phase's line."""
+    return {f"{name} {list(key)}": n for (name, key), n in sorted(
+        by_shape.items(), key=str)}
+
+
+def phase_quickstart(dev, timer, sm):
+    """``examples/torch/quickstart.py`` on the card: its adds lines the
+    reference's letter for letter, its one K1 launch (N = 300, K = 16,
+    B = 8) bit for bit the plain version summed in the kernel's order on
+    the example's own input, and K1 at that shape held against its plain
+    version (the row)."""
+    res, lines, seconds, counts, by_shape = run_example("quickstart", [])
+    if lines[:3] != QUICKSTART_LINES or QUICKSTART_REL_ERR not in lines[3]:
+        fail(f"quickstart: printed {lines}")
+    if counts != {"lcc_chain_matmul": 1}:
+        fail(f"quickstart: launched {counts}, one lcc_chain_matmul expected")
+    packed, x, y = res["packed"], res["x"], res["y_kernel"]
+    ds = packed.on(dev)
+    want = ordered_plain(ds, x, sm)[0][: packed.out_dim]
+    for (c0, c1), w in ds.dense:  # apply_packed_decomposition's dense part
+        want = want + w @ x[c0:c1]
+    if not torch.equal(y, want):
+        fail("quickstart: K1 differs from its plain version in the kernel's "
+             f"order by {float((y - want).abs().max()):.3e}")
+    row = kernel_case_chain("quickstart example W [300, 16]", packed,
+                            np.random.default_rng(71), dev, timer, sm)
+    row["serve"] = "quickstart example"
+    line = dict(phase="quickstart", seconds=seconds, lines=lines,
+                rel_err=res["rel_err"], launches=counts,
+                launches_by_shape=shape_counts(by_shape),
+                k1_equal_plain_in_kernel_order=True)
+    return line, [row], {"quickstart example": (counts, by_shape, 1)}
+
+
+def telemetry_gates(payload, spans, layers: int) -> dict:
+    """scripts/ci_torch.sh's telemetry smoke on a serve's files: 2 spans
+    ``ok``, 7 launches a layer a step (the plan route), a layer plan, 2
+    requests ``ok``, the live roofline there."""
+    m = payload["metrics"]
+    got = dict(
+        spans=[s["status"] for s in spans],
+        launches_per_step=max(v["value"] for v in
+                              m["serving_kernel_launches_per_step"]["values"]),
+        layer_plans=m["serving_layer_plans"]["values"][0]["value"],
+        requests=m["serving_requests_total"]["values"],
+        achieved_adds_per_s=(payload["live_roofline"] or {}).get(
+            "achieved_adds_per_s"))
+    if (got["spans"] != ["ok", "ok"] or got["launches_per_step"] != 7 * layers
+            or not got["layer_plans"] > 0
+            or got["requests"] != [{"labels": {"status": "ok"}, "value": 2}]
+            or not (got["achieved_adds_per_s"] or 0) > 0):
+        fail(f"telemetry gates: {got}")
+    return got
+
+
+def phase_launcher_compress(dev, timer, sm):
+    """The serve launcher's ``--reduced --compress --kernel`` in process on
+    the card: Algorithm 1 over the reduced olmo-1b (the card's host), the
+    report table printed, the artifact served through the float32 plan
+    route with telemetry, scripts/ci_torch.sh's gates on its files; K6's
+    stages, K7's norm and attention at the serve's dimensions (2 slots, a
+    128-position view) against their plain versions (the rows)."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from repro_torch.launch import serve as serve_launcher
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        mpath, tpath = os.path.join(d, "m.json"), os.path.join(d, "t.jsonl")
+        dispatch.reset_launch_count()  # counts of the launcher start here ...
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            eng = serve_launcher.main(LAUNCHER_COMPRESS + [
+                "--metrics-out", mpath, "--trace-out", tpath])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dispatch.launch_counts()  # ... and are read here
+        by_shape = dispatch.launch_counts_by_shape()
+        payload = json.loads(Path(mpath).read_text())
+        spans = [json.loads(line) for line in
+                 Path(tpath).read_text().splitlines()]
+    text = out.getvalue()
+    art, cfg = eng.artifact, eng.cfg
+    table = art.report.table()
+    print(table, flush=True)
+    if not text.startswith(table):
+        fail("launcher --compress: the report table is not printed first")
+    gates = telemetry_gates(payload, spans, cfg.n_layers)
+    ex = eng.executor
+    if ex.routed != ex.sites or set(counts) != set(PLAN):
+        fail(f"launcher --compress: routed {len(ex.routed)}/{len(ex.sites)}, "
+             f"launched {counts}")
+    compress_s = float(re.search(r"compressed artifact: .*\(([0-9.]+)s\)",
+                                 text).group(1))
+    plan = ex.step_plan(cfg)
+    rows = quickstart_rows(cfg, art, plan, dev, timer, sm, "plan",
+                           serve_name="launcher_compress", batch=eng.n_slots,
+                           smax=eng.max_len)
+    prof = payload["profiler"]
+    line = dict(phase="launcher_compress", argv=" ".join(LAUNCHER_COMPRESS),
+                seconds=seconds, compress_s=compress_s,
+                ms_per_step=prof["p50_ms"], profiler=prof, **gates,
+                sites=len(art.records), lcc_adds=art.report.total_stage("lcc"),
+                baseline_adds=art.report.total_baseline(),
+                launches=counts, launches_by_shape=shape_counts(by_shape),
+                summary_lines=[ln for ln in text.splitlines()
+                               if ln.startswith(("req", "routed", "  live"))])
+    return line, rows, {"launcher_compress": (counts, by_shape,
+                                              eng.step_dispatches)}
+
+
+def start_dryrun(out_path: str):
+    """``launch/dryrun.py --arch all --shape all --mesh both`` in a process
+    of its own on the host (the meta device; no card), started now and
+    read at the end of the run (:func:`phase_dryrun`)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(Path(__file__).resolve().parent / "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--shape", "all", "--mesh", "both", "--out", out_path],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def phase_dryrun(started, out_path: str) -> dict:
+    """The dry run's records: 80, zero FAIL (the reference's 14 long_500k
+    SKIPs, the port's A7c SKIPs, the rest PASS with an H100 roofline)."""
+    proc, t0 = started
+    log, _ = proc.communicate(timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dryrun: exit {proc.returncode}: {log[-2000:]}")
+    recs = json.loads(Path(out_path).read_text())
+    status = [r["status"] for r in recs]
+    n_port = sum(r.get("refused_by") == "port" for r in recs)
+    counts = dict(PASS=status.count("PASS"), SKIP=status.count("SKIP"),
+                  FAIL=status.count("FAIL"))
+    if (len(recs) != DRYRUN_RECORDS or counts["FAIL"]
+            or counts["SKIP"] - n_port != DRYRUN_REF_SKIPS
+            or any("roofline" not in r for r in recs if r["status"] == "PASS")):
+        fail(f"dryrun: {len(recs)} records, {counts}, {n_port} port SKIPs: "
+             + "; ".join(r.get("error", "") for r in recs
+                         if r["status"] == "FAIL")[:2000])
+    single = {f"{r['arch']} {r['shape']}": dict(
+        dominant=r["dominant"], roofline_fraction=r["roofline_fraction"],
+        step_s=max(r["roofline"].values()),
+        coll_link_bytes=r["cost"]["coll_link_bytes"])
+        for r in recs if r["status"] == "PASS" and r["mesh"] == "16x16"}
+    return dict(phase="dryrun", seconds=seconds, records=len(recs), **counts,
+                port_skips=n_port, summary=log.strip().splitlines()[-1],
+                single_pod=single)
+
+
+def phase_examples(dev):
+    """``--only examples``: the three other examples in process on the card
+    at their default arguments — the paper's MLP loop at full width (784-300
+    -10: ProxSGD's K5 on fc1, 2 workers, 60 recovery steps), the reduced
+    ResNet's Table I grid (served on dense-effective kernels: no launch)
+    and the transformer example (its compressed reduced olmo-1b served
+    through the plan route: K6, K7) — each with its seconds and launches by
+    shape, every launch shape held against its plain version."""
+    timer = Timer(dev)
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, serves, lines = [], {}, []
+    res, out, seconds, counts, by_shape = run_example("mlp_mnist_compress", [])
+    if set(counts) != {"group_prox"} or res["accuracy"]["dense"] < 0.9:
+        fail(f"mlp example: launched {counts}, accuracy {res['accuracy']}")
+    a, t = prox_input(np.random.default_rng(72), 784, 300, torch.float32, dev)
+    rows.append(kernel_case_prox("mlp example fc1 [784, 300] float32", a, t,
+                                 dev, timer, serve="mlp example"))
+    serves["mlp example"] = (counts, by_shape, counts["group_prox"])
+    lines.append(dict(example="mlp_mnist_compress", seconds=seconds,
+                      launches=counts, launches_by_shape=shape_counts(by_shape),
+                      accuracy=res["accuracy"], adds_ratio=res["adds_ratio"],
+                      result=out[-1]))
+    res, out, seconds, counts, by_shape = run_example("resnet_compress", [])
+    if counts:
+        fail(f"resnet example: launched {counts}; it serves dense-effective "
+             "kernels")
+    lines.append(dict(example="resnet_compress", seconds=seconds, launches={},
+                      accuracy=res["accuracy"],
+                      accuracy_effective=res["accuracy_effective"],
+                      table1=res["table1"]))
+    res, out, seconds, counts, by_shape = run_example(
+        "transformer_compress_serve", [])
+    eng, art = res["engine"], res["artifact"]
+    if eng.executor.routed != eng.executor.sites or set(counts) != set(PLAN):
+        fail(f"transformer example: launched {counts}")
+    rows += quickstart_rows(eng.cfg, art, eng.executor.step_plan(eng.cfg), dev,
+                            timer, sm, "plan", serve_name="transformer example",
+                            batch=eng.n_slots, smax=eng.max_len)
+    serves["transformer example"] = (counts, by_shape, eng.step_dispatches)
+    lines.append(dict(example="transformer_compress_serve", seconds=seconds,
+                      launches=counts, launches_by_shape=shape_counts(by_shape),
+                      launches_per_step=eng.kernel_launches_per_step,
+                      agreement=res["agreement"], adds_ratio=res["adds_ratio"]))
+    emit(dict(phase="examples", examples=lines))
     return rows, serves
 
 
@@ -6301,9 +6576,13 @@ def main() -> None:
                                        "prefix", "mixtral", "deepseek",
                                        "qwen", "dense", "recurrent", "audio",
                                        "train", "distributed", "compress",
-                                       "resnet"),
+                                       "resnet", "examples"),
                     default=None,
-                    help="kernels: stop after olmo-1b's kernel phase (K4's "
+                    help="examples: examples/torch/'s MLP loop (full "
+                         "width), ResNet grid and transformer example in "
+                         "process at their default arguments, each one's "
+                         "seconds and launches by shape, every launch shape "
+                         "held against its plain version; kernels: stop after olmo-1b's kernel phase (K4's "
                          "per-factor route included); chain: K1/K2 at every "
                          "shape the ten per-region serves launch them at, "
                          "no fixture and no serve; stage: K6 alone at the "
@@ -6389,6 +6668,17 @@ def main() -> None:
               sources=[p.name for p in build.sources()]))
 
     rows, serves, trained = [], {}, None
+    if args.only == "examples":
+        rows, serves = phase_examples(dev)
+        emit(dict(kernels=kernel_rows(rows, serves)))
+        emit(dict(phase="done", seconds=time.perf_counter() - t_start))
+        print(smi, flush=True)
+        return
+    dryrun = None
+    if args.only is None:  # on the host, beside the card's phases
+        dryrun_out = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                                  f"chip_smoke_dryrun_{os.getpid()}.json")
+        dryrun = start_dryrun(dryrun_out)
     if args.only in ("chain", "stage", "attention", "prep"):
         emit(dict(chain=phase_chain, stage=phase_stage,
                   attention=phase_attention, prep=phase_prep)[args.only](dev))
@@ -6485,11 +6775,25 @@ def main() -> None:
         serves.update(cserves)
         gc.collect()
         torch.cuda.empty_cache()
+    if args.only is None:
+        timer = Timer(dev)
+        sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        for phase in (phase_quickstart, phase_launcher_compress):
+            line, prows, pserves = phase(dev, timer, sm)
+            emit(line)
+            rows += prows
+            serves.update(pserves)
+        del timer
+        gc.collect()
+        torch.cuda.empty_cache()
     if args.only in (None, "resnet"):
         rrows, rserves = run_resnet(dev, full=args.only == "resnet")
         rows += rrows
         serves.update(rserves)
 
+    if dryrun is not None:
+        emit(phase_dryrun(dryrun, dryrun_out))
+        os.remove(dryrun_out)
     # the whole steps and K9 at the serves' dimensions: compositions of the
     # kernels below, with no launch of their own
     emit(dict(phase="compositions",

@@ -3,8 +3,10 @@
 One ``ArchConfig`` per architecture with the exact published numbers.  The
 field set and ``arch_to_dict``/``arch_from_dict`` are kept identical to the
 JAX package so a config crosses between the two as a plain dict; dtype names
-resolve to ``torch.dtype``.  The shape-cell dry-run helpers are not part of
-this package.
+resolve to ``torch.dtype``.  Shape cells (train_4k / prefill_32k /
+decode_32k / long_500k) are defined here once; ``input_specs`` builds
+``meta`` tensors as their stand-ins — nothing is allocated, the dry-run
+contract.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from dataclasses import asdict, dataclass, replace
 
 import torch
 
-__all__ = ["MoESpec", "MLASpec", "SSMSpec", "ArchConfig", "reduced_config",
+__all__ = ["MoESpec", "MLASpec", "SSMSpec", "ArchConfig", "ShapeCell",
+           "SHAPE_CELLS", "cell_supported", "input_specs", "reduced_config",
            "arch_to_dict", "arch_from_dict", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -98,6 +101,77 @@ class ArchConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
+
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the 500k-token cell with bounded state?"""
+        return self.family in ("ssm", "hybrid") or self.attn_window is not None
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPE_CELLS: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_supported(cfg: ArchConfig, cell: ShapeCell) -> tuple[bool, str]:
+    """(supported, reason-if-not), the reference's rule and reasons."""
+    if cell.name == "long_500k" and not cfg.sub_quadratic():
+        return False, "full softmax attention: 500k decode needs sub-quadratic attention"
+    if cell.name == "long_500k" and cfg.enc_layers > 0:
+        return False, "encoder-decoder: 500k positions out of decoder design range"
+    return True, ""
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict:
+    """``meta`` stand-ins for every model input of this (arch, cell): the
+    reference's keys, shapes and dtypes."""
+    s, b = cell.seq_len, cell.global_batch
+    i32 = torch.int32
+    cd = cfg.cdtype
+    if cell.kind == "train":
+        if cfg.enc_layers > 0:  # whisper: stub frame embeddings + decoder tokens
+            return {
+                "frames": _meta((b, s, cfg.d_model), cd),
+                "tokens": _meta((b, cfg.max_decoder_len), i32),
+                "labels": _meta((b, cfg.max_decoder_len), i32),
+            }
+        if cfg.inputs == "embeds":  # vlm: stub patch/token embeddings
+            d = {
+                "embeds": _meta((b, s, cfg.d_model), cd),
+                "labels": _meta((b, s), i32),
+            }
+            if cfg.pos == "mrope":
+                d["positions3"] = _meta((3, b, s), i32)
+            return d
+        return {
+            "tokens": _meta((b, s), i32),
+            "labels": _meta((b, s), i32),
+        }
+    if cell.kind == "prefill":
+        if cfg.enc_layers > 0:
+            return {"frames": _meta((b, s, cfg.d_model), cd)}
+        if cfg.inputs == "embeds":
+            d = {"embeds": _meta((b, s, cfg.d_model), cd)}
+            if cfg.pos == "mrope":
+                d["positions3"] = _meta((3, b, s), i32)
+            return d
+        return {"tokens": _meta((b, s), i32)}
+    # decode: one new token against a seq_len-deep cache/state
+    return {"token": _meta((b, 1), i32), "pos": _meta((b,), i32)}
 
 
 def arch_to_dict(cfg: ArchConfig) -> dict:

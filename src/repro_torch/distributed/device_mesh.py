@@ -28,8 +28,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["Mesh", "make_mesh", "mesh_over", "join", "leave", "run_ranks",
-           "mesh_device", "in_torchrun"]
+__all__ = ["Mesh", "AbstractMesh", "make_mesh", "mesh_over", "join", "leave",
+           "run_ranks", "mesh_device", "in_torchrun"]
 
 
 class Mesh:
@@ -66,6 +66,46 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)})"
+
+
+class AbstractMesh:
+    """Named axes and their sizes with no processes behind them (the dry
+    run's production meshes): ``shape`` as :class:`Mesh`'s, which is all
+    the sharding policy reads.  It stands for rank 0 (the policy splits a
+    dimension only where its axes divide it, so every rank's chunks have
+    rank 0's shapes); each axis's group is an
+    :class:`~repro_torch.distributed.collectives.AbstractGroup` entering
+    its collectives in ``ledger``, and tensors live on ``meta``."""
+
+    def __init__(self, dims, axes):
+        from .collectives import Ledger
+
+        self.axis_names = tuple(axes)
+        self.shape = OrderedDict(zip(self.axis_names, (int(d) for d in dims)))
+        self.coords = {a: 0 for a in self.axis_names}
+        self.ledger = Ledger()
+
+    size = Mesh.size
+    member = True
+    device = torch.device("meta")
+
+    def coord(self, axis: str) -> int:
+        return 0
+
+    def group(self, axis: str):
+        from .collectives import AbstractGroup
+
+        return AbstractGroup(axis, self.shape[axis], self.ledger)
+
+    def reset(self):
+        """A fresh ledger; returns the old one."""
+        from .collectives import Ledger
+
+        old, self.ledger = self.ledger, Ledger()
+        return old
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({dict(self.shape)})"
 
 
 def _device_type() -> str:

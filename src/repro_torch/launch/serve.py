@@ -3,6 +3,10 @@ artifact, on the GPU unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --kernel
 
+    # Algorithm 1 over every compressible site first, then serve the result
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --compress --kernel
+
     # small widths, e.g. to rehearse on a machine without a GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --requests 3 --max-new 8 --kernel
@@ -20,11 +24,20 @@ Paged engines share prefilled prompt-prefix blocks across requests by
 default (``--no-prefix-cache`` turns it off); the end-of-run line reports
 the prefix hit rate and the copy-on-write copies.
 
-The artifact comes from the seeded fixture
+``--compress`` runs the compressor (``api.compress_model``, Algorithm 1)
+over every compressible site of ``api.init_params(--seed)`` under the
+reference launcher's config — FP with ``--kernel`` (packed for the fused
+kernels), FS without — prints the cost report and serves the artifact.
+Every rank of a ``--dp``/``--tp`` mesh compresses the same parameters (the
+compressor is deterministic).  It takes seconds at ``--reduced`` widths and
+hours at published ones (about 3.35 CPU-hours a layer of olmo-1b).
+
+Without ``--compress`` the artifact comes from the seeded fixture
 (``repro_torch.testing.seeded_artifact``): valid LCC chains at the model's
-width, random weights.  The offline compressor
-(``repro_torch.models.api.compress_model``, ``repro_torch.launch.compress``)
-runs for hours at these widths; an artifact it wrote is served with
+width, random weights; ``--kernel`` serves it through the fused kernels,
+which the reference refuses without ``--compress`` (ROADMAP Queue C,
+"Divergences by design").  An artifact the offline compressor
+(``repro_torch.launch.compress``) wrote is served with
 ``ServingEngine(artifact=CompressedModel.load(dir))``.  A whisper engine's
 cross-KV (``state["cross_k"/"cross_v"]``, the encoder's states through each
 decoder layer's ``xattn.k/v``) is its caller's to fill per slot
@@ -35,7 +48,7 @@ Telemetry, as in the reference: the engine traces every request
 (``tracer=True``) and the end-of-run summary prints queue wait, TTFT, TPOT
 and end-to-end p50/p99, the profiler's decode steps and tok/s, and the live
 roofline when the artifact carries a cost report (the seeded fixture has
-none).  ``--metrics-out F`` writes the merged metrics (the engine's and the
+none; ``--compress``'s has one).  ``--metrics-out F`` writes the merged metrics (the engine's and the
 process-wide registry) with the trace summary, the profiler summary and
 the live roofline as JSON; ``--trace-out G`` one span a request as JSONL;
 ``--metrics-port P`` serves ``GET /metrics`` (Prometheus text) on
@@ -52,9 +65,6 @@ telemetry files.
     # 4 gloo ranks on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --dp 2 --tp 2
-
-The reference launcher's ``--compress`` (compress, then serve: ROADMAP A8)
-is accepted and refused by name.
 """
 import argparse
 import contextlib
@@ -67,16 +77,23 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_arch, reduced_config
+from repro_torch.core.compress import CompressionConfig
 from repro_torch.data.synthetic import MarkovLM
+from repro_torch.models import api
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.testing import seeded_artifact
 
-_QUEUE = "ROADMAP Queue A"
-# the reference launcher's flags: flag -> (is it set?, what brings it)
-_REFUSED = {
-    "--compress": (lambda a: a.compress, f"A8 of {_QUEUE}"),
-}
+
+def compressed_artifact(params, cfg, kernel: bool):
+    """Algorithm 1 over every compressible site of ``params`` under the
+    reference launcher's config: FP packed for the fused kernels with
+    ``kernel``, FS (dense-effective weights only) without."""
+    return api.compress_model(
+        params, cfg,
+        CompressionConfig(algorithm="fp" if kernel else "fs",
+                          max_share_rel_err=0.06),
+        build_packed=kernel)
 
 
 def build_mesh(dp: int, tp: int):
@@ -89,7 +106,9 @@ def build_mesh(dp: int, tp: int):
     return make_mesh((dp, tp), ("data", "model"))
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> ServingEngine | None:
+    """The launcher; returns the engine it served with (None over a mesh,
+    whose engines live in their ranks)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true",
@@ -99,6 +118,11 @@ def main(argv=None) -> None:
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--compress", action="store_true",
+                    help="Algorithm 1 over every compressible site (any "
+                         "family) of the seeded parameters, served from the "
+                         "CompressedModel artifact (without it: the seeded "
+                         "fixture)")
     ap.add_argument("--kernel", action="store_true",
                     help="decode through the site-keyed fused-kernel executor "
                          "(the whole-step layer plan for float32 configs, the "
@@ -131,13 +155,7 @@ def main(argv=None) -> None:
     ap.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel mesh axis")
-    # the reference's flag, refused below
-    ap.add_argument("--compress", action="store_true")
     args = ap.parse_args(argv)
-    for flag, (is_set, where) in _REFUSED.items():
-        if is_set(args):
-            raise SystemExit(f"{flag} is not available in this package yet: "
-                             f"it comes with {where}")
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
@@ -148,8 +166,8 @@ def main(argv=None) -> None:
             raise SystemExit(f"--dp {args.dp} x --tp {args.tp} needs {n} "
                              f"GPUs, {torch.cuda.device_count()} visible")
         print(mesh_main(args), end="")
-        return
-    serve(args, torch.device(args.device))
+        return None
+    return serve(args, torch.device(args.device))
 
 
 def _rank_main(rank: int, world: int, args) -> str | None:
@@ -191,17 +209,26 @@ def mesh_main(args) -> str:
                                  threads=threads)[0]
 
 
-def serve(args, device: torch.device, mesh=None) -> None:
-    """Build the seeded artifact and its engine (over ``mesh`` when given)
-    and serve the launcher's requests."""
+def serve(args, device: torch.device, mesh=None) -> ServingEngine:
+    """Build the artifact (compressed with ``--compress``, else the seeded
+    fixture) and its engine (over ``mesh`` when given), serve the
+    launcher's requests; returns the engine."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg, vocab=256)
     if args.layers is not None:
         cfg = replace(cfg, n_layers=args.layers)
     t0 = time.time()
-    artifact = seeded_artifact(cfg, seed=args.seed, device=device)
-    print(f"seeded artifact: {len(artifact.records)} sites, "
+    if args.compress:
+        params = api.init_params(args.seed, cfg, device)
+        artifact = compressed_artifact(params, cfg, args.kernel)
+        del params
+        print(artifact.report.table())
+        what = "compressed artifact"
+    else:
+        artifact = seeded_artifact(cfg, seed=args.seed, device=device)
+        what = "seeded artifact"
+    print(f"{what}: {len(artifact.records)} sites, "
           f"{cfg.n_layers} layers, d_model {cfg.d_model} "
           f"({time.time() - t0:.1f}s)")
 
@@ -225,6 +252,7 @@ def serve(args, device: torch.device, mesh=None) -> None:
         if srv is not None:
             srv.shutdown()
             srv.server_close()
+    return eng
 
 
 def _run(args, eng, prompts, registries) -> None:

@@ -15,6 +15,12 @@ over all of them, returning the
 mesh): the call runs inside :class:`repro_torch.distributed.act_shard
 .mesh_context`, and the models compute this rank's part of it from
 :class:`~repro_torch.distributed.tp.Sharded` parameters.
+
+``train_loss``, ``prefill``, ``prefill_extend`` and ``decode`` accept the
+reference's ``unroll=`` keyword and ignore it: the reference unrolls its
+``lax.scan`` over layers (and chunks) for its dry run's cost pass, while
+these functions run eagerly, a Python loop over the layers, and have no
+scan to unroll — the outputs are the same either way.
 """
 from __future__ import annotations
 
@@ -22,14 +28,14 @@ import contextlib
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.distributed.act_shard import mesh_context
 
 from . import transformer, whisper
 
 __all__ = ["init_params", "abstract_params", "train_loss", "prefill",
            "prefill_extend", "decode", "sample_tokens", "paged_supported", "paged_layout",
-           "init_decode_state", "family_of", "register_compress_adapter",
+           "init_decode_state", "abstract_decode_state", "family_of", "register_compress_adapter",
            "compressible_units", "rebind", "compress_model"]
 
 
@@ -47,7 +53,7 @@ def abstract_params(cfg: ArchConfig):
     return transformer.abstract_params(cfg)
 
 
-def train_loss(params, cfg: ArchConfig, batch):
+def train_loss(params, cfg: ArchConfig, batch, *, unroll: bool = False):
     """Mean next-token cross-entropy of ``batch`` (``tokens`` or
     ``embeds``, ``labels``; ``positions3`` for an m-RoPE model; ``frames``
     too for the encoder-decoder)."""
@@ -73,8 +79,8 @@ def _on(mesh):
     return contextlib.nullcontext() if mesh is None else mesh_context(mesh)
 
 
-def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
-            mesh=None):
+def prefill(params, cfg: ArchConfig, batch, *, unroll: bool = False,
+            collect_cache: bool = False, mesh=None):
     """Returns final hidden states (and caches when collect_cache); the
     encoder-decoder returns its encoder's states of ``batch["frames"]`` and
     None (its decoder runs token by token against the cross-KV the caller
@@ -89,7 +95,7 @@ def prefill(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
 
 
 def prefill_extend(params, cfg: ArchConfig, tokens, positions, past, last, *,
-                   mesh=None):
+                   unroll: bool = False, mesh=None):
     """Tail prefill against a resident KV prefix (prefix-cache hit path):
     see :func:`repro_torch.models.transformer.forward_extend`."""
     if not paged_supported(cfg):
@@ -99,8 +105,8 @@ def prefill_extend(params, cfg: ArchConfig, tokens, positions, past, last, *,
                                           past, last)
 
 
-def decode(params, cfg: ArchConfig, state, token, pos, *, executor=None,
-           mesh=None):
+def decode(params, cfg: ArchConfig, state, token, pos, *, unroll: bool = False,
+           executor=None, mesh=None):
     """One decode step; ``state`` is updated in place and returned.
     ``executor`` is the compressed-serving hook: a site-keyed registry
     (``repro_torch.serving.executor.CompressedExecutor``) that routes every
@@ -189,6 +195,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, smax: int, *,
         kv_block = kv_blocks = None
     return transformer.init_decode_state(cfg, batch, smax, kv_block=kv_block,
                                          kv_blocks=kv_blocks, device=device)
+
+
+def abstract_decode_state(cfg: ArchConfig, cell: ShapeCell):
+    """The contiguous decode state of ``cell``'s batch over its sequence as
+    ``meta`` tensors — nothing allocated (decode_32k holds ~550 GB of
+    olmo-1b KV cache)."""
+    return init_decode_state(cfg, cell.global_batch, cell.seq_len,
+                             device="meta")
 
 
 # ---------------------------------------------------------------------------

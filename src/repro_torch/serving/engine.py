@@ -267,29 +267,13 @@ class ServingEngine:
         and which of the reference's fallbacks the step takes."""
         mesh, cfg = self.mesh, self.cfg
         self.params = tp.shard_params(params, mesh, self.device)
-        fallbacks = {}
-        batch_ranks = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
-        if cfg.moe is not None:
-            bspec = None
-            if batch_ranks > 1:
-                fallbacks["slots"] = "replicate:moe"
-            if cfg.moe_manual and self.n_slots % batch_ranks:
-                fallbacks["moe_manual"] = "moe_ffn"
-        else:
-            bspec = plan_batch_spec(mesh, self.n_slots)
-            if bspec is None and batch_ranks > 1:
-                fallbacks["slots"] = "replicate"
+        bspec, fallbacks = slot_axes(cfg, mesh, self.n_slots)
         self._bspec = bspec
         if bspec is not None:
             sl = chunk_slices((self.n_slots,), P(bspec), mesh)[0]
             self._lo, self._hi = sl.start, sl.stop
         pool = ("k", "v") if self.paged else ()  # block axis kept whole
-        specs = {}
-        for name, spec in decode_state_pspecs(self.state, mesh).items():
-            spec = list(spec) + [None] * (self.state[name].dim() - len(spec))
-            if name != "block_tbl":  # whole blocks; otherwise the slot rule
-                spec[1] = None if name in pool else bspec
-            specs[name] = P(*spec)
+        specs = state_specs(self.state, mesh, bspec, pool)
         self.state_specs = specs
         self._kv_dim = tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
                                    self.state["k"].shape[2])
@@ -825,11 +809,43 @@ class ServingEngine:
 _MESH_REFUSED = "ROADMAP A7c: the reference partitions it through GSPMD"
 
 
-def _mesh_device(mesh, cfg, bulk_prefill: bool, device) -> torch.device:
-    """The device a meshed engine lives on (the mesh's: a card under NCCL,
-    the CPU under gloo), after refusing what ``mesh=`` does not serve."""
-    import torch.distributed as dist
+def slot_axes(cfg, mesh, n_slots: int):
+    """``(axes, fallbacks)``: the mesh axes a meshed engine splits its
+    ``n_slots`` slots over (None: every rank holds every slot) and the
+    reference's fallbacks taken — the MoE family replicates its slots
+    (routing capacity is global), the others follow
+    :func:`~repro_torch.distributed.sharding.plan_batch_spec`."""
+    fallbacks = {}
+    batch_ranks = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
+    if cfg.moe is not None:
+        bspec = None
+        if batch_ranks > 1:
+            fallbacks["slots"] = "replicate:moe"
+        if cfg.moe_manual and n_slots % batch_ranks:
+            fallbacks["moe_manual"] = "moe_ffn"
+    else:
+        bspec = plan_batch_spec(mesh, n_slots)
+        if bspec is None and batch_ranks > 1:
+            fallbacks["slots"] = "replicate"
+    return bspec, fallbacks
 
+
+def state_specs(state: dict, mesh, bspec, pool=()) -> dict:
+    """The specs a meshed engine stores its decode ``state`` under:
+    ``decode_state_pspecs``'s, with the slot axis split over ``bspec`` (the
+    block axis of the ``pool`` leaves kept whole, the block table's rule
+    its own)."""
+    specs = {}
+    for name, spec in decode_state_pspecs(state, mesh).items():
+        spec = list(spec) + [None] * (state[name].dim() - len(spec))
+        if name != "block_tbl":  # whole blocks; otherwise the slot rule
+            spec[1] = None if name in pool else bspec
+        specs[name] = P(*spec)
+    return specs
+
+
+def mesh_refusal(cfg, bulk_prefill: bool = True) -> str | None:
+    """Why ``ServingEngine(mesh=)`` refuses ``cfg`` (None: it serves it)."""
     family = api.family_of(cfg)
     if cfg.mla is not None:
         what = "MLA attention"
@@ -838,10 +854,19 @@ def _mesh_device(mesh, cfg, bulk_prefill: bool, device) -> torch.device:
     elif not bulk_prefill:
         what = "the tokenwise prefill"
     else:
-        what = None
-    if what is not None:
-        raise NotImplementedError(f"mesh=: {what} is not served over a mesh "
-                                  f"in this package yet ({_MESH_REFUSED})")
+        return None
+    return (f"mesh=: {what} is not served over a mesh in this package yet "
+            f"({_MESH_REFUSED})")
+
+
+def _mesh_device(mesh, cfg, bulk_prefill: bool, device) -> torch.device:
+    """The device a meshed engine lives on (the mesh's: a card under NCCL,
+    the CPU under gloo), after refusing what ``mesh=`` does not serve."""
+    import torch.distributed as dist
+
+    why = mesh_refusal(cfg, bulk_prefill)
+    if why is not None:
+        raise NotImplementedError(why)
     if not dist.is_initialized():
         raise RuntimeError("mesh=: the process group is not up (join() or "
                            "run_ranks before building the mesh)")

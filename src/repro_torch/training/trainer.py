@@ -105,7 +105,7 @@ def init_train_state(seed: int, cfg: ArchConfig, optimizer: Optimizer,
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
                     lr: float = 3e-4, grad_clip: float = 1.0,
                     accum_steps: int = 1, grad_compression: bool = False,
-                    mesh=None, prox_specs=None):
+                    mesh=None, prox_specs=None, unroll: bool = False):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``labels`` ``[B, S]`` on the parameters'
@@ -118,6 +118,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
     axis and, as in the reference, takes no accumulation.  ``metrics``:
     ``loss``, ``grad_norm`` and, with ``prox_specs``, ``dead_groups`` and
     ``prox_penalty`` — device tensors, the same on every rank.
+    ``unroll`` is the reference's keyword, accepted and ignored: its step
+    unrolls a ``lax.scan`` for the dry run's cost pass, and the eager step
+    here has no scan to unroll.
     """
     if grad_compression and (mesh is None or "pod" not in mesh.shape):
         raise ValueError("grad compression targets the cross-pod all-reduce; "

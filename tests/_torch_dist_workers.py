@@ -169,6 +169,30 @@ def _run(mesh, state, batches, step_fn):
                 stored=stored, specs=specs, counts=counts)
 
 
+def _abstract(mesh):
+    """An abstract mesh of ``mesh``'s axes and sizes (the dry run's)."""
+    from repro_torch.distributed.device_mesh import AbstractMesh
+
+    return AbstractMesh(tuple(mesh.shape.values()), tuple(mesh.shape))
+
+
+def _meta(tree):
+    return map_tree(lambda t: torch.empty(tuple(t.shape), dtype=t.dtype,
+                                          device="meta"), tree)
+
+
+def reckoned_train(state, mesh, batch) -> dict:
+    """The dry run's reckoning of one meshed train step's collectives over
+    an abstract mesh of ``mesh``'s shape (nothing runs)."""
+    from repro_torch.launch.dryrun import train_collectives
+
+    am, st = _abstract(mesh), _meta(state)
+    return dict(train_collectives(st, params_pspecs(st, am),
+                                  _meta({k: torch.from_numpy(v)
+                                         for k, v in batch.items()}),
+                                  am).counts)
+
+
 def step_run(rank, world, inp):
     """At 2 ranks: the meshed step over 2 x 1 and 1 x 2 meshes and over a
     1 x 1 mesh of rank 0 from the seeded initial state; the compressed step
@@ -182,14 +206,18 @@ def step_run(rank, world, inp):
         mesh = make_mesh(dims, ("data", "model"))
         state = ttr.init_train_state(0, cfg, opt, prox_specs=specs,
                                      device="cpu")
+        reckoned = reckoned_train(state, mesh, inp["batches"][0])
         step = ttr.make_train_step(cfg, opt, lr=LR, prox_specs=specs, mesh=mesh)
         out[name] = _run(mesh, state, inp["batches"], step)
+        out[name]["reckoned"] = reckoned
     mesh = mesh_over([0], (1, 1), ("data", "model"))
     if mesh.member:
         state = ttr.init_train_state(0, cfg, opt, prox_specs=specs,
                                      device="cpu")
+        reckoned = reckoned_train(state, mesh, inp["batches"][0])
         step = ttr.make_train_step(cfg, opt, lr=LR, prox_specs=specs, mesh=mesh)
         out["1x1"] = _run(mesh, state, inp["batches"], step)
+        out["1x1"]["reckoned"] = reckoned
     for name, ranks, dims in (("pods2", [0, 1], (2, 1, 1)),
                               ("pods1", [0], (1, 1, 1))):
         mesh = mesh_over(ranks, dims, ("pod", "data", "model"))
@@ -254,6 +282,11 @@ def serve_case(case, mesh=None, shared=True) -> dict:
     collectives.reset_collective_counts()
     one.step()
     out["step_counts"] = collectives.collective_counts()
+    if mesh is not None and "cfg" in case:
+        from repro_torch.launch.dryrun import decode_collectives
+
+        out["reckoned_step"] = dict(decode_collectives(
+            case["cfg"], _abstract(mesh), 4, case["max_len"])[0].counts)
     out["launches"] = one.kernel_launches_per_step
     out["logits"] = _np(serving_engine(case, mesh).decode_logits(
         torch.tensor(LOGIT_TOK), torch.tensor(LOGIT_POS)))
@@ -323,7 +356,8 @@ def sharded_serving_run(rank, world, cases):
                 tokens=a["tokens"] == b["tokens"],
                 logits=np.array_equal(a["logits"], b["logits"]),
                 launches=(a["launches"], b["launches"]),
-                counts=a["step_counts"])
+                counts=a["step_counts"],
+                reckoned=a.get("reckoned_step"))
     else:
         try:
             serving_engine(cases["raw"], mesh)

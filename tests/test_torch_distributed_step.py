@@ -127,6 +127,24 @@ def test_meshed_step_at_one_rank_is_the_unsharded_step_bit_for_bit(run,
                              "all_reduce": (n_params + 1) * steps}
 
 
+@pytest.mark.parametrize("mesh", ["2x1", "1x2", "1x1"])
+def test_dry_run_reckons_the_measured_train_collectives(run, mesh):
+    """The dry run's reckoning of one meshed train step
+    (``launch.dryrun.train_collectives``: the state's gathers from its spec
+    tree, a float32 all-reduce a batch axis of every gradient and of the
+    loss) equals what the steps issued, a step at a time; at 1 x 1 also
+    the rule of the test above."""
+    _, out = run
+    got = out[0][mesh]
+    steps = len(got["metrics"])
+    assert {k: v * steps for k, v in got["reckoned"].items()} == got["counts"]
+    if mesh == "1x1":
+        gathers = sum(len([e for e in s if e]) for s in got["specs"].values())
+        n_params = sum(k.startswith(".params/") for k in got["state"])
+        assert got["reckoned"] == {"all_gather": gathers,
+                                   "all_reduce": n_params + 1}
+
+
 def _ref_compressed_step(jcfg, jopt, js, batch, n_pods):
     """The reference's compressed step from its own functions (its
     ``make_train_step`` needs a device a pod)."""

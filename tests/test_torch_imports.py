@@ -130,6 +130,16 @@ def test_no_source_file_of_the_port_names_jax_or_repro():
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("name", ["quickstart", "mlp_mnist_compress",
+                                  "resnet_compress",
+                                  "transformer_compress_serve"])
+def test_no_example_of_the_port_names_jax_or_repro(name):
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    mods = list(_imports(path))
+    assert any(m.startswith("repro_torch") for m in mods)
+    assert not [m for m in mods if _forbidden(m)], mods
+
+
 def test_chip_smoke_imports_neither():
     path = ROOT / "chip_smoke.py"
     mods = list(_imports(path))

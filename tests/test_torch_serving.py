@@ -281,7 +281,7 @@ def test_refused_options_raise(arts, name, msg, tmp_path):
 
 
 REFERENCE_OPTIONS = [
-    ("launcher", ["--compress"], "A8"), ("launcher", ["--dp", "2"], "mesh"),
+    ("launcher", ["--dp", "2", "--compress", "--kernel"], "mesh"),
     ("launcher", ["--tp", "2"], "mesh"),
     ("launcher", ["--dp", "2", "--tp", "2", "--kernel"], "mesh"),
     ("launcher", ["--metrics-out", "m.json"], None),
@@ -299,7 +299,8 @@ def test_reference_options_are_refused_by_name(arts, where, option, entry,
     ``fence_every=``: those of a slice still to come are refused naming it
     (argparse does not reject them as unknown); the telemetry ones work;
     ``--dp``/``--tp`` serve over that many gloo ranks, rank 0 printing the
-    unsharded launcher's request tokens."""
+    unsharded launcher's request tokens (with ``--compress`` every rank
+    compresses the same parameters)."""
     if where == "engine":
         _, tart = arts
         eng = ServingEngine(artifact=tart, device="cpu", **option)
@@ -312,7 +313,8 @@ def test_reference_options_are_refused_by_name(arts, where, option, entry,
     if entry == "mesh":
         serve.main(argv)
         meshed = capsys.readouterr().out
-        serve.main(argv[:7] + [o for o in option if o == "--kernel"])
+        serve.main(argv[:7] + [o for o in option
+                                if o in ("--kernel", "--compress")])
         plain = capsys.readouterr().out
 
         def reqs(out):
@@ -339,6 +341,83 @@ def test_reference_options_are_refused_by_name(arts, where, option, entry,
         assert [json.loads(l)["status"] for l in spans] == ["ok", "ok"]
     else:
         assert "metrics: http://127.0.0.1:" in out
+
+
+def test_launcher_compressor_output_is_the_reference_launchers(arts):
+    """``--compress --kernel``'s artifact: the compressor over the
+    reference launcher's parameters (``init_params(PRNGKey(0))``, converted)
+    under its config (FP, ``max_share_rel_err=0.06``, packed) gives the
+    reference launcher's records and packed buffers bit for bit."""
+    from repro.configs import get_arch as jga
+    from repro_torch.convert import config_from_reference, params_from_numpy
+    from repro_torch.launch import serve
+    from test_torch_compress import assert_dense_equal, report_rows
+
+    jart, _ = arts
+    jcfg = jreduced(jga("olmo-1b"), vocab=256)
+    tcfg = config_from_reference(jcfg)
+    tparams = params_from_numpy(jax.tree.map(
+        np.asarray, japi.init_params(jax.random.PRNGKey(0), jcfg)), tcfg, "cpu")
+    tart = serve.compressed_artifact(tparams, tcfg, kernel=True)
+    assert list(tart.records) == list(jart.records)
+    for name, jr in jart.records.items():
+        assert_dense_equal(jr, tart.records[name])
+        jp, tp = jart.packed[name], tart.packed[name]
+        for f in ("idx", "exp", "sign"):
+            assert np.array_equal(np.asarray(getattr(jp, f)), getattr(tp, f))
+        assert tuple(map(tuple, jp.col_slices)) == tp.col_slices
+    assert report_rows(tart.report) == report_rows(jart.report)
+    assert tart.compression.algorithm == "fp"
+
+
+def test_launcher_compress_kernel_serves_the_compressed_artifact(tmp_path,
+                                                                 capsys):
+    """``--reduced --device cpu --compress --kernel`` with telemetry: the
+    report table printed, every site routed through the layer plan, the
+    live roofline there (the artifact carries its cost report), 2 spans
+    ``ok``; on the CPU the wrappers run their plain versions, which count
+    no launch."""
+    from repro_torch.launch import serve
+
+    m, t = tmp_path / "m.json", tmp_path / "t.jsonl"
+    eng = serve.main(["--reduced", "--device", "cpu", "--compress", "--kernel",
+                      "--requests", "2", "--max-new", "8", "--slots", "2",
+                      "--metrics-out", str(m), "--trace-out", str(t)])
+    out = capsys.readouterr().out
+    art = eng.artifact
+    assert out.startswith(art.report.table())
+    assert "compressed artifact: 14 sites, 2 layers" in out
+    assert "routed 14/14 sites through fused kernels, 1 layer plan(s)" in out
+    assert eng.executor.routed == eng.executor.sites
+    assert all(p.col_slices for p in art.packed.values())
+    payload = json.loads(m.read_text())
+    roof = payload["live_roofline"]
+    assert roof and roof["sites"] and roof["achieved_adds_per_s"] > 0
+    assert roof["total_lcc_adds"] == art.report.total_stage("lcc")
+    metrics = payload["metrics"]
+    assert metrics["serving_layer_plans"]["values"][0]["value"] == 1
+    assert metrics["serving_requests_total"]["values"] == [
+        {"labels": {"status": "ok"}, "value": 2}]
+    assert eng.kernel_launches_per_step == 0
+    spans = [json.loads(line) for line in t.read_text().splitlines()]
+    assert [s["status"] for s in spans] == ["ok", "ok"]
+
+
+def test_launcher_compress_without_kernel_serves_the_fs_artifact(capsys):
+    """``--compress`` alone: FS, no packed buffers, served on the
+    dense-effective weights (no executor), as the reference launcher."""
+    from repro_torch.launch import serve
+
+    eng = serve.main(["--reduced", "--device", "cpu", "--compress",
+                      "--layers", "1", "--requests", "2", "--max-new", "3"])
+    out = capsys.readouterr().out
+    art = eng.artifact
+    assert "compressed artifact: 7 sites, 1 layers" in out
+    assert art.compression.algorithm == "fs" and not art.packed
+    assert eng.executor is None
+    assert "live roofline: " in out  # the FS artifact carries its report too
+    assert len([ln for ln in out.splitlines() if ln.startswith("req")]) == 2
+    assert "{'ok': 2} (0 unclosed)" in out
 
 
 def test_windowed_engine_serves_through_the_ring(arts):

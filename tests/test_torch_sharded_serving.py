@@ -257,6 +257,21 @@ def test_collectives_per_step_as_predicted(cases, run, case, mesh):
                                      slots_split=mesh == "data"), (rank, got)
 
 
+@pytest.mark.parametrize("mesh", [*MESHES, "1x1"])
+def test_dry_run_reckons_the_measured_collectives(cases, run, mesh):
+    """The dry run's reckoning of one decode step (``launch.dryrun
+    .decode_collectives``: the port's step run on the meta device over an
+    abstract mesh of the same shape) equals the collectives the raw case's
+    engine issued in its step and the predictor above."""
+    port, _ = cases
+    split = mesh == "data"
+    want = predicted_step("raw", _layers(port["raw"]), slots_split=split)
+    got = run[0][("raw", mesh)]
+    measured = got["counts"] if mesh == "1x1" else got["step_counts"]
+    reckoned = got["reckoned"] if mesh == "1x1" else got["reckoned_step"]
+    assert reckoned == measured == want
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_one_by_one_mesh_is_the_unsharded_engine_bit_for_bit(cases, run,
                                                               case):
