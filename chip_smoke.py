@@ -143,7 +143,10 @@ its plain PyTorch version:
    K2 on the decoder's q+k+v, K1 on attn.o, xattn.q (one launch shape with
    attn.o), xattn.o, fc1 and fc2, K3 on each region, each launch shape bit
    for bit; the float32 route's two-step logits against the dense float32
-   weights within STEP_TOL;
+   weights within STEP_TOL; then rwkv6-1.6b bf16 under a one-rank NCCL
+   1 x 1 serving mesh (``mesh_families``: the tokenwise prefill and the
+   recurrent state under ``mesh=``), tokens and two steps' logits bit for
+   bit the unsharded engine's, K1/K2/K3 at its launch shapes;
 9. training (``--only train`` runs these alone): K5 ``group_prox`` on the
    reference's hard cases and rows of every width to 16384 in float32 and
    bf16, then at the training runs' own views, each against its plain
@@ -156,11 +159,19 @@ its plain PyTorch version:
    the same state (bit for bit, ``meshed_step``), the update through K5
    against the other route, a profiled step; the paper's MLP through the
    port's launcher (``--arch mlp --prox``), 2 K5 launches a step;
-   ``--only distributed`` (not in the full run beyond that one step and
-   ``mesh_serve``): first the serving mesh — ``mesh_serve`` at
-   MESH_SERVE_LAYERS layers and uncut, and mixtral-8x22b at
-   MIXTRAL_LAYERS in float32 with ``moe_manual`` meshed 1 x 1 against
-   unsharded, bit for bit — then olmo-1b training at full width on a
+   ``--only distributed`` (not in the full run beyond that one step,
+   ``mesh_serve`` and rwkv6's ``mesh_families`` case): first the serving
+   mesh — ``mesh_serve`` at MESH_SERVE_LAYERS layers and uncut, and
+   mixtral-8x22b at MIXTRAL_LAYERS in float32 with ``moe_manual`` meshed
+   1 x 1 against unsharded, bit for bit; then ``mesh_families``
+   (``--only mesh_families`` runs it alone): the MLA, vlm, ssm, hybrid and
+   audio families at full width and their unmeshed serves' depths
+   (MESH_FAMILIES: deepseek-v2-lite-16b float32 K9 and bf16, qwen2-vl-7b,
+   rwkv6-1.6b, zamba2-7b bf16, whisper-small float32 with its cross-KV
+   placed by the caller) meshed 1 x 1 against unsharded — tokens and two
+   steps' logits bit for bit, launches a step equal, the collectives a
+   step as the dry run reckons them, each leaf's stored bytes, ms a step
+   and peak bytes of both — then olmo-1b training at full width on a
    one-rank NCCL world — the meshed step over
    1 x 1 against the unsharded step over MESH_STEPS steps from one state
    (every leaf, loss and grad norm bitwise, 7 K5 launches and the
@@ -5130,14 +5141,18 @@ def mesh_copy_bytes(eng) -> int:
     return out + cfg.n_layers * BATCH * cfg.n_heads * cfg.hd * 4
 
 
-def engine_logits(art, dev, mesh) -> torch.Tensor:
+def engine_logits(art, dev, mesh, *, max_len=MAX_LEN,
+                  setup=None) -> torch.Tensor:
     """Two decode steps' logits [2, B, V] of a fresh engine on ``art`` (over
     ``mesh`` when given) after an 8-token prompt in every slot: seeded
     tokens at positions 8 and 9, each row written into its slot's own
     block (rows of a fresh table all map the null block, and a scatter of
-    duplicate indices leaves any one of them on the card)."""
-    eng = ServingEngine(artifact=art, n_slots=BATCH, max_len=MAX_LEN,
+    duplicate indices leaves any one of them on the card).  ``setup(eng)``
+    as in :func:`serve`."""
+    eng = ServingEngine(artifact=art, n_slots=BATCH, max_len=max_len,
                         kv_block=16, device=dev, mesh=mesh, metrics=False)
+    if setup is not None:
+        setup(eng)
     for p in prompts_for(art.config, BATCH):
         eng.submit(p)
     rng = np.random.default_rng(4)
@@ -5289,6 +5304,195 @@ def phase_mesh_distributed(dev) -> dict:
     return dict(phase="mesh_moe_manual", arch=mcfg.name, layers=mcfg.n_layers,
                 fixture_s=fixture_s, moe_manual=manual,
                 seconds=time.perf_counter() - t0)
+
+
+# ------------------- the other families under a serving mesh (ROADMAP A7c)
+
+# (arch, layers, compute dtypes, other cuts): each family at full width and
+# at its unmeshed serve's depth (whisper: WHISPER_LAYERS + WHISPER_LAYERS)
+MESH_FAMILIES = (
+    ("deepseek-v2-lite-16b", DEEPSEEK_LAYERS, ("float32", "bfloat16"), {}),
+    ("qwen2-vl-7b", QWEN_LAYERS, ("bfloat16",), {}),
+    ("rwkv6-1.6b", RWKV_LAYERS, ("bfloat16",), {}),
+    ("zamba2-7b", ZAMBA_LAYERS, ("bfloat16",), {}),
+    ("whisper-small", WHISPER_LAYERS, ("float32",),
+     {"enc_layers": WHISPER_LAYERS}),
+)
+
+
+def placed_cross_kv(art, cfg, dev):
+    """``setup(eng)`` of a whisper engine: every slot's cross-KV from the
+    port's encoder over its seeded frames (:func:`fill_slots`), whole, and
+    the rank's share placed under the engine's ``state_specs`` with
+    ``placement.shard_leaf``, as a caller places it (the engine has no API
+    for it, nor has the reference's)."""
+    from repro_torch.distributed.placement import shard_leaf
+
+    def setup(eng):
+        shape = (cfg.n_layers, eng.n_slots, eng.max_len, cfg.n_kv_heads,
+                 cfg.hd)
+        whole = {n: torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+                 for n in ("cross_k", "cross_v")}
+        fill_slots(art, cfg, whole, dev)
+        for n, v in whole.items():
+            eng.state[n].copy_(v if eng.mesh is None else shard_leaf(
+                v, eng.state_specs[n], eng.mesh))
+    return setup
+
+
+def stored_bytes(eng, whole_state) -> dict:
+    """Each decode-state leaf's bytes on this rank and its spec's share of
+    the whole leaf's (``whole_state``: the unsharded engine's), and the
+    parameters' in all."""
+    from repro_torch.distributed.placement import axes_of
+    from repro_torch.distributed.tp import Sharded
+
+    def share(nbytes, spec):
+        return nbytes // int(np.prod([eng.mesh.shape[a] for e in spec
+                                      for a in axes_of(e)] or [1]))
+
+    out = {n: (tensor_bytes(v), share(tensor_bytes(whole_state[n]),
+                                      eng.state_specs[n]))
+           for n, v in eng.state.items()}
+    params = [t for t in leaves(eng.params) if isinstance(t, Sharded)]
+    out["params"] = (sum(tensor_bytes(t.local) for t in params),
+                     sum(share(t.local.element_size() * int(np.prod(t.shape)),
+                               t.spec) for t in params))
+    return out
+
+
+def family_pair(art, dev, mesh, label, *, max_len=MAX_LEN, setup=None):
+    """``art`` served unsharded and over ``mesh`` (MESH_PROMPTS prompts on
+    8 slots), each serve's launch counts reset just before it and read just
+    after: tokens and two steps' logits bit for bit, the same launches a
+    step and plan fallbacks, the meshed step's collectives as the dry run
+    reckons them (``launch.dryrun.decode_collectives`` on the meta device,
+    the compressed sites whole: ``routed=True``), each stored leaf the
+    spec's share, ms a step and peak device bytes of both.  Returns the
+    case's line and the meshed serve's ``(counts, by_shape, steps)``."""
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.device_mesh import AbstractMesh
+    from repro_torch.launch.dryrun import decode_collectives
+
+    cfg = art.config
+    prompts = prompts_for(cfg, MESH_PROMPTS)
+    out, toks, whole, served = {}, {}, None, None
+    for tag, m in (("unsharded", None), ("meshed", mesh)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_collective_counts()
+        dispatch.reset_launch_count()  # this serve's counts start here ...
+        eng, res, step_s = serve(art, dev, use_kernel=True, n_slots=BATCH,
+                                 prompts=prompts, max_new=MESH_MAX_NEW,
+                                 max_len=max_len, setup=setup, mesh=m)
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()  # ... and are read here
+        by_shape = dispatch.launch_counts_by_shape()
+        peak = torch.cuda.max_memory_allocated()
+        for r in res:
+            if (r.error or not r.finished
+                    or len(r.tokens) != r.prompt_len + MESH_MAX_NEW):
+                fail(f"mesh {label} {tag}: a request did not finish: {r.error}")
+        toks[tag] = [r.tokens for r in res]
+        stats = eng.plan_stats()
+        prefill = sum(r.prompt_len for r in res
+                      if r.stats["prefill_kind"] == "tokenwise")
+        out[tag] = dict(ms_per_step=float(np.median(step_s[1:] or step_s)) * 1e3,
+                        steps=len(step_s), peak_device_bytes=peak,
+                        launches_per_step=eng.kernel_launches_per_step,
+                        launches=counts, fallbacks=stats["fallbacks"],
+                        prefill_kinds=sorted({r.stats["prefill_kind"]
+                                              for r in res}),
+                        serve_collectives=collectives.collective_counts())
+        if m is None:
+            whole = {n: v.clone() for n, v in eng.state.items()}
+        else:
+            served = (counts, by_shape, eng.step_dispatches + prefill)
+            out[tag].update(mesh=stats["mesh"],
+                            stored_bytes=stored_bytes(eng, whole),
+                            step_collectives=step_collectives(eng, prompts))
+        del eng, res
+    del whole
+    lg = {tag: engine_logits(art, dev, m, max_len=max_len, setup=setup)
+          for tag, m in (("unsharded", None), ("meshed", mesh))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(decode_collectives(
+        cfg, AbstractMesh(tuple(mesh.shape.values()), tuple(mesh.shape)),
+        BATCH, max_len, routed=True)[0].counts)
+    m, u = out["meshed"], out["unsharded"]
+    if toks["meshed"] != toks["unsharded"]:
+        fail(f"mesh {label}: tokens differ from the unsharded engine's")
+    if not same_bits(lg["meshed"], lg["unsharded"]):
+        fail(f"mesh {label}: logits differ from the unsharded engine's by "
+             f"{float((lg['meshed'] - lg['unsharded']).abs().max())}")
+    if (m["launches_per_step"] != u["launches_per_step"]
+            or m["fallbacks"] != u["fallbacks"]
+            or m["prefill_kinds"] != u["prefill_kinds"]):
+        fail(f"mesh {label}: launches/fallbacks/prefill {m} against {u}")
+    if m["step_collectives"] != want:
+        fail(f"mesh {label}: collectives a step {m['step_collectives']}, "
+             f"the dry run reckons {want}")
+    if any(got != share for got, share in m["stored_bytes"].values()):
+        fail(f"mesh {label}: stored bytes (got, share) {m['stored_bytes']}")
+    return dict(case=label, arch=cfg.name, layers=cfg.n_layers,
+                dtype=cfg.compute_dtype, tokens_bitwise=True,
+                logits_bitwise=True, logits_shape=list(lg["meshed"].shape),
+                predicted_collectives=want,
+                sample_tokens=toks["meshed"][0][-MESH_MAX_NEW:], **out), served
+
+
+def phase_mesh_families(dev, archs=None, *, timer=None, sm=None):
+    """The MLA, vlm, ssm, hybrid and audio families under a one-rank NCCL
+    1 x 1 mesh against the unsharded engine (:func:`family_pair`), each at
+    full width and at its unmeshed serve's depth (MESH_FAMILIES; ``archs``:
+    some of them): deepseek-v2-lite-16b's float32 K9 route and bf16
+    per-region, qwen2-vl-7b, rwkv6-1.6b and zamba2-7b bf16 per-region
+    (tokenwise prefill, the recurrent states under ``mesh=``),
+    whisper-small float32 per-region (its cross-KV placed by the caller).
+    With ``timer`` (the full run's rwkv6-1.6b case) K1/K2/K3 are checked at
+    every launch shape of the meshed serve, whose launches then count in
+    the kernels line.  Returns ``(line, rows, serves)``."""
+    from repro_torch.distributed.device_mesh import make_mesh
+
+    t0 = time.perf_counter()
+    cases, rows, serves = [], [], {}
+    with one_rank_world():
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for arch, layers, dtypes, cut in MESH_FAMILIES:
+            if archs is not None and arch not in archs:
+                continue
+            base, cfg32, art32, fixture_s = seeded_cut(arch, layers, dev, **cut)
+            for dtype in dtypes:
+                art = art32 if dtype == "float32" else replace(
+                    art32, config=base, params=cast(art32.params, torch.bfloat16),
+                    plans={})
+                cfg = art.config
+                label = f"{cfg.name} mesh 1x1 {'f32' if dtype == 'float32' else 'bf16'}"
+                audio = cfg.enc_layers > 0
+                if timer is not None:
+                    rows += region_kernel_cases(art, dev, timer, sm, label)
+                case, served = family_pair(
+                    art, dev, mesh, label,
+                    max_len=WHISPER_ENC if audio else MAX_LEN,
+                    setup=placed_cross_kv(art, cfg, dev) if audio else None)
+                case.update(fixture_s=fixture_s,
+                            host_peak_rss_bytes=host_peak_rss_bytes())
+                emit(dict(case, phase="mesh_family"))
+                cases.append({k: case[k] for k in (
+                    "case", "tokens_bitwise", "logits_bitwise",
+                    "predicted_collectives")})
+                serves[label] = served
+                del art
+                drop_per_region_copies(art32)
+            del art32
+            gc.collect()
+            torch.cuda.empty_cache()
+    return (dict(phase="mesh_families", mesh={"data": 1, "model": 1},
+                 backend="nccl", world=1, n_slots=BATCH,
+                 requests=MESH_PROMPTS, max_new=MESH_MAX_NEW, cases=cases,
+                 seconds=time.perf_counter() - t0), rows, serves)
 
 
 # ------------------------------------ the compressor (Algorithm 1), PR 23
@@ -6044,7 +6248,7 @@ def start_dryrun(out_path: str):
 
 def phase_dryrun(started, out_path: str) -> dict:
     """The dry run's records: 80, zero FAIL (the reference's 14 long_500k
-    SKIPs, the port's A7c SKIPs, the rest PASS with an H100 roofline)."""
+    SKIPs, the rest PASS with an H100 roofline)."""
     proc, t0 = started
     log, _ = proc.communicate(timeout=600)
     seconds = time.perf_counter() - t0
@@ -6575,7 +6779,8 @@ def main() -> None:
                                        "attention", "prep", "artifact",
                                        "prefix", "mixtral", "deepseek",
                                        "qwen", "dense", "recurrent", "audio",
-                                       "train", "distributed", "compress",
+                                       "train", "distributed",
+                                       "mesh_families", "compress",
                                        "resnet", "examples"),
                     default=None,
                     help="examples: examples/torch/'s MLP loop (full "
@@ -6633,7 +6838,13 @@ def main() -> None:
                          "step == the unsharded step over 3 steps, the "
                          "compressed step at 1x1x1 and compressed_psum "
                          "against the CPU, GPipe and the overlapped matmul "
-                         "at one rank, the launcher's --mesh flags); "
+                         "at one rank, the launcher's --mesh flags), with "
+                         "mesh_families between the two; mesh_families: "
+                         "deepseek-v2-lite-16b (float32 K9, bf16), "
+                         "qwen2-vl-7b, rwkv6-1.6b, zamba2-7b (bf16) and "
+                         "whisper-small (float32) at full width over a "
+                         "one-rank NCCL 1x1 mesh == unsharded bit for bit, "
+                         "alone; "
                          "compress: the compressor "
                          "(the paper's MLP trained, compressed at full width "
                          "at 1 and 4 workers, fc1 served through K1, then "
@@ -6755,9 +6966,21 @@ def main() -> None:
         del arows, aserves
         gc.collect()
         torch.cuda.empty_cache()
-    if args.only == "distributed":
-        emit(phase_mesh_distributed(dev))
-        emit(phase_distributed(dev))
+    if args.only is None:  # rwkv6-1.6b bf16 under a 1 x 1 serving mesh
+        line, mrows, mserves = phase_mesh_families(
+            dev, ("rwkv6-1.6b",), timer=Timer(dev),
+            sm=torch.cuda.get_device_properties(dev).multi_processor_count)
+        emit(line)
+        rows += mrows
+        serves.update(mserves)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in ("distributed", "mesh_families"):
+        if args.only == "distributed":
+            emit(phase_mesh_distributed(dev))
+        emit(phase_mesh_families(dev)[0])
+        if args.only == "distributed":
+            emit(phase_distributed(dev))
         emit(dict(phase="done", seconds=time.perf_counter() - t_start,
                   host_peak_rss_bytes=host_peak_rss_bytes()))
         print(smi, flush=True)

@@ -20,16 +20,58 @@ The rules, one per entry of a spec:
 * an embedding split over the vocabulary: a masked lookup of the rows the
   rank holds, all-reduced over "model"; the tied head's logits are computed
   on the rank's vocabulary columns and gathered whole.
-* norm gains and biases are gathered at use (:func:`whole`).
+* norm gains and biases are gathered at use (:func:`whole`), and so are
+  the leaves used elementwise, no product over their split: rwkv6's mixes,
+  decays and bonus, mamba2's depthwise conv, ``A_log``, ``D`` and
+  ``dt_bias``.  A small table looked up by position (whisper's
+  ``dec_pos``) is an embedding (:func:`embed`).
+* a small product over a stack of matrices (rwkv6's ``mix_B``
+  ``[5, r, d]``) is an expert stack (:func:`expert_matmul`).
 
-The KV cache is split by :func:`~repro_torch.distributed.sharding
-.decode_state_pspecs`: over "model" on the head dimension (usually), where
-attention multiplies the rank's slice of q into its keys, all-reduces the
-partial scores before the softmax, applies the probabilities to its value
-slice and gathers the output; or over the kv heads, where each rank runs
-its heads alone and gathers the output.  Rotary embeddings pair dimension
-``i`` with ``i + hd / 2``, so q and k are rotated whole before the rank
-keeps its slice.
+The decode state is split by :func:`~repro_torch.distributed.sharding
+.decode_state_pspecs` (:func:`state_split` names the dimension a leaf
+splits over "model").  Each leaf is stored as the spec's share; to compute
+with it a step takes one of two ways, leaf by leaf:
+
+* (a) on the slice, with the collective the arithmetic needs;
+* (b) gathered whole at use (one counted ``all_gather_dim`` over "model"),
+  the step writing back only the rank's slice — for a split that crosses a
+  boundary of the arithmetic, or a leaf a whole compressed site (or a
+  product whose "model" split is on its output) reads whole.
+
+Leaf by leaf:
+
+* ``k``/``v`` (dense, MoE, vlm), ``attn_k``/``attn_v`` (hybrid),
+  ``self_k``/``self_v`` and ``cross_k``/``cross_v`` (audio): (a).  Over
+  head_dim (usually), attention multiplies the rank's slice of q into its
+  keys, all-reduces the partial scores before the softmax, applies the
+  probabilities to its value slice and gathers the output; over the kv
+  heads each rank runs its heads alone and gathers the output.  Rotary
+  embeddings (m-RoPE's three sections too) pair dimension ``i`` with
+  ``i + hd / 2``, so q and k are rotated whole before the rank keeps its
+  slice.  A split of the sequence axis is refused.
+* MLA's ``c_kv`` (the 512 latent) and ``k_rope`` (the 64 rope dims): (b).
+  The ``uk``/``uv`` expansion reads the whole latent (a whole compressed
+  site on the per-region route; on the dense weights "model" splits
+  their output), and ``k_rope`` is rotated whole at use.
+* rwkv6's ``wkv [B, H, K, V]``, split over the key axis K: (a).  The
+  rank's slice of r, k, the decay and the bonus, the state updated on
+  its rows; ``r . S`` is a partial sum over keys, all-reduced (float32)
+  before the per-head group norm.
+* rwkv6's token shifts ``x_prev_tm``/``x_prev_cm`` (over d): (b).  They
+  feed the mixes of whole compressed sites, and the channel mix's ``k``
+  (``[d, d_ff]``, "model" on d_ff) wants its input whole.
+* mamba2's ``ssm [B, H, N, P]``: (a).  Over the state axis N (d_state;
+  zamba2-7b's split, N = P = 64) the state updates on its rows from the
+  rank's slice of B, and ``C . h`` is a partial sum over N, all-reduced
+  (float32) before ``+ D x``; over P (head_dim, where N does not divide
+  and P does, or P is the larger) or H, ``C . h`` is local and its slices
+  are gathered.
+* mamba2's ``conv [B, Cd, K - 1]`` (the channels x, B, C, or the window
+  axis): (b).  A chunk of the channels crosses the x / B / C boundary.
+
+A spec a step cannot honour (a split this module has no rule for) raises
+by name; nothing falls back to an unsharded path.
 
 Every collective goes through :mod:`~repro_torch.distributed.collectives`,
 where it is counted; a group of one rank still goes through the backend
@@ -38,7 +80,9 @@ weight where its spec asks for a partial product.
 """
 from __future__ import annotations
 
+import functools
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -47,8 +91,8 @@ from .placement import axes_of, chunk_slices, gather_leaf, shard_leaf
 from .sharding import P, decode_state_pspecs, map_specs, params_pspecs
 
 __all__ = ["Sharded", "shard_params", "whole", "fsdp", "local_chunk",
-           "linear", "embed", "expert_matmul", "kv_split", "kv_local",
-           "gather_kv", "attend"]
+           "linear", "embed", "expert_matmul", "state_split", "kv_split",
+           "kv_local", "gather_kv", "model_slice", "model_sum", "attend"]
 
 MODEL = "model"
 
@@ -168,12 +212,11 @@ def _model_dim(w: Sharded) -> int | None:
 def _partial(y: torch.Tensor, mesh, dtype) -> torch.Tensor:
     """The sum over "model" of the partial products ``y`` (float32 when the
     axis has several ranks), in ``dtype``."""
-    return all_reduce(y, mesh.group(MODEL)).to(dtype)
+    return model_sum(y, mesh).to(dtype)
 
 
 def _slice_last(x: torch.Tensor, mesh, width: int) -> torch.Tensor:
-    i = mesh.coord(MODEL)
-    return x[..., i * width:(i + 1) * width]
+    return x[..., model_slice(mesh, width)]
 
 
 def linear(x: torch.Tensor, w: Sharded, b=None) -> torch.Tensor:
@@ -246,33 +289,63 @@ def expert_matmul(z: torch.Tensor, w: Sharded) -> torch.Tensor:
 # ---------------------------------------------------------------- KV cache
 
 
+@functools.lru_cache(maxsize=None)
+def _state_dim(axes: tuple, shape: tuple) -> int | None:
+    meta = {"x": torch.empty(shape, device="meta")}
+    spec = decode_state_pspecs(meta, SimpleNamespace(shape=dict(axes)))["x"]
+    for d, e in enumerate(spec):
+        if axes_of(e) == (MODEL,):
+            return d - len(shape)
+    return None
+
+
+def state_split(mesh, shape, *, seq_axis: int | None = None,
+                what: str = "decode-state leaf") -> int | None:
+    """The dimension, counted from the end (-1 the last), that
+    ``decode_state_pspecs`` splits over "model" in a float decode-state
+    leaf of whole ``shape`` ``[L, B, ...]`` (None: no dimension).  A split
+    of ``seq_axis`` (the leaf's sequence axis) is refused."""
+    dim = _state_dim(tuple(mesh.shape.items()), tuple(shape))
+    if seq_axis is not None and dim == seq_axis - len(shape):
+        raise NotImplementedError(
+            f"a {what} {tuple(shape)} split over 'model' on its sequence "
+            f"axis (no other axis divides over {mesh.shape[MODEL]} ranks)")
+    return dim
+
+
 def kv_split(mesh, n_kv: int, head_dim: int, seq: int) -> int:
     """The dimension of a per-layer KV cache ``[..., seq, Hkv, hd]`` that
     ``decode_state_pspecs`` splits over "model": -1 (head_dim) or -2 (the
     kv heads).  A split of the sequence is refused."""
-    meta = {"k": torch.empty((1, 1, seq, n_kv, head_dim), device="meta")}
-    spec = decode_state_pspecs(meta, mesh)["k"]
-    for d, e in enumerate(spec):
-        if axes_of(e) == (MODEL,):
-            if d in (3, 4):
-                return d - 5
-            raise NotImplementedError(
-                "a KV cache split over 'model' on its sequence axis (neither "
-                f"{n_kv} kv heads nor head_dim {head_dim} divide over "
-                f"{mesh.shape[MODEL]} ranks)")
-    raise ValueError("decode_state_pspecs split no dimension over 'model'")
+    dim = state_split(mesh, (1, 1, seq, n_kv, head_dim), seq_axis=2,
+                      what="KV cache")
+    if dim is None:
+        raise ValueError("decode_state_pspecs split no dimension over 'model'")
+    return dim
 
 
 def kv_local(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    """This rank's slice of a whole K/V tensor ``[..., Hkv, hd]`` along the
-    split dimension ``dim``."""
+    """This rank's slice of a whole state tensor (K/V rows, latents,
+    token shifts, conv windows) along the split dimension ``dim``."""
     n = t.shape[dim] // mesh.shape[MODEL]
     return t.narrow(dim, mesh.coord(MODEL) * n, n)
 
 
 def gather_kv(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    """The whole K/V tensor from every rank's slice along ``dim``."""
+    """The whole state tensor from every rank's slice along ``dim``."""
     return all_gather_dim(t, mesh.group(MODEL), dim)
+
+
+def model_slice(mesh, width: int) -> slice:
+    """This rank's ``width`` entries of a dimension split over "model"."""
+    i = mesh.coord(MODEL)
+    return slice(i * width, (i + 1) * width)
+
+
+def model_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over "model" of partial sums ``y`` (a contraction split
+    over "model"; rule (a) of a state split over a contracted axis)."""
+    return all_reduce(y, mesh.group(MODEL))
 
 
 def attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask, mesh,

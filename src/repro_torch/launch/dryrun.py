@@ -37,10 +37,10 @@ train step's collectives follow its spec tree (``training/trainer.py``):
 one gather per named axis of every leaf of the state, then one float32
 all-reduce per batch axis of every gradient and of the loss.
 
-Cells the reference does not support SKIP with its reasons; cells whose
-meshed path the port refuses today SKIP with the port's own refusal (the
-serving engine's for MLA, vlm, ssm, hybrid and audio, the train step's for
-``moe_manual``: ROADMAP A7c).  Fields without a counterpart are null:
+Cells the reference does not support SKIP with its reasons; a cell whose
+meshed path the port refuses SKIPs with the port's own refusal (the train
+step's for ``moe_manual``: ROADMAP A7c).  Fields without a counterpart are
+null:
 ``lower_s``, ``compile_s``, ``temp_bytes``, ``alias_bytes``,
 ``scanned_cost``, ``cost_points`` and the ``*_per_layer`` costs (no
 compile, no scanned-vs-unrolled pair, no two-point extrapolation: the
@@ -77,7 +77,7 @@ from repro_torch.optim.optimizers import adamw, tree_leaves
 from repro_torch.training.trainer import TrainState, make_train_step
 
 __all__ = ["apply_variant", "build_cell", "run_cell", "train_collectives",
-           "decode_collectives", "main"]
+           "decode_collectives", "RoutedSites", "main"]
 
 DEFAULT_OUT = "dryrun_results_torch.json"
 # the reference's collective kinds (HLO op names) and the port's names
@@ -152,11 +152,43 @@ def train_collectives(state, specs, batch, mesh) -> Ledger:
     return ledger
 
 
+class RoutedSites:
+    """The per-region route's stand-in on the meta device: every site of
+    the model (``compress_adapters.sites_for``) runs whole on every rank,
+    as a compressed site does (no collective; its bias is still gathered
+    by the model), its output an empty ``[N, B]``."""
+
+    def __init__(self, params, cfg: ArchConfig):
+        from repro_torch.models.compress_adapters import _lookup, sites_for
+
+        self.width = {}
+        for site in sites_for(params, cfg):
+            a = _lookup(params, site.path)
+            for i in site.index:
+                a = a[i]
+            self.width[site.name] = a.shape[-1] if site.transpose else a.shape[-2]
+
+    def matvec(self, name: str):
+        n = self.width.get(name)
+        return None if n is None else (
+            lambda x: x.new_empty((n, x.shape[-1])))
+
+    def grouped(self, names):
+        if not all(n in self.width for n in names):
+            return None
+
+        def run(xs):
+            x = xs if isinstance(xs, torch.Tensor) else xs[0]
+            return [x.new_empty((self.width[n], x.shape[-1])) for n in names]
+        return run
+
+
 def decode_collectives(cfg: ArchConfig, mesh, n_slots: int, smax: int, *,
-                       fsdp: bool = True):
+                       fsdp: bool = True, routed: bool = False):
     """One serving decode step of ``n_slots`` slots over ``smax`` cache
     positions, run on the meta device over ``mesh``: returns ``(ledger,
-    the step's outputs)``."""
+    the step's outputs)``.  ``routed``: the per-region route of an
+    artifact that compresses every site (:class:`RoutedSites`)."""
     from repro_torch.serving.engine import slot_axes, state_specs
 
     params = api.abstract_params(cfg)
@@ -168,7 +200,9 @@ def decode_collectives(cfg: ArchConfig, mesh, n_slots: int, smax: int, *,
                   P(bspec), mesh)
     pos = torch.empty((rows.shape[0],), dtype=torch.int32, device="meta")
     mesh.reset()
-    logits, st = api.decode(sp, cfg, st, rows, pos, mesh=mesh)
+    logits, st = api.decode(sp, cfg, st, rows, pos, mesh=mesh,
+                            executor=RoutedSites(params, cfg) if routed
+                            else None)
     # the engine's step gathers its packed [3, slots] over the slot axes
     packed = torch.empty((3, rows.shape[0]), dtype=torch.int64, device="meta")
     if bspec is not None:
@@ -181,8 +215,6 @@ def build_cell(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     """Pass 1 of one cell: ``{"args": bytes, "outs": bytes, "ledger":
     the collectives of one step}`` on ``mesh``, or a ``"refused"`` reason
     (the port's refusal of this cell's meshed path)."""
-    from repro_torch.serving.engine import mesh_refusal
-
     cfg = apply_variant(cfg, variant)
     ws_decode = variant is not None and "ws_decode" in variant
     specs = input_specs(cfg, cell)
@@ -204,9 +236,6 @@ def build_cell(cfg: ArchConfig, cell: ShapeCell, mesh, *,
         # the new state's chunks, the loss and the gradient norm
         return {"args": args, "outs": tree_bytes(local) + 2 * 4,
                 "ledger": ledger}
-    why = mesh_refusal(cfg)
-    if why is not None:
-        return {"refused": why}
     params = api.abstract_params(cfg)
     pspecs = params_pspecs(params, mesh, fsdp=not ws_decode)
     local_p = place(params, pspecs, mesh)
@@ -217,7 +246,13 @@ def build_cell(cfg: ArchConfig, cell: ShapeCell, mesh, *,
                   else batch_pspecs(specs, mesh))
         batch = place(specs, bspecs, mesh)
         mesh.reset()
-        h, _ = api.prefill(sp, cfg, batch, mesh=mesh)
+        # the recurrent families' chunk loop issues no collective and, on
+        # meta, computes shapes only: one chunk of the whole sequence
+        # reckons the cell's collectives, bytes and output (and runs in
+        # seconds where 128 chunks a layer take a minute)
+        with torch.no_grad():  # a serving prefill builds no graph
+            h, _ = api.prefill(sp, replace(cfg, ssm_chunk=cell.seq_len),
+                               batch, mesh=mesh)
         return {"args": tree_bytes(local_p) + tree_bytes(batch),
                 "outs": tree_bytes(h), "ledger": mesh.reset()}
     ledger, (logits, st) = decode_collectives(
@@ -368,7 +403,7 @@ def main(argv=None) -> list[dict]:
     n_fail = sum(r["status"] == "FAIL" for r in results)
     n_port = sum(r.get("refused_by") == "port" for r in results)
     print(f"\n== dry-run summary: {n_pass} PASS / {n_skip} SKIP / {n_fail} FAIL "
-          f"({n_port} of the SKIPs refused by the port: ROADMAP A7c) ==")
+          f"({n_port} of the SKIPs refused by the port) ==")
     return results
 
 

@@ -65,6 +65,10 @@ telemetry files.
     # 4 gloo ranks on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --dp 2 --tp 2
+
+    # any family: rwkv6-1.6b's recurrent state split over 2 ranks
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --reduced --device cpu --tp 2 --kernel
 """
 import argparse
 import contextlib
@@ -106,9 +110,8 @@ def build_mesh(dp: int, tp: int):
     return make_mesh((dp, tp), ("data", "model"))
 
 
-def main(argv=None) -> ServingEngine | None:
-    """The launcher; returns the engine it served with (None over a mesh,
-    whose engines live in their ranks)."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags (``argv``: the command line's by default)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true",
@@ -155,8 +158,13 @@ def main(argv=None) -> ServingEngine | None:
     ap.add_argument("--dp", type=int, default=1, help="data-parallel mesh axis")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel mesh axis")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> ServingEngine | None:
+    """The launcher; returns the engine it served with (None over a mesh,
+    whose engines live in their ranks)."""
+    args = parse_args(argv)
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "versions on the CPU")

@@ -12,9 +12,11 @@ over all of them, returning the
 ``ServingEngine(artifact=...)`` serves.
 
 ``prefill``, ``prefill_extend`` and ``decode`` take ``mesh=`` (a serving
-mesh): the call runs inside :class:`repro_torch.distributed.act_shard
-.mesh_context`, and the models compute this rank's part of it from
-:class:`~repro_torch.distributed.tp.Sharded` parameters.
+mesh) for every family: the call runs inside
+:class:`repro_torch.distributed.act_shard.mesh_context`, and the models
+compute this rank's part of it from
+:class:`~repro_torch.distributed.tp.Sharded` parameters and this rank's
+slice of the decode state.
 
 ``train_loss``, ``prefill``, ``prefill_extend`` and ``decode`` accept the
 reference's ``unroll=`` keyword and ignore it: the reference unrolls its
@@ -85,9 +87,9 @@ def prefill(params, cfg: ArchConfig, batch, *, unroll: bool = False,
     encoder-decoder returns its encoder's states of ``batch["frames"]`` and
     None (its decoder runs token by token against the cross-KV the caller
     fills)."""
-    if cfg.enc_layers > 0:
-        return whisper.encode(params, cfg, batch["frames"]), None
     with _on(mesh):
+        if cfg.enc_layers > 0:
+            return whisper.encode(params, cfg, batch["frames"]), None
         return transformer.forward(
             params, cfg, tokens=batch.get("tokens"),
             embeds=batch.get("embeds"), positions3=batch.get("positions3"),
@@ -111,10 +113,10 @@ def decode(params, cfg: ArchConfig, state, token, pos, *, unroll: bool = False,
     ``executor`` is the compressed-serving hook: a site-keyed registry
     (``repro_torch.serving.executor.CompressedExecutor``) that routes every
     covered projection through fused LCC kernel launches."""
-    if cfg.enc_layers > 0:
-        return whisper.decode_step(params, cfg, state, token, pos,
-                                   executor=executor)
     with _on(mesh):
+        if cfg.enc_layers > 0:
+            return whisper.decode_step(params, cfg, state, token, pos,
+                                       executor=executor)
         return transformer.decode_step(params, cfg, state, token, pos,
                                        executor=executor)
 

@@ -230,7 +230,8 @@ def attention_decode(
     ``kv_split`` ``(mesh, dim)`` (a serving mesh): the cache holds this
     rank's slice of the keys and values along ``dim`` (-1 head_dim, -2 the
     kv heads); the new row is rotated whole, its slice written, and the
-    attention runs through :func:`repro_torch.distributed.tp.attend`.
+    attention runs through :func:`repro_torch.distributed.tp.attend` (a
+    static cross cache's too).
     """
     b = x.shape[0]
     pos = pos.long()
@@ -249,7 +250,9 @@ def attention_decode(
     g = n_heads // n_kv
     qg = q.reshape(b, 1, n_kv, g, head_dim)
     if cross:
-        out = _sdpa(qg, cache.k, cache.v, None).reshape(b, 1, n_heads * head_dim)
+        out = (_sdpa(qg, cache.k, cache.v, None) if kv_split is None
+               else tp.attend(qg, cache.k, cache.v, None, *kv_split))
+        out = out.reshape(b, 1, n_heads * head_dim)
         return site_linear(executor, sn("o"), p["o"], out.to(x.dtype)), cache
     k_new = k_raw.reshape(b, 1, n_kv, head_dim)
     v_new = v_raw.reshape(b, 1, n_kv, head_dim)
@@ -383,7 +386,8 @@ def mla_prefill(p, x, positions, *, n_heads, kv_lora, qk_nope, qk_rope, v_dim,
 
 
 def mla_decode(p, x, cache, pos, *, n_heads, kv_lora, qk_nope, qk_rope, v_dim,
-               rope_theta=10000.0, executor=None, site: str | None = None):
+               rope_theta=10000.0, executor=None, site: str | None = None,
+               latent_split=None):
     """One-token MLA decode. x [B,1,d]; pos [B] (-1 = idle slot).
 
     Returns (out [B,1,d], cache) — the cache passed in, updated in place:
@@ -392,22 +396,35 @@ def mla_decode(p, x, cache, pos, *, n_heads, kv_lora, qk_nope, qk_rope, v_dim,
     then the whole latent view is expanded.  An idle row writes nothing, as
     in :func:`attention_decode` (the JAX package's ``one_hot(-1)`` is all
     zeros; here every write is guarded).  Keys are rotated at
-    ``max(kpos, 0)``."""
+    ``max(kpos, 0)``.
+
+    ``latent_split`` ``(mesh, c_dim, r_dim)`` (a serving mesh): the cache
+    holds this rank's slice of ``c_kv`` along ``c_dim`` and of ``k_rope``
+    along ``r_dim``; the new rows' slices are written, and the view is
+    gathered whole for the expansion (rule (b) of
+    :mod:`repro_torch.distributed.tp`)."""
     b = x.shape[0]
     pos = pos.long()
     paged = isinstance(cache, PagedMLACache)
     sn = site_fmt(site)
     c_new, kr_new = site_linear_group(executor, (sn("dkv"), sn("kr")),
                                       (p["dkv"], p["kr"]), x)  # [B,1,dc/Dr]
+    c_w, kr_w = c_new[:, 0], kr_new[:, 0]
+    if latent_split is not None:
+        mesh, c_dim, r_dim = latent_split
+        c_w, kr_w = tp.kv_local(c_w, mesh, c_dim), tp.kv_local(kr_w, mesh, r_dim)
     if paged:
-        _paged_scatter(cache.c_kv, cache.tbl, pos, c_new[:, 0])
-        _paged_scatter(cache.k_rope, cache.tbl, pos, kr_new[:, 0])
+        _paged_scatter(cache.c_kv, cache.tbl, pos, c_w)
+        _paged_scatter(cache.k_rope, cache.tbl, pos, kr_w)
         c_kv = paged_view(cache.c_kv, cache.tbl)
         k_rope = paged_view(cache.k_rope, cache.tbl)
     else:
-        _row_scatter(cache.c_kv, pos, c_new[:, 0])
-        _row_scatter(cache.k_rope, pos, kr_new[:, 0])
+        _row_scatter(cache.c_kv, pos, c_w)
+        _row_scatter(cache.k_rope, pos, kr_w)
         c_kv, k_rope = cache.c_kv, cache.k_rope
+    if latent_split is not None:  # this rank's slices -> the whole view
+        c_kv = tp.gather_kv(c_kv, mesh, c_dim)
+        k_rope = tp.gather_kv(k_rope, mesh, r_dim)
     _row_scatter(cache.kpos, pos, pos.to(cache.kpos.dtype))
     kpos = cache.kpos
     q, k, v = _mla_qkv(p, x, c_kv, k_rope, pos[:, None], kpos.clamp(min=0),

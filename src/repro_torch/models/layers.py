@@ -124,7 +124,8 @@ def layer_norm(x, w, b, eps: float = 1e-5):
     x32 = x.to(torch.float32)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
-    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * w + b
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * tp.whole(w) \
+        + tp.whole(b)
 
 
 def non_parametric_ln(x, eps: float = 1e-5):
@@ -168,8 +169,8 @@ def apply_mrope(x, positions3, sections: tuple[int, int, int],
     dev = positions3.device
     freqs = torch.exp(-math.log(theta) * torch.arange(
         half, dtype=torch.float32, device=dev) / half)
-    sec_id = torch.repeat_interleave(torch.arange(3, device=dev),
-                                     torch.tensor(sections, device=dev))
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=dev)
     pos_sel = positions3.to(torch.float32)[sec_id]  # [half, B, S]
     ang = pos_sel.movedim(0, -1) * freqs  # [B, S, half]
     sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
@@ -192,5 +193,6 @@ def gelu(x):
 
 
 def gelu_mlp(p, x):
-    """Two-layer GELU MLP (whisper-style), biases on both layers."""
+    """Two-layer GELU MLP (whisper-style), biases on both layers (a
+    partitioned layer through ``tp.linear(x, w, b)``)."""
     return linear(p["fc2"], gelu(linear(p["fc1"], x)))

@@ -17,6 +17,13 @@ Decode routes r/k/v/g through ONE grouped launch of the compressed executor:
 their four distinct token-shifted inputs are laid out as equally spaced
 slices of one stacked ``[4, B, 1, d]`` buffer (the layout the region prep
 takes for a stack of experts); ``o`` runs through its own chain.
+
+Under a serving mesh the parameters may be
+:class:`~repro_torch.distributed.tp.Sharded` leaves: the products go
+through :mod:`repro_torch.distributed.tp` (``mix_B``'s five matrices as an
+expert stack), the mixes, decays, bonus and norm scale are gathered at use;
+the decode step's wkv state may hold this rank's rows of the key axis
+(``wkv_split``, rule (a) of ``tp``'s docstring).
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tp
 
 from .layers import linear, site_fmt, site_linear, site_linear_group
 
@@ -41,14 +50,24 @@ class RWKV6State(NamedTuple):
     x_prev: torch.Tensor  # [B, d_model]  (time-mix token shift)
 
 
+def _mm(x, w):
+    """``x @ w`` for a plain or a partitioned ``w``."""
+    return linear({"w": w}, x)
+
+
 def _ddlerp(p, x, x_prev):
     """Data-dependent token-shift: the mixed inputs ``[..., 5, d]`` of the
     five projections (r, k, v, w, g)."""
     delta = x_prev - x
-    lora = torch.tanh(x @ p["mix_A"])  # [B,S,5*lm]
+    lora = torch.tanh(_mm(x, p["mix_A"]))  # [B,S,5*lm]
     lora = lora.reshape(*x.shape[:-1], len(MIX), -1)
-    dd = torch.einsum("bsmi,mid->bsmd", lora, p["mix_B"].to(x.dtype))
-    mu = p["mix_mu"].to(x.dtype)  # [5, d]
+    if isinstance(p["mix_B"], tp.Sharded):  # [5, lm, d]: an expert stack
+        z = lora.reshape(-1, len(MIX), lora.shape[-1]).transpose(0, 1)
+        dd = tp.expert_matmul(z, p["mix_B"].to(x.dtype)).transpose(0, 1)
+        dd = dd.reshape(*lora.shape[:-1], -1)
+    else:
+        dd = torch.einsum("bsmi,mid->bsmd", lora, p["mix_B"].to(x.dtype))
+    mu = tp.whole(p["mix_mu"]).to(x.dtype)  # [5, d]
     return x[..., None, :] + delta[..., None, :] * (mu + dd)
 
 
@@ -64,8 +83,8 @@ def _group_norm_heads(x, w, h, eps=64e-5):
 
 def _log_decay(p, xw):
     """``-exp(w0 + lora_w(xw))`` in float32: the log of the decay, < 0."""
-    lw = (torch.tanh(xw @ p["wA"]) @ p["wB"]).to(torch.float32)
-    return -torch.exp(p["w0"] + lw)
+    lw = _mm(torch.tanh(_mm(xw, p["wA"])), p["wB"]).to(torch.float32)
+    return -torch.exp(tp.whole(p["w0"]) + lw)
 
 
 def _chunk_math(rc, kc, vc, lc, lw, st, u, mask):
@@ -113,26 +132,34 @@ def rwkv6_timemix_prefill(p, x, *, head_dim: int, chunk: int = 256,
     r, k, v, logw = (t.reshape(b, nc, q, h, head_dim) for t in (r, k, v, logw))
     lcum = torch.cumsum(logw, dim=2)  # [B,nc,q,H,K]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device), -1)
+    u = tp.whole(p["u"])
     st = (state.wkv.to(torch.float32) if state is not None
           else torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32,
                            device=x.device))
     ys = []
     for i in range(nc):
         y, st = _chunk_math(r[:, i], k[:, i], v[:, i], lcum[:, i], logw[:, i],
-                            st, p["u"], mask)
+                            st, u, mask)
         ys.append(y)
     y = torch.stack(ys, 1).reshape(b, s, d).to(x.dtype)
-    y = _group_norm_heads(y, p["ln_w"], h) * g
+    y = _group_norm_heads(y, tp.whole(p["ln_w"]), h) * g
     return linear(p["o"], y), RWKV6State(wkv=st, x_prev=x[:, -1])
 
 
 def rwkv6_timemix_decode(p, x, state: RWKV6State, *, head_dim: int,
-                         executor=None, site: str | None = None):
+                         executor=None, site: str | None = None,
+                         wkv_split=None):
     """One-token step. x [B, 1, d] -> (y [B, 1, d], new RWKV6State).
 
     ``executor``/``site``: the r/k/v/g projections run through the
     compressed executor as ONE grouped launch (their token-shifted inputs
-    stacked along the group axis) and ``o`` through its own chain."""
+    stacked along the group axis) and ``o`` through its own chain.
+
+    ``wkv_split`` ``(mesh, dim)`` (a serving mesh): ``state.wkv`` holds this
+    rank's rows of the key axis (``dim == -2``; ``state.x_prev`` is whole):
+    the state updates on them from the rank's slice of r, k, the decay and
+    the bonus, and ``r . S``, a partial sum over keys, is all-reduced over
+    "model" before the group norm.  The new state is the rank's rows."""
     b, _, d = x.shape
     h = d // head_dim
     sn = site_fmt(site)
@@ -148,13 +175,24 @@ def rwkv6_timemix_decode(p, x, state: RWKV6State, *, head_dim: int,
     v = vv.reshape(b, h, head_dim).to(torch.float32)
     g = F.silu(gg)
     w = torch.exp(_log_decay(p, xw)).reshape(b, 1, h, head_dim)[:, 0]
+    u = tp.whole(p["u"])
 
     wkv = state.wkv.to(torch.float32)
+    if wkv_split is not None:  # this rank's rows of the key axis
+        mesh, dim = wkv_split
+        if dim != -2:
+            raise NotImplementedError(
+                f"rwkv6: a wkv state split over 'model' on dim {dim} of "
+                "[B, H, K, V] (the step splits the key axis, -2)")
+        sl = tp.model_slice(mesh, wkv.shape[-2])
+        r, k, w, u = r[..., sl], k[..., sl], w[..., sl], u[..., sl]
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
-    y = torch.einsum("bhk,bhkv->bhv", r, wkv + p["u"][..., None] * kv)
+    y = torch.einsum("bhk,bhkv->bhv", r, wkv + u[..., None] * kv)
+    if wkv_split is not None:  # partial sums over the keys
+        y = tp.model_sum(y, wkv_split[0])
     wkv = wkv * w[..., None] + kv
     y = y.reshape(b, 1, d).to(x.dtype)
-    y = _group_norm_heads(y, p["ln_w"], h) * g
+    y = _group_norm_heads(y, tp.whole(p["ln_w"]), h) * g
     return site_linear(executor, sn("o"), p["o"], y), \
         RWKV6State(wkv=wkv, x_prev=x[:, 0])
 
@@ -170,7 +208,7 @@ def rwkv6_channelmix(p, x, x_prev_last=None, *, executor=None,
     first = (x_prev_last[:, None] if x_prev_last is not None
              else torch.zeros((b, 1, d), dtype=x.dtype, device=x.device))
     xp = torch.cat([first, x[:, :-1]], dim=1)
-    mu = p["mix_mu_k"].to(x.dtype)
+    mu = tp.whole(p["mix_mu_k"]).to(x.dtype)
     xk = x + (xp - x) * mu
     k_out, r_out = site_linear_group(executor, (sn("k"), sn("r")),
                                      (p["k"], p["r"]), xk)

@@ -20,11 +20,14 @@ hands back the dict it was given, its KV caches or recurrent states
 written.
 
 Under a serving mesh (``act_shard.get_mesh()``, which ``models.api`` sets
-for a call given ``mesh=``) the dense and MoE decoders take
+for a call given ``mesh=``) every family takes
 :class:`~repro_torch.distributed.tp.Sharded` parameters: the embedding, the
 projections and the tied head compute this rank's part through
-:mod:`repro_torch.distributed.tp`, and the decode step's KV cache holds this
-rank's slice (``tp.kv_split``).  ``moe_manual`` runs
+:mod:`repro_torch.distributed.tp`, and each decode-state leaf holds this
+rank's slice (``tp.state_split``), used by the rule ``tp``'s docstring
+gives it: the KV caches (``k``/``v``, the hybrid's ``attn_k``/``attn_v``)
+and rwkv6's wkv and mamba2's SSM states on the slice, MLA's latents, the
+token shifts and the conv windows gathered whole at use.  ``moe_manual`` runs
 :func:`~repro_torch.models.moe.moe_ffn_manual` (without an executor, as in
 the reference); without a mesh it is ``moe_ffn``.
 """
@@ -697,11 +700,12 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     """
     _require_supported(cfg)
     x = _embed(params, token).to(cfg.cdtype)
+    mesh = get_mesh()
     if cfg.family == "ssm":
-        x = _ssm_decode(params, cfg, state, x, executor)
+        x = _ssm_decode(params, cfg, state, x, executor, mesh)
         return _decode_logits(params, cfg, x), state
     if cfg.family == "hybrid":
-        x = _hybrid_decode(params, cfg, state, x, pos, executor)
+        x = _hybrid_decode(params, cfg, state, x, pos, executor, mesh)
         return _decode_logits(params, cfg, x), state
     tbl = state.get("block_tbl")
     # MLA never asks for the whole-step plan (the executor records "mla" when
@@ -712,10 +716,15 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
     # text-only decode: m-RoPE at the token's position on all three axes
     rope = _rope_kw(cfg, pos.long()[None, :, None].expand(3, -1, 1)
                     if cfg.pos == "mrope" else None)
-    mesh = get_mesh()
-    kv_split = (None if mesh is None or cfg.mla is not None else
-                (mesh, tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
-                                   state["k"].shape[2])))
+    kv_split = latent_split = None
+    if mesh is not None and cfg.mla is not None:
+        seq = state["kpos"].shape[2]
+        latent_split = (mesh, *(tp.state_split(
+            mesh, (1, 1, seq, width), seq_axis=2, what="MLA latent cache")
+            for width in (cfg.mla.kv_lora, cfg.mla.qk_rope)))
+    elif mesh is not None:
+        kv_split = (mesh, tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
+                                      state["k"].shape[2]))
     if plan is not None:
         x, state = plan.decode_layers(state, x, pos)
     else:
@@ -733,7 +742,8 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, *, executor=None):
                     bp["attn"], _norm(cfg, bp["ln1"], x), cache, pos,
                     n_heads=cfg.n_heads, kv_lora=m.kv_lora, qk_nope=m.qk_nope,
                     qk_rope=m.qk_rope, v_dim=m.v_dim,
-                    rope_theta=cfg.rope_theta, executor=executor, site=site)
+                    rope_theta=cfg.rope_theta, executor=executor, site=site,
+                    latent_split=latent_split)
             else:
                 k, v = state["k"][li], state["v"][li]
                 cache = (PagedKVCache(k=k, v=v, kpos=kp, tbl=tbl)
@@ -753,49 +763,86 @@ def _decode_logits(params, cfg: ArchConfig, x):
     return logits_from_hidden(params, cfg, h)[:, 0]
 
 
-def _ssm_decode(params, cfg: ArchConfig, state, x, executor):
+def _whole_at_use(leaf, split):
+    """A state leaf gathered whole (rule (b)) when it holds this rank's
+    slice (``split`` ``(mesh, dim)``), else the leaf itself."""
+    return leaf if split is None else tp.gather_kv(leaf, *split)
+
+
+def _keep(dst, new, split) -> None:
+    """Write the rank's slice of the whole ``new`` into ``dst`` (rule (b)'s
+    write-back; all of it unmeshed)."""
+    dst.copy_(new if split is None else tp.kv_local(new, *split))
+
+
+def _split(mesh, shape):
+    """``(mesh, dim)`` of a state leaf of whole ``shape`` under ``mesh``
+    (None: unmeshed, or no dimension split)."""
+    if mesh is None:
+        return None
+    dim = tp.state_split(mesh, shape)
+    return None if dim is None else (mesh, dim)
+
+
+def _ssm_decode(params, cfg: ArchConfig, state, x, executor, mesh=None):
     """The rwkv6 layers' decode step on ``x [B, 1, d]``; the wkv state and
     both token shifts written in place (the channel mix's shift holds its
-    *normed* input, as the reference's does)."""
+    *normed* input, as the reference's does).  Under a mesh the wkv state
+    is the rank's rows of the key axis, the token shifts gathered whole at
+    use (``tp``'s docstring)."""
     ex = executor is not None
+    h, d = cfg.d_model // cfg.hd, cfg.d_model
+    wkv_split = _split(mesh, (1, 1, h, cfg.hd, cfg.hd))
+    x_split = _split(mesh, (1, 1, d))
     for li in range(cfg.n_layers):
         bp = _layer(params["blocks"], li)
         tm_in = _norm(cfg, bp["ln1"], x)
         y, st = rwkv6_timemix_decode(
-            bp["tm"], tm_in, RWKV6State(wkv=state["wkv"][li],
-                                        x_prev=state["x_prev_tm"][li]),
+            bp["tm"], tm_in, RWKV6State(
+                wkv=state["wkv"][li],
+                x_prev=_whole_at_use(state["x_prev_tm"][li], x_split)),
             head_dim=cfg.hd, executor=executor,
-            site=f"tm.{{}}.l{li}" if ex else None)
+            site=f"tm.{{}}.l{li}" if ex else None, wkv_split=wkv_split)
         x = x + y
         cm_in = _norm(cfg, bp["ln2"], x)
-        y, _ = rwkv6_channelmix(bp["cm"], cm_in,
-                                x_prev_last=state["x_prev_cm"][li],
-                                executor=executor,
-                                site=f"cm.{{}}.l{li}" if ex else None)
+        y, _ = rwkv6_channelmix(
+            bp["cm"], cm_in,
+            x_prev_last=_whole_at_use(state["x_prev_cm"][li], x_split),
+            executor=executor, site=f"cm.{{}}.l{li}" if ex else None)
         x = x + y
         state["wkv"][li].copy_(st.wkv)
-        state["x_prev_tm"][li].copy_(st.x_prev)
-        state["x_prev_cm"][li].copy_(cm_in[:, 0])
+        _keep(state["x_prev_tm"][li], st.x_prev, x_split)
+        _keep(state["x_prev_cm"][li], cm_in[:, 0], x_split)
     return x
 
 
-def _hybrid_decode(params, cfg: ArchConfig, state, x, pos, executor):
+def _hybrid_decode(params, cfg: ArchConfig, state, x, pos, executor,
+                   mesh=None):
     """The hybrid's decode step on ``x [B, 1, d]`` in :func:`hybrid_schedule`
     order; each mamba layer's SSM state and conv window and each insertion's
-    KV cache written in place."""
+    KV cache written in place.  Under a mesh the SSM state is the rank's
+    slice of one of its axes, the conv window gathered whole at use, the
+    shared block's KV cache the rank's slice (``tp``'s docstring)."""
     sc, sp = cfg.ssm, params["shared_attn"]
     ex = executor is not None
+    h, cd = sc.d_inner // sc.head_dim, sc.d_inner + 2 * sc.d_state
+    ssm_split = _split(mesh, (1, 1, h, sc.d_state, sc.head_dim))
+    conv_split = _split(mesh, (1, 1, cd, sc.d_conv - 1))
+    kv_split = (None if mesh is None else
+                (mesh, tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
+                                   state["attn_k"].shape[2])))
     for kind, i in hybrid_schedule(cfg):
         if kind == "mamba":
             bp = _layer(params["blocks"], i)
             y, st = mamba2_decode(
                 bp["mamba"], _norm(cfg, bp["ln1"], x),
-                Mamba2State(ssm=state["ssm"][i], conv=state["conv"][i]),
+                Mamba2State(ssm=state["ssm"][i],
+                            conv=_whole_at_use(state["conv"][i], conv_split)),
                 d_inner=sc.d_inner, d_state=sc.d_state, head_dim=sc.head_dim,
                 d_conv=sc.d_conv, executor=executor,
-                site=f"mamba.{{}}.l{i}" if ex else None)
+                site=f"mamba.{{}}.l{i}" if ex else None, ssm_split=ssm_split)
             state["ssm"][i].copy_(st.ssm)
-            state["conv"][i].copy_(st.conv)
+            _keep(state["conv"][i], st.conv, conv_split)
             x = x + y
             continue
         cache = KVCache(k=state["attn_k"][i], v=state["attn_v"][i],
@@ -804,7 +851,8 @@ def _hybrid_decode(params, cfg: ArchConfig, state, x, pos, executor):
             sp["attn"], _norm(cfg, sp["ln1"], x), cache, pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
             window=cfg.attn_window, rope_theta=cfg.rope_theta,
-            executor=executor, site="shared_attn.attn.{}" if ex else None)
+            executor=executor, site="shared_attn.attn.{}" if ex else None,
+            kv_split=kv_split)
         x = x + y
         ffn_in = _norm(cfg, sp["ln2"], x)
         x = x + (_sites_swiglu(executor, "shared_attn.ffn.{}")(sp["ffn"], ffn_in)

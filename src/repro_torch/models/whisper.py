@@ -21,6 +21,14 @@ Compressed serving routes the decoder's sites ``dec.attn.{q,k,v,o}.l{i}``
 ``dec.mlp.fc{1,2}.l{i}`` through the executor; ``dec.xattn.k/v`` never run
 in decode (their KV is static) and the encoder's sites never run in
 serving at all.
+
+Under a serving mesh (``act_shard.get_mesh()``) the parameters are
+:class:`~repro_torch.distributed.tp.Sharded` leaves: the embedding, the
+learned positions (a table looked up as an embedding), the projections
+and the tied head go through :mod:`repro_torch.distributed.tp`, the
+LayerNorms' scales and biases are gathered at use; the self- and the
+cross-KV hold this rank's slice (``tp.kv_split``) and attention runs
+through ``tp.attend``.
 """
 from __future__ import annotations
 
@@ -32,10 +40,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tp
+from repro_torch.distributed.act_shard import get_mesh
 
 from .attention import KVCache, attention_decode, attention_prefill
 from .layers import gelu, gelu_mlp, layer_norm, site_fmt, site_linear
-from .transformer import _layer, _trunc_normal, _unbind_layers
+from .transformer import _embed, _layer, _trunc_normal, _unbind_layers
 
 __all__ = ["init_params", "encode", "decoder_forward", "loss_fn", "decode_step",
            "init_decode_state"]
@@ -213,29 +223,41 @@ def decode_step(params, cfg: ArchConfig, state, token, pos, executor=None):
     (compressed serving): the decoder's sites run through it (module
     docstring); uncovered sites stay dense."""
     t_max = cfg.max_decoder_len
-    x = params["embed"][token.long()].to(cfg.cdtype)
+    x = _embed(params, token).to(cfg.cdtype)
     row = torch.minimum(pos.long(), torch.full_like(pos.long(), t_max - 1)) % t_max
-    x = x + params["dec_pos"][row][:, None].to(cfg.cdtype)
+    x = x + _embed({"embed": params["dec_pos"]}, row)[:, None].to(cfg.cdtype)
     ex = executor is not None
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
               rope_theta=None, executor=executor)
+    mesh = get_mesh()
+    self_split = cross_split = None
+    if mesh is not None:
+        self_split = (mesh, tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
+                                        state["self_k"].shape[2]))
+        cross_split = (mesh, tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
+                                         state["cross_k"].shape[2]))
     for li in range(cfg.n_layers):
         bp = _layer(params["dec_blocks"], li)
         cache = KVCache(k=state["self_k"][li], v=state["self_v"][li],
                         kpos=state["self_kpos"][li])
         y, _ = attention_decode(
             bp["attn"], layer_norm(x, bp["ln1"]["w"], bp["ln1"]["b"]), cache,
-            pos, site=f"dec.attn.{{}}.l{li}" if ex else None, **kw)
+            pos, site=f"dec.attn.{{}}.l{li}" if ex else None,
+            kv_split=self_split, **kw)
         x = x + y
         xcache = KVCache(k=state["cross_k"][li], v=state["cross_v"][li],
                          kpos=None)
         y, _ = attention_decode(
             bp["xattn"], layer_norm(x, bp["ln_x"]["w"], bp["ln_x"]["b"]), xcache,
-            pos, cross=True, site=f"dec.xattn.{{}}.l{li}" if ex else None, **kw)
+            pos, cross=True, site=f"dec.xattn.{{}}.l{li}" if ex else None,
+            kv_split=cross_split, **kw)
         x = x + y
         m_in = layer_norm(x, bp["ln2"]["w"], bp["ln2"]["b"])
         sn = site_fmt(f"dec.mlp.{{}}.l{li}" if ex else None)
         h = site_linear(executor, sn("fc1"), bp["mlp"]["fc1"], m_in)
         x = x + site_linear(executor, sn("fc2"), bp["mlp"]["fc2"], gelu(h))
     h = layer_norm(x, params["dec_ln"]["w"], params["dec_ln"]["b"])
-    return (h @ params["embed"].T.to(h.dtype))[:, 0], state
+    table = params["embed"]
+    if isinstance(table, tp.Sharded):  # the vocabulary columns gathered
+        return tp.linear(h, table.T.to(h.dtype))[:, 0], state
+    return (h @ table.T.to(h.dtype))[:, 0], state

@@ -47,24 +47,30 @@ tracer on the same registry, which the scheduler drives.  The step
 profiler times every decode step (``fence_every``: its fencing period).
 
 Multi-device serving: ``mesh=`` (a :class:`~repro_torch.distributed
-.device_mesh.Mesh` of this process's group; one rank a device) serves the
-dense family and the GQA MoE over the ranks.  Every rank builds the same
+.device_mesh.Mesh` of this process's group; one rank a device) serves
+every family over the ranks.  Every rank builds the same
 engine from the same whole params or artifact and runs the same host code
 (scheduler, pool, block tables, slot mirrors) on the same requests.  Each
 keeps on its device only its chunk of each parameter
 (:func:`~repro_torch.distributed.sharding.params_pspecs`, computed through
 :mod:`repro_torch.distributed.tp`) and of the decode state
-(:func:`~repro_torch.distributed.sharding.decode_state_pspecs`), with one
-exception: a paged pool keeps its block axis whole on every rank (any slot
-may map any block, and a prefix block is shared across slots), so every
-rank runs every admission's prefill and copy-on-write.  A decode step runs
+(:func:`~repro_torch.distributed.sharding.decode_state_pspecs`; how a step
+computes with each leaf's share is in ``tp``'s docstring), with one
+exception: a paged pool (``k``/``v``, MLA's ``c_kv``/``k_rope``) keeps its
+block axis whole on every rank (any slot may map any block, and a prefix
+block is shared across slots), so every rank runs every admission's
+prefill and copy-on-write.  Every rank runs every tokenwise prefill too,
+a decode step over its own slots a prompt token (the FSDP gathers inside
+it span the "data" axis, so a rank never skips one alone), and only the
+rank holding the slot keeps the result.  A whisper engine's cross-KV is
+the caller's: it places each leaf's share under ``state_specs``
+(``placement.shard_leaf``).  A decode step runs
 on the rank's slots (:func:`~repro_torch.distributed.sharding
 .plan_batch_spec`; all of them when the slots do not divide, and always for
 the MoE family, whose routing capacity is global — the reference's
 ``replicate`` rule), and the packed ``[3, n_slots]`` is gathered before its
 one host copy.  Compressed sites, step plans and their stage buffers stay
-whole on every rank.  Refused under ``mesh=``: the MLA, vlm, ssm, hybrid
-and audio families and the tokenwise prefill.
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -139,7 +145,7 @@ class ServingEngine:
         self.device = torch.device(device)
         self.mesh = mesh
         if mesh is not None:
-            self.device = _mesh_device(mesh, cfg, bulk_prefill, self.device)
+            self.device = _mesh_device(mesh, self.device)
         self.params = params
         self.cfg = cfg
         self.artifact = artifact
@@ -174,13 +180,14 @@ class ServingEngine:
         else:
             self.state = api.init_decode_state(cfg, n_slots, max_len,
                                                device=self.device)
-        self._lo, self._hi = 0, n_slots  # this rank's slots
-        if mesh is not None:
-            self._place(params)
         # the per-token cache leaves a prefill writes (and a paged engine
         # keeps in its pool): MLA caches its latents
         self._cache_leaves = (("c_kv", "k_rope") if "c_kv" in self.state
                               else ("k", "v"))
+        self._lo, self._hi = 0, n_slots  # this rank's slots
+        self._split: dict[str, int | None] = {}  # leaf -> its "model" dim
+        if mesh is not None:
+            self._place(params)
         # host mirrors of the device-side per-slot control state
         self.pos = np.zeros(n_slots, np.int64)
         self.active = np.zeros(n_slots, bool)
@@ -272,11 +279,13 @@ class ServingEngine:
         if bspec is not None:
             sl = chunk_slices((self.n_slots,), P(bspec), mesh)[0]
             self._lo, self._hi = sl.start, sl.stop
-        pool = ("k", "v") if self.paged else ()  # block axis kept whole
+        # a paged pool keeps its block axis whole
+        pool = self._cache_leaves if self.paged else ()
         specs = state_specs(self.state, mesh, bspec, pool)
         self.state_specs = specs
-        self._kv_dim = tp.kv_split(mesh, cfg.n_kv_heads, cfg.hd,
-                                   self.state["k"].shape[2])
+        self._split = {name: next((d - len(spec) for d, e in enumerate(spec)
+                                   if e == "model"), None)
+                       for name, spec in specs.items()}
         self.state = {name: shard_leaf(v, specs[name], mesh, self.device)
                       for name, v in self.state.items()}
         self.mesh_stats = {"dims": dict(mesh.shape), "slot_axes": bspec,
@@ -502,19 +511,26 @@ class ServingEngine:
         ``x_prev_*`` and ``ssm``/``conv`` to 0) so a reused slot never sees
         its previous occupant's KV entries or recurrent state.  Whisper's
         cross-KV (``cross_*``) is kept: the caller sets it per slot, as in
-        the reference."""
+        the reference.  Under a mesh, the slot's row where this rank holds
+        it (nothing elsewhere)."""
+        row = self._local_slot(slot)
+        if row is None:
+            return
         for name, v in self.state.items():
             if not name.startswith("cross_"):
-                v[:, slot] = -1 if "kpos" in name else 0
+                v[:, row] = -1 if "kpos" in name else 0
 
     @torch.no_grad()
     def _merge_slot_state(self, old, new, slot: int) -> None:
-        """Copy ``new``'s batch column ``slot`` into ``old``, in place — the
-        tokenwise prefill must not touch other slots' cache or advance their
-        recurrent state."""
+        """Copy ``new``'s batch column of ``slot`` (this rank's row of it
+        under a mesh) into ``old``, in place — the tokenwise prefill must
+        not touch other slots' cache or advance their recurrent state."""
+        row = self._local_slot(slot)
+        if row is None:
+            return
         for name, v in old.items():
             if new[name] is not v:  # a shared leaf (the cross-KV) is both
-                v[:, slot] = new[name][:, slot]
+                v[:, row] = new[name][:, row]
 
     @torch.no_grad()
     def _prefill_slot_tokenwise(self, slot: int, prompt: list[int]) -> None:
@@ -524,24 +540,31 @@ class ServingEngine:
         the loop runs on a scratch copy of the state (the other slots feed
         token 0 at their last position, as in the reference) and only the
         target slot's column is merged back.  A decode step never writes
-        whisper's static cross-KV, so the scratch shares it."""
+        whisper's static cross-KV, so the scratch shares it.  Under a mesh
+        every rank runs the steps on its own slots (the slot's token where
+        it holds the slot) and issues the same collectives; the rank
+        holding the slot merges it."""
         scratch = {k: v if k.startswith("cross_") else v.clone()
                    for k, v in self.state.items()}
         for t, tok in enumerate(prompt):
             _logits, scratch = api.decode(
                 self.params, self.cfg, scratch, self._token_batch(slot, tok),
-                self._pos_batch(slot, t), executor=self.executor)
+                self._pos_batch(slot, t), executor=self.executor,
+                mesh=self.mesh)
         self._merge_slot_state(self.state, scratch, slot)
 
     def _token_batch(self, slot: int, tok: int) -> torch.Tensor:
+        """The prompt token at ``slot``, 0 elsewhere: this rank's rows."""
         t = torch.zeros((self.n_slots, 1), dtype=torch.long)
         t[slot, 0] = tok
-        return t.to(self.device)
+        return t[self._lo:self._hi].to(self.device)
 
     def _pos_batch(self, slot: int, pos: int) -> torch.Tensor:
+        """Position ``pos`` at ``slot``, each other slot's last: this
+        rank's rows."""
         p = np.asarray(self.pos - 1, np.int64).clip(0)
         p[slot] = pos
-        return torch.from_numpy(p).to(self.device)
+        return torch.from_numpy(p[self._lo:self._hi]).to(self.device)
 
     @torch.no_grad()
     def _prefill_caches(self, prompt: list[int]):
@@ -553,11 +576,12 @@ class ServingEngine:
                                  collect_cache=True, mesh=self.mesh)
         return caches
 
-    def _kv_local(self, vals: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of whole K/V values (all of them unmeshed)."""
-        if self.mesh is None:
+    def _kv_local(self, name: str, vals: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of whole values of the cache leaf ``name`` (all
+        of them unmeshed, or where the leaf is not split)."""
+        if self._split.get(name) is None:
             return vals
-        return tp.kv_local(vals, self.mesh, self._kv_dim)
+        return tp.kv_local(vals, self.mesh, self._split[name])
 
     @torch.no_grad()
     def _prefill_slot(self, slot: int, prompt: list[int]) -> None:
@@ -579,7 +603,7 @@ class ServingEngine:
             return
         for name, c_all in zip(self._cache_leaves, caches):
             st[name][:, row, slots_d] = self._kv_local(
-                c_all[:, 0, ps_d]).to(st[name].dtype)
+                name, c_all[:, 0, ps_d]).to(st[name].dtype)
         st["kpos"][:, row] = torch.from_numpy(kpos_row).to(self.device)
 
     # --------------------------------------------------------- paged prefill
@@ -592,7 +616,7 @@ class ServingEngine:
         blocks = torch.from_numpy(tbl_row[vidx // bs].astype(np.int64)).to(self.device)
         offs = torch.from_numpy((vidx % bs).astype(np.int64)).to(self.device)
         leaf = self.state[name]
-        leaf[:, blocks, offs] = self._kv_local(vals).to(leaf.dtype)
+        leaf[:, blocks, offs] = self._kv_local(name, vals).to(leaf.dtype)
 
     @torch.no_grad()
     def _prefill_slot_paged(self, slot: int, prompt: list[int], plan) -> None:
@@ -657,8 +681,9 @@ class ServingEngine:
             pool_leaf = self.state[name]  # [L, Nb, bs, ...]
             past[name] = pool_leaf[:, tbl].reshape(
                 pool_leaf.shape[0], 1, view, *pool_leaf.shape[3:])
-            if self.mesh is not None:  # this rank's slice -> whole
-                past[name] = tp.gather_kv(past[name], self.mesh, self._kv_dim)
+            if self._split.get(name) is not None:  # rank's slice -> whole
+                past[name] = tp.gather_kv(past[name], self.mesh,
+                                          self._split[name])
         pk = torch.full((1, view), -1, dtype=torch.int32)
         pk[0, :cached] = torch.arange(cached)
         past["kpos"] = pk.to(dev)[None].expand(cfg.n_layers, 1, view)
@@ -806,9 +831,6 @@ class ServingEngine:
         return [sched.take_result(r) for r in rids]
 
 
-_MESH_REFUSED = "ROADMAP A7c: the reference partitions it through GSPMD"
-
-
 def slot_axes(cfg, mesh, n_slots: int):
     """``(axes, fallbacks)``: the mesh axes a meshed engine splits its
     ``n_slots`` slots over (None: every rank holds every slot) and the
@@ -844,29 +866,11 @@ def state_specs(state: dict, mesh, bspec, pool=()) -> dict:
     return specs
 
 
-def mesh_refusal(cfg, bulk_prefill: bool = True) -> str | None:
-    """Why ``ServingEngine(mesh=)`` refuses ``cfg`` (None: it serves it)."""
-    family = api.family_of(cfg)
-    if cfg.mla is not None:
-        what = "MLA attention"
-    elif family in ("vlm", "ssm", "hybrid", "audio") or cfg.enc_layers > 0:
-        what = f"the {family} family"
-    elif not bulk_prefill:
-        what = "the tokenwise prefill"
-    else:
-        return None
-    return (f"mesh=: {what} is not served over a mesh in this package yet "
-            f"({_MESH_REFUSED})")
-
-
-def _mesh_device(mesh, cfg, bulk_prefill: bool, device) -> torch.device:
+def _mesh_device(mesh, device) -> torch.device:
     """The device a meshed engine lives on (the mesh's: a card under NCCL,
-    the CPU under gloo), after refusing what ``mesh=`` does not serve."""
+    the CPU under gloo)."""
     import torch.distributed as dist
 
-    why = mesh_refusal(cfg, bulk_prefill)
-    if why is not None:
-        raise NotImplementedError(why)
     if not dist.is_initialized():
         raise RuntimeError("mesh=: the process group is not up (join() or "
                            "run_ranks before building the mesh)")

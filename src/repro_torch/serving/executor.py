@@ -451,7 +451,10 @@ class MoEPlan:
     of the three grouped per-region launches of the layer's experts (the
     reference's layout and plan key ``moe:<tag>``).  A plan already in
     ``artifact.plans`` is reused; a new one is stored there.  ``pack_s`` is
-    the host time the packing took (0 when reused)."""
+    the host time the packing took (0 when reused).  Under a serving mesh
+    the stages are whole on every rank and ``buf`` holds every slot's
+    tokens (the MoE family keeps every slot on every rank), so the plan
+    runs as it does unmeshed, as do the per-region sites of every family."""
 
     def __init__(self, executor, site_tag: str, *, n_experts: int,
                  d_model: int, d_ff: int):

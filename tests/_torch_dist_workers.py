@@ -396,3 +396,110 @@ def moe_manual_run(rank, world, inp):
             tokens=[r.tokens for r in eng.generate(SERVE_PROMPTS, 6)],
             stats=eng.plan_stats(), routed=sorted(eng.executor.routed))
     return out
+
+
+# ------------------------------------------- the other families under a mesh
+
+
+def family_engine(case, mesh=None):
+    """A case of ``tests/test_torch_sharded_families.py``: 4 slots over its
+    ``max_len`` on the CPU (``bulk_prefill`` as the case says); a whisper
+    engine's cross-KV placed from the case's whole one, the rank's share
+    under ``state_specs`` (``placement.shard_leaf``)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    kw = dict(n_slots=4, max_len=case["max_len"], device="cpu", mesh=mesh,
+              bulk_prefill=case.get("bulk", True))
+    eng = (ServingEngine(artifact=case["artifact"], **kw)
+           if case.get("artifact") is not None
+           else ServingEngine(case["params"], case["cfg"], **kw))
+    for name, whole in case.get("cross", {}).items():
+        whole = torch.tensor(whole, dtype=eng.state[name].dtype)
+        eng.state[name].copy_(whole if mesh is None else shard_leaf(
+            whole, eng.state_specs[name], mesh))
+    return eng
+
+
+def _leaf_table(tree, path=()) -> dict:
+    from repro_torch.distributed.tp import Sharded
+
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _leaf_table(sub, path + (key,)).items()}
+    assert isinstance(tree, Sharded), path
+    return {"/".join(path): (tuple(tree.local.shape), tuple(tree.spec),
+                             tuple(tree.shape))}
+
+
+def family_case(case, mesh=None) -> dict:
+    """Tokens and errors of a generate; plan stats; on a paged engine the
+    shared-prefix pair's tokens and pool stats; the launches and the
+    collectives of one decode step (the second, all four slots live); the
+    logits of one step at ``LOGIT_TOK``/``LOGIT_POS`` on a fresh state;
+    under a mesh each stored leaf's shape, spec and whole shape."""
+    from repro_torch.models import api
+
+    eng = family_engine(case, mesh)
+    res = eng.generate(SERVE_PROMPTS, 6)
+    out = {"tokens": [r.tokens for r in res],
+           "errors": [r.error for r in res],
+           "kinds": sorted({r.stats["prefill_kind"] for r in res}),
+           "plan_stats": eng.plan_stats()}
+    if eng.paged:  # a shared head: MLA's tail prefill against the prefix
+        pre = family_engine(case, mesh)
+        out["shared"] = [r.tokens for r in pre.generate(SHARED_PROMPTS, 4)]
+        out["shared_pool"] = pre.pool_stats()
+    one = family_engine(case, mesh)
+    for p in SERVE_PROMPTS:
+        one.submit(p, max_new=6)
+    one.step()
+    collectives.reset_collective_counts()
+    one.step()
+    out["step_counts"] = collectives.collective_counts()
+    out["launches"] = one.kernel_launches_per_step
+    out["logits"] = _np(family_engine(case, mesh).decode_logits(
+        torch.tensor(LOGIT_TOK), torch.tensor(LOGIT_POS)))
+    if mesh is not None:
+        from repro_torch.launch.dryrun import decode_collectives
+
+        out["reckoned_step"] = dict(decode_collectives(
+            eng.cfg, _abstract(mesh), 4, case["max_len"],
+            routed=case.get("artifact") is not None)[0].counts)
+        out["param_leaves"] = _leaf_table(eng.params)
+        whole = api.init_decode_state(eng.cfg, 4, case["max_len"],
+                                      kv_block=16 if eng.paged else None,
+                                      device="meta")
+        out["state_leaves"] = {
+            k: (tuple(v.shape), tuple(eng.state_specs[k]),
+                tuple(whole[k].shape), v.element_size())
+            for k, v in eng.state.items()}
+    return out
+
+
+def sharded_families_run(rank, world, cases, launcher=()):
+    """At 2 ranks: every case over the 2 x 1 meshes of ``SERVE_MESHES``;
+    on rank 0 alone, over a 1 x 1 mesh beside the unsharded engine in this
+    process (tokens and logits compared bit for bit here); each command
+    line of ``launcher`` through the serve launcher's rank body on these
+    ranks (rank 0's output)."""
+    from repro_torch.launch import serve as serve_launch
+
+    out = {}
+    for argv in launcher:
+        out[("launcher", tuple(argv))] = serve_launch._rank_main(
+            rank, world, serve_launch.parse_args(argv))
+    for mname, axes in SERVE_MESHES.items():
+        mesh = make_mesh((2, 1), axes)
+        for cname, case in cases.items():
+            out[(cname, mname)] = family_case(case, mesh)
+    mesh = mesh_over([0], (1, 1), ("data", "model"))
+    if mesh.member:
+        for cname, case in cases.items():
+            a, b = family_case(case, mesh), family_case(case)
+            out[(cname, "1x1")] = dict(
+                tokens=a["tokens"] == b["tokens"],
+                logits=np.array_equal(a["logits"], b["logits"]),
+                launches=(a["launches"], b["launches"]),
+                errors=a["errors"], counts=a["step_counts"],
+                reckoned=a["reckoned_step"])
+    return out

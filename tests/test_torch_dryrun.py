@@ -1,8 +1,8 @@
 """The port's dry run (``repro_torch.launch.dryrun``) on the CPU: every
 (arch x shape x mesh) cell — 80 records, zero FAIL: the reference's 14
-long_500k SKIPs with its reasons, the cells whose meshed path the port
-refuses (ROADMAP A7c) SKIPped with the port's own refusal, the rest PASS
-with per-rank bytes, FLOPs, collectives and an H100 roofline; per-leaf specs
+long_500k SKIPs with its reasons, the rest (the MLA, vlm, ssm, hybrid and
+audio families' serving cells too) PASS with per-rank bytes, FLOPs,
+collectives and an H100 roofline, no record refused by the port; per-leaf specs
 on both production meshes equal to the reference's ``params_pspecs`` (its
 policy over a stub mesh exposing ``.shape``, as the reference's reads no
 more); olmo-1b decode_32k's argument bytes on 16 x 16 reckoned by hand;
@@ -55,7 +55,7 @@ else:
 
 MESHES = ("16x16", "2x16x16")
 CELLS = [(a, s, m) for a in ARCHS for s in SHAPE_CELLS for m in MESHES]
-# the families whose meshed serving path the port refuses (ROADMAP A7c)
+# the families whose meshed serving path the port served last (ROADMAP A7c)
 A7C = ("deepseek-v2-lite-16b", "qwen2-vl-7b", "rwkv6-1.6b", "zamba2-7b",
        "whisper-small")
 
@@ -80,8 +80,11 @@ def test_eighty_records_zero_fail(records, capsys):
     assert len(records) == 80
     status = [r["status"] for r in records.values()]
     assert status.count("FAIL") == 0
-    assert status.count("SKIP") == 14 + 24 and status.count("PASS") == 42
-    assert sum(r.get("refused_by") == "port" for r in records.values()) == 24
+    assert status.count("SKIP") == 14 and status.count("PASS") == 66
+    assert sum(r.get("refused_by") == "port" for r in records.values()) == 0
+    # the A7c families' serving cells: 24 records PASS
+    assert sum(r["arch"] in A7C and r["shape"] != "train_4k"
+               and r["status"] == "PASS" for r in records.values()) == 24
 
 
 @pytest.mark.parametrize("arch,shape,mesh", CELLS,
@@ -95,11 +98,7 @@ def test_record(records, arch, shape, mesh):
         assert rec["status"] == "SKIP" and rec["reason"] == why
         assert "refused_by" not in rec
         return
-    if arch in A7C and cell.kind != "train":
-        assert rec["status"] == "SKIP" and rec["refused_by"] == "port"
-        assert "is not served over a mesh" in rec["reason"]
-        assert "ROADMAP A7c" in rec["reason"]
-        return
+    assert "refused_by" not in rec
     assert rec["status"] == "PASS", rec.get("error")
     n = 512 if mesh == "2x16x16" else 256
     mem = rec["memory"]
@@ -177,6 +176,79 @@ def test_olmo_decode_argument_bytes_by_hand(records):
     tokens = 2 * (128 // 16) * 4
     rec = records[("olmo-1b", "decode_32k", "16x16")]
     assert rec["memory"]["argument_bytes"] == params + kv + kpos + tokens
+
+
+A7C_DECODE = [(a, s) for a in A7C for s in ("decode_32k", "long_500k")
+              if jcell_supported(JARCHS[a], JCELLS[s])[0]]
+
+
+@pytest.mark.parametrize("arch,shape", A7C_DECODE,
+                         ids=[f"{a}-{s}" for a, s in A7C_DECODE])
+def test_a7c_decode_argument_bytes_by_hand(records, arch, shape):
+    """The A7c families' decode cells on 16 x 16, reckoned from the
+    reference's policy over the stub mesh: each parameter's numel over the
+    parts its spec splits it into, at its dtype's size; each decode-state
+    leaf's over its "model" split and its slot axis over "data" where the
+    slots divide (the MoE family keeps every slot on every rank); the
+    rank's tokens and positions, int32."""
+    stub, cell = _stub(False), JCELLS[shape]
+    jcfg = JARCHS[arch]
+    jparams = japi.abstract_params(jcfg)
+    flat_p = jax.tree_util.tree_leaves(jparams)
+    is_spec = lambda x: isinstance(x, jax.sharding.PartitionSpec)  # noqa: E731
+    flat_s = jax.tree_util.tree_leaves(jsh.params_pspecs(jparams, stub),
+                                       is_leaf=is_spec)
+    want = 0
+    for a, sp in zip(flat_p, flat_s):
+        parts = math.prod(16 for e in sp if e is not None)
+        want += math.prod(a.shape) // parts * np.dtype(a.dtype).itemsize
+    state = japi.abstract_decode_state(jcfg, cell)
+    specs = jsh.decode_state_pspecs(state, stub)
+    slots = cell.global_batch
+    split = jcfg.moe is None and slots % 16 == 0
+    rows = slots // 16 if split else slots
+    for name, a in state.items():
+        parts = 16 if "model" in tuple(specs[name]) else 1
+        n = math.prod(a.shape) // parts
+        if split:
+            n //= 16
+        want += n * np.dtype(a.dtype).itemsize
+    want += 2 * rows * 4
+    rec = records[(arch, shape, "16x16")]
+    assert rec["memory"]["argument_bytes"] == want
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_one_chunk_reckons_the_chunked_prefill(arch):
+    """``build_cell`` runs a recurrent prefill cell as one chunk of its
+    whole sequence: at a 1024-token cell on 16 x 16, the config's own
+    chunking (4 chunks of 256) issues the same collectives, link bytes and
+    output as one chunk, and ``build_cell``'s ledger is theirs."""
+    from repro_torch.configs import input_specs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.distributed.tp import Sharded
+
+    cfg, mesh = ARCHS[arch], make_production_mesh()
+    cell = ShapeCell("prefill_1k", 1024, 32, "prefill")
+    params = tapi.abstract_params(cfg)
+    pspecs = tsh.params_pspecs(params, mesh)
+    sp = tsh.map_specs(lambda x, s: Sharded(x, s, mesh),
+                       dryrun.place(params, pspecs, mesh), pspecs)
+    specs = input_specs(cfg, cell)
+    batch = dryrun.place(specs, tsh.batch_pspecs(specs, mesh), mesh)
+
+    def reckon(c):
+        mesh.reset()
+        with torch.no_grad():
+            h, _ = tapi.prefill(sp, c, batch, mesh=mesh)
+        led = mesh.reset()
+        return dict(led.counts), dict(led.link_bytes), tuple(h.shape)
+
+    chunked = reckon(cfg)
+    assert cfg.ssm_chunk < cell.seq_len
+    assert chunked == reckon(dataclasses.replace(cfg, ssm_chunk=cell.seq_len))
+    assert dict(dryrun.build_cell(cfg, cell, mesh)["ledger"].counts) == \
+        chunked[0]
 
 
 def test_skip_existing_and_ws_decode(tmp_path, capsys):

@@ -15,7 +15,9 @@ the unsharded engine; each rank's stored bytes per leaf the spec's share
 (the paged pool keeps its block axis whole); the collectives of one step
 as predicted below; the pool stats of the unsharded engine; two prompts
 sharing a prefix on slots of different data ranks served as unsharded; a
-contiguous cache's engine the same tokens.  A 1 x 1 mesh gives the unsharded engine's tokens and logits bit for bit."""
+contiguous cache's engine the same tokens.  A 1 x 1 mesh gives the unsharded engine's tokens and logits bit for bit.
+The MLA, vlm, ssm, hybrid and audio families and the tokenwise prefill are
+served over the same meshes in ``test_torch_sharded_families*.py``."""
 import dataclasses
 import math
 
@@ -301,20 +303,3 @@ def test_the_family_serves_as_unsharded(run, family, arch, mesh):
 def test_a_rank_outside_the_mesh_raises(run):
     assert "outside the mesh" in run[1]["outside"]
     assert "outside" not in run[0]
-
-
-@pytest.mark.parametrize("what", ["deepseek-v2-lite-16b", "qwen2-vl-7b",
-                                  "rwkv6-1.6b", "zamba2-7b", "whisper-small",
-                                  "tokenwise"])
-def test_refused_under_a_mesh_naming_a7c(what):
-    """The MLA, vlm, ssm, hybrid and audio families, and the tokenwise
-    prefill, are refused under ``mesh=`` by name (ROADMAP A7c), before
-    anything is placed."""
-    from repro_torch.configs import get_arch, reduced_config
-    from repro_torch.serving.engine import ServingEngine
-
-    arch = "olmo-1b" if what == "tokenwise" else what
-    cfg = reduced_config(get_arch(arch))
-    with pytest.raises(NotImplementedError, match="A7c"):
-        ServingEngine({}, cfg, device="cpu", mesh=object(),
-                      bulk_prefill=what != "tokenwise")
